@@ -1,0 +1,528 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port (irdu_tpu_torch) on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each timed and printed as it ends:
+
+  build     nvcc builds the port's CUDA kernels (kernels/csrc) into one library;
+  serving   the main path: the 86k flagship snapshot loaded in bf16 answers three
+            denoising requests through predict.denoise (512x512, 480x320,
+            256x384; seeded piecewise-smooth images with seed-2204 sigma=25
+            noise). Each request must launch K1 (gg_unroll_chw) exactly 4 times
+            and K2 (edge_weights_chw) exactly 8 times and raise the PSNR. Then
+            each request is served once more with every kernel call held against
+            its plain version on that call's own tensors (the bf16 bars below);
+  kernels   each kernel against its plain PyTorch version on the card, at every
+            shape a 512x512 request gives it, in f32 (atol 5e-4, rtol 1e-3) and
+            bf16 (K2: max|d| <= 4e-3; K1: 4e-3 plus one bf16 ulp of the value),
+            with the snapshot's filter parameters and seeded inputs; in f32,
+            K1's output must also move at least CHANGE_FACTOR times the bar
+            away from its input y, so that a kernel returning y cannot pass;
+            kernel and plain times from CUDA events;
+  model     the whole model in f32 with TF32 off on each request's noisy image
+            (the first is 1x512x512x3): kernel path against plain path,
+            max|d| <= 1e-3, and the PSNR of both.
+
+The build must take under 60 s and the whole script under 300 s; a run over
+either budget fails.
+
+Stdout ends with the card's name and power limit, a JSON line of per-kernel
+results, the serving and model lines, the phase times and, only when every
+phase passed, {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits
+non-zero without a CUDA card, without the package beside this script, or when
+any phase fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(REPO, "chiprun_out")
+BUDGET_S = {"build": 60, "total": 300}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+DEVICE = "cuda"
+FRAME = 512  # the kernel phase runs at the shapes of a FRAME² request
+REQUESTS = ((512, 512), (480, 320), (256, 384))
+K1_PER_REQUEST, K2_PER_REQUEST = 4, 8
+LOUD = (1, 20, 20, 1)  # per-scale factor on the snapshot's μ, ρ, γ in the K1 rows
+CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
+
+
+def k1_ops_per_pixel(iters):
+    """f32 operations the unroll needs per full-res pixel of one plane, each
+    edge term computed once (an add, mul or compare is 1, a fused multiply-add
+    2); half-res work counts a quarter.
+
+    stencil C (5 taps, replicate pad) or Cᵀ (zero pad): 5 mul + 4 add = 9
+    GTV edge term w·w·(s_p − s_q): 3 per edge; re-threshold edge term
+    w·(2·S_γ(ε) − ε) with ε = w·(s_p − s_q): 8 per edge (sub, mul, clamp 2,
+    sub, FMA 2, mul); the zero-padded scatter Σ_e t_e(p) − t_e(p − d_e): 8;
+    GLR s − Σ_e w_e s_q: 4 FMA + 1 = 9; box down: 4 per half-res pixel.
+    Q·x = 9 + 12 + 8 + 9 = 38; the re-threshold 9 + 32 + 8 + 9 = 58;
+    stats GLR 9 + 9 + 9 = 27; one scale of A·x: 38 + 27 + 3 (ρ·, μ·, add) = 68.
+    A·x at a full-res pixel: 68 + 2 (x + t₀ + Up t₁) + (68 + 4) / 4 = 88;
+    rhs_a: 38 + 1 + 2 + (4 + 38 + 1) / 4 = 51.75;
+    rhs_b: 58 + 1 + 2 + (4 + 58 + 1) / 4 = 76.75;
+    CG updates: step 1 3, step 2 3, step 3 5 (β₂ momentum)."""
+    ops = 51.75 + 88 + 3
+    if iters >= 2:
+        ops += 76.75 + 88 + 3
+    if iters >= 3:
+        ops += 88 + 5
+    return ops
+
+
+def k2_ops_per_pixel_graph(f):
+    """f32 operations per pixel and graph, each edge's dot product computed
+    once: |c|² 2F, t = c·m/|c| 2F, the dots with the right and the lower
+    neighbour 2·2F; then 1/|c|, the 4 similarities' scaling and the softmax
+    over 4 edges, about 20."""
+    return 8 * f + 20
+
+
+def piecewise_smooth(h, w, seed):
+    """A clean test image: a smooth colour ramp with 12 flat-shaded and
+    gradient-shaded rectangles and disks on top, in [0, 1]."""
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+    img = rs.rand(3) * 0.5 + rs.randn(3) * 0.3 * yy[..., None] + rs.randn(3) * 0.3 * xx[..., None]
+    for _ in range(12):
+        cy, cx, r = rs.rand() * h, rs.rand() * w, (0.05 + 0.25 * rs.rand()) * min(h, w)
+        yi, xi = np.mgrid[0:h, 0:w]
+        mask = ((yi - cy) ** 2 + (xi - cx) ** 2 < r * r) if rs.rand() < 0.5 else (
+            (abs(yi - cy) < r) & (abs(xi - cx) < r * (0.5 + rs.rand())))
+        shade = rs.rand(3) + rs.randn(3) * 0.4 * yy[..., None]
+        img = np.where(mask[..., None], shade, img)
+    return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+def cuda_ms(fn, reps, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def within(a, b, atol, rtol):
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+class Smoke:
+    def __init__(self):
+        self.phases = {}
+        self.failed = []
+        self.counts = {}
+        self.lines = {}
+        self.model = None
+
+    def run(self, name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            result = fn(*args)
+        except Exception:  # report the phase and go on, the run fails at the end
+            traceback.print_exc()
+            self.failed.append(name)
+            result = None
+        self.phases[name] = round(time.perf_counter() - t0, 3)
+        status = "FAILED" if name in self.failed else "ok"
+        print(f"phase {name}: {status} in {self.phases[name]} s", flush=True)
+        return result
+
+
+
+def require(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def k1_bar(ker, ref):
+    """K1 in bf16: 4e-3 plus one bf16 ulp of the value. Kernel and plain
+    version compute the same f32 values and round them to bf16 at different
+    points, and the solver planes exceed 1, where that ulp is above 4e-3."""
+    return within(ker, ref, 4e-3, 2.0 ** -7)
+
+
+def k2_bar(ker, ref):
+    return within(ker, ref, 4e-3, 0.0)
+
+
+def set_kernels(model, on):
+    """Route every filtering block of the model through the kernels (True) or
+    their plain versions (False)."""
+    for lf in model.local_filters:
+        lf.local_filter.use_kernels = on
+
+
+def request_images():
+    images = []
+    for k, (h, w) in enumerate(REQUESTS):
+        clean = piecewise_smooth(h, w, seed=k)
+        noise = np.random.RandomState(2204).normal(0, 25 / 255.0, clean.shape)
+        images.append((clean, (clean + noise).astype(np.float32)))
+    return images
+
+
+def psnr(clean, out):
+    from irdu_tpu_torch.eval.metrics import img_as_ubyte, psnr_255
+
+    return round(psnr_255(clean * 255, img_as_ubyte(np.clip(out, 0, 1))), 3)
+
+
+def phase_build():
+    from irdu_tpu_torch.kernels.build import build
+
+    path, log, seconds = build()
+    with open(os.path.join(OUT_DIR, "nvcc_build.log"), "w") as fh:
+        fh.write(log)
+    print(f"build: {seconds:.2f} s (one nvcc call, sm_90a) -> {os.path.relpath(path, REPO)}",
+          flush=True)
+    return seconds
+
+
+def phase_serving(smoke):
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_chw
+    from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
+    from irdu_tpu_torch.predict import denoise, load_model
+
+    model = smoke.model = load_model(device=DEVICE)  # bf16 params and activations on the card
+    images = request_images()
+    for _, noisy in images:  # warm-up: cuDNN plans, allocator
+        denoise(model, noisy)
+    sync()
+
+    edge_weights_chw.launches = gg_unroll_chw.launches = 0
+    rows = []
+    for (clean, noisy), (h, w) in zip(images, REQUESTS):
+        k1, k2 = gg_unroll_chw.launches, edge_weights_chw.launches
+        t0 = time.perf_counter()
+        out = denoise(model, noisy)  # ends in a device-to-host copy
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(
+            shape=[h, w], ms=round(ms, 3),
+            psnr_noisy=psnr(clean, noisy), psnr_denoised=psnr(clean, out),
+            k1_launches=gg_unroll_chw.launches - k1,
+            k2_launches=edge_weights_chw.launches - k2,
+            finite=bool(np.isfinite(out).all())))
+    smoke.counts = {"gg_unroll_chw": gg_unroll_chw.launches,
+                    "edge_weights_chw": edge_weights_chw.launches}
+    for row, (_, noisy) in zip(rows, images):  # after the counts: these launches do not count
+        row.update(checked_request(model, noisy))
+    smoke.lines["serving"] = {"serving": rows, "weights": "flagship_cont100k_35000.npz",
+                              "dtype": str(next(model.parameters()).dtype)[6:]}
+    for r in rows:
+        require(r["k1_launches"] == K1_PER_REQUEST and r["k2_launches"] == K2_PER_REQUEST,
+                f"request {r['shape']}: {r['k1_launches']} K1 / {r['k2_launches']} K2 launches")
+        require(r["finite"] and r["psnr_denoised"] > r["psnr_noisy"],
+                f"request {r['shape']}: PSNR {r['psnr_noisy']} -> {r['psnr_denoised']}")
+        require(r["calls_ok"], f"request {r['shape']}: a kernel call disagrees with its "
+                f"plain version (K1 max|d| {r['k1_max_abs_err']}, K2 {r['k2_max_abs_err']})")
+
+
+def checked_request(model, noisy):
+    """Serve one request with every kernel call held against its plain
+    version on that call's own tensors; the max|d| of each kernel."""
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.solver_unroll import gg_unroll_plain
+    from irdu_tpu_torch.predict import denoise
+    from irdu_tpu_torch.solvers import gtv_glr
+
+    log = {"edge_weights_chw": [], "gg_unroll_chw": []}
+
+    def checked(name, kernel, plain, bar):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            log[name].append((max_abs(out, ref), bar(out, ref)))
+            return out
+        return call
+
+    kernels = gtv_glr.edge_weights_chw, gtv_glr.gg_unroll_chw
+    gtv_glr.edge_weights_chw = checked("edge_weights_chw", kernels[0], edge_weights_plain, k2_bar)
+    gtv_glr.gg_unroll_chw = checked("gg_unroll_chw", kernels[1], gg_unroll_plain, k1_bar)
+    try:
+        denoise(model, noisy)
+    finally:
+        gtv_glr.edge_weights_chw, gtv_glr.gg_unroll_chw = kernels
+    k1, k2 = log["gg_unroll_chw"], log["edge_weights_chw"]
+    return dict(k1_max_abs_err=max(e for e, _ in k1), k2_max_abs_err=max(e for e, _ in k2),
+                calls_checked=len(k1) + len(k2),
+                calls_ok=len(k1) == K1_PER_REQUEST and len(k2) == K2_PER_REQUEST
+                and all(ok for _, ok in k1 + k2))
+
+
+def _filter_params(model, s):
+    """The snapshot's filter parameters of scale s, in f32 on the card."""
+    import torch
+
+    from irdu_tpu_torch.ops.solver_unroll import unroll_scal
+
+    lf = model.local_filters[s].local_filter
+    exp = lambda p: torch.exp(p.float())  # noqa: E731
+    m = torch.cat([lf.GTVmodule00.multiM, lf.GLRmodule00.multiM]).float()
+    m1 = torch.cat([lf.GTVmodule01.multiM, lf.GLRmodule01.multiM]).float()
+    tables = [mod.stats_table() for mod in (lf.GTVmodule00, lf.GLRmodule00,
+                                           lf.GTVmodule01, lf.GLRmodule01)]
+    scal = unroll_scal(lf.n_graphs, exp(lf.muys00), exp(lf.ro00), exp(lf.muys01),
+                       exp(lf.ro01), exp(lf.gamma00), exp(lf.gamma01),
+                       lf.alphaCGD.float(), lf.betaCGD.float())
+    return lf.n_graphs, m, m1, tables, scal
+
+
+def phase_kernels(smoke):
+    import torch
+
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
+    from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain
+    from irdu_tpu_torch.predict import load_model
+
+    model = smoke.model or load_model(device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    k1_rows, k2_rows = [], []
+
+    def agree(name, ker, ref):
+        if ker.dtype == torch.float32:
+            return within(ker, ref, 5e-4, 1e-3)
+        return (k1_bar if name == "gg_unroll_chw" else k2_bar)(ker, ref)
+
+    def bar_at(ref, dtype):  # the agreement bar at the output's largest value
+        big = float(ref.float().abs().max())
+        return 5e-4 + 1e-3 * big if dtype == torch.float32 else 4e-3 + 2.0 ** -7 * big
+
+    for s in range(4):
+        g, m0, m1, tables, scal = _filter_params(model, s)
+        # at scales 1-2 the snapshot's μ, ρ, γ move the planes by < 0.05, so
+        # there they are scaled ×20 to make every stencil term show; scales 0
+        # and 3 move them by ~2 already
+        scal = scal.clone()
+        scal[:, :6] *= LOUD[s]
+        params = f"snapshot, mu/rho/gamma x{LOUD[s]}"
+        c = model.local_filters[s].local_filter.n_node_fts * g
+        h = w = FRAME >> s
+        for dtype in (torch.float32, torch.bfloat16):
+            # unit-scale seeded inputs: features N(0, 1), solver planes U[0, 1)
+            f00 = torch.randn(1, 2 * c, h, w, device=DEVICE, generator=gen).to(dtype)
+            f01 = torch.randn(1, 2 * c, h // 2, w // 2, device=DEVICE, generator=gen).to(dtype)
+            y = torch.rand(1, c, h, w, device=DEVICE, generator=gen).to(dtype)
+            ws = []
+            for feats, m, res in ((f00, m0, "full"), (f01, m1, "half")):
+                ker = edge_weights_chw(feats, m, n_graphs=2 * g)
+                ref = edge_weights_plain(feats, m, 2 * g)
+                sync()
+                k2_rows.append(dict(scale=s, res=res, shape=list(feats.shape),
+                                    dtype=str(dtype)[6:], max_abs_err=max_abs(ker, ref),
+                                    ok=agree("edge_weights_chw", ker, ref)))
+                ws += [ref[:, :g].contiguous(), ref[:, g:].contiguous()]
+            args = (y, ws[0], ws[1], ws[2], ws[3], *tables, scal)
+            # f32 at every eval_cg_iters; bf16, the serving dtype, at 3
+            for iters in ((1, 2, 3) if dtype == torch.float32 else (3,)):
+                ker = gg_unroll_chw(*args, n_graphs=g, eval_cg_iters=iters)
+                ref = gg_unroll_plain(*args, n_graphs=g, eval_cg_iters=iters)
+                sync()
+                # the f32 rows must also move y well beyond their bar; the
+                # bf16 bar (one ulp of |x| ≈ 2-3) is near the change at scale 1
+                change, bar = max_abs(ref, y), bar_at(ref, dtype)
+                moved = dtype != torch.float32 or change >= CHANGE_FACTOR * bar
+                k1_rows.append(dict(
+                    scale=s, shape=list(y.shape), dtype=str(dtype)[6:],
+                    params=f"{params}, cg{iters}", max_abs_err=max_abs(ker, ref),
+                    max_ref=float(ref.float().abs().max()), change=change, bar=bar,
+                    ok=agree("gg_unroll_chw", ker, ref) and moved))
+            if dtype == torch.float32:
+                continue
+            # times in bf16, the serving dtype
+            for row, feats, m in ((k2_rows[-2], f00, m0), (k2_rows[-1], f01, m1)):
+                e = 2 * g * 4 * feats.shape[2] * feats.shape[3]
+                nbytes = feats.numel() * 2 + m.numel() * 4 + e * 2
+                ops = feats.shape[2] * feats.shape[3] * 2 * g * k2_ops_per_pixel_graph(c // g)
+                row.update(
+                    ms=cuda_ms(lambda: edge_weights_chw(feats, m, n_graphs=2 * g), 20),
+                    plain_ms=cuda_ms(lambda: edge_weights_plain(feats, m, 2 * g), 5),
+                    **_bound(nbytes, ops))
+            nbytes = sum(t.numel() * t.element_size() for t in args) + y.numel() * 2
+            ops = y.numel() * k1_ops_per_pixel(3)
+            k1_rows[-1].update(
+                ms=cuda_ms(lambda: gg_unroll_chw(*args, n_graphs=g), 10),
+                plain_ms=cuda_ms(lambda: gg_unroll_plain(*args, n_graphs=g), 3),
+                **_bound(nbytes, ops))
+    with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
+        json.dump({"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows}, fh, indent=1)
+    smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows}
+    bad = [(k, r) for k, rows in smoke.kernel_rows.items() for r in rows if not r["ok"]]
+    require(not bad, f"kernels disagree with their plain versions, or K1 moved its "
+            f"input by under {CHANGE_FACTOR}x the bar: {bad}")
+
+
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return dict(bytes=int(nbytes), ops=int(ops), bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernels_line(smoke):
+    """The per-kernel summary: ms, plain_ms and bound_ms are summed over the
+    calls one 512x512 request makes (bf16); max_abs_err is the f32 maximum."""
+    meta = {
+        "gg_unroll_chw": ("irdu_tpu_torch/kernels/csrc/gg_unroll.cu",
+                          "irdu_tpu/ops/pallas/solver_unroll.py:242"),
+        "edge_weights_chw": ("irdu_tpu_torch/kernels/csrc/edge_weights.cu",
+                             "irdu_tpu/ops/pallas/solver_chw.py:848"),
+    }
+    out = []
+    for name, (source, replaces) in meta.items():
+        rows = getattr(smoke, "kernel_rows", {}).get(name, [])
+        timed = [r for r in rows if "ms" in r]
+        f32 = [r["max_abs_err"] for r in rows if r["dtype"] == "float32"]
+        bf16 = [r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"]
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=smoke.counts.get(name, 0),
+            max_abs_err=max(f32) if f32 else None,
+            max_abs_err_bf16=max(bf16) if bf16 else None,
+            ms=sum(r["ms"] for r in timed) if timed else None,
+            plain_ms=sum(r["plain_ms"] for r in timed) if timed else None,
+            bound_ms=sum(r["bound_ms"] for r in timed) if timed else None,
+            bound_by=max(timed, key=lambda r: r["bound_ms"])["bound_by"] if timed else None,
+            library_ms=None,
+            library_note="no single PyTorch call computes this function",
+            per_call=timed))
+    return {"kernels": out}
+
+
+def dark_split(clean, out):
+    """Where the error sits: the share of near-black pixels (every channel of
+    the clean image below 0.1), their share of the squared error, and the
+    uint8-domain PSNR inside and outside them."""
+    from irdu_tpu_torch.eval.metrics import img_as_ubyte
+
+    err = ((img_as_ubyte(np.clip(out, 0, 1)).astype(np.float64) - clean * 255.0) ** 2).mean(-1)
+    dark = clean.max(-1) < 0.1
+
+    def db(mask):
+        return round(float(10 * np.log10(255.0 ** 2 / err[mask].mean())), 3) if mask.any() else None
+
+    return dict(near_black_px_share=round(float(dark.mean()), 4),
+                near_black_err_share=round(float(err[dark].sum() / err.sum()), 4),
+                psnr_near_black=db(dark), psnr_rest=db(~dark))
+
+
+def phase_model(smoke):
+    """The f32 model on each request's noisy image, kernel path against plain
+    path; the denoised outputs go to chiprun_out/model_outputs.npz."""
+    import torch
+
+    from irdu_tpu_torch.predict import load_model
+
+    model = load_model(device=DEVICE, dtype=torch.float32)
+    rows, saved = [], {}
+    for (clean, noisy), (h, w) in zip(request_images(), REQUESTS):
+        x = torch.from_numpy(noisy[None]).to(DEVICE)  # every request is a multiple of 16
+        with torch.inference_mode():
+            set_kernels(model, True)
+            ker = model(x)
+            set_kernels(model, False)
+            ref = model(x)
+        sync()
+        ker_np, ref_np = ker[0].cpu().numpy(), ref[0].cpu().numpy()
+        saved[f"{h}x{w}"] = ker_np
+        rows.append(dict(shape=[1, h, w, 3], max_abs_err=max_abs(ker, ref),
+                         finite=bool(torch.isfinite(ker).all()),
+                         psnr_kernels=psnr(clean, ker_np), psnr_plain=psnr(clean, ref_np),
+                         **dark_split(clean, ker_np)))
+    np.savez_compressed(os.path.join(OUT_DIR, "model_outputs.npz"), **saved)
+    smoke.lines["model"] = {"model_check": rows, "dtype": "float32", "tf32": False,
+                            "atol": 1e-3}
+    for r in rows:
+        require(r["finite"] and r["max_abs_err"] <= 1e-3,
+                f"{r['shape']}: kernel path vs plain path max|d| {r['max_abs_err']}")
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        import irdu_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: the irdu_tpu_torch package must sit beside this script",
+              file=sys.stderr)
+        return 2
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
+    from irdu_tpu_torch.kernels.build import nvcc_path
+
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
+          f"{torch.version.cuda} nvcc {nvcc.stdout.strip().splitlines()[-1]}", flush=True)
+
+    smoke = Smoke()
+    build_s = smoke.run("build", phase_build)
+    if not smoke.failed:
+        smoke.run("serving", phase_serving, smoke)
+        smoke.run("kernels", phase_kernels, smoke)
+        smoke.run("model", phase_model, smoke)
+    print(json.dumps(kernels_line(smoke)), flush=True)
+    for key in ("serving", "model"):
+        if key in smoke.lines:
+            print(json.dumps(smoke.lines[key]), flush=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:
+        json.dump(smoke.lines, fh, indent=1)
+    total = time.perf_counter() - t_start
+    if build_s is not None and build_s > BUDGET_S["build"]:
+        smoke.failed.append(f"build over its {BUDGET_S['build']} s budget ({build_s:.1f} s)")
+    if total > BUDGET_S["total"]:
+        smoke.failed.append(f"run over its {BUDGET_S['total']} s budget ({total:.1f} s)")
+    print(json.dumps({"phases_s": smoke.phases, "total_s": round(total, 3),
+                      "budget_s": BUDGET_S, "failed": smoke.failed}), flush=True)
+    if smoke.failed:
+        print(f"chip_smoke: failed phases: {smoke.failed}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,10 @@
+"""irdu_tpu_torch — the PyTorch/CUDA port of irdu_tpu for NVIDIA Hopper.
+
+Module names mirror the JAX package so each piece has an obvious
+counterpart (``irdu_tpu_torch.solvers.gtv_glr`` ↔ ``irdu_tpu.solvers.gtv_glr``).
+The package imports torch and numpy only; the JAX package is the reference
+it is tested against, never a dependency. Hand-written CUDA kernels live
+under ``kernels/csrc`` and are built with nvcc at first use
+(``kernels/build.py``); every kernel wrapper runs its plain PyTorch version
+for CPU tensors and launches the kernel for CUDA tensors.
+"""

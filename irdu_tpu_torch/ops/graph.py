@@ -1,0 +1,81 @@
+"""Graph stencil operators in per-plane CHW form.
+
+Signals are tensors whose last two axes are (H, W); everything before them
+(batch, graph, node feature) broadcasts. Edge weights are a sequence of 4
+tensors, one per cross-4 edge, broadcastable against the signal.
+Stencil coefficients ``p = (p01, p02a, p02b, p03)`` broadcast the same way.
+These are the plain formulations the kernels' plain versions are built from
+(counterpart: ``irdu_tpu/ops/graph.py``, flat NHWC form).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from irdu_tpu_torch.ops.shifts import shift2d
+from irdu_tpu_torch.ops.windows import CROSS4
+
+Stats = Sequence[torch.Tensor]
+
+
+def stats_conv(x: torch.Tensor, p: Stats, pad_mode: str = "edge") -> torch.Tensor:
+    """Learned polynomial 3×3 stencil: p01·δ + p02a·∂ₓ + p02b·∂ᵧ + p03·(4δ−N−S−E−W),
+    replicate boundary (reference stats_conv)."""
+    r = shift2d(x, 0, 1, pad_mode)
+    d = shift2d(x, 1, 0, pad_mode)
+    u = shift2d(x, -1, 0, pad_mode)
+    l = shift2d(x, 0, -1, pad_mode)
+    return (p[0] * x + p[1] * (r - x) + p[2] * (d - x)
+            + p[3] * (4.0 * x - u - d - l - r))
+
+
+def stats_conv_transpose(x: torch.Tensor, p: Stats) -> torch.Tensor:
+    """The reference's adjoint of ``stats_conv``: flipped taps, zero boundary."""
+    r0 = shift2d(x, 0, 1, "zero")
+    d0 = shift2d(x, 1, 0, "zero")
+    u0 = shift2d(x, -1, 0, "zero")
+    l0 = shift2d(x, 0, -1, "zero")
+    return (p[0] * x + p[1] * (l0 - x) + p[2] * (u0 - x)
+            + p[3] * (4.0 * x - u0 - d0 - l0 - r0))
+
+
+def op_c(x, w, p):
+    """Graph gradient after the stencil: per edge ``w_e·(s − shift_e s)``,
+    neighbours read with replicate padding."""
+    s = stats_conv(x, p)
+    return [w[e] * (s - shift2d(s, dh, dw)) for e, (dh, dw) in enumerate(CROSS4)]
+
+
+def op_c_transpose(eps, w, p):
+    """Graph divergence Cᵀε: Σ_e w_e·ε_e − shift_{−δe}^{zero}(w_e·ε_e), then
+    the transposed stencil."""
+    acc = None
+    for e, (dh, dw) in enumerate(CROSS4):
+        we = w[e] * eps[e]
+        term = we - shift2d(we, -dh, -dw, "zero")
+        acc = term if acc is None else acc + term
+    return stats_conv_transpose(acc, p)
+
+
+def gtv_apply(x, w, p):
+    """GGTV operator CᵀC."""
+    return op_c_transpose(op_c(x, w, p), w, p)
+
+
+def glr_apply(x, w, p):
+    """GGLR operator statsᵀ ∘ (I − W·shift) ∘ stats."""
+    s = stats_conv(x, p)
+    acc = None
+    for e, (dh, dw) in enumerate(CROSS4):
+        term = w[e] * shift2d(s, dh, dw)
+        acc = term if acc is None else acc + term
+    return stats_conv_transpose(s - acc, p)
+
+
+def soft_threshold(delta: torch.Tensor, gamma) -> torch.Tensor:
+    """Edge-domain soft shrinkage S_γ."""
+    zero = torch.zeros((), dtype=delta.dtype, device=delta.device)
+    return (torch.where(delta < -gamma, delta + gamma, zero)
+            + torch.where(delta > gamma, delta - gamma, zero))

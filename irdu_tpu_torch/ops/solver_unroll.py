@@ -1,0 +1,175 @@
+"""K1: the whole two-scale GGTV+GGLR ADMM/CG unroll of one flagship
+filtering block, CHW.
+
+Replaces the TPU kernel ``irdu_tpu/ops/pallas/solver_unroll.py:gg_unroll_chw``
+(body ``_unroll_kernel``, plane helpers in ``solver_chw.py``). Given the edge
+weights, the solve is independent per (batch, graph, node-feature) plane:
+
+  rhs_a = y + ρ₀·Q₀y + Up(ρ₁·Q₁·Dn y)                        Q = CᵀC (GGTV)
+  x₁    = rhs_a + α₀·(rhs_a − A·rhs_a)                        CG step 1
+  rhs_b = y + ρ₀·Cᵀ₀(2S_γ₀(C₀x₁)−C₀x₁) + Up(ρ₁·Cᵀ₁(2S_γ₁(C₁Dn x₁)−C₁Dn x₁))
+  u₁    = rhs_b − A·x₁;        x₂ = x₁ + α₁·u₁                CG step 2
+  u₂    = rhs_b − A·x₂ + β₂·u₁; x₃ = x₂ + α₂·u₂               CG step 3
+  A·x   = x + μ₀GLR₀x + ρ₀Q₀x + Up(μ₁GLR₁ + ρ₁Q₁)Dn x
+
+with Dn the 2×2 box mean and Up its adjoint (duplicate and scale by 0.25).
+Quirks kept from the reference: only β[2] is used; rhs_b serves CG steps 2
+and 3; the stencil pads "edge", the Cᵀ scatter and the transposed stencil
+pad with zeros, and every derived plane replicates its own edge row.
+``eval_cg_iters`` stops after 1, 2 or 3 CG steps.
+
+On the card (``kernels/csrc/gg_unroll.cu``): one CTA per (b, g, f) plane,
+the TPU grid's parallelism. The CTA walks its plane once per stage
+(stencil, edge sums, transposed stencil, combine), keeps the stage planes in
+f32 global scratch allocated here, and separates stages with
+``__syncthreads()``. Each stage reads ~2-4 planes and does ~20-80 f32
+operations per pixel; the whole solve needs ~400 operations per full-res
+pixel (each edge term once), so with the data moved once it would be bound
+by f32 operations, and with the stage planes round-tripping through L2/HBM
+it is bound by those intermediate bytes. What bounds it today is
+occupancy: at 512² scale 0 the grid has only 48 CTAs for 132 SMs. Tiling
+each plane over several CTAs (halo recompute or a cluster) is the redesign
+that fixes that.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
+from irdu_tpu_torch.ops import graph
+
+
+def unroll_scal(n_graphs, mu0, ro0, mu1, ro1, gamma0, gamma1, alphas, betas):
+    """The (G, 10) f32 scalar table [μ₀, ρ₀, μ₁, ρ₁, γ₀, γ₁, α₀, α₁, α₂, β₂].
+    alphas/betas: (3, G) CG tables; only β[2] is used."""
+    cols = [torch.as_tensor(v).float().reshape(n_graphs)
+            for v in (mu0, ro0, mu1, ro1, gamma0, gamma1,
+                      alphas[0], alphas[1], alphas[2], betas[2])]
+    return torch.stack(cols, dim=1).contiguous()
+
+
+def _rethresh(x, w, p, gamma):
+    """Cᵀ(2·S_γ(Cx) − Cx)."""
+    eps = graph.op_c(x, w, p)
+    return graph.op_c_transpose(
+        [2.0 * graph.soft_threshold(e, gamma) - e for e in eps], w, p)
+
+
+def gg_unroll_plain(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
+                    pgtv1, pglr1, scal, *, n_graphs, eval_cg_iters=3):
+    """The unroll in plain PyTorch, f32 compute, output in y's dtype."""
+    b, c, h, wd = y.shape
+    g = n_graphs
+    f = c // g
+    yv = y.float().reshape(b, g, f, h, wd)
+
+    def weights(wt):  # (B, G, 4, h, w) → 4 × (B, G, 1, h, w)
+        wt = wt.float()
+        return [wt[:, :, e:e + 1] for e in range(4)]
+
+    def stats(tab):  # (G, 4, F) → 4 × (G, F, 1, 1)
+        tab = tab.float()
+        return [tab[:, k, :, None, None] for k in range(4)]
+
+    def col(k):  # per-graph scalar → (G, 1, 1, 1)
+        return scal[:, k].float().reshape(g, 1, 1, 1)
+
+    wg0, wl0, wg1, wl1 = (weights(t) for t in (w_gtv0, w_glr0, w_gtv1, w_glr1))
+    pg0, pl0, pg1, pl1 = (stats(t) for t in (pgtv0, pglr0, pgtv1, pglr1))
+    mu0, ro0, mu1, ro1, gam0, gam1 = (col(k) for k in range(6))
+    alpha = [col(6 + i) for i in range(3)]
+    beta2 = col(9)
+
+    def matvec(x):
+        xd = box_down2x2(x)
+        t0 = ro0 * graph.gtv_apply(x, wg0, pg0) + mu0 * graph.glr_apply(x, wl0, pl0)
+        t1 = ro1 * graph.gtv_apply(xd, wg1, pg1) + mu1 * graph.glr_apply(xd, wl1, pl1)
+        return x + t0 + box_up2x2(t1)
+
+    rhs_a = (yv + ro0 * graph.gtv_apply(yv, wg0, pg0)
+             + box_up2x2(ro1 * graph.gtv_apply(box_down2x2(yv), wg1, pg1)))
+    x = rhs_a + alpha[0] * (rhs_a - matvec(rhs_a))
+    if eval_cg_iters >= 2:
+        rhs_b = (yv + ro0 * _rethresh(x, wg0, pg0, gam0)
+                 + box_up2x2(ro1 * _rethresh(box_down2x2(x), wg1, pg1, gam1)))
+        upd1 = rhs_b - matvec(x)
+        x = x + alpha[1] * upd1
+        if eval_cg_iters >= 3:
+            upd2 = rhs_b - matvec(x) + beta2 * upd1
+            x = x + alpha[2] * upd2
+    return x.reshape(b, c, h, wd).to(y.dtype)
+
+
+def _check(y, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, n_graphs,
+           eval_cg_iters, stats_mode):
+    if stats_mode != "edge":
+        raise NotImplementedError(
+            f"stats_mode={stats_mode!r}: only the flagship's 'edge' stencil "
+            "pad is ported (reflect belongs to the pixel family)")
+    if any(t is None for t in tables):
+        raise NotImplementedError(
+            "stats tables are required (the no-stats ablation is not ported)")
+    if eval_cg_iters not in (1, 2, 3):
+        raise ValueError(f"eval_cg_iters must be 1, 2 or 3, got {eval_cg_iters}")
+    if y.dim() != 4:
+        raise ValueError(f"y must be (B, C, H, W), got {tuple(y.shape)}")
+    b, c, h, w = y.shape
+    g = n_graphs
+    if c % g or h % 2 or w % 2:
+        raise ValueError(f"y {tuple(y.shape)}: C must split into {g} graphs "
+                         "and H, W must be even")
+    f = c // g
+    for name, t, shape in (("w_gtv0", w_gtv0, (b, g, 4, h, w)),
+                           ("w_glr0", w_glr0, (b, g, 4, h, w)),
+                           ("w_gtv1", w_gtv1, (b, g, 4, h // 2, w // 2)),
+                           ("w_glr1", w_glr1, (b, g, 4, h // 2, w // 2)),
+                           ("scal", scal, (g, 10))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    for t in tables:
+        if tuple(t.shape) != (g, 4, f):
+            raise ValueError(f"stats tables must be {(g, 4, f)}, got {tuple(t.shape)}")
+
+
+def gg_unroll_chw(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1,
+                  pglr1, scal, *, n_graphs, eval_cg_iters=3, stats_mode="edge"):
+    """The whole unroll: y (B, C, H, W) with C = G·F; w_*0 (B, G, 4, H, W);
+    w_*1 (B, G, 4, H/2, W/2); p* (G, 4, F) stats tables; scal (G, 10) from
+    ``unroll_scal``. Returns (B, C, H, W) in y's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (y and the weights contiguous and all f32 or all bf16; tables any float
+    type, cast to f32)."""
+    tables = (pgtv0, pglr0, pgtv1, pglr1)
+    _check(y, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, n_graphs,
+           eval_cg_iters, stats_mode)
+    if y.device.type == "cpu":
+        return gg_unroll_plain(y, w_gtv0, w_glr0, w_gtv1, w_glr1, *tables, scal,
+                               n_graphs=n_graphs, eval_cg_iters=eval_cg_iters)
+    planes = (y, w_gtv0, w_glr0, w_gtv1, w_glr1)
+    if any(t.device != y.device or t.dtype != y.dtype or not t.is_contiguous()
+           for t in planes) or y.device.type != "cuda":
+        raise ValueError("gg_unroll_chw needs y and the four weight tensors "
+                         "contiguous, on one CUDA device, of one dtype")
+    b, c, h, w = y.shape
+    dev = y.device
+    tabs = [t.to(device=dev, dtype=torch.float32).contiguous() for t in tables]
+    sc = scal.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty_like(y)
+    lib = kernel_library()
+    scratch = torch.empty((b * c, lib.irdu_gg_unroll_scratch_floats(h, w)),
+                          dtype=torch.float32, device=dev)
+    status = lib.irdu_gg_unroll(
+        y.data_ptr(), w_gtv0.data_ptr(), w_glr0.data_ptr(), w_gtv1.data_ptr(),
+        w_glr1.data_ptr(), *(t.data_ptr() for t in tabs), sc.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), b, n_graphs, c // n_graphs, h, w,
+        eval_cg_iters, dtype_code(y.dtype),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_status("gg_unroll_chw", status)
+    gg_unroll_chw.launches += 1
+    return out
+
+
+gg_unroll_chw.launches = 0

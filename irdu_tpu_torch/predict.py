@@ -1,0 +1,147 @@
+"""Single-command denoising on the GPU (counterpart: ``irdu_tpu/predict.py``).
+
+    # denoise an already-noisy image
+    python -m irdu_tpu_torch.predict --input noisy.png --output out.png
+
+    # protocol mode: synthesize seed-2204 σ=25 noise from a clean image,
+    # denoise, report uint8-domain PSNR (the benchmark convention)
+    python -m irdu_tpu_torch.predict --input clean.png --sigma 25 --output out.png
+
+The model runs on the CUDA card in bf16 (params and activations) through the
+port's kernels; ``load_model(..., device="cpu")`` runs it in f32 on the CPU
+through the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from irdu_tpu_torch.models.flagship import (
+    AbstractMultiScaleGraphFilter,
+    flagship_config,
+    flagship_lite_config,
+    flagship_micro_config,
+)
+from irdu_tpu_torch.utils.weights import load_params_npz, params_to_torch
+
+_CONFIGS = {"flagship": flagship_config, "lite": flagship_lite_config,
+            "micro": flagship_micro_config}
+_WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "artifacts", "weights")
+# The 86k-step flagship snapshot (σ=25), pinned: the newest-by-name file in
+# the directory is a σ=50 snapshot.
+DEFAULT_WEIGHTS = {"flagship": os.path.join(_WEIGHTS_DIR, "flagship_cont100k_35000.npz")}
+
+
+def build_model(name: str = "flagship", *,
+                cg_iters: int = 3) -> AbstractMultiScaleGraphFilter:
+    """One member of the flagship family, randomly initialized."""
+    if name not in _CONFIGS:
+        raise ValueError(f"unknown model {name!r}; choose from {sorted(_CONFIGS)}")
+    return AbstractMultiScaleGraphFilter(eval_cg_iters=cg_iters, **_CONFIGS[name]())
+
+
+def load_model(weights: str | None = None, device: str | torch.device = "cuda",
+               dtype: torch.dtype | None = None, *, name: str = "flagship",
+               cg_iters: int = 3):
+    """Build the model, load an npz snapshot onto it and move it to ``device``
+    in ``dtype`` (default: bf16 on CUDA, f32 on the CPU), in eval mode."""
+    weights = weights or DEFAULT_WEIGHTS.get(name)
+    if weights is None:
+        raise ValueError(f"no default snapshot for {name!r}: pass weights")
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = build_model(name, cg_iters=cg_iters)
+    params_to_torch(load_params_npz(weights), model)
+    return model.to(device=device, dtype=dtype).eval().requires_grad_(False)
+
+
+def denoise(model: torch.nn.Module, noisy_hwc: np.ndarray) -> np.ndarray:
+    """Denoise one (H, W, 3) float image in [0, 1]: numpy reflect pad to a
+    multiple of 16, forward, crop, clamp to [0, 1]. Returns float32 (H, W, 3)."""
+    h, w = noisy_hwc.shape[:2]
+    pad = np.pad(np.asarray(noisy_hwc, np.float32),
+                 ((0, (-h) % 16), (0, (-w) % 16), (0, 0)), mode="reflect")
+    p = next(model.parameters())
+    x = torch.from_numpy(pad[None]).to(device=p.device, dtype=p.dtype)
+    with torch.inference_mode():
+        y = model(x)[0, :h, :w].float().cpu().numpy()
+    return np.clip(y, 0.0, 1.0)
+
+
+def main(argv=None, device: str = "cuda"):
+    from irdu_tpu_torch.eval.metrics import img_as_ubyte, psnr_255
+
+    ap = argparse.ArgumentParser(
+        prog="python -m irdu_tpu_torch.predict", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--input", required=True, help="input PNG/JPEG")
+    ap.add_argument("--output", required=True, help="denoised PNG path")
+    ap.add_argument("--model", default="flagship", choices=sorted(_CONFIGS))
+    ap.add_argument("--weights", default=None,
+                    help="npz snapshot (default for flagship: "
+                         "artifacts/weights/flagship_cont100k_35000.npz)")
+    ap.add_argument("--sigma", type=float, default=None,
+                    help="treat --input as CLEAN: add N(0, σ/255) noise "
+                         "(benchmark protocol) and report PSNR")
+    ap.add_argument("--seed", type=int, default=2204,
+                    help="noise seed for --sigma mode (protocol: 2204)")
+    ap.add_argument("--clean", default=None,
+                    help="clean reference image for PSNR reporting when "
+                         "--input is already noisy")
+    ap.add_argument("--cg-iters", type=int, default=3,
+                    help="solver unroll length (3 = exact reference semantics)")
+    args = ap.parse_args(argv)
+
+    from PIL import Image
+
+    try:
+        model = load_model(args.weights, device, name=args.model,
+                           cg_iters=args.cg_iters)
+    except ValueError as exc:
+        sys.exit(str(exc))
+
+    clean_255 = None
+    img = np.asarray(Image.open(args.input).convert("RGB"), np.float32)
+    if args.sigma is not None:
+        clean_255 = img
+        rs = np.random.RandomState(args.seed)
+        noisy = img / 255.0 + rs.normal(0, args.sigma / 255.0, img.shape)
+    else:
+        noisy = img / 255.0
+        if args.clean:
+            clean_255 = np.asarray(Image.open(args.clean).convert("RGB"), np.float32)
+    noisy = noisy.astype(np.float32)
+
+    denoise(model, noisy)  # warm-up (kernel build, allocator): report steady state
+    t0 = time.perf_counter()
+    restored = denoise(model, noisy)
+    dt = time.perf_counter() - t0
+
+    out_u8 = img_as_ubyte(restored)
+    Image.fromarray(out_u8).save(args.output)
+    report = {
+        "model": args.model,
+        "weights": os.path.basename(args.weights or DEFAULT_WEIGHTS[args.model]),
+        "device": str(next(model.parameters()).device),
+        "shape": list(img.shape[:2]), "seconds": round(dt, 3),
+        "megapixels_per_s": round(img.shape[0] * img.shape[1] / dt / 1e6, 3),
+        "output": args.output,
+    }
+    if clean_255 is not None:
+        report["psnr_noisy"] = round(psnr_255(
+            clean_255, img_as_ubyte(np.clip(noisy, 0, 1)).astype(np.float32)), 3)
+        report["psnr_denoised"] = round(psnr_255(clean_255, out_u8.astype(np.float32)), 3)
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main()

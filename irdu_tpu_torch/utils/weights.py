@@ -1,0 +1,90 @@
+"""Load the npz weight snapshots written by the JAX package and put them
+onto the port's modules.
+
+Snapshot format (written by ``irdu_tpu.utils.weights.save_params_npz``):
+keys are ``/``-joined flax parameter paths; a ``::bf16`` suffix marks a
+bfloat16 leaf stored as its raw uint16 bits; int8 pointwise snapshots store
+a 2-D kernel as ``<path>/__q8__`` (int8) plus ``<path>/__q8scale__`` (f32,
+per output channel). This copy needs numpy only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """Exact bfloat16 → float32: the bf16 bits are the high half of the f32."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def load_params_npz(path: str) -> dict:
+    """Rebuild the nested params dict as float32 numpy arrays (bf16 leaves
+    widened exactly, int8 pointwise kernels dequantized)."""
+    out: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            arr = data[key]
+            if key.endswith("::bf16"):
+                key = key[: -len("::bf16")]
+                arr = bf16_bits_to_f32(arr)
+            node = out
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = arr
+    return _dequantize(out)
+
+
+def _dequantize(node):
+    if "__q8__" in node:
+        return node["__q8__"].astype(np.float32) * node["__q8scale__"].astype(np.float32)
+    return {k: _dequantize(v) if isinstance(v, dict) else v.astype(np.float32)
+            for k, v in node.items()}
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+@torch.no_grad()
+def params_to_torch(flax_params: dict, model: torch.nn.Module) -> None:
+    """Copy a nested flax params dict (optionally under a top-level
+    ``"params"`` key) onto ``model``.
+
+    Module attribute names mirror the flax scope names, so a flax path
+    ``a/b/c/kernel`` lands on ``model.a.b.c.weight`` through the owning
+    module's ``kernel_to_torch`` (layout conversion); every other leaf
+    lands on the parameter of the same name. Raises KeyError on a flax
+    leaf with no parameter or a parameter no leaf set, and ValueError on
+    a shape mismatch."""
+    tree = flax_params.get("params", flax_params)
+    named = dict(model.named_parameters())
+    done = set()
+    for path, arr in _flatten(tree):
+        owner = ".".join(path[:-1])
+        if path[-1] == "kernel":
+            name = f"{owner}.weight" if owner else "weight"
+            if name not in named:
+                raise KeyError(f"flax leaf {'/'.join(path)} has no parameter {name}")
+            value = model.get_submodule(owner).kernel_to_torch(torch.tensor(np.asarray(arr)))
+        else:
+            name = ".".join(path)
+            if name not in named:
+                raise KeyError(f"flax leaf {'/'.join(path)} has no parameter {name}")
+            value = torch.tensor(np.asarray(arr))
+        param = named[name]
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: snapshot shape {tuple(value.shape)} "
+                             f"!= parameter shape {tuple(param.shape)}")
+        param.copy_(value)
+        done.add(name)
+    missing = sorted(set(named) - done)
+    if missing:
+        raise KeyError(f"parameters not set by the snapshot: {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")

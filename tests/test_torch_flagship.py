@@ -1,0 +1,121 @@
+"""The port's flagship model and serving entry against the JAX package, plus
+the port's boundary rules: no JAX in its sources, no launch from a CPU
+tensor, and a chip smoke run that refuses to run without a card."""
+
+from __future__ import annotations
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from irdu_tpu.models.flagship import AbstractMultiScaleGraphFilter as JaxFlagship
+from irdu_tpu.models import flagship as jax_flagship
+from irdu_tpu.utils.weights import load_params_npz as jax_load
+from irdu_tpu_torch.models import flagship
+from irdu_tpu_torch.ops.edge_weights import edge_weights_chw
+from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
+from irdu_tpu_torch.predict import DEFAULT_WEIGHTS, build_model, denoise, load_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def snapshot_models():
+    jax_model = JaxFlagship(**jax_flagship.flagship_config())
+    jax_params = jax_load(DEFAULT_WEIGHTS["flagship"], dtype=jnp.float32)
+    return jax_model, jax_params, load_model(device="cpu")
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (96, 64)])
+def test_flagship_with_86k_snapshot_matches_jax(snapshot_models, hw):
+    """The whole model, real weights, f32 on the CPU, against the JAX jnp
+    path (the CPU tensors run the kernels' plain versions, never a launch);
+    square and taller than wide."""
+    jax_model, jax_params, model = snapshot_models
+    x = np.random.RandomState(0).rand(1, *hw, 3).astype(np.float32)
+    ref = np.asarray(jax_model.apply(jax_params, jnp.asarray(x)))
+    counts = (edge_weights_chw.launches, gg_unroll_chw.launches)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x)).numpy()
+    assert (edge_weights_chw.launches, gg_unroll_chw.launches) == counts
+    assert out.shape == (1, *hw, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+
+
+def test_denoise_matches_jax_pad_forward_crop(snapshot_models):
+    """predict.denoise on a 50×70 image: reflect pad to 64×80, forward, crop,
+    clamp — against the same steps around the JAX model."""
+    jax_model, jax_params, model = snapshot_models
+    rs = np.random.RandomState(2204)
+    clean = np.kron(rs.rand(5, 7, 3), np.ones((10, 10, 1)))
+    noisy = (clean + rs.normal(0, 25 / 255, clean.shape)).astype(np.float32)
+    pad = np.pad(noisy, ((0, 14), (0, 10), (0, 0)), mode="reflect")
+    ref = np.clip(np.asarray(jax_model.apply(jax_params, jnp.asarray(pad[None])))[0, :50, :70],
+                  0.0, 1.0)
+    out = denoise(model, noisy)
+    assert out.shape == (50, 70, 3) and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+
+
+TINY = dict(n_channels_in=3, n_channels_out=3, dims=(8, 12, 16, 24),
+            hidden_dims=(16, 24, 32, 48), ngraphs=(2, 2, 4, 4),
+            num_blocks=(1, 1, 1, 1), num_blocks_out=1)
+
+
+def test_encode_filter_decode_compose():
+    model = flagship.AbstractMultiScaleGraphFilter(**TINY).eval()
+    x = torch.from_numpy(np.random.RandomState(1).rand(1, 32, 48, 3).astype(np.float32))
+    with torch.no_grad():
+        codes = model.encode(x)
+        assert [tuple(c.shape) for c in codes] == [
+            (1, 8, 32, 48), (1, 12, 16, 24), (1, 16, 8, 12), (1, 24, 4, 6)]
+        np.testing.assert_array_equal(model.enc_dec(x).numpy(), model.decode(codes).numpy())
+        np.testing.assert_array_equal(model(x).numpy(),
+                                      model.decode(model.filtering(codes)).numpy())
+
+
+@pytest.mark.parametrize("name", ["flagship", "lite", "micro"])
+def test_config_parameter_counts_match_jax(name):
+    jax_cfg = {"flagship": jax_flagship.flagship_config,
+               "lite": jax_flagship.flagship_lite_config,
+               "micro": jax_flagship.flagship_micro_config}[name]()
+    shapes = jax.eval_shape(lambda: JaxFlagship(**jax_cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3))))
+    n_jax = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes))
+    assert sum(p.numel() for p in build_model(name).parameters()) == n_jax
+
+
+FORBIDDEN = ("jax", "flax", "ml_dtypes", "irdu_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_no_jax():
+    paths = sorted(glob.glob(os.path.join(REPO, "irdu_tpu_torch", "**", "*.py"),
+                             recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(paths) > 10
+    bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

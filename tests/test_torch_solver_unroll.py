@@ -1,0 +1,117 @@
+"""K1 (the whole solver unroll) of the port against the JAX package's Pallas
+kernel in interpret mode, at the shape classes of tests/test_solver_unroll.py,
+and the port's MixtureGTVGLR against the JAX jnp solver path."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from irdu_tpu.ops.pallas.solver_unroll import gg_unroll_chw as jax_unroll
+from irdu_tpu.ops.pallas.solver_unroll import unroll_scal as jax_unroll_scal
+from irdu_tpu.solvers.gtv_glr import MixtureGTVGLR as JaxMixture
+from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, unroll_scal
+from irdu_tpu_torch.solvers.gtv_glr import MixtureGTVGLR
+from irdu_tpu_torch.utils.weights import params_to_torch
+
+G, F = 2, 3
+C = G * F
+
+
+def _softmax_weights(rng, h, w):
+    z = rng.randn(1, G, 4, h, w)
+    e = np.exp(z - z.max(axis=2, keepdims=True))
+    return (e / e.sum(axis=2, keepdims=True)).astype(np.float32)
+
+
+def _unroll_inputs(h, w, seed):
+    rng = np.random.RandomState(seed)
+    y = (0.3 * rng.randn(1, C, h, w)).astype(np.float32)
+    ws = [_softmax_weights(rng, h, w), _softmax_weights(rng, h, w),
+          _softmax_weights(rng, h // 2, w // 2), _softmax_weights(rng, h // 2, w // 2)]
+    inits = np.array([1.0, 0.5, 0.5, 0.5], np.float32)[None, :, None]
+    tables = [(inits + 0.3 * rng.randn(G, 4, F)).astype(np.float32) for _ in range(4)]
+    # μ, ρ, γ well above the snapshot's tiny inits so every term shows
+    logs = [np.log(v) + 0.3 * rng.randn(G) for v in (0.05, 0.1, 0.02, 0.05, 0.05, 0.05)]
+    alphas = (0.5 + 0.1 * rng.randn(3, G)).astype(np.float32)
+    betas = (0.1 + 0.05 * rng.randn(3, G)).astype(np.float32)
+    scal = np.array(jax_unroll_scal(G, *[np.exp(v) for v in logs], alphas, betas))
+    return y, ws, tables, scal, (logs, alphas, betas)
+
+
+def _lane_pad(a, width):
+    return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, width - a.shape[-1])])
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("h,w", [(16, 256), (32, 128), (32, 64)],
+                         ids=["16x256", "32x128_halfres_padded", "32x64_fullres_padded"])
+def test_unroll_matches_jax_kernel(h, w, iters):
+    y, ws, tables, scal, _ = _unroll_inputs(h, w, seed=h + w + iters)
+    # the TPU kernel takes 128-lane-padded planes and the true width
+    wp, w1p = max(w, 128), max(w // 2, 128)
+    ref = np.asarray(jax_unroll(
+        jnp.asarray(_lane_pad(y, wp)),
+        *[jnp.asarray(_lane_pad(a, wp)) for a in ws[:2]],
+        *[jnp.asarray(_lane_pad(a, w1p)) for a in ws[2:]],
+        *[jnp.asarray(t) for t in tables], jnp.asarray(scal),
+        n_graphs=G, eval_cg_iters=iters, true_w=w if wp != w else None,
+        interpret=True))
+    before = gg_unroll_chw.launches
+    out = gg_unroll_chw(*[torch.from_numpy(a) for a in (y, *ws, *tables, scal)],
+                        n_graphs=G, eval_cg_iters=iters).numpy()
+    assert gg_unroll_chw.launches == before, "a CPU tensor must not launch"
+    assert out.shape == y.shape
+    np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-3)
+
+
+def test_unroll_scal_matches_jax_layout():
+    _, _, _, scal, (logs, alphas, betas) = _unroll_inputs(16, 32, seed=1)
+    ours = unroll_scal(G, *[torch.tensor(np.exp(v)) for v in logs],
+                       torch.tensor(alphas), torch.tensor(betas))
+    np.testing.assert_allclose(ours.numpy(), scal, rtol=1e-6)
+
+
+@pytest.mark.parametrize("iters", [1, 3])
+def test_mixture_gtv_glr_matches_jax_jnp_path(iters):
+    """The port's solver module (feature heads, K2 with GTV and GLR batched
+    as 2G graphs, K1) against the JAX jnp path, randomized params."""
+    rng = np.random.RandomState(iters)
+    x = (0.3 * rng.randn(1, 16, 32, C)).astype(np.float32)
+    jm = JaxMixture(n_graphs=G, n_node_fts=F, eval_cg_iters=iters)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.05 * rng.randn(*a.shape).astype(np.float32),
+        params)
+    # μ, ρ, γ well above their tiny inits so the solver terms show
+    for name in ("ro00", "ro01", "gamma00", "gamma01", "muys00", "muys01"):
+        params["params"][name] = params["params"][name] + np.log(50.0).astype(np.float32)
+    ref = np.asarray(jm.apply(params, jnp.asarray(x)))
+    tm = MixtureGTVGLR(G, F, eval_cg_iters=iters)
+    params_to_torch(params, tm)
+    with torch.no_grad():
+        out = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bad", ["reflect", "no_stats", "iters", "odd", "weights"])
+def test_unroll_rejects_what_it_does_not_port(bad):
+    y, ws, tables, scal, _ = (_unroll_inputs(16, 32, seed=2))
+    args = [torch.from_numpy(a) for a in (y, *ws, *tables, scal)]
+    kw = dict(n_graphs=G)
+    err = ValueError
+    if bad == "reflect":
+        kw["stats_mode"], err = "reflect", NotImplementedError
+    elif bad == "no_stats":
+        args[5], err = None, NotImplementedError
+    elif bad == "iters":
+        kw["eval_cg_iters"] = 4
+    elif bad == "odd":
+        args[0] = args[0][..., :15, :]
+    else:
+        args[3] = args[3][..., :-1]
+    with pytest.raises(err):
+        gg_unroll_chw(*args, **kw)

@@ -9,20 +9,30 @@ Phases, each timed and printed as it ends:
   serving   the main path: the 86k flagship snapshot loaded in bf16 answers three
             denoising requests through predict.denoise (512x512, 480x320,
             256x384; seeded piecewise-smooth images with seed-2204 sigma=25
-            noise). Each request must launch K1 (gg_unroll_chw) exactly 4 times
-            and K2 (edge_weights_chw) exactly 8 times and raise the PSNR. Then
-            each request is served once more with every kernel call held against
-            its plain version on that call's own tensors (the bf16 bars below);
-  kernels   each kernel against its plain PyTorch version on the card, at every
-            shape a 512x512 request gives it, in f32 (atol 5e-4, rtol 1e-3) and
-            bf16 (K2: max|d| <= 4e-3; K1: 4e-3 plus one bf16 ulp of the value),
-            with the snapshot's filter parameters and seeded inputs; in f32,
-            K1's output must also move at least CHANGE_FACTOR times the bar
-            away from its input y, so that a kernel returning y cannot pass;
-            kernel and plain times from CUDA events;
+            noise). Each request must launch K3 (fused_block_stack) exactly 3
+            times, K4 (fused_gated_block) 32 times, K1 (gg_unroll_chw) 4 times
+            and K2 (edge_weights_chw) 8 times, and raise the PSNR. Then each
+            request is served once more with every kernel call held against its
+            plain version on that call's own tensors (the bf16 bars below), and
+            the 512x512 request is timed with the blocks on their kernels and on
+            the plain PyTorch (cuDNN) route, in turns;
+  kernels   each kernel against its plain PyTorch version on the card, in f32
+            (atol 5e-4, rtol 1e-3) and bf16 (K2: max|d| <= 4e-3; K1: 4e-3 plus
+            one bf16 ulp of the value; K3, K4: below): K1 and K2 at every shape a
+            512x512 request gives them, with the snapshot's filter parameters;
+            K3 and K4 at every block shape of the three requests, with the
+            snapshot's block parameters; seeded inputs. In f32 every K1, K3 and
+            K4 output must also move at least CHANGE_FACTOR times the bar away
+            from its input, so that a kernel returning its input cannot pass;
+            kernel and plain times from CUDA events at the 512x512 shapes.
+            K3 and K4 in bf16 are held to block_bar: at most 1 % of the
+            outputs beyond one ulp, none beyond one ulp plus the plain
+            version's own bf16 rounding error, and an RMS error against the
+            unrounded f32 function at most 1.1 times the plain version's;
   model     the whole model in f32 with TF32 off on each request's noisy image
-            (the first is 1x512x512x3): kernel path against plain path,
-            max|d| <= 1e-3, and the PSNR of both.
+            (the first is 1x512x512x3): kernel path against plain path (blocks
+            as PyTorch ops, the solver's plain versions), max|d| <= 1e-3, and
+            the PSNR of both within 0.01 dB.
 
 The build must take under 60 s and the whole script under 300 s; a run over
 either budget fails.
@@ -50,10 +60,13 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 BUDGET_S = {"build": 60, "total": 300}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 DEVICE = "cuda"
 FRAME = 512  # the kernel phase runs at the shapes of a FRAME² request
 REQUESTS = ((512, 512), (480, 320), (256, 384))
 K1_PER_REQUEST, K2_PER_REQUEST = 4, 8
+K3_PER_REQUEST, K4_PER_REQUEST = 3, 32
+K4_PER_SCALE = {1: 12, 2: 12, 3: 8}  # encoder + decoder blocks at scales 1-2, encoder at 3
 LOUD = (1, 20, 20, 1)  # per-scale factor on the snapshot's μ, ρ, γ in the K1 rows
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
 
@@ -164,13 +177,57 @@ def k1_bar(ker, ref):
     return within(ker, ref, 4e-3, 2.0 ** -7)
 
 
+ULP_SHARE = 1e-2  # K3, K4 in bf16: the share of outputs allowed beyond one ulp
+RMS_FACTOR = 1.1  # K3, K4 in bf16: RMS error against the f32 function, kernel vs plain
+
+
+def block_bar(ker, ref, exact):
+    """K3 and K4 in bf16: (ok, share beyond one ulp, the plain version's own
+    error, the kernel's RMS error over the plain version's, both against the
+    f32 function). Kernel and plain version round y0, y3 and the output to
+    bf16 at the same points, but they sum in f32 in other orders, so a value
+    next to a rounding boundary may round the other way; through the project
+    (and the stacked blocks) one such flip moves an output by more than its
+    own ulp where the terms are large and the output small. So:
+    - at most ULP_SHARE of the outputs beyond one ulp (4e-3 + 2^-7·|ref|);
+    - every output within one ulp plus the plain version's own rounding
+      error, the largest |ref - exact| of the call, where exact is the same
+      function in f32 on the same inputs without the bf16 roundings;
+    - the kernel no less accurate than the plain version: its RMS error
+      against exact at most RMS_FACTOR times the plain version's."""
+    a, r, e = ker.float(), ref.float(), exact.float()
+    d = (a - r).abs()
+    ulp = 4e-3 + 2.0 ** -7 * r.abs()
+    own = float((r - e).abs().max())
+    share = float((d > ulp).float().mean())
+    rms = float((a - e).square().mean().sqrt()) / max(float((r - e).square().mean().sqrt()), 1e-12)
+    ok = share <= ULP_SHARE and bool((d <= ulp + own).all()) and rms <= RMS_FACTOR
+    return ok, share, own, rms
+
+
+def unrounded(plain, args, kw):
+    """The plain version in f32 on the same (bf16) inputs: no bf16 rounding."""
+    return plain(*(t.float() for t in args), **{k: v.float() for k, v in kw.items()})
+
+
+def block_ops_per_pixel(c, hidden2):
+    """Operations one block needs per pixel: (tensor-core, CUDA-core). The
+    two 1x1 products are 2·C·2H + 2·H·C = 3·C·2H on the tensor cores; on the
+    CUDA cores the 9 depthwise taps 18 per hidden channel, the gate
+    σ(m)·m·u about 6 per m/u pair (exp, add, divide, 2 mul), so 21·2H, and
+    the norm (sum, centred square-sum, scale, multiply: 8 per channel) with
+    the skip, 8·C."""
+    return 3 * c * hidden2, 21 * hidden2 + 8 * c
+
+
 def k2_bar(ker, ref):
     return within(ker, ref, 4e-3, 0.0)
 
 
 def set_kernels(model, on):
-    """Route every filtering block of the model through the kernels (True) or
-    their plain versions (False)."""
+    """Route the encoder/decoder blocks and every filtering block of the model
+    through the kernels (True) or their plain versions (False)."""
+    model.use_kernels = on
     for lf in model.local_filters:
         lf.local_filter.use_kernels = on
 
@@ -201,9 +258,23 @@ def phase_build():
     return seconds
 
 
-def phase_serving(smoke):
+KERNEL_NAMES = ("fused_block_stack", "fused_gated_block", "gg_unroll_chw", "edge_weights_chw")
+PER_REQUEST = dict(zip(KERNEL_NAMES, (K3_PER_REQUEST, K4_PER_REQUEST, K1_PER_REQUEST,
+                                      K2_PER_REQUEST)))
+
+
+def wrappers():
+    """The four kernel wrappers, by name."""
+    from irdu_tpu_torch.ops.block_stack import fused_block_stack
     from irdu_tpu_torch.ops.edge_weights import edge_weights_chw
+    from irdu_tpu_torch.ops.gated_block import fused_gated_block
     from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
+
+    return dict(zip(KERNEL_NAMES, (fused_block_stack, fused_gated_block, gg_unroll_chw,
+                                   edge_weights_chw)))
+
+
+def phase_serving(smoke):
     from irdu_tpu_torch.predict import denoise, load_model
 
     model = smoke.model = load_model(device=DEVICE)  # bf16 params and activations on the card
@@ -212,10 +283,12 @@ def phase_serving(smoke):
         denoise(model, noisy)
     sync()
 
-    edge_weights_chw.launches = gg_unroll_chw.launches = 0
+    kern = wrappers()
+    for k in kern.values():
+        k.launches = 0
     rows = []
     for (clean, noisy), (h, w) in zip(images, REQUESTS):
-        k1, k2 = gg_unroll_chw.launches, edge_weights_chw.launches
+        before = {n: k.launches for n, k in kern.items()}
         t0 = time.perf_counter()
         out = denoise(model, noisy)  # ends in a device-to-host copy
         sync()
@@ -223,54 +296,98 @@ def phase_serving(smoke):
         rows.append(dict(
             shape=[h, w], ms=round(ms, 3),
             psnr_noisy=psnr(clean, noisy), psnr_denoised=psnr(clean, out),
-            k1_launches=gg_unroll_chw.launches - k1,
-            k2_launches=edge_weights_chw.launches - k2,
+            launches={n: k.launches - before[n] for n, k in kern.items()},
             finite=bool(np.isfinite(out).all())))
-    smoke.counts = {"gg_unroll_chw": gg_unroll_chw.launches,
-                    "edge_weights_chw": edge_weights_chw.launches}
+    smoke.counts = {n: k.launches for n, k in kern.items()}
     for row, (_, noisy) in zip(rows, images):  # after the counts: these launches do not count
         row.update(checked_request(model, noisy))
     smoke.lines["serving"] = {"serving": rows, "weights": "flagship_cont100k_35000.npz",
-                              "dtype": str(next(model.parameters()).dtype)[6:]}
+                              "dtype": str(next(model.parameters()).dtype)[6:],
+                              "blocks_512": blocks_ab(model, images[0][1])}
     for r in rows:
-        require(r["k1_launches"] == K1_PER_REQUEST and r["k2_launches"] == K2_PER_REQUEST,
-                f"request {r['shape']}: {r['k1_launches']} K1 / {r['k2_launches']} K2 launches")
+        require(r["launches"] == PER_REQUEST,
+                f"request {r['shape']}: launches {r['launches']}, want {PER_REQUEST}")
         require(r["finite"] and r["psnr_denoised"] > r["psnr_noisy"],
                 f"request {r['shape']}: PSNR {r['psnr_noisy']} -> {r['psnr_denoised']}")
         require(r["calls_ok"], f"request {r['shape']}: a kernel call disagrees with its "
-                f"plain version (K1 max|d| {r['k1_max_abs_err']}, K2 {r['k2_max_abs_err']})")
+                f"plain version (max|d| {r['max_abs_err']})")
+
+
+def blocks_ab(model, noisy, rounds=3):
+    """The 512x512 request with the encoder/decoder blocks on K3/K4 and on
+    the plain PyTorch route (cuDNN convolutions), in turns: plain, kernels,
+    kernels, plain per round, after one untimed request on each route (cuDNN
+    picks its algorithms on the first). The solver stays on K1/K2."""
+    from irdu_tpu_torch.predict import denoise
+
+    times = {"kernels": [], "plain": []}
+    try:
+        for route in ("plain", "kernels"):
+            model.use_kernels = route == "kernels"
+            denoise(model, noisy)
+        for _ in range(rounds):
+            for route in ("plain", "kernels", "kernels", "plain"):
+                model.use_kernels = route == "kernels"
+                sync()
+                t0 = time.perf_counter()
+                denoise(model, noisy)
+                sync()
+                times[route].append(round((time.perf_counter() - t0) * 1e3, 3))
+    finally:
+        model.use_kernels = True
+    return {"blocks_kernels_ms": times["kernels"], "blocks_plain_ms": times["plain"],
+            "median_kernels_ms": float(np.median(times["kernels"])),
+            "median_plain_ms": float(np.median(times["plain"])),
+            "order": "plain, kernels, kernels, plain, x%d" % rounds}
 
 
 def checked_request(model, noisy):
     """Serve one request with every kernel call held against its plain
     version on that call's own tensors; the max|d| of each kernel."""
+    from irdu_tpu_torch.models import flagship
+    from irdu_tpu_torch.ops.block_stack import block_stack_plain
     from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.gated_block import gated_block_plain
     from irdu_tpu_torch.ops.solver_unroll import gg_unroll_plain
     from irdu_tpu_torch.predict import denoise
     from irdu_tpu_torch.solvers import gtv_glr
 
-    log = {"edge_weights_chw": [], "gg_unroll_chw": []}
+    log = {n: [] for n in KERNEL_NAMES}
+    share = {"fused_block_stack": 0.0, "fused_gated_block": 0.0}
+    rms = dict(share)
 
     def checked(name, kernel, plain, bar):
         def call(*args, **kw):
             out = kernel(*args, **kw)
             ref = plain(*args, **kw)
-            log[name].append((max_abs(out, ref), bar(out, ref)))
+            if name in share:
+                ok, frac, _, ratio = block_bar(out, ref, unrounded(plain, args, kw))
+                share[name] = max(share[name], frac)
+                rms[name] = max(rms[name], ratio)
+            else:
+                ok = bar(out, ref)
+            log[name].append((max_abs(out, ref), ok))
             return out
         return call
 
-    kernels = gtv_glr.edge_weights_chw, gtv_glr.gg_unroll_chw
-    gtv_glr.edge_weights_chw = checked("edge_weights_chw", kernels[0], edge_weights_plain, k2_bar)
-    gtv_glr.gg_unroll_chw = checked("gg_unroll_chw", kernels[1], gg_unroll_plain, k1_bar)
+    # the names where models/flagship.py and solvers/gtv_glr.py look them up
+    sites = ((flagship, "fused_block_stack", block_stack_plain, None),
+             (flagship, "fused_gated_block", gated_block_plain, None),
+             (gtv_glr, "gg_unroll_chw", gg_unroll_plain, k1_bar),
+             (gtv_glr, "edge_weights_chw", edge_weights_plain, k2_bar))
+    saved = [getattr(mod, name) for mod, name, _, _ in sites]
+    for (mod, name, plain, bar), kernel in zip(sites, saved):
+        setattr(mod, name, checked(name, kernel, plain, bar))
     try:
         denoise(model, noisy)
     finally:
-        gtv_glr.edge_weights_chw, gtv_glr.gg_unroll_chw = kernels
-    k1, k2 = log["gg_unroll_chw"], log["edge_weights_chw"]
-    return dict(k1_max_abs_err=max(e for e, _ in k1), k2_max_abs_err=max(e for e, _ in k2),
-                calls_checked=len(k1) + len(k2),
-                calls_ok=len(k1) == K1_PER_REQUEST and len(k2) == K2_PER_REQUEST
-                and all(ok for _, ok in k1 + k2))
+        for (mod, name, _, _), kernel in zip(sites, saved):
+            setattr(mod, name, kernel)
+    return dict(max_abs_err={n: max(e for e, _ in log[n]) for n in KERNEL_NAMES},
+                beyond_one_ulp_share=share, rms_vs_plain=rms,
+                calls_checked=sum(len(v) for v in log.values()),
+                calls_ok=all(len(log[n]) == PER_REQUEST[n] for n in KERNEL_NAMES)
+                and all(ok for v in log.values() for _, ok in v))
 
 
 def _filter_params(model, s):
@@ -367,24 +484,89 @@ def phase_kernels(smoke):
                 ms=cuda_ms(lambda: gg_unroll_chw(*args, n_graphs=g), 10),
                 plain_ms=cuda_ms(lambda: gg_unroll_plain(*args, n_graphs=g), 3),
                 **_bound(nbytes, ops))
+    smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows,
+                         **block_rows(model, gen, bar_at)}
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
-        json.dump({"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows}, fh, indent=1)
-    smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows}
+        json.dump(smoke.kernel_rows, fh, indent=1)
     bad = [(k, r) for k, rows in smoke.kernel_rows.items() for r in rows if not r["ok"]]
-    require(not bad, f"kernels disagree with their plain versions, or K1 moved its "
+    require(not bad, f"kernels disagree with their plain versions, or moved their "
             f"input by under {CHANGE_FACTOR}x the bar: {bad}")
 
 
-def _bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return dict(bytes=int(nbytes), ops=int(ops), bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+def block_rows(model, gen, bar_at):
+    """K3 and K4 against their plain versions at every block shape of the
+    three requests, f32 and bf16, with the snapshot's block parameters (K3:
+    the four scale-0 encoder blocks; K4: the first encoder block of each
+    scale) on seeded N(0, 1) inputs; times at the 512x512 shapes in bf16."""
+    import torch
+
+    from irdu_tpu_torch.ops.block_stack import (block_stack_plain, fused_block_stack,
+                                                pack_block_params)
+    from irdu_tpu_torch.ops.gated_block import fused_gated_block, gated_block_plain
+
+    rows = {"fused_block_stack": [], "fused_gated_block": []}
+    for (h, w) in REQUESTS:
+        for s in range(4):
+            blocks = model.encoder_scales[s][:4] if s == 0 else model.encoder_scales[s][:1]
+            c = model.dims[s]
+            for dtype in (torch.float32, torch.bfloat16):
+                params = [{k: v.to(dtype) for k, v in blk.gated_params().items()}
+                          for blk in blocks]
+                x = torch.randn(1, c, h >> s, w >> s, device=DEVICE, generator=gen).to(dtype)
+                if s == 0:
+                    name, args, kw = "fused_block_stack", (x, *pack_block_params(params, dtype)), {}
+                    kernel, plain, calls = fused_block_stack, block_stack_plain, K3_PER_REQUEST
+                else:
+                    name, args, kw = "fused_gated_block", (x,), params[0]
+                    kernel, plain, calls = fused_gated_block, gated_block_plain, K4_PER_SCALE[s]
+                ker = kernel(*args, **kw)
+                ref = plain(*args, **kw)
+                sync()
+                change, bar = max_abs(ref, x), bar_at(ref, dtype)
+                row = dict(scale=s, blocks=len(blocks), shape=list(x.shape),
+                           dtype=str(dtype)[6:], params=f"snapshot, encoder scale {s}",
+                           max_abs_err=max_abs(ker, ref),
+                           max_ref=float(ref.float().abs().max()), change=change, bar=bar)
+                if dtype == torch.float32:
+                    row["ok"] = within(ker, ref, 5e-4, 1e-3) and change >= CHANGE_FACTOR * bar
+                else:
+                    (row["ok"], row["beyond_one_ulp_share"], row["plain_own_err"],
+                     row["rms_vs_plain"]) = block_bar(ker, ref, unrounded(plain, args, kw))
+                if dtype == torch.bfloat16 and (h, w) == (FRAME, FRAME):
+                    tc, cc = block_ops_per_pixel(c, params[0]["w1"].shape[1])
+                    npx = x.shape[2] * x.shape[3] * len(blocks)
+                    nbytes = 2 * x.numel() * x.element_size() + sum(
+                        t.numel() * t.element_size() for t in list(args[1:]) + list(kw.values()))
+                    row.update(calls=calls,
+                               ms=cuda_ms(lambda: kernel(*args, **kw), 20),
+                               plain_ms=cuda_ms(lambda: plain(*args, **kw), 5),
+                               **_bound(nbytes, cc * npx, tc * npx))
+                rows[name].append(row)
+    return rows
+
+
+def _bound(nbytes, ops, tensor_ops=0):
+    """The least time: bytes over the memory rate, f32 CUDA-core operations
+    over their peak and bf16 tensor-core operations over theirs (the units
+    run side by side, so the largest of the three)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, tensor_ops / BF16_TC_OPS_PER_S) * 1e3
+    out = dict(bytes=int(nbytes), ops=int(ops), bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if tensor_ops:
+        out["tensor_ops"] = int(tensor_ops)
+    return out
 
 
 def kernels_line(smoke):
     """The per-kernel summary: ms, plain_ms and bound_ms are summed over the
-    calls one 512x512 request makes (bf16); max_abs_err is the f32 maximum."""
+    calls one 512x512 request makes (bf16; a timed row counts ``calls``
+    times); max_abs_err is the f32 maximum."""
     meta = {
+        "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack.cu",
+                              "irdu_tpu/ops/pallas/block_stack.py:214"),
+        "fused_gated_block": ("irdu_tpu_torch/kernels/csrc/block_stack.cu",
+                              "irdu_tpu/ops/pallas/gated_block.py:94"),
         "gg_unroll_chw": ("irdu_tpu_torch/kernels/csrc/gg_unroll.cu",
                           "irdu_tpu/ops/pallas/solver_unroll.py:242"),
         "edge_weights_chw": ("irdu_tpu_torch/kernels/csrc/edge_weights.cu",
@@ -401,12 +583,13 @@ def kernels_line(smoke):
             launches=smoke.counts.get(name, 0),
             max_abs_err=max(f32) if f32 else None,
             max_abs_err_bf16=max(bf16) if bf16 else None,
-            ms=sum(r["ms"] for r in timed) if timed else None,
-            plain_ms=sum(r["plain_ms"] for r in timed) if timed else None,
-            bound_ms=sum(r["bound_ms"] for r in timed) if timed else None,
+            ms=sum(r["ms"] * r.get("calls", 1) for r in timed) if timed else None,
+            plain_ms=sum(r["plain_ms"] * r.get("calls", 1) for r in timed) if timed else None,
+            bound_ms=sum(r["bound_ms"] * r.get("calls", 1) for r in timed) if timed else None,
             bound_by=max(timed, key=lambda r: r["bound_ms"])["bound_by"] if timed else None,
             library_ms=None,
-            library_note="no single PyTorch call computes this function",
+            library_note=("no single PyTorch call computes a block" if "block" in name
+                          else "no single PyTorch call computes this function"),
             per_call=timed))
     return {"kernels": out}
 
@@ -457,6 +640,8 @@ def phase_model(smoke):
     for r in rows:
         require(r["finite"] and r["max_abs_err"] <= 1e-3,
                 f"{r['shape']}: kernel path vs plain path max|d| {r['max_abs_err']}")
+        require(abs(r["psnr_kernels"] - r["psnr_plain"]) <= 0.01,
+                f"{r['shape']}: PSNR {r['psnr_kernels']} (kernels) vs {r['psnr_plain']}")
 
 
 def main() -> int:

@@ -31,11 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {  # name: (argtypes, restype)
+    "irdu_block_stack": ((_P,) * 7 + (_I,) * 6 + (_L,) * 9 + (_I,) * 5 + (_P,), _I),
     "irdu_edge_weights": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "irdu_gg_unroll": ((_P,) * 12 + (_I,) * 7 + (_P,), _I),
-    "irdu_gg_unroll_scratch_floats": ((_I, _I), ctypes.c_longlong),
+    "irdu_gg_unroll_scratch_floats": ((_I, _I), _L),
     "irdu_error_string": ((_I,), ctypes.c_char_p),
 }
 

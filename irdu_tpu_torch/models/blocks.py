@@ -51,6 +51,17 @@ class LocalNonLinearBlock(nn.Module):
         self.norm = CustomLayerNorm(dim)
         self.local_linear = LocalGatedLinearBlock(dim, hidden_dim)
 
+    def gated_params(self) -> dict:
+        """The block kernels' operands, views of this block's parameters in
+        the JAX layouts: scale (C,), w1 (C, 2H), dwk (3, 3, 2H), w2 (H, C),
+        skip (2,)."""
+        ll = self.local_linear
+        return dict(scale=self.norm.weighted_transform,
+                    w1=ll.channels_linear_op.weight[:, :, 0, 0].t(),
+                    dwk=ll.channels_local_linear_op.weight[:, 0].permute(1, 2, 0),
+                    w2=ll.project_out.weight[:, :, 0, 0].t(),
+                    skip=self.skip_weight)
+
     def forward(self, x):
         sw = self.skip_weight
         return sw[0] * x + sw[1] * self.local_linear(self.norm(x))

@@ -1,13 +1,29 @@
 """The flagship model LGU: a 4-scale autoencoder with per-scale latent graph
 filtering (counterpart: ``irdu_tpu/models/flagship.py``
-``AbstractMultiScaleGraphFilter``, its non-fast path
-``decode(filtering(encode(img)))``).
+``AbstractMultiScaleGraphFilter``, its CHW fast path ``_forward_fast`` with
+``use_pallas_blocks=True``).
 
 Images are NHWC (B, H, W, 3) at the model boundary, as in the JAX package;
 inside, activations and the per-scale codes are channels-first
 (B, C, H, W). H and W must be multiples of 16 (3 down-scales plus the
 solver's own 2× scale). Module names mirror the flax scopes, so a JAX
 snapshot loads with ``utils.weights.params_to_torch``.
+
+The port is channels-first throughout, so ``irdu_tpu/models/chw.py`` has no
+copy here: ``Downsample2x2``, ``Upsample2x2`` and ``GroupedPointwise``
+(``models/layers.py``) already compute its ``downsample2x2_chw``,
+``upsample2x2_chw`` and ``pointwise_chw``.
+
+Block routing (``_run_blocks``), with the attribute ``use_kernels`` True: a
+block list of width ≤ 64 runs through K3 (``fused_block_stack``) in chunks of
+at most 4 blocks, every other list block by block through K4
+(``fused_gated_block``). A CPU tensor takes the kernels' plain versions; a
+CUDA tensor the kernels cannot take raises. The JAX package also requires
+W % 128 == 0 for K3 (a TPU lane rule) and sends other widths to K4; the port
+does not, so at 480×320 its scale 0 runs K3 where JAX runs K4. The routing
+differs there, the arithmetic does not. With ``use_kernels`` False every
+block runs as its module's PyTorch ops (cuDNN on the card): the on-card
+reference the kernel path is held to.
 """
 
 from __future__ import annotations
@@ -23,6 +39,11 @@ from irdu_tpu_torch.models.blocks import (
     RegionalPixelEmbedding,
 )
 from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise, Upsample2x2
+from irdu_tpu_torch.ops.block_stack import fused_block_stack, pack_block_params
+from irdu_tpu_torch.ops.gated_block import fused_gated_block
+
+STACK_MAX_DIM = 64  # block lists this wide run through K3
+STACK_MAX_BLOCKS = 4
 
 
 class AbstractMultiScaleGraphFilter(nn.Module):
@@ -31,9 +52,16 @@ class AbstractMultiScaleGraphFilter(nn.Module):
                  hidden_dims: Sequence[int] = (128, 192, 256, 384),
                  ngraphs: Sequence[int] = (4, 4, 8, 8),
                  num_blocks: Sequence[int] = (4, 6, 6, 8),
-                 num_blocks_out: int = 4, eval_cg_iters: int = 3):
+                 num_blocks_out: int = 4, eval_cg_iters: int = 3,
+                 eval_filter_scales: Sequence[int] | None = None):
+        """eval_filter_scales: filter only these scales' codes, identity
+        elsewhere (not in the reference; None filters all four)."""
         super().__init__()
         d, hd = dims, hidden_dims
+        self.dims = tuple(dims)
+        self.eval_filter_scales = (None if eval_filter_scales is None
+                                   else tuple(eval_filter_scales))
+        self.use_kernels = True
 
         def blocks(prefix, s, n):
             mods = [LocalNonLinearBlock(d[s], hd[s]) for _ in range(n)]
@@ -66,16 +94,33 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         x = self.patch_3x3_embeding(img.permute(0, 3, 1, 2))
         codes = []
         for s in range(4):
-            for block in self.encoder_scales[s]:
-                x = block(x)
+            x = self._run_blocks(x, self.encoder_scales[s], self.dims[s])
             codes.append(x)
             if s < 3:
                 x = self.down_samples[s](x)
         return tuple(codes)
 
+    def _run_blocks(self, x, blocks, dim):
+        if not self.use_kernels:
+            for block in blocks:
+                x = block(x)
+            return x
+        if dim <= STACK_MAX_DIM:
+            for k in range(0, len(blocks), STACK_MAX_BLOCKS):
+                chunk = blocks[k:k + STACK_MAX_BLOCKS]
+                x = fused_block_stack(x, *pack_block_params(
+                    [b.gated_params() for b in chunk], x.dtype))
+            return x
+        for block in blocks:
+            x = fused_gated_block(x, **block.gated_params())
+        return x
+
     def filtering(self, codes):
-        """Per-scale unrolled graph filtering of the codes."""
-        return tuple(f(c) for f, c in zip(self.local_filters, codes))
+        """Per-scale unrolled graph filtering of the codes
+        (``eval_filter_scales`` passes the others through)."""
+        keep = range(4) if self.eval_filter_scales is None else self.eval_filter_scales
+        return tuple(f(c) if s in keep else c
+                     for s, (f, c) in enumerate(zip(self.local_filters, codes)))
 
     def decode(self, codes) -> torch.Tensor:
         """Codes → NHWC image: mirror decoder with skip-concat + 1×1 combine,
@@ -84,10 +129,8 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         for s in (2, 1, 0):
             x = self.up_samples[s](x)
             x = self.combine_channels[s](torch.cat([x, codes[s]], dim=1))
-            for block in self.decoder_scales[s]:
-                x = block(x)
-        for block in self.refining_block:
-            x = block(x)
+            x = self._run_blocks(x, self.decoder_scales[s], self.dims[s])
+        x = self._run_blocks(x, self.refining_block, self.dims[0])
         return self.linear_output(x).permute(0, 2, 3, 1)
 
     def enc_dec(self, img: torch.Tensor) -> torch.Tensor:

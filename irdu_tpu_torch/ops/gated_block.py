@@ -1,0 +1,207 @@
+"""K4: one LocalNonLinearBlock of the flagship, CHW, and the block kernel's
+launcher that K3 (``ops/block_stack.py``) shares.
+
+Replaces the TPU kernel ``irdu_tpu/ops/pallas/gated_block.py:fused_gated_block``
+(body ``_kernel``). One block: CustomLayerNorm (x / sqrt(var + 1e-5) · scale,
+the variance unbiased over channels, the mean not subtracted), 1×1 expand
+C → 2H, 3×3 depthwise with replicate padding, gate σ(m)·m·u over the two
+halves, 1×1 project H → C, and the learned skip s₀·x + s₁·y. The port keeps
+the channels-first layout (B, C, H, W) and the JAX operand names: scale (C,),
+w1 (C, 2H), dwk (3, 3, 2H), w2 (H, C), skip (2,).
+
+Rounding in bf16, where the TPU kernels round: the normalized input y0 before
+the expand and the gate output y3 before the project; the expand, the taps,
+the gate and the skip stay f32; the output is rounded once.
+
+On the card (``kernels/csrc/block_stack.cu``, one kernel for K3 and K4; K4 is
+its K = 1 case): one CTA per output tile of (tile_h, tile_w) pixels. It
+loads the tile plus a K-pixel halo (clipped to the image) into shared memory
+as f32, normalizes each pixel with a two-pass variance, then walks the
+hidden dimension in chunks of hc m-channels and their hc u-channels: expand
+over the whole region, taps and gate, and the project accumulated into the
+f32 activation in shared memory. The 1×1 products run on the tensor cores
+(``mma.sync`` m16n8k16, bf16 in, f32 accumulate) in bf16 and as f32 FMAs on
+the CUDA cores in f32. Per pixel a block needs 3·C·2H tensor operations and
+about 21·2H + 8·C CUDA-core operations against 4·C bytes (bf16 in and out),
+so it is bound by operations: by the CUDA-core taps and gate at C ≤ 96 and
+by the products at C ≥ 192. The halo is recomputed by each tile, and the
+weights are staged into shared memory by every CTA, which is the price of
+keeping each block's activation on chip; ``plan_tiles`` weighs the halo
+against the number of waves of CTAs on the 132 SMs.
+
+Boundaries: the taps read the region through a clamp to its own bounds. At
+an image edge the region's edge is the image's, so the clamp is the
+reference's replicate padding of the derived activation itself; at an
+interior edge the clamped reads are wrong, and the error moves one pixel
+inward per block, so after K blocks it has not reached the tile.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+
+EPS = 1e-5
+SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
+NUM_SMS = 132        # H100 SXM
+TILE_SIZES = (2, 4, 8, 12, 16, 24, 32)  # tile heights and widths the plan tries
+
+
+def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round an f32 tensor to ``dtype`` and back (identity in f32)."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def block_f32(x, scale, w1, dwk, w2, skip, dtype):
+    """One block on an f32 activation x (B, C, H, W), rounding y0 and y3 to
+    ``dtype``; returns the f32 result, unrounded."""
+    b, c, h, w = x.shape
+    mean = x.mean(dim=1, keepdim=True)
+    var = ((x - mean) ** 2).sum(dim=1, keepdim=True) / (c - 1)
+    y0 = _round(x / torch.sqrt(var + EPS) * scale.float().reshape(1, c, 1, 1), dtype)
+    y1 = torch.einsum("bchw,co->bohw", y0, w1.to(dtype).float())
+    y1p = F.pad(y1, (1, 1, 1, 1), mode="replicate")
+    dw = dwk.float()
+    acc = sum(y1p[:, :, a:a + h, bb:bb + w] * dw[a, bb].reshape(1, -1, 1, 1)
+              for a in range(3) for bb in range(3))
+    m, u = acc.chunk(2, dim=1)
+    y3 = _round(torch.sigmoid(m) * m * u, dtype)
+    y4 = torch.einsum("bhxy,hc->bcxy", y3, w2.to(dtype).float())
+    sk = skip.float()
+    return sk[0] * x + sk[1] * y4
+
+
+def gated_block_plain(x, scale, w1, dwk, w2, skip):
+    """The block in plain PyTorch: f32 compute, bf16 rounding where the
+    kernel rounds, output in x's dtype."""
+    return block_f32(x.float(), scale, w1, dwk, w2, skip, x.dtype).to(x.dtype)
+
+
+def smem_bytes(c: int, hc: int, nrp: int, esize: int) -> int:
+    """Shared memory of one CTA, as the kernel lays it out: in f32 the
+    activation (C, ldx), the expand chunk (2hc, ldx) and its taps (9, 2hc),
+    with ldx the region's nrp pixels padded to 8 mod 32; then in the working
+    type y0 (nrp, C + pad), y3 (nrp, hc + pad), the expand weights
+    (2hc, C + pad) and the project weights (C, hc + pad); each part 16-byte
+    aligned."""
+    pad = 8 if esize == 2 else 1
+    ldx = nrp + (8 - nrp) % 32
+
+    def seg(n):
+        return -(-n // 16) * 16
+
+    return (seg(4 * c * ldx) + seg(4 * 2 * hc * ldx) + seg(4 * 9 * 2 * hc)
+            + seg(esize * nrp * (c + pad))
+            + seg(esize * nrp * (hc + pad)) + seg(esize * 2 * hc * (c + pad))
+            + seg(esize * c * (hc + pad)))
+
+
+def plan_tiles(b: int, c: int, hidden: int, h: int, w: int, n_blocks: int,
+               esize: int) -> tuple[int, int, int, int]:
+    """(tile_h, tile_w, hc, smem bytes) for a launch. A CTA takes a whole SM
+    (its shared memory), so the launch runs in ceil(CTAs / 132) waves, and a
+    CTA's time grows with its region's padded pixels nrp and its number of
+    hidden chunks H / hc. Of the plans that fit in shared memory, the one with
+    the least waves × (nrp + H / hc) wins, on a tie the larger hc. This cost
+    picks the fastest plan, or one within 5 % of it, at each block shape of
+    the 512x512 and 480x320 requests in a sweep of every fitting plan on the
+    H100 (``python -m irdu_tpu_torch.kernels.plan_sweep``). Raises if nothing
+    fits."""
+    hcs = [v for v in ((32, 16, 8) if esize == 4 else (32, 16)) if hidden % v == 0]
+    best = None
+    for th in TILE_SIZES:
+        for tw in TILE_SIZES:
+            nrp = -(-min(th + 2 * n_blocks, h) * min(tw + 2 * n_blocks, w) // 16) * 16
+            waves = -(-b * -(-h // th) * -(-w // tw) // NUM_SMS)
+            for hc in hcs:
+                smem = smem_bytes(c, hc, nrp, esize)
+                if smem <= SMEM_LIMIT:
+                    key = (waves * (nrp + hidden // hc), -hc)
+                    if best is None or key < best[0]:
+                        best = (key, (th, tw, hc, smem))
+                    break
+    if best is None:
+        raise ValueError(f"no tile of the block kernel fits C={c}, hidden={hidden}, "
+                         f"K={n_blocks} in {SMEM_LIMIT} bytes of shared memory")
+    return best[1]
+
+
+def launch_blocks(kernel: str, x, scale, w1, dwk, w2, skip):
+    """Run K blocks over x (B, C, H, W) on the card, with the operands stacked
+    over K in the JAX per-block layouts: scale (K, C), w1 (K, C, 2H),
+    dwk (K, 9, 2H), w2 (K, H, C), skip (K, 2); w1, dwk and w2 may be strided
+    views. ``kernel`` names the caller in errors.
+
+    What the kernel takes: x contiguous f32 or bf16 with C a multiple of 16;
+    w1 and w2 in x's dtype with H a multiple of 16; scale, dwk and skip of one
+    dtype (f32, or bf16 with bf16 x), contiguous scale and skip."""
+    if x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError(f"{kernel} needs a contiguous CUDA or CPU tensor")
+    b, c, h, w = x.shape
+    k, hidden = w2.shape[0], w2.shape[1]
+    if c % 16 or hidden % 16:
+        raise ValueError(f"{kernel}: the kernel takes C and H in multiples of 16, "
+                         f"got C={c}, H={hidden}")
+    if w1.dtype != x.dtype or w2.dtype != x.dtype:
+        raise ValueError(f"{kernel}: w1 and w2 must be in x's dtype {x.dtype}")
+    if (not (scale.dtype == dwk.dtype == skip.dtype)
+            or scale.dtype not in (torch.float32, x.dtype)
+            or not (scale.is_contiguous() and skip.is_contiguous())):
+        raise ValueError(f"{kernel}: scale, dwk and skip must share one dtype, f32 or "
+                         "x's, scale and skip contiguous")
+    if any(t.device != x.device for t in (scale, w1, dwk, w2, skip)):
+        raise ValueError(f"{kernel}: every operand must be on {x.device}")
+    # the kernel copies bf16 weights 16 bytes at a time along C (w1) and H (w2)
+    w1, w2 = _unit_stride(w1, 1), _unit_stride(w2, 1)
+    th, tw, hc, _ = plan_tiles(b, c, hidden, h, w, k, x.element_size())
+    out = torch.empty_like(x)
+    status = kernel_library().irdu_block_stack(
+        x.data_ptr(), out.data_ptr(), scale.data_ptr(), w1.data_ptr(),
+        dwk.data_ptr(), w2.data_ptr(), skip.data_ptr(), b, c, h, w, k, hidden,
+        *w1.stride(), *dwk.stride(), *w2.stride(), th, tw, hc,
+        dtype_code(x.dtype), dtype_code(scale.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check_status(kernel, status)
+    return out
+
+
+def _unit_stride(t, dim):
+    """t itself when dimension ``dim`` has unit stride and the other strides
+    and the address are 16-byte multiples, else a copy laid out so (the
+    model's conv weights and the packed stacks already are)."""
+    if t.stride(dim) == 1 and t.data_ptr() % 16 == 0 and all(
+            st % 8 == 0 for d, st in enumerate(t.stride()) if d != dim):
+        return t
+    return t.movedim(dim, -1).contiguous().movedim(-1, dim)
+
+
+def _check(x, scale, w1, dwk, w2, skip):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
+    c = x.shape[1]
+    hidden = w1.shape[-1] // 2
+    for name, t, shape in (("scale", scale, (c,)), ("w1", w1, (c, 2 * hidden)),
+                           ("dwk", dwk, (3, 3, 2 * hidden)), ("w2", w2, (hidden, c)),
+                           ("skip", skip, (2,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+
+
+def fused_gated_block(x, scale, w1, dwk, w2, skip):
+    """One LocalNonLinearBlock over x (B, C, H, W): scale (C,), w1 (C, 2H),
+    dwk (3, 3, 2H), w2 (H, C), skip (2,). Returns x's shape and dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (what it takes: ``launch_blocks``) or raises."""
+    _check(x, scale, w1, dwk, w2, skip)
+    if x.device.type == "cpu":
+        return gated_block_plain(x, scale, w1, dwk, w2, skip)
+    out = launch_blocks("fused_gated_block", x, scale[None], w1[None],
+                        dwk.reshape(1, 9, -1), w2[None], skip[None])
+    fused_gated_block.launches += 1
+    return out
+
+
+fused_gated_block.launches = 0

@@ -8,7 +8,8 @@
     python -m irdu_tpu_torch.predict --input clean.png --sigma 25 --output out.png
 
 The model runs on the CUDA card in bf16 (params and activations) through the
-port's kernels; ``load_model(..., device="cpu")`` runs it in f32 on the CPU
+port's kernels (K3 and K4 for the encoder/decoder blocks, K1 and K2 for the
+solver); ``load_model(..., device="cpu")`` runs it in f32 on the CPU
 through the kernels' plain versions.
 """
 
@@ -40,17 +41,20 @@ _WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 DEFAULT_WEIGHTS = {"flagship": os.path.join(_WEIGHTS_DIR, "flagship_cont100k_35000.npz")}
 
 
-def build_model(name: str = "flagship", *,
-                cg_iters: int = 3) -> AbstractMultiScaleGraphFilter:
-    """One member of the flagship family, randomly initialized."""
+def build_model(name: str = "flagship", *, cg_iters: int = 3,
+                filter_scales=None) -> AbstractMultiScaleGraphFilter:
+    """One member of the flagship family, randomly initialized.
+    filter_scales: filter only these scales' codes (None: all four)."""
     if name not in _CONFIGS:
         raise ValueError(f"unknown model {name!r}; choose from {sorted(_CONFIGS)}")
-    return AbstractMultiScaleGraphFilter(eval_cg_iters=cg_iters, **_CONFIGS[name]())
+    return AbstractMultiScaleGraphFilter(eval_cg_iters=cg_iters,
+                                         eval_filter_scales=filter_scales,
+                                         **_CONFIGS[name]())
 
 
 def load_model(weights: str | None = None, device: str | torch.device = "cuda",
                dtype: torch.dtype | None = None, *, name: str = "flagship",
-               cg_iters: int = 3):
+               cg_iters: int = 3, filter_scales=None):
     """Build the model, load an npz snapshot onto it and move it to ``device``
     in ``dtype`` (default: bf16 on CUDA, f32 on the CPU), in eval mode."""
     weights = weights or DEFAULT_WEIGHTS.get(name)
@@ -59,7 +63,7 @@ def load_model(weights: str | None = None, device: str | torch.device = "cuda",
     device = torch.device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = build_model(name, cg_iters=cg_iters)
+    model = build_model(name, cg_iters=cg_iters, filter_scales=filter_scales)
     params_to_torch(load_params_npz(weights), model)
     return model.to(device=device, dtype=dtype).eval().requires_grad_(False)
 

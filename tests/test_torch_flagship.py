@@ -17,14 +17,23 @@ import pytest
 import torch
 
 from irdu_tpu.models.flagship import AbstractMultiScaleGraphFilter as JaxFlagship
+from irdu_tpu.models import chw as jax_chw
 from irdu_tpu.models import flagship as jax_flagship
 from irdu_tpu.utils.weights import load_params_npz as jax_load
 from irdu_tpu_torch.models import flagship
+from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise, Upsample2x2
+from irdu_tpu_torch.ops.block_stack import fused_block_stack
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw
+from irdu_tpu_torch.ops.gated_block import fused_gated_block
 from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
 from irdu_tpu_torch.predict import DEFAULT_WEIGHTS, build_model, denoise, load_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _launches():
+    return tuple(k.launches for k in (edge_weights_chw, gg_unroll_chw, fused_block_stack,
+                                      fused_gated_block))
 
 
 @pytest.fixture(scope="module")
@@ -42,12 +51,79 @@ def test_flagship_with_86k_snapshot_matches_jax(snapshot_models, hw):
     jax_model, jax_params, model = snapshot_models
     x = np.random.RandomState(0).rand(1, *hw, 3).astype(np.float32)
     ref = np.asarray(jax_model.apply(jax_params, jnp.asarray(x)))
-    counts = (edge_weights_chw.launches, gg_unroll_chw.launches)
+    counts = _launches()
     with torch.inference_mode():
         out = model(torch.from_numpy(x)).numpy()
-    assert (edge_weights_chw.launches, gg_unroll_chw.launches) == counts
+    assert _launches() == counts
     assert out.shape == (1, *hw, 3)
     np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+
+
+def test_flagship_matches_jax_fast_path(snapshot_models):
+    """1x64x128x3 (W = 128, so the JAX fast path runs its stacked kernel at
+    scale 0 and the per-block kernel elsewhere) against JAX with
+    use_pallas_blocks and use_pallas_solver, its kernels in interpret mode."""
+    _, jax_params, model = snapshot_models
+    x = np.random.RandomState(5).rand(1, 64, 128, 3).astype(np.float32)
+    jax_fast = JaxFlagship(**jax_flagship.flagship_config(), use_pallas_blocks=True,
+                           use_pallas_solver=True)
+    ref = np.asarray(jax_fast.apply(jax_params, jnp.asarray(x)))
+    counts = _launches()
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x)).numpy()
+    assert _launches() == counts
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+
+
+def test_eval_filter_scales_match_jax(snapshot_models):
+    """Filtering only scales 1-3, the scale-0 code passed through."""
+    _, jax_params, _ = snapshot_models
+    x = np.random.RandomState(6).rand(1, 64, 64, 3).astype(np.float32)
+    jax_model = JaxFlagship(**jax_flagship.flagship_config(), eval_filter_scales=(1, 2, 3))
+    ref = np.asarray(jax_model.apply(jax_params, jnp.asarray(x)))
+    model = load_model(device="cpu", filter_scales=(1, 2, 3))
+    assert model.eval_filter_scales == (1, 2, 3)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+
+
+def test_block_kernel_route_matches_module_route(snapshot_models):
+    """use_kernels off runs every block as its module's ops, the on-card
+    reference of the kernel route; on the CPU both agree in f32."""
+    _, _, model = snapshot_models
+    x = torch.from_numpy(np.random.RandomState(7).rand(1, 32, 48, 3).astype(np.float32))
+    with torch.inference_mode():
+        codes = model.encode(x)
+        model.use_kernels = False
+        try:
+            ref_codes = model.encode(x)
+        finally:
+            model.use_kernels = True
+    for c, r in zip(codes, ref_codes):
+        torch.testing.assert_close(c, r, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("layer", ["downsample", "upsample", "pointwise"])
+def test_chw_layers_match_jax_chw_helpers(layer):
+    """The port's channels-first layers compute the JAX fast path's CHW
+    helpers (irdu_tpu/models/chw.py) with the same flax kernels."""
+    rng = np.random.RandomState(8)
+    c_in, c_out = 12, 8
+    x = rng.randn(2, c_in, 8, 6).astype(np.float32)
+    if layer == "downsample":
+        kern, mod = rng.randn(4 * c_in, c_out), Downsample2x2(c_in, c_out)
+        ref = jax_chw.downsample2x2_chw(jnp.asarray(x), jnp.asarray(kern, jnp.float32))
+    elif layer == "upsample":
+        kern, mod = rng.randn(c_in, 4 * c_out), Upsample2x2(c_in, c_out)
+        ref = jax_chw.upsample2x2_chw(jnp.asarray(x), jnp.asarray(kern, jnp.float32))
+    else:
+        kern, mod = rng.randn(c_in, c_out), GroupedPointwise(c_in, c_out)
+        ref = jax_chw.pointwise_chw(jnp.asarray(x), jnp.asarray(kern, jnp.float32))
+    with torch.no_grad():
+        mod.weight.copy_(mod.kernel_to_torch(torch.from_numpy(kern.astype(np.float32))))
+        out = mod(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
 def test_denoise_matches_jax_pad_forward_crop(snapshot_models):

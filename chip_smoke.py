@@ -6,16 +6,24 @@
 Phases, each timed and printed as it ends:
 
   build     nvcc builds the port's CUDA kernels (kernels/csrc) into one library;
-  serving   the main path: the 86k flagship snapshot loaded in bf16 answers three
+  serving   the main path: the 86k flagship snapshot loaded in bf16 answers five
             denoising requests through predict.denoise (512x512, 480x320,
-            256x384; seeded piecewise-smooth images with seed-2204 sigma=25
-            noise). Each request must launch K3 (fused_block_stack) exactly 3
-            times, K4 (fused_gated_block) 32 times, K1 (gg_unroll_chw) 4 times
-            and K2 (edge_weights_chw) 8 times, and raise the PSNR. Then each
-            request is served once more with every kernel call held against its
-            plain version on that call's own tensors (the bf16 bars below), and
-            the 512x512 request is timed with the blocks on their kernels and on
-            the plain PyTorch (cuDNN) route, in turns;
+            256x384, 1024x1024, 2048x2048; seeded piecewise-smooth images with
+            seed-2204 sigma=25 noise). Each request must launch K3
+            (fused_block_stack) exactly 3 times, K4 (fused_gated_block) 32 times
+            and K2 (edge_weights_chw) 8 times, and the solver's planes K1
+            (gg_unroll_chw, one call per plane of at most 768·1024 pixels) and
+            K5 (gg_fused_step_chw, 5 calls per larger plane) as PER_REQUEST
+            says, and raise the PSNR. Then each request is served once more with
+            every kernel call held against its plain version on that call's own
+            tensors (the bf16 bars below), and the 512x512 request is timed with
+            the blocks on their kernels and on the plain PyTorch (cuDNN) route,
+            in turns;
+  small     the lite and micro models (their default snapshots, bf16) answer
+            the 512x512 request, counts zeroed just before each: lite must
+            launch 5 K3, 10 K4, 4 K1, 8 K2 (its scale-0 C = 24 runs on the
+            block kernel's padded channels), micro 7 K3, 2 K4, 4 K1, 8 K2; each
+            raises the PSNR and every call is held against its plain version;
   kernels   each kernel against its plain PyTorch version on the card, in f32
             (atol 5e-4, rtol 1e-3) and bf16 (K2: max|d| <= 4e-3; K1: 4e-3 plus
             one bf16 ulp of the value; K3, K4: below): K1 and K2 at every shape a
@@ -28,11 +36,20 @@ Phases, each timed and printed as it ends:
             K3 and K4 in bf16 are held to block_bar: at most 1 % of the
             outputs beyond one ulp, none beyond one ulp plus the plain
             version's own bf16 rounding error, and an RMS error against the
-            unrounded f32 function at most 1.1 times the plain version's;
-  model     the whole model in f32 with TF32 off on each request's noisy image
-            (the first is 1x512x512x3): kernel path against plain path (blocks
-            as PyTorch ops, the solver's plain versions), max|d| <= 1e-3, and
-            the PSNR of both within 0.01 dB.
+            unrounded f32 function at most 1.1 times the plain version's.
+            K5 in each mode, K6a (with and without GLR and identity) and K6b
+            (with and without y) at the 1024x1024 request's scale-0 shape with
+            the snapshot's scale-0 parameters, f32 (the bar above and the
+            CHANGE_FACTOR rule) and bf16 (K1's bar); K5 against the K6a/K6b
+            composition in f32; K5 timed at every shape the 1024x1024 and
+            2048x2048 requests give it. Then the band route against the K1
+            route on the 512x512 request's scale-0 code (K1's cap set to 0):
+            f32 within 5e-4 + 1e-3·|ref|, and both routes timed in bf16, in
+            turns;
+  model     the whole model in f32 with TF32 off on each flagship request's
+            noisy image (the first is 1x512x512x3): kernel path against plain
+            path (blocks as PyTorch ops, the solver's plain versions),
+            max|d| <= 1e-3, and the PSNR of both within 0.01 dB.
 
 The build must take under 60 s and the whole script under 300 s; a run over
 either budget fails.
@@ -63,10 +80,28 @@ F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 DEVICE = "cuda"
 FRAME = 512  # the kernel phase runs at the shapes of a FRAME² request
-REQUESTS = ((512, 512), (480, 320), (256, 384))
-K1_PER_REQUEST, K2_PER_REQUEST = 4, 8
+REQUESTS = ((512, 512), (480, 320), (256, 384), (1024, 1024), (2048, 2048))
+BAND = 1024  # the kernel phase's K5, K6a and K6b rows run at the shapes of a BAND² request
 K3_PER_REQUEST, K4_PER_REQUEST = 3, 32
 K4_PER_SCALE = {1: 12, 2: 12, 3: 8}  # encoder + decoder blocks at scales 1-2, encoder at 3
+KERNEL_NAMES = ("fused_block_stack", "fused_gated_block", "gg_unroll_chw", "edge_weights_chw",
+                "gg_fused_step_chw", "gg_matvec_chw", "gtv_rethresh_chw")
+
+
+def launches(k3, k4, k1, k2, k5):
+    """Launches of one request at cg3 (K6a and K6b are K5's oracles only)."""
+    return dict(zip(KERNEL_NAMES, (k3, k4, k1, k2, k5, 0, 0)))
+
+
+# K1 takes a scale's plane up to 768·1024 pixels (W rounded up to 128, both
+# extents ≤ 1024) in one call; a larger plane takes 5 K5 steps: scale 0 at
+# 1024², scales 0 and 1 at 2048²
+PER_REQUEST = {(512, 512): launches(3, 32, 4, 8, 0), (480, 320): launches(3, 32, 4, 8, 0),
+               (256, 384): launches(3, 32, 4, 8, 0), (1024, 1024): launches(3, 32, 3, 8, 5),
+               (2048, 2048): launches(3, 32, 2, 8, 10)}
+# the smaller members of the family at 512² (lite: C = 24, 48 on K3, 96, 192
+# on K4; micro: C = 16, 32, 64 on K3, 128 on K4)
+SMALL_MODELS = {"lite": launches(5, 10, 4, 8, 0), "micro": launches(7, 2, 4, 8, 0)}
 LOUD = (1, 20, 20, 1)  # per-scale factor on the snapshot's μ, ρ, γ in the K1 rows
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
 
@@ -258,36 +293,29 @@ def phase_build():
     return seconds
 
 
-KERNEL_NAMES = ("fused_block_stack", "fused_gated_block", "gg_unroll_chw", "edge_weights_chw")
-PER_REQUEST = dict(zip(KERNEL_NAMES, (K3_PER_REQUEST, K4_PER_REQUEST, K1_PER_REQUEST,
-                                      K2_PER_REQUEST)))
-
-
 def wrappers():
-    """The four kernel wrappers, by name."""
+    """The kernel wrappers, by name."""
     from irdu_tpu_torch.ops.block_stack import fused_block_stack
     from irdu_tpu_torch.ops.edge_weights import edge_weights_chw
+    from irdu_tpu_torch.ops.fused_step import gg_fused_step_chw, gg_matvec_chw, gtv_rethresh_chw
     from irdu_tpu_torch.ops.gated_block import fused_gated_block
     from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
 
     return dict(zip(KERNEL_NAMES, (fused_block_stack, fused_gated_block, gg_unroll_chw,
-                                   edge_weights_chw)))
+                                   edge_weights_chw, gg_fused_step_chw, gg_matvec_chw,
+                                   gtv_rethresh_chw)))
 
 
-def phase_serving(smoke):
-    from irdu_tpu_torch.predict import denoise, load_model
-
-    model = smoke.model = load_model(device=DEVICE)  # bf16 params and activations on the card
-    images = request_images()
-    for _, noisy in images:  # warm-up: cuDNN plans, allocator
-        denoise(model, noisy)
-    sync()
+def serve(model, requests):
+    """Serve each (clean, noisy, (h, w)) once with every count set to 0 just
+    before and read just after: one row per request, and the counts."""
+    from irdu_tpu_torch.predict import denoise
 
     kern = wrappers()
     for k in kern.values():
         k.launches = 0
     rows = []
-    for (clean, noisy), (h, w) in zip(images, REQUESTS):
+    for clean, noisy, (h, w) in requests:
         before = {n: k.launches for n, k in kern.items()}
         t0 = time.perf_counter()
         out = denoise(model, noisy)  # ends in a device-to-host copy
@@ -298,19 +326,60 @@ def phase_serving(smoke):
             psnr_noisy=psnr(clean, noisy), psnr_denoised=psnr(clean, out),
             launches={n: k.launches - before[n] for n, k in kern.items()},
             finite=bool(np.isfinite(out).all())))
-    smoke.counts = {n: k.launches for n, k in kern.items()}
+    return rows, {n: k.launches for n, k in kern.items()}
+
+
+def check_row(r, want):
+    """A served request: its launches are ``want``, its PSNR rose, every
+    kernel call agreed with its plain version."""
+    require(r["launches"] == want, f"request {r['shape']}: launches {r['launches']}, "
+            f"want {want}")
+    require(r["finite"] and r["psnr_denoised"] > r["psnr_noisy"],
+            f"request {r['shape']}: PSNR {r['psnr_noisy']} -> {r['psnr_denoised']}")
+    require(r["calls_ok"], f"request {r['shape']}: a kernel call disagrees with its "
+            f"plain version, or the calls are not those launched (max|d| "
+            f"{r['max_abs_err']})")
+
+
+def phase_serving(smoke):
+    from irdu_tpu_torch.predict import denoise, load_model
+
+    model = smoke.model = load_model(device=DEVICE)  # bf16 params and activations on the card
+    images = request_images()
+    for _, noisy in images:  # warm-up: cuDNN plans, allocator
+        denoise(model, noisy)
+    sync()
+    rows, smoke.counts = serve(model, [(c, n, hw) for (c, n), hw in zip(images, REQUESTS)])
     for row, (_, noisy) in zip(rows, images):  # after the counts: these launches do not count
-        row.update(checked_request(model, noisy))
+        row.update(checked_request(model, noisy, PER_REQUEST[tuple(row["shape"])]))
     smoke.lines["serving"] = {"serving": rows, "weights": "flagship_cont100k_35000.npz",
                               "dtype": str(next(model.parameters()).dtype)[6:],
                               "blocks_512": blocks_ab(model, images[0][1])}
     for r in rows:
-        require(r["launches"] == PER_REQUEST,
-                f"request {r['shape']}: launches {r['launches']}, want {PER_REQUEST}")
-        require(r["finite"] and r["psnr_denoised"] > r["psnr_noisy"],
-                f"request {r['shape']}: PSNR {r['psnr_noisy']} -> {r['psnr_denoised']}")
-        require(r["calls_ok"], f"request {r['shape']}: a kernel call disagrees with its "
-                f"plain version (max|d| {r['max_abs_err']})")
+        check_row(r, PER_REQUEST[tuple(r["shape"])])
+
+
+def phase_small(smoke):
+    """lite and micro (default snapshots, bf16) on the 512x512 request."""
+    import torch
+
+    from irdu_tpu_torch.predict import DEFAULT_WEIGHTS, denoise, load_model
+
+    clean, noisy = request_images()[0]
+    out = []
+    for name, want in SMALL_MODELS.items():
+        model = load_model(device=DEVICE, name=name)
+        denoise(model, noisy)  # warm-up
+        sync()
+        (row,), _ = serve(model, [(clean, noisy, REQUESTS[0])])
+        row.update(model=name, weights=os.path.basename(DEFAULT_WEIGHTS[name]),
+                   **checked_request(model, noisy, want))
+        out.append(row)
+        del model
+        torch.cuda.empty_cache()
+    smoke.lines["small_models"] = {"small_models": out, "dtype": "bfloat16"}
+    for r in out:
+        check_row(r, SMALL_MODELS[r["model"]])
 
 
 def blocks_ab(model, noisy, rounds=3):
@@ -341,18 +410,21 @@ def blocks_ab(model, noisy, rounds=3):
             "order": "plain, kernels, kernels, plain, x%d" % rounds}
 
 
-def checked_request(model, noisy):
+def checked_request(model, noisy, want):
     """Serve one request with every kernel call held against its plain
-    version on that call's own tensors; the max|d| of each kernel."""
+    version on that call's own tensors (both outputs of a K5 call that emits
+    its update); the max|d| of each kernel, and whether every call agreed and
+    the calls per kernel are ``want``."""
     from irdu_tpu_torch.models import flagship
     from irdu_tpu_torch.ops.block_stack import block_stack_plain
     from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.fused_step import fused_step_plain
     from irdu_tpu_torch.ops.gated_block import gated_block_plain
     from irdu_tpu_torch.ops.solver_unroll import gg_unroll_plain
     from irdu_tpu_torch.predict import denoise
     from irdu_tpu_torch.solvers import gtv_glr
 
-    log = {n: [] for n in KERNEL_NAMES}
+    log = {n: [] for n in KERNEL_NAMES[:5]}  # K6a, K6b: not on the path
     share = {"fused_block_stack": 0.0, "fused_gated_block": 0.0}
     rms = dict(share)
 
@@ -364,9 +436,12 @@ def checked_request(model, noisy):
                 ok, frac, _, ratio = block_bar(out, ref, unrounded(plain, args, kw))
                 share[name] = max(share[name], frac)
                 rms[name] = max(rms[name], ratio)
+                err = max_abs(out, ref)
             else:
-                ok = bar(out, ref)
-            log[name].append((max_abs(out, ref), ok))
+                pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
+                ok = all(bar(o, r) for o, r in pairs)
+                err = max(max_abs(o, r) for o, r in pairs)
+            log[name].append((err, ok))
             return out
         return call
 
@@ -374,7 +449,8 @@ def checked_request(model, noisy):
     sites = ((flagship, "fused_block_stack", block_stack_plain, None),
              (flagship, "fused_gated_block", gated_block_plain, None),
              (gtv_glr, "gg_unroll_chw", gg_unroll_plain, k1_bar),
-             (gtv_glr, "edge_weights_chw", edge_weights_plain, k2_bar))
+             (gtv_glr, "edge_weights_chw", edge_weights_plain, k2_bar),
+             (gtv_glr, "gg_fused_step_chw", fused_step_plain, k1_bar))
     saved = [getattr(mod, name) for mod, name, _, _ in sites]
     for (mod, name, plain, bar), kernel in zip(sites, saved):
         setattr(mod, name, checked(name, kernel, plain, bar))
@@ -383,10 +459,10 @@ def checked_request(model, noisy):
     finally:
         for (mod, name, _, _), kernel in zip(sites, saved):
             setattr(mod, name, kernel)
-    return dict(max_abs_err={n: max(e for e, _ in log[n]) for n in KERNEL_NAMES},
+    return dict(max_abs_err={n: max((e for e, _ in v), default=None) for n, v in log.items()},
                 beyond_one_ulp_share=share, rms_vs_plain=rms,
                 calls_checked=sum(len(v) for v in log.values()),
-                calls_ok=all(len(log[n]) == PER_REQUEST[n] for n in KERNEL_NAMES)
+                calls_ok=all(len(v) == want[n] for n, v in log.items())
                 and all(ok for v in log.values() for _, ok in v))
 
 
@@ -485,17 +561,250 @@ def phase_kernels(smoke):
                 plain_ms=cuda_ms(lambda: gg_unroll_plain(*args, n_graphs=g), 3),
                 **_bound(nbytes, ops))
     smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows,
-                         **block_rows(model, gen, bar_at)}
+                         **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at)}
+    smoke.lines["band_route"] = band_route(model)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
         json.dump(smoke.kernel_rows, fh, indent=1)
     bad = [(k, r) for k, rows in smoke.kernel_rows.items() for r in rows if not r["ok"]]
     require(not bad, f"kernels disagree with their plain versions, or moved their "
             f"input by under {CHANGE_FACTOR}x the bar: {bad}")
+    require(smoke.lines["band_route"]["ok"], f"the band route disagrees with the K1 route: "
+            f"{smoke.lines['band_route']}")
+
+
+def k5_ops_per_pixel(mode, y=False, prev=False):
+    """f32 operations one K5 call needs per full-res pixel of one plane,
+    counted as ``k1_ops_per_pixel`` counts them: rhs 51.75 (ρ₀Q₀x, x + t₀ +
+    Up t₁, the half-res box down, Q₁ and ρ₁ at a quarter); cg: A·x 88, then
+    rhs − A·x and x + α·upd 3, β·prev 2; rethresh: 58 + 1 + 1 +
+    (4 + 58 + 1) / 4 = 75.75, y 1."""
+    if mode == "rhs":
+        return 51.75
+    if mode == "cg":
+        return 91 + 2 * prev
+    return 75.75 + y
+
+
+def k6_ops_per_pixel(kernel, with_glr=False, identity=False, y=False):
+    """K6a: ρQx 39, μ·GLR 27 + 2, x 1; K6b: ρRx 59, y 1."""
+    if kernel == "gg_matvec_chw":
+        return 39 + 29 * with_glr + identity
+    return 59 + y
+
+
+def step_rows(model, gen, bar_at):
+    """K5, K6a and K6b against their plain versions at the BAND² request's
+    scale-0 shape (1, 48, 1024, 1024) with the snapshot's scale-0 parameters,
+    f32 and bf16 (f32 also: the CHANGE_FACTOR rule, and K5 against the
+    K6a/K6b composition), seeded U[0, 1) planes and K2 weights of N(0, 1)
+    features; K5 timed in bf16 at every shape the BAND² and 2·BAND²
+    requests give it (scale 0 at both, scale 1 at 2·BAND²). ``calls``: the
+    calls of one BAND² request (K5), or 1 for the main variant of K6a/K6b."""
+    import torch
+
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.fused_step import (fused_scal, fused_step_plain,
+                                               gg_fused_step_chw, gg_matvec_chw,
+                                               gtv_rethresh_chw, matvec_plain, rethresh_plain)
+
+    rows = {"gg_fused_step_chw": [], "gg_matvec_chw": [], "gtv_rethresh_chw": []}
+    for s, side in ((0, BAND), (0, 2 * BAND), (1, 2 * BAND)):
+        g, m0, m1, tables, _ = _filter_params(model, s)
+        lf = model.local_filters[s].local_filter
+        exp = lambda p: torch.exp(p.float())  # noqa: E731
+        mu0, ro0, mu1, ro1, gam0, gam1 = (exp(p) for p in (
+            lf.muys00, lf.ro00, lf.muys01, lf.ro01, lf.gamma00, lf.gamma01))
+        a, b = lf.alphaCGD.float(), lf.betaCGD.float()
+        c = lf.n_node_fts * g
+        h = w = side >> s
+        checked = (s, side) == (0, BAND)
+        for dtype in ((torch.float32, torch.bfloat16) if checked else (torch.bfloat16,)):
+            x, aux = (torch.rand(1, c, h, w, device=DEVICE, generator=gen).to(dtype)
+                      for _ in range(2))
+            prev = (0.3 * torch.randn(1, c, h, w, device=DEVICE, generator=gen)).to(dtype)
+            ws = []
+            for res, m in ((1, m0), (2, m1)):
+                feats = torch.randn(1, 2 * c, h // res, w // res, device=DEVICE,
+                                    generator=gen).to(dtype)
+                wt = edge_weights_plain(feats, m, 2 * g)
+                ws += [wt[:, :g].contiguous(), wt[:, g:].contiguous()]
+            del feats, wt
+            scal_gtv = fused_scal(g, ro0=ro0, ro1=ro1, gamma0=gam0, gamma1=gam1)
+            cases = (  # name, mode, aux, prev, keywords, scal, calls per BAND² request
+                ("rhs", "rhs", None, None, {}, scal_gtv, 1),
+                ("cg_use_x_rhs", "cg", None, None, dict(use_x_rhs=True),
+                 fused_scal(g, mu0=mu0, ro0=ro0, mu1=mu1, ro1=ro1, alpha=a[0]), 1),
+                ("rethresh_y", "rethresh", aux, None, {}, scal_gtv, 1),
+                ("cg_emit_update", "cg", aux, None, dict(emit_update=True),
+                 fused_scal(g, mu0=mu0, ro0=ro0, mu1=mu1, ro1=ro1, alpha=a[1]), 1),
+                ("cg_prev", "cg", aux, prev, {},
+                 fused_scal(g, mu0=mu0, ro0=ro0, mu1=mu1, ro1=ro1, alpha=a[2], beta=b[2]), 1),
+                ("cg_prev_emit_update", "cg", aux, prev, dict(emit_update=True),
+                 fused_scal(g, mu0=mu0, ro0=ro0, mu1=mu1, ro1=ro1, alpha=a[2], beta=b[2]), 0))
+            for name, mode, aux_, prev_, kw, scal, calls in cases:
+                args = (x, aux_, prev_, *ws, *tables, scal)
+                kw = dict(mode=mode, n_graphs=g, **kw)
+                ker = gg_fused_step_chw(*args, **kw)
+                ref = fused_step_plain(*args, **kw)
+                sync()
+                row = dict(scale=s, request=[side, side], case=name, shape=list(x.shape),
+                           dtype=str(dtype)[6:], params="snapshot")
+                row.update(_agree(ker, ref, aux_ if mode == "rethresh" else x, dtype, bar_at))
+                if dtype == torch.float32:  # K5 against its K6a/K6b composition
+                    main = ker[0] if isinstance(ker, tuple) else ker
+                    comp = k6_composition(args, kw, g)
+                    row["vs_k6"] = max_abs(main, comp)
+                    row["ok"] = row["ok"] and within(main, comp, 5e-4, 1e-3)
+                if dtype == torch.bfloat16:
+                    tensors = [t for t in (x, aux_, prev_) if t is not None] + ws[:1] + ws[2:3]
+                    if mode == "cg":
+                        tensors += ws[1:2] + ws[3:4]
+                    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
+                              + x.numel() * x.element_size() * (1 + bool(kw.get("emit_update"))))
+                    ops = x.numel() * k5_ops_per_pixel(mode, y=aux_ is not None,
+                                                       prev=prev_ is not None)
+                    row.update(calls=calls if checked else 0,
+                               ms=cuda_ms(lambda: gg_fused_step_chw(*args, **kw), 10),
+                               plain_ms=cuda_ms(lambda: fused_step_plain(*args, **kw), 2, 1),
+                               **_bound(nbytes, ops))
+                rows["gg_fused_step_chw"].append(row)
+                del ker, ref
+            if not checked:
+                continue
+            for with_glr, identity in ((True, True), (True, False), (False, True), (False, False)):
+                args = (x, ws[1], ws[0], tables[1], tables[0], mu0, ro0)
+                kw = dict(n_graphs=g, add_identity=identity, with_glr=with_glr)
+                ker, ref = gg_matvec_chw(*args, **kw), matvec_plain(*args, **kw)
+                row = dict(case=f"glr={with_glr}, identity={identity}", shape=list(x.shape),
+                           dtype=str(dtype)[6:], params="snapshot, scale 0")
+                row.update(_agree(ker, ref, x if identity else None, dtype, bar_at))
+                if dtype == torch.bfloat16:
+                    tensors = [x, ws[0]] + ([ws[1]] if with_glr else [])
+                    row.update(calls=int(with_glr and identity),
+                               ms=cuda_ms(lambda: gg_matvec_chw(*args, **kw), 10),
+                               plain_ms=cuda_ms(lambda: matvec_plain(*args, **kw), 2, 1),
+                               **_bound(sum(t.numel() * t.element_size() for t in tensors)
+                                        + x.numel() * x.element_size(), x.numel()
+                                        * k6_ops_per_pixel("gg_matvec_chw", with_glr, identity)))
+                rows["gg_matvec_chw"].append(row)
+            for y in (aux, None):
+                args = (x, y, ws[0], tables[0], gam0, ro0)
+                ker, ref = gtv_rethresh_chw(*args, n_graphs=g), rethresh_plain(*args, n_graphs=g)
+                row = dict(case=f"y={y is not None}", shape=list(x.shape), dtype=str(dtype)[6:],
+                           params="snapshot, scale 0")
+                row.update(_agree(ker, ref, y, dtype, bar_at))
+                if dtype == torch.bfloat16:
+                    tensors = [x, ws[0]] + ([y] if y is not None else [])
+                    row.update(calls=int(y is not None),
+                               ms=cuda_ms(lambda: gtv_rethresh_chw(*args, n_graphs=g), 10),
+                               plain_ms=cuda_ms(lambda: rethresh_plain(*args, n_graphs=g), 2, 1),
+                               **_bound(sum(t.numel() * t.element_size() for t in tensors)
+                                        + x.numel() * x.element_size(), x.numel()
+                                        * k6_ops_per_pixel("gtv_rethresh_chw", y=y is not None)))
+                rows["gtv_rethresh_chw"].append(row)
+            del x, aux, prev, ws
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _agree(ker, ref, base, dtype, bar_at):
+    """Kernel against plain version (both outputs of an emitting K5 call):
+    f32 within 5e-4 + 1e-3·|ref| and moved at least CHANGE_FACTOR times that
+    bar away from ``base`` (the input it adds to, or 0); bf16 K1's bar."""
+    import torch
+
+    pairs = list(zip(ker, ref)) if isinstance(ker, tuple) else [(ker, ref)]
+    out = dict(max_abs_err=max(max_abs(k, r) for k, r in pairs),
+               max_ref=max(float(r.float().abs().max()) for _, r in pairs))
+    ref0 = pairs[0][1]
+    out["bar"] = bar_at(ref0, dtype)
+    out["change"] = float((ref0.float() - (0 if base is None else base.float())).abs().max())
+    if dtype == torch.float32:
+        out["ok"] = (all(within(k, r, 5e-4, 1e-3) for k, r in pairs)
+                     and out["change"] >= CHANGE_FACTOR * out["bar"])
+    else:
+        out["ok"] = all(k1_bar(k, r) for k, r in pairs)
+    return out
+
+
+def k6_composition(args, kw, g):
+    """K5's output from K6a/K6b calls and the box resampling, as the JAX
+    tests compose it (tests/test_solver_chw.py::test_fused_*): the system
+    matvec or re-threshold at each scale, then the step's update."""
+    from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
+    from irdu_tpu_torch.ops.fused_step import gg_matvec_chw, gtv_rethresh_chw
+
+    x, aux, prev, wg0, wl0, wg1, wl1, pg0, pl0, pg1, pl1, scal = args
+    mode = kw["mode"]
+    col = [scal[:, k] for k in range(8)]  # μ₀, ρ₀, μ₁, ρ₁, α, β, γ₀, γ₁
+    xd = box_down2x2(x)
+    if mode == "rethresh":
+        return (gtv_rethresh_chw(x, aux, wg0, pg0, col[6], col[1], n_graphs=g)
+                + box_up2x2(gtv_rethresh_chw(xd, None, wg1, pg1, col[7], col[3], n_graphs=g)))
+    glr = mode == "cg"
+    ax = (gg_matvec_chw(x, wl0, wg0, pl0, pg0, col[0], col[1], n_graphs=g, with_glr=glr)
+          + box_up2x2(gg_matvec_chw(xd, wl1, wg1, pl1, pg1, col[2], col[3], n_graphs=g,
+                                    with_glr=glr, add_identity=False)))
+    if mode == "rhs":
+        return ax
+    per_chan = lambda v: v.repeat_interleave(x.shape[1] // g)[None, :, None, None]  # noqa: E731
+    upd = (x if kw.get("use_x_rhs") else aux) - ax
+    if prev is not None:
+        upd = upd + per_chan(col[5]) * prev
+    return x + per_chan(col[4]) * upd
+
+
+def band_route(model, rounds=3):
+    """The flagship's scale-0 solver on the 512x512 request's scale-0 code
+    through K1 and through the band route (K1's cap set to 0): in f32 on
+    the kernels, within 5e-4 + 1e-3·|ref|; in bf16 (the serving model)
+    timed in turns, K1, band, band, K1 per round, after one untimed call on
+    each route."""
+    import torch
+
+    from irdu_tpu_torch.predict import load_model
+    from irdu_tpu_torch.solvers import gtv_glr
+
+    _, noisy = request_images()[0]
+    img = torch.from_numpy(noisy[None]).to(DEVICE)
+    cap = gtv_glr._MEGA_MAX_PIXELS
+    out = {}
+    try:
+        model32 = load_model(device=DEVICE, dtype=torch.float32)
+        lf32 = model32.local_filters[0].local_filter
+        with torch.inference_mode():
+            code = model32.encode(img)[0]
+            via_k1 = lf32(code)
+            gtv_glr._MEGA_MAX_PIXELS = 0
+            via_band = lf32(code)
+        sync()
+        out.update(shape=list(code.shape), f32_max_abs_err=max_abs(via_band, via_k1),
+                   f32_change=max_abs(via_k1, code),
+                   ok=within(via_band, via_k1, 5e-4, 1e-3))
+        del model32, lf32, via_k1, via_band
+        lf = model.local_filters[0].local_filter
+        with torch.inference_mode():
+            code = model.encode(img.to(next(model.parameters()).dtype))[0]
+            times = {"k1": [], "band": []}
+            for route in ("k1", "band"):
+                gtv_glr._MEGA_MAX_PIXELS = 0 if route == "band" else cap
+                lf(code)
+            for _ in range(rounds):
+                for route in ("k1", "band", "band", "k1"):
+                    gtv_glr._MEGA_MAX_PIXELS = 0 if route == "band" else cap
+                    times[route].append(round(cuda_ms(lambda: lf(code), 1, 0), 4))
+        out.update(bf16_k1_ms=times["k1"], bf16_band_ms=times["band"],
+                   median_k1_ms=float(np.median(times["k1"])),
+                   median_band_ms=float(np.median(times["band"])),
+                   order="k1, band, band, k1, x%d" % rounds)
+    finally:
+        gtv_glr._MEGA_MAX_PIXELS = cap
+    return out
 
 
 def block_rows(model, gen, bar_at):
     """K3 and K4 against their plain versions at every block shape of the
-    three requests, f32 and bf16, with the snapshot's block parameters (K3:
+    flagship requests, f32 and bf16, with the snapshot's block parameters (K3:
     the four scale-0 encoder blocks; K4: the first encoder block of each
     scale) on seeded N(0, 1) inputs; times at the 512x512 shapes in bf16."""
     import torch
@@ -560,8 +869,10 @@ def _bound(nbytes, ops, tensor_ops=0):
 
 def kernels_line(smoke):
     """The per-kernel summary: ms, plain_ms and bound_ms are summed over the
-    calls one 512x512 request makes (bf16; a timed row counts ``calls``
-    times); max_abs_err is the f32 maximum."""
+    calls one request makes (bf16; a timed row counts ``calls`` times): a
+    512x512 request for K1-K4, a 1024x1024 one for K5 (a 512x512 request
+    launches none), one call for K6a and K6b (K5's oracles, on no request's
+    path); max_abs_err is the f32 maximum."""
     meta = {
         "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack.cu",
                               "irdu_tpu/ops/pallas/block_stack.py:214"),
@@ -571,11 +882,20 @@ def kernels_line(smoke):
                           "irdu_tpu/ops/pallas/solver_unroll.py:242"),
         "edge_weights_chw": ("irdu_tpu_torch/kernels/csrc/edge_weights.cu",
                              "irdu_tpu/ops/pallas/solver_chw.py:848"),
+        "gg_fused_step_chw": ("irdu_tpu_torch/kernels/csrc/fused_step.cu",
+                              "irdu_tpu/ops/pallas/solver_chw.py:511"),
+        "gg_matvec_chw": ("irdu_tpu_torch/kernels/csrc/fused_step.cu",
+                          "irdu_tpu/ops/pallas/solver_chw.py:735"),
+        "gtv_rethresh_chw": ("irdu_tpu_torch/kernels/csrc/fused_step.cu",
+                             "irdu_tpu/ops/pallas/solver_chw.py:799"),
     }
+    basis = {"gg_fused_step_chw": f"{BAND}x{BAND} request", "gg_matvec_chw": "one call",
+             "gtv_rethresh_chw": "one call"}
     out = []
     for name, (source, replaces) in meta.items():
         rows = getattr(smoke, "kernel_rows", {}).get(name, [])
         timed = [r for r in rows if "ms" in r]
+        summed = [r for r in timed if r.get("calls", 1)]
         f32 = [r["max_abs_err"] for r in rows if r["dtype"] == "float32"]
         bf16 = [r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"]
         out.append(dict(
@@ -583,10 +903,11 @@ def kernels_line(smoke):
             launches=smoke.counts.get(name, 0),
             max_abs_err=max(f32) if f32 else None,
             max_abs_err_bf16=max(bf16) if bf16 else None,
-            ms=sum(r["ms"] * r.get("calls", 1) for r in timed) if timed else None,
-            plain_ms=sum(r["plain_ms"] * r.get("calls", 1) for r in timed) if timed else None,
-            bound_ms=sum(r["bound_ms"] * r.get("calls", 1) for r in timed) if timed else None,
-            bound_by=max(timed, key=lambda r: r["bound_ms"])["bound_by"] if timed else None,
+            per=basis.get(name, f"{FRAME}x{FRAME} request"),
+            ms=sum(r["ms"] * r.get("calls", 1) for r in summed) if summed else None,
+            plain_ms=sum(r["plain_ms"] * r.get("calls", 1) for r in summed) if summed else None,
+            bound_ms=sum(r["bound_ms"] * r.get("calls", 1) for r in summed) if summed else None,
+            bound_by=max(summed, key=lambda r: r["bound_ms"])["bound_by"] if summed else None,
             library_ms=None,
             library_note=("no single PyTorch call computes a block" if "block" in name
                           else "no single PyTorch call computes this function"),
@@ -679,10 +1000,11 @@ def main() -> int:
     build_s = smoke.run("build", phase_build)
     if not smoke.failed:
         smoke.run("serving", phase_serving, smoke)
+        smoke.run("small", phase_small, smoke)
         smoke.run("kernels", phase_kernels, smoke)
         smoke.run("model", phase_model, smoke)
     print(json.dumps(kernels_line(smoke)), flush=True)
-    for key in ("serving", "model"):
+    for key in ("serving", "small_models", "band_route", "model"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:

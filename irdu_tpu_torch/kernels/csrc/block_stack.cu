@@ -6,14 +6,18 @@
 //
 // One CTA per output tile. Shared memory holds, for the tile plus a K-pixel
 // halo clipped to the image (the "region", nr pixels, padded to nrp, a
-// multiple of 16; the f32 rows have stride ldx >= nrp):
-//   X   f32 (C, nrp)        the activation, carried in f32 across the K blocks
-//   Y1  f32 (2hc, nrp)      one hidden chunk of the expand: hc m- and hc u-rows
-//   Dk  f32 (9, 2hc)        the chunk's depthwise taps
-//   Y0  T   (nrp, C + pad)  the normalized input, channels contiguous
-//   Y3  T   (nrp, hc + pad) the gate output of the chunk
-//   W1c T   (2hc, C + pad)  the chunk's expand weights
-//   W2c T   (C, hc + pad)   the chunk's project weights
+// multiple of 16; the f32 rows have stride ldx >= nrp), with the channels
+// padded to Cp, C rounded up to 16 (the products' depth and row tiles):
+//   X   f32 (Cp, nrp)        the activation, carried in f32 across the K blocks
+//   Y1  f32 (2hc, nrp)       one hidden chunk of the expand: hc m- and hc u-rows
+//   Dk  f32 (9, 2hc)         the chunk's depthwise taps
+//   Y0  T   (nrp, Cp + pad)  the normalized input, channels contiguous
+//   Y3  T   (nrp, hc + pad)  the gate output of the chunk
+//   W1c T   (2hc, Cp + pad)  the chunk's expand weights
+//   W2c T   (Cp, hc + pad)   the chunk's project weights
+// The padded channels (C = 24 of the lite model, C ≡ 8 mod 16) are zero in
+// X, Y0, W1c and W2c, so they add nothing to either product; the norm runs
+// over the true C and the tile writes only the true C back.
 // With T = bf16 the two 1x1 products are mma.sync m16n8k16 (bf16 in, f32
 // accumulate): A the weights (rows x channels), B the activations (pixels x
 // channels, the mma's column-major B), so both operands load as 32-bit pairs;
@@ -51,7 +55,9 @@ __host__ __device__ inline size_t seg(size_t n) { return (n + 15) / 16 * 16; }
 // so that the 8-byte stores of an mma result hit no bank twice per phase.
 __host__ __device__ inline int ldx_of(int nrp) { return nrp + ((8 - nrp % 32) + 32) % 32; }
 
-// Must match irdu_tpu_torch/ops/gated_block.py:smem_bytes.
+__host__ __device__ inline int cpad_of(int C) { return (C + 15) / 16 * 16; }
+
+// Must match irdu_tpu_torch/ops/gated_block.py:smem_bytes (C there is Cp here).
 template <typename T>
 inline size_t smem_bytes(int C, int hc, int nrp) {
   const size_t e = sizeof(T), pad = pad_of<T>();
@@ -69,7 +75,7 @@ struct Args {
   const void* dwk;    // (K, 9, 2H) by strides
   const void* w2;     // (K, H, C) by strides
   const void* skip;   // (K, 2)
-  int C, H, W, K, nh, th, tw, hc, nrp;
+  int C, H, W, K, nh, th, tw, hc, nrp, Cp;  // Cp: C padded to 16
   long long w1_sk, w1_sc, w1_sh, dw_sk, dw_st, dw_sh, w2_sk, w2_sh, w2_sc;
 };
 
@@ -155,11 +161,12 @@ __device__ __forceinline__ int hidden_of(int r, int j0, int hc, int nh) {
   return r < hc ? j0 + r : nh + j0 + r - hc;
 }
 
-// W1c (2hc, C): the chunk's expand weights. In bf16 asynchronous 16-byte
-// copies (the host guarantees unit stride along C); in f32 plain copies.
+// W1c (2hc, C): the chunk's expand weights (columns C..Cp stay zero). In bf16
+// asynchronous 16-byte copies (the host guarantees unit stride along C); in
+// f32 plain copies.
 template <typename T>
 __device__ __forceinline__ void copy_w1(const Args& a, int k, int j0, T* W1c) {
-  const int C = a.C, hc = a.hc, ldc = C + pad_of<T>();
+  const int C = a.C, hc = a.hc, ldc = a.Cp + pad_of<T>();
   const T* w1 = static_cast<const T*>(a.w1) + k * a.w1_sk;
   if constexpr (std::is_same<T, float>::value) {
     for (int idx = threadIdx.x; idx < 2 * hc * C; idx += kThreads) {
@@ -176,7 +183,8 @@ __device__ __forceinline__ void copy_w1(const Args& a, int k, int j0, T* W1c) {
   }
 }
 
-// W2c (C, hc): the chunk's project weights (bf16: unit stride along H).
+// W2c (C, hc): the chunk's project weights (bf16: unit stride along H; rows
+// C..Cp stay zero).
 template <typename T>
 __device__ __forceinline__ void copy_w2(const Args& a, int k, int j0, T* W2c) {
   const int C = a.C, hc = a.hc, ldh = hc + pad_of<T>();
@@ -232,11 +240,11 @@ template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int pad = pad_of<T>();
-  const int C = a.C, hc = a.hc, nrp = a.nrp, ldx = ldx_of(nrp);
-  const int ldc = C + pad, ldh = hc + pad;
+  const int C = a.C, Cp = a.Cp, hc = a.hc, nrp = a.nrp, ldx = ldx_of(nrp);
+  const int ldc = Cp + pad, ldh = hc + pad;
   unsigned char* s = smem;
   float* X = reinterpret_cast<float*>(s);
-  s += seg(4ull * C * ldx);
+  s += seg(4ull * Cp * ldx);
   float* Y1 = reinterpret_cast<float*>(s);
   s += seg(4ull * 2 * hc * ldx);
   float* Dk = reinterpret_cast<float*>(s);
@@ -267,10 +275,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
   const P* skip = static_cast<const P*>(a.skip);
 
   const float inv_nrp = 1.f / nrp, inv_rw = 1.f / rw;
-  for (int idx = threadIdx.x; idx < C * nrp; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < Cp * nrp; idx += kThreads) {
     const int c = div_small(idx, inv_nrp), p = idx - c * nrp;
     float v = 0.f;
-    if (p < nr) {
+    if (p < nr && c < C) {
       const int i = div_small(p, inv_rw), j = p - i * rw;
       v = ld(x[c * plane + (size_t)(r0 + i) * a.W + c0 + j]);
     }
@@ -278,6 +286,18 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
   }
   for (int idx = threadIdx.x; idx < nrp * ldh; idx += kThreads) st(Y3 + idx, 0.f);
   for (int idx = nr * ldc + threadIdx.x; idx < nrp * ldc; idx += kThreads) st(Y0 + idx, 0.f);
+  if (Cp > C) {  // the padded channels: Y0's and W1c's columns, W2c's rows
+    const int cz = Cp - C;
+    for (int idx = threadIdx.x; idx < nr * cz; idx += kThreads) {
+      const int p = idx / cz;
+      st(Y0 + p * ldc + C + idx - p * cz, 0.f);
+    }
+    for (int idx = threadIdx.x; idx < 2 * hc * cz; idx += kThreads) {
+      const int r = idx / cz;
+      st(W1c + r * ldc + C + idx - r * cz, 0.f);
+    }
+    for (int idx = threadIdx.x; idx < cz * ldh; idx += kThreads) st(W2c + C * ldh + idx, 0.f);
+  }
   float dk[2];
   copy_w1<T>(a, 0, 0, W1c);
   load_dk<P>(a, 0, 0, dk);
@@ -317,7 +337,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
       copy_w2<T>(a, k, j0, W2c);
       store_dk(Dk, hc, dk);
       // expand over the rows this block reads: Y1[r][p] = sum_c W1c[r][c] Y0[p][c]
-      gemm(W1c, ldc, Y0, ldc, 2 * hc, in_lo & ~15, min((in_hi + 15) & ~15, nrp), C,
+      gemm(W1c, ldc, Y0, ldc, 2 * hc, in_lo & ~15, min((in_hi + 15) & ~15, nrp), Cp,
            [&](int m, int n, float v0, float v1) {
              *reinterpret_cast<float2*>(Y1 + m * ldx + n) = make_float2(v0, v1);
            });
@@ -376,7 +396,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
       cp_async_wait_all();
       __syncthreads();  // Y3 and W2c are ready, the next W1c has landed
       // project over the rows this block writes: X[c][p] += s1 * sum_i W2c[c][i] Y3[p][i]
-      gemm(W2c, ldh, Y3, ldh, C, out_lo & ~15, min((out_hi + 15) & ~15, nrp), hc,
+      gemm(W2c, ldh, Y3, ldh, Cp, out_lo & ~15, min((out_hi + 15) & ~15, nrp), hc,
            [&](int m, int n, float v0, float v1) {
              float2* px = reinterpret_cast<float2*>(X + m * ldx + n);
              float2 o = *px;
@@ -400,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
 
 template <typename T, typename P>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(a.C, a.hc, a.nrp);
+  const size_t smem = smem_bytes<T>(a.Cp, a.hc, a.nrp);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = block_kernel<T, P>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -432,12 +452,13 @@ extern "C" int irdu_block_stack(const void* x, void* out, const void* scale,
                       w2_sc % 8 == 0 && w2_sk % 8 == 0 &&
                       reinterpret_cast<uintptr_t>(w1) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(w2) % 16 == 0;
-  if (K < 1 || C % 2 || hc < 4 || hc % 4 || 18 * hc > 2 * irdu::blocks::kThreads ||
+  if (K < 1 || C < 2 || C % 2 || hc < 4 || hc % 4 || 18 * hc > 2 * irdu::blocks::kThreads ||
       nh % hc || th < 1 || tw < 1 ||
-      (dtype == kBFloat16 && (C % 16 || hc % 16 || !vec_ok)))
+      (dtype == kBFloat16 && (C % 8 || hc % 16 || !vec_ok)))
     return static_cast<int>(cudaErrorInvalidValue);
   irdu::blocks::Args a{x, out, scale, w1, dwk, w2, skip, C, H, W, K, nh, th, tw, hc, 0,
-                       w1_sk, w1_sc, w1_sh, dw_sk, dw_st, dw_sh, w2_sk, w2_sh, w2_sc};
+                       irdu::blocks::cpad_of(C), w1_sk, w1_sc, w1_sh, dw_sk, dw_st, dw_sh,
+                       w2_sk, w2_sh, w2_sc};
   a.nrp = (std::min(th + 2 * K, H) * std::min(tw + 2 * K, W) + 15) / 16 * 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32 && pdtype == kFloat32) return irdu::blocks::launch<float, float>(a, B, s);

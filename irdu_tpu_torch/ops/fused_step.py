@@ -1,0 +1,324 @@
+"""K5, K6a, K6b: one unroll step of the flagship's GGTV+GGLR solver, and its
+single-scale pieces, CHW. The band route of ``solvers/gtv_glr.py`` (planes
+too large for K1) is five K5 calls per filtering block.
+
+Replaces the TPU kernels of ``irdu_tpu/ops/pallas/solver_chw.py``:
+
+  K5  ``gg_fused_step_chw`` (body ``_fused_kernel``): one two-scale step,
+      in one of three modes over x (B, C, H, W), C = G·F:
+        rhs:       out = x + ρ₀·Q₀x + Up(ρ₁·Q₁·Dn x)
+        cg:        upd = rhs − A·x [+ β·prev];  out = x + α·upd
+                   A·x = x + μ₀GLR₀x + ρ₀Q₀x + Up((μ₁GLR₁ + ρ₁Q₁)·Dn x)
+                   (``use_x_rhs``: x is the rhs; ``emit_update``: upd too)
+        rethresh:  out = [y +] ρ₀·R₀x + Up(ρ₁·R₁·Dn x)
+  K6a ``gg_matvec_chw`` (``_matvec_kernel``): [x +] μ·GLR(x) + ρ·Q(x), one scale.
+  K6b ``gtv_rethresh_chw`` (``_rethresh_kernel``): [y +] ρ·R(x), one scale.
+
+Q = CᵀC is the GTV quadratic term, R = Cᵀ(2·S_γ(C·) − C·) the ADMM
+re-threshold, GLR = statsᵀ(I − W·shift)stats; Dn is the 2×2 box mean and Up
+its adjoint (duplicate and scale by 0.25). Per-graph scalars come in K5's
+(G, 8) table [μ₀, ρ₀, μ₁, ρ₁, α, β, γ₀, γ₁] (``fused_scal``); K6a and K6b
+build theirs from (G,) vectors. Compute is f32; each call's outputs are
+rounded to x's dtype, as the TPU route rounds between its calls.
+
+On the card (``kernels/csrc/fused_step.cu``): one kernel for all three. A
+CTA takes a 32×64 full-res tile of one (b, g, f) plane and a 4-pixel halo
+(stats, C shift, Cᵀ shift, statsᵀ: one pixel each), and for the half-res
+scale the 16×32 half tile with its own 4-pixel halo, box-averaged from x as
+it loads. Every stage plane (x, the stencil outputs, the edge sums) lives in
+shared memory. Tiles start on even pixels, so a half tile is whole 2×2
+boxes. Per full-res pixel a cg step moves 5 planes of x's dtype plus the
+per-graph weights and does ~93 f32 operations, so it is bound by bytes.
+
+Boundaries: a shift of a derived array (the stencil output, ε) replicates
+that array's own edge, which a read clamped to the tile's region gives at
+an image edge (the region stops at the image); the Cᵀ scatter and statsᵀ
+read zeros outside the image, tested against global indices. Inside the
+image a read past the region is wrong, and the error moves one pixel
+inward per stage, so after the four stages it has not reached the tile.
+
+What the kernel takes: the flagship's cross-4 window with the "edge"
+stats pad, the stats tables given, K5 two-scale and K6a/K6b single-scale.
+The plain versions also take tables set to None and single-scale K5; the
+pixel family's diamond-12 window and reflect pad are not ported
+(``NotImplementedError``), and the keyword arguments stay for it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
+from irdu_tpu_torch.ops import graph
+from irdu_tpu_torch.ops.windows import CROSS4
+
+MODES = ("rhs", "cg", "rethresh")
+# the kernel's epilogues (fused_step.cu)
+_EPI_ADD_X, _EPI_ADD_AUX, _EPI_CG = 0, 1, 2
+
+
+def fused_scal(n_graphs, mu0=None, ro0=None, mu1=None, ro1=None,
+               alpha=None, beta=None, gamma0=None, gamma1=None):
+    """The (G, 8) f32 table [μ₀, ρ₀, μ₁, ρ₁, α, β, γ₀, γ₁] of K5; entries
+    left None are zero."""
+    vals = (mu0, ro0, mu1, ro1, alpha, beta, gamma0, gamma1)
+    given = [torch.as_tensor(v) for v in vals if v is not None]
+    dev = given[0].device if given else None
+    cols = [torch.zeros(n_graphs, device=dev) if v is None
+            else torch.as_tensor(v, device=dev).float().reshape(n_graphs) for v in vals]
+    return torch.stack(cols, dim=1).contiguous()
+
+
+def _weights(wt):  # (B, G, 4, h, w) → 4 × (B, G, 1, h, w) f32
+    wt = wt.float()
+    return [wt[:, :, e:e + 1] for e in range(4)]
+
+
+def _stats(tab):  # (G, 4, F) → 4 × (G, F, 1, 1) f32, or None (no stencil)
+    if tab is None:
+        return None
+    tab = tab.float()
+    return [tab[:, k, :, None, None] for k in range(4)]
+
+
+def _per_graph(v, g, device):  # (G,) → (G, 1, 1, 1) f32
+    return torch.as_tensor(v, device=device).float().reshape(g, 1, 1, 1)
+
+
+def _scale_term(x, w_gtv, w_glr, pgtv, pglr, ro, mu, gamma, rethresh, with_glr):
+    """ρ·R(x), or ρ·Q(x) [+ μ·GLR(x)], on one scale."""
+    wg, pg = _weights(w_gtv), _stats(pgtv)
+    if rethresh:
+        return ro * graph.gtv_rethresh_apply(x, wg, pg, gamma)
+    t = ro * graph.gtv_apply(x, wg, pg)
+    if with_glr:
+        t = t + mu * graph.glr_apply(x, _weights(w_glr), _stats(pglr))
+    return t
+
+
+def fused_step_plain(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
+                     pgtv1, pglr1, scal, *, mode, n_graphs, deltas=CROSS4,
+                     stats_mode="edge", with_glr=True, use_x_rhs=False,
+                     emit_update=False):
+    """K5 in plain PyTorch (arguments as ``gg_fused_step_chw``)."""
+    _check_window(deltas, stats_mode)
+    b, c, h, w = x.shape
+    g = n_graphs
+    shape5 = (b, g, c // g, h, w)
+    xv = x.float().reshape(shape5)
+
+    mu0, ro0, mu1, ro1, alpha, beta, gam0, gam1 = (
+        _per_graph(scal[:, k], g, x.device) for k in range(8))
+    rethresh, glr = mode == "rethresh", mode == "cg" and with_glr
+    t = _scale_term(xv, w_gtv0, w_glr0, pgtv0, pglr0, ro0, mu0, gam0, rethresh, glr)
+    if w_gtv1 is not None:
+        t = t + box_up2x2(_scale_term(box_down2x2(xv), w_gtv1, w_glr1, pgtv1, pglr1,
+                                      ro1, mu1, gam1, rethresh, glr))
+
+    def out_of(v):
+        return v.reshape(b, c, h, w).to(x.dtype)
+
+    if mode == "rhs":
+        return out_of(xv + t)
+    if mode == "rethresh":
+        return out_of(t if aux is None else t + aux.float().reshape(shape5))
+    rhs = xv if use_x_rhs else aux.float().reshape(shape5)
+    upd = rhs - (xv + t)
+    if prev is not None:
+        upd = upd + beta * prev.float().reshape(shape5)
+    out = out_of(xv + alpha * upd)
+    return (out, out_of(upd)) if emit_update else out
+
+
+def matvec_plain(x, w_glr, w_gtv, pglr, pgtv, mu, ro, *, n_graphs, deltas=CROSS4,
+                 stats_mode="edge", add_identity=True, with_glr=True):
+    """K6a in plain PyTorch (arguments as ``gg_matvec_chw``)."""
+    _check_window(deltas, stats_mode)
+    b, c, h, w = x.shape
+    g = n_graphs
+    xv = x.float().reshape(b, g, c // g, h, w)
+    t = _scale_term(xv, w_gtv, w_glr, pgtv, pglr, _per_graph(ro, g, x.device),
+                    _per_graph(mu, g, x.device), None, False, with_glr)
+    return (xv + t if add_identity else t).reshape(b, c, h, w).to(x.dtype)
+
+
+def rethresh_plain(x, y, w_gtv, pgtv, gamma, ro, *, n_graphs, deltas=CROSS4,
+                   stats_mode="edge"):
+    """K6b in plain PyTorch (arguments as ``gtv_rethresh_chw``)."""
+    _check_window(deltas, stats_mode)
+    b, c, h, w = x.shape
+    g = n_graphs
+    xv = x.float().reshape(b, g, c // g, h, w)
+    t = _scale_term(xv, w_gtv, None, pgtv, None, _per_graph(ro, g, x.device), None,
+                    _per_graph(gamma, g, x.device), True, False)
+    if y is not None:
+        t = t + y.float().reshape(xv.shape)
+    return t.reshape(b, c, h, w).to(x.dtype)
+
+
+def _check_window(deltas, stats_mode):
+    if tuple(deltas) != CROSS4:
+        raise NotImplementedError(f"window {deltas}: only the flagship's cross-4 "
+                                  "window is ported (diamond-12 belongs to the pixel family)")
+    if stats_mode != "edge":
+        raise NotImplementedError(f"stats_mode={stats_mode!r}: only the flagship's 'edge' "
+                                  "stencil pad is ported (reflect belongs to the pixel family)")
+
+
+def _check_planes(name, x, operands, n_graphs, two_scale):
+    """The shapes of x and of the (kind, argument name, tensor) operands, a
+    None tensor skipped: kind "plane" is x's shape, "w0" and "w1" full- and
+    half-res edge weights, "table" a stats table, "scal" K5's scalars."""
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be (B, C, H, W), got {tuple(x.shape)}")
+    b, c, h, w = x.shape
+    if c % n_graphs:
+        raise ValueError(f"{name}: C={c} must split into {n_graphs} graphs")
+    if two_scale and (h % 2 or w % 2):
+        raise ValueError(f"{name}: H and W must be even for the two-scale step, got {h}x{w}")
+    g = n_graphs
+    shapes = {"plane": (b, c, h, w), "w0": (b, g, 4, h, w), "w1": (b, g, 4, h // 2, w // 2),
+              "table": (g, 4, c // g), "scal": (g, 8)}
+    for kind, arg, t in operands:
+        if t is not None and tuple(t.shape) != shapes[kind]:
+            raise ValueError(f"{name}: {arg} must be {shapes[kind]}, got {tuple(t.shape)}")
+
+
+def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
+            n_graphs, rethresh, glr, epi, use_x_rhs=False, emit_update=False):
+    """Run the kernel of ``fused_step.cu`` on the card; returns out or
+    (out, upd)."""
+    two_scale = w_gtv1 is not None
+    used = [k for k in range(4) if (k % 2 == 0 or glr) and (k < 2 or two_scale)]
+    if any(tables[k] is None for k in used):  # tables: GTV, GLR at full res, then half
+        raise NotImplementedError(f"{name}: stats tables are required on the card "
+                                  "(the no-stats ablation is not ported)")
+    planes = [t for t in (x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1) if t is not None]
+    if any(t.device != x.device or t.dtype != x.dtype or not t.is_contiguous()
+           for t in planes) or x.device.type != "cuda":
+        raise ValueError(f"{name} needs x, its other planes and the weights contiguous, "
+                         "on one CUDA device, of one dtype")
+    b, c, h, w = x.shape
+    if b * c > 65535:
+        raise ValueError(f"{name}: B·C = {b * c} planes exceed the grid's 65535")
+    dev = x.device
+    tabs = [None if t is None else t.to(device=dev, dtype=torch.float32).contiguous()
+            for t in tables]
+    sc = scal.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty_like(x)
+    upd = torch.empty_like(x) if emit_update else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    status = kernel_library().irdu_fused_step(
+        ptr(x), ptr(aux), ptr(prev), ptr(w_gtv0), ptr(w_glr0), ptr(w_gtv1), ptr(w_glr1),
+        *(ptr(t) for t in tabs), ptr(sc), ptr(out), ptr(upd), b, n_graphs, c // n_graphs,
+        h, w, int(rethresh), int(glr), epi, int(use_x_rhs), dtype_code(x.dtype),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_status(name, status)
+    return (out, upd) if emit_update else out
+
+
+def gg_fused_step_chw(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
+                      pgtv1, pglr1, scal, *, mode, n_graphs, deltas=CROSS4,
+                      stats_mode="edge", with_glr=True, use_x_rhs=False,
+                      emit_update=False):
+    """One fused unroll step (the mode table above). x (B, C, H, W), C = G·F;
+    aux: the rhs ("cg", unless ``use_x_rhs``) or y ("rethresh", optional),
+    else unused; prev: the previous CG update (β momentum, "cg") or None;
+    w_*0 (B, G, 4, H, W) and w_*1 (B, G, 4, H/2, W/2) edge weights, w_*1
+    None for a single-scale step; p* (G, 4, F) stats tables or None; scal
+    (G, 8) from ``fused_scal``. Returns out, or (out, upd) with
+    ``emit_update`` ("cg" only), in x's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (two-scale, tables given, x, aux, prev and the weights contiguous, of one
+    dtype: f32 or bf16) or raises."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if emit_update and mode != "cg":
+        raise ValueError("emit_update is for mode 'cg' only")
+    if mode == "cg" and not use_x_rhs and aux is None:
+        raise ValueError("mode 'cg' needs aux (the rhs) unless use_x_rhs")
+    _check_window(deltas, stats_mode)
+    glr = mode == "cg" and with_glr
+    two_scale = w_gtv1 is not None
+    _check_planes("gg_fused_step_chw", x, [
+        ("plane", "aux", aux if mode != "rhs" else None),
+        ("plane", "prev", prev if mode == "cg" else None),
+        ("w0", "w_gtv0", w_gtv0), ("w0", "w_glr0", w_glr0 if glr else None),
+        ("w1", "w_gtv1", w_gtv1), ("w1", "w_glr1", w_glr1 if glr and two_scale else None),
+        ("table", "pgtv0", pgtv0), ("table", "pglr0", pglr0),
+        ("table", "pgtv1", pgtv1), ("table", "pglr1", pglr1), ("scal", "scal", scal)],
+        n_graphs, two_scale)
+    kw = dict(mode=mode, n_graphs=n_graphs, with_glr=with_glr, use_x_rhs=use_x_rhs,
+              emit_update=emit_update)
+    if x.device.type == "cpu":
+        return fused_step_plain(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0,
+                                pglr0, pgtv1, pglr1, scal, **kw)
+    if not two_scale:
+        raise NotImplementedError("gg_fused_step_chw: the single-scale step (the pixel "
+                                  "family's) is not ported to the card")
+    epi = {"rhs": _EPI_ADD_X, "rethresh": _EPI_ADD_AUX, "cg": _EPI_CG}[mode]
+    out = _launch("gg_fused_step_chw", x, aux if mode != "rhs" else None,
+                  prev if mode == "cg" else None, w_gtv0, w_glr0 if glr else None,
+                  w_gtv1, w_glr1 if glr else None, (pgtv0, pglr0, pgtv1, pglr1), scal,
+                  n_graphs=n_graphs, rethresh=mode == "rethresh", glr=glr, epi=epi,
+                  use_x_rhs=use_x_rhs, emit_update=emit_update)
+    gg_fused_step_chw.launches += 1
+    return out
+
+
+gg_fused_step_chw.launches = 0
+
+
+def gg_matvec_chw(x, w_glr, w_gtv, pglr, pgtv, mu, ro, *, n_graphs, deltas=CROSS4,
+                  stats_mode="edge", add_identity=True, with_glr=True):
+    """[x +] μ⊙GLR(x) + ρ⊙Q(x) on one scale. x (B, C, H, W); w_glr, w_gtv
+    (B, G, 4, H, W), w_glr unused without ``with_glr``; pglr, pgtv (G, 4, F)
+    or None; mu, ro (G,). Returns x's shape and dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (tables given) or raises."""
+    _check_window(deltas, stats_mode)
+    _check_planes("gg_matvec_chw", x, [
+        ("w0", "w_glr", w_glr if with_glr else None), ("w0", "w_gtv", w_gtv),
+        ("table", "pglr", pglr), ("table", "pgtv", pgtv)], n_graphs, False)
+    if x.device.type == "cpu":
+        return matvec_plain(x, w_glr, w_gtv, pglr, pgtv, mu, ro, n_graphs=n_graphs,
+                            add_identity=add_identity, with_glr=with_glr)
+    scal = fused_scal(n_graphs, mu0=mu if with_glr else None, ro0=ro)
+    out = _launch("gg_matvec_chw", x, None, None, w_gtv, w_glr if with_glr else None,
+                  None, None, (pgtv, pglr, None, None), scal, n_graphs=n_graphs,
+                  rethresh=False, glr=with_glr,
+                  epi=_EPI_ADD_X if add_identity else _EPI_ADD_AUX)
+    gg_matvec_chw.launches += 1
+    return out
+
+
+gg_matvec_chw.launches = 0
+
+
+def gtv_rethresh_chw(x, y, w_gtv, pgtv, gamma, ro, *, n_graphs, deltas=CROSS4,
+                     stats_mode="edge"):
+    """[y +] ρ⊙Cᵀ(2·S_γ(Cx) − Cx) on one scale. x, y (B, C, H, W), y may be
+    None; w_gtv (B, G, 4, H, W); pgtv (G, 4, F) or None; gamma, ro (G,).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (table given) or raises."""
+    _check_window(deltas, stats_mode)
+    _check_planes("gtv_rethresh_chw", x, [
+        ("plane", "y", y), ("w0", "w_gtv", w_gtv), ("table", "pgtv", pgtv)], n_graphs, False)
+    if x.device.type == "cpu":
+        return rethresh_plain(x, y, w_gtv, pgtv, gamma, ro, n_graphs=n_graphs)
+    scal = fused_scal(n_graphs, ro0=ro, gamma0=gamma)
+    out = _launch("gtv_rethresh_chw", x, y, None, w_gtv, None, None, None,
+                  (pgtv, None, None, None), scal, n_graphs=n_graphs, rethresh=True,
+                  glr=False, epi=_EPI_ADD_AUX)
+    gtv_rethresh_chw.launches += 1
+    return out
+
+
+gtv_rethresh_chw.launches = 0

@@ -80,12 +80,13 @@ def gated_block_plain(x, scale, w1, dwk, w2, skip):
 
 
 def smem_bytes(c: int, hc: int, nrp: int, esize: int) -> int:
-    """Shared memory of one CTA, as the kernel lays it out: in f32 the
-    activation (C, ldx), the expand chunk (2hc, ldx) and its taps (9, 2hc),
-    with ldx the region's nrp pixels padded to 8 mod 32; then in the working
-    type y0 (nrp, C + pad), y3 (nrp, hc + pad), the expand weights
-    (2hc, C + pad) and the project weights (C, hc + pad); each part 16-byte
-    aligned."""
+    """Shared memory of one CTA, as the kernel lays it out, with the channels
+    padded to Cp, C rounded up to 16: in f32 the activation (Cp, ldx), the
+    expand chunk (2hc, ldx) and its taps (9, 2hc), with ldx the region's nrp
+    pixels padded to 8 mod 32; then in the working type y0 (nrp, Cp + pad),
+    y3 (nrp, hc + pad), the expand weights (2hc, Cp + pad) and the project
+    weights (Cp, hc + pad); each part 16-byte aligned."""
+    c = -(-c // 16) * 16
     pad = 8 if esize == 2 else 1
     ldx = nrp + (8 - nrp) % 32
 
@@ -134,16 +135,17 @@ def launch_blocks(kernel: str, x, scale, w1, dwk, w2, skip):
     dwk (K, 9, 2H), w2 (K, H, C), skip (K, 2); w1, dwk and w2 may be strided
     views. ``kernel`` names the caller in errors.
 
-    What the kernel takes: x contiguous f32 or bf16 with C a multiple of 16;
-    w1 and w2 in x's dtype with H a multiple of 16; scale, dwk and skip of one
+    What the kernel takes: x contiguous f32 or bf16 with C a multiple of 8
+    (the kernel pads C ≡ 8 mod 16 to 16 in shared memory, the lite model's
+    C = 24); w1 and w2 in x's dtype with H a multiple of 16; scale, dwk and skip of one
     dtype (f32, or bf16 with bf16 x), contiguous scale and skip."""
     if x.device.type != "cuda" or not x.is_contiguous():
         raise ValueError(f"{kernel} needs a contiguous CUDA or CPU tensor")
     b, c, h, w = x.shape
     k, hidden = w2.shape[0], w2.shape[1]
-    if c % 16 or hidden % 16:
-        raise ValueError(f"{kernel}: the kernel takes C and H in multiples of 16, "
-                         f"got C={c}, H={hidden}")
+    if c % 8 or hidden % 16:
+        raise ValueError(f"{kernel}: the kernel takes C in multiples of 8 and H in "
+                         f"multiples of 16, got C={c}, H={hidden}")
     if w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise ValueError(f"{kernel}: w1 and w2 must be in x's dtype {x.dtype}")
     if (not (scale.dtype == dwk.dtype == skip.dtype)

@@ -20,9 +20,12 @@ from irdu_tpu_torch.ops.windows import CROSS4
 Stats = Sequence[torch.Tensor]
 
 
-def stats_conv(x: torch.Tensor, p: Stats, pad_mode: str = "edge") -> torch.Tensor:
+def stats_conv(x: torch.Tensor, p: Stats | None, pad_mode: str = "edge") -> torch.Tensor:
     """Learned polynomial 3×3 stencil: p01·δ + p02a·∂ₓ + p02b·∂ᵧ + p03·(4δ−N−S−E−W),
-    replicate boundary (reference stats_conv)."""
+    replicate boundary (reference stats_conv); ``p=None`` (no stencil) is
+    the identity."""
+    if p is None:
+        return x
     r = shift2d(x, 0, 1, pad_mode)
     d = shift2d(x, 1, 0, pad_mode)
     u = shift2d(x, -1, 0, pad_mode)
@@ -31,8 +34,10 @@ def stats_conv(x: torch.Tensor, p: Stats, pad_mode: str = "edge") -> torch.Tenso
             + p[3] * (4.0 * x - u - d - l - r))
 
 
-def stats_conv_transpose(x: torch.Tensor, p: Stats) -> torch.Tensor:
+def stats_conv_transpose(x: torch.Tensor, p: Stats | None) -> torch.Tensor:
     """The reference's adjoint of ``stats_conv``: flipped taps, zero boundary."""
+    if p is None:
+        return x
     r0 = shift2d(x, 0, 1, "zero")
     d0 = shift2d(x, 1, 0, "zero")
     u0 = shift2d(x, -1, 0, "zero")
@@ -62,6 +67,12 @@ def op_c_transpose(eps, w, p):
 def gtv_apply(x, w, p):
     """GGTV operator CᵀC."""
     return op_c_transpose(op_c(x, w, p), w, p)
+
+
+def gtv_rethresh_apply(x, w, p, gamma):
+    """The ADMM re-threshold Cᵀ(2·S_γ(Cx) − Cx)."""
+    eps = op_c(x, w, p)
+    return op_c_transpose([2.0 * soft_threshold(e, gamma) - e for e in eps], w, p)
 
 
 def glr_apply(x, w, p):

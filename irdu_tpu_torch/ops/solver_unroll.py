@@ -50,13 +50,6 @@ def unroll_scal(n_graphs, mu0, ro0, mu1, ro1, gamma0, gamma1, alphas, betas):
     return torch.stack(cols, dim=1).contiguous()
 
 
-def _rethresh(x, w, p, gamma):
-    """Cᵀ(2·S_γ(Cx) − Cx)."""
-    eps = graph.op_c(x, w, p)
-    return graph.op_c_transpose(
-        [2.0 * graph.soft_threshold(e, gamma) - e for e in eps], w, p)
-
-
 def gg_unroll_plain(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
                     pgtv1, pglr1, scal, *, n_graphs, eval_cg_iters=3):
     """The unroll in plain PyTorch, f32 compute, output in y's dtype."""
@@ -92,8 +85,8 @@ def gg_unroll_plain(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
              + box_up2x2(ro1 * graph.gtv_apply(box_down2x2(yv), wg1, pg1)))
     x = rhs_a + alpha[0] * (rhs_a - matvec(rhs_a))
     if eval_cg_iters >= 2:
-        rhs_b = (yv + ro0 * _rethresh(x, wg0, pg0, gam0)
-                 + box_up2x2(ro1 * _rethresh(box_down2x2(x), wg1, pg1, gam1)))
+        rhs_b = (yv + ro0 * graph.gtv_rethresh_apply(x, wg0, pg0, gam0)
+                 + box_up2x2(ro1 * graph.gtv_rethresh_apply(box_down2x2(x), wg1, pg1, gam1)))
         upd1 = rhs_b - matvec(x)
         x = x + alpha[1] * upd1
         if eval_cg_iters >= 3:

@@ -37,8 +37,11 @@ _CONFIGS = {"flagship": flagship_config, "lite": flagship_lite_config,
 _WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "artifacts", "weights")
 # The 86k-step flagship snapshot (σ=25), pinned: the newest-by-name file in
-# the directory is a σ=50 snapshot.
-DEFAULT_WEIGHTS = {"flagship": os.path.join(_WEIGHTS_DIR, "flagship_cont100k_35000.npz")}
+# the directory is a σ=50 snapshot. lite and micro take the file JAX's
+# default_weights picks, the last of the name by sort order.
+DEFAULT_WEIGHTS = {name: os.path.join(_WEIGHTS_DIR, fname) for name, fname in (
+    ("flagship", "flagship_cont100k_35000.npz"), ("lite", "lite_synthetic_2050.npz"),
+    ("micro", "micro_synthetic_2050.npz"))}
 
 
 def build_model(name: str = "flagship", *, cg_iters: int = 3,
@@ -91,8 +94,9 @@ def main(argv=None, device: str = "cuda"):
     ap.add_argument("--output", required=True, help="denoised PNG path")
     ap.add_argument("--model", default="flagship", choices=sorted(_CONFIGS))
     ap.add_argument("--weights", default=None,
-                    help="npz snapshot (default for flagship: "
-                         "artifacts/weights/flagship_cont100k_35000.npz)")
+                    help="npz snapshot (default: artifacts/weights/"
+                         "flagship_cont100k_35000.npz, lite_synthetic_2050.npz, "
+                         "micro_synthetic_2050.npz)")
     ap.add_argument("--sigma", type=float, default=None,
                     help="treat --input as CLEAN: add N(0, σ/255) noise "
                          "(benchmark protocol) and report PSNR")

@@ -1,11 +1,20 @@
 """The flagship's latent two-scale GGTV+GGLR unrolled ADMM/CG solver
-(counterpart: ``irdu_tpu/solvers/gtv_glr.py`` ``MixtureGTVGLR``, the route
-``_forward_chw`` takes for planes the whole-unroll kernel covers).
+(counterpart: ``irdu_tpu/solvers/gtv_glr.py`` ``MixtureGTVGLR``, its kernel
+route ``_forward_chw``).
 
 Channels-first (B, C, H, W) with C = G·F; H and W even. Per call: the two
 feature heads, K2 once per scale with the GTV and GLR graphs batched as 2G
-graphs, then K1 over the whole unroll. The reference quirks the unroll keeps
-are listed in ``ops/solver_unroll.py``.
+graphs, then the unroll on one of two routes, as JAX routes it
+(``_mega_ok``): a plane of at most ``_MEGA_MAX_PIXELS`` (W rounded up to
+128) with both extents within 1024 takes K1, the whole unroll in one call;
+every other plane takes the band route, the unroll as K5 steps (rhs, cg,
+rethresh, cg, cg at cg3; 2 and 4 calls at cg1 and cg2). The reference
+quirks both keep are listed in ``ops/solver_unroll.py``.
+
+Where JAX runs its jnp path the port runs a kernel route, with the same
+arithmetic: JAX's ``_chw_ok`` also asks H % 16 == 0, (H/2) % 8 == 0 and, for
+the band route, W % 256 == 0 (TPU tiling and lane rules). A plane that
+fails them stays on K1 when ``_mega_ok`` holds and takes K5 otherwise.
 """
 
 from __future__ import annotations
@@ -17,10 +26,23 @@ from torch import nn
 
 from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
+from irdu_tpu_torch.ops.fused_step import fused_scal, fused_step_plain, gg_fused_step_chw
 from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain, unroll_scal
 from irdu_tpu_torch.solvers.common import GraphOpParams
 
 N_CGD_ITERS = 3  # fixed in the reference
+# Planes up to this many pixels take K1 (JAX's whole-unroll VMEM bound, kept
+# as the routing rule; tests patch it to force the band route).
+_MEGA_MAX_PIXELS = 768 * 1024
+
+
+def _mega_ok(shape) -> bool:
+    """Whether a (B, C, H, W) plane takes K1: H·Wp ≤ ``_MEGA_MAX_PIXELS``
+    with Wp = W rounded up to 128, max(H, Wp) ≤ 1024 and W even (JAX's
+    ``MixtureGTVGLR._mega_ok`` without its H % 16 rule, see above)."""
+    h, w = shape[-2:]
+    wp = -(-w // 128) * 128
+    return w % 2 == 0 and h * wp <= _MEGA_MAX_PIXELS and max(h, wp) <= 1024
 
 
 class MixtureGTVGLR(nn.Module):
@@ -53,7 +75,6 @@ class MixtureGTVGLR(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.n_graphs
         ew = edge_weights_chw if self.use_kernels else edge_weights_plain
-        unroll = gg_unroll_chw if self.use_kernels else gg_unroll_plain
 
         f00 = self.patchs_features_extraction00(x)
         f01 = self.patchs_features_extraction01_point(
@@ -62,16 +83,51 @@ class MixtureGTVGLR(nn.Module):
                  n_graphs=2 * g)
         w01 = ew(f01, torch.cat([self.GTVmodule01.multiM, self.GLRmodule01.multiM]),
                  n_graphs=2 * g)
+        weights = (w00[:, :g].contiguous(), w00[:, g:].contiguous(),
+                   w01[:, :g].contiguous(), w01[:, g:].contiguous())
+        tables = (self.GTVmodule00.stats_table(), self.GLRmodule00.stats_table(),
+                  self.GTVmodule01.stats_table(), self.GLRmodule01.stats_table())
+        if _mega_ok(x.shape):
+            unroll = gg_unroll_chw if self.use_kernels else gg_unroll_plain
+            return unroll(x.contiguous(), *weights, *tables, unroll_scal(
+                g, *self._positive(), self.alphaCGD, self.betaCGD),
+                n_graphs=g, eval_cg_iters=self.eval_cg_iters)
+        return self._band_route(x.contiguous(), weights, tables)
 
-        def exp(p):
-            return torch.exp(p.float())
+    def _positive(self):
+        """exp of the log-parameters: μ₀, ρ₀, μ₁, ρ₁, γ₀, γ₁ per graph."""
+        return tuple(torch.exp(p.float()) for p in (
+            self.muys00, self.ro00, self.muys01, self.ro01, self.gamma00, self.gamma01))
 
-        scal = unroll_scal(g, exp(self.muys00), exp(self.ro00), exp(self.muys01),
-                           exp(self.ro01), exp(self.gamma00), exp(self.gamma01),
-                           self.alphaCGD, self.betaCGD)
-        return unroll(
-            x.contiguous(), w00[:, :g].contiguous(), w00[:, g:].contiguous(),
-            w01[:, :g].contiguous(), w01[:, g:].contiguous(),
-            self.GTVmodule00.stats_table(), self.GLRmodule00.stats_table(),
-            self.GTVmodule01.stats_table(), self.GLRmodule01.stats_table(), scal,
-            n_graphs=g, eval_cg_iters=self.eval_cg_iters)
+    def _band_route(self, y, weights, tables):
+        """The unroll as K5 steps (JAX ``_forward_chw``'s band route), each
+        output rounded to y's dtype."""
+        g = self.n_graphs
+        step = gg_fused_step_chw if self.use_kernels else fused_step_plain
+        wg0, wl0, wg1, wl1 = weights
+        pg0, pl0, pg1, pl1 = tables
+        mu0, ro0, mu1, ro1, gam0, gam1 = self._positive()
+
+        def gtv_only(x, aux, scal, mode):  # rhs and rethresh read the GTV graphs only
+            return step(x, aux, None, wg0, None, wg1, None, pg0, None, pg1, None, scal,
+                        mode=mode, n_graphs=g)
+
+        def cg(x, rhs, prev, i, **kw):
+            scal = fused_scal(g, mu0=mu0, ro0=ro0, mu1=mu1, ro1=ro1,
+                              alpha=self.alphaCGD[i],
+                              beta=self.betaCGD[i] if prev is not None else None)
+            return step(x, rhs, prev, wg0, wl0, wg1, wl1, pg0, pl0, pg1, pl1, scal,
+                        mode="cg", n_graphs=g, **kw)
+
+        # ADMM init RHS, then CG step 1 from x₀ = RHS (so rhs ≡ x)
+        rhs_a = gtv_only(y, None, fused_scal(g, ro0=ro0, ro1=ro1), "rhs")
+        out01 = cg(rhs_a, None, None, 0, use_x_rhs=True)
+        if self.eval_cg_iters == 1:
+            return out01
+        # ADMM re-threshold and the new RHS, used by CG steps 2 and 3
+        rhs_b = gtv_only(out01, y, fused_scal(g, ro0=ro0, ro1=ro1, gamma0=gam0,
+                                             gamma1=gam1), "rethresh")
+        if self.eval_cg_iters == 2:
+            return cg(out01, rhs_b, None, 1)
+        out02, upd01 = cg(out01, rhs_b, None, 1, emit_update=True)
+        return cg(out02, rhs_b, upd01, 2)  # β[2] momentum; β[1] unused

@@ -19,21 +19,24 @@ import torch
 from irdu_tpu.models.flagship import AbstractMultiScaleGraphFilter as JaxFlagship
 from irdu_tpu.models import chw as jax_chw
 from irdu_tpu.models import flagship as jax_flagship
+from irdu_tpu.solvers import gtv_glr as jax_gtv_glr
 from irdu_tpu.utils.weights import load_params_npz as jax_load
 from irdu_tpu_torch.models import flagship
 from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise, Upsample2x2
 from irdu_tpu_torch.ops.block_stack import fused_block_stack
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw
+from irdu_tpu_torch.ops.fused_step import gg_fused_step_chw
 from irdu_tpu_torch.ops.gated_block import fused_gated_block
 from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
 from irdu_tpu_torch.predict import DEFAULT_WEIGHTS, build_model, denoise, load_model
+from irdu_tpu_torch.solvers import gtv_glr
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _launches():
     return tuple(k.launches for k in (edge_weights_chw, gg_unroll_chw, fused_block_stack,
-                                      fused_gated_block))
+                                      fused_gated_block, gg_fused_step_chw))
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +75,34 @@ def test_flagship_matches_jax_fast_path(snapshot_models):
     with torch.inference_mode():
         out = model(torch.from_numpy(x)).numpy()
     assert _launches() == counts
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+
+
+def test_flagship_band_route_matches_jax_fast_path(snapshot_models, monkeypatch):
+    """Both packages' K1 caps at 0, so every filtering block takes the band
+    route: the port's K5 steps (plain versions) at all four scales against
+    JAX's use_pallas_blocks/use_pallas_solver path (its K5 in interpret mode
+    at scale 0, W = 256; its jnp path at the scales its lane rules refuse),
+    1x64x256x3 with the 86k snapshot."""
+    _, jax_params, model = snapshot_models
+    monkeypatch.setattr(jax_gtv_glr, "_MEGA_MAX_PIXELS", 0)
+    monkeypatch.setattr(gtv_glr, "_MEGA_MAX_PIXELS", 0)
+    x = np.random.RandomState(11).rand(1, 64, 256, 3).astype(np.float32)
+    jax_fast = JaxFlagship(**jax_flagship.flagship_config(), use_pallas_blocks=True,
+                           use_pallas_solver=True)
+    ref = np.asarray(jax_fast.apply(jax_params, jnp.asarray(x)))
+    seen = []
+
+    def counted(*args, **kw):
+        seen.append(kw["mode"])
+        return gg_fused_step_chw(*args, **kw)
+
+    monkeypatch.setattr(gtv_glr, "gg_fused_step_chw", counted)
+    counts = _launches()
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x)).numpy()
+    assert _launches() == counts
+    assert seen == ["rhs", "cg", "rethresh", "cg", "cg"] * 4
     np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
 
 

@@ -1,0 +1,291 @@
+"""K5, K6a and K6b (``irdu_tpu_torch/ops/fused_step.py``) of the port against
+the JAX package's Pallas kernels in interpret mode, at the shape class of
+tests/test_solver_chw.py, and the CUDA kernel's tiling scheme (each tile with
+a 4-pixel halo per scale, derived planes read through a clamp to the region,
+zeros outside the image by global index) run in PyTorch against the plain
+version."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from irdu_tpu.ops.pallas.solver_chw import fused_scal as jax_fused_scal
+from irdu_tpu.ops.pallas.solver_chw import gg_fused_step_chw as jax_step
+from irdu_tpu.ops.pallas.solver_chw import gg_matvec_chw as jax_matvec
+from irdu_tpu.ops.pallas.solver_chw import gtv_rethresh_chw as jax_rethresh
+from irdu_tpu_torch.ops import fused_step as fs
+from irdu_tpu_torch.ops.windows import CROSS4
+
+G, F = 2, 3
+C = G * F
+H, W = 32, 24  # the two-scale step: H % 16 == 0 on the TPU
+
+
+def _softmax_weights(rng, h, w):
+    z = rng.randn(1, G, 4, h, w)
+    e = np.exp(z - z.max(axis=2, keepdims=True))
+    return (e / e.sum(axis=2, keepdims=True)).astype(np.float32)
+
+
+def _inputs(seed, h=H, w=W):
+    """x, aux, prev (1, C, h, w); the four weight planes; four stats tables;
+    the per-graph scalars, as the JAX tests draw them."""
+    rng = np.random.RandomState(seed)
+    planes = [(rng.randn(1, C, h, w) * s).astype(np.float32) for s in (1.0, 0.5, 0.5)]
+    ws = [_softmax_weights(rng, h, w), _softmax_weights(rng, h, w),
+          _softmax_weights(rng, h // 2, w // 2), _softmax_weights(rng, h // 2, w // 2)]
+    inits = np.array([1.0, 0.5, 0.5, 0.5], np.float32)[None, :, None]
+    tables = [(inits + 0.3 * rng.randn(G, 4, F)).astype(np.float32) for _ in range(4)]
+
+    def mk(lo):
+        return (rng.rand(G) + lo).astype(np.float32)
+
+    s = dict(mu0=mk(0.1), ro0=mk(0.1), mu1=mk(0.05), ro1=mk(0.05), alpha=mk(0.2),
+             beta=mk(0.1), gamma0=mk(0.05) * 0.5, gamma1=mk(0.05) * 0.5)
+    return planes, ws, tables, s
+
+
+def _both(a):
+    return (None, None) if a is None else (jnp.asarray(a), torch.from_numpy(a))
+
+
+# mode, (aux, prev) given, keyword arguments, two-scale, atol (the JAX tests')
+STEP_CASES = {
+    "rhs": ("rhs", (False, False), {}, True, 2e-4),
+    "cg_prev_emit_update": ("cg", (True, True), dict(emit_update=True), True, 3e-4),
+    "cg_use_x_rhs": ("cg", (False, False), dict(use_x_rhs=True), True, 3e-4),
+    "rethresh_y": ("rethresh", (True, False), {}, True, 2e-4),
+    "rethresh_no_y": ("rethresh", (False, False), {}, True, 2e-4),
+    "cg_single_scale": ("cg", (True, False), {}, False, 3e-4),
+    "rhs_no_stats": ("rhs", (False, False), {}, True, 2e-4),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_fused_step_matches_jax_kernel(case):
+    mode, (has_aux, has_prev), kw, two_scale, atol = STEP_CASES[case]
+    (x, aux, prev), ws, tables, s = _inputs(seed=len(case))
+    if not two_scale:
+        ws, tables = ws[:2] + [None, None], tables[:2] + [None, None]
+    if case.endswith("no_stats"):
+        tables = [None] * 4
+    scal = np.array(jax_fused_scal(G, **s))
+    args = [x, aux if has_aux else None, prev if has_prev else None, *ws, *tables, scal]
+    jargs, targs = zip(*(_both(a) for a in args))
+    ref = jax_step(*jargs, mode=mode, n_graphs=G, true_h=H, true_w=W, interpret=True, **kw)
+    before = fs.gg_fused_step_chw.launches
+    out = fs.gg_fused_step_chw(*targs, mode=mode, n_graphs=G, **kw)
+    assert fs.gg_fused_step_chw.launches == before, "a CPU tensor must not launch"
+    refs, outs = (ref, out) if kw.get("emit_update") else ((ref,), (out,))
+    assert len(outs) == len(refs)
+    for o, r in zip(outs, refs):
+        assert o.shape == x.shape and o.dtype == torch.float32
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=atol)
+
+
+def test_fused_scal_matches_jax_layout():
+    _, _, _, s = _inputs(seed=1)
+    for keys in (tuple(s), ("ro0", "ro1"), ("ro0", "ro1", "gamma0", "gamma1")):
+        sub = {k: s[k] for k in keys}
+        np.testing.assert_array_equal(
+            fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in sub.items()}).numpy(),
+            np.asarray(jax_fused_scal(G, **sub)))
+
+
+@pytest.mark.parametrize("with_glr,add_identity,stats", [
+    (True, True, True), (True, False, True), (False, True, True), (False, False, True),
+    (True, False, False)], ids=["glr_identity", "glr", "gtv_identity", "gtv", "no_stats"])
+def test_matvec_matches_jax_kernel(with_glr, add_identity, stats):
+    (x, _, _), ws, tables, s = _inputs(seed=10 + 2 * with_glr + add_identity)
+    pglr, pgtv = (tables[1], tables[0]) if stats else (None, None)
+    args = [x, ws[1], ws[0], pglr, pgtv, s["mu0"], s["ro0"]]
+    jargs, targs = zip(*(_both(a) for a in args))
+    ref = jax_matvec(*jargs, n_graphs=G, true_h=H, true_w=W, add_identity=add_identity,
+                     with_glr=with_glr, interpret=True)
+    before = fs.gg_matvec_chw.launches
+    out = fs.gg_matvec_chw(*targs, n_graphs=G, add_identity=add_identity, with_glr=with_glr)
+    assert fs.gg_matvec_chw.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4)
+
+
+@pytest.mark.parametrize("with_y,stats", [(True, True), (False, True), (True, False)],
+                         ids=["y", "no_y", "y_no_stats"])
+def test_rethresh_matches_jax_kernel(with_y, stats):
+    (x, y, _), ws, tables, s = _inputs(seed=20 + with_y + 2 * stats)
+    gamma = (np.random.RandomState(3).rand(G) * 0.5 + 0.05).astype(np.float32)
+    args = [x, y if with_y else None, ws[0], tables[0] if stats else None, gamma, s["ro0"]]
+    jargs, targs = zip(*(_both(a) for a in args))
+    ref = jax_rethresh(*jargs, n_graphs=G, true_h=H, true_w=W, interpret=True)
+    before = fs.gtv_rethresh_chw.launches
+    out = fs.gtv_rethresh_chw(*targs, n_graphs=G)
+    assert fs.gtv_rethresh_chw.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4)
+
+
+@pytest.mark.parametrize("what", ["reflect", "diamond12", "mode", "emit_rhs", "odd_w",
+                                  "weights", "no_aux"])
+def test_fused_step_rejects_what_it_does_not_take(what):
+    (x, aux, _), ws, tables, s = _inputs(seed=4, h=16, w=8)
+    args = [torch.from_numpy(a) for a in (x, aux, *ws, *tables)]
+    args.insert(2, None)
+    scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
+    kw, err = dict(mode="cg", n_graphs=G), ValueError
+    if what == "reflect":
+        kw["stats_mode"], err = "reflect", NotImplementedError
+    elif what == "diamond12":
+        kw["deltas"], err = CROSS4 + ((2, 0),), NotImplementedError
+    elif what == "mode":
+        kw["mode"] = "matvec"
+    elif what == "emit_rhs":
+        kw.update(mode="rhs", emit_update=True)
+    elif what == "odd_w":
+        args[0], args[1] = args[0][..., :7], args[1][..., :7]
+    elif what == "weights":
+        args[4] = args[4][..., :-1]
+    else:
+        args[1] = None
+    with pytest.raises(err):
+        fs.gg_fused_step_chw(*args, scal, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's scheme (kernels/csrc/fused_step.cu), transliterated
+# ---------------------------------------------------------------------------
+
+HALO = 4
+
+
+class _Region:
+    """Rows [r0, r1) and columns [c0, c1) of an h x w plane: a tile of
+    [i0, i1) x [j0, j1) with HALO pixels, clipped to the image."""
+
+    def __init__(self, i0, i1, j0, j1, h, w):
+        self.r0, self.r1 = max(i0 - HALO, 0), min(i1 + HALO, h)
+        self.c0, self.c1 = max(j0 - HALO, 0), min(j1 + HALO, w)
+        self.h, self.w = h, w
+        self.grid = torch.meshgrid(torch.arange(self.r0, self.r1),
+                                   torch.arange(self.c0, self.c1), indexing="ij")
+
+    def at(self, a, i, j):  # a region plane read at (i, j) clamped to the region
+        return a[i.clamp(self.r0, self.r1 - 1) - self.r0, j.clamp(self.c0, self.c1 - 1) - self.c0]
+
+    def inside(self, i, j):  # in the image
+        return (i >= 0) & (i < self.h) & (j >= 0) & (j < self.w)
+
+
+def _stats(reg, a, p, i, j):
+    v, r, d = reg.at(a, i, j), reg.at(a, i, j + 1), reg.at(a, i + 1, j)
+    u, l = reg.at(a, i - 1, j), reg.at(a, i, j - 1)
+    return p[0] * v + p[1] * (r - v) + p[2] * (d - v) + p[3] * (4 * v - u - d - l - r)
+
+
+def _stats_t(reg, a, p, i, j):
+    def z(di, dj):
+        return torch.where(reg.inside(i + di, j + dj), reg.at(a, i + di, j + dj), 0.0)
+
+    v, r0, d0, u0, l0 = reg.at(a, i, j), z(0, 1), z(1, 0), z(-1, 0), z(0, -1)
+    return p[0] * v + p[1] * (l0 - v) + p[2] * (u0 - v) + p[3] * (4 * v - u0 - d0 - l0 - r0)
+
+
+def _edge_map(eps, gamma):
+    if gamma is None:
+        return eps
+    thr = (torch.where(eps < -gamma, eps + gamma, 0.0)
+           + torch.where(eps > gamma, eps - gamma, 0.0))
+    return 2 * thr - eps
+
+
+def _gtv_edge_sum(reg, s, w, i, j, gamma):
+    sp, acc = reg.at(s, i, j), 0.0
+    for e, (dh, dw) in enumerate(CROSS4):
+        wp = w[e][i, j]
+        acc = acc + wp * _edge_map(wp * (sp - reg.at(s, i + dh, j + dw)), gamma)
+        qi, qj = i - dh, j - dw
+        wq = w[e][qi.clamp(0, reg.h - 1), qj.clamp(0, reg.w - 1)]
+        nbr = wq * _edge_map(wq * (reg.at(s, qi, qj) - sp), gamma)
+        acc = acc - torch.where(reg.inside(qi, qj), nbr, 0.0)
+    return acc
+
+
+def _glr_lap(reg, s, w, i, j):
+    acc = sum(w[e][i, j] * reg.at(s, i + dh, j + dw) for e, (dh, dw) in enumerate(CROSS4))
+    return reg.at(s, i, j) - acc
+
+
+def _scale_term(reg, x_reg, w_gtv, w_glr, pg, pl, ro, mu, gamma, ti, tj):
+    """ρ·(statsᵀ of the edge sums) [+ μ·GLR] at the tile's pixels (ti, tj):
+    the kernel's stages 2-4 (or 2, 3, 5) on one scale."""
+    i, j = reg.grid
+    ag = _gtv_edge_sum(reg, _stats(reg, x_reg, pg, i, j), w_gtv, i, j, gamma)
+    t = ro * _stats_t(reg, ag, pg, ti, tj)
+    if w_glr is not None:
+        al = _glr_lap(reg, _stats(reg, x_reg, pl, i, j), w_glr, i, j)
+        t = t + mu * _stats_t(reg, al, pl, ti, tj)
+    return t
+
+
+def _tiled_step(x, aux, prev, ws, tables, scal, mode, th, tw, use_x_rhs=False):
+    """K5 tile by tile as the kernel computes it, f32, batch 1; returns
+    (out, upd)."""
+    _, c, h, w = x.shape
+    f = c // G
+    out, upd = torch.empty_like(x), torch.empty_like(x)
+    for ch in range(c):
+        g = ch // f
+        sc = scal[g]
+        mu0, ro0, mu1, ro1, alpha, beta, gam0, gam1 = sc
+        rethresh = mode == "rethresh"
+        glr = mode == "cg"
+        tab = [t[g, :, ch % f] for t in tables]  # pg0, pl0, pg1, pl1
+        wt = [wt_[0, g] for wt_ in ws]
+        for i0 in range(0, h, th):
+            for j0 in range(0, w, tw):
+                i1, j1 = min(i0 + th, h), min(j0 + tw, w)
+                ti, tj = torch.meshgrid(torch.arange(i0, i1), torch.arange(j0, j1),
+                                        indexing="ij")
+                r0 = _Region(i0, i1, j0, j1, h, w)
+                xr = x[0, ch, r0.r0:r0.r1, r0.c0:r0.c1]
+                t = _scale_term(r0, xr, wt[0], wt[1] if glr else None, tab[0], tab[1],
+                                ro0, mu0, gam0 if rethresh else None, ti, tj)
+                r1 = _Region(i0 // 2, i1 // 2, j0 // 2, j1 // 2, h // 2, w // 2)
+                xd = x[0, ch, 2 * r1.r0:2 * r1.r1, 2 * r1.c0:2 * r1.c1]
+                xd = 0.25 * (xd[0::2, 0::2] + xd[0::2, 1::2] + xd[1::2, 0::2] + xd[1::2, 1::2])
+                t1 = _scale_term(r1, xd, wt[2], wt[3] if glr else None, tab[2], tab[3], ro1,
+                                 mu1, gam1 if rethresh else None, ti // 2, tj // 2)
+                t = t + 0.25 * t1
+                xv = x[0, ch, i0:i1, j0:j1]
+                sl = (0, ch, slice(i0, i1), slice(j0, j1))
+                if mode == "rhs":
+                    out[sl] = xv + t
+                elif mode == "rethresh":
+                    out[sl] = t if aux is None else t + aux[sl]
+                else:
+                    u = (xv if use_x_rhs else aux[sl]) - (xv + t)
+                    if prev is not None:
+                        u = u + beta * prev[sl]
+                    upd[sl], out[sl] = u, xv + alpha * u
+    return out, upd
+
+
+@pytest.mark.parametrize("mode", ["rhs", "cg", "rethresh"])
+@pytest.mark.parametrize("th,tw", [(8, 12), (6, 10), (32, 64)],
+                         ids=["8x12_ragged", "6x10_odd_half_tiles", "one_tile"])
+def test_kernel_tiling_scheme_matches_plain(mode, th, tw):
+    """20x28 plane: tiles on every image edge, interior tiles, ragged last
+    tiles, half tiles of odd size; the result equals the plain step."""
+    (x, aux, prev), ws, tables, s = _inputs(seed=30, h=20, w=28)
+    t = [torch.from_numpy(a) for a in (x, aux, prev, *ws, *tables)]
+    x, aux, prev, ws, tables = t[0], t[1], t[2], t[3:7], t[7:]
+    scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
+    aux_m = None if mode == "rhs" else aux
+    prev_m = prev if mode == "cg" else None
+    out, upd = _tiled_step(x, aux_m, prev_m, ws, tables, scal, mode, th, tw)
+    want = fs.fused_step_plain(x, aux_m, prev_m, *ws, *tables, scal, mode=mode, n_graphs=G,
+                               emit_update=mode == "cg")
+    if mode == "cg":
+        torch.testing.assert_close(upd, want[1], atol=1e-5, rtol=1e-5)
+        want = want[0]
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)

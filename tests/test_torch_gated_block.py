@@ -1,19 +1,29 @@
 """K4 (one LocalNonLinearBlock) of the port against the JAX package's Pallas
-kernel in interpret mode, the block kernel's launch plan, and the block
-operands of the 86k snapshot against the JAX package's."""
+kernel in interpret mode, the block kernel's launch plan, the block operands
+of the 86k snapshot against the JAX package's, and the lite and micro models
+on the card's block kernel: their launch plans, the padded-channel scheme
+for C = 24, their default snapshots and their forward against JAX."""
 
 from __future__ import annotations
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as tF
 
+from irdu_tpu import predict as jax_predict
 from irdu_tpu.models import flagship as jax_flagship
+from irdu_tpu.models.flagship import AbstractMultiScaleGraphFilter as JaxFlagship
 from irdu_tpu.ops.pallas.gated_block import fused_gated_block as jax_gated_block
 from irdu_tpu.utils.weights import load_params_npz as jax_load
+from irdu_tpu_torch.models.flagship import STACK_MAX_BLOCKS, STACK_MAX_DIM
 from irdu_tpu_torch.ops import gated_block as gb
-from irdu_tpu_torch.predict import DEFAULT_WEIGHTS, load_model
+from irdu_tpu_torch.predict import _CONFIGS, DEFAULT_WEIGHTS, load_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _block_params(rng, c, h2):
@@ -88,6 +98,110 @@ def test_smem_layout_bytes():
     th, tw, hc, smem = gb.plan_tiles(1, 48, 96, 512, 512, 4, 2)
     assert (th, tw, hc) == (12, 12, 16)
     assert smem == gb.smem_bytes(48, 16, 400, 2) <= gb.SMEM_LIMIT
+
+
+def _model_calls(name, h, w):
+    """(C, hidden, H, W, K) of every block call of one request to a model of
+    the family, as models/flagship.py routes them: K3 in chunks of 4 at
+    C ≤ 64, K4 elsewhere."""
+    cfg = _CONFIGS[name]()
+    calls = set()
+    for s, (c, hd, n) in enumerate(zip(cfg["dims"], cfg["hidden_dims"], cfg["num_blocks"])):
+        lists = [n, n] if s < 3 else [n]  # encoder, decoder (none at scale 3)
+        if s == 0:
+            lists.append(cfg["num_blocks_out"])
+        for n_list in lists:
+            ks = ([min(STACK_MAX_BLOCKS, n_list - k) for k in range(0, n_list, STACK_MAX_BLOCKS)]
+                  if c <= STACK_MAX_DIM else [1])
+            calls.update((c, hd, h >> s, w >> s, k) for k in ks)
+    return sorted(calls)
+
+
+@pytest.mark.parametrize("name", ["lite", "micro"])
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "f32"])
+def test_launch_plan_fits_every_lite_and_micro_call(name, esize):
+    """The smaller members of the family (lite: C = 24 at scale 0, padded to
+    32 in the kernel) at every block shape of the served requests and 512²."""
+    for h, w in REQUESTS + ((512, 512),):
+        for c, hidden, hh, ww, k in _model_calls(name, h, w):
+            assert c % 8 == 0 and hidden % 16 == 0, (c, hidden)
+            th, tw, hc, smem = gb.plan_tiles(1, c, hidden, hh, ww, k, esize)
+            assert smem == gb.smem_bytes(c, hc, -(-min(th + 2 * k, hh) * min(tw + 2 * k, ww)
+                                                  // 16) * 16, esize) <= gb.SMEM_LIMIT
+            assert hidden % hc == 0 and (esize == 4 or hc % 16 == 0)
+
+
+def test_smem_counts_padded_channels():
+    """C = 24 takes the shared memory of C = 32, the channels padded to 16."""
+    assert gb.smem_bytes(24, 16, 400, 2) == gb.smem_bytes(32, 16, 400, 2)
+    assert gb.smem_bytes(24, 16, 400, 4) == gb.smem_bytes(32, 16, 400, 4)
+    assert gb.smem_bytes(16, 16, 400, 2) < gb.smem_bytes(24, 16, 400, 2)
+
+
+def _padded_block(x, p, cp, dtype):
+    """The kernel's padded-channel scheme in PyTorch: x and the operands
+    zero-padded from C to cp channels, the norm over the true C (variance
+    over C − 1, mean not subtracted), the padded outputs dropped."""
+    c = x.shape[1]
+    xp = tF.pad(x, (0, 0, 0, 0, 0, cp - c))
+    mean = xp[:, :c].mean(dim=1, keepdim=True)
+    var = ((xp[:, :c] - mean) ** 2).sum(dim=1, keepdim=True) / (c - 1)
+    scale = tF.pad(p["scale"].float(), (0, cp - c))
+    y0 = gb._round(xp / torch.sqrt(var + gb.EPS) * scale.reshape(1, cp, 1, 1), dtype)
+    w1 = tF.pad(p["w1"].to(dtype).float(), (0, 0, 0, cp - c))   # zero rows
+    w2 = tF.pad(p["w2"].to(dtype).float(), (0, cp - c))         # zero columns
+    y1 = torch.einsum("bchw,co->bohw", y0, w1)
+    h, w = x.shape[2:]
+    y1p = tF.pad(y1, (1, 1, 1, 1), mode="replicate")
+    dw = p["dwk"].float()
+    acc = sum(y1p[:, :, a:a + h, b:b + w] * dw[a, b].reshape(1, -1, 1, 1)
+              for a in range(3) for b in range(3))
+    m, u = acc.chunk(2, dim=1)
+    y3 = gb._round(torch.sigmoid(m) * m * u, dtype)
+    y4 = torch.einsum("bhxy,hc->bcxy", y3, w2)
+    out = p["skip"][0] * xp + p["skip"][1] * y4
+    assert torch.equal(out[:, c:], torch.zeros_like(out[:, c:]))  # padding stays zero
+    return out[:, :c]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_padded_channel_scheme_equals_block(dtype):
+    """C = 24 (the lite model's scale 0) padded to 32: equal to the plain
+    block at C = 24, rounding y0 and y3 where the kernel does."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(1, 24, 6, 10).astype(np.float32))
+    p = {k: torch.from_numpy(v) for k, v in _block_params(rng, 24, 96).items()}
+    want = gb.block_f32(x, p["scale"], p["w1"], p["dwk"], p["w2"], p["skip"], dtype)
+    torch.testing.assert_close(_padded_block(x, p, 32, dtype), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["lite", "micro"])
+def test_small_models_with_snapshots_match_jax(name):
+    """lite and micro with their default snapshots (the files JAX's
+    default_weights picks) against the JAX jnp path, f32 on the CPU."""
+    cfg = {"lite": jax_flagship.flagship_lite_config,
+           "micro": jax_flagship.flagship_micro_config}[name]()
+    jax_params = jax_load(DEFAULT_WEIGHTS[name], dtype=jnp.float32)
+    x = np.random.RandomState(12).rand(1, 64, 96, 3).astype(np.float32)
+    ref = np.asarray(JaxFlagship(**cfg).apply(jax_params, jnp.asarray(x)))
+    model = load_model(device="cpu", name=name)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["lite", "micro"])
+def test_default_weights_are_jax_defaults(name):
+    assert os.path.isfile(DEFAULT_WEIGHTS[name])
+    assert os.path.abspath(DEFAULT_WEIGHTS[name]) == os.path.abspath(
+        jax_predict.default_weights(name))
+
+
+def test_default_weights_reach_the_card():
+    """No snapshot the port loads by default is left off the chip copy."""
+    with open(os.path.join(REPO, ".chiprunignore")) as fh:
+        ignored = {line.strip() for line in fh if line.strip()}
+    assert not {os.path.basename(p) for p in DEFAULT_WEIGHTS.values()} & ignored
 
 
 def test_plan_raises_when_nothing_fits():

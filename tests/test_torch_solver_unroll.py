@@ -1,6 +1,8 @@
 """K1 (the whole solver unroll) of the port against the JAX package's Pallas
 kernel in interpret mode, at the shape classes of tests/test_solver_unroll.py,
-and the port's MixtureGTVGLR against the JAX jnp solver path."""
+the port's MixtureGTVGLR against the JAX jnp solver path, and the solver's
+routing: K1 for planes under the cap, the K5 band route (against JAX's band
+route and against the port's own K1 route) for the rest."""
 
 from __future__ import annotations
 
@@ -12,8 +14,11 @@ import torch
 
 from irdu_tpu.ops.pallas.solver_unroll import gg_unroll_chw as jax_unroll
 from irdu_tpu.ops.pallas.solver_unroll import unroll_scal as jax_unroll_scal
+from irdu_tpu.solvers import gtv_glr as jax_gtv_glr
 from irdu_tpu.solvers.gtv_glr import MixtureGTVGLR as JaxMixture
+from irdu_tpu_torch.ops.fused_step import gg_fused_step_chw
 from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, unroll_scal
+from irdu_tpu_torch.solvers import gtv_glr
 from irdu_tpu_torch.solvers.gtv_glr import MixtureGTVGLR
 from irdu_tpu_torch.utils.weights import params_to_torch
 
@@ -115,3 +120,103 @@ def test_unroll_rejects_what_it_does_not_port(bad):
         args[3] = args[3][..., :-1]
     with pytest.raises(err):
         gg_unroll_chw(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# routing: K1 for planes under the cap, the K5 band route for the rest
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_SCALES = ((48, 8), (96, 16), (192, 16), (384, 32))  # (C, G) per scale
+# the port's route per scale at each request: K1 under the cap, K5 above
+ROUTES = {(512, 512): "K1 K1 K1 K1", (480, 320): "K1 K1 K1 K1",
+          (256, 384): "K1 K1 K1 K1", (1024, 1024): "K5 K1 K1 K1",
+          (2048, 2048): "K5 K5 K1 K1"}
+# where JAX runs its jnp path (H % 16, (H/2) % 8 or, above the cap, W % 256)
+JAX_JNP = {(480, 320): (2, 3)}
+
+
+@pytest.mark.parametrize("hw", list(ROUTES), ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_route_agrees_with_jax(hw):
+    """The port's K1/K5 choice per flagship scale against JAX's
+    ``_chw_ok``/``_mega_ok``; where JAX runs its jnp path, the port's
+    documented kernel route."""
+    h, w = hw
+    for s, (c, g) in enumerate(FLAGSHIP_SCALES):
+        shape = (1, h >> s, w >> s, c)
+        jm = JaxMixture(n_graphs=g, n_node_fts=c // g)
+        jax_route = ("jnp" if not jm._chw_ok(shape)
+                     else "K1" if JaxMixture._mega_ok(shape) else "K5")
+        port = "K1" if gtv_glr._mega_ok((1, c, h >> s, w >> s)) else "K5"
+        assert port == ROUTES[hw].split()[s], (hw, s)
+        if s in JAX_JNP.get(hw, ()):
+            assert jax_route == "jnp", (hw, s)
+        else:
+            assert jax_route == port, (hw, s)
+
+
+@pytest.mark.parametrize("hw,want", [((16, 256), True), ((768, 1024), True),
+                                     ((769, 1024), False), ((1024, 1024), False),
+                                     ((16, 1026), False), ((30, 20), True), ((16, 15), False)],
+                         ids=lambda v: str(v))
+def test_mega_ok_rule(hw, want):
+    """H·Wp ≤ 768·1024 with Wp = W rounded up to 128, both extents ≤ 1024,
+    W even; no H % 16 rule (JAX's TPU tiling rule)."""
+    assert gtv_glr._mega_ok((1, 6) + hw) is want
+
+
+def _randomized_pair(h, w, iters, seed):
+    """JAX's MixtureGTVGLR params randomized as tests/test_solver_unroll.py
+    does, μ/ρ/γ raised ×50 so the solver terms show; the port's module with
+    the same params."""
+    rng = np.random.RandomState(seed)
+    x = (0.3 * rng.randn(1, h, w, C)).astype(np.float32)
+    jm = JaxMixture(n_graphs=G, n_node_fts=F, eval_cg_iters=iters)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.05 * rng.randn(*a.shape).astype(np.float32), params)
+    for name in ("ro00", "ro01", "gamma00", "gamma01", "muys00", "muys01"):
+        params["params"][name] = params["params"][name] + np.log(50.0).astype(np.float32)
+    tm = MixtureGTVGLR(G, F, eval_cg_iters=iters)
+    params_to_torch(params, tm)
+    return x, params, tm
+
+
+def _port(tm, x):
+    with torch.no_grad():
+        return tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3])
+def test_band_route_matches_jax_band_route(monkeypatch, iters):
+    """Both caps at 0: the port's K5 steps (their plain versions) against
+    JAX's band kernels in interpret mode, 16x256 (tests/test_solver_unroll.py
+    ::test_band_path_still_matches)."""
+    monkeypatch.setattr(jax_gtv_glr, "_MEGA_MAX_PIXELS", 0)
+    monkeypatch.setattr(gtv_glr, "_MEGA_MAX_PIXELS", 0)
+    x, params, tm = _randomized_pair(16, 256, iters, seed=9 + iters)
+    fast = JaxMixture(n_graphs=G, n_node_fts=F, eval_cg_iters=iters, use_pallas_unroll=True)
+    assert fast._chw_ok(x.shape) and not fast._mega_ok(x.shape)
+    ref = np.asarray(fast.apply(params, jnp.asarray(x)))
+    np.testing.assert_allclose(_port(tm, x), ref, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("iters,calls", [(1, 2), (2, 4), (3, 5)])
+def test_band_route_matches_k1_route(monkeypatch, iters, calls):
+    """The same module on the same input through K1 and through the K5 steps
+    (plain versions, f32): equal within the kernels' bar; the band route
+    makes 2, 4 or 5 step calls."""
+    x, _, tm = _randomized_pair(16, 256, iters, seed=20 + iters)
+    seen = []
+
+    def counted(*args, **kw):
+        seen.append(kw["mode"])
+        return gg_fused_step_chw(*args, **kw)
+
+    monkeypatch.setattr(gtv_glr, "gg_fused_step_chw", counted)
+    via_k1 = _port(tm, x)
+    assert not seen
+    monkeypatch.setattr(gtv_glr, "_MEGA_MAX_PIXELS", 0)
+    via_k5 = _port(tm, x)
+    assert seen == ["rhs", "cg", "rethresh", "cg", "cg"][:calls]
+    assert np.abs(via_k1 - x).max() > 0.05  # the solver moved its input
+    np.testing.assert_allclose(via_k5, via_k1, atol=5e-4, rtol=1e-3)

@@ -24,6 +24,16 @@ Phases, each timed and printed as it ends:
             launch 5 K3, 10 K4, 4 K1, 8 K2 (its scale-0 C = 24 runs on the
             block kernel's padded channels), micro 7 K3, 2 K4, 4 K1, 8 K2; each
             raises the PSNR and every call is held against its plain version;
+  pixel     the pixel-domain model (pixel_synthetic_2050.npz, bf16) answers
+            512x512, 480x320 and 1024x1024 through predict.denoise, counts
+            zeroed just before: each request must launch K2 once (2G = 48
+            graphs, diamond-12) and K8 (pixel_segment_nhwc) exactly 6 times
+            and no other kernel, and raise the PSNR; then the 512x512 request
+            on the CHW route (the NHWC flag off) must launch K2 once and K7
+            (gg_pixel_unroll_chw) once. Each request is served once more
+            with every kernel call held against its plain version (K1's bf16
+            bar; K2's for K2), and the two routes are timed at 512x512 in
+            turns (data, not a claim);
   kernels   each kernel against its plain PyTorch version on the card, in f32
             (atol 5e-4, rtol 1e-3) and bf16 (K2: max|d| <= 4e-3; K1: 4e-3 plus
             one bf16 ulp of the value; K3, K4: below): K1 and K2 at every shape a
@@ -45,11 +55,19 @@ Phases, each timed and printed as it ends:
             2048x2048 requests give it. Then the band route against the K1
             route on the 512x512 request's scale-0 code (K1's cap set to 0):
             f32 within 5e-4 + 1e-3·|ref|, and both routes timed in bf16, in
-            turns;
+            turns. K2 on the diamond-12 window at (1, 144, 512, 512), K7 at the
+            512x512 pixel request's shapes and K8 in each mode at 512x512, with
+            the pixel snapshot's parameters, f32 (the bar above, and for K7
+            and K8 the CHANGE_FACTOR rule) and bf16 (K2's and K1's bars), timed
+            in bf16;
   model     the whole model in f32 with TF32 off on each flagship request's
             noisy image (the first is 1x512x512x3): kernel path against plain
             path (blocks as PyTorch ops, the solver's plain versions),
-            max|d| <= 1e-3, and the PSNR of both within 0.01 dB.
+            max|d| <= 1e-3, and the PSNR of both within 0.01 dB; the same for
+            the pixel model on its 512x512 and 480x320 requests (the NHWC
+            route, and at 512x512 the CHW route, against both solver flags
+            off), and on a 484x324 crop of the 512x512 one (H % 8 == 4, W %
+            16 == 4: ragged tiles) on both kernel routes.
 
 The build must take under 60 s and the whole script under 300 s; a run over
 either budget fails.
@@ -85,12 +103,13 @@ BAND = 1024  # the kernel phase's K5, K6a and K6b rows run at the shapes of a BA
 K3_PER_REQUEST, K4_PER_REQUEST = 3, 32
 K4_PER_SCALE = {1: 12, 2: 12, 3: 8}  # encoder + decoder blocks at scales 1-2, encoder at 3
 KERNEL_NAMES = ("fused_block_stack", "fused_gated_block", "gg_unroll_chw", "edge_weights_chw",
-                "gg_fused_step_chw", "gg_matvec_chw", "gtv_rethresh_chw")
+                "gg_fused_step_chw", "gg_matvec_chw", "gtv_rethresh_chw", "gg_pixel_unroll_chw",
+                "pixel_segment_nhwc")
 
 
-def launches(k3, k4, k1, k2, k5):
+def launches(k3, k4, k1, k2, k5, k7=0, k8=0):
     """Launches of one request at cg3 (K6a and K6b are K5's oracles only)."""
-    return dict(zip(KERNEL_NAMES, (k3, k4, k1, k2, k5, 0, 0)))
+    return dict(zip(KERNEL_NAMES, (k3, k4, k1, k2, k5, 0, 0, k7, k8)))
 
 
 # K1 takes a scale's plane up to 768·1024 pixels (W rounded up to 128, both
@@ -102,6 +121,14 @@ PER_REQUEST = {(512, 512): launches(3, 32, 4, 8, 0), (480, 320): launches(3, 32,
 # the smaller members of the family at 512² (lite: C = 24, 48 on K3, 96, 192
 # on K4; micro: C = 16, 32, 64 on K3, 128 on K4)
 SMALL_MODELS = {"lite": launches(5, 10, 4, 8, 0), "micro": launches(7, 2, 4, 8, 0)}
+# the pixel model (its snapshot, bf16): every request on the NHWC route, K2
+# once on 2G graphs and 6 K8 segments; the 512x512 one once more on the CHW
+# route, K2 once and K7 once
+PIXEL_REQUESTS = ((512, 512), (480, 320), (1024, 1024))
+PIXEL_RAGGED = (484, 324)  # a crop of the 512x512 request for the f32 model check
+PIXEL_NHWC = launches(0, 0, 0, 1, 0, k8=6)
+PIXEL_CHW = launches(0, 0, 0, 1, 0, k7=1)
+K8_CALLS = {"rhs": 1, "cg1": 2, "cg2": 2, "rethresh": 1}  # per pixel request
 LOUD = (1, 20, 20, 1)  # per-scale factor on the snapshot's μ, ρ, γ in the K1 rows
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
 
@@ -130,12 +157,13 @@ def k1_ops_per_pixel(iters):
     return ops
 
 
-def k2_ops_per_pixel_graph(f):
+def k2_ops_per_pixel_graph(f, n_edges=4):
     """f32 operations per pixel and graph, each edge's dot product computed
-    once: |c|² 2F, t = c·m/|c| 2F, the dots with the right and the lower
-    neighbour 2·2F; then 1/|c|, the 4 similarities' scaling and the softmax
-    over 4 edges, about 20."""
-    return 8 * f + 20
+    once: |c|² 2F, t = c·m/|c| 2F, the dots with the half of the window's
+    neighbours that come after the pixel (the others are theirs) E/2·2F; then
+    1/|c|, the E similarities' scaling and the softmax over E edges, about
+    5E (cross-4: 8F + 20; diamond-12: 16F + 60)."""
+    return 4 * f + n_edges * f + 5 * n_edges
 
 
 def piecewise_smooth(h, w, seed):
@@ -181,7 +209,8 @@ class Smoke:
     def __init__(self):
         self.phases = {}
         self.failed = []
-        self.counts = {}
+        self.path_counts = {}  # path → launches per kernel in that path's run
+        self.pixel_model = None
         self.lines = {}
         self.model = None
 
@@ -288,8 +317,8 @@ def phase_build():
     path, log, seconds = build()
     with open(os.path.join(OUT_DIR, "nvcc_build.log"), "w") as fh:
         fh.write(log)
-    print(f"build: {seconds:.2f} s (one nvcc call, sm_90a) -> {os.path.relpath(path, REPO)}",
-          flush=True)
+    print(f"build: {seconds:.2f} s (one nvcc per source and a link, sm_90a) -> "
+          f"{os.path.relpath(path, REPO)}", flush=True)
     return seconds
 
 
@@ -299,11 +328,13 @@ def wrappers():
     from irdu_tpu_torch.ops.edge_weights import edge_weights_chw
     from irdu_tpu_torch.ops.fused_step import gg_fused_step_chw, gg_matvec_chw, gtv_rethresh_chw
     from irdu_tpu_torch.ops.gated_block import fused_gated_block
+    from irdu_tpu_torch.ops.pixel_nhwc import pixel_segment_nhwc
+    from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw
     from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
 
     return dict(zip(KERNEL_NAMES, (fused_block_stack, fused_gated_block, gg_unroll_chw,
                                    edge_weights_chw, gg_fused_step_chw, gg_matvec_chw,
-                                   gtv_rethresh_chw)))
+                                   gtv_rethresh_chw, gg_pixel_unroll_chw, pixel_segment_nhwc)))
 
 
 def serve(model, requests):
@@ -349,7 +380,8 @@ def phase_serving(smoke):
     for _, noisy in images:  # warm-up: cuDNN plans, allocator
         denoise(model, noisy)
     sync()
-    rows, smoke.counts = serve(model, [(c, n, hw) for (c, n), hw in zip(images, REQUESTS)])
+    rows, smoke.path_counts["serving"] = serve(
+        model, [(c, n, hw) for (c, n), hw in zip(images, REQUESTS)])
     for row, (_, noisy) in zip(rows, images):  # after the counts: these launches do not count
         row.update(checked_request(model, noisy, PER_REQUEST[tuple(row["shape"])]))
     smoke.lines["serving"] = {"serving": rows, "weights": "flagship_cont100k_35000.npz",
@@ -382,6 +414,61 @@ def phase_small(smoke):
         check_row(r, SMALL_MODELS[r["model"]])
 
 
+def pixel_images():
+    """The pixel requests' (clean, noisy) images: the flagship requests of
+    the same sizes."""
+    images = dict(zip(REQUESTS, request_images()))
+    return [images[hw] for hw in PIXEL_REQUESTS]
+
+
+def phase_pixel(smoke):
+    """The pixel model (its snapshot, bf16) serves PIXEL_REQUESTS on the NHWC
+    route (1 K2 and 6 K8 each), then the 512x512 request on the CHW route
+    (1 K2 and 1 K7), counts zeroed just before each run and read just after;
+    each request once more with every kernel call held against its plain
+    version; the two routes timed at 512x512 in turns."""
+    from irdu_tpu_torch.predict import denoise, load_model
+
+    model = smoke.pixel_model = load_model(device=DEVICE, name="pixel")
+    mix = model.mixtureGLR_block03
+    images = pixel_images()
+    for _, noisy in images:  # warm-up: cuDNN plans, allocator
+        denoise(model, noisy)
+    sync()
+    rows, counts = serve(model, [(c, n, hw) for (c, n), hw in zip(images, PIXEL_REQUESTS)])
+    smoke.path_counts["pixel"] = counts
+    for row, (_, noisy) in zip(rows, images):
+        row.update(route="nhwc", **checked_request(model, noisy, PIXEL_NHWC, pixel_sites()))
+    clean, noisy = images[0]
+    try:
+        mix.use_nhwc_unroll = False
+        denoise(model, noisy)  # warm-up of the CHW route
+        sync()
+        (chw_row,), counts = serve(model, [(clean, noisy, PIXEL_REQUESTS[0])])
+        smoke.path_counts["pixel_chw"] = counts
+        chw_row.update(route="chw", **checked_request(model, noisy, PIXEL_CHW, pixel_sites()))
+        times = {"nhwc": [], "chw": []}
+        for _ in range(3):
+            for route in ("nhwc", "chw", "chw", "nhwc"):
+                mix.use_nhwc_unroll = route == "nhwc"
+                sync()
+                t0 = time.perf_counter()
+                denoise(model, noisy)
+                sync()
+                times[route].append(round((time.perf_counter() - t0) * 1e3, 3))
+    finally:
+        mix.use_nhwc_unroll = True
+    smoke.lines["pixel"] = {
+        "pixel": rows + [chw_row], "weights": "pixel_synthetic_2050.npz", "dtype": "bfloat16",
+        "routes_512": {"nhwc_ms": times["nhwc"], "chw_ms": times["chw"],
+                       "median_nhwc_ms": float(np.median(times["nhwc"])),
+                       "median_chw_ms": float(np.median(times["chw"])),
+                       "order": "nhwc, chw, chw, nhwc, x3"}}
+    for r in rows:
+        check_row(r, PIXEL_NHWC)
+    check_row(chw_row, PIXEL_CHW)
+
+
 def blocks_ab(model, noisy, rounds=3):
     """The 512x512 request with the encoder/decoder blocks on K3/K4 and on
     the plain PyTorch route (cuDNN convolutions), in turns: plain, kernels,
@@ -410,22 +497,48 @@ def blocks_ab(model, noisy, rounds=3):
             "order": "plain, kernels, kernels, plain, x%d" % rounds}
 
 
-def checked_request(model, noisy, want):
-    """Serve one request with every kernel call held against its plain
-    version on that call's own tensors (both outputs of a K5 call that emits
-    its update); the max|d| of each kernel, and whether every call agreed and
-    the calls per kernel are ``want``."""
+def flagship_sites():
+    """Where models/flagship.py and solvers/gtv_glr.py look the kernels up:
+    (module, name, plain version, bf16 bar; None: block_bar)."""
     from irdu_tpu_torch.models import flagship
     from irdu_tpu_torch.ops.block_stack import block_stack_plain
     from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
     from irdu_tpu_torch.ops.fused_step import fused_step_plain
     from irdu_tpu_torch.ops.gated_block import gated_block_plain
     from irdu_tpu_torch.ops.solver_unroll import gg_unroll_plain
-    from irdu_tpu_torch.predict import denoise
     from irdu_tpu_torch.solvers import gtv_glr
 
-    log = {n: [] for n in KERNEL_NAMES[:5]}  # K6a, K6b: not on the path
-    share = {"fused_block_stack": 0.0, "fused_gated_block": 0.0}
+    return ((flagship, "fused_block_stack", block_stack_plain, None),
+            (flagship, "fused_gated_block", gated_block_plain, None),
+            (gtv_glr, "gg_unroll_chw", gg_unroll_plain, k1_bar),
+            (gtv_glr, "edge_weights_chw", edge_weights_plain, k2_bar),
+            (gtv_glr, "gg_fused_step_chw", fused_step_plain, k1_bar))
+
+
+def pixel_sites():
+    """Where solvers/pixel_gtv.py and ops/pixel_nhwc.py look the pixel
+    model's kernels up."""
+    from irdu_tpu_torch.ops import pixel_nhwc
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.pixel_unroll import pixel_unroll_plain
+    from irdu_tpu_torch.solvers import pixel_gtv
+
+    return ((pixel_gtv, "edge_weights_chw", edge_weights_plain, k2_bar),
+            (pixel_gtv, "gg_pixel_unroll_chw", pixel_unroll_plain, k1_bar),
+            (pixel_nhwc, "pixel_segment_nhwc", pixel_nhwc.pixel_segment_plain, k1_bar))
+
+
+def checked_request(model, noisy, want, sites=None):
+    """Serve one request with every kernel call held against its plain
+    version on that call's own tensors (both outputs of a K5 call that emits
+    its update, or of a K8 cg1 segment); the max|d| of each kernel, and
+    whether every call agreed and the calls per kernel are ``want``.
+    ``sites``: where the model looks its kernels up (default: the flagship's)."""
+    from irdu_tpu_torch.predict import denoise
+
+    sites = sites or flagship_sites()
+    log = {name: [] for _, name, _, _ in sites}
+    share = {n: 0.0 for n in ("fused_block_stack", "fused_gated_block") if n in log}
     rms = dict(share)
 
     def checked(name, kernel, plain, bar):
@@ -443,14 +556,12 @@ def checked_request(model, noisy, want):
                 err = max(max_abs(o, r) for o, r in pairs)
             log[name].append((err, ok))
             return out
+        # a wrapper that counts its launches through its module's name for
+        # itself (K8: pixel_unroll_nhwc calls it in the same module) counts
+        # here while this one sits in its place; these calls are not counted
+        call.launches = 0
         return call
 
-    # the names where models/flagship.py and solvers/gtv_glr.py look them up
-    sites = ((flagship, "fused_block_stack", block_stack_plain, None),
-             (flagship, "fused_gated_block", gated_block_plain, None),
-             (gtv_glr, "gg_unroll_chw", gg_unroll_plain, k1_bar),
-             (gtv_glr, "edge_weights_chw", edge_weights_plain, k2_bar),
-             (gtv_glr, "gg_fused_step_chw", fused_step_plain, k1_bar))
     saved = [getattr(mod, name) for mod, name, _, _ in sites]
     for (mod, name, plain, bar), kernel in zip(sites, saved):
         setattr(mod, name, checked(name, kernel, plain, bar))
@@ -562,6 +673,9 @@ def phase_kernels(smoke):
                 **_bound(nbytes, ops))
     smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows,
                          **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at)}
+    pixel = smoke.pixel_model or load_model(device=DEVICE, name="pixel")
+    for name, rows in pixel_rows(pixel, gen, bar_at).items():
+        smoke.kernel_rows.setdefault(name, []).extend(rows)
     smoke.lines["band_route"] = band_route(model)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
         json.dump(smoke.kernel_rows, fh, indent=1)
@@ -854,6 +968,106 @@ def block_rows(model, gen, bar_at):
     return rows
 
 
+def pixel_rows(model, gen, bar_at):
+    """K2 on the diamond-12 window, K7, and K8 in each mode against their
+    plain versions at the shapes of a 512x512 pixel request, with the
+    snapshot's solver parameters (multiM, the scalar stencils, μ, ρ, γ, α, β),
+    f32 (atol 5e-4, rtol 1e-3; K7 and K8 also the CHANGE_FACTOR rule) and
+    bf16 (K2: k2_bar; K7, K8: K1's bar), on seeded inputs: features N(0, 1),
+    signals U[0, 1), the previous update 0.3·N(0, 1), the weights K2's of the
+    features. Times in bf16 from CUDA events; ``calls``: per pixel request on
+    its route (K2 on diamond-12: 1 on the CHW route, kept out of the
+    flagship request's sum)."""
+    import torch
+
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
+    from irdu_tpu_torch.ops.graph import pack_edge_weights
+    from irdu_tpu_torch.ops.pixel_nhwc import (NHWC_OPS_PER_PIXEL, pixel_segment_nhwc,
+                                               pixel_segment_plain)
+    from irdu_tpu_torch.ops.pixel_unroll import (PIXEL_UNROLL_OPS_PER_PIXEL,
+                                                 gg_pixel_unroll_chw, pixel_unroll_plain)
+    from irdu_tpu_torch.ops.windows import DIAMOND12
+
+    mix = model.mixtureGLR_block03
+    g, f = mix.n_graphs, mix.n_node_fts
+    c, n_e = g * f, len(DIAMOND12)
+    h, w = PIXEL_REQUESTS[0]
+    m = torch.cat([mix.GTVmodule00.multiM, mix.GLRmodule00.multiM]).float()
+    tables = (mix.GTVmodule00.stats_table(), mix.GLRmodule00.stats_table())
+    scal = mix._scal()
+    p = torch.stack([mix.GTVmodule00.stats_scalars(), mix.GLRmodule00.stats_scalars()])
+    planar = {k: v.float().repeat(f) for k, v in
+              (("mu", mix.muys00), ("ro", mix.ro00), ("gamma", torch.exp(mix.gamma00.float())))}
+    alpha, beta = mix.alphaCGD.float().repeat(1, f), mix.betaCGD.float().repeat(1, f)
+
+    def seg_scal(i):  # K8's (5, C) rows for CG step i (α only, β too from step 1 of a round)
+        return torch.stack([planar["mu"], planar["ro"], planar["gamma"], alpha[i],
+                            beta[i] if i % 2 else torch.zeros_like(alpha[i])])
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+    rows = {"edge_weights_chw": [], "gg_pixel_unroll_chw": [], "pixel_segment_nhwc": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        feats = torch.randn(1, c, h, w, device=DEVICE, generator=gen).to(dtype)
+        feats2 = torch.cat([feats, feats], dim=1)
+        ker = edge_weights_chw(feats2, m, n_graphs=2 * g, deltas=DIAMOND12)
+        ref = edge_weights_plain(feats2, m, 2 * g, DIAMOND12)
+        sync()
+        row = dict(window="diamond12", shape=list(feats2.shape), dtype=str(dtype)[6:],
+                   params="pixel snapshot multiM", max_abs_err=max_abs(ker, ref),
+                   ok=k2_bar(ker, ref) if bf16 else within(ker, ref, 5e-4, 1e-3))
+        if bf16:
+            row.update(calls=0, ms=cuda_ms(lambda: edge_weights_chw(
+                feats2, m, n_graphs=2 * g, deltas=DIAMOND12), 10),
+                plain_ms=cuda_ms(lambda: edge_weights_plain(feats2, m, 2 * g, DIAMOND12), 2, 1),
+                **_bound(nbytes(feats2, m, ker), h * w * 2 * g * k2_ops_per_pixel_graph(f, n_e)))
+        rows["edge_weights_chw"].append(row)
+        wg, wl = ref[:, :g].contiguous(), ref[:, g:].contiguous()
+        del ker, feats2
+        y = torch.rand(1, f, h, w, device=DEVICE, generator=gen).to(dtype)
+        args = (y, wg, wl, *tables, scal)
+        ker = gg_pixel_unroll_chw(*args, n_graphs=g)
+        ref = pixel_unroll_plain(*args, n_graphs=g)
+        sync()
+        row = dict(shape=list(ker.shape), dtype=str(dtype)[6:], params="pixel snapshot")
+        row.update(_agree(ker, ref, y.repeat(1, g, 1, 1), dtype, bar_at))
+        if bf16:
+            row.update(calls=1, ms=cuda_ms(lambda: gg_pixel_unroll_chw(*args, n_graphs=g), 5),
+                       plain_ms=cuda_ms(lambda: pixel_unroll_plain(*args, n_graphs=g), 2, 1),
+                       **_bound(nbytes(*args, ker), ker.numel() * PIXEL_UNROLL_OPS_PER_PIXEL))
+        rows["gg_pixel_unroll_chw"].append(row)
+        del ker, ref
+        x, aux = (torch.rand(1, h, w, c, device=DEVICE, generator=gen).to(dtype)
+                  for _ in range(2))
+        prev = (0.3 * torch.randn(1, h, w, c, device=DEVICE, generator=gen)).to(dtype)
+        wgp, wlp = pack_edge_weights(wg), pack_edge_weights(wl)
+        del wg, wl
+        cases = {"rhs": (None, None, None, seg_scal(0)), "cg1": (None, None, wlp, seg_scal(0)),
+                 "cg2": (aux, prev, wlp, seg_scal(1)), "rethresh": (aux, None, None, seg_scal(0))}
+        for mode, (aux_, prev_, wl_, sc) in cases.items():
+            args = (x, aux_, prev_, wgp, wl_, p, sc)
+            kw = dict(mode=mode, n_graphs=g)
+            ker = pixel_segment_nhwc(*args, **kw)
+            ref = pixel_segment_plain(*args, **kw)
+            sync()
+            row = dict(mode=mode, shape=list(x.shape), dtype=str(dtype)[6:],
+                       params="pixel snapshot")
+            row.update(_agree(ker, ref, aux_ if mode == "rethresh" else x, dtype, bar_at))
+            if bf16:
+                outs = ker if isinstance(ker, tuple) else (ker,)
+                row.update(calls=K8_CALLS[mode],
+                           ms=cuda_ms(lambda: pixel_segment_nhwc(*args, **kw), 10),
+                           plain_ms=cuda_ms(lambda: pixel_segment_plain(*args, **kw), 2, 1),
+                           **_bound(nbytes(*args, *outs), x.numel() * NHWC_OPS_PER_PIXEL[mode]))
+            rows["pixel_segment_nhwc"].append(row)
+            del ker, ref
+        del x, aux, prev, wgp, wlp
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _bound(nbytes, ops, tensor_ops=0):
     """The least time: bytes over the memory rate, f32 CUDA-core operations
     over their peak and bf16 tensor-core operations over theirs (the units
@@ -872,7 +1086,9 @@ def kernels_line(smoke):
     calls one request makes (bf16; a timed row counts ``calls`` times): a
     512x512 request for K1-K4, a 1024x1024 one for K5 (a 512x512 request
     launches none), one call for K6a and K6b (K5's oracles, on no request's
-    path); max_abs_err is the f32 maximum."""
+    path), a 512x512 pixel request for K7 (CHW route) and K8 (NHWC route);
+    max_abs_err is the f32 maximum; launches are those of the paths' runs
+    (flagship serving, pixel NHWC, pixel CHW), summed and by path."""
     meta = {
         "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack.cu",
                               "irdu_tpu/ops/pallas/block_stack.py:214"),
@@ -888,9 +1104,15 @@ def kernels_line(smoke):
                           "irdu_tpu/ops/pallas/solver_chw.py:735"),
         "gtv_rethresh_chw": ("irdu_tpu_torch/kernels/csrc/fused_step.cu",
                              "irdu_tpu/ops/pallas/solver_chw.py:799"),
+        "gg_pixel_unroll_chw": ("irdu_tpu_torch/kernels/csrc/pixel_unroll.cu",
+                                "irdu_tpu/ops/pallas/solver_unroll.py:394"),
+        "pixel_segment_nhwc": ("irdu_tpu_torch/kernels/csrc/pixel_nhwc.cu",
+                               "irdu_tpu/ops/pallas/pixel_nhwc.py:294"),
     }
     basis = {"gg_fused_step_chw": f"{BAND}x{BAND} request", "gg_matvec_chw": "one call",
-             "gtv_rethresh_chw": "one call"}
+             "gtv_rethresh_chw": "one call",
+             "gg_pixel_unroll_chw": f"{FRAME}x{FRAME} pixel request, CHW route",
+             "pixel_segment_nhwc": f"{FRAME}x{FRAME} pixel request, NHWC route"}
     out = []
     for name, (source, replaces) in meta.items():
         rows = getattr(smoke, "kernel_rows", {}).get(name, [])
@@ -900,7 +1122,8 @@ def kernels_line(smoke):
         bf16 = [r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=smoke.counts.get(name, 0),
+            launches=sum(c.get(name, 0) for c in smoke.path_counts.values()),
+            launches_by_path={k: c.get(name, 0) for k, c in smoke.path_counts.items()},
             max_abs_err=max(f32) if f32 else None,
             max_abs_err_bf16=max(bf16) if bf16 else None,
             per=basis.get(name, f"{FRAME}x{FRAME} request"),
@@ -910,6 +1133,7 @@ def kernels_line(smoke):
             bound_by=max(summed, key=lambda r: r["bound_ms"])["bound_by"] if summed else None,
             library_ms=None,
             library_note=("no single PyTorch call computes a block" if "block" in name
+                          else "none: no single call" if "pixel" in name
                           else "no single PyTorch call computes this function"),
             per_call=timed))
     return {"kernels": out}
@@ -955,6 +1179,9 @@ def phase_model(smoke):
                          finite=bool(torch.isfinite(ker).all()),
                          psnr_kernels=psnr(clean, ker_np), psnr_plain=psnr(clean, ref_np),
                          **dark_split(clean, ker_np)))
+    del model
+    torch.cuda.empty_cache()
+    rows += pixel_model_rows(saved)
     np.savez_compressed(os.path.join(OUT_DIR, "model_outputs.npz"), **saved)
     smoke.lines["model"] = {"model_check": rows, "dtype": "float32", "tf32": False,
                             "atol": 1e-3}
@@ -963,6 +1190,46 @@ def phase_model(smoke):
                 f"{r['shape']}: kernel path vs plain path max|d| {r['max_abs_err']}")
         require(abs(r["psnr_kernels"] - r["psnr_plain"]) <= 0.01,
                 f"{r['shape']}: PSNR {r['psnr_kernels']} (kernels) vs {r['psnr_plain']}")
+
+
+def pixel_model_rows(saved):
+    """The pixel model in f32 on its 512x512 and 480x320 requests' noisy
+    images: the NHWC kernel route against the plain route (both solver flags
+    off); at 512x512, and on the PIXEL_RAGGED crop of it, the CHW kernel
+    route against it too."""
+    import torch
+
+    from irdu_tpu_torch.predict import load_model
+
+    model = load_model(device=DEVICE, dtype=torch.float32, name="pixel")
+    mix = model.mixtureGLR_block03
+    (clean_512, noisy_512), request_480 = pixel_images()[:2]
+    rh, rw = PIXEL_RAGGED
+    cases = (((clean_512, noisy_512), PIXEL_REQUESTS[0], ("nhwc", "chw")),
+             (request_480, PIXEL_REQUESTS[1], ("nhwc",)),
+             ((clean_512[:rh, :rw], noisy_512[:rh, :rw]), PIXEL_RAGGED, ("nhwc", "chw")))
+    rows = []
+    try:
+        for (clean, noisy), (h, w), routes in cases:
+            x = torch.from_numpy(np.ascontiguousarray(noisy[None])).to(DEVICE)
+            with torch.inference_mode():
+                mix.use_nhwc_unroll = mix.use_pallas_unroll = False
+                ref = model(x)
+                for route in routes:
+                    mix.use_nhwc_unroll, mix.use_pallas_unroll = route == "nhwc", True
+                    require(mix.route() == route, route)
+                    ker = model(x)
+                    sync()
+                    ker_np = ker[0].cpu().numpy()
+                    saved[f"pixel_{route}_{h}x{w}"] = ker_np
+                    rows.append(dict(model="pixel", route=route, shape=[1, h, w, 3],
+                                     max_abs_err=max_abs(ker, ref),
+                                     finite=bool(torch.isfinite(ker).all()),
+                                     psnr_kernels=psnr(clean, ker_np),
+                                     psnr_plain=psnr(clean, ref[0].cpu().numpy())))
+    finally:
+        mix.use_nhwc_unroll = mix.use_pallas_unroll = True
+    return rows
 
 
 def main() -> int:
@@ -1001,10 +1268,11 @@ def main() -> int:
     if not smoke.failed:
         smoke.run("serving", phase_serving, smoke)
         smoke.run("small", phase_small, smoke)
+        smoke.run("pixel", phase_pixel, smoke)
         smoke.run("kernels", phase_kernels, smoke)
         smoke.run("model", phase_model, smoke)
     print(json.dumps(kernels_line(smoke)), flush=True)
-    for key in ("serving", "small_models", "band_route", "model"):
+    for key in ("serving", "small_models", "pixel", "band_route", "model"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:

@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-All sources under ``csrc/`` go through ONE nvcc call into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds):
+Each source under ``csrc/`` is compiled by its own nvcc process, all started
+together (one call for all sources compiles them one after another), and one
+more nvcc call links the objects into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libirdu_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c csrc/<name>.cu -o _build/<name>.o        (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/libirdu_kernels_<hash>.so *.o
 
 The library is built at first use into ``_build/`` (git-ignored), keyed on a
 hash of the sources and flags, and reused while they are unchanged. Each C
@@ -17,27 +20,32 @@ from __future__ import annotations
 import ctypes
 import glob
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {  # name: (argtypes, restype)
     "irdu_block_stack": ((_P,) * 7 + (_I,) * 6 + (_L,) * 9 + (_I,) * 5 + (_P,), _I),
-    "irdu_edge_weights": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "irdu_edge_weights": ((_P, _P, _P) + (_I,) * 5 + (_P, _I, _I, _P), _I),
     "irdu_fused_step": ((_P,) * 14 + (_I,) * 10 + (_P,), _I),
     "irdu_gg_unroll": ((_P,) * 12 + (_I,) * 7 + (_P,), _I),
     "irdu_gg_unroll_scratch_floats": ((_I, _I), _L),
+    "irdu_pixel_unroll": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
+    "irdu_pixel_unroll_scratch_floats": ((_I, _I), _L),
+    "irdu_pixel_segment": ((_P,) * 9 + (_I,) * 7 + (_P,), _I),
     "irdu_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -70,6 +78,15 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libirdu_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _nvcc(cmd) -> str:
+    """Run one nvcc command; its messages, or an error with them."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> tuple[str, str, float]:
     """Compile the library unless it is already built. Returns its path, the
     compiler's messages (register and spill counts from ``-Xptxas -v``) and
@@ -78,17 +95,39 @@ def build() -> tuple[str, str, float]:
     if os.path.isfile(path):
         return path, "", 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    stem = f"{path[:-len('.so')]}.{os.getpid()}"
+    nvcc = nvcc_path()
+    units = [(src, f"{stem}.{os.path.basename(src)[:-len('.cu')]}.o")
+             for src in _sources() if src.endswith(".cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        with ThreadPoolExecutor(len(units)) as pool:  # one compiler per source, all at once
+            logs = list(pool.map(_nvcc, ([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                                         for src, obj in units)))
+        logs.append(_nvcc([nvcc, *ARCH_FLAGS, "-shared", "-o", f"{stem}.tmp",
+                           *(obj for _, obj in units)]))
+    finally:
+        for _, obj in units:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    return path, proc.stdout + proc.stderr, seconds
+    os.replace(f"{stem}.tmp", path)  # atomic: a concurrent loader never sees half a file
+    return path, "".join(logs), seconds
+
+
+def serial_build_seconds() -> float:
+    """Seconds that one nvcc call compiling and linking every source takes,
+    into a file it then removes: the one-call build, for comparison."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"serial.{os.getpid()}.so")
+    t0 = time.perf_counter()
+    try:
+        _nvcc([nvcc_path(), *NVCC_FLAGS, "-shared", "-o", out,
+               *(src for src in _sources() if src.endswith(".cu"))])
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    return time.perf_counter() - t0
 
 
 def kernel_library() -> ctypes.CDLL:
@@ -114,3 +153,11 @@ def check_status(kernel: str, status: int) -> None:
     if status != 0:
         msg = kernel_library().irdu_error_string(status).decode()
         raise RuntimeError(f"{kernel}: CUDA error {status} ({msg})")
+
+
+if __name__ == "__main__":
+    # python -m irdu_tpu_torch.kernels.build: build the library (0 s when it is
+    # already built), then time the one-call build of the same sources
+    lib_path, _, parallel_s = build()
+    print(json.dumps({"library": lib_path, "parallel_s": round(parallel_s, 3),
+                      "serial_s": round(serial_build_seconds(), 3)}))

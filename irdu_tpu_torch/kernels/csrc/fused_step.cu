@@ -40,17 +40,6 @@ constexpr int kR0 = (kTH + 2 * kHalo) * (kTW + 2 * kHalo);          // full-res 
 constexpr int kR1 = (kTH / 2 + 2 * kHalo) * (kTW / 2 + 2 * kHalo);  // half-res region
 constexpr int kEpiAddX = 0, kEpiAddAux = 1, kEpiCg = 2;  // as in ops/fused_step.py
 
-struct Stats {  // stencil coefficients p01, p02a, p02b, p03 of one plane
-  float p[4];
-};
-
-__device__ __forceinline__ Stats load_stats(const float* tab, int g, int F, int f) {
-  Stats s;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s.p[k] = tab[(g * 4 + k) * F + f];
-  return s;
-}
-
 // Rows [r0, r0 + rh) and columns [c0, c0 + rw) of an H x W plane; the
 // region lies inside the image.
 struct Region {
@@ -94,13 +83,6 @@ __device__ __forceinline__ float stats_t_at(const float* s, const Region& R, con
   const float l0 = j > 0 ? s[R.at(i, j - 1)] : 0.f;
   return c.p[0] * v + c.p[1] * (l0 - v) + c.p[2] * (u0 - v) +
          c.p[3] * (4.f * v - u0 - d0 - l0 - r0);
-}
-
-template <bool kRethresh>
-__device__ __forceinline__ float edge_map(float eps, float gamma) {
-  if (!kRethresh) return eps;
-  const float thr = (eps < -gamma ? eps + gamma : 0.f) + (eps > gamma ? eps - gamma : 0.f);
-  return 2.f * thr - eps;
 }
 
 // sum_e [wei_e(p) - wei_e(p - d_e)], wei_e(q) = w_e(q) map(w_e(q) (s(q) -

@@ -23,17 +23,6 @@ namespace irdu {
 
 constexpr int kThreads = 512;  // 128 registers a thread: the stage state stays unspilled
 
-struct Stats {  // stencil coefficients p01, p02a, p02b, p03 of one plane
-  float p[4];
-};
-
-__device__ __forceinline__ Stats load_stats(const float* tab, int g, int F, int f) {
-  Stats s;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s.p[k] = tab[(g * 4 + k) * F + f];
-  return s;
-}
-
 // Polynomial 3x3 stencil, replicate boundary (ops.graph.stats_conv).
 __device__ __forceinline__ float stats_at(const float* s, const Stats& c, int i,
                                           int j, int H, int W) {
@@ -56,15 +45,6 @@ __device__ __forceinline__ float stats_t_at(const float* s, const Stats& c, int 
   const float l0 = j > 0 ? s[i * W + j - 1] : 0.f;
   return c.p[0] * v + c.p[1] * (l0 - v) + c.p[2] * (u0 - v) +
          c.p[3] * (4.f * v - u0 - d0 - l0 - r0);
-}
-
-// Edge-domain map applied to eps = w*(s - shift s): the identity for C^T C,
-// 2*S_gamma(eps) - eps for the ADMM re-threshold.
-template <bool kRethresh>
-__device__ __forceinline__ float edge_map(float eps, float gamma) {
-  if (!kRethresh) return eps;
-  const float thr = (eps < -gamma ? eps + gamma : 0.f) + (eps > gamma ? eps - gamma : 0.f);
-  return 2.f * thr - eps;
 }
 
 // sum_e [wei_e(p) - wei_e(p - d_e)], wei_e(q) = w_e(q) * map(w_e(q) * (s(q) -

@@ -1,4 +1,4 @@
-"""Layers of the flagship, channels-first (B, C, H, W).
+"""Layers of the flagship and the pixel family, channels-first (B, C, H, W).
 
 Weights are stored in PyTorch's conv layouts; ``kernel_to_torch`` converts the
 JAX package's flax kernel of the same layer (counterpart:
@@ -6,11 +6,14 @@ JAX package's flax kernel of the same layer (counterpart:
 
   GroupedPointwise  flax (I, O)            → conv2d (O, I, 1, 1)
   Conv3x3Replicate  flax HWIO (3, 3, I/g, O) → conv2d (O, I/g, 3, 3)
+  Conv3x3Zero       the same
   Downsample2x2     flax (4I, O), row (a·2+b)·I+i → conv2d (O, I, 2, 2)
   Upsample2x2       flax (I, 4O), col (a·2+b)·O+o → conv_transpose2d (I, O, 2, 2)
 
 Initialization follows torch's Conv2d default, U(±1/√fan_in), as the JAX
-package does.
+package does. The pixel family's PixelShuffle and PixelUnshuffle are
+``F.pixel_shuffle`` and ``F.pixel_unshuffle``: in NCHW they order channels
+as the JAX package's ``pixel_shuffle``/``pixel_unshuffle`` do (c·r² + a·r + b).
 """
 
 from __future__ import annotations
@@ -102,3 +105,19 @@ def box_down2x2(x: torch.Tensor) -> torch.Tensor:
 def box_up2x2(t: torch.Tensor) -> torch.Tensor:
     """Adjoint of ``box_down2x2``: duplicate each pixel 2×2 AND scale by 0.25."""
     return 0.25 * t.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+class Conv3x3Zero(nn.Module):
+    """3×3 stride-1 conv with zero padding (torch Conv2d padding=1), no bias;
+    the pixel family's feature U-Net and DC estimator use it. Same flax
+    kernel layout as ``Conv3x3Replicate``."""
+
+    def __init__(self, c_in: int, features: int, groups: int = 1):
+        super().__init__()
+        self.groups = groups
+        self.weight = uniform_param((features, c_in // groups, 3, 3), c_in // groups * 9)
+
+    kernel_to_torch = staticmethod(Conv3x3Replicate.kernel_to_torch)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, padding=1, groups=self.groups)

@@ -75,25 +75,18 @@ def _weights(wt):  # (B, G, 4, h, w) → 4 × (B, G, 1, h, w) f32
     return [wt[:, :, e:e + 1] for e in range(4)]
 
 
-def _stats(tab):  # (G, 4, F) → 4 × (G, F, 1, 1) f32, or None (no stencil)
-    if tab is None:
-        return None
-    tab = tab.float()
-    return [tab[:, k, :, None, None] for k in range(4)]
-
-
 def _per_graph(v, g, device):  # (G,) → (G, 1, 1, 1) f32
     return torch.as_tensor(v, device=device).float().reshape(g, 1, 1, 1)
 
 
 def _scale_term(x, w_gtv, w_glr, pgtv, pglr, ro, mu, gamma, rethresh, with_glr):
     """ρ·R(x), or ρ·Q(x) [+ μ·GLR(x)], on one scale."""
-    wg, pg = _weights(w_gtv), _stats(pgtv)
+    wg, pg = _weights(w_gtv), graph.stats_table_terms(pgtv)
     if rethresh:
         return ro * graph.gtv_rethresh_apply(x, wg, pg, gamma)
     t = ro * graph.gtv_apply(x, wg, pg)
     if with_glr:
-        t = t + mu * graph.glr_apply(x, _weights(w_glr), _stats(pglr))
+        t = t + mu * graph.glr_apply(x, _weights(w_glr), graph.stats_table_terms(pglr))
     return t
 
 

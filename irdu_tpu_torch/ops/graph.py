@@ -1,9 +1,13 @@
 """Graph stencil operators in per-plane CHW form.
 
 Signals are tensors whose last two axes are (H, W); everything before them
-(batch, graph, node feature) broadcasts. Edge weights are a sequence of 4
-tensors, one per cross-4 edge, broadcastable against the signal.
-Stencil coefficients ``p = (p01, p02a, p02b, p03)`` broadcast the same way.
+(batch, graph, node feature) broadcasts. Edge weights are a sequence of E
+tensors, one per edge of the window ``deltas`` (cross-4 by default),
+broadcastable against the signal. Stencil coefficients
+``p = (p01, p02a, p02b, p03)`` broadcast the same way. Neighbour reads clamp
+at the image edge, the Cᵀ scatter and the transposed stencil read zeros, and
+the stencil pads by ``pad_mode`` ("edge" for the flagship, "reflect" for the
+pixel family).
 These are the plain formulations the kernels' plain versions are built from
 (counterpart: ``irdu_tpu/ops/graph.py``, flat NHWC form).
 """
@@ -20,10 +24,19 @@ from irdu_tpu_torch.ops.windows import CROSS4
 Stats = Sequence[torch.Tensor]
 
 
+def stats_table_terms(tab: torch.Tensor | None) -> Stats | None:
+    """A (G, 4, F) stats table as the four coefficients, each (G, F, 1, 1) f32
+    (broadcast over the planes of (…, G, F, H, W) signals); None stays None."""
+    if tab is None:
+        return None
+    tab = tab.float()
+    return [tab[:, k, :, None, None] for k in range(4)]
+
+
 def stats_conv(x: torch.Tensor, p: Stats | None, pad_mode: str = "edge") -> torch.Tensor:
     """Learned polynomial 3×3 stencil: p01·δ + p02a·∂ₓ + p02b·∂ᵧ + p03·(4δ−N−S−E−W),
-    replicate boundary (reference stats_conv); ``p=None`` (no stencil) is
-    the identity."""
+    boundary by ``pad_mode`` (reference stats_conv); ``p=None`` (no stencil)
+    is the identity."""
     if p is None:
         return x
     r = shift2d(x, 0, 1, pad_mode)
@@ -46,40 +59,40 @@ def stats_conv_transpose(x: torch.Tensor, p: Stats | None) -> torch.Tensor:
             + p[3] * (4.0 * x - u0 - d0 - l0 - r0))
 
 
-def op_c(x, w, p):
+def op_c(x, w, p, deltas=CROSS4, pad_mode="edge"):
     """Graph gradient after the stencil: per edge ``w_e·(s − shift_e s)``,
     neighbours read with replicate padding."""
-    s = stats_conv(x, p)
-    return [w[e] * (s - shift2d(s, dh, dw)) for e, (dh, dw) in enumerate(CROSS4)]
+    s = stats_conv(x, p, pad_mode)
+    return [w[e] * (s - shift2d(s, dh, dw)) for e, (dh, dw) in enumerate(deltas)]
 
 
-def op_c_transpose(eps, w, p):
+def op_c_transpose(eps, w, p, deltas=CROSS4):
     """Graph divergence Cᵀε: Σ_e w_e·ε_e − shift_{−δe}^{zero}(w_e·ε_e), then
     the transposed stencil."""
     acc = None
-    for e, (dh, dw) in enumerate(CROSS4):
+    for e, (dh, dw) in enumerate(deltas):
         we = w[e] * eps[e]
         term = we - shift2d(we, -dh, -dw, "zero")
         acc = term if acc is None else acc + term
     return stats_conv_transpose(acc, p)
 
 
-def gtv_apply(x, w, p):
+def gtv_apply(x, w, p, deltas=CROSS4, pad_mode="edge"):
     """GGTV operator CᵀC."""
-    return op_c_transpose(op_c(x, w, p), w, p)
+    return op_c_transpose(op_c(x, w, p, deltas, pad_mode), w, p, deltas)
 
 
-def gtv_rethresh_apply(x, w, p, gamma):
+def gtv_rethresh_apply(x, w, p, gamma, deltas=CROSS4, pad_mode="edge"):
     """The ADMM re-threshold Cᵀ(2·S_γ(Cx) − Cx)."""
-    eps = op_c(x, w, p)
-    return op_c_transpose([2.0 * soft_threshold(e, gamma) - e for e in eps], w, p)
+    eps = op_c(x, w, p, deltas, pad_mode)
+    return op_c_transpose([2.0 * soft_threshold(e, gamma) - e for e in eps], w, p, deltas)
 
 
-def glr_apply(x, w, p):
+def glr_apply(x, w, p, deltas=CROSS4, pad_mode="edge"):
     """GGLR operator statsᵀ ∘ (I − W·shift) ∘ stats."""
-    s = stats_conv(x, p)
+    s = stats_conv(x, p, pad_mode)
     acc = None
-    for e, (dh, dw) in enumerate(CROSS4):
+    for e, (dh, dw) in enumerate(deltas):
         term = w[e] * shift2d(s, dh, dw)
         acc = term if acc is None else acc + term
     return stats_conv_transpose(s - acc, p)
@@ -90,3 +103,11 @@ def soft_threshold(delta: torch.Tensor, gamma) -> torch.Tensor:
     zero = torch.zeros((), dtype=delta.dtype, device=delta.device)
     return (torch.where(delta < -gamma, delta + gamma, zero)
             + torch.where(delta > gamma, delta - gamma, zero))
+
+
+def pack_edge_weights(w: torch.Tensor) -> torch.Tensor:
+    """Edge weights (B, G, E, H, W) packed channels-last for K8:
+    (B, H, W, E·G) with index e·G + g."""
+    b, g, e, h, wd = w.shape
+    return w.permute(0, 3, 4, 2, 1).reshape(b, h, wd, e * g).contiguous()
+

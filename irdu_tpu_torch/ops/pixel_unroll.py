@@ -1,0 +1,150 @@
+"""K7: the whole pixel-family unroll, CHW.
+
+Replaces the TPU kernel ``irdu_tpu/ops/pallas/solver_unroll.py:gg_pixel_unroll_chw``
+(body ``_pixel_unroll_kernel``). Given the edge weights, the solve is
+independent per (batch, graph, node-feature) plane. One scale, the diamond-12
+window, 2 ADMM rounds × 2 CG steps:
+
+  rhs₁ = ỹ + ρ·Qỹ                                       Q = CᵀC (GGTV)
+  x = rhs₁;  u = rhs₁ − A·x;  x += α₀·u;  u = rhs₁ − A·x + β₁·u;  x += α₁·u
+  rhs₂ = ỹ + ρ·Cᵀ(2·S_γ(Cx) − Cx)                        the ADMM re-threshold
+  x = rhs₂;  u = rhs₂ − A·x;  x += α₂·u;  u = rhs₂ − A·x + β₃·u;  x += α₃·u
+  A·x = x + ρ·Qx + μ·GLR(x)
+
+The pixel family's quirks (``irdu_tpu/solvers/pixel_gtv.py:10-20``): μ and ρ
+are raw values and γ = exp(gamma00); only β[1] and β[3] enter; the bias
+entering this fixed unroll is 0, so the re-threshold's ε − bias is
+2·S_γ(Cx) − Cx; round 2 restarts CG from the new RHS. The stencil (``stats``)
+pads by reflection (edge excluded), the neighbour reads clamp, and the Cᵀ
+scatter and the transposed stencil read zeros. ỹ is the un-tiled
+(B, F, H, W) image: plane (g, f) reads its plane f, and the G-fold tiling is
+never materialized. The output's channel is c = g·F + f.
+
+On the card (``kernels/csrc/pixel_unroll.cu``): K1's structure, one CTA per
+(b, g, f) plane walking the plane once per stage with the stage planes in
+f32 global scratch allocated here. The whole solve needs ~732 f32 operations
+per pixel and plane (each edge term once; ``PIXEL_UNROLL_OPS_PER_PIXEL``),
+so with the data moved once it is bound by operations (``chip_smoke.py``
+reports both bounds at the served shapes); with
+the stage planes round-tripping through L2 and device memory it is bound by
+those bytes, and at 512² its 72 CTAs leave 60 of the 132 SMs idle.
+
+What the kernel takes: the diamond-12 window with the reflect stencil pad
+(the family's only configuration); stats tables set to None (the no-stats
+core) go to the kernel as the identity stencil (1, 0, 0, 0), which computes
+the same values exactly. The plain version takes any window and pad.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.ops import graph
+from irdu_tpu_torch.ops.windows import DIAMOND12
+
+# f32 operations per pixel and plane, each edge term counted once (an add,
+# mul or compare 1, an FMA 2), for E = 12: the stencil 9; Q = CᵀC
+# 9 + 3·12 (w·w·(s_p − s_q)) + 2·12 (the scatter's two sums) + 9 = 78; the
+# re-threshold 9 + 8·12 + 2·12 + 9 = 138; GLR 9 + 2·12 + 1 + 9 = 43; A·x
+# 78 + 43 + 3 = 124. The two RHS builds 78 + 2 and 138 + 2; four CG steps
+# 124 each plus their updates 3, 5, 3, 5.
+PIXEL_UNROLL_OPS_PER_PIXEL = 80 + 140 + 4 * 124 + 16
+
+
+def pixel_unroll_scal(n_graphs, mu, ro, gamma, alphas, betas):
+    """The (G, 9) f32 table [μ, ρ, γ, α₀, α₁, α₂, α₃, β₁, β₃]. alphas/betas:
+    (4, G) CG tables; only β[1] and β[3] are used."""
+    cols = [torch.as_tensor(v).float().reshape(n_graphs)
+            for v in (mu, ro, gamma, alphas[0], alphas[1], alphas[2], alphas[3],
+                      betas[1], betas[3])]
+    return torch.stack(cols, dim=1).contiguous()
+
+
+def pixel_unroll_plain(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
+                       deltas=DIAMOND12, stats_mode="reflect"):
+    """The unroll in plain PyTorch, f32 compute, output in y's dtype."""
+    b, f, h, w = y.shape
+    g = n_graphs
+    yv = y.float()[:, None]  # (B, 1, F, H, W): broadcast over the graphs
+    wg = [w_gtv.float()[:, :, e:e + 1] for e in range(len(deltas))]
+    wl = [w_glr.float()[:, :, e:e + 1] for e in range(len(deltas))]
+    pg, pl = graph.stats_table_terms(pgtv), graph.stats_table_terms(pglr)
+    mu, ro, gam, *rest = (scal[:, k].float().reshape(g, 1, 1, 1) for k in range(9))
+    alpha, beta1, beta3 = rest[:4], rest[4], rest[5]
+
+    def matvec(x):
+        return (x + ro * graph.gtv_apply(x, wg, pg, deltas, stats_mode)
+                + mu * graph.glr_apply(x, wl, pl, deltas, stats_mode))
+
+    def cg_round(rhs, a0, bt, a1):
+        upd = rhs - matvec(rhs)
+        x = rhs + a0 * upd
+        upd = rhs - matvec(x) + bt * upd
+        return x + a1 * upd
+
+    rhs = yv + ro * graph.gtv_apply(yv, wg, pg, deltas, stats_mode)
+    x = cg_round(rhs, alpha[0], beta1, alpha[1])
+    rhs = yv + ro * graph.gtv_rethresh_apply(x, wg, pg, gam, deltas, stats_mode)
+    x = cg_round(rhs, alpha[2], beta3, alpha[3])
+    return x.reshape(b, g * f, h, w).to(y.dtype)
+
+
+def _check(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas):
+    if y.dim() != 4:
+        raise ValueError(f"y must be (B, F, H, W), got {tuple(y.shape)}")
+    b, f, h, w = y.shape
+    g, e = n_graphs, len(deltas)
+    for name, t, shape in (("w_gtv", w_gtv, (b, g, e, h, w)), ("w_glr", w_glr, (b, g, e, h, w)),
+                           ("scal", scal, (g, 9))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if (pgtv is None) != (pglr is None):
+        raise ValueError("give both stats tables or neither")
+    for t in (pgtv, pglr):
+        if t is not None and tuple(t.shape) != (g, 4, f):
+            raise ValueError(f"stats tables must be {(g, 4, f)}, got {tuple(t.shape)}")
+
+
+def gg_pixel_unroll_chw(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
+                        deltas=DIAMOND12, stats_mode="reflect"):
+    """The whole pixel unroll: y (B, F, H, W) the un-tiled ỹ; w_gtv, w_glr
+    (B, G, E, H, W); pgtv, pglr (G, 4, F) stats tables or both None; scal
+    (G, 9) from ``pixel_unroll_scal``. Returns (B, G·F, H, W) in y's dtype,
+    channel c = g·F + f.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (diamond-12, reflect pad; y and the weights contiguous, all f32 or all
+    bf16; H, W ≥ 2; tables any float type, cast to f32)."""
+    _check(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas)
+    if y.device.type == "cpu":
+        return pixel_unroll_plain(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs=n_graphs,
+                                  deltas=deltas, stats_mode=stats_mode)
+    if tuple(deltas) != DIAMOND12 or stats_mode != "reflect":
+        raise NotImplementedError("the K7 kernel takes the diamond-12 window with the "
+                                  "reflect stencil pad only")
+    planes = (y, w_gtv, w_glr)
+    if any(t.device != y.device or t.dtype != y.dtype or not t.is_contiguous()
+           for t in planes) or y.device.type != "cuda":
+        raise ValueError("gg_pixel_unroll_chw needs y and the two weight tensors "
+                         "contiguous, on one CUDA device, of one dtype")
+    b, f, h, w = y.shape
+    g, dev = n_graphs, y.device
+    if pgtv is None:  # the identity stencil: s = 1·v + 0·(…) is v exactly
+        pgtv = pglr = torch.tensor([1.0, 0.0, 0.0, 0.0]).reshape(1, 4, 1).expand(g, 4, f)
+    tabs = [t.to(device=dev, dtype=torch.float32).contiguous() for t in (pgtv, pglr)]
+    sc = scal.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty((b, g * f, h, w), dtype=y.dtype, device=dev)
+    lib = kernel_library()
+    scratch = torch.empty((b * g * f, lib.irdu_pixel_unroll_scratch_floats(h, w)),
+                          dtype=torch.float32, device=dev)
+    status = lib.irdu_pixel_unroll(
+        y.data_ptr(), w_gtv.data_ptr(), w_glr.data_ptr(), tabs[0].data_ptr(),
+        tabs[1].data_ptr(), sc.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        b, g, f, h, w, dtype_code(y.dtype), torch.cuda.current_stream(dev).cuda_stream)
+    check_status("gg_pixel_unroll_chw", status)
+    gg_pixel_unroll_chw.launches += 1
+    return out
+
+
+gg_pixel_unroll_chw.launches = 0

@@ -1,8 +1,36 @@
 """Graph connection windows as (dh, dw) edge offsets.
 
-A shift by (dh, dw) reads ``x[i+dh, j+dw]``; the edge order is row-major
-over the window, the order the edge-weight planes are stored in.
+A connection window is a (2r+1)×(2r+1) 0/1 mask centred on a pixel; each
+1-entry is an edge to the neighbour at that offset. A shift by (dh, dw) reads
+``x[i+dh, j+dw]``; the edge order is row-major over the window, the order the
+edge-weight planes are stored in (counterpart: ``irdu_tpu/ops/windows.py``).
 """
 
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+
+
+def window_to_deltas(window: np.ndarray) -> tuple[tuple[int, int], ...]:
+    """Row-major (dh, dw) offsets of the 1-entries of a centred window."""
+    k = window.shape[0]
+    m = np.arange(k) - k // 2
+    flat = np.asarray(window).reshape(-1)
+    return tuple((int(dh), int(dw)) for (dh, dw), on in
+                 zip(itertools.product(m, m), flat) if on)
+
+
 # 4-neighbour cross, the flagship window: up, left, right, down.
-CROSS4 = ((-1, 0), (0, -1), (0, 1), (1, 0))
+CROSS4 = window_to_deltas(np.array([[0, 1, 0],
+                                    [1, 0, 1],
+                                    [0, 1, 0]]))
+# 12-neighbour 5×5 diamond, the pixel-domain family's window.
+DIAMOND12 = window_to_deltas(np.array([[0, 0, 1, 0, 0],
+                                       [0, 1, 1, 1, 0],
+                                       [1, 1, 0, 1, 1],
+                                       [0, 1, 1, 1, 0],
+                                       [0, 0, 1, 0, 0]]))
+
+WINDOWS = {"cross4": CROSS4, "diamond12": DIAMOND12}

@@ -7,10 +7,15 @@
     # denoise, report uint8-domain PSNR (the benchmark convention)
     python -m irdu_tpu_torch.predict --input clean.png --sigma 25 --output out.png
 
+    # the pixel-domain family (MultiScaleSequenceDenoiser)
+    python -m irdu_tpu_torch.predict --model pixel --input clean.png --sigma 25 --output out.png
+
 The model runs on the CUDA card in bf16 (params and activations) through the
-port's kernels (K3 and K4 for the encoder/decoder blocks, K1 and K2 for the
-solver); ``load_model(..., device="cpu")`` runs it in f32 on the CPU
-through the kernels' plain versions.
+port's kernels (flagship, lite, micro: K3 and K4 for the encoder/decoder
+blocks, K1, K2 and K5 for the solver; pixel: K2 and K8, or K2 and K7 on
+its CHW route); ``load_model(..., device="cpu")`` runs it in f32 on the CPU through
+the kernels' plain versions. JAX's CLI serves the pixel family on its jnp
+path; the port serves it through its kernels, with the same arithmetic.
 """
 
 from __future__ import annotations
@@ -30,26 +35,35 @@ from irdu_tpu_torch.models.flagship import (
     flagship_lite_config,
     flagship_micro_config,
 )
+from irdu_tpu_torch.models.pixel import MultiScaleSequenceDenoiser
 from irdu_tpu_torch.utils.weights import load_params_npz, params_to_torch
 
 _CONFIGS = {"flagship": flagship_config, "lite": flagship_lite_config,
             "micro": flagship_micro_config}
+FAMILY = (*_CONFIGS, "pixel")
 _WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "artifacts", "weights")
 # The 86k-step flagship snapshot (σ=25), pinned: the newest-by-name file in
-# the directory is a σ=50 snapshot. lite and micro take the file JAX's
+# the directory is a σ=50 snapshot. lite, micro and pixel take the file JAX's
 # default_weights picks, the last of the name by sort order.
 DEFAULT_WEIGHTS = {name: os.path.join(_WEIGHTS_DIR, fname) for name, fname in (
     ("flagship", "flagship_cont100k_35000.npz"), ("lite", "lite_synthetic_2050.npz"),
-    ("micro", "micro_synthetic_2050.npz"))}
+    ("micro", "micro_synthetic_2050.npz"), ("pixel", "pixel_synthetic_2050.npz"))}
 
 
-def build_model(name: str = "flagship", *, cg_iters: int = 3,
-                filter_scales=None) -> AbstractMultiScaleGraphFilter:
-    """One member of the flagship family, randomly initialized.
-    filter_scales: filter only these scales' codes (None: all four)."""
+def build_model(name: str = "flagship", *, cg_iters: int = 3, filter_scales=None):
+    """One member of the family, randomly initialized. filter_scales: filter
+    only these scales' codes (None: all four). The pixel model (24 graphs × 3
+    node features, 72-wide feature U-Net, diamond-12) takes neither knob and
+    runs its unroll on the kernel routes (NHWC first, then CHW)."""
+    if name == "pixel":
+        if filter_scales is not None or cg_iters != 3:
+            raise ValueError("--filter-scales/--cg-iters do not apply to the pixel "
+                             "model (its unroll is fixed); remove them")
+        return MultiScaleSequenceDenoiser(n_graphs=24, n_node_fts=3, n_cnn_fts=72,
+                                          use_pallas_solver=True, use_nhwc_solver=True)
     if name not in _CONFIGS:
-        raise ValueError(f"unknown model {name!r}; choose from {sorted(_CONFIGS)}")
+        raise ValueError(f"unknown model {name!r}; choose from {sorted(FAMILY)}")
     return AbstractMultiScaleGraphFilter(eval_cg_iters=cg_iters,
                                          eval_filter_scales=filter_scales,
                                          **_CONFIGS[name]())
@@ -92,11 +106,11 @@ def main(argv=None, device: str = "cuda"):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--input", required=True, help="input PNG/JPEG")
     ap.add_argument("--output", required=True, help="denoised PNG path")
-    ap.add_argument("--model", default="flagship", choices=sorted(_CONFIGS))
+    ap.add_argument("--model", default="flagship", choices=FAMILY)
     ap.add_argument("--weights", default=None,
                     help="npz snapshot (default: artifacts/weights/"
                          "flagship_cont100k_35000.npz, lite_synthetic_2050.npz, "
-                         "micro_synthetic_2050.npz)")
+                         "micro_synthetic_2050.npz, pixel_synthetic_2050.npz)")
     ap.add_argument("--sigma", type=float, default=None,
                     help="treat --input as CLEAN: add N(0, σ/255) noise "
                          "(benchmark protocol) and report PSNR")

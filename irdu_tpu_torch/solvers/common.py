@@ -1,5 +1,5 @@
 """Learnable parameters of one GLR/GTV graph operator
-(counterpart: ``irdu_tpu/solvers/common.py``, per-channel stats mode)."""
+(counterpart: ``irdu_tpu/solvers/common.py``)."""
 
 from __future__ import annotations
 
@@ -7,21 +7,32 @@ import torch
 from torch import nn
 
 _STATS_INIT = (("p01", 1.0), ("p02a", 0.5), ("p02b", 0.5), ("p03", 0.5))
+STATS_MODES = ("per_channel", "scalar")
 
 
 class GraphOpParams(nn.Module):
-    """The metric diagonal ``multiM`` (G, F) and the per-channel stencil
-    coefficients ``stats_p01``, ``stats_p02a``, ``stats_p02b``, ``stats_p03``
-    (each (G, F))."""
+    """The metric diagonal ``multiM`` (G, F) and the stencil coefficients
+    ``stats_p01``, ``stats_p02a``, ``stats_p02b``, ``stats_p03``: each (G, F)
+    with ``stats_mode="per_channel"`` (the flagship), each (1,) with
+    ``"scalar"`` (the pixel family)."""
 
-    def __init__(self, n_graphs: int, n_node_fts: int):
+    def __init__(self, n_graphs: int, n_node_fts: int, stats_mode: str = "per_channel"):
         super().__init__()
-        shape = (n_graphs, n_node_fts)
-        self.multiM = nn.Parameter(torch.ones(shape))
+        if stats_mode not in STATS_MODES:
+            raise ValueError(f"stats_mode must be one of {STATS_MODES}, got {stats_mode!r}")
+        self.shape = (n_graphs, n_node_fts)
+        self.multiM = nn.Parameter(torch.ones(self.shape))
+        shape = self.shape if stats_mode == "per_channel" else (1,)
         for k, v in _STATS_INIT:
             setattr(self, f"stats_{k}", nn.Parameter(torch.full(shape, v)))
 
     def stats_table(self) -> torch.Tensor:
-        """(G, 4, F) f32 table [p01, p02a, p02b, p03], the kernels' layout."""
-        return torch.stack([getattr(self, f"stats_{k}").float()
+        """(G, 4, F) f32 table [p01, p02a, p02b, p03], the kernels' layout; a
+        scalar coefficient is broadcast over (G, F)."""
+        return torch.stack([getattr(self, f"stats_{k}").float().expand(self.shape)
                             for k, _ in _STATS_INIT], dim=1).contiguous()
+
+    def stats_scalars(self) -> torch.Tensor:
+        """The four scalar coefficients as a (4,) f32 tensor (scalar mode)."""
+        return torch.cat([getattr(self, f"stats_{k}").float().reshape(1)
+                          for k, _ in _STATS_INIT])

@@ -1,0 +1,159 @@
+"""The pixel-domain mixture GTV+GLR solver (counterpart:
+``irdu_tpu/solvers/pixel_gtv.py`` ``MixtureGTV``).
+
+The 3-channel image is replicated across G mixture hypotheses; a
+Restormer-style FFBlock U-Net gives the edge-weight features (G·F channels)
+and 12 DC channels; the DC estimator takes the DC term off the image (ỹ); the
+unroll (``ops/pixel_unroll.py``: 2 ADMM rounds × 2 CG steps, one scale,
+diamond-12 window, scalar stencils with the reflect pad) filters ỹ on every
+graph; a learned softmax score over the graphs combines the hypotheses and
+the DC term is added back. Channels-first (B, 3, H, W), H and W multiples of
+4 (the feature U-Net).
+
+Three routes, chosen per call by JAX's flags and in JAX's precedence:
+
+  NHWC  (``use_nhwc_unroll``): K2 once on 2G stacked graphs (the same
+        features under the GTV and the GLR metric), its weights packed
+        channels-last, then 6 K8 segments (``ops/pixel_nhwc.py``) in planar
+        channel order c = f·G + g;
+  CHW   (``use_pallas_unroll``): the same K2 call, then K7 once
+        (``ops/pixel_unroll.py``) in interleaved order c = g·F + f, for
+        H·W ≤ ``gtv_glr._MEGA_MAX_PIXELS``. Above it JAX runs K5 steps in
+        the pixel mode, which the port has not ported: NotImplementedError;
+  plain (neither): the same unroll in plain PyTorch (the JAX jnp path), on
+        any device; the on-card reference the kernel routes are held to.
+
+JAX computes the NHWC route's weights outside its kernels; the port has K2
+for them. JAX's ``_nhwc_ok`` and ``_chw_ok`` also ask H % 16 == 0 (NHWC),
+H % 8 == 0 (CHW) and W % 128 == 0: TPU band and lane rules the port does
+not copy, since its kernels take any H and W. Where they fail JAX falls
+back (to its CHW route or its jnp path) and the port keeps the kernel route
+its flags name, with the same arithmetic.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from irdu_tpu_torch.models.layers import GroupedPointwise
+from irdu_tpu_torch.models.restormer_blocks import FeatureExtraction, GatedDConvBlock
+from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
+from irdu_tpu_torch.ops.graph import pack_edge_weights
+from irdu_tpu_torch.ops.pixel_nhwc import pixel_unroll_nhwc
+from irdu_tpu_torch.ops.pixel_unroll import (gg_pixel_unroll_chw, pixel_unroll_plain,
+                                             pixel_unroll_scal)
+from irdu_tpu_torch.ops.windows import DIAMOND12
+from irdu_tpu_torch.solvers import gtv_glr
+from irdu_tpu_torch.solvers.common import GraphOpParams
+
+N_DC_CHANNELS = 12
+N_CGD_ITERS = 4  # fixed in the reference: 2 ADMM rounds of 2 CG steps
+FFN_EXPANSION = 2.6666  # the feature U-Net's hidden widths: 191, 383, 767 at dim 72
+
+
+class MixtureGTV(nn.Module):
+    """The image's F = 3 colour channels are the graphs' node features; the
+    window is diamond-12."""
+
+    def __init__(self, n_graphs: int = 24, n_node_fts: int = 3, n_cnn_fts: int = 72,
+                 feature_num_blocks=(2, 3, 3), feature_num_refinement: int = 4,
+                 use_pallas_unroll: bool = False, use_nhwc_unroll: bool = False):
+        super().__init__()
+        g, f = n_graphs, n_node_fts
+        self.n_graphs, self.n_node_fts = g, f
+        self.deltas = DIAMOND12
+        self.use_pallas_unroll = use_pallas_unroll
+        self.use_nhwc_unroll = use_nhwc_unroll
+        self.alphaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), 0.5))
+        self.betaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), 0.1))
+        self.patchs_features_extraction = FeatureExtraction(
+            f, g * f + N_DC_CHANNELS, n_cnn_fts, feature_num_blocks,
+            feature_num_refinement, FFN_EXPANSION)
+        self.combination_weight = GroupedPointwise(g * f, g)
+        self.dc_estimator = GatedDConvBlock(N_DC_CHANNELS, f, 2 * N_DC_CHANNELS)
+        # raw μ and ρ, log γ
+        self.ro00 = nn.Parameter(torch.full((g,), 0.1))
+        self.muys00 = nn.Parameter(torch.full((g,), 0.1))
+        self.gamma00 = nn.Parameter(torch.full((g,), float(torch.log(torch.tensor(1e-3)))))
+        self.GTVmodule00 = GraphOpParams(g, f, stats_mode="scalar")
+        self.GLRmodule00 = GraphOpParams(g, f, stats_mode="scalar")
+
+    def route(self) -> str:
+        """"nhwc", "chw" or "plain", from the flags alone: every route takes
+        any H and W."""
+        if self.use_nhwc_unroll:
+            return "nhwc"
+        return "chw" if self.use_pallas_unroll else "plain"
+
+    def forward(self, patchs: torch.Tensor) -> torch.Tensor:
+        g, f = self.n_graphs, self.n_node_fts
+        feats = self.patchs_features_extraction(patchs)
+        ew = feats[:, :g * f]
+        dc_term = self.dc_estimator(feats[:, g * f:])
+        y_tilde = patchs - dc_term
+        route = self.route()
+        if route == "nhwc":
+            out = self._unroll_nhwc(ew, y_tilde)
+        else:
+            out = (self._unroll_chw if route == "chw" else self._unroll_plain)(ew, y_tilde)
+            b, _, h, w = out.shape
+            out = out.reshape(b, g, f, h, w)  # channel g·F + f
+        # the mixture: a softmax score over the graphs
+        score = torch.softmax(self.combination_weight(ew), dim=1).to(out.dtype)
+        return (out * score[:, :, None]).sum(dim=1) + dc_term
+
+    def _scal(self):
+        return pixel_unroll_scal(self.n_graphs, self.muys00, self.ro00,
+                                 torch.exp(self.gamma00.float()), self.alphaCGD.float(),
+                                 self.betaCGD.float())
+
+    def _unroll_plain(self, ew, y_tilde):
+        """JAX's jnp path: each operator's weights, then the unroll on the
+        plain versions."""
+        g, d = self.n_graphs, self.deltas
+        w_gtv = edge_weights_plain(ew, self.GTVmodule00.multiM, g, d)
+        w_glr = edge_weights_plain(ew, self.GLRmodule00.multiM, g, d)
+        return pixel_unroll_plain(
+            y_tilde, w_gtv, w_glr, self.GTVmodule00.stats_table(),
+            self.GLRmodule00.stats_table(), self._scal(), n_graphs=g, deltas=d)
+
+    def _edge_weights(self, ew):
+        """Both operators' weights from one K2 call on 2G stacked graphs:
+        (B, 2G, 12, H, W), the GTV graphs first."""
+        ew = ew.contiguous()
+        return edge_weights_chw(
+            torch.cat([ew, ew], dim=1),
+            torch.cat([self.GTVmodule00.multiM, self.GLRmodule00.multiM]),
+            n_graphs=2 * self.n_graphs, deltas=self.deltas)
+
+    def _unroll_chw(self, ew, y_tilde):
+        """K2, then K7 (JAX ``_forward_chw``'s whole-unroll branch)."""
+        g, d = self.n_graphs, self.deltas
+        h, w = y_tilde.shape[-2:]
+        if h * w > gtv_glr._MEGA_MAX_PIXELS:
+            raise NotImplementedError(
+                f"{h}x{w}: the CHW route above {gtv_glr._MEGA_MAX_PIXELS} pixels runs K5 "
+                "in the pixel mode (single scale, diamond-12, reflect), not ported yet")
+        w_all = self._edge_weights(ew)
+        return gg_pixel_unroll_chw(
+            y_tilde.contiguous(), w_all[:, :g].contiguous(), w_all[:, g:].contiguous(),
+            self.GTVmodule00.stats_table(), self.GLRmodule00.stats_table(), self._scal(),
+            n_graphs=g, deltas=d)
+
+    def _unroll_nhwc(self, ew, y_tilde):
+        """K2, the weights packed, then 6 K8 segments (JAX ``_forward_nhwc``).
+        Returns (B, G, F, H, W)."""
+        g, f, d = self.n_graphs, self.n_node_fts, self.deltas
+        w_all = self._edge_weights(ew)
+        w_gtv, w_glr = pack_edge_weights(w_all[:, :g]), pack_edge_weights(w_all[:, g:])
+        # planar ỹ: channel c = f·G + g, each image channel repeated G times
+        y72 = y_tilde.permute(0, 2, 3, 1).repeat_interleave(g, dim=-1).contiguous()
+        p = torch.stack([self.GTVmodule00.stats_scalars(), self.GLRmodule00.stats_scalars()])
+        scal = {"mu": self.muys00.float().repeat(f), "ro": self.ro00.float().repeat(f),
+                "gamma": torch.exp(self.gamma00.float()).repeat(f),
+                "alpha": self.alphaCGD.float().repeat(1, f),
+                "beta": self.betaCGD.float().repeat(1, f)}
+        out = pixel_unroll_nhwc(y72, w_gtv, w_glr, p, scal, n_graphs=g, deltas=d)
+        b, h, w, _ = out.shape
+        return out.reshape(b, h, w, f, g).permute(0, 4, 3, 1, 2)  # (B, G, F, H, W)

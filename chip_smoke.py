@@ -28,12 +28,28 @@ Phases, each timed and printed as it ends:
             512x512, 480x320 and 1024x1024 through predict.denoise, counts
             zeroed just before: each request must launch K2 once (2G = 48
             graphs, diamond-12) and K8 (pixel_segment_nhwc) exactly 6 times
-            and no other kernel, and raise the PSNR; then the 512x512 request
-            on the CHW route (the NHWC flag off) must launch K2 once and K7
-            (gg_pixel_unroll_chw) once. Each request is served once more
-            with every kernel call held against its plain version (K1's bf16
-            bar; K2's for K2), and the two routes are timed at 512x512 in
-            turns (data, not a claim);
+            and no other kernel, and raise the PSNR; then on the CHW route
+            (the NHWC flag off) the 512x512 request must launch K2 once and K7
+            (gg_pixel_unroll_chw) once, and the 1024x1024 and 2048x2048
+            requests (above K7's 768·1024 cap) K2 once and K5
+            (gg_fused_step_chw, single-scale, diamond-12, reflect) 6 times,
+            and raise the PSNR. Each request is served once more with every
+            kernel call held against its plain version (K1's bf16 bar; K2's
+            for K2), and the two routes are timed at 512x512, 1024x1024 and
+            2048x2048 in turns (data, not a claim);
+  ablation  the six configs/ablation_*.yaml models (ABLATION_MODELS: the
+            configs' model sections, at their widths) built through
+            models.registry.create_model with weights from a seeded
+            generator, in bf16, answer the 512x512 request through
+            predict.denoise, counts zeroed just before each: the launches
+            must be ABLATION_LAUNCHES (one_graph_filter "single" and
+            "single_split" exactly 3 K9, fused_system_matvec; "single_noGTV"
+            none), the output finite; each is served once more with every
+            kernel call held against its plain version (K1's bar for K1, K5
+            and K9, K2's for K2, block_bar for K3 and K4); then each model in
+            f32, kernels against plain, max|d| <= 1e-5 of max(1, max|ref|)
+            (the random weights give outputs up to ~30, where f32 rounding
+            alone is ~2e-6; no PSNR bar);
   kernels   each kernel against its plain PyTorch version on the card, in f32
             (atol 5e-4, rtol 1e-3) and bf16 (K2: max|d| <= 4e-3; K1: 4e-3 plus
             one bf16 ulp of the value; K3, K4: below): K1 and K2 at every shape a
@@ -59,17 +75,26 @@ Phases, each timed and printed as it ends:
             512x512 pixel request's shapes and K8 in each mode at 512x512, with
             the pixel snapshot's parameters, f32 (the bar above, and for K7
             and K8 the CHANGE_FACTOR rule) and bf16 (K2's and K1's bars), timed
-            in bf16;
+            in bf16. K5 in each pixel mode (rhs; cg from x, emitting the
+            update; cg with beta*prev; rethresh with y) and K6a, K6b on
+            diamond-12 with the reflect pad at the 1024x1024 pixel request's
+            shape (1, 72, 1024, 1024), G = 24, and at 37x53 (ragged tiles),
+            the same bars, K5 timed at 1024x1024 and 2048x2048. K9 at the
+            "single" ablation's shape (1, 512, 512, 96), G = 1, and at
+            (1, 37, 53, 40), G = 2 (ragged tiles and channel chunks), f32 and
+            bf16, against its plain version and (f32) against K6a on the same
+            data permuted to CHW;
   model     the whole model in f32 with TF32 off on each flagship request's
             noisy image (the first is 1x512x512x3): kernel path against plain
             path (blocks as PyTorch ops, the solver's plain versions),
             max|d| <= 1e-3, and the PSNR of both within 0.01 dB; the same for
             the pixel model on its 512x512 and 480x320 requests (the NHWC
             route, and at 512x512 the CHW route, against both solver flags
-            off), and on a 484x324 crop of the 512x512 one (H % 8 == 4, W %
-            16 == 4: ragged tiles) on both kernel routes.
+            off), on a 484x324 crop of the 512x512 one (H % 8 == 4, W %
+            16 == 4: ragged tiles) on both kernel routes, and on the 1024x1024
+            request on the CHW route (K5's pixel mode).
 
-The build must take under 60 s and the whole script under 300 s; a run over
+The build must take under 60 s and the whole script under 450 s; a run over
 either budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
@@ -81,6 +106,7 @@ any phase fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -92,7 +118,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-BUDGET_S = {"build": 60, "total": 300}
+BUDGET_S = {"build": 60, "total": 450}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -104,12 +130,12 @@ K3_PER_REQUEST, K4_PER_REQUEST = 3, 32
 K4_PER_SCALE = {1: 12, 2: 12, 3: 8}  # encoder + decoder blocks at scales 1-2, encoder at 3
 KERNEL_NAMES = ("fused_block_stack", "fused_gated_block", "gg_unroll_chw", "edge_weights_chw",
                 "gg_fused_step_chw", "gg_matvec_chw", "gtv_rethresh_chw", "gg_pixel_unroll_chw",
-                "pixel_segment_nhwc")
+                "pixel_segment_nhwc", "fused_system_matvec")
 
 
-def launches(k3, k4, k1, k2, k5, k7=0, k8=0):
+def launches(k3, k4, k1, k2, k5, k7=0, k8=0, k9=0):
     """Launches of one request at cg3 (K6a and K6b are K5's oracles only)."""
-    return dict(zip(KERNEL_NAMES, (k3, k4, k1, k2, k5, 0, 0, k7, k8)))
+    return dict(zip(KERNEL_NAMES, (k3, k4, k1, k2, k5, 0, 0, k7, k8, k9)))
 
 
 # K1 takes a scale's plane up to 768·1024 pixels (W rounded up to 128, both
@@ -128,7 +154,50 @@ PIXEL_REQUESTS = ((512, 512), (480, 320), (1024, 1024))
 PIXEL_RAGGED = (484, 324)  # a crop of the 512x512 request for the f32 model check
 PIXEL_NHWC = launches(0, 0, 0, 1, 0, k8=6)
 PIXEL_CHW = launches(0, 0, 0, 1, 0, k7=1)
+# the CHW route above K7's cap: K2 once, then 6 single-scale K5 steps
+PIXEL_BAND_REQUESTS = ((1024, 1024), (2048, 2048))
+PIXEL_CHW_BAND = launches(0, 0, 0, 1, 6)
 K8_CALLS = {"rhs": 1, "cg1": 2, "cg2": 2, "rethresh": 1}  # per pixel request
+# K5's pixel mode per pixel request on the CHW route above the cap
+K5_PIXEL_CALLS = {"rhs": 1, "cg_use_x_rhs_emit_update": 2, "cg_prev": 2, "rethresh_y": 1}
+# the six configs/ablation_*.yaml models, their ``model:`` sections as the
+# files give them (the card's machine has no PyYAML; a CPU test holds these to
+# the files), each served once at ABLATION_SIDE² in bf16 with seeded weights
+ABLATION_MODELS = {
+    "ablation_no_latent": {"type": "multiscale_graph_filter", "ngraphs": 32},
+    "ablation_no_latent_no_mixture": {"type": "one_graph_filter", "n_channels_hidden": 96,
+                                      "solver": "two_scale_nl"},
+    "ablation_no_mixture": {"type": "abstract_multiscale_graph_filter",
+                            "dims": [48, 96, 192, 384], "hidden_dims": [96, 192, 384, 768],
+                            "ngraphs": [1, 1, 1, 1], "num_blocks": [4, 6, 6, 8],
+                            "num_blocks_out": 4},
+    "ablation_no_orders": {"type": "one_graph_filter", "n_channels_hidden": 96,
+                           "solver": "single"},
+    "ablation_no_orders_noGTV": {"type": "one_graph_filter", "n_channels_hidden": 96,
+                                 "solver": "single_noGTV"},
+    "ablation_no_orders_split": {"type": "one_graph_filter", "n_channels_hidden": 96,
+                                 "solver": "single_split"},
+}
+ABLATION_SIDE = 512
+# launches per ABLATION_SIDE² request: the nonlinear3 heads run 3 blocks on K4
+# at C = 96 (2 heads on the two-scale solvers), the split heads one K3 each at
+# C = 48; K2 once per scale on the stacked graphs; the single-scale GTV+GLR
+# solver 3 K9; no_mixture is the flagship's path with one graph per scale
+ABLATION_LAUNCHES = {
+    "ablation_no_latent": launches(0, 6, 1, 2, 0),
+    "ablation_no_latent_no_mixture": launches(0, 6, 1, 2, 0),
+    "ablation_no_mixture": launches(3, 32, 4, 8, 0),
+    "ablation_no_orders": launches(0, 3, 0, 1, 0, k9=3),
+    "ablation_no_orders_noGTV": launches(0, 3, 0, 1, 0),
+    "ablation_no_orders_split": launches(2, 0, 0, 1, 0, k9=3),
+}
+ABLATION_F32_BAR = 1e-5  # the f32 forward, kernels against plain, of max(1, max|ref|)
+K9_SHAPE = (1, 512, 512, 96)  # the "single" ablation's matvec at 512x512, G = 1
+# ragged 8x16 tiles both ways, a partial last channel chunk, chunks across graphs (G = 2)
+K9_RAGGED = (1, 37, 53, 40)
+# K5's pixel mode and K6a/K6b on diamond-12 also at ragged 32x64 tiles, odd H and W
+STEP_RAGGED = (37, 53)
+K9_CALLS = 3  # per "single" request
 LOUD = (1, 20, 20, 1)  # per-scale factor on the snapshot's μ, ρ, γ in the K1 rows
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
 
@@ -289,20 +358,23 @@ def k2_bar(ker, ref):
 
 
 def set_kernels(model, on):
-    """Route the encoder/decoder blocks and every filtering block of the model
-    through the kernels (True) or their plain versions (False)."""
-    model.use_kernels = on
-    for lf in model.local_filters:
-        lf.local_filter.use_kernels = on
+    """Route every module of the model that has the switch (the flagship's
+    blocks, the solvers, the ablations' feature heads) through the kernels
+    (True) or their plain versions (False)."""
+    for m in model.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = on
 
 
+@functools.lru_cache(maxsize=1)
 def request_images():
+    """The flagship requests' (clean, noisy) images, made once."""
     images = []
     for k, (h, w) in enumerate(REQUESTS):
         clean = piecewise_smooth(h, w, seed=k)
         noise = np.random.RandomState(2204).normal(0, 25 / 255.0, clean.shape)
         images.append((clean, (clean + noise).astype(np.float32)))
-    return images
+    return tuple(images)
 
 
 def psnr(clean, out):
@@ -331,10 +403,12 @@ def wrappers():
     from irdu_tpu_torch.ops.pixel_nhwc import pixel_segment_nhwc
     from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw
     from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
+    from irdu_tpu_torch.ops.system_matvec import fused_system_matvec
 
     return dict(zip(KERNEL_NAMES, (fused_block_stack, fused_gated_block, gg_unroll_chw,
                                    edge_weights_chw, gg_fused_step_chw, gg_matvec_chw,
-                                   gtv_rethresh_chw, gg_pixel_unroll_chw, pixel_segment_nhwc)))
+                                   gtv_rethresh_chw, gg_pixel_unroll_chw, pixel_segment_nhwc,
+                                   fused_system_matvec)))
 
 
 def serve(model, requests):
@@ -440,33 +514,127 @@ def phase_pixel(smoke):
     for row, (_, noisy) in zip(rows, images):
         row.update(route="nhwc", **checked_request(model, noisy, PIXEL_NHWC, pixel_sites()))
     clean, noisy = images[0]
+    by_size = dict(zip(REQUESTS, request_images()))
+    band_images = [by_size[hw] for hw in PIXEL_BAND_REQUESTS]
     try:
         mix.use_nhwc_unroll = False
-        denoise(model, noisy)  # warm-up of the CHW route
+        for _, n in [images[0]] + band_images:  # warm-up of the CHW route, K7 and K5
+            denoise(model, n)
         sync()
         (chw_row,), counts = serve(model, [(clean, noisy, PIXEL_REQUESTS[0])])
         smoke.path_counts["pixel_chw"] = counts
         chw_row.update(route="chw", **checked_request(model, noisy, PIXEL_CHW, pixel_sites()))
-        times = {"nhwc": [], "chw": []}
-        for _ in range(3):
-            for route in ("nhwc", "chw", "chw", "nhwc"):
-                mix.use_nhwc_unroll = route == "nhwc"
-                sync()
-                t0 = time.perf_counter()
-                denoise(model, noisy)
-                sync()
-                times[route].append(round((time.perf_counter() - t0) * 1e3, 3))
+        band_rows, counts = serve(model, [(c, n, hw) for (c, n), hw in
+                                          zip(band_images, PIXEL_BAND_REQUESTS)])
+        smoke.path_counts["pixel_chw_band"] = counts
+        for row, (_, n) in zip(band_rows, band_images):
+            row.update(route="chw", **checked_request(model, n, PIXEL_CHW_BAND, pixel_sites()))
+        routes = {f"routes_{hw[0]}": route_times(mix, model, by_size[hw][1])
+                  for hw in (PIXEL_REQUESTS[0], *PIXEL_BAND_REQUESTS)}
     finally:
         mix.use_nhwc_unroll = True
     smoke.lines["pixel"] = {
-        "pixel": rows + [chw_row], "weights": "pixel_synthetic_2050.npz", "dtype": "bfloat16",
-        "routes_512": {"nhwc_ms": times["nhwc"], "chw_ms": times["chw"],
-                       "median_nhwc_ms": float(np.median(times["nhwc"])),
-                       "median_chw_ms": float(np.median(times["chw"])),
-                       "order": "nhwc, chw, chw, nhwc, x3"}}
+        "pixel": rows + [chw_row] + band_rows, "weights": "pixel_synthetic_2050.npz",
+        "dtype": "bfloat16", **routes}
     for r in rows:
         check_row(r, PIXEL_NHWC)
     check_row(chw_row, PIXEL_CHW)
+    for r in band_rows:
+        check_row(r, PIXEL_CHW_BAND)
+
+
+def route_times(mix, model, noisy, rounds=3):
+    """One pixel request on the NHWC and the CHW route, in turns: nhwc, chw,
+    chw, nhwc per round (both routes warmed up before)."""
+    from irdu_tpu_torch.predict import denoise
+
+    times = {"nhwc": [], "chw": []}
+    for _ in range(rounds):
+        for route in ("nhwc", "chw", "chw", "nhwc"):
+            mix.use_nhwc_unroll = route == "nhwc"
+            sync()
+            t0 = time.perf_counter()
+            denoise(model, noisy)
+            sync()
+            times[route].append(round((time.perf_counter() - t0) * 1e3, 3))
+    return {"shape": list(noisy.shape[:2]), "nhwc_ms": times["nhwc"], "chw_ms": times["chw"],
+            "median_nhwc_ms": float(np.median(times["nhwc"])),
+            "median_chw_ms": float(np.median(times["chw"])),
+            "order": "nhwc, chw, chw, nhwc, x%d" % rounds}
+
+
+def ablation_model(name, dtype):
+    """The config's model built through the registry at its widths: weights
+    drawn from torch's default generator seeded with the config's index, then
+    the solvers' μ and ρ set to U(0.2, 0.6) and γ to U(0.02, 0.06) (their
+    logs) from a generator seeded the same, so that every solver term shows
+    (the inits, 1e-6 to 1e-3, leave the matvecs next to the identity)."""
+    import torch
+
+    from irdu_tpu_torch.models.registry import create_model
+
+    kw = dict(ABLATION_MODELS[name])
+    seed = sorted(ABLATION_MODELS).index(name)
+    torch.manual_seed(seed)
+    model = create_model(kw.pop("type"), **kw)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            leaf = pname.rsplit(".", 1)[-1]
+            if leaf in ("muys00", "muys01", "ro00", "ro01"):
+                p.copy_(torch.log(0.2 + 0.4 * torch.rand(p.shape, generator=gen)))
+            elif leaf in ("gamma00", "gamma01"):
+                p.copy_(torch.log(0.02 + 0.04 * torch.rand(p.shape, generator=gen)))
+    return model.to(device=DEVICE, dtype=dtype).eval().requires_grad_(False)
+
+
+def phase_ablation(smoke):
+    """Each ablation model in bf16 serves the 512x512 request, counts zeroed
+    just before and read just after; once more with every kernel call held
+    against its plain version; then in f32, kernels against plain."""
+    import torch
+
+    from irdu_tpu_torch.predict import denoise
+
+    clean, noisy = request_images()[0]
+    rows, f32_rows = [], []
+    x = torch.from_numpy(noisy[None]).to(DEVICE)
+    for name in ABLATION_MODELS:
+        model = ablation_model(name, torch.bfloat16)
+        denoise(model, noisy)  # warm-up
+        sync()
+        (row,), smoke.path_counts[name] = serve(model, [(clean, noisy, REQUESTS[0])])
+        row.update(config=name, **checked_request(model, noisy, ABLATION_LAUNCHES[name],
+                                                  ablation_sites()))
+        rows.append(row)
+        print(f"ablation {name}: {row['ms']} ms, launches "
+              f"{ {k: v for k, v in row['launches'].items() if v} }", flush=True)
+        del model
+        model = ablation_model(name, torch.float32)
+        with torch.inference_mode():
+            set_kernels(model, True)
+            ker = model(x)
+            set_kernels(model, False)
+            ref = model(x)
+        sync()
+        f32_rows.append(dict(config=name, shape=list(x.shape), max_abs_err=max_abs(ker, ref),
+                             max_ref=float(ref.abs().max()), change=max_abs(ref, x),
+                             finite=bool(torch.isfinite(ker).all())))
+        del model, ker, ref
+        torch.cuda.empty_cache()
+    smoke.lines["ablation"] = {"ablation": rows, "f32": f32_rows, "dtype": "bfloat16",
+                               "weights": "random, seeded (ablation_model)",
+                               "f32_bar": ABLATION_F32_BAR}
+    for r in rows:
+        want = ABLATION_LAUNCHES[r["config"]]
+        require(r["launches"] == want, f"{r['config']}: launches {r['launches']}, want {want}")
+        require(r["finite"], f"{r['config']}: output not finite")
+        require(r["calls_ok"], f"{r['config']}: a kernel call disagrees with its plain "
+                f"version, or the calls are not those launched (max|d| {r['max_abs_err']})")
+    for r in f32_rows:
+        require(r["finite"] and r["max_abs_err"] <= ABLATION_F32_BAR * max(1.0, r["max_ref"]),
+                f"{r['config']}: f32 kernels vs plain max|d| {r['max_abs_err']} "
+                f"(max|ref| {r['max_ref']})")
 
 
 def blocks_ab(model, noisy, rounds=3):
@@ -520,12 +688,27 @@ def pixel_sites():
     model's kernels up."""
     from irdu_tpu_torch.ops import pixel_nhwc
     from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.fused_step import fused_step_plain
     from irdu_tpu_torch.ops.pixel_unroll import pixel_unroll_plain
     from irdu_tpu_torch.solvers import pixel_gtv
 
     return ((pixel_gtv, "edge_weights_chw", edge_weights_plain, k2_bar),
             (pixel_gtv, "gg_pixel_unroll_chw", pixel_unroll_plain, k1_bar),
+            (pixel_gtv, "gg_fused_step_chw", fused_step_plain, k1_bar),
             (pixel_nhwc, "pixel_segment_nhwc", pixel_nhwc.pixel_segment_plain, k1_bar))
+
+
+def ablation_sites():
+    """Where the ablation models look their kernels up: the flagship's sites
+    (its blocks, which the feature heads share through run_blocks, and the
+    two-scale solver) and solvers/ablation_solvers.py's."""
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.system_matvec import system_matvec_plain
+    from irdu_tpu_torch.solvers import ablation_solvers
+
+    return flagship_sites() + ((ablation_solvers, "edge_weights_chw", edge_weights_plain, k2_bar),
+                               (ablation_solvers, "fused_system_matvec", system_matvec_plain,
+                                k1_bar))
 
 
 def checked_request(model, noisy, want, sites=None):
@@ -674,8 +857,10 @@ def phase_kernels(smoke):
     smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows,
                          **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at)}
     pixel = smoke.pixel_model or load_model(device=DEVICE, name="pixel")
-    for name, rows in pixel_rows(pixel, gen, bar_at).items():
-        smoke.kernel_rows.setdefault(name, []).extend(rows)
+    for more in (pixel_rows(pixel, gen, bar_at), pixel_step_rows(pixel, gen, bar_at),
+                 k9_rows(gen, bar_at)):
+        for name, rows in more.items():
+            smoke.kernel_rows.setdefault(name, []).extend(rows)
     smoke.lines["band_route"] = band_route(model)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
         json.dump(smoke.kernel_rows, fh, indent=1)
@@ -1068,6 +1253,180 @@ def pixel_rows(model, gen, bar_at):
     return rows
 
 
+def pixel_step_rows(model, gen, bar_at):
+    """K5's pixel mode (single-scale, diamond-12, reflect) in the four calls
+    of the pixel band route, and K6a (with GLR and the identity; GTV only),
+    K6b (with y) on that window, against their plain versions at the
+    1024x1024 pixel request's shape (1, 72, 1024, 1024), G = 24, and at
+    STEP_RAGGED, with the pixel snapshot's solver parameters, f32 (the
+    CHANGE_FACTOR rule too) and bf16 (K1's bar), on seeded inputs: signals
+    U[0, 1), the previous update 0.3·N(0, 1), the weights K2's plain
+    version of N(0, 1) features. K5 timed in bf16 at 1024x1024 and
+    2048x2048; ``calls``: per pixel request of that size on the CHW route
+    (K6a, K6b: on no path)."""
+    import torch
+
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.fused_step import (fused_scal, fused_step_plain,
+                                               gg_fused_step_chw, gg_matvec_chw,
+                                               gtv_rethresh_chw, matvec_plain, rethresh_plain)
+    from irdu_tpu_torch.ops.windows import DIAMOND12
+
+    mix = model.mixtureGLR_block03
+    g, f = mix.n_graphs, mix.n_node_fts
+    c = g * f
+    m = torch.cat([mix.GTVmodule00.multiM, mix.GLRmodule00.multiM]).float()
+    pg, pl = mix.GTVmodule00.stats_table(), mix.GLRmodule00.stats_table()
+    mu, ro = mix.muys00.float(), mix.ro00.float()
+    gamma = torch.exp(mix.gamma00.float())
+    alpha, beta = mix.alphaCGD.float(), mix.betaCGD.float()
+    pix = dict(n_graphs=g, deltas=DIAMOND12, stats_mode="reflect")
+    rows = {"gg_fused_step_chw": [], "gg_matvec_chw": [], "gtv_rethresh_chw": []}
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+    for side in (*PIXEL_BAND_REQUESTS, STEP_RAGGED):
+        h, w = side
+        checked = side != PIXEL_BAND_REQUESTS[1]  # f32 too, and K6a/K6b
+        timed = side in PIXEL_BAND_REQUESTS
+        for dtype in ((torch.float32, torch.bfloat16) if checked else (torch.bfloat16,)):
+            x, aux = (torch.rand(1, c, h, w, device=DEVICE, generator=gen).to(dtype)
+                      for _ in range(2))
+            prev = (0.3 * torch.randn(1, c, h, w, device=DEVICE, generator=gen)).to(dtype)
+            feats = torch.randn(1, c, h, w, device=DEVICE, generator=gen).to(dtype)
+            wt = edge_weights_plain(torch.cat([feats, feats], dim=1), m, 2 * g, DIAMOND12)
+            wg, wl = wt[:, :g].contiguous(), wt[:, g:].contiguous()
+            del feats, wt
+            cases = (  # name, mode, aux, prev, GLR graphs, keywords, scal, ops per pixel
+                ("rhs", "rhs", None, None, False, {}, fused_scal(g, ro0=ro), 80),
+                ("cg_use_x_rhs_emit_update", "cg", None, None, True,
+                 dict(use_x_rhs=True, emit_update=True),
+                 fused_scal(g, mu0=mu, ro0=ro, alpha=alpha[0]), 127),
+                ("cg_prev", "cg", aux, prev, True, {},
+                 fused_scal(g, mu0=mu, ro0=ro, alpha=alpha[1], beta=beta[1]), 130),
+                ("rethresh_y", "rethresh", aux, None, False, {},
+                 fused_scal(g, ro0=ro, gamma0=gamma), 140))
+            for name, mode, aux_, prev_, glr, kw, scal, ops in cases:
+                args = (x, aux_, prev_, wg, wl if glr else None, None, None, pg,
+                        pl if glr else None, None, None, scal)
+                kw = dict(mode=mode, **pix, **kw)
+                ker = gg_fused_step_chw(*args, **kw)
+                ref = fused_step_plain(*args, **kw)
+                sync()
+                row = dict(window="diamond12", case=name, shape=list(x.shape),
+                           dtype=str(dtype)[6:], params="pixel snapshot")
+                if timed:
+                    row.update(request=list(side), basis=f"{h}x{w} pixel request, CHW route")
+                row.update(_agree(ker, ref, aux_ if mode == "rethresh" else x, dtype, bar_at))
+                if timed and dtype == torch.bfloat16:
+                    outs = ker if isinstance(ker, tuple) else (ker,)
+                    row.update(calls=K5_PIXEL_CALLS[name],
+                               ms=cuda_ms(lambda: gg_fused_step_chw(*args, **kw), 10),
+                               plain_ms=cuda_ms(lambda: fused_step_plain(*args, **kw), 2, 1),
+                               **_bound(nbytes(x, aux_, prev_, wg, wl if glr else None, *outs),
+                                        x.numel() * ops))
+                rows["gg_fused_step_chw"].append(row)
+                del ker, ref
+            if checked:
+                for with_glr in (True, False):
+                    args = (x, wl, wg, pl, pg, mu, ro)
+                    kw = dict(with_glr=with_glr, **pix)
+                    ker, ref = gg_matvec_chw(*args, **kw), matvec_plain(*args, **kw)
+                    row = dict(window="diamond12", case=f"glr={with_glr}, identity=True",
+                               shape=list(x.shape), dtype=str(dtype)[6:],
+                               params="pixel snapshot")
+                    row.update(_agree(ker, ref, x, dtype, bar_at))
+                    if timed and dtype == torch.bfloat16:
+                        row.update(calls=0, ms=cuda_ms(lambda: gg_matvec_chw(*args, **kw), 10),
+                                   plain_ms=cuda_ms(lambda: matvec_plain(*args, **kw), 2, 1),
+                                   **_bound(nbytes(x, wg, wl if with_glr else None, ker),
+                                            x.numel() * (124 if with_glr else 80)))
+                    rows["gg_matvec_chw"].append(row)
+                args = (x, aux, wg, pg, gamma, ro)
+                ker, ref = gtv_rethresh_chw(*args, **pix), rethresh_plain(*args, **pix)
+                row = dict(window="diamond12", case="y=True", shape=list(x.shape),
+                           dtype=str(dtype)[6:], params="pixel snapshot")
+                row.update(_agree(ker, ref, aux, dtype, bar_at))
+                if timed and dtype == torch.bfloat16:
+                    row.update(calls=0, ms=cuda_ms(lambda: gtv_rethresh_chw(*args, **pix), 10),
+                               plain_ms=cuda_ms(lambda: rethresh_plain(*args, **pix), 2, 1),
+                               **_bound(nbytes(x, aux, wg, ker), x.numel() * 140))
+                rows["gtv_rethresh_chw"].append(row)
+                del ker, ref
+            del x, aux, prev, wg, wl
+            torch.cuda.empty_cache()
+    return rows
+
+
+def k9_rows(gen, bar_at):
+    """K9 against its plain version at the "single" ablation's shape
+    K9_SHAPE, G = 1, and at K9_RAGGED, G = 2, f32 and bf16, and in f32
+    against K6a on the same data permuted to CHW (the two compute one
+    function): the ablation's identity stencil rows, and seeded random rows;
+    μ, ρ U(0.2, 0.6); x U[0, 1); the weights K2's plain version of N(0, 1)
+    features (GTV, GLR stacked). Timed in bf16 at K9_SHAPE with the identity
+    rows, ``calls`` per "single" request."""
+    import torch
+
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.fused_step import gg_matvec_chw
+    from irdu_tpu_torch.ops.system_matvec import (OPS_PER_PIXEL_CHANNEL, fused_system_matvec,
+                                                  identity_rows, system_matvec_plain)
+
+    rows = []
+    for (b, h, w, c), g in ((K9_SHAPE, 1), (K9_RAGGED, 2)):
+        timed = (b, h, w, c) == K9_SHAPE
+        mu, ro = (0.2 + 0.4 * torch.rand(g, device=DEVICE, generator=gen) for _ in range(2))
+        mu_c, ro_c = mu.repeat_interleave(c // g), ro.repeat_interleave(c // g)
+        random_rows = [torch.tensor([1.0, 0.5, 0.5, 0.5], device=DEVICE)[:, None]
+                       + 0.3 * torch.randn(4, c, device=DEVICE, generator=gen) for _ in range(2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.rand(b, h, w, c, device=DEVICE, generator=gen).to(dtype)
+            feats = torch.randn(b, 2 * c, h, w, device=DEVICE, generator=gen).to(dtype)
+            m = 0.5 + torch.rand(2 * g, c // g, device=DEVICE, generator=gen)
+            wt = edge_weights_plain(feats, m, 2 * g)  # (B, 2G, 4, H, W): GTV, then GLR
+            wg, wl = (v.permute(0, 3, 4, 1, 2).contiguous() for v in (wt[:, :g], wt[:, g:]))
+            del feats, wt
+            for stencil, (pl, pg) in (("identity", (identity_rows(c, DEVICE),) * 2),
+                                      ("random", random_rows)):
+                args = (x, wl, wg, pl, pg, mu_c, ro_c)
+                ker = fused_system_matvec(*args, n_graphs=g)
+                ref = system_matvec_plain(*args, n_graphs=g)
+                sync()
+                row = dict(case=f"{stencil} stencil rows", shape=list(x.shape), n_graphs=g,
+                           dtype=str(dtype)[6:], params="seeded")
+                if timed:
+                    row["basis"] = f"{h}x{w} single ablation request"
+                row.update(_agree(ker, ref, x, dtype, bar_at))
+                if dtype == torch.float32:  # against K6a on the same data in CHW
+
+                    def table(r):
+                        return r.reshape(4, g, c // g).permute(1, 0, 2)
+
+                    k6 = gg_matvec_chw(x.permute(0, 3, 1, 2).contiguous(),
+                                       wl.permute(0, 3, 4, 1, 2).contiguous(),
+                                       wg.permute(0, 3, 4, 1, 2).contiguous(), table(pl),
+                                       table(pg), mu, ro, n_graphs=g).permute(0, 2, 3, 1)
+                    sync()
+                    row["vs_k6a"] = max_abs(ker, k6)
+                    row["ok"] = row["ok"] and within(ker, k6, 5e-4, 1e-3)
+                    del k6
+                if timed and dtype == torch.bfloat16 and stencil == "identity":
+                    row.update(calls=K9_CALLS,
+                               ms=cuda_ms(lambda: fused_system_matvec(*args, n_graphs=g), 20),
+                               plain_ms=cuda_ms(lambda: system_matvec_plain(*args, n_graphs=g),
+                                                3, 1),
+                               **_bound(sum(t.numel() * t.element_size()
+                                            for t in (x, wl, wg, ker)),
+                                        x.numel() * OPS_PER_PIXEL_CHANNEL))
+                rows.append(row)
+                del ker, ref
+            del x, wg, wl
+            torch.cuda.empty_cache()
+    return {"fused_system_matvec": rows}
+
+
 def _bound(nbytes, ops, tensor_ops=0):
     """The least time: bytes over the memory rate, f32 CUDA-core operations
     over their peak and bf16 tensor-core operations over theirs (the units
@@ -1086,9 +1445,13 @@ def kernels_line(smoke):
     calls one request makes (bf16; a timed row counts ``calls`` times): a
     512x512 request for K1-K4, a 1024x1024 one for K5 (a 512x512 request
     launches none), one call for K6a and K6b (K5's oracles, on no request's
-    path), a 512x512 pixel request for K7 (CHW route) and K8 (NHWC route);
-    max_abs_err is the f32 maximum; launches are those of the paths' runs
-    (flagship serving, pixel NHWC, pixel CHW), summed and by path."""
+    path), a 512x512 pixel request for K7 (CHW route) and K8 (NHWC route),
+    a 512x512 "single" ablation request for K9; rows timed on another basis
+    (K5's pixel mode per 1024x1024 and 2048x2048 pixel request) are summed
+    the same way under ``by_basis``; max_abs_err is the f32 maximum;
+    launches are those of the paths' runs (flagship serving, the small
+    models, pixel NHWC, pixel CHW, pixel CHW above the cap, each ablation
+    config), summed and by path."""
     meta = {
         "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack.cu",
                               "irdu_tpu/ops/pallas/block_stack.py:214"),
@@ -1108,16 +1471,31 @@ def kernels_line(smoke):
                                 "irdu_tpu/ops/pallas/solver_unroll.py:394"),
         "pixel_segment_nhwc": ("irdu_tpu_torch/kernels/csrc/pixel_nhwc.cu",
                                "irdu_tpu/ops/pallas/pixel_nhwc.py:294"),
+        "fused_system_matvec": ("irdu_tpu_torch/kernels/csrc/system_matvec.cu",
+                                "irdu_tpu/ops/pallas/solver_matvec.py:166"),
     }
     basis = {"gg_fused_step_chw": f"{BAND}x{BAND} request", "gg_matvec_chw": "one call",
              "gtv_rethresh_chw": "one call",
              "gg_pixel_unroll_chw": f"{FRAME}x{FRAME} pixel request, CHW route",
-             "pixel_segment_nhwc": f"{FRAME}x{FRAME} pixel request, NHWC route"}
+             "pixel_segment_nhwc": f"{FRAME}x{FRAME} pixel request, NHWC route",
+             "fused_system_matvec": f"{K9_SHAPE[1]}x{K9_SHAPE[2]} single ablation request"}
+
+    def summed_over(rows):
+        rows = [r for r in rows if r.get("calls", 1)]
+        return dict(ms=sum(r["ms"] * r.get("calls", 1) for r in rows),
+                    plain_ms=sum(r["plain_ms"] * r.get("calls", 1) for r in rows),
+                    bound_ms=sum(r["bound_ms"] * r.get("calls", 1) for r in rows),
+                    calls=sum(r.get("calls", 1) for r in rows))
+
     out = []
     for name, (source, replaces) in meta.items():
         rows = getattr(smoke, "kernel_rows", {}).get(name, [])
         timed = [r for r in rows if "ms" in r]
-        summed = [r for r in timed if r.get("calls", 1)]
+        main_basis = basis.get(name, f"{FRAME}x{FRAME} request")
+        others = sorted({r["basis"] for r in timed if r.get("basis", main_basis) != main_basis})
+        by_basis = {b: summed_over([r for r in timed if r.get("basis") == b]) for b in others}
+        summed = [r for r in timed if r.get("basis", main_basis) == main_basis
+                  and r.get("calls", 1)]
         f32 = [r["max_abs_err"] for r in rows if r["dtype"] == "float32"]
         bf16 = [r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"]
         out.append(dict(
@@ -1126,16 +1504,16 @@ def kernels_line(smoke):
             launches_by_path={k: c.get(name, 0) for k, c in smoke.path_counts.items()},
             max_abs_err=max(f32) if f32 else None,
             max_abs_err_bf16=max(bf16) if bf16 else None,
-            per=basis.get(name, f"{FRAME}x{FRAME} request"),
+            per=main_basis,
             ms=sum(r["ms"] * r.get("calls", 1) for r in summed) if summed else None,
             plain_ms=sum(r["plain_ms"] * r.get("calls", 1) for r in summed) if summed else None,
             bound_ms=sum(r["bound_ms"] * r.get("calls", 1) for r in summed) if summed else None,
             bound_by=max(summed, key=lambda r: r["bound_ms"])["bound_by"] if summed else None,
             library_ms=None,
             library_note=("no single PyTorch call computes a block" if "block" in name
-                          else "none: no single call" if "pixel" in name
+                          else "none: no single call" if "pixel" in name or "matvec" in name
                           else "no single PyTorch call computes this function"),
-            per_call=timed))
+            by_basis=by_basis, per_call=timed))
     return {"kernels": out}
 
 
@@ -1158,7 +1536,8 @@ def dark_split(clean, out):
 
 def phase_model(smoke):
     """The f32 model on each request's noisy image, kernel path against plain
-    path; the denoised outputs go to chiprun_out/model_outputs.npz."""
+    path; the denoised outputs go to chiprun_out/model_outputs.npz (in
+    float16, to keep the output directory small)."""
     import torch
 
     from irdu_tpu_torch.predict import load_model
@@ -1182,7 +1561,8 @@ def phase_model(smoke):
     del model
     torch.cuda.empty_cache()
     rows += pixel_model_rows(saved)
-    np.savez_compressed(os.path.join(OUT_DIR, "model_outputs.npz"), **saved)
+    np.savez_compressed(os.path.join(OUT_DIR, "model_outputs.npz"),
+                        **{k: v.astype(np.float16) for k, v in saved.items()})
     smoke.lines["model"] = {"model_check": rows, "dtype": "float32", "tf32": False,
                             "atol": 1e-3}
     for r in rows:
@@ -1196,18 +1576,20 @@ def pixel_model_rows(saved):
     """The pixel model in f32 on its 512x512 and 480x320 requests' noisy
     images: the NHWC kernel route against the plain route (both solver flags
     off); at 512x512, and on the PIXEL_RAGGED crop of it, the CHW kernel
-    route against it too."""
+    route against it too; at 1024x1024 the CHW route above K7's cap (K5's
+    pixel mode)."""
     import torch
 
     from irdu_tpu_torch.predict import load_model
 
     model = load_model(device=DEVICE, dtype=torch.float32, name="pixel")
     mix = model.mixtureGLR_block03
-    (clean_512, noisy_512), request_480 = pixel_images()[:2]
+    (clean_512, noisy_512), request_480, request_1024 = pixel_images()
     rh, rw = PIXEL_RAGGED
     cases = (((clean_512, noisy_512), PIXEL_REQUESTS[0], ("nhwc", "chw")),
              (request_480, PIXEL_REQUESTS[1], ("nhwc",)),
-             ((clean_512[:rh, :rw], noisy_512[:rh, :rw]), PIXEL_RAGGED, ("nhwc", "chw")))
+             ((clean_512[:rh, :rw], noisy_512[:rh, :rw]), PIXEL_RAGGED, ("nhwc", "chw")),
+             (request_1024, PIXEL_BAND_REQUESTS[0], ("chw",)))
     rows = []
     try:
         for (clean, noisy), (h, w), routes in cases:
@@ -1256,7 +1638,8 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
+    print(card)
     from irdu_tpu_torch.kernels.build import nvcc_path
 
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True)
@@ -1264,15 +1647,18 @@ def main() -> int:
           f"{torch.version.cuda} nvcc {nvcc.stdout.strip().splitlines()[-1]}", flush=True)
 
     smoke = Smoke()
+    smoke.lines["device"] = {"nvidia_smi": card, "torch": torch.__version__,
+                             "cuda": torch.version.cuda}
     build_s = smoke.run("build", phase_build)
     if not smoke.failed:
         smoke.run("serving", phase_serving, smoke)
         smoke.run("small", phase_small, smoke)
         smoke.run("pixel", phase_pixel, smoke)
+        smoke.run("ablation", phase_ablation, smoke)
         smoke.run("kernels", phase_kernels, smoke)
         smoke.run("model", phase_model, smoke)
     print(json.dumps(kernels_line(smoke)), flush=True)
-    for key in ("serving", "small_models", "pixel", "band_route", "model"):
+    for key in ("serving", "small_models", "pixel", "ablation", "band_route", "model"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:
@@ -1282,6 +1668,7 @@ def main() -> int:
         smoke.failed.append(f"build over its {BUDGET_S['build']} s budget ({build_s:.1f} s)")
     if total > BUDGET_S["total"]:
         smoke.failed.append(f"run over its {BUDGET_S['total']} s budget ({total:.1f} s)")
+    print(card)  # again beside the results: the card's name and power limit
     print(json.dumps({"phases_s": smoke.phases, "total_s": round(total, 3),
                       "budget_s": BUDGET_S, "failed": smoke.failed}), flush=True)
     if smoke.failed:

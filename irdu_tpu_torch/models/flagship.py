@@ -14,7 +14,7 @@ copy here: ``Downsample2x2``, ``Upsample2x2`` and ``GroupedPointwise``
 (``models/layers.py``) already compute its ``downsample2x2_chw``,
 ``upsample2x2_chw`` and ``pointwise_chw``.
 
-Block routing (``_run_blocks``), with the attribute ``use_kernels`` True: a
+Block routing (``run_blocks``), with the attribute ``use_kernels`` True: a
 block list of width ≤ 64 runs through K3 (``fused_block_stack``) in chunks of
 at most 4 blocks, every other list block by block through K4
 (``fused_gated_block``). A CPU tensor takes the kernels' plain versions; a
@@ -94,26 +94,11 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         x = self.patch_3x3_embeding(img.permute(0, 3, 1, 2))
         codes = []
         for s in range(4):
-            x = self._run_blocks(x, self.encoder_scales[s], self.dims[s])
+            x = run_blocks(x, self.encoder_scales[s], self.use_kernels)
             codes.append(x)
             if s < 3:
                 x = self.down_samples[s](x)
         return tuple(codes)
-
-    def _run_blocks(self, x, blocks, dim):
-        if not self.use_kernels:
-            for block in blocks:
-                x = block(x)
-            return x
-        if dim <= STACK_MAX_DIM:
-            for k in range(0, len(blocks), STACK_MAX_BLOCKS):
-                chunk = blocks[k:k + STACK_MAX_BLOCKS]
-                x = fused_block_stack(x, *pack_block_params(
-                    [b.gated_params() for b in chunk], x.dtype))
-            return x
-        for block in blocks:
-            x = fused_gated_block(x, **block.gated_params())
-        return x
 
     def filtering(self, codes):
         """Per-scale unrolled graph filtering of the codes
@@ -129,8 +114,8 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         for s in (2, 1, 0):
             x = self.up_samples[s](x)
             x = self.combine_channels[s](torch.cat([x, codes[s]], dim=1))
-            x = self._run_blocks(x, self.decoder_scales[s], self.dims[s])
-        x = self._run_blocks(x, self.refining_block, self.dims[0])
+            x = run_blocks(x, self.decoder_scales[s], self.use_kernels)
+        x = run_blocks(x, self.refining_block, self.use_kernels)
         return self.linear_output(x).permute(0, 2, 3, 1)
 
     def enc_dec(self, img: torch.Tensor) -> torch.Tensor:
@@ -138,6 +123,26 @@ class AbstractMultiScaleGraphFilter(nn.Module):
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         return self.decode(self.filtering(self.encode(img)))
+
+
+def run_blocks(x, blocks, use_kernels=True):
+    """A list of LocalNonLinearBlocks over x (B, C, H, W): with
+    ``use_kernels``, through K3 in chunks of ``STACK_MAX_BLOCKS`` when
+    C ≤ ``STACK_MAX_DIM``, else block by block through K4; without, as the
+    modules' PyTorch ops. The ablations' feature heads run here too."""
+    if not use_kernels:
+        for block in blocks:
+            x = block(x)
+        return x
+    if x.shape[1] <= STACK_MAX_DIM:
+        for k in range(0, len(blocks), STACK_MAX_BLOCKS):
+            chunk = blocks[k:k + STACK_MAX_BLOCKS]
+            x = fused_block_stack(x, *pack_block_params(
+                [b.gated_params() for b in chunk], x.dtype))
+        return x
+    for block in blocks:
+        x = fused_gated_block(x, **block.gated_params())
+    return x
 
 
 def flagship_config() -> dict:

@@ -1,0 +1,35 @@
+"""Model registry: a configuration's ``model.type`` → the port's module
+(counterpart: ``irdu_tpu/models/registry.py``), under JAX's names for the
+models the port has. ``create_model(name, **kwargs)`` builds one, randomly
+initialized, from a configuration's ``model`` section without its ``type``;
+``utils.weights.params_to_torch`` puts JAX parameters on it."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from torch import nn
+
+
+def _registry() -> dict[str, Callable[..., nn.Module]]:
+    from irdu_tpu_torch.models.ablations import MultiScaleGraphFilter, OneGraphFilter
+    from irdu_tpu_torch.models.flagship import AbstractMultiScaleGraphFilter
+    from irdu_tpu_torch.models.pixel import MultiScaleSequenceDenoiser
+
+    return {"abstract_multiscale_graph_filter": AbstractMultiScaleGraphFilter,
+            "multiscale_sequence_denoiser": MultiScaleSequenceDenoiser,
+            "multiscale_graph_filter": MultiScaleGraphFilter,
+            "one_graph_filter": OneGraphFilter}
+
+
+def available_models() -> list[str]:
+    return sorted(_registry())
+
+
+def create_model(name: str, **kwargs) -> nn.Module:
+    """The model ``name`` built with ``kwargs``; KeyError, with the available
+    names, for a model the port does not have (GLR boosting, the baselines)."""
+    registry = _registry()
+    if name not in registry:
+        raise KeyError(f"unknown model {name!r}; available: {sorted(registry)}")
+    return registry[name](**kwargs)

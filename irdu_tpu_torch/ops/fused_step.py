@@ -1,11 +1,14 @@
-"""K5, K6a, K6b: one unroll step of the flagship's GGTV+GGLR solver, and its
-single-scale pieces, CHW. The band route of ``solvers/gtv_glr.py`` (planes
-too large for K1) is five K5 calls per filtering block.
+"""K5, K6a, K6b: one unroll step of the GGTV+GGLR solvers, and its
+single-scale pieces, CHW. The flagship's band route (``solvers/gtv_glr.py``,
+planes too large for K1) is five two-scale K5 calls per filtering block; the
+pixel family's CHW route above K7's cap (``solvers/pixel_gtv.py``) is six
+single-scale K5 calls on the diamond-12 window with the reflect stencil pad.
 
 Replaces the TPU kernels of ``irdu_tpu/ops/pallas/solver_chw.py``:
 
-  K5  ``gg_fused_step_chw`` (body ``_fused_kernel``): one two-scale step,
-      in one of three modes over x (B, C, H, W), C = G·F:
+  K5  ``gg_fused_step_chw`` (body ``_fused_kernel``): one step, two-scale
+      or single-scale (no Up(…) term), in one of three modes over
+      x (B, C, H, W), C = G·F:
         rhs:       out = x + ρ₀·Q₀x + Up(ρ₁·Q₁·Dn x)
         cg:        upd = rhs − A·x [+ β·prev];  out = x + α·upd
                    A·x = x + μ₀GLR₀x + ρ₀Q₀x + Up((μ₁GLR₁ + ρ₁Q₁)·Dn x)
@@ -23,25 +26,34 @@ rounded to x's dtype, as the TPU route rounds between its calls.
 
 On the card (``kernels/csrc/fused_step.cu``): one kernel for all three. A
 CTA takes a 32×64 full-res tile of one (b, g, f) plane and a 4-pixel halo
-(stats, C shift, Cᵀ shift, statsᵀ: one pixel each), and for the half-res
-scale the 16×32 half tile with its own 4-pixel halo, box-averaged from x as
-it loads. Every stage plane (x, the stencil outputs, the edge sums) lives in
-shared memory. Tiles start on even pixels, so a half tile is whole 2×2
-boxes. Per full-res pixel a cg step moves 5 planes of x's dtype plus the
-per-graph weights and does ~93 f32 operations, so it is bound by bytes.
+(stats, C shift, Cᵀ shift, statsᵀ: one pixel each, the two shifts up to the
+window's radius together), and for the half-res scale the 16×32 half tile
+with its own 4-pixel halo, box-averaged from x as it loads. Every stage
+plane (x, the stencil outputs, the edge sums) lives in shared memory. Tiles
+start on even pixels, so a half tile is whole 2×2 boxes. Per full-res pixel
+a cg step moves 5 planes of x's dtype plus the per-graph weights and does
+~93 f32 operations, so it is bound by bytes.
 
 Boundaries: a shift of a derived array (the stencil output, ε) replicates
 that array's own edge, which a read clamped to the tile's region gives at
 an image edge (the region stops at the image); the Cᵀ scatter and statsᵀ
 read zeros outside the image, tested against global indices. Inside the
-image a read past the region is wrong, and the error moves one pixel
-inward per stage, so after the four stages it has not reached the tile.
+image a read past the region is wrong, and the error moves inward by one
+pixel in the stencil, by the window's radius (≤ 2) in the edge sums and by
+one pixel in statsᵀ: 4 pixels, so it never reaches the tile. JAX's band
+kernel carries 2r + 2 rows of x (6 on diamond-12) because it shifts whole
+edge-signal arrays; the per-pixel edge sum reads the stencil plane at p ± d
+only, so the 4-pixel halo serves both windows.
 
-What the kernel takes: the flagship's cross-4 window with the "edge"
-stats pad, the stats tables given, K5 two-scale and K6a/K6b single-scale.
-The plain versions also take tables set to None and single-scale K5; the
-pixel family's diamond-12 window and reflect pad are not ported
-(``NotImplementedError``), and the keyword arguments stay for it.
+Windows and pads: the flagship's cross-4 window with the "edge" stencil pad,
+and the pixel family's diamond-12 window with the "reflect" pad (numpy
+reflect, edge excluded, for the stencil's own input; the derived arrays keep
+replicating their own edge, the scatter stays zero-padded). K5's pixel mode
+is single-scale (the ``w_*1`` weights None). A stats table set to None (the
+no-stats variants) goes to the kernel as the identity stencil (1, 0, 0, 0),
+which computes the same values exactly. The plain versions take any window
+and either pad; the kernel takes cross-4 and diamond-12, two-scale on
+cross-4 only.
 """
 
 from __future__ import annotations
@@ -51,9 +63,12 @@ import torch
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
 from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
 from irdu_tpu_torch.ops import graph
-from irdu_tpu_torch.ops.windows import CROSS4
+from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
 
 MODES = ("rhs", "cg", "rethresh")
+STATS_PADS = ("edge", "reflect")
+# the windows the kernel is built for, by the code it takes (fused_step.cu)
+KERNEL_WINDOWS = {CROSS4: 0, DIAMOND12: 1}
 # the kernel's epilogues (fused_step.cu)
 _EPI_ADD_X, _EPI_ADD_AUX, _EPI_CG = 0, 1, 2
 
@@ -70,23 +85,33 @@ def fused_scal(n_graphs, mu0=None, ro0=None, mu1=None, ro1=None,
     return torch.stack(cols, dim=1).contiguous()
 
 
-def _weights(wt):  # (B, G, 4, h, w) → 4 × (B, G, 1, h, w) f32
+def identity_table(n_graphs, n_node_fts, device=None):
+    """The (G, 4, F) stats table of the identity stencil, rows (1, 0, 0, 0):
+    the kernels' stand-in for a table set to None (p01·x + 0 is x exactly)."""
+    tab = torch.zeros(n_graphs, 4, n_node_fts, device=device)
+    tab[:, 0] = 1.0
+    return tab
+
+
+def _weights(wt):  # (B, G, E, h, w) → E × (B, G, 1, h, w) f32
     wt = wt.float()
-    return [wt[:, :, e:e + 1] for e in range(4)]
+    return [wt[:, :, e:e + 1] for e in range(wt.shape[2])]
 
 
 def _per_graph(v, g, device):  # (G,) → (G, 1, 1, 1) f32
     return torch.as_tensor(v, device=device).float().reshape(g, 1, 1, 1)
 
 
-def _scale_term(x, w_gtv, w_glr, pgtv, pglr, ro, mu, gamma, rethresh, with_glr):
+def _scale_term(x, w_gtv, w_glr, pgtv, pglr, ro, mu, gamma, rethresh, with_glr,
+                deltas, pad):
     """ρ·R(x), or ρ·Q(x) [+ μ·GLR(x)], on one scale."""
     wg, pg = _weights(w_gtv), graph.stats_table_terms(pgtv)
     if rethresh:
-        return ro * graph.gtv_rethresh_apply(x, wg, pg, gamma)
-    t = ro * graph.gtv_apply(x, wg, pg)
+        return ro * graph.gtv_rethresh_apply(x, wg, pg, gamma, deltas, pad)
+    t = ro * graph.gtv_apply(x, wg, pg, deltas, pad)
     if with_glr:
-        t = t + mu * graph.glr_apply(x, _weights(w_glr), graph.stats_table_terms(pglr))
+        t = t + mu * graph.glr_apply(x, _weights(w_glr), graph.stats_table_terms(pglr),
+                                     deltas, pad)
     return t
 
 
@@ -95,19 +120,21 @@ def fused_step_plain(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
                      stats_mode="edge", with_glr=True, use_x_rhs=False,
                      emit_update=False):
     """K5 in plain PyTorch (arguments as ``gg_fused_step_chw``)."""
-    _check_window(deltas, stats_mode)
+    _check_pad(stats_mode)
     b, c, h, w = x.shape
     g = n_graphs
     shape5 = (b, g, c // g, h, w)
     xv = x.float().reshape(shape5)
+    d = tuple(deltas)
 
     mu0, ro0, mu1, ro1, alpha, beta, gam0, gam1 = (
         _per_graph(scal[:, k], g, x.device) for k in range(8))
     rethresh, glr = mode == "rethresh", mode == "cg" and with_glr
-    t = _scale_term(xv, w_gtv0, w_glr0, pgtv0, pglr0, ro0, mu0, gam0, rethresh, glr)
+    t = _scale_term(xv, w_gtv0, w_glr0, pgtv0, pglr0, ro0, mu0, gam0, rethresh, glr,
+                    d, stats_mode)
     if w_gtv1 is not None:
         t = t + box_up2x2(_scale_term(box_down2x2(xv), w_gtv1, w_glr1, pgtv1, pglr1,
-                                      ro1, mu1, gam1, rethresh, glr))
+                                      ro1, mu1, gam1, rethresh, glr, d, stats_mode))
 
     def out_of(v):
         return v.reshape(b, c, h, w).to(x.dtype)
@@ -127,42 +154,41 @@ def fused_step_plain(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
 def matvec_plain(x, w_glr, w_gtv, pglr, pgtv, mu, ro, *, n_graphs, deltas=CROSS4,
                  stats_mode="edge", add_identity=True, with_glr=True):
     """K6a in plain PyTorch (arguments as ``gg_matvec_chw``)."""
-    _check_window(deltas, stats_mode)
+    _check_pad(stats_mode)
     b, c, h, w = x.shape
     g = n_graphs
     xv = x.float().reshape(b, g, c // g, h, w)
     t = _scale_term(xv, w_gtv, w_glr, pgtv, pglr, _per_graph(ro, g, x.device),
-                    _per_graph(mu, g, x.device), None, False, with_glr)
+                    _per_graph(mu, g, x.device), None, False, with_glr, tuple(deltas),
+                    stats_mode)
     return (xv + t if add_identity else t).reshape(b, c, h, w).to(x.dtype)
 
 
 def rethresh_plain(x, y, w_gtv, pgtv, gamma, ro, *, n_graphs, deltas=CROSS4,
                    stats_mode="edge"):
     """K6b in plain PyTorch (arguments as ``gtv_rethresh_chw``)."""
-    _check_window(deltas, stats_mode)
+    _check_pad(stats_mode)
     b, c, h, w = x.shape
     g = n_graphs
     xv = x.float().reshape(b, g, c // g, h, w)
     t = _scale_term(xv, w_gtv, None, pgtv, None, _per_graph(ro, g, x.device), None,
-                    _per_graph(gamma, g, x.device), True, False)
+                    _per_graph(gamma, g, x.device), True, False, tuple(deltas), stats_mode)
     if y is not None:
         t = t + y.float().reshape(xv.shape)
     return t.reshape(b, c, h, w).to(x.dtype)
 
 
-def _check_window(deltas, stats_mode):
-    if tuple(deltas) != CROSS4:
-        raise NotImplementedError(f"window {deltas}: only the flagship's cross-4 "
-                                  "window is ported (diamond-12 belongs to the pixel family)")
-    if stats_mode != "edge":
-        raise NotImplementedError(f"stats_mode={stats_mode!r}: only the flagship's 'edge' "
-                                  "stencil pad is ported (reflect belongs to the pixel family)")
+def _check_pad(stats_mode):
+    if stats_mode not in STATS_PADS:
+        raise ValueError(f"stats_mode must be one of {STATS_PADS}, got {stats_mode!r}")
 
 
-def _check_planes(name, x, operands, n_graphs, two_scale):
-    """The shapes of x and of the (kind, argument name, tensor) operands, a
-    None tensor skipped: kind "plane" is x's shape, "w0" and "w1" full- and
-    half-res edge weights, "table" a stats table, "scal" K5's scalars."""
+def _check_planes(name, x, operands, n_graphs, two_scale, deltas, stats_mode):
+    """The pad, and the shapes of x and of the (kind, argument name, tensor)
+    operands, a None tensor skipped: kind "plane" is x's shape, "w0" and "w1"
+    full- and half-res edge weights of the window, "table" a stats table,
+    "scal" K5's scalars."""
+    _check_pad(stats_mode)
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, C, H, W), got {tuple(x.shape)}")
     b, c, h, w = x.shape
@@ -170,8 +196,8 @@ def _check_planes(name, x, operands, n_graphs, two_scale):
         raise ValueError(f"{name}: C={c} must split into {n_graphs} graphs")
     if two_scale and (h % 2 or w % 2):
         raise ValueError(f"{name}: H and W must be even for the two-scale step, got {h}x{w}")
-    g = n_graphs
-    shapes = {"plane": (b, c, h, w), "w0": (b, g, 4, h, w), "w1": (b, g, 4, h // 2, w // 2),
+    g, e = n_graphs, len(deltas)
+    shapes = {"plane": (b, c, h, w), "w0": (b, g, e, h, w), "w1": (b, g, e, h // 2, w // 2),
               "table": (g, 4, c // g), "scal": (g, 8)}
     for kind, arg, t in operands:
         if t is not None and tuple(t.shape) != shapes[kind]:
@@ -179,14 +205,17 @@ def _check_planes(name, x, operands, n_graphs, two_scale):
 
 
 def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
-            n_graphs, rethresh, glr, epi, use_x_rhs=False, emit_update=False):
+            n_graphs, deltas, stats_mode, rethresh, glr, epi, use_x_rhs=False,
+            emit_update=False):
     """Run the kernel of ``fused_step.cu`` on the card; returns out or
-    (out, upd)."""
+    (out, upd). ``tables``: GTV, GLR at full res, then at half res; a None
+    table the kernel reads goes to it as the identity stencil."""
     two_scale = w_gtv1 is not None
-    used = [k for k in range(4) if (k % 2 == 0 or glr) and (k < 2 or two_scale)]
-    if any(tables[k] is None for k in used):  # tables: GTV, GLR at full res, then half
-        raise NotImplementedError(f"{name}: stats tables are required on the card "
-                                  "(the no-stats ablation is not ported)")
+    win = KERNEL_WINDOWS.get(tuple(tuple(d) for d in deltas))
+    if win is None or (two_scale and win != KERNEL_WINDOWS[CROSS4]):
+        raise ValueError(f"{name}: the kernel takes the cross-4 window (one or two "
+                         f"scales) and diamond-12 (one scale), not {deltas}"
+                         f"{' two-scale' if two_scale else ''}")
     planes = [t for t in (x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1) if t is not None]
     if any(t.device != x.device or t.dtype != x.dtype or not t.is_contiguous()
            for t in planes) or x.device.type != "cuda":
@@ -195,9 +224,14 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
     b, c, h, w = x.shape
     if b * c > 65535:
         raise ValueError(f"{name}: B·C = {b * c} planes exceed the grid's 65535")
+    if stats_mode == "reflect" and min(h, w) < 2:
+        raise ValueError(f"{name}: the reflect pad needs H, W ≥ 2, got {h}x{w}")
     dev = x.device
-    tabs = [None if t is None else t.to(device=dev, dtype=torch.float32).contiguous()
-            for t in tables]
+    used = [k for k in range(4) if (k % 2 == 0 or glr) and (k < 2 or two_scale)]
+    tabs = [None if k not in used
+            else identity_table(n_graphs, c // n_graphs, dev) if tables[k] is None
+            else tables[k].to(device=dev, dtype=torch.float32).contiguous()
+            for k in range(4)]
     sc = scal.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
     upd = torch.empty_like(x) if emit_update else None
@@ -208,7 +242,8 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
     status = kernel_library().irdu_fused_step(
         ptr(x), ptr(aux), ptr(prev), ptr(w_gtv0), ptr(w_glr0), ptr(w_gtv1), ptr(w_glr1),
         *(ptr(t) for t in tabs), ptr(sc), ptr(out), ptr(upd), b, n_graphs, c // n_graphs,
-        h, w, int(rethresh), int(glr), epi, int(use_x_rhs), dtype_code(x.dtype),
+        h, w, int(rethresh), int(glr), epi, int(use_x_rhs), win,
+        int(stats_mode == "reflect"), dtype_code(x.dtype),
         torch.cuda.current_stream(dev).cuda_stream)
     check_status(name, status)
     return (out, upd) if emit_update else out
@@ -221,21 +256,21 @@ def gg_fused_step_chw(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0
     """One fused unroll step (the mode table above). x (B, C, H, W), C = G·F;
     aux: the rhs ("cg", unless ``use_x_rhs``) or y ("rethresh", optional),
     else unused; prev: the previous CG update (β momentum, "cg") or None;
-    w_*0 (B, G, 4, H, W) and w_*1 (B, G, 4, H/2, W/2) edge weights, w_*1
-    None for a single-scale step; p* (G, 4, F) stats tables or None; scal
-    (G, 8) from ``fused_scal``. Returns out, or (out, upd) with
-    ``emit_update`` ("cg" only), in x's dtype.
+    w_*0 (B, G, E, H, W) and w_*1 (B, G, E, H/2, W/2) edge weights over the
+    window ``deltas`` (E offsets), w_*1 None for a single-scale step; p*
+    (G, 4, F) stats tables or None; scal (G, 8) from ``fused_scal``;
+    stats_mode the stencil's pad, "edge" or "reflect". Returns out, or
+    (out, upd) with ``emit_update`` ("cg" only), in x's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (two-scale, tables given, x, aux, prev and the weights contiguous, of one
-    dtype: f32 or bf16) or raises."""
+    (x, aux, prev and the weights contiguous, of one dtype: f32 or bf16;
+    the windows in ``_launch``) or raises."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if emit_update and mode != "cg":
         raise ValueError("emit_update is for mode 'cg' only")
     if mode == "cg" and not use_x_rhs and aux is None:
         raise ValueError("mode 'cg' needs aux (the rhs) unless use_x_rhs")
-    _check_window(deltas, stats_mode)
     glr = mode == "cg" and with_glr
     two_scale = w_gtv1 is not None
     _check_planes("gg_fused_step_chw", x, [
@@ -245,20 +280,18 @@ def gg_fused_step_chw(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0
         ("w1", "w_gtv1", w_gtv1), ("w1", "w_glr1", w_glr1 if glr and two_scale else None),
         ("table", "pgtv0", pgtv0), ("table", "pglr0", pglr0),
         ("table", "pgtv1", pgtv1), ("table", "pglr1", pglr1), ("scal", "scal", scal)],
-        n_graphs, two_scale)
-    kw = dict(mode=mode, n_graphs=n_graphs, with_glr=with_glr, use_x_rhs=use_x_rhs,
-              emit_update=emit_update)
+        n_graphs, two_scale, deltas, stats_mode)
+    kw = dict(mode=mode, n_graphs=n_graphs, deltas=deltas, stats_mode=stats_mode,
+              with_glr=with_glr, use_x_rhs=use_x_rhs, emit_update=emit_update)
     if x.device.type == "cpu":
         return fused_step_plain(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0,
                                 pglr0, pgtv1, pglr1, scal, **kw)
-    if not two_scale:
-        raise NotImplementedError("gg_fused_step_chw: the single-scale step (the pixel "
-                                  "family's) is not ported to the card")
     epi = {"rhs": _EPI_ADD_X, "rethresh": _EPI_ADD_AUX, "cg": _EPI_CG}[mode]
     out = _launch("gg_fused_step_chw", x, aux if mode != "rhs" else None,
                   prev if mode == "cg" else None, w_gtv0, w_glr0 if glr else None,
-                  w_gtv1, w_glr1 if glr else None, (pgtv0, pglr0, pgtv1, pglr1), scal,
-                  n_graphs=n_graphs, rethresh=mode == "rethresh", glr=glr, epi=epi,
+                  w_gtv1, w_glr1 if glr and two_scale else None,
+                  (pgtv0, pglr0, pgtv1, pglr1), scal, n_graphs=n_graphs, deltas=deltas,
+                  stats_mode=stats_mode, rethresh=mode == "rethresh", glr=glr, epi=epi,
                   use_x_rhs=use_x_rhs, emit_update=emit_update)
     gg_fused_step_chw.launches += 1
     return out
@@ -270,22 +303,23 @@ gg_fused_step_chw.launches = 0
 def gg_matvec_chw(x, w_glr, w_gtv, pglr, pgtv, mu, ro, *, n_graphs, deltas=CROSS4,
                   stats_mode="edge", add_identity=True, with_glr=True):
     """[x +] μ⊙GLR(x) + ρ⊙Q(x) on one scale. x (B, C, H, W); w_glr, w_gtv
-    (B, G, 4, H, W), w_glr unused without ``with_glr``; pglr, pgtv (G, 4, F)
+    (B, G, E, H, W), w_glr unused without ``with_glr``; pglr, pgtv (G, 4, F)
     or None; mu, ro (G,). Returns x's shape and dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (tables given) or raises."""
-    _check_window(deltas, stats_mode)
+    or raises."""
     _check_planes("gg_matvec_chw", x, [
         ("w0", "w_glr", w_glr if with_glr else None), ("w0", "w_gtv", w_gtv),
-        ("table", "pglr", pglr), ("table", "pgtv", pgtv)], n_graphs, False)
+        ("table", "pglr", pglr), ("table", "pgtv", pgtv)], n_graphs, False, deltas,
+        stats_mode)
     if x.device.type == "cpu":
         return matvec_plain(x, w_glr, w_gtv, pglr, pgtv, mu, ro, n_graphs=n_graphs,
+                            deltas=deltas, stats_mode=stats_mode,
                             add_identity=add_identity, with_glr=with_glr)
     scal = fused_scal(n_graphs, mu0=mu if with_glr else None, ro0=ro)
     out = _launch("gg_matvec_chw", x, None, None, w_gtv, w_glr if with_glr else None,
                   None, None, (pgtv, pglr, None, None), scal, n_graphs=n_graphs,
-                  rethresh=False, glr=with_glr,
+                  deltas=deltas, stats_mode=stats_mode, rethresh=False, glr=with_glr,
                   epi=_EPI_ADD_X if add_identity else _EPI_ADD_AUX)
     gg_matvec_chw.launches += 1
     return out
@@ -297,19 +331,20 @@ gg_matvec_chw.launches = 0
 def gtv_rethresh_chw(x, y, w_gtv, pgtv, gamma, ro, *, n_graphs, deltas=CROSS4,
                      stats_mode="edge"):
     """[y +] ρ⊙Cᵀ(2·S_γ(Cx) − Cx) on one scale. x, y (B, C, H, W), y may be
-    None; w_gtv (B, G, 4, H, W); pgtv (G, 4, F) or None; gamma, ro (G,).
+    None; w_gtv (B, G, E, H, W); pgtv (G, 4, F) or None; gamma, ro (G,).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (table given) or raises."""
-    _check_window(deltas, stats_mode)
+    or raises."""
     _check_planes("gtv_rethresh_chw", x, [
-        ("plane", "y", y), ("w0", "w_gtv", w_gtv), ("table", "pgtv", pgtv)], n_graphs, False)
+        ("plane", "y", y), ("w0", "w_gtv", w_gtv), ("table", "pgtv", pgtv)], n_graphs,
+        False, deltas, stats_mode)
     if x.device.type == "cpu":
-        return rethresh_plain(x, y, w_gtv, pgtv, gamma, ro, n_graphs=n_graphs)
+        return rethresh_plain(x, y, w_gtv, pgtv, gamma, ro, n_graphs=n_graphs,
+                              deltas=deltas, stats_mode=stats_mode)
     scal = fused_scal(n_graphs, ro0=ro, gamma0=gamma)
     out = _launch("gtv_rethresh_chw", x, y, None, w_gtv, None, None, None,
-                  (pgtv, None, None, None), scal, n_graphs=n_graphs, rethresh=True,
-                  glr=False, epi=_EPI_ADD_AUX)
+                  (pgtv, None, None, None), scal, n_graphs=n_graphs, deltas=deltas,
+                  stats_mode=stats_mode, rethresh=True, glr=False, epi=_EPI_ADD_AUX)
     gtv_rethresh_chw.launches += 1
     return out
 

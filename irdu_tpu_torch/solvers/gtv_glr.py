@@ -26,7 +26,8 @@ from torch import nn
 
 from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
-from irdu_tpu_torch.ops.fused_step import fused_scal, fused_step_plain, gg_fused_step_chw
+from irdu_tpu_torch.ops.fused_step import (fused_scal, fused_step_plain, gg_fused_step_chw,
+                                           identity_table)
 from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain, unroll_scal
 from irdu_tpu_torch.solvers.common import GraphOpParams
 
@@ -48,45 +49,79 @@ def _mega_ok(shape) -> bool:
 class MixtureGTVGLR(nn.Module):
     """A CPU tensor takes the kernels' plain versions and a CUDA tensor the
     kernels. Setting the attribute ``use_kernels`` to False runs the plain
-    versions on any device: the on-card reference the kernel path is held to."""
+    versions on any device: the on-card reference the kernel path is held to.
 
-    def __init__(self, n_graphs: int, n_node_fts: int, *, eval_cg_iters: int = 3):
+    The options are JAX's, at the flagship's defaults: the initial values of
+    α, β and the log-parameterized μ, ρ, γ (per scale); ``stats_mode``
+    ("per_channel", "scalar" or "none": a missing stencil goes to K1 and K5
+    as the identity table, which is exact); ``feature_head`` "pointwise" (the
+    flagship: 1×1 C→2C at full res, 2×2 stride-2 C→C then 1×1 C→2C at half
+    res) or "nonlinear3" (the no-latent ablations: ``_NonLinearHead`` at full
+    res, and after the 2×2 stride-2 conv at half res)."""
+
+    def __init__(self, n_graphs: int, n_node_fts: int, *, alpha_init: float = 0.5,
+                 beta_init: float = 0.1, muy_init=(0.001, 0.0001), ro_init=(0.0001, 0.0001),
+                 gamma_init=(0.0001, 0.0001), stats_mode: str = "per_channel",
+                 feature_head: str = "pointwise", eval_cg_iters: int = 3):
         super().__init__()
         g, f = n_graphs, n_node_fts
         c = g * f
         self.n_graphs, self.n_node_fts = g, f
         self.eval_cg_iters = eval_cg_iters
         self.use_kernels = True
-        self.alphaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), 0.5))
-        self.betaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), 0.1))
-        # full-res head 1×1 C→2C; half-res head 2×2 stride-2 C→C then 1×1 C→2C
-        self.patchs_features_extraction00 = GroupedPointwise(c, 2 * c)
-        self.patchs_features_extraction01_down = Downsample2x2(c, c)
-        self.patchs_features_extraction01_point = GroupedPointwise(c, 2 * c)
-        # log-parameterized positive weights, at the flagship's initial values
-        for name, v in (("ro00", 1e-4), ("ro01", 1e-4), ("gamma00", 1e-4),
-                        ("gamma01", 1e-4), ("muys00", 1e-3), ("muys01", 1e-4)):
+        self.alphaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), float(alpha_init)))
+        self.betaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), float(beta_init)))
+        if feature_head == "pointwise":
+            self.patchs_features_extraction00 = GroupedPointwise(c, 2 * c)
+            self.patchs_features_extraction01_down = Downsample2x2(c, c)
+            self.patchs_features_extraction01_point = GroupedPointwise(c, 2 * c)
+        elif feature_head == "nonlinear3":
+            from irdu_tpu_torch.solvers.ablation_solvers import _NonLinearHead
+
+            self.patchs_features_extraction00 = _NonLinearHead(c, 2 * c)
+            self.patchs_features_extraction01_down = Downsample2x2(c, c)
+            self.patchs_features_extraction01_head = _NonLinearHead(c, 2 * c)
+        else:
+            raise ValueError(f"feature_head must be 'pointwise' or 'nonlinear3', "
+                             f"got {feature_head!r}")
+        self.feature_head = feature_head
+        # log-parameterized positive weights
+        for name, v in (("ro00", ro_init[0]), ("ro01", ro_init[1]),
+                        ("gamma00", gamma_init[0]), ("gamma01", gamma_init[1]),
+                        ("muys00", muy_init[0]), ("muys01", muy_init[1])):
             setattr(self, name, nn.Parameter(torch.full((g,), math.log(v))))
-        self.GTVmodule00 = GraphOpParams(g, f)
-        self.GLRmodule00 = GraphOpParams(g, f)
-        self.GTVmodule01 = GraphOpParams(g, f)
-        self.GLRmodule01 = GraphOpParams(g, f)
+        self.GTVmodule00 = GraphOpParams(g, f, stats_mode)
+        self.GLRmodule00 = GraphOpParams(g, f, stats_mode)
+        self.GTVmodule01 = GraphOpParams(g, f, stats_mode)
+        self.GLRmodule01 = GraphOpParams(g, f, stats_mode)
+
+    def _heads(self, x):
+        """The full- and half-res features, each (B, 2C, h, w), GTV first."""
+        half = (self.patchs_features_extraction01_point if self.feature_head == "pointwise"
+                else self.patchs_features_extraction01_head)
+        return (self.patchs_features_extraction00(x),
+                half(self.patchs_features_extraction01_down(x)))
+
+    def _tables(self):
+        """The four (G, 4, F) stats tables; a missing stencil as the identity."""
+        g, f = self.n_graphs, self.n_node_fts
+        return tuple(identity_table(g, f, mod.multiM.device) if t is None else t
+                     for mod in (self.GTVmodule00, self.GLRmodule00, self.GTVmodule01,
+                                 self.GLRmodule01)
+                     for t in (mod.stats_table(),))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.n_graphs
         ew = edge_weights_chw if self.use_kernels else edge_weights_plain
 
-        f00 = self.patchs_features_extraction00(x)
-        f01 = self.patchs_features_extraction01_point(
-            self.patchs_features_extraction01_down(x))
+        f00, f01 = self._heads(x)
         w00 = ew(f00, torch.cat([self.GTVmodule00.multiM, self.GLRmodule00.multiM]),
                  n_graphs=2 * g)
         w01 = ew(f01, torch.cat([self.GTVmodule01.multiM, self.GLRmodule01.multiM]),
                  n_graphs=2 * g)
         weights = (w00[:, :g].contiguous(), w00[:, g:].contiguous(),
                    w01[:, :g].contiguous(), w01[:, g:].contiguous())
-        tables = (self.GTVmodule00.stats_table(), self.GLRmodule00.stats_table(),
-                  self.GTVmodule01.stats_table(), self.GLRmodule01.stats_table())
+        tables = self._tables()
         if _mega_ok(x.shape):
             unroll = gg_unroll_chw if self.use_kernels else gg_unroll_plain
             return unroll(x.contiguous(), *weights, *tables, unroll_scal(

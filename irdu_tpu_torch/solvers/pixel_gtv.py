@@ -16,10 +16,13 @@ Three routes, chosen per call by JAX's flags and in JAX's precedence:
         features under the GTV and the GLR metric), its weights packed
         channels-last, then 6 K8 segments (``ops/pixel_nhwc.py``) in planar
         channel order c = f·G + g;
-  CHW   (``use_pallas_unroll``): the same K2 call, then K7 once
-        (``ops/pixel_unroll.py``) in interleaved order c = g·F + f, for
-        H·W ≤ ``gtv_glr._MEGA_MAX_PIXELS``. Above it JAX runs K5 steps in
-        the pixel mode, which the port has not ported: NotImplementedError;
+  CHW   (``use_pallas_unroll``): the same K2 call, then in interleaved
+        order c = g·F + f K7 once (``ops/pixel_unroll.py``) for
+        H·W ≤ ``gtv_glr._MEGA_MAX_PIXELS``, and above it the band route: ỹ
+        tiled G times and 6 single-scale K5 steps (``ops/fused_step.py``,
+        diamond-12, reflect pad): rhs; cg from x as its rhs, emitting the
+        update; cg with β·prev; rethresh with y; cg emitting the update; cg
+        with β·prev (JAX ``_forward_chw``);
   plain (neither): the same unroll in plain PyTorch (the JAX jnp path), on
         any device; the on-card reference the kernel routes are held to.
 
@@ -39,6 +42,7 @@ from torch import nn
 from irdu_tpu_torch.models.layers import GroupedPointwise
 from irdu_tpu_torch.models.restormer_blocks import FeatureExtraction, GatedDConvBlock
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
+from irdu_tpu_torch.ops.fused_step import fused_scal, gg_fused_step_chw
 from irdu_tpu_torch.ops.graph import pack_edge_weights
 from irdu_tpu_torch.ops.pixel_nhwc import pixel_unroll_nhwc
 from irdu_tpu_torch.ops.pixel_unroll import (gg_pixel_unroll_chw, pixel_unroll_plain,
@@ -128,18 +132,43 @@ class MixtureGTV(nn.Module):
             n_graphs=2 * self.n_graphs, deltas=self.deltas)
 
     def _unroll_chw(self, ew, y_tilde):
-        """K2, then K7 (JAX ``_forward_chw``'s whole-unroll branch)."""
+        """K2, then K7, or above ``_MEGA_MAX_PIXELS`` the K5 band route (JAX
+        ``_forward_chw``). Returns (B, G·F, H, W), channel g·F + f."""
         g, d = self.n_graphs, self.deltas
         h, w = y_tilde.shape[-2:]
-        if h * w > gtv_glr._MEGA_MAX_PIXELS:
-            raise NotImplementedError(
-                f"{h}x{w}: the CHW route above {gtv_glr._MEGA_MAX_PIXELS} pixels runs K5 "
-                "in the pixel mode (single scale, diamond-12, reflect), not ported yet")
         w_all = self._edge_weights(ew)
-        return gg_pixel_unroll_chw(
-            y_tilde.contiguous(), w_all[:, :g].contiguous(), w_all[:, g:].contiguous(),
-            self.GTVmodule00.stats_table(), self.GLRmodule00.stats_table(), self._scal(),
-            n_graphs=g, deltas=d)
+        w_gtv, w_glr = w_all[:, :g].contiguous(), w_all[:, g:].contiguous()
+        tables = (self.GTVmodule00.stats_table(), self.GLRmodule00.stats_table())
+        if h * w <= gtv_glr._MEGA_MAX_PIXELS:
+            return gg_pixel_unroll_chw(y_tilde.contiguous(), w_gtv, w_glr, *tables,
+                                       self._scal(), n_graphs=g, deltas=d)
+        return self._band_route(y_tilde.repeat(1, g, 1, 1), w_gtv, w_glr, tables)
+
+    def _band_route(self, y, w_gtv, w_glr, tables):
+        """The unroll as 6 single-scale K5 calls on the tiled ỹ
+        (B, G·F, H, W), each output rounded to y's dtype."""
+        g = self.n_graphs
+        pgtv, pglr = tables
+        mu, ro = self.muys00.float(), self.ro00.float()
+        alpha, beta = self.alphaCGD.float(), self.betaCGD.float()
+
+        def run(x, aux, prev, glr, scal, mode, **kw):
+            return gg_fused_step_chw(x, aux, prev, w_gtv, w_glr if glr else None, None, None,
+                                     pgtv, pglr if glr else None, None, None, scal, mode=mode,
+                                     n_graphs=g, deltas=self.deltas, stats_mode="reflect", **kw)
+
+        def cg_round(rhs, i):  # CG restarted from x₀ = rhs: steps i and i + 1
+            out, upd = run(rhs, None, None, True, fused_scal(g, mu0=mu, ro0=ro, alpha=alpha[i]),
+                           "cg", use_x_rhs=True, emit_update=True)
+            return run(out, rhs, upd, True, fused_scal(g, mu0=mu, ro0=ro, alpha=alpha[i + 1],
+                                                       beta=beta[i + 1]), "cg")
+
+        rhs = run(y, None, None, False, fused_scal(g, ro0=ro), "rhs")  # bias 0
+        out = cg_round(rhs, 0)
+        # the ADMM re-threshold (bias 0, so ε − bias = 2·S_γ(Cx) − Cx), then round 2
+        rhs = run(out, y, None, False, fused_scal(g, ro0=ro, gamma0=torch.exp(
+            self.gamma00.float())), "rethresh")
+        return cg_round(rhs, 2)
 
     def _unroll_nhwc(self, ew, y_tilde):
         """K2, the weights packed, then 6 K8 segments (JAX ``_forward_nhwc``).

@@ -133,10 +133,10 @@ def test_fused_step_rejects_what_it_does_not_take(what):
     args.insert(2, None)
     scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
     kw, err = dict(mode="cg", n_graphs=G), ValueError
-    if what == "reflect":
-        kw["stats_mode"], err = "reflect", NotImplementedError
-    elif what == "diamond12":
-        kw["deltas"], err = CROSS4 + ((2, 0),), NotImplementedError
+    if what == "reflect":  # "edge" and "reflect" are taken; any other pad is not
+        kw["stats_mode"] = "symmetric"
+    elif what == "diamond12":  # a 5-edge window against 4-edge weights
+        kw["deltas"] = CROSS4 + ((2, 0),)
     elif what == "mode":
         kw["mode"] = "matvec"
     elif what == "emit_rhs":

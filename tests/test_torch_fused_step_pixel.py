@@ -1,0 +1,291 @@
+"""K5's pixel mode and K6a/K6b on the pixel family's window
+(``irdu_tpu_torch/ops/fused_step.py``: single scale, diamond-12, the reflect
+stencil pad) against the JAX package's Pallas kernels in interpret mode, the
+CUDA kernel's tiling scheme on that window (a 4-pixel halo for a radius-2
+window) run in PyTorch against the plain version, and the pixel family's
+CHW band route (6 K5 steps) against JAX's ``_forward_chw`` with both caps
+at 0. Tolerances: the JAX tests' 2e-4 (rhs, rethresh, K6a, K6b) and 3e-4
+(cg) for the kernels (tests/test_solver_chw.py), 1e-5 between the port's own
+f32 formulations, JAX's kernel-vs-jnp ``atol=5e-4, rtol=1e-3`` for the
+route."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from irdu_tpu.ops.pallas.solver_chw import fused_scal as jax_fused_scal
+from irdu_tpu.ops.pallas.solver_chw import gg_fused_step_chw as jax_step
+from irdu_tpu.ops.pallas.solver_chw import gg_matvec_chw as jax_matvec
+from irdu_tpu.ops.pallas.solver_chw import gtv_rethresh_chw as jax_rethresh
+from irdu_tpu.ops.windows import EDGE_DELTAS_DIAMOND12
+from irdu_tpu.solvers import gtv_glr as jax_gtv_glr
+from irdu_tpu.solvers.pixel_gtv import MixtureGTV as JaxMixtureGTV
+from irdu_tpu_torch.ops import fused_step as fs
+from irdu_tpu_torch.ops.windows import DIAMOND12
+from irdu_tpu_torch.solvers import gtv_glr
+from irdu_tpu_torch.solvers.pixel_gtv import MixtureGTV
+from irdu_tpu_torch.utils.weights import params_to_torch
+
+G, F = 2, 3
+C = G * F
+E = len(DIAMOND12)
+H, W = 16, 128
+PIXEL = dict(deltas=DIAMOND12, stats_mode="reflect")
+
+
+def _softmax_weights(rng, h, w):
+    z = rng.randn(1, G, E, h, w)
+    e = np.exp(z - z.max(axis=2, keepdims=True))
+    return (e / e.sum(axis=2, keepdims=True)).astype(np.float32)
+
+
+def _inputs(seed, h=H, w=W):
+    """x, aux, prev (1, C, h, w); the GTV and GLR weights (1, G, 12, h, w);
+    two (G, 4, F) tables of scalar coefficients broadcast, as JAX's
+    ``_stats_pg`` makes them; the per-graph scalars."""
+    rng = np.random.RandomState(seed)
+    planes = [(rng.randn(1, C, h, w) * s).astype(np.float32) for s in (1.0, 0.5, 0.5)]
+    ws = [_softmax_weights(rng, h, w), _softmax_weights(rng, h, w)]
+    inits = np.array([1.0, 0.5, 0.5, 0.5], np.float32)
+    tables = [np.broadcast_to((inits + 0.3 * rng.randn(4))[None, :, None], (G, 4, F))
+              .astype(np.float32) for _ in range(2)]
+
+    def mk(lo):
+        return (rng.rand(G) + lo).astype(np.float32)
+
+    s = dict(mu0=mk(0.1), ro0=mk(0.1), alpha=mk(0.2), beta=mk(0.1), gamma0=mk(0.05) * 0.5)
+    return planes, ws, tables, s
+
+
+def _both(a):
+    return (None, None) if a is None else (jnp.asarray(a), torch.from_numpy(np.ascontiguousarray(a)))
+
+
+# the calls of JAX's pixel band route (solvers/pixel_gtv.py:_forward_chw), and
+# the no-stats variant: mode, aux, prev, GLR graphs, keywords, scalars, atol
+STEP_CASES = {
+    "rhs": ("rhs", False, False, False, {}, ("ro0",), 2e-4),
+    "cg_use_x_rhs_emit_update": ("cg", False, False, True,
+                                 dict(use_x_rhs=True, emit_update=True),
+                                 ("mu0", "ro0", "alpha"), 3e-4),
+    "cg_prev": ("cg", True, True, True, {}, ("mu0", "ro0", "alpha", "beta"), 3e-4),
+    "rethresh_y": ("rethresh", True, False, False, {}, ("ro0", "gamma0"), 2e-4),
+    "rhs_no_stats": ("rhs", False, False, False, {}, ("ro0",), 2e-4),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_pixel_step_matches_jax_kernel(case):
+    mode, has_aux, has_prev, glr, kw, keys, atol = STEP_CASES[case]
+    (x, aux, prev), (wg, wl), (pg, pl), s = _inputs(seed=len(case))
+    if case.endswith("no_stats"):
+        pg = pl = None
+    scal = np.array(jax_fused_scal(G, **{k: s[k] for k in keys}))
+    args = [x, aux if has_aux else None, prev if has_prev else None, wg,
+            wl if glr else None, None, None, pg, pl if glr else None, None, None, scal]
+    jargs, targs = zip(*(_both(a) for a in args))
+    ref = jax_step(*jargs, mode=mode, n_graphs=G, true_h=H, true_w=W,
+                   deltas=EDGE_DELTAS_DIAMOND12, stats_mode="reflect", interpret=True, **kw)
+    before = fs.gg_fused_step_chw.launches
+    out = fs.gg_fused_step_chw(*targs, mode=mode, n_graphs=G, **PIXEL, **kw)
+    assert fs.gg_fused_step_chw.launches == before, "a CPU tensor must not launch"
+    refs, outs = (ref, out) if kw.get("emit_update") else ((ref,), (out,))
+    for o, r in zip(outs, refs):
+        assert o.shape == x.shape and o.dtype == torch.float32
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=atol)
+    assert np.abs(np.asarray(refs[0]) - (aux if mode == "rethresh" else x)).max() > 0.05
+
+
+@pytest.mark.parametrize("with_glr", [True, False], ids=["glr_identity", "gtv_identity"])
+def test_pixel_matvec_matches_jax_kernel(with_glr):
+    (x, _, _), (wg, wl), (pg, pl), s = _inputs(seed=10 + with_glr)
+    args = [x, wl, wg, pl, pg, s["mu0"], s["ro0"]]
+    jargs, targs = zip(*(_both(a) for a in args))
+    ref = jax_matvec(*jargs, n_graphs=G, true_h=H, true_w=W, deltas=EDGE_DELTAS_DIAMOND12,
+                     stats_mode="reflect", with_glr=with_glr, interpret=True)
+    out = fs.gg_matvec_chw(*targs, n_graphs=G, with_glr=with_glr, **PIXEL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4)
+
+
+@pytest.mark.parametrize("with_y", [True, False], ids=["y", "no_y"])
+def test_pixel_rethresh_matches_jax_kernel(with_y):
+    (x, y, _), (wg, _), (pg, _), s = _inputs(seed=20 + with_y)
+    args = [x, y if with_y else None, wg, pg, s["gamma0"], s["ro0"]]
+    jargs, targs = zip(*(_both(a) for a in args))
+    ref = jax_rethresh(*jargs, n_graphs=G, true_h=H, true_w=W, deltas=EDGE_DELTAS_DIAMOND12,
+                       stats_mode="reflect", interpret=True)
+    out = fs.gtv_rethresh_chw(*targs, n_graphs=G, **PIXEL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4)
+
+
+def test_identity_table_equals_no_stats():
+    """The table (1, 0, 0, 0) the kernel takes for a stencil set to None gives
+    the no-stats step exactly, with the reflect pad too."""
+    (x, _, _), (wg, wl), _, s = (_inputs(seed=5, h=12, w=20))
+    x, wg, wl = (torch.from_numpy(a) for a in (x, wg, wl))
+    scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
+    eye = fs.identity_table(G, F)
+    kw = dict(mode="cg", n_graphs=G, use_x_rhs=True, **PIXEL)
+    a = fs.fused_step_plain(x, None, None, wg, wl, None, None, eye, eye, None, None, scal, **kw)
+    b = fs.fused_step_plain(x, None, None, wg, wl, None, None, None, None, None, None, scal, **kw)
+    assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's scheme on the diamond-12 window, transliterated
+# ---------------------------------------------------------------------------
+
+HALO = 4
+
+
+def _tiled_pixel_step(x, aux, prev, wg, wl, pg, pl, scal, mode, th, tw, use_x_rhs=False):
+    """K5 single-scale on diamond-12 with the reflect pad, tile by tile as
+    the kernel computes it (fused_step.cu), f32, batch 1; returns (out, upd)."""
+    _, c, h, w = x.shape
+    f = c // G
+    out, upd = torch.empty_like(x), torch.empty_like(x)
+    for ch in range(c):
+        g = ch // f
+        mu, ro, _, _, alpha, beta, gam, _ = scal[g]
+        p_g, p_l = pg[g, :, ch % f], pl[g, :, ch % f]
+        w_g, w_l = wg[0, g], wl[0, g]
+        for i0 in range(0, h, th):
+            for j0 in range(0, w, tw):
+                i1, j1 = min(i0 + th, h), min(j0 + tw, w)
+                r0, r1 = max(i0 - HALO, 0), min(i1 + HALO, h)
+                c0, c1 = max(j0 - HALO, 0), min(j1 + HALO, w)
+                gi, gj = torch.meshgrid(torch.arange(r0, r1), torch.arange(c0, c1), indexing="ij")
+                ti, tj = torch.meshgrid(torch.arange(i0, i1), torch.arange(j0, j1), indexing="ij")
+
+                def at(a, i, j):
+                    return a[i.clamp(r0, r1 - 1) - r0, j.clamp(c0, c1 - 1) - c0]
+
+                def inside(i, j):
+                    return (i >= 0) & (i < h) & (j >= 0) & (j < w)
+
+                def stats(a, p):  # the reflect pad at the image edge, clamp elsewhere
+                    jr = torch.where(gj + 1 < w, gj + 1, gj - 1)
+                    jl = torch.where(gj > 0, gj - 1, gj + 1)
+                    id_ = torch.where(gi + 1 < h, gi + 1, gi - 1)
+                    iu = torch.where(gi > 0, gi - 1, gi + 1)
+                    v, r, l = at(a, gi, gj), at(a, gi, jr), at(a, gi, jl)
+                    d, u = at(a, id_, gj), at(a, iu, gj)
+                    return p[0] * v + p[1] * (r - v) + p[2] * (d - v) + p[3] * (4 * v - u - d - l - r)
+
+                def stats_t(a, p):
+                    def z(di, dj):
+                        return torch.where(inside(ti + di, tj + dj), at(a, ti + di, tj + dj), 0.0)
+
+                    v = at(a, ti, tj)
+                    r_, d_, u_, l_ = z(0, 1), z(1, 0), z(-1, 0), z(0, -1)
+                    return p[0] * v + p[1] * (l_ - v) + p[2] * (u_ - v) + p[3] * (4 * v - u_ - d_ - l_ - r_)
+
+                def emap(eps):
+                    if mode != "rethresh":
+                        return eps
+                    thr = (torch.where(eps < -gam, eps + gam, 0.0)
+                           + torch.where(eps > gam, eps - gam, 0.0))
+                    return 2 * thr - eps
+
+                xr = x[0, ch, r0:r1, c0:c1]
+                sg = stats(xr, p_g)
+                ag = 0.0
+                for e, (dh, dw) in enumerate(DIAMOND12):
+                    wp = w_g[e][gi, gj]
+                    ag = ag + wp * emap(wp * (at(sg, gi, gj) - at(sg, gi + dh, gj + dw)))
+                    qi, qj = gi - dh, gj - dw
+                    wq = w_g[e][qi.clamp(0, h - 1), qj.clamp(0, w - 1)]
+                    nbr = wq * emap(wq * (at(sg, qi, qj) - at(sg, gi, gj)))
+                    ag = ag - torch.where(inside(qi, qj), nbr, 0.0)
+                t = ro * stats_t(ag, p_g)
+                if mode == "cg":
+                    sl = stats(xr, p_l)
+                    al = at(sl, gi, gj) - sum(w_l[e][gi, gj] * at(sl, gi + dh, gj + dw)
+                                              for e, (dh, dw) in enumerate(DIAMOND12))
+                    t = t + mu * stats_t(al, p_l)
+                sl_ = (0, ch, slice(i0, i1), slice(j0, j1))
+                xv = x[sl_]
+                if mode == "rhs":
+                    out[sl_] = xv + t
+                elif mode == "rethresh":
+                    out[sl_] = t + aux[sl_]
+                else:
+                    u = (xv if use_x_rhs else aux[sl_]) - (xv + t)
+                    if prev is not None:
+                        u = u + beta * prev[sl_]
+                    upd[sl_], out[sl_] = u, xv + alpha * u
+    return out, upd
+
+
+@pytest.mark.parametrize("mode", ["rhs", "cg", "rethresh"])
+@pytest.mark.parametrize("th,tw", [(8, 12), (5, 7)], ids=["8x12", "5x7_ragged"])
+def test_kernel_tiling_scheme_matches_plain(mode, th, tw):
+    """20x28 planes on diamond-12 with the reflect pad: tiles on every image
+    edge, interior tiles and ragged last tiles give the plain step."""
+    (x, aux, prev), (wg, wl), (pg, pl), s = _inputs(seed=30, h=20, w=28)
+    x, aux, prev, wg, wl, pg, pl = (torch.from_numpy(np.ascontiguousarray(a))
+                                    for a in (x, aux, prev, wg, wl, pg, pl))
+    scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
+    aux_m = None if mode == "rhs" else aux
+    prev_m = prev if mode == "cg" else None
+    out, upd = _tiled_pixel_step(x, aux_m, prev_m, wg, wl, pg, pl, scal, mode, th, tw)
+    want = fs.fused_step_plain(x, aux_m, prev_m, wg, wl if mode == "cg" else None, None, None,
+                               pg, pl, None, None, scal, mode=mode, n_graphs=G,
+                               emit_update=mode == "cg", **PIXEL)
+    if mode == "cg":
+        torch.testing.assert_close(upd, want[1], atol=1e-5, rtol=1e-5)
+        want = want[0]
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the pixel family's CHW band route
+# ---------------------------------------------------------------------------
+
+TINY = dict(n_graphs=G, n_node_fts=F, n_cnn_fts=8)
+
+
+def test_band_route_matches_jax_forward_chw(monkeypatch):
+    """Both caps at 0, so JAX's ``_forward_chw`` runs its 6 K5 calls in
+    interpret mode and the port its band route (the K5 plain versions, 6
+    calls in JAX's order) on a 1x16x128x3 image, with μ, ρ, γ raised."""
+    monkeypatch.setattr(jax_gtv_glr, "_MEGA_MAX_PIXELS", 0)
+    monkeypatch.setattr(gtv_glr, "_MEGA_MAX_PIXELS", 0)
+    jm = JaxMixtureGTV(**TINY, window="diamond12", feature_num_blocks=(1, 1, 1, 1),
+                       feature_num_refinement=1, use_pallas_unroll=True)
+    x = np.random.RandomState(2).rand(1, H, W, 3).astype(np.float32)
+    params = jax.tree_util.tree_map(np.array, jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    rng = np.random.RandomState(3)
+    p = params["params"]
+    p["muys00"] = (0.3 + 0.1 * rng.rand(G)).astype(np.float32)
+    p["ro00"] = (0.3 + 0.1 * rng.rand(G)).astype(np.float32)
+    p["gamma00"] = np.log(0.01 + 0.01 * rng.rand(G)).astype(np.float32)
+    assert jm._chw_ok(x.shape) and not jm._mega_ok(x.shape)
+    ref = np.asarray(jm.apply(params, jnp.asarray(x)))
+    model = MixtureGTV(**TINY, feature_num_blocks=(1, 1, 1), feature_num_refinement=1,
+                       use_pallas_unroll=True)
+    params_to_torch(params, model)
+    seen = []
+
+    def counted(*args, **kw):
+        seen.append((kw["mode"], kw.get("use_x_rhs", False), kw.get("emit_update", False),
+                     args[2] is not None, args[1] is not None))
+        return fs.gg_fused_step_chw(*args, **kw)
+
+    from irdu_tpu_torch.solvers import pixel_gtv
+
+    monkeypatch.setattr(pixel_gtv, "gg_fused_step_chw", counted)
+    before = fs.gg_fused_step_chw.launches
+    with torch.no_grad():
+        out = model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert fs.gg_fused_step_chw.launches == before
+    # (mode, x is its rhs, emits the update, has prev, has aux)
+    assert seen == [("rhs", False, False, False, False), ("cg", True, True, False, False),
+                    ("cg", False, False, True, True), ("rethresh", False, False, False, True),
+                    ("cg", True, True, False, False), ("cg", False, False, True, True)]
+    np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-3)
+    assert np.abs(ref - x).max() > 0.05

@@ -87,12 +87,12 @@ def test_pixel_snapshot_sets_every_parameter():
 # and W % 128 == 0: TPU band and lane rules the port does not copy, since its
 # kernels take any H and W. Where they fail JAX falls back (at 480x320 and
 # 484x512 to its jnp path, at 488x512 from NHWC to CHW) and the port keeps the
-# route its flags name. Above the cap (1024x1024) JAX's CHW route runs K5
-# steps, which the port raises on. denoise pads to /16, so a served request
+# route its flags name. Above the cap (1024x1024) both CHW routes run K5
+# steps in the pixel mode. denoise pads to /16, so a served request
 # has H % 16 == 0; the model called directly may not.
 SERVED = {(512, 512): (("nhwc", "nhwc"), ("chw_k7", "chw_k7")),
           (480, 320): (("jnp", "nhwc"), ("jnp", "chw_k7")),
-          (1024, 1024): (("nhwc", "nhwc"), ("chw_k5", "chw_k5_raises")),
+          (1024, 1024): (("nhwc", "nhwc"), ("chw_k5", "chw_k5")),
           (488, 512): (("chw_k7", "nhwc"), ("chw_k7", "chw_k7")),
           (484, 512): (("jnp", "nhwc"), ("jnp", "chw_k7"))}
 
@@ -108,7 +108,7 @@ def _jax_route(m, shape):
 def _port_route(m, shape):
     route = m.route()
     if route == "chw":
-        return "chw_k7" if shape[-2] * shape[-1] <= gtv_glr._MEGA_MAX_PIXELS else "chw_k5_raises"
+        return "chw_k7" if shape[-2] * shape[-1] <= gtv_glr._MEGA_MAX_PIXELS else "chw_k5"
     return route
 
 

@@ -15,6 +15,7 @@ from irdu_tpu.models import restormer_blocks as jblocks
 from irdu_tpu.solvers.pixel_gtv import MixtureGTV as JaxMixtureGTV
 from irdu_tpu_torch.models import layers, restormer_blocks
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw
+from irdu_tpu_torch.ops.fused_step import gg_fused_step_chw
 from irdu_tpu_torch.ops.pixel_nhwc import pixel_segment_nhwc
 from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw
 from irdu_tpu_torch.solvers import gtv_glr
@@ -155,10 +156,14 @@ def test_kernel_routes_take_any_height(tiny_mixture, ragged_height, route):
 
 
 def test_chw_route_above_the_cap_raises(tiny_mixture, monkeypatch):
-    """Above the cap JAX's CHW route runs K5 in the pixel mode, which the
-    port has not ported: it raises rather than fall back."""
-    x, params, _ = tiny_mixture
+    """Above the cap the CHW route runs K5 in the pixel mode (6 band steps),
+    as JAX's does; it raised until that mode was ported (the name stays).
+    Now it computes JAX's jnp result, and launches nothing from the CPU."""
+    x, params, ref = tiny_mixture
     monkeypatch.setattr(gtv_glr, "_MEGA_MAX_PIXELS", 16 * 36 - 1)
     model = _tiny_port(params, use_pallas_unroll=True)
-    with pytest.raises(NotImplementedError, match="pixel mode"), torch.no_grad():
-        model(_nchw(x))
+    counts = (gg_pixel_unroll_chw.launches, gg_fused_step_chw.launches)
+    with torch.no_grad():
+        out = _nhwc(model(_nchw(x)))
+    assert counts == (gg_pixel_unroll_chw.launches, gg_fused_step_chw.launches)
+    np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-3)

@@ -19,6 +19,9 @@ Phases, each timed and printed as it ends:
             tensors (the bf16 bars below), and the 512x512 request is timed with
             the blocks on their kernels and on the plain PyTorch (cuDNN) route,
             in turns;
+  profile   torch.profiler over PROFILE_REQUESTS steady 512x512 flagship
+            requests: the 10 device kernels with the most total time and
+            the device's idle share of the window (``profile_requests``);
   small     the lite and micro models (their default snapshots, bf16) answer
             the 512x512 request, counts zeroed just before each: lite must
             launch 5 K3, 10 K4, 4 K1, 8 K2 (its scale-0 C = 24 runs on the
@@ -59,6 +62,11 @@ Phases, each timed and printed as it ends:
             K4 output must also move at least CHANGE_FACTOR times the bar away
             from its input, so that a kernel returning its input cannot pass;
             kernel and plain times from CUDA events at the 512x512 shapes.
+            K1 also on the 480x320 request's 120x80 and 60x40 planes (ragged
+            tiles) and K4 also at micro's and the ablation heads' widths
+            (K1_RAGGED, K4_EXTRA); K1 and K3/K4 times are the median of 3
+            repeats, kept with them, and K1's rows record the CTAs per SM
+            of its cooperative grid.
             K3 and K4 in bf16 are held to block_bar: at most 1 % of the
             outputs beyond one ulp, none beyond one ulp plus the plain
             version's own bf16 rounding error, and an RMS error against the
@@ -199,6 +207,13 @@ K9_RAGGED = (1, 37, 53, 40)
 STEP_RAGGED = (37, 53)
 K9_CALLS = 3  # per "single" request
 LOUD = (1, 20, 20, 1)  # per-scale factor on the snapshot's μ, ρ, γ in the K1 rows
+# K1 also at the 480x320 request's scale-2 and scale-3 planes (ragged 32x64
+# tiles; the 60x40 plane is smaller than one tile)
+K1_RAGGED = ((2, (120, 80)), (3, (60, 40)))
+# K4 also at the served shapes outside the flagship: micro's C = 128 (hidden
+# 256) at 64², the ablation heads' C = 96 (hidden 256) at 512² and 256²
+K4_EXTRA = ((128, 256, 64, 64), (96, 256, 512, 512), (96, 256, 256, 256))
+PROFILE_REQUESTS = 5  # steady 512x512 flagship requests under torch.profiler
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
 
 
@@ -263,6 +278,12 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_repeats(fn, reps, repeats=3):
+    """``cuda_ms`` taken ``repeats`` times: (median, the list)."""
+    times = [cuda_ms(fn, reps) for _ in range(repeats)]
+    return float(np.median(times)), [round(t, 5) for t in times]
 
 
 def max_abs(a, b):
@@ -463,6 +484,78 @@ def phase_serving(smoke):
                               "blocks_512": blocks_ab(model, images[0][1])}
     for r in rows:
         check_row(r, PER_REQUEST[tuple(r["shape"])])
+
+
+def busy_in_window(intervals, t0, t1):
+    """The length of the union of (start, end) intervals inside [t0, t1]."""
+    busy, end = 0.0, t0
+    for a, b in sorted(intervals):
+        a, b = max(a, end), min(b, t1)  # the part not yet counted, inside the window
+        if b > a:
+            busy += b - a
+            end = b
+    return busy
+
+
+def profile_requests(model, noisy, n=PROFILE_REQUESTS, top=10):
+    """torch.profiler (CPU and CUDA activity) over n steady requests after one
+    untimed request and one profiled but discarded (the profiler's own
+    first-use set-up), each under a "request" annotation: the ``top`` device
+    kernels by total time (calls, total ms, mean µs), the window from the
+    first request's start to the last one's end, the device's busy time in
+    it (the union of its kernel, memcpy and memset intervals) and its idle
+    share. Raises if the trace holds no device activity."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from irdu_tpu_torch.predict import denoise
+
+    denoise(model, noisy)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        denoise(model, noisy)
+        sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            with record_function("request"):
+                denoise(model, noisy)  # ends in a device-to-host copy
+        sync()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    requests = [e for e in spans if e.get("name") == "request"
+                and e.get("cat") in ("user_annotation", "cpu_op")]
+    require(device and requests, "the profiler recorded no device activity or no request")
+    t0 = min(e["ts"] for e in requests)
+    t1 = max(e["ts"] + e["dur"] for e in requests)
+    busy = busy_in_window([(e["ts"], e["ts"] + e["dur"]) for e in device], t0, t1)
+    kernels = {}
+    for e in device:
+        if e.get("cat") == "kernel":
+            k = kernels.setdefault(e["name"][:120], [0, 0.0])
+            k[0] += 1
+            k[1] += e["dur"]
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    return dict(requests=n, window_ms=round((t1 - t0) / 1e3, 3),
+                device_busy_ms=round(busy / 1e3, 3), idle_share=round(1 - busy / (t1 - t0), 4),
+                kernel_ms=round(sum(v[1] for v in kernels.values()) / 1e3, 3),
+                top=[dict(name=name, calls=c, total_ms=round(d / 1e3, 3),
+                          mean_us=round(d / c, 2)) for name, (c, d) in ranked])
+
+
+def phase_profile(smoke):
+    """The profile line: ``profile_requests`` on the 512x512 flagship request."""
+    from irdu_tpu_torch.predict import load_model
+
+    model = smoke.model or load_model(device=DEVICE)
+    out = profile_requests(model, request_images()[0][1])
+    smoke.lines["profile"] = {"profile": out, "shape": list(REQUESTS[0]), "dtype": "bfloat16"}
 
 
 def phase_small(smoke):
@@ -781,6 +874,7 @@ def _filter_params(model, s):
 def phase_kernels(smoke):
     import torch
 
+    from irdu_tpu_torch.kernels.build import dtype_code, kernel_library
     from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
     from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain
     from irdu_tpu_torch.predict import load_model
@@ -850,10 +944,13 @@ def phase_kernels(smoke):
                     **_bound(nbytes, ops))
             nbytes = sum(t.numel() * t.element_size() for t in args) + y.numel() * 2
             ops = y.numel() * k1_ops_per_pixel(3)
+            ms, reps = cuda_ms_repeats(lambda: gg_unroll_chw(*args, n_graphs=g), 10)
             k1_rows[-1].update(
-                ms=cuda_ms(lambda: gg_unroll_chw(*args, n_graphs=g), 10),
+                ms=ms, ms_repeats=reps,
+                ctas_per_sm=kernel_library().irdu_gg_unroll_ctas_per_sm(dtype_code(dtype)),
                 plain_ms=cuda_ms(lambda: gg_unroll_plain(*args, n_graphs=g), 3),
                 **_bound(nbytes, ops))
+    k1_rows += k1_ragged_rows(model, gen, bar_at)
     smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows,
                          **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at)}
     pixel = smoke.pixel_model or load_model(device=DEVICE, name="pixel")
@@ -869,6 +966,44 @@ def phase_kernels(smoke):
             f"input by under {CHANGE_FACTOR}x the bar: {bad}")
     require(smoke.lines["band_route"]["ok"], f"the band route disagrees with the K1 route: "
             f"{smoke.lines['band_route']}")
+
+
+def k1_ragged_rows(model, gen, bar_at):
+    """K1 against its plain version on the planes of K1_RAGGED (ragged
+    32x64 tiles: a plane smaller than one tile, tile rows cut short), f32
+    and bf16 at cg3, with the snapshot's filter parameters of that scale,
+    seeded inputs; untimed."""
+    import torch
+
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain
+
+    rows = []
+    for s, (h, w) in K1_RAGGED:
+        g, m0, m1, tables, scal = _filter_params(model, s)
+        scal = scal.clone()
+        scal[:, :6] *= LOUD[s]
+        c = model.local_filters[s].local_filter.n_node_fts * g
+        for dtype in (torch.float32, torch.bfloat16):
+            y = torch.rand(1, c, h, w, device=DEVICE, generator=gen).to(dtype)
+            ws = []
+            for m, res in ((m0, 1), (m1, 2)):
+                feats = torch.randn(1, 2 * c, h // res, w // res, device=DEVICE,
+                                    generator=gen).to(dtype)
+                wt = edge_weights_plain(feats, m, 2 * g)
+                ws += [wt[:, :g].contiguous(), wt[:, g:].contiguous()]
+            args = (y, *ws, *tables, scal)
+            ker = gg_unroll_chw(*args, n_graphs=g)
+            ref = gg_unroll_plain(*args, n_graphs=g)
+            sync()
+            change, bar = max_abs(ref, y), bar_at(ref, dtype)
+            ok = (within(ker, ref, 5e-4, 1e-3) and change >= CHANGE_FACTOR * bar
+                  if dtype == torch.float32 else k1_bar(ker, ref))
+            rows.append(dict(scale=s, shape=list(y.shape), dtype=str(dtype)[6:], ragged=True,
+                             params=f"snapshot, mu/rho/gamma x{LOUD[s]}, cg3",
+                             max_abs_err=max_abs(ker, ref), max_ref=float(ref.float().abs().max()),
+                             change=change, bar=bar, ok=ok))
+    return rows
 
 
 def k5_ops_per_pixel(mode, y=False, prev=False):
@@ -1145,11 +1280,28 @@ def block_rows(model, gen, bar_at):
                     npx = x.shape[2] * x.shape[3] * len(blocks)
                     nbytes = 2 * x.numel() * x.element_size() + sum(
                         t.numel() * t.element_size() for t in list(args[1:]) + list(kw.values()))
-                    row.update(calls=calls,
-                               ms=cuda_ms(lambda: kernel(*args, **kw), 20),
+                    ms, reps = cuda_ms_repeats(lambda: kernel(*args, **kw), 20)
+                    row.update(calls=calls, ms=ms, ms_repeats=reps,
                                plain_ms=cuda_ms(lambda: plain(*args, **kw), 5),
                                **_bound(nbytes, cc * npx, tc * npx))
                 rows[name].append(row)
+    for c, hidden, h, w in K4_EXTRA:  # seeded N(0, 1) blocks at the other served widths
+        def rnd(*shape):
+            return torch.randn(*shape, device=DEVICE, generator=gen)
+        kw = dict(scale=(rnd(c) * 0.1 + 1).bfloat16(),
+                  w1=(rnd(2 * hidden, c) / c ** 0.5).bfloat16().t(),
+                  dwk=(rnd(2 * hidden, 3, 3) * 0.2).bfloat16().permute(1, 2, 0),
+                  w2=(rnd(c, hidden) / hidden ** 0.5).bfloat16().t(),
+                  skip=torch.tensor([1.0, 0.8], device=DEVICE).bfloat16())
+        x = torch.randn(1, c, h, w, device=DEVICE, generator=gen).bfloat16()
+        ker, ref = fused_gated_block(x, **kw), gated_block_plain(x, **kw)
+        sync()
+        row = dict(shape=list(x.shape), hidden=hidden, dtype="bfloat16",
+                   params="seeded N(0, 1) block", max_abs_err=max_abs(ker, ref),
+                   max_ref=float(ref.float().abs().max()))
+        (row["ok"], row["beyond_one_ulp_share"], row["plain_own_err"],
+         row["rms_vs_plain"]) = block_bar(ker, ref, unrounded(gated_block_plain, (x,), kw))
+        rows["fused_gated_block"].append(row)
     return rows
 
 
@@ -1455,7 +1607,7 @@ def kernels_line(smoke):
     meta = {
         "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack.cu",
                               "irdu_tpu/ops/pallas/block_stack.py:214"),
-        "fused_gated_block": ("irdu_tpu_torch/kernels/csrc/block_stack.cu",
+        "fused_gated_block": ("irdu_tpu_torch/kernels/csrc/gated_block.cu",
                               "irdu_tpu/ops/pallas/gated_block.py:94"),
         "gg_unroll_chw": ("irdu_tpu_torch/kernels/csrc/gg_unroll.cu",
                           "irdu_tpu/ops/pallas/solver_unroll.py:242"),
@@ -1652,13 +1804,14 @@ def main() -> int:
     build_s = smoke.run("build", phase_build)
     if not smoke.failed:
         smoke.run("serving", phase_serving, smoke)
+        smoke.run("profile", phase_profile, smoke)
         smoke.run("small", phase_small, smoke)
         smoke.run("pixel", phase_pixel, smoke)
         smoke.run("ablation", phase_ablation, smoke)
         smoke.run("kernels", phase_kernels, smoke)
         smoke.run("model", phase_model, smoke)
     print(json.dumps(kernels_line(smoke)), flush=True)
-    for key in ("serving", "small_models", "pixel", "ablation", "band_route", "model"):
+    for key in ("serving", "profile", "small_models", "pixel", "ablation", "band_route", "model"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:

@@ -1,101 +1,91 @@
-"""Time the block kernel of another checkout's kernel sources against this
-tree's, on one card, in turns: K3 at the 512² request's scale 0 and K4 at
-scales 1-3, with the 86k snapshot's blocks in bf16 (the shapes and timing of
-``chip_smoke.py``'s kernel rows). Both libraries must export the same
-``irdu_block_stack`` entry point; the launch plan is this tree's.
+"""Time another checkout of the port against this tree on one card, in
+turns: each turn runs one tree's ``chip_smoke.py`` whole, in a process of its
+own, in the order base, tree, tree, base per round. Compared are every kernel
+row that both trees time (their ``chiprun_out/chip_smoke_kernels.json``: K1
+at the 512x512 request's four scales, K3, K4 at its three, K5, K6a, K6b and
+the pixel and ablation kernels, bf16), the 512x512 request's latency (the
+``blocks_512`` median of six requests with every block on its kernel) and
+the ``band_route`` medians of the scale-0 solve on K1 and on K5's band route.
 
-    git archive <commit> irdu_tpu_torch/kernels/csrc | tar -x -C experiments/base
-    python -m irdu_tpu_torch.kernels.ab_sources experiments/base/irdu_tpu_torch/kernels/csrc
+    git archive <commit> irdu_tpu_torch chip_smoke.py | tar -x -C experiments/base
+    ln -sfn "$PWD/artifacts" experiments/base/artifacts   # the weights
+    python -m irdu_tpu_torch.kernels.ab_sources experiments/base [--rounds 2]
 
-Per shape it prints one JSON line: the times of the other sources ("base")
-and of this tree ("tree") in the order base, tree, tree, base per round, and
-whether both outputs are equal; all lines also go to
-``chiprun_out/ab_sources.json``.
+Per compared row it prints one JSON line: the times of each turn of the
+other checkout ("base") and of this tree ("tree"), their medians, minima and
+maxima, and base / tree. The lines, and each tree's ``profile`` line where
+its ``chip_smoke.py`` has one, also go to ``chiprun_out/ab_sources.json``.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
+import sys
 
-import torch
+import numpy as np
 
-from irdu_tpu_torch.kernels import build
-from irdu_tpu_torch.ops import block_stack, gated_block
-from irdu_tpu_torch.predict import load_model
-
-
-def _library_of(csrc: str) -> ctypes.CDLL:
-    """Build the sources in ``csrc`` into their own directory and load them."""
-    here = (build.CSRC_DIR, build.BUILD_DIR)
-    build.CSRC_DIR, build.BUILD_DIR = csrc, os.path.join(os.path.dirname(csrc), "_build")
-    try:
-        lib = ctypes.CDLL(build.build()[0])
-    finally:
-        build.CSRC_DIR, build.BUILD_DIR = here
-    fn = lib.irdu_block_stack
-    fn.argtypes, fn.restype = build._SIGNATURES["irdu_block_stack"]
-    return lib
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# what tells two kernel rows of chip_smoke_kernels.json apart, besides the kernel
+ROW_KEYS = ("scale", "request", "case", "mode", "blocks", "n_graphs", "shape", "dtype")
 
 
-def _ms(fn, reps=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _turn(tree: str) -> tuple[dict, dict | None]:
+    """Run ``tree``'s chip_smoke.py once: its timed rows by name, and its
+    profile line (None if it has none). Raises if the run fails."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"chip_smoke.py in {tree} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    out = os.path.join(tree, "chiprun_out")
+    with open(os.path.join(out, "chip_smoke_kernels.json")) as fh:
+        kernels = json.load(fh)
+    with open(os.path.join(out, "chip_smoke_lines.json")) as fh:
+        lines = json.load(fh)
+    timed = {json.dumps([name] + [r.get(k) for k in ROW_KEYS]): r["ms"]
+             for name, rows in kernels.items() for r in rows if r.get("ms") is not None}
+    timed["request 512x512"] = lines["serving"]["blocks_512"]["median_kernels_ms"]
+    timed["scale-0 solve on K1"] = lines["band_route"]["median_k1_ms"]
+    timed["scale-0 solve on the band route"] = lines["band_route"]["median_band_ms"]
+    return timed, lines.get("profile")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m irdu_tpu_torch.kernels.ab_sources",
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("csrc", help="the other checkout's irdu_tpu_torch/kernels/csrc")
-    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("base", help="the other checkout's root")
+    ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip())
-    libs = {"tree": build.kernel_library(), "base": _library_of(os.path.abspath(args.csrc))}
-    model = load_model(device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(smi.stdout.strip(), flush=True)
+    trees = {"base": os.path.abspath(args.base), "tree": REPO}
+    turns = {"base": [], "tree": []}
+    profiles = {}
+    for _ in range(args.rounds):
+        for which in ("base", "tree", "tree", "base"):
+            timed, profiles[which] = _turn(trees[which])
+            turns[which].append(timed)
     rows = []
-    try:
-        for s in range(4):
-            blocks = model.encoder_scales[s][:4] if s == 0 else model.encoder_scales[s][:1]
-            x = torch.randn(1, model.dims[s], 512 >> s, 512 >> s, device="cuda",
-                            generator=gen).to(torch.bfloat16)
-            if s == 0:
-                ops = block_stack.pack_block_params([b.gated_params() for b in blocks],
-                                                    torch.bfloat16)
-                call = lambda: block_stack.fused_block_stack(x, *ops)  # noqa: E731
-            else:
-                params = blocks[0].gated_params()
-                call = lambda: gated_block.fused_gated_block(x, **params)  # noqa: E731
-            times, outs = {"base": [], "tree": []}, {}
-            for _ in range(args.rounds):
-                for which in ("base", "tree", "tree", "base"):
-                    gated_block.kernel_library = lambda lib=libs[which]: lib
-                    times[which].append(round(_ms(call), 5))
-                    outs[which] = call()
-            torch.cuda.synchronize()
-            row = dict(kernel="fused_block_stack" if s == 0 else "fused_gated_block",
-                       shape=list(x.shape), **times,
-                       equal=bool(torch.equal(outs["base"], outs["tree"])))
-            print(json.dumps(row), flush=True)
-            rows.append(row)
-    finally:
-        gated_block.kernel_library = build.kernel_library
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "ab_sources.json"), "w") as fh:
-        json.dump({"device": smi.stdout.strip(), "rows": rows}, fh, indent=1)
+    for name in turns["tree"][0]:
+        if not all(name in t for side in turns.values() for t in side):
+            continue  # timed by one tree only
+        row = {"row": name}
+        for which in ("base", "tree"):
+            per_turn = [t[name] for t in turns[which]]
+            row[which] = dict(median_ms=float(np.median(per_turn)), min_ms=min(per_turn),
+                              max_ms=max(per_turn), turns_ms=per_turn)
+        row["base_over_tree"] = row["base"]["median_ms"] / row["tree"]["median_ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "ab_sources.json"), "w") as fh:
+        json.dump({"device": smi.stdout.strip(), "order": "base, tree, tree, base per round",
+                   "rounds": args.rounds, "rows": rows, "profiles": profiles}, fh, indent=1)
 
 
 if __name__ == "__main__":

@@ -3,253 +3,198 @@
 // (_unroll_kernel; plane helpers in solver_chw.py). The math, the reference
 // quirks and the bound are set out in irdu_tpu_torch/ops/solver_unroll.py.
 //
-// One CTA per (b, g, f) plane, the TPU grid's parallelism. The CTA walks its
-// plane once per stage and keeps every stage plane in f32 global scratch
-// (8 full-res + 5 half-res planes per CTA, allocated by the wrapper);
-// __syncthreads() orders one stage's writes before the next stage's
-// neighbour reads. Because each derived plane is materialized whole, a
-// clamped read replicates that plane's own edge row, as the reference does.
-// Scratch is read through plain pointers (never const __restrict__) so the
-// compiler does not route it through the non-coherent read-only cache.
+// One persistent cooperative launch. The unroll runs as the phases of the
+// band route, each one pass over every 32x64 output tile (plus its 4-pixel
+// halo) of every (b, g, f) plane with the tile step of tile_step.cuh, all
+// stage planes in shared memory:
+//   A. rhs_a = y + rho0 Q0 y + Up(rho1 Q1 Dn y)                   -> U
+//   B. CG step 1 from x = rhs_a: x1 = x + a0 (x - A x)           -> X (out at cg1)
+//   C. rhs_b = y + rho0 C0^T map(C0 x1) + Up(...), re-threshold  -> R
+//   D. CG step 2: u1 = rhs_b - A x1                               -> U
+//      (at cg2 the output is x1 + a1 u1)
+//   E. CG step 3 on x2 = x1 + a1 u1 (formed as it is read, in f32):
+//      out = x2 + a2 (rhs_b - A x2 + b2 u1)
+// Only x, rhs_b and u cross tile borders; they live in three f32 scratch
+// planes per channel plane (X, R, U), and y, the weights and out are read and
+// written in the input type. Nothing is rounded between the steps: the
+// arithmetic from y to out is f32, as the TPU kernel's is (the band route of
+// K5 rounds each step's output to y's type instead).
 //
-// Known limit, left to the redesign PR: at 512^2 scale 0 the grid is only
-// 48 CTAs on 132 SMs, and the stage planes (8 MiB per CTA there) spill out
-// of L2. Splitting each plane over several CTAs with a halo, or a cluster
-// sharing the plane through distributed shared memory, fixes both.
+// Each CTA loops over (plane, tile) items, the F feature planes of one graph
+// back to back on the same tile so that the graph's weight tiles are shared
+// through L2, and a grid barrier (cooperative_groups grid sync) separates the
+// phases. Every CTA reaches every barrier: eval_cg_iters is the same for all,
+// and a CTA with no item left goes straight to the barrier. The grid is as
+// many CTAs as fit on the card at once (two per SM: 76.8 KB of shared memory
+// and at most 128 registers a thread each), at most one per item. Scratch
+// that other CTAs wrote before a barrier is read through L2 (ld.global.cg).
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <type_traits>
+
+#include "tile_step.cuh"
 
 namespace irdu {
+namespace unroll {
 
-constexpr int kThreads = 512;  // 128 registers a thread: the stage state stays unspilled
+namespace cg = cooperative_groups;
+using step::Coefs;
+using step::kThreads;
+using step::kTH;
+using step::kTW;
+using step::StepIO;
 
-// Polynomial 3x3 stencil, replicate boundary (ops.graph.stats_conv).
-__device__ __forceinline__ float stats_at(const float* s, const Stats& c, int i,
-                                          int j, int H, int W) {
-  const float v = s[i * W + j];
-  const float r = s[i * W + min(j + 1, W - 1)];
-  const float d = s[min(i + 1, H - 1) * W + j];
-  const float u = s[max(i - 1, 0) * W + j];
-  const float l = s[i * W + max(j - 1, 0)];
-  return c.p[0] * v + c.p[1] * (r - v) + c.p[2] * (d - v) +
-         c.p[3] * (4.f * v - u - d - l - r);
-}
-
-// Its reference adjoint: flipped taps, zero boundary (stats_conv_transpose).
-__device__ __forceinline__ float stats_t_at(const float* s, const Stats& c, int i,
-                                            int j, int H, int W) {
-  const float v = s[i * W + j];
-  const float r0 = j + 1 < W ? s[i * W + j + 1] : 0.f;
-  const float d0 = i + 1 < H ? s[(i + 1) * W + j] : 0.f;
-  const float u0 = i > 0 ? s[(i - 1) * W + j] : 0.f;
-  const float l0 = j > 0 ? s[i * W + j - 1] : 0.f;
-  return c.p[0] * v + c.p[1] * (l0 - v) + c.p[2] * (u0 - v) +
-         c.p[3] * (4.f * v - u0 - d0 - l0 - r0);
-}
-
-// sum_e [wei_e(p) - wei_e(p - d_e)], wei_e(q) = w_e(q) * map(w_e(q) * (s(q) -
-// s(clamp(q + d_e)))), the zero-padded scatter of C^T before its stencil.
-template <bool kRethresh, typename T>
-__device__ __forceinline__ float gtv_edge_sum(const float* s, const T* w, int n,
-                                              int i, int j, int H, int W,
-                                              float gamma) {
-  const float sp = s[i * W + j];
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int dh = dh_of(e), dw = dw_of(e);
-    const T* we = w + (size_t)e * n;
-    const int ii = min(max(i + dh, 0), H - 1);
-    const int jj = min(max(j + dw, 0), W - 1);
-    const float wp = ld(we[i * W + j]);
-    const float own = wp * edge_map<kRethresh>(wp * (sp - s[ii * W + jj]), gamma);
-    const int qi = i - dh, qj = j - dw;
-    float nbr = 0.f;
-    if (qi >= 0 && qi < H && qj >= 0 && qj < W) {
-      const float wq = ld(we[qi * W + qj]);
-      nbr = wq * edge_map<kRethresh>(wq * (s[qi * W + qj] - sp), gamma);
-    }
-    const float term = own - nbr;
-    acc = e == 0 ? term : acc + term;
-  }
-  return acc;
-}
-
-// s(p) - sum_e w_e(p) s(clamp(p + d_e)), the random-walk Laplacian of GLR.
-template <typename T>
-__device__ __forceinline__ float glr_lap(const float* s, const T* w, int n, int i,
-                                         int j, int H, int W) {
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int ii = min(max(i + dh_of(e), 0), H - 1);
-    const int jj = min(max(j + dw_of(e), 0), W - 1);
-    const float term = ld(w[(size_t)e * n + i * W + j]) * s[ii * W + jj];
-    acc = e == 0 ? term : acc + term;
-  }
-  return s[i * W + j] - acc;
-}
+constexpr int kCtasPerSm = 2;
+constexpr size_t kSmem = step::tile_smem_bytes(true, true);
 
 template <typename T>
-__device__ __forceinline__ float box_down_at(const T* x, int i2, int j2, int W) {
-  const int a = 2 * i2 * W + 2 * j2;
-  return 0.25f * (ld(x[a]) + ld(x[a + 1]) + ld(x[a + W]) + ld(x[a + W + 1]));
-}
-
-template <typename T>
-struct Plane {  // one CTA's view of its (b, g, f) problem
-  int H, W, H2, W2, n0, n1;
-  const T *wgtv0, *wglr0, *wgtv1, *wglr1;  // (4, H, W) / (4, H/2, W/2)
-  Stats sg0, sl0, sg1, sl1;                // GTV/GLR stencils at both scales
-  float mu0, ro0, mu1, ro1, gam0, gam1;
-  float *Y, *X, *R, *U, *P0, *P1, *P2, *P3;  // full-res scratch planes
-  float *Xd, *Q0, *Q1, *Q2, *Q3;             // half-res scratch planes
+struct Args {
+  const T *y, *wgtv0, *wglr0, *wgtv1, *wglr1;
+  const float *pgtv0, *pglr0, *pgtv1, *pglr1;  // (G, 4, F) stats tables
+  const float* scal;  // (G, 10): mu0, ro0, mu1, ro1, gam0, gam1, a0, a1, a2, b2
+  T* out;
+  float *X, *R, *U;  // f32 scratch, each (B, G*F, H, W)
+  int B, G, F, H, W, iters;
 };
 
-#define FOR_PIXELS(n) for (int p = threadIdx.x; p < (n); p += blockDim.x)
-
-// dst = Y + ro0 C0^T map(C0 src) + Up(ro1 C1^T map(C1 srcd)), map as edge_map:
-// the ADMM init RHS (identity) and the re-threshold RHS.
-template <bool kRethresh, typename T>
-__device__ void gtv_rhs(const Plane<T>& P, const float* src, const float* srcd,
-                        float* dst) {
-  const int H = P.H, W = P.W, H2 = P.H2, W2 = P.W2;
-  FOR_PIXELS(P.n0) { const int i = p / W, j = p - i * W; P.P0[p] = stats_at(src, P.sg0, i, j, H, W); }
-  FOR_PIXELS(P.n1) { const int i = p / W2, j = p - i * W2; P.Q0[p] = stats_at(srcd, P.sg1, i, j, H2, W2); }
-  __syncthreads();
-  FOR_PIXELS(P.n0) {
-    const int i = p / W, j = p - i * W;
-    P.P1[p] = gtv_edge_sum<kRethresh>(P.P0, P.wgtv0, P.n0, i, j, H, W, P.gam0);
-  }
-  FOR_PIXELS(P.n1) {
-    const int i = p / W2, j = p - i * W2;
-    P.Q1[p] = gtv_edge_sum<kRethresh>(P.Q0, P.wgtv1, P.n1, i, j, H2, W2, P.gam1);
-  }
-  __syncthreads();
-  FOR_PIXELS(P.n1) { const int i = p / W2, j = p - i * W2; P.Q2[p] = P.ro1 * stats_t_at(P.Q1, P.sg1, i, j, H2, W2); }
-  __syncthreads();
-  FOR_PIXELS(P.n0) {
-    const int i = p / W, j = p - i * W;
-    dst[p] = P.Y[p] + P.ro0 * stats_t_at(P.P1, P.sg0, i, j, H, W) +
-             0.25f * P.Q2[(i >> 1) * W2 + (j >> 1)];
-  }
-  __syncthreads();
+// The step's planes for a phase of the unroll: x, x_add, aux, prev, out, upd.
+template <class IO, typename T>
+__device__ __forceinline__ IO planes(const Args<T>& a, const typename IO::TX* x,
+                                     const float* x_add, const typename IO::TA* aux,
+                                     const typename IO::TP* prev, typename IO::TO* out,
+                                     typename IO::TU* upd, int epi, int use_x_rhs) {
+  return IO{x,       x_add,   aux,     prev,    out,     upd,     a.wgtv0, a.wglr0, a.wgtv1,
+            a.wglr1, a.pgtv0, a.pglr0, a.pgtv1, a.pglr1, a.G,     a.F,     a.H,     a.W,
+            epi,     use_x_rhs, 0};
 }
 
-__device__ __forceinline__ void box_down_stage(const float* x, float* xd, int n1, int W, int W2) {
-  FOR_PIXELS(n1) { const int i = p / W2, j = p - i * W2; xd[p] = box_down_at(x, i, j, W); }
-  __syncthreads();
-}
-
-// One CG step on X: A.X = X + mu0 GLR0 X + ro0 Q0 X + Up(mu1 GLR1 + ro1 Q1) Dn X,
-// then step 0: X += a (X - A.X); step 1: U = R - A.X, X += a U;
-// step 2: U' = R - A.X + beta2 U, X += a U'. The last step writes `out`.
-template <typename T>
-__device__ void cg_step(const Plane<T>& P, int step, float alpha, float beta2,
-                        T* out) {
-  const int H = P.H, W = P.W, H2 = P.H2, W2 = P.W2;
-  box_down_stage(P.X, P.Xd, P.n1, W, W2);
-  FOR_PIXELS(P.n0) {
-    const int i = p / W, j = p - i * W;
-    P.P0[p] = stats_at(P.X, P.sg0, i, j, H, W);
-    P.P1[p] = stats_at(P.X, P.sl0, i, j, H, W);
+// One phase: the tile step on every (plane, tile) item this CTA takes. The
+// CG step's alpha is scal column 6 + alpha_k, x_add's factor column
+// 6 + xadd_k (-1: none).
+template <bool kRethresh, bool kGlr, class IO>
+__device__ void phase(const IO& io, const float* scal, int alpha_k, int xadd_k, int B,
+                      float* smem) {
+  const int tiles_x = (io.W + kTW - 1) / kTW;
+  const int tiles = tiles_x * ((io.H + kTH - 1) / kTH);
+  const int items = B * io.G * tiles * io.F;  // (bg, tile, f), f fastest
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int f = it % io.F, rest = it / io.F;
+    const int tile = rest % tiles, bg = rest / tiles;
+    const float* sc = scal + bg % io.G * 10;
+    const Coefs k{sc[0], sc[1], sc[2], sc[3], alpha_k >= 0 ? sc[6 + alpha_k] : 0.f, sc[9],
+                  sc[4], sc[5], xadd_k >= 0 ? sc[6 + xadd_k] : 0.f};
+    const int ty = tile / tiles_x;
+    step::step_tile<0, kRethresh, kGlr, true>(io, k, bg * io.F + f, ty * kTH,
+                                              (tile - ty * tiles_x) * kTW, smem);
   }
-  FOR_PIXELS(P.n1) {
-    const int i = p / W2, j = p - i * W2;
-    P.Q0[p] = stats_at(P.Xd, P.sg1, i, j, H2, W2);
-    P.Q1[p] = stats_at(P.Xd, P.sl1, i, j, H2, W2);
-  }
-  __syncthreads();
-  FOR_PIXELS(P.n0) {
-    const int i = p / W, j = p - i * W;
-    P.P2[p] = gtv_edge_sum<false>(P.P0, P.wgtv0, P.n0, i, j, H, W, 0.f);
-    P.P3[p] = glr_lap(P.P1, P.wglr0, P.n0, i, j, H, W);
-  }
-  FOR_PIXELS(P.n1) {
-    const int i = p / W2, j = p - i * W2;
-    P.Q2[p] = gtv_edge_sum<false>(P.Q0, P.wgtv1, P.n1, i, j, H2, W2, 0.f);
-    P.Q3[p] = glr_lap(P.Q1, P.wglr1, P.n1, i, j, H2, W2);
-  }
-  __syncthreads();
-  FOR_PIXELS(P.n1) {
-    const int i = p / W2, j = p - i * W2;
-    P.Q0[p] = P.ro1 * stats_t_at(P.Q2, P.sg1, i, j, H2, W2) +
-              P.mu1 * stats_t_at(P.Q3, P.sl1, i, j, H2, W2);
-  }
-  __syncthreads();
-  FOR_PIXELS(P.n0) {
-    const int i = p / W, j = p - i * W;
-    const float t0 = P.ro0 * stats_t_at(P.P2, P.sg0, i, j, H, W) +
-                     P.mu0 * stats_t_at(P.P3, P.sl0, i, j, H, W);
-    const float x = P.X[p];
-    const float ax = x + t0 + 0.25f * P.Q0[(i >> 1) * W2 + (j >> 1)];
-    float xn;
-    if (step == 0) {
-      xn = x + alpha * (x - ax);
-    } else {
-      const float u = step == 1 ? P.R[p] - ax : P.R[p] - ax + beta2 * P.U[p];
-      P.U[p] = u;
-      xn = x + alpha * u;
-    }
-    if (out != nullptr) st(out + p, xn); else P.X[p] = xn;
-  }
-  __syncthreads();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gg_unroll_kernel(const T* __restrict__ y, const T* __restrict__ wgtv0,
-                 const T* __restrict__ wglr0, const T* __restrict__ wgtv1,
-                 const T* __restrict__ wglr1, const float* __restrict__ pgtv0,
-                 const float* __restrict__ pglr0, const float* __restrict__ pgtv1,
-                 const float* __restrict__ pglr1, const float* __restrict__ scal,
-                 T* __restrict__ out, float* scratch, int G, int F, int H, int W,
-                 int iters) {
-  const int plane = blockIdx.x;  // (b * G + g) * F + f = channel plane of y
-  const int f = plane % F;
-  const int bg = plane / F;
-  const int g = bg % G;
-  Plane<T> P;
-  P.H = H; P.W = W; P.H2 = H / 2; P.W2 = W / 2;
-  P.n0 = H * W; P.n1 = P.H2 * P.W2;
-  P.wgtv0 = wgtv0 + (size_t)bg * 4 * P.n0;
-  P.wglr0 = wglr0 + (size_t)bg * 4 * P.n0;
-  P.wgtv1 = wgtv1 + (size_t)bg * 4 * P.n1;
-  P.wglr1 = wglr1 + (size_t)bg * 4 * P.n1;
-  P.sg0 = load_stats(pgtv0, g, F, f);
-  P.sl0 = load_stats(pglr0, g, F, f);
-  P.sg1 = load_stats(pgtv1, g, F, f);
-  P.sl1 = load_stats(pglr1, g, F, f);
-  const float* sc = scal + g * 10;  // [mu0, ro0, mu1, ro1, gam0, gam1, a0, a1, a2, b2]
-  P.mu0 = sc[0]; P.ro0 = sc[1]; P.mu1 = sc[2]; P.ro1 = sc[3];
-  P.gam0 = sc[4]; P.gam1 = sc[5];
-  float* s = scratch + (size_t)plane * (8 * (size_t)P.n0 + 5 * (size_t)P.n1);
-  P.Y = s;          P.X = P.Y + P.n0;   P.R = P.X + P.n0;   P.U = P.R + P.n0;
-  P.P0 = P.U + P.n0; P.P1 = P.P0 + P.n0; P.P2 = P.P1 + P.n0; P.P3 = P.P2 + P.n0;
-  P.Xd = P.P3 + P.n0; P.Q0 = P.Xd + P.n1; P.Q1 = P.Q0 + P.n1; P.Q2 = P.Q1 + P.n1;
-  P.Q3 = P.Q2 + P.n1;
-  const T* yp = y + (size_t)plane * P.n0;
-  T* op = out + (size_t)plane * P.n0;
-
-  FOR_PIXELS(P.n0) P.Y[p] = ld(yp[p]);
-  FOR_PIXELS(P.n1) { const int i = p / P.W2, j = p - i * P.W2; P.Xd[p] = box_down_at(yp, i, j, W); }
-  __syncthreads();
-  gtv_rhs<false>(P, P.Y, P.Xd, P.X);                       // X = rhs_a
-  cg_step(P, 0, sc[6], 0.f, iters == 1 ? op : nullptr);    // CG step 1
-  if (iters == 1) return;
-  box_down_stage(P.X, P.Xd, P.n1, W, P.W2);
-  gtv_rhs<true>(P, P.X, P.Xd, P.R);                        // R = rhs_b
-  cg_step(P, 1, sc[7], 0.f, iters == 2 ? op : nullptr);    // CG step 2
-  if (iters == 2) return;
-  cg_step(P, 2, sc[8], sc[9], op);                         // CG step 3
+__global__ void __launch_bounds__(kThreads, kCtasPerSm) gg_unroll_kernel(Args<T> a) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  // StepIO<weights and y, x, aux, prev, out, upd>: f32 for the scratch planes
+  using IoA = StepIO<T, T, float, float, float, float, true>;
+  using IoB = StepIO<T, float, float, float, float, float, true>;
+  using IoB1 = StepIO<T, float, float, float, T, float, true>;
+  using IoC = StepIO<T, float, T, float, float, float, true>;
+  using IoD = StepIO<T, float, float, float, T, float, true>;
+  using IoE = StepIO<T, float, float, float, T, float, true, true>;
+  const float* X = a.X;
+  const float* R = a.R;
+  const float* U = a.U;
+  // A. rhs_a from y -> U
+  phase<false, false>(planes<IoA>(a, a.y, nullptr, nullptr, nullptr, a.U, nullptr,
+                                  step::kEpiAddX, 0), a.scal, -1, -1, a.B, smem);
+  grid.sync();
+  // B. CG step 1 from x = rhs_a -> X (out at cg1)
+  if (a.iters == 1) {
+    phase<false, true>(planes<IoB1>(a, U, nullptr, nullptr, nullptr, a.out, nullptr,
+                                    step::kEpiCg, 1), a.scal, 0, -1, a.B, smem);
+    return;
+  }
+  phase<false, true>(planes<IoB>(a, U, nullptr, nullptr, nullptr, a.X, nullptr, step::kEpiCg,
+                                 1), a.scal, 0, -1, a.B, smem);
+  grid.sync();
+  // C. the re-threshold from x1 and y: rhs_b -> R
+  phase<true, false>(planes<IoC>(a, X, nullptr, a.y, nullptr, a.R, nullptr, step::kEpiAddAux,
+                                 0), a.scal, -1, -1, a.B, smem);
+  grid.sync();
+  // D. CG step 2 from x1: u1 -> U (x1 + a1 u1 is the output at cg2)
+  phase<false, true>(planes<IoD>(a, X, nullptr, R, nullptr, a.iters == 2 ? a.out : nullptr,
+                                  a.U, step::kEpiCg, 0), a.scal, 1, -1, a.B, smem);
+  if (a.iters == 2) return;
+  grid.sync();
+  // E. CG step 3 from x2 = x1 + a1 u1, with b2 u1
+  phase<false, true>(planes<IoE>(a, X, U, R, U, a.out, nullptr, step::kEpiCg, 0), a.scal, 2,
+                     1, a.B, smem);
 }
 
+// The CTAs of the kernel that fit on one SM and the device's SM count,
+// found once per device (after raising the kernel's shared memory limit);
+// a CUDA error status on failure.
+template <typename T>
+cudaError_t occupancy(int* per_sm, int* sms) {
+  constexpr int kDevices = 64;
+  static int cached_per_sm[kDevices], cached_sms[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && cached_per_sm[dev] > 0) {
+    *per_sm = cached_per_sm[dev];
+    *sms = cached_sms[dev];
+    return cudaSuccess;
+  }
+  auto kern = gg_unroll_kernel<T>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, kThreads, kSmem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kDevices) {
+    cached_per_sm[dev] = *per_sm;
+    cached_sms[dev] = *sms;
+  }
+  return err;
+}
+
+// A refused cooperative launch (too many CTAs to be co-resident) returns its
+// error; nothing falls back.
+template <typename T>
+int launch(const Args<T>& a, cudaStream_t stream) {
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = occupancy<T>(&per_sm, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const long long tiles = (long long)((a.W + kTW - 1) / kTW) * ((a.H + kTH - 1) / kTH);
+  const long long items = (long long)a.B * a.G * a.F * tiles;
+  const int grid = static_cast<int>(std::min<long long>(items, (long long)per_sm * sms));
+  Args<T> args = a;
+  void* params[] = {&args};
+  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(
+      gg_unroll_kernel<T>), dim3(grid), dim3(kThreads), params, kSmem, stream));
+}
+
+}  // namespace unroll
 }  // namespace irdu
 
-extern "C" long long irdu_gg_unroll_scratch_floats(int H, int W) {
-  return 8LL * H * W + 5LL * (H / 2) * (W / 2);
+// Three f32 scratch planes (X, R, U) per channel plane of y.
+extern "C" long long irdu_gg_unroll_scratch_floats(int H, int W) { return 3LL * H * W; }
+
+// The CTAs of K1 that fit on one SM (the cooperative grid is this times the
+// SM count, at most one per item), or -1 after a CUDA error.
+extern "C" int irdu_gg_unroll_ctas_per_sm(int dtype) {
+  int per_sm = -1, sms = 0;
+  const cudaError_t err = dtype == irdu::kFloat32
+                              ? irdu::unroll::occupancy<float>(&per_sm, &sms)
+                              : irdu::unroll::occupancy<__nv_bfloat16>(&per_sm, &sms);
+  return err == cudaSuccess ? per_sm : -1;
 }
 
+// y, out (B, G*F, H, W) and the weights in one dtype; the tables and scal
+// f32; scratch 3 * B * G * F * H * W f32. H and W even.
 extern "C" int irdu_gg_unroll(const void* y, const void* wgtv0, const void* wglr0,
                               const void* wgtv1, const void* wglr1,
                               const void* pgtv0, const void* pglr0,
@@ -257,26 +202,25 @@ extern "C" int irdu_gg_unroll(const void* y, const void* wgtv0, const void* wglr
                               const void* scal, void* out, void* scratch, int B,
                               int G, int F, int H, int W, int iters, int dtype,
                               void* stream) {
-  const dim3 grid(B * G * F);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* tabs[5] = {static_cast<const float*>(pgtv0), static_cast<const float*>(pglr0),
-                          static_cast<const float*>(pgtv1), static_cast<const float*>(pglr1),
-                          static_cast<const float*>(scal)};
-  float* scr = static_cast<float*>(scratch);
-  if (dtype == irdu::kFloat32) {
-    using T = float;
-    irdu::gg_unroll_kernel<T><<<grid, irdu::kThreads, 0, s>>>(
-        static_cast<const T*>(y), static_cast<const T*>(wgtv0), static_cast<const T*>(wglr0),
-        static_cast<const T*>(wgtv1), static_cast<const T*>(wglr1), tabs[0], tabs[1],
-        tabs[2], tabs[3], tabs[4], static_cast<T*>(out), scr, G, F, H, W, iters);
-  } else if (dtype == irdu::kBFloat16) {
-    using T = __nv_bfloat16;
-    irdu::gg_unroll_kernel<T><<<grid, irdu::kThreads, 0, s>>>(
-        static_cast<const T*>(y), static_cast<const T*>(wgtv0), static_cast<const T*>(wglr0),
-        static_cast<const T*>(wgtv1), static_cast<const T*>(wglr1), tabs[0], tabs[1],
-        tabs[2], tabs[3], tabs[4], static_cast<T*>(out), scr, G, F, H, W, iters);
-  } else {
+  if (B < 1 || G < 1 || F < 1 || H < 2 || W < 2 || H % 2 || W % 2 || iters < 1 || iters > 3 ||
+      y == nullptr || out == nullptr || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* scr = static_cast<float*>(scratch);
+  const size_t n = (size_t)B * G * F * H * W;
+  auto args = [&](auto* t) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(t)>>;
+    return irdu::unroll::Args<T>{
+        static_cast<const T*>(y), static_cast<const T*>(wgtv0), static_cast<const T*>(wglr0),
+        static_cast<const T*>(wgtv1), static_cast<const T*>(wglr1),
+        static_cast<const float*>(pgtv0), static_cast<const float*>(pglr0),
+        static_cast<const float*>(pgtv1), static_cast<const float*>(pglr1),
+        static_cast<const float*>(scal), static_cast<T*>(out), scr, scr + n, scr + 2 * n,
+        B, G, F, H, W, iters};
+  };
+  if (dtype == irdu::kFloat32)
+    return irdu::unroll::launch(args(static_cast<float*>(nullptr)), s);
+  if (dtype == irdu::kBFloat16)
+    return irdu::unroll::launch(args(static_cast<__nv_bfloat16*>(nullptr)), s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,10 +1,12 @@
-"""Time every launch plan of the block kernel (K3, K4) that fits in shared
-memory, at the block shapes of the 512x512 and 480x320 requests, in bf16 on
-one CUDA card, and compare the fastest with ``gated_block.plan_tiles``:
+"""Time every launch plan that fits in shared memory of the block kernels
+at the block shapes of the 512x512 and 480x320 requests, in bf16 on one
+CUDA card: K3 (``block_stack.cu``, scale 0) against ``gated_block.plan_tiles``,
+K4 (the wgmma kernel ``gated_block.cu``, scales 1-3: every tile of
+``gated_block.gated_plans``) against ``gated_block.plan_gated_tiles``:
 
     python -m irdu_tpu_torch.kernels.plan_sweep [--out sweep.json]
 
-Prints, per shape, the fastest plan, the plan ``plan_tiles`` picks and the
+Prints, per shape, the fastest plan, the plan the planner picks and the
 ratio of their times; --out keeps every timing. Inputs and weights are
 seeded N(0, 1) draws at the flagship's widths.
 """
@@ -50,30 +52,38 @@ def sweep(requests=((512, 512), (480, 320))):
         for s in range(4):
             c, hh, ww, k = 48 << s, h >> s, w >> s, 4 if s == 0 else 1
             x = torch.randn(1, c, hh, ww, device="cuda", generator=gen).bfloat16()
-            if s == 0:
+            shape = []
+            if s == 0:  # K3: every tile and chunk of the block kernel
                 packed = pack_block_params([_params(c, gen) for _ in range(4)], torch.bfloat16)
                 def run():
                     return fused_block_stack(x, *packed)
-            else:
+                for th in gb.TILE_SIZES:
+                    for tw in gb.TILE_SIZES:
+                        nrp = -(-min(th + 2 * k, hh) * min(tw + 2 * k, ww) // 16) * 16
+                        for hc in (32, 16):
+                            smem = gb.smem_bytes(c, hc, nrp, 2)
+                            if smem > gb.SMEM_LIMIT:
+                                continue
+                            with mock.patch.object(gb, "plan_tiles",
+                                                   return_value=(th, tw, hc, smem)):
+                                ms = _ms(run)
+                            shape.append(dict(c=c, h=hh, w=ww, blocks=k, tile=[th, tw], hc=hc,
+                                              nrp=nrp, ms=ms))
+                th, tw, hc, _ = gb.plan_tiles(1, c, 2 * c, hh, ww, k, 2)
+                picked = next(r for r in shape if r["tile"] == [th, tw] and r["hc"] == hc)
+            else:  # K4: every tile of the wgmma kernel
                 p = _params(c, gen)
                 def run():
                     return gb.fused_gated_block(x, **p)
-            shape = []
-            for th in gb.TILE_SIZES:
-                for tw in gb.TILE_SIZES:
-                    nrp = -(-min(th + 2 * k, hh) * min(tw + 2 * k, ww) // 16) * 16
-                    for hc in (32, 16):
-                        smem = gb.smem_bytes(c, hc, nrp, 2)
-                        if smem > gb.SMEM_LIMIT:
-                            continue
-                        with mock.patch.object(gb, "plan_tiles", return_value=(th, tw, hc, smem)):
-                            ms = _ms(run)
-                        shape.append(dict(c=c, h=hh, w=ww, blocks=k, tile=[th, tw], hc=hc,
-                                          nrp=nrp, ms=ms))
+                for th, tw, mr, mp, smem in gb.gated_plans(c, hh, ww):
+                    plan = (th, tw, gb.GATED_HC, mr, mp, smem)
+                    with mock.patch.object(gb, "plan_gated_tiles", return_value=plan):
+                        ms = _ms(run)
+                    shape.append(dict(c=c, h=hh, w=ww, blocks=k, tile=[th, tw], ms=ms))
+                th, tw, _, _, _, _ = gb.plan_gated_tiles(1, c, 2 * c, hh, ww)
+                picked = next(r for r in shape if r["tile"] == [th, tw])
             rows += shape
             best = min(shape, key=lambda r: r["ms"])
-            th, tw, hc, _ = gb.plan_tiles(1, c, 2 * c, hh, ww, k, 2)
-            picked = next(r for r in shape if r["tile"] == [th, tw] and r["hc"] == hc)
             summary.append(dict(c=c, h=hh, w=ww, fastest=best, picked=picked,
                                 ratio=picked["ms"] / best["ms"]))
     return rows, summary

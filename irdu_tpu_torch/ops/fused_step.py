@@ -24,8 +24,8 @@ its adjoint (duplicate and scale by 0.25). Per-graph scalars come in K5's
 build theirs from (G,) vectors. Compute is f32; each call's outputs are
 rounded to x's dtype, as the TPU route rounds between its calls.
 
-On the card (``kernels/csrc/fused_step.cu``): one kernel for all three. A
-CTA takes a 32×64 full-res tile of one (b, g, f) plane and a 4-pixel halo
+On the card (``kernels/csrc/fused_step.cu``, its tile step in
+``tile_step.cuh``, which K1 shares): one kernel for all three. A CTA takes a 32×64 full-res tile of one (b, g, f) plane and a 4-pixel halo
 (stats, C shift, Cᵀ shift, statsᵀ: one pixel each, the two shifts up to the
 window's radius together), and for the half-res scale the 16×32 half tile
 with its own 4-pixel halo, box-averaged from x as it loads. Every stage

@@ -13,21 +13,38 @@ Rounding in bf16, where the TPU kernels round: the normalized input y0 before
 the expand and the gate output y3 before the project; the expand, the taps,
 the gate and the skip stay f32; the output is rounded once.
 
-On the card (``kernels/csrc/block_stack.cu``, one kernel for K3 and K4; K4 is
-its K = 1 case): one CTA per output tile of (tile_h, tile_w) pixels. It
-loads the tile plus a K-pixel halo (clipped to the image) into shared memory
-as f32, normalizes each pixel with a two-pass variance, then walks the
-hidden dimension in chunks of hc m-channels and their hc u-channels: expand
-over the whole region, taps and gate, and the project accumulated into the
-f32 activation in shared memory. The 1×1 products run on the tensor cores
-(``mma.sync`` m16n8k16, bf16 in, f32 accumulate) in bf16 and as f32 FMAs on
-the CUDA cores in f32. Per pixel a block needs 3·C·2H tensor operations and
-about 21·2H + 8·C CUDA-core operations against 4·C bytes (bf16 in and out),
-so it is bound by operations: by the CUDA-core taps and gate at C ≤ 96 and
-by the products at C ≥ 192. The halo is recomputed by each tile, and the
-weights are staged into shared memory by every CTA, which is the price of
-keeping each block's activation on chip; ``plan_tiles`` weighs the halo
-against the number of waves of CTAs on the 132 SMs.
+On the card, in bf16 (the served dtype; ``kernels/csrc/gated_block.cu``):
+one CTA per output tile of up to 128 pixels (64 at C = 384) and a 1-pixel
+halo: two consumer warpgroups and a producer warpgroup. The consumers load
+x's region from global memory straight into registers, one to four threads
+per pixel, normalize it and write y0 (the region's pixels × C) once into
+shared memory in wgmma's swizzled K-major layout. The hidden dimension is
+walked in chunks of hc = 32 m-channels and their 32 u-channels, whose
+weights the producer brings in by TMA, into two rings of 2 slots under
+mbarriers, a chunk ahead. Per chunk, the next chunk's expand is
+queued on the tensor cores first (``wgmma``, transposed: the chunk's 64
+hidden rows are M and the region's pixels N, m64n96k16 per warpgroup, or
+m64n32k16 at C = 384; f32 into shared memory). Then come the taps and gate
+on the CUDA cores in f32 and y3 rounded to bf16 in shared memory. The
+project (``wgmma`` m64n64k16/m64n32k16) adds into an accumulator that
+stays in registers across the whole hidden loop, so the activation never
+round-trips through shared memory; the epilogue writes s₀·x + s₁·acc once.
+C is one of 96, 128, 192, 384 and H a multiple of 32 (every block the
+flagship, lite, micro and the ablation heads serve on K4); anything else
+raises. ``plan_gated_tiles`` picks the tile.
+
+In f32 (not served; the f32 model check) and for K3, the block kernel of
+``kernels/csrc/block_stack.cu`` (K = 1 here): one CTA per output tile of
+(tile_h, tile_w) pixels with a K-pixel halo, the f32 activation in shared
+memory, the hidden dimension in chunks of hc, the 1×1 products as f32 FMAs
+on the CUDA cores (``mma.sync`` in bf16 for K3). Per pixel a block needs
+3·C·2H tensor operations and about 21·2H + 8·C CUDA-core operations
+against 4·C bytes (bf16 in and out), so it is bound by operations: by the
+CUDA-core taps and gate at C ≤ 96 and by the products at C ≥ 192. The halo
+is recomputed by each tile, and the weights are staged into shared memory
+by every CTA, which is the price of keeping each block's activation on
+chip; ``plan_tiles`` weighs the halo against the number of waves of CTAs on
+the 132 SMs, ``plan_gated_tiles`` likewise for the wgmma kernel.
 
 Boundaries: the taps read the region through a clamp to its own bounds. At
 an image edge the region's edge is the image's, so the clamp is the
@@ -38,6 +55,8 @@ inward per block, so after K blocks it has not reached the tile.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -47,6 +66,9 @@ EPS = 1e-5
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
 NUM_SMS = 132        # H100 SXM
 TILE_SIZES = (2, 4, 8, 12, 16, 24, 32)  # tile heights and widths the plan tries
+GATED_CHANNELS = (96, 128, 192, 384)  # the C that the wgmma kernel is built for
+GATED_HC = 32  # hidden channels per chunk of the wgmma kernel
+GATED_TILE_SIZES = (2, 4, 6, 8, 10, 12, 14, 16, 20, 24, 32)
 
 
 def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -99,6 +121,7 @@ def smem_bytes(c: int, hc: int, nrp: int, esize: int) -> int:
             + seg(esize * c * (hc + pad)))
 
 
+@functools.lru_cache(maxsize=None)
 def plan_tiles(b: int, c: int, hidden: int, h: int, w: int, n_blocks: int,
                esize: int) -> tuple[int, int, int, int]:
     """(tile_h, tile_w, hc, smem bytes) for a launch. A CTA takes a whole SM
@@ -127,6 +150,102 @@ def plan_tiles(b: int, c: int, hidden: int, h: int, w: int, n_blocks: int,
         raise ValueError(f"no tile of the block kernel fits C={c}, hidden={hidden}, "
                          f"K={n_blocks} in {SMEM_LIMIT} bytes of shared memory")
     return best[1]
+
+
+def _align1k(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def gated_smem_bytes(c: int, mr: int, mp: int) -> int:
+    """Shared memory of one CTA of the wgmma kernel, as it lays it out: y0
+    (mr, C) bf16 in 64-channel blocks; two rings of 2 slots, one of
+    a chunk's expand weights (64 rows by each 64-channel block, 128 bytes a
+    row), one of its project weights (C rows of hc = 32 bf16); the f32
+    expand chunk (mr, 64 + 8); y3 (mp, 32) bf16; each part 1024-byte
+    aligned, then the rings' 8 mbarriers and 1024 bytes to align the
+    base."""
+    kb = -(-c // 64)
+    return (_align1k(kb * mr * 128) + 2 * (kb * 64 * 128 + _align1k(c * GATED_HC * 2))
+            + _align1k(mr * 72 * 4) + _align1k(mp * GATED_HC * 2) + 4 * 2 * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_gated_tiles(b: int, c: int, hidden: int, h: int, w: int
+                     ) -> tuple[int, int, int, int, int, int]:
+    """(tile_h, tile_w, hc, mr, mp, smem bytes) for the wgmma kernel.
+    A tile has at most mp output pixels (128 for C ≤ 192, where each
+    warpgroup holds 64 rows of the project; 64 at C = 384, where the two
+    split its columns) and its region, the tile plus a 1-pixel halo, at
+    most mr pixels: the expand's rows, 192 (64 at C = 384), fixed when the
+    kernel is compiled (ptxas serializes a wgmma behind a runtime branch).
+    One CTA takes an SM and its time is a part fixed by mr (the norm and the
+    expand, about 8 tap steps' worth) and the taps, whose steps a thread
+    walks one after another: ceil(tw / 8) columns by ceil(th / 2) row pairs.
+    So the plan with the least waves × (8 + tap steps) wins, then the fewer
+    CTAs (each reads all the weights). This cost
+    picks the fastest plan, or one within 5 % of it, at each K4 shape of the
+    512x512 and 480x320 requests in a sweep of every plan that fits on the
+    H100 (``python -m irdu_tpu_torch.kernels.plan_sweep``). Raises if C or
+    the hidden width is not one the kernel takes."""
+    if c not in GATED_CHANNELS or hidden % GATED_HC:
+        raise ValueError(f"the wgmma block kernel takes C in {GATED_CHANNELS} and H a "
+                         f"multiple of {GATED_HC}, got C={c}, H={hidden}")
+    best = None
+    for th, tw, mr, mp, smem in gated_plans(c, h, w):
+        tiles = b * -(-h // th) * -(-w // tw)
+        steps = -(-tw // 8) * -(-th // 2)
+        key = (-(-tiles // NUM_SMS) * (8 + steps), tiles)
+        if best is None or key < best[0]:
+            best = (key, (th, tw, GATED_HC, mr, mp, smem))
+    return best[1]
+
+
+def gated_plans(c: int, h: int, w: int):
+    """Every (tile_h, tile_w, mr, mp, smem) the wgmma kernel takes at C on
+    an h x w plane: tiles from GATED_TILE_SIZES whose pixels fit mp and
+    region fits mr (the shared memory is the same for all of them)."""
+    mp, mr = (64, 64) if c > 192 else (128, 192)
+    smem = gated_smem_bytes(c, mr, mp)
+    for th in GATED_TILE_SIZES:
+        for tw in GATED_TILE_SIZES:
+            if th * tw <= mp and min(th + 2, h) * min(tw + 2, w) <= mr:
+                yield th, tw, mr, mp, smem
+
+
+def launch_gated(x, scale, w1, dwk, w2, skip):
+    """One block over a bf16 x (B, C, H, W) on the wgmma kernel, operands in
+    the JAX layouts: scale (C,), w1 (C, 2H), dwk (3, 3, 2H), w2 (H, C),
+    skip (2,). w1 and w2 bf16 (read as w1ᵀ and w2ᵀ rows by TMA: the conv
+    layout the model serves needs no copy); scale, dwk and skip of one dtype,
+    f32 or bf16. Raises on what the kernel does not take."""
+    if not x.is_contiguous() or x.dtype != torch.bfloat16 or x.device.type != "cuda":
+        raise ValueError("the wgmma block kernel needs a contiguous bf16 CUDA x")
+    b, c, h, w = x.shape
+    hidden = w2.shape[0]
+    th, tw, _, _, _, _ = plan_gated_tiles(b, c, hidden, h, w)
+    if w1.dtype != x.dtype or w2.dtype != x.dtype:
+        raise ValueError(f"fused_gated_block: w1 and w2 must be in x's dtype {x.dtype}")
+    if (not (scale.dtype == dwk.dtype == skip.dtype)
+            or scale.dtype not in (torch.float32, torch.bfloat16)
+            or not (scale.is_contiguous() and skip.is_contiguous())):
+        raise ValueError("fused_gated_block: scale, dwk and skip must share one dtype, f32 "
+                         "or bf16, scale and skip contiguous")
+    if any(t.device != x.device for t in (scale, w1, dwk, w2, skip)):
+        raise ValueError(f"fused_gated_block: every operand must be on {x.device}")
+    w1t, w2t = _unit_stride(w1.t(), 1), _unit_stride(w2.t(), 1)
+    d9 = dwk.reshape(9, -1)
+    out = torch.empty_like(x)
+    lib = kernel_library()
+    status = lib.irdu_gated_block(
+        x.data_ptr(), out.data_ptr(), scale.data_ptr(), w1t.data_ptr(), d9.data_ptr(),
+        w2t.data_ptr(), skip.data_ptr(), b, c, h, w, hidden, w1t.stride(0), w2t.stride(0),
+        *d9.stride(), th, tw, dtype_code(scale.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if status != 0:
+        detail = lib.irdu_gated_block_error().decode()
+        raise RuntimeError(f"fused_gated_block: CUDA error {status} "
+                           f"({lib.irdu_error_string(status).decode()}) {detail}".rstrip())
+    return out
 
 
 def launch_blocks(kernel: str, x, scale, w1, dwk, w2, skip):
@@ -195,13 +314,17 @@ def fused_gated_block(x, scale, w1, dwk, w2, skip):
     """One LocalNonLinearBlock over x (B, C, H, W): scale (C,), w1 (C, 2H),
     dwk (3, 3, 2H), w2 (H, C), skip (2,). Returns x's shape and dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (what it takes: ``launch_blocks``) or raises."""
+    A CPU tensor takes the plain version; a bf16 CUDA tensor launches the
+    wgmma kernel (what it takes: ``launch_gated``), an f32 one the block
+    kernel's CUDA-core path (``launch_blocks``), or they raise."""
     _check(x, scale, w1, dwk, w2, skip)
     if x.device.type == "cpu":
         return gated_block_plain(x, scale, w1, dwk, w2, skip)
-    out = launch_blocks("fused_gated_block", x, scale[None], w1[None],
-                        dwk.reshape(1, 9, -1), w2[None], skip[None])
+    if x.dtype == torch.bfloat16:
+        out = launch_gated(x, scale, w1, dwk, w2, skip)
+    else:
+        out = launch_blocks("fused_gated_block", x, scale[None], w1[None],
+                            dwk.reshape(1, 9, -1), w2[None], skip[None])
     fused_gated_block.launches += 1
     return out
 

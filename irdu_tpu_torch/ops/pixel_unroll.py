@@ -20,14 +20,14 @@ scatter and the transposed stencil read zeros. ỹ is the un-tiled
 (B, F, H, W) image: plane (g, f) reads its plane f, and the G-fold tiling is
 never materialized. The output's channel is c = g·F + f.
 
-On the card (``kernels/csrc/pixel_unroll.cu``): K1's structure, one CTA per
-(b, g, f) plane walking the plane once per stage with the stage planes in
-f32 global scratch allocated here. The whole solve needs ~732 f32 operations
-per pixel and plane (each edge term once; ``PIXEL_UNROLL_OPS_PER_PIXEL``),
-so with the data moved once it is bound by operations (``chip_smoke.py``
-reports both bounds at the served shapes); with
-the stage planes round-tripping through L2 and device memory it is bound by
-those bytes, and at 512² its 72 CTAs leave 60 of the 132 SMs idle.
+On the card (``kernels/csrc/pixel_unroll.cu``): K1's former structure, one
+CTA per (b, g, f) plane walking the plane once per stage with the stage
+planes in f32 global scratch allocated here. The whole solve needs ~732 f32
+operations per pixel and plane (each edge term once;
+``PIXEL_UNROLL_OPS_PER_PIXEL``), so with the data moved once it is bound by
+operations (``chip_smoke.py`` reports both bounds at the served shapes);
+with the stage planes round-tripping through L2 and device memory it is
+bound by those bytes, and at 512² its 72 CTAs leave 60 of the 132 SMs idle.
 
 What the kernel takes: the diamond-12 window with the reflect stencil pad
 (the family's only configuration); stats tables set to None (the no-stats

@@ -18,18 +18,21 @@ and 3; the stencil pads "edge", the Cᵀ scatter and the transposed stencil
 pad with zeros, and every derived plane replicates its own edge row.
 ``eval_cg_iters`` stops after 1, 2 or 3 CG steps.
 
-On the card (``kernels/csrc/gg_unroll.cu``): one CTA per (b, g, f) plane,
-the TPU grid's parallelism. The CTA walks its plane once per stage
-(stencil, edge sums, transposed stencil, combine), keeps the stage planes in
-f32 global scratch allocated here, and separates stages with
-``__syncthreads()``. Each stage reads ~2-4 planes and does ~20-80 f32
-operations per pixel; the whole solve needs ~400 operations per full-res
-pixel (each edge term once), so with the data moved once it would be bound
-by f32 operations, and with the stage planes round-tripping through L2/HBM
-it is bound by those intermediate bytes. What bounds it today is
-occupancy: at 512² scale 0 the grid has only 48 CTAs for 132 SMs. Tiling
-each plane over several CTAs (halo recompute or a cluster) is the redesign
-that fixes that.
+On the card (``kernels/csrc/gg_unroll.cu``): one persistent cooperative
+launch per call that runs the unroll as the phases of the band route (rhs_a;
+CG step 1; the re-threshold to rhs_b; CG step 2, emitting u₁; CG step 3 on
+x₂ = x₁ + α₁u₁ formed as it is read), each one pass over every 32×64 output
+tile with a 4-pixel halo of every (b, g, f) plane, with K5's tile step
+(``kernels/csrc/tile_step.cuh``) and every stage plane in shared memory.
+Between the phases only x, rhs_b and u cross tile borders: three f32
+scratch planes per channel plane, allocated here; nothing is rounded between
+the CG steps (the band route rounds each step's output to y's dtype). A
+grid barrier separates the phases; the grid is two 256-thread CTAs per SM,
+each looping over (plane, tile) items. The whole solve needs ~400 f32
+operations per full-res pixel (each edge term once), so with the data moved
+once it is bound by operations; the halo recompute (1.4× at full res, 1.9×
+at half res) and the phases' scratch traffic are what the design pays for
+filling every SM.
 """
 
 from __future__ import annotations
@@ -153,7 +156,7 @@ def gg_unroll_chw(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1,
     out = torch.empty_like(y)
     lib = kernel_library()
     scratch = torch.empty((b * c, lib.irdu_gg_unroll_scratch_floats(h, w)),
-                          dtype=torch.float32, device=dev)
+                          dtype=torch.float32, device=dev)  # X, R, U
     status = lib.irdu_gg_unroll(
         y.data_ptr(), w_gtv0.data_ptr(), w_glr0.data_ptr(), w_gtv1.data_ptr(),
         w_glr1.data_ptr(), *(t.data_ptr() for t in tabs), sc.data_ptr(),

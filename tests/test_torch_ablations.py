@@ -128,6 +128,17 @@ def _chip_smoke():
     return mod
 
 
+@pytest.mark.parametrize("intervals,want", [
+    ([(0, 10), (5, 15), (20, 30)], 25.0),   # overlapping, then disjoint
+    ([(-5, 5), (95, 120)], 10.0),           # clipped to the window [0, 100]
+    ([(10, 20), (12, 18), (40, 40)], 10.0),  # nested, and an empty one
+    ([], 0.0)], ids=["overlap", "clipped", "nested", "none"])
+def test_chip_smoke_busy_time_is_the_union_in_the_window(intervals, want):
+    """The profile line's device busy time: the union of the device
+    intervals inside the requests' window, each instant counted once."""
+    assert _chip_smoke().busy_in_window(intervals, 0, 100) == want
+
+
 def test_chip_smoke_ablation_dicts_equal_the_configs():
     """chip_smoke.py keeps the six ablation configs' ``model:`` sections
     itself (the card's machine has no PyYAML); they equal the files."""

@@ -152,7 +152,10 @@ def test_fused_step_rejects_what_it_does_not_take(what):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's scheme (kernels/csrc/fused_step.cu), transliterated
+# the CUDA tile step (kernels/csrc/tile_step.cuh) of K5 and K1, transliterated:
+# each output tile of each channel plane with a 4-pixel halo per scale,
+# derived planes read through a clamp to the region, zeros outside the image
+# by global index (tests/test_torch_solver_unroll.py imports tiled_step)
 # ---------------------------------------------------------------------------
 
 HALO = 4
@@ -227,16 +230,20 @@ def _scale_term(reg, x_reg, w_gtv, w_glr, pg, pl, ro, mu, gamma, ti, tj):
     return t
 
 
-def _tiled_step(x, aux, prev, ws, tables, scal, mode, th, tw, use_x_rhs=False):
-    """K5 tile by tile as the kernel computes it, f32, batch 1; returns
+def tiled_step(x, aux, prev, ws, tables, scal, mode, th, tw, n_graphs, use_x_rhs=False,
+               x_add=None):
+    """One step tile by tile as the kernel computes it, f32, batch 1, on
+    x (or x + scal's x_coef · x_add, K1's third step); scal (G, 8) as
+    ``fused_scal`` lays it out, or (G, 9) with x_coef last. Returns
     (out, upd)."""
     _, c, h, w = x.shape
-    f = c // G
+    f = c // n_graphs
     out, upd = torch.empty_like(x), torch.empty_like(x)
     for ch in range(c):
         g = ch // f
         sc = scal[g]
-        mu0, ro0, mu1, ro1, alpha, beta, gam0, gam1 = sc
+        mu0, ro0, mu1, ro1, alpha, beta, gam0, gam1 = sc[:8]
+        xc = x[0, ch] if x_add is None else x[0, ch] + sc[8] * x_add[0, ch]
         rethresh = mode == "rethresh"
         glr = mode == "cg"
         tab = [t[g, :, ch % f] for t in tables]  # pg0, pl0, pg1, pl1
@@ -247,16 +254,16 @@ def _tiled_step(x, aux, prev, ws, tables, scal, mode, th, tw, use_x_rhs=False):
                 ti, tj = torch.meshgrid(torch.arange(i0, i1), torch.arange(j0, j1),
                                         indexing="ij")
                 r0 = _Region(i0, i1, j0, j1, h, w)
-                xr = x[0, ch, r0.r0:r0.r1, r0.c0:r0.c1]
+                xr = xc[r0.r0:r0.r1, r0.c0:r0.c1]
                 t = _scale_term(r0, xr, wt[0], wt[1] if glr else None, tab[0], tab[1],
                                 ro0, mu0, gam0 if rethresh else None, ti, tj)
                 r1 = _Region(i0 // 2, i1 // 2, j0 // 2, j1 // 2, h // 2, w // 2)
-                xd = x[0, ch, 2 * r1.r0:2 * r1.r1, 2 * r1.c0:2 * r1.c1]
+                xd = xc[2 * r1.r0:2 * r1.r1, 2 * r1.c0:2 * r1.c1]
                 xd = 0.25 * (xd[0::2, 0::2] + xd[0::2, 1::2] + xd[1::2, 0::2] + xd[1::2, 1::2])
                 t1 = _scale_term(r1, xd, wt[2], wt[3] if glr else None, tab[2], tab[3], ro1,
                                  mu1, gam1 if rethresh else None, ti // 2, tj // 2)
                 t = t + 0.25 * t1
-                xv = x[0, ch, i0:i1, j0:j1]
+                xv = xc[i0:i1, j0:j1]
                 sl = (0, ch, slice(i0, i1), slice(j0, j1))
                 if mode == "rhs":
                     out[sl] = xv + t
@@ -282,7 +289,7 @@ def test_kernel_tiling_scheme_matches_plain(mode, th, tw):
     scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
     aux_m = None if mode == "rhs" else aux
     prev_m = prev if mode == "cg" else None
-    out, upd = _tiled_step(x, aux_m, prev_m, ws, tables, scal, mode, th, tw)
+    out, upd = tiled_step(x, aux_m, prev_m, ws, tables, scal, mode, th, tw, G)
     want = fs.fused_step_plain(x, aux_m, prev_m, *ws, *tables, scal, mode=mode, n_graphs=G,
                                emit_update=mode == "cg")
     if mode == "cg":

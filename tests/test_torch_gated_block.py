@@ -1,8 +1,12 @@
 """K4 (one LocalNonLinearBlock) of the port against the JAX package's Pallas
-kernel in interpret mode, the block kernel's launch plan, the block operands
-of the 86k snapshot against the JAX package's, and the lite and micro models
-on the card's block kernel: their launch plans, the padded-channel scheme
-for C = 24, their default snapshots and their forward against JAX."""
+kernel in interpret mode; the wgmma kernel's scheme (tiles with a 1-pixel
+halo, the hidden loop in chunks with the project accumulated across them)
+transliterated into PyTorch against the plain block and JAX; the launch
+plans of the wgmma kernel (bf16) and the block kernel (f32, and K3); the
+block operands of the 86k snapshot against the JAX package's; and the lite
+and micro models on the card's block kernels: their launch plans, the
+padded-channel scheme for C = 24, their default snapshots and their forward
+against JAX."""
 
 from __future__ import annotations
 
@@ -62,6 +66,75 @@ def test_gated_block_rejects_wrong_operand_shapes():
         gb.fused_gated_block(x[0], **p)
 
 
+def _wgmma_scheme(x, p, dtype, th, tw, hc=gb.GATED_HC):
+    """The wgmma kernel's scheme (kernels/csrc/gated_block.cu) in PyTorch on
+    an f32 x: per th x tw tile, y0 over the tile plus a 1-pixel halo
+    clipped to the image (two-pass norm, rounded to ``dtype``); per chunk of
+    hc m- and hc u-channels the expand over that region, the taps read
+    through a clamp to the region, the gate rounded to ``dtype``, and the
+    project added to one f32 accumulator across the chunks; s0 x + s1 acc
+    at the end, unrounded."""
+    b, c, h, w = x.shape
+    hidden = p["w2"].shape[0]
+    w1, w2 = p["w1"].to(dtype).float(), p["w2"].to(dtype).float()
+    dw, sk, scale = p["dwk"].float().reshape(9, -1), p["skip"].float(), p["scale"].float()
+    out = torch.empty_like(x)
+    for i0 in range(0, h, th):
+        for j0 in range(0, w, tw):
+            i1, j1 = min(i0 + th, h), min(j0 + tw, w)
+            r0, r1, c0, c1 = max(i0 - 1, 0), min(i1 + 1, h), max(j0 - 1, 0), min(j1 + 1, w)
+            xr = x[:, :, r0:r1, c0:c1]
+            mean = xr.mean(1, keepdim=True)
+            var = ((xr - mean) ** 2).sum(1, keepdim=True) / (c - 1)
+            y0 = gb._round(xr * (1 / torch.sqrt(var + gb.EPS)) * scale[None, :, None, None],
+                           dtype)
+            ii = (torch.arange(i0, i1) - r0)[:, None]
+            jj = (torch.arange(j0, j1) - c0)[None, :]
+            acc = torch.zeros(b, c, i1 - i0, j1 - j0)
+            for k0 in range(0, hidden, hc):
+                idx = list(range(k0, k0 + hc)) + list(range(hidden + k0, hidden + k0 + hc))
+                y1 = torch.einsum("bcij,co->boij", y0, w1[:, idx])
+                t = sum(y1[:, :, (ii + a - 1).clamp(0, r1 - r0 - 1),
+                           (jj + bb - 1).clamp(0, c1 - c0 - 1)]
+                        * dw[3 * a + bb, idx][None, :, None, None]
+                        for a in range(3) for bb in range(3))
+                m, u = t[:, :hc], t[:, hc:]
+                y3 = gb._round(torch.sigmoid(m) * m * u, dtype)
+                acc = acc + torch.einsum("bhij,hc->bcij", y3, w2[k0:k0 + hc])
+            out[:, :, i0:i1, j0:j1] = sk[0] * x[:, :, i0:i1, j0:j1] + sk[1] * acc
+    return out
+
+
+@pytest.mark.parametrize("th,tw", [(8, 16), (5, 7)], ids=["8x16", "5x7_ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wgmma_scheme_matches_plain_and_jax(dtype, th, tw):
+    """C = 96, H = 192 (six chunks of 32) on a 16x20 plane: tiles on every
+    image edge, interior tiles, ragged last tiles. f32 within 2e-5 of the
+    plain block and of JAX's kernel; bf16 (x, weights and the rounding points
+    in bf16) within one bf16 ulp (4e-3 + 2^-7 |ref|) of both: the sums run
+    in another order than the plain einsum (a y3 may round the other way),
+    and JAX's kernel takes the variance in one pass from bf16 squares."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(1, 16, 20, 96).astype(np.float32)
+    p = _block_params(rng, 96, 384)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    xq = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).to(dtype).float()
+    out = _wgmma_scheme(xq, tp, dtype, th, tw).to(dtype).float()
+    plain = gb.gated_block_plain(xq.to(dtype), **tp).float()
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref = jax_gated_block(jnp.asarray(xq.permute(0, 2, 3, 1).numpy()).astype(jdt),
+                          *(jnp.asarray(p[k]).astype(jdt)
+                            for k in ("scale", "w1", "dwk", "w2", "skip")),
+                          tile_h=8, interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32))).permute(0, 3, 1, 2)
+    assert (plain - xq).abs().max() > 0.5  # the block moved its input
+    for want in (plain, ref):
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, want, atol=2e-5, rtol=1e-4)
+        else:
+            assert bool(((out - want).abs() <= 4e-3 + 2.0 ** -7 * want.abs()).all())
+
+
 REQUESTS = ((512, 512), (480, 320), (256, 384))
 
 
@@ -71,17 +144,57 @@ def _calls(h, w):
     return [(48, 96, h, w, 4)] + [(48 << s, 96 << s, h >> s, w >> s, 1) for s in (1, 2, 3)]
 
 
+def _k4_plan(c, hidden, h, w, esize):
+    """The plan K4 launches with: the wgmma kernel's in bf16, the block
+    kernel's (K = 1) in f32, as (tile_h, tile_w, hc, smem)."""
+    if esize == 2:
+        th, tw, hc, _, _, smem = gb.plan_gated_tiles(1, c, hidden, h, w)
+        return th, tw, hc, smem
+    return gb.plan_tiles(1, c, hidden, h, w, 1, esize)
+
+
 @pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "f32"])
 def test_launch_plan_fits_every_served_call(esize):
     """Every block call of the served requests gets a plan inside the card's
     shared memory; in bf16 the 512x512 calls give at least 120 CTAs."""
     for request in REQUESTS:
         for c, hidden, h, w, k in _calls(*request):
-            th, tw, hc, smem = gb.plan_tiles(1, c, hidden, h, w, k, esize)
+            th, tw, hc, smem = (gb.plan_tiles(1, c, hidden, h, w, k, esize) if k > 1
+                                else _k4_plan(c, hidden, h, w, esize))
             assert smem <= gb.SMEM_LIMIT and hidden % hc == 0
             assert esize == 4 or hc % 16 == 0
             if esize == 2 and request == (512, 512):  # no SM left idle for long
                 assert -(-h // th) * -(-w // tw) >= 120, (c, h, w, th, tw)
+
+
+def test_gated_plan_respects_the_kernel():
+    """At every K4 shape of the family's served requests the wgmma plan keeps
+    a tile's pixels within the project rows (128, or 64 at C = 384) and its
+    region within the expand rows mr (192, or 64 at C = 384), and its smem
+    is the kernel's layout."""
+    shapes = {(c, hd, hh, ww) for name in ("flagship", "lite", "micro")
+              for h, w in REQUESTS + ((1024, 1024), (2048, 2048))
+              for c, hd, hh, ww, k in _model_calls(name, h, w) if k == 1 and c > 64}
+    shapes |= {(96, 256, 512, 512), (96, 256, 256, 256)}  # the ablation heads
+    assert {(c, hd) for c, hd, _, _ in shapes} == {(96, 192), (192, 384), (384, 768),
+                                                   (128, 256), (96, 256)}
+    for c, hidden, h, w in sorted(shapes):
+        th, tw, hc, mr, mp, smem = gb.plan_gated_tiles(1, c, hidden, h, w)
+        assert (hc, mp) == (gb.GATED_HC, 64 if c > 192 else 128)
+        assert th * tw <= mp and mr == (64 if c > 192 else 192)
+        assert min(th + 2, h) * min(tw + 2, w) <= mr
+        assert smem == gb.gated_smem_bytes(c, mr, mp) <= gb.SMEM_LIMIT
+
+
+def test_gated_smem_layout_bytes():
+    """The wgmma kernel's shared memory counted by hand at C = 192, an 8x16
+    tile (a 10x18 region in mr = 192 expand rows, mp = 128) and 2 slots a
+    ring: y0 3 blocks x 192 rows x 128 bytes; an expand slot 3 x 8 KB, a
+    project slot 192 x 64 bytes; Y1 192 x 72 f32; y3 128 x 64 bytes; 8
+    mbarriers and 1 KB of alignment slack."""
+    want = 73728 + 2 * (24576 + 12288) + 55296 + 8192 + 64 + 1024
+    assert gb.gated_smem_bytes(192, 192, 128) == want == 212032
+    assert gb.plan_gated_tiles(1, 192, 384, 128, 128) == (8, 16, 32, 192, 128, want)
 
 
 def test_smem_layout_bytes():
@@ -125,9 +238,13 @@ def test_launch_plan_fits_every_lite_and_micro_call(name, esize):
     for h, w in REQUESTS + ((512, 512),):
         for c, hidden, hh, ww, k in _model_calls(name, h, w):
             assert c % 8 == 0 and hidden % 16 == 0, (c, hidden)
-            th, tw, hc, smem = gb.plan_tiles(1, c, hidden, hh, ww, k, esize)
-            assert smem == gb.smem_bytes(c, hc, -(-min(th + 2 * k, hh) * min(tw + 2 * k, ww)
-                                                  // 16) * 16, esize) <= gb.SMEM_LIMIT
+            if k == 1 and c > 64 and esize == 2:  # K4 in bf16: the wgmma kernel
+                th, tw, hc, mr, mp, smem = gb.plan_gated_tiles(1, c, hidden, hh, ww)
+                assert smem == gb.gated_smem_bytes(c, mr, mp) <= gb.SMEM_LIMIT
+            else:
+                th, tw, hc, smem = gb.plan_tiles(1, c, hidden, hh, ww, k, esize)
+                assert smem == gb.smem_bytes(c, hc, -(-min(th + 2 * k, hh) * min(tw + 2 * k, ww)
+                                                      // 16) * 16, esize) <= gb.SMEM_LIMIT
             assert hidden % hc == 0 and (esize == 4 or hc % 16 == 0)
 
 
@@ -204,9 +321,18 @@ def test_default_weights_reach_the_card():
     assert not {os.path.basename(p) for p in DEFAULT_WEIGHTS.values()} & ignored
 
 
-def test_plan_raises_when_nothing_fits():
-    with pytest.raises(ValueError, match="shared memory"):
-        gb.plan_tiles(1, 4096, 8192, 64, 64, 1, 2)
+@pytest.mark.parametrize("plan", ["block_kernel", "gated_channels", "gated_hidden"])
+def test_plan_raises_when_nothing_fits(plan):
+    """The block kernel's plan (K3, f32 K4) when no tile fits shared memory;
+    the wgmma kernel's for a C it is not built for or an H not in chunks of
+    32."""
+    if plan == "block_kernel":
+        with pytest.raises(ValueError, match="shared memory"):
+            gb.plan_tiles(1, 4096, 8192, 64, 64, 1, 2)
+    else:
+        c, hidden = (4096, 8192) if plan == "gated_channels" else (96, 200)
+        with pytest.raises(ValueError, match="takes C in"):
+            gb.plan_gated_tiles(1, c, hidden, 64, 64)
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,14 @@
 """K1 (the whole solver unroll) of the port against the JAX package's Pallas
-kernel in interpret mode, at the shape classes of tests/test_solver_unroll.py,
-the port's MixtureGTVGLR against the JAX jnp solver path, and the solver's
-routing: K1 for planes under the cap, the K5 band route (against JAX's band
-route and against the port's own K1 route) for the rest."""
+kernel in interpret mode, at the shape classes of tests/test_solver_unroll.py;
+the CUDA kernel's scheme (its five phases through the tile step, f32 between
+them) transliterated into PyTorch against both; the port's MixtureGTVGLR
+against the JAX jnp solver path; and the solver's routing: K1 for planes
+under the cap, the K5 band route (against JAX's band route and against the
+port's own K1 route) for the rest."""
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,10 +21,11 @@ from irdu_tpu.ops.pallas.solver_unroll import unroll_scal as jax_unroll_scal
 from irdu_tpu.solvers import gtv_glr as jax_gtv_glr
 from irdu_tpu.solvers.gtv_glr import MixtureGTVGLR as JaxMixture
 from irdu_tpu_torch.ops.fused_step import gg_fused_step_chw
-from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, unroll_scal
+from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain, unroll_scal
 from irdu_tpu_torch.solvers import gtv_glr
 from irdu_tpu_torch.solvers.gtv_glr import MixtureGTVGLR
 from irdu_tpu_torch.utils.weights import params_to_torch
+from test_torch_fused_step import tiled_step
 
 G, F = 2, 3
 C = G * F
@@ -51,26 +56,78 @@ def _lane_pad(a, width):
     return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, width - a.shape[-1])])
 
 
-@pytest.mark.parametrize("iters", [1, 2, 3])
-@pytest.mark.parametrize("h,w", [(16, 256), (32, 128), (32, 64)],
-                         ids=["16x256", "32x128_halfres_padded", "32x64_fullres_padded"])
-def test_unroll_matches_jax_kernel(h, w, iters):
-    y, ws, tables, scal, _ = _unroll_inputs(h, w, seed=h + w + iters)
-    # the TPU kernel takes 128-lane-padded planes and the true width
+def _jax_unroll(y, ws, tables, scal, iters):
+    """JAX's K1 in interpret mode on 128-lane-padded planes, cropped."""
+    w = y.shape[-1]
     wp, w1p = max(w, 128), max(w // 2, 128)
-    ref = np.asarray(jax_unroll(
+    return np.asarray(jax_unroll(
         jnp.asarray(_lane_pad(y, wp)),
         *[jnp.asarray(_lane_pad(a, wp)) for a in ws[:2]],
         *[jnp.asarray(_lane_pad(a, w1p)) for a in ws[2:]],
         *[jnp.asarray(t) for t in tables], jnp.asarray(scal),
         n_graphs=G, eval_cg_iters=iters, true_w=w if wp != w else None,
-        interpret=True))
+        interpret=True))[..., :w]
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("h,w", [(16, 256), (32, 128), (32, 64)],
+                         ids=["16x256", "32x128_halfres_padded", "32x64_fullres_padded"])
+def test_unroll_matches_jax_kernel(h, w, iters):
+    y, ws, tables, scal, _ = _unroll_inputs(h, w, seed=h + w + iters)
+    ref = _jax_unroll(y, ws, tables, scal, iters)
     before = gg_unroll_chw.launches
     out = gg_unroll_chw(*[torch.from_numpy(a) for a in (y, *ws, *tables, scal)],
                         n_graphs=G, eval_cg_iters=iters).numpy()
     assert gg_unroll_chw.launches == before, "a CPU tensor must not launch"
     assert out.shape == y.shape
     np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-3)
+
+
+def _k1_scheme(y, ws, tables, scal, iters, th, tw):
+    """The CUDA kernel's phases (kernels/csrc/gg_unroll.cu), each through the
+    tile step on th x tw tiles, with x, rhs_b and u carried in f32: rhs_a;
+    CG step 1 from x = rhs_a; the re-threshold to rhs_b; CG step 2 emitting
+    u1; CG step 3 on x1 + a1 u1, formed as it is read."""
+    mu0, ro0, mu1, ro1, gam0, gam1, a0, a1, a2, b2 = scal.unbind(1)
+    zero = torch.zeros_like(mu0)
+
+    def coefs(alpha=zero, x_coef=zero):  # the tile step's (G, 9) order
+        return torch.stack([mu0, ro0, mu1, ro1, alpha, b2, gam0, gam1, x_coef], 1)
+
+    def step(x, aux, prev, mode, c, **kw):
+        return tiled_step(x, aux, prev, ws, tables, c, mode, th, tw, G, **kw)
+
+    rhs_a, _ = step(y, None, None, "rhs", coefs())
+    x1, _ = step(rhs_a, None, None, "cg", coefs(a0), use_x_rhs=True)
+    if iters == 1:
+        return x1
+    rhs_b, _ = step(x1, y, None, "rethresh", coefs())
+    x2, u1 = step(x1, rhs_b, None, "cg", coefs(a1))
+    if iters == 2:
+        return x2
+    return step(x1, rhs_b, u1, "cg", coefs(a2, x_coef=a1), x_add=u1)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _scheme_case(h, w, iters):
+    """Seeded inputs at h x w and JAX's K1 output on them."""
+    y, ws, tables, scal, _ = _unroll_inputs(h, w, seed=3 * h + w)
+    return (y, ws, tables, scal), _jax_unroll(y, ws, tables, scal, iters)
+
+
+@pytest.mark.parametrize("th,tw", [(8, 16), (5, 7)], ids=["8x16", "5x7_ragged"])
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("h,w", [(32, 64), (24, 36)], ids=["32x64", "24x36_ragged"])
+def test_kernel_phase_scheme_matches_plain_and_jax(h, w, iters, th, tw):
+    """Tiles on every image edge, interior tiles, ragged last tiles and (5x7)
+    half tiles of odd size: the scheme equals the plain unroll and JAX's K1."""
+    (y, ws, tables, scal), ref = _scheme_case(h, w, iters)
+    args = [torch.from_numpy(a) for a in (y, *ws, *tables, scal)]
+    out = _k1_scheme(args[0], args[1:5], args[5:9], args[9], iters, th, tw)
+    plain = gg_unroll_plain(*args, n_graphs=G, eval_cg_iters=iters)
+    assert np.abs(ref - y).max() > 0.05  # the solve moved its input
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=5e-4, rtol=1e-3)
 
 
 def test_unroll_scal_matches_jax_layout():

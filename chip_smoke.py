@@ -61,12 +61,17 @@ Phases, each timed and printed as it ends:
             snapshot's block parameters; seeded inputs. In f32 every K1, K3 and
             K4 output must also move at least CHANGE_FACTOR times the bar away
             from its input, so that a kernel returning its input cannot pass;
-            kernel and plain times from CUDA events at the 512x512 shapes.
+            kernel and plain times from CUDA events at the 512x512 shapes,
+            and beside each kernel time its device time (``device_ms``:
+            torch.profiler over the same repetitions, the kernels' own
+            durations, no host work in the window).
             K1 also on the 480x320 request's 120x80 and 60x40 planes (ragged
-            tiles) and K4 also at micro's and the ablation heads' widths
-            (K1_RAGGED, K4_EXTRA); K1 and K3/K4 times are the median of 3
-            repeats, kept with them, and K1's rows record the CTAs per SM
-            of its cooperative grid.
+            tiles), K4 also at micro's and the ablation heads' widths and K3
+            at every other served shape, lite's, micro's and the split
+            ablation heads', with seeded blocks, timed, each row naming the
+            kernel that took it (K1_RAGGED, K4_EXTRA, K3_EXTRA); K1 and K3/K4
+            times are the median of 3 repeats, kept with them, and K1's rows
+            record the CTAs per SM of its cooperative grid.
             K3 and K4 in bf16 are held to block_bar: at most 1 % of the
             outputs beyond one ulp, none beyond one ulp plus the plain
             version's own bf16 rounding error, and an RMS error against the
@@ -91,7 +96,8 @@ Phases, each timed and printed as it ends:
             "single" ablation's shape (1, 512, 512, 96), G = 1, and at
             (1, 37, 53, 40), G = 2 (ragged tiles and channel chunks), f32 and
             bf16, against its plain version and (f32) against K6a on the same
-            data permuted to CHW;
+            data permuted to CHW. The planners' shared-memory counts must
+            equal the kernels' own layouts (``layout_mismatches``);
   model     the whole model in f32 with TF32 off on each flagship request's
             noisy image (the first is 1x512x512x3): kernel path against plain
             path (blocks as PyTorch ops, the solver's plain versions),
@@ -213,6 +219,14 @@ K1_RAGGED = ((2, (120, 80)), (3, (60, 40)))
 # K4 also at the served shapes outside the flagship: micro's C = 128 (hidden
 # 256) at 64², the ablation heads' C = 96 (hidden 256) at 512² and 256²
 K4_EXTRA = ((128, 256, 64, 64), (96, 256, 512, 512), (96, 256, 256, 256))
+# K3 also at every other served shape, with seeded blocks: (model whose
+# 512x512 request makes the call, C, hidden, blocks, H, W, calls per request):
+# lite's scale 0 (C = 24, on block_stack.cu) and scale 1, micro's scales 0-2,
+# the split ablation heads (2 per request)
+K3_EXTRA = (("lite", 24, 48, 2, 512, 512, 3), ("lite", 48, 96, 3, 256, 256, 2),
+            ("micro", 16, 32, 2, 512, 512, 3), ("micro", 32, 64, 2, 256, 256, 2),
+            ("micro", 64, 128, 2, 128, 128, 2),
+            ("ablation_no_orders_split", 48, 128, 3, 512, 512, 2))
 PROFILE_REQUESTS = 5  # steady 512x512 flagship requests under torch.profiler
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
 
@@ -280,10 +294,18 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def cuda_ms_repeats(fn, reps, repeats=3):
-    """``cuda_ms`` taken ``repeats`` times: (median, the list)."""
-    times = [cuda_ms(fn, reps) for _ in range(repeats)]
-    return float(np.median(times)), [round(t, 5) for t in times]
+def times(fn, reps, repeats=1):
+    """A kernel row's times: ``ms`` by CUDA events (with ``repeats`` > 1 the
+    median of that many runs, kept as ``ms_repeats``) and ``device_ms``, the
+    kernel's own time from torch.profiler over the same repetitions
+    (``kernels/timing.py``; events also time the wrapper's host work)."""
+    from irdu_tpu_torch.kernels.timing import device_ms
+
+    runs = [cuda_ms(fn, reps) for _ in range(repeats)]
+    out = dict(ms=float(np.median(runs)), device_ms=device_ms(fn, reps))
+    if repeats > 1:
+        out["ms_repeats"] = [round(t, 5) for t in runs]
+    return out
 
 
 def max_abs(a, b):
@@ -505,10 +527,9 @@ def profile_requests(model, noisy, n=PROFILE_REQUESTS, top=10):
     first request's start to the last one's end, the device's busy time in
     it (the union of its kernel, memcpy and memset intervals) and its idle
     share. Raises if the trace holds no device activity."""
-    import tempfile
-
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from irdu_tpu_torch.kernels.timing import DEVICE_CATS, trace_spans
     from irdu_tpu_torch.predict import denoise
 
     denoise(model, noisy)
@@ -521,14 +542,8 @@ def profile_requests(model, noisy, n=PROFILE_REQUESTS, top=10):
             with record_function("request"):
                 denoise(model, noisy)  # ends in a device-to-host copy
         sync()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            trace = json.load(fh)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
-    device = [e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = trace_spans(prof)
+    device = [e for e in spans if e.get("cat") in DEVICE_CATS]
     requests = [e for e in spans if e.get("name") == "request"
                 and e.get("cat") in ("user_annotation", "cpu_op")]
     require(device and requests, "the profiler recorded no device activity or no request")
@@ -939,14 +954,13 @@ def phase_kernels(smoke):
                 nbytes = feats.numel() * 2 + m.numel() * 4 + e * 2
                 ops = feats.shape[2] * feats.shape[3] * 2 * g * k2_ops_per_pixel_graph(c // g)
                 row.update(
-                    ms=cuda_ms(lambda: edge_weights_chw(feats, m, n_graphs=2 * g), 20),
+                    **times(lambda: edge_weights_chw(feats, m, n_graphs=2 * g), 20),
                     plain_ms=cuda_ms(lambda: edge_weights_plain(feats, m, 2 * g), 5),
                     **_bound(nbytes, ops))
             nbytes = sum(t.numel() * t.element_size() for t in args) + y.numel() * 2
             ops = y.numel() * k1_ops_per_pixel(3)
-            ms, reps = cuda_ms_repeats(lambda: gg_unroll_chw(*args, n_graphs=g), 10)
             k1_rows[-1].update(
-                ms=ms, ms_repeats=reps,
+                **times(lambda: gg_unroll_chw(*args, n_graphs=g), 10, repeats=3),
                 ctas_per_sm=kernel_library().irdu_gg_unroll_ctas_per_sm(dtype_code(dtype)),
                 plain_ms=cuda_ms(lambda: gg_unroll_plain(*args, n_graphs=g), 3),
                 **_bound(nbytes, ops))
@@ -964,8 +978,40 @@ def phase_kernels(smoke):
     bad = [(k, r) for k, rows in smoke.kernel_rows.items() for r in rows if not r["ok"]]
     require(not bad, f"kernels disagree with their plain versions, or moved their "
             f"input by under {CHANGE_FACTOR}x the bar: {bad}")
+    mismatched = layout_mismatches(model)
+    require(not mismatched, f"planner and kernel shared memory differ: {mismatched}")
     require(smoke.lines["band_route"]["ok"], f"the band route disagrees with the K1 route: "
             f"{smoke.lines['band_route']}")
+
+
+def layout_mismatches(model):
+    """The planners' shared-memory counts against the kernels' own layouts
+    (the library's ``irdu_block_stack_wgmma_smem`` and
+    ``irdu_edge_weights_smem``): K3's wgmma kernel at every served (C, H)
+    it takes, K2 at the plan of every call of the 512x512 flagship request
+    and of the pixel model's diamond-12 call, bf16 and f32. Returns the
+    (what, planner bytes, kernel bytes) that differ."""
+    import torch
+
+    from irdu_tpu_torch.kernels.build import kernel_library
+    from irdu_tpu_torch.ops.block_stack import stack_route, stack_smem_bytes
+    from irdu_tpu_torch.ops.edge_weights import plan_edge_tiles
+
+    lib = kernel_library()
+    out = []
+    for c, hidden in {(48, 2 * 48)} | {(c, hd) for _, c, hd, *_ in K3_EXTRA}:
+        if stack_route(torch.bfloat16, c, hidden) == "wgmma":
+            got = lib.irdu_block_stack_wgmma_smem(c, hidden)
+            out.append((f"K3 C={c} H={hidden}", stack_smem_bytes(c, hidden), got))
+    calls = [(2 * lf.n_graphs, lf.n_node_fts, FRAME >> res, 1)
+             for s, lf in enumerate(f.local_filter for f in model.local_filters)
+             for res in (s, s + 1)] + [(48, 3, FRAME, 2)]
+    for g, f, side, radius in calls:
+        for esize in (2, 4):
+            bh, tx, fc, smem = plan_edge_tiles(f, esize, radius)
+            got = lib.irdu_edge_weights_smem(esize, fc, f, bh, tx, radius)
+            out.append((f"K2 G={g} F={f} {side}² e{esize}", smem, got))
+    return [m for m in out if m[1] != m[2]]
 
 
 def k1_ragged_rows(model, gen, bar_at):
@@ -1098,7 +1144,7 @@ def step_rows(model, gen, bar_at):
                     ops = x.numel() * k5_ops_per_pixel(mode, y=aux_ is not None,
                                                        prev=prev_ is not None)
                     row.update(calls=calls if checked else 0,
-                               ms=cuda_ms(lambda: gg_fused_step_chw(*args, **kw), 10),
+                               **times(lambda: gg_fused_step_chw(*args, **kw), 10),
                                plain_ms=cuda_ms(lambda: fused_step_plain(*args, **kw), 2, 1),
                                **_bound(nbytes, ops))
                 rows["gg_fused_step_chw"].append(row)
@@ -1115,7 +1161,7 @@ def step_rows(model, gen, bar_at):
                 if dtype == torch.bfloat16:
                     tensors = [x, ws[0]] + ([ws[1]] if with_glr else [])
                     row.update(calls=int(with_glr and identity),
-                               ms=cuda_ms(lambda: gg_matvec_chw(*args, **kw), 10),
+                               **times(lambda: gg_matvec_chw(*args, **kw), 10),
                                plain_ms=cuda_ms(lambda: matvec_plain(*args, **kw), 2, 1),
                                **_bound(sum(t.numel() * t.element_size() for t in tensors)
                                         + x.numel() * x.element_size(), x.numel()
@@ -1130,7 +1176,7 @@ def step_rows(model, gen, bar_at):
                 if dtype == torch.bfloat16:
                     tensors = [x, ws[0]] + ([y] if y is not None else [])
                     row.update(calls=int(y is not None),
-                               ms=cuda_ms(lambda: gtv_rethresh_chw(*args, n_graphs=g), 10),
+                               **times(lambda: gtv_rethresh_chw(*args, n_graphs=g), 10),
                                plain_ms=cuda_ms(lambda: rethresh_plain(*args, n_graphs=g), 2, 1),
                                **_bound(sum(t.numel() * t.element_size() for t in tensors)
                                         + x.numel() * x.element_size(), x.numel()
@@ -1244,8 +1290,12 @@ def block_rows(model, gen, bar_at):
     import torch
 
     from irdu_tpu_torch.ops.block_stack import (block_stack_plain, fused_block_stack,
-                                                pack_block_params)
+                                                pack_block_params, stack_route)
     from irdu_tpu_torch.ops.gated_block import fused_gated_block, gated_block_plain
+
+    def k3_kernel(dtype, c, hidden):  # the source a K3 call runs on
+        return {"wgmma": "block_stack_wgmma.cu", "block_stack": "block_stack.cu"}[
+            stack_route(dtype, c, hidden)]
 
     rows = {"fused_block_stack": [], "fused_gated_block": []}
     for (h, w) in REQUESTS:
@@ -1270,6 +1320,8 @@ def block_rows(model, gen, bar_at):
                            dtype=str(dtype)[6:], params=f"snapshot, encoder scale {s}",
                            max_abs_err=max_abs(ker, ref),
                            max_ref=float(ref.float().abs().max()), change=change, bar=bar)
+                if s == 0:
+                    row["kernel"] = k3_kernel(dtype, c, params[0]["w2"].shape[0])
                 if dtype == torch.float32:
                     row["ok"] = within(ker, ref, 5e-4, 1e-3) and change >= CHANGE_FACTOR * bar
                 else:
@@ -1280,8 +1332,7 @@ def block_rows(model, gen, bar_at):
                     npx = x.shape[2] * x.shape[3] * len(blocks)
                     nbytes = 2 * x.numel() * x.element_size() + sum(
                         t.numel() * t.element_size() for t in list(args[1:]) + list(kw.values()))
-                    ms, reps = cuda_ms_repeats(lambda: kernel(*args, **kw), 20)
-                    row.update(calls=calls, ms=ms, ms_repeats=reps,
+                    row.update(calls=calls, **times(lambda: kernel(*args, **kw), 20, repeats=3),
                                plain_ms=cuda_ms(lambda: plain(*args, **kw), 5),
                                **_bound(nbytes, cc * npx, tc * npx))
                 rows[name].append(row)
@@ -1302,6 +1353,31 @@ def block_rows(model, gen, bar_at):
         (row["ok"], row["beyond_one_ulp_share"], row["plain_own_err"],
          row["rms_vs_plain"]) = block_bar(ker, ref, unrounded(gated_block_plain, (x,), kw))
         rows["fused_gated_block"].append(row)
+    for model, c, hidden, k, h, w, calls in K3_EXTRA:  # seeded N(0, 1) blocks, bf16
+        def rnd(*shape):
+            return torch.randn(*shape, device=DEVICE, generator=gen)
+        blocks = [dict(scale=rnd(c) * 0.1 + 1, w1=rnd(c, 2 * hidden) / c ** 0.5,
+                       dwk=rnd(3, 3, 2 * hidden) * 0.2, w2=rnd(hidden, c) / hidden ** 0.5,
+                       skip=torch.tensor([1.0, 0.8], device=DEVICE)) for _ in range(k)]
+        args = (torch.randn(1, c, h, w, device=DEVICE, generator=gen).bfloat16(),
+                *pack_block_params(blocks, torch.bfloat16))
+        ker, ref = fused_block_stack(*args), block_stack_plain(*args)
+        sync()
+        row = dict(blocks=k, shape=[1, c, h, w], hidden=hidden, dtype="bfloat16",
+                   params="seeded N(0, 1) blocks", kernel=k3_kernel(torch.bfloat16, c, hidden),
+                   basis=f"{model} {FRAME}x{FRAME} request", max_abs_err=max_abs(ker, ref),
+                   max_ref=float(ref.float().abs().max()))
+        (row["ok"], row["beyond_one_ulp_share"], row["plain_own_err"],
+         row["rms_vs_plain"]) = block_bar(ker, ref, unrounded(block_stack_plain, args, {}))
+        tc, cc = block_ops_per_pixel(c, 2 * hidden)
+        npx = h * w * k
+        row.update(calls=calls, **times(lambda: fused_block_stack(*args), 20, repeats=3),
+                   plain_ms=cuda_ms(lambda: block_stack_plain(*args), 5),
+                   **_bound(2 * args[0].numel() * 2 + sum(t.numel() * t.element_size()
+                                                          for t in args[1:]),
+                            cc * npx, tc * npx))
+        rows["fused_block_stack"].append(row)
+        del ker, ref, args
     return rows
 
 
@@ -1356,7 +1432,7 @@ def pixel_rows(model, gen, bar_at):
                    params="pixel snapshot multiM", max_abs_err=max_abs(ker, ref),
                    ok=k2_bar(ker, ref) if bf16 else within(ker, ref, 5e-4, 1e-3))
         if bf16:
-            row.update(calls=0, ms=cuda_ms(lambda: edge_weights_chw(
+            row.update(calls=0, **times(lambda: edge_weights_chw(
                 feats2, m, n_graphs=2 * g, deltas=DIAMOND12), 10),
                 plain_ms=cuda_ms(lambda: edge_weights_plain(feats2, m, 2 * g, DIAMOND12), 2, 1),
                 **_bound(nbytes(feats2, m, ker), h * w * 2 * g * k2_ops_per_pixel_graph(f, n_e)))
@@ -1371,7 +1447,7 @@ def pixel_rows(model, gen, bar_at):
         row = dict(shape=list(ker.shape), dtype=str(dtype)[6:], params="pixel snapshot")
         row.update(_agree(ker, ref, y.repeat(1, g, 1, 1), dtype, bar_at))
         if bf16:
-            row.update(calls=1, ms=cuda_ms(lambda: gg_pixel_unroll_chw(*args, n_graphs=g), 5),
+            row.update(calls=1, **times(lambda: gg_pixel_unroll_chw(*args, n_graphs=g), 5),
                        plain_ms=cuda_ms(lambda: pixel_unroll_plain(*args, n_graphs=g), 2, 1),
                        **_bound(nbytes(*args, ker), ker.numel() * PIXEL_UNROLL_OPS_PER_PIXEL))
         rows["gg_pixel_unroll_chw"].append(row)
@@ -1395,7 +1471,7 @@ def pixel_rows(model, gen, bar_at):
             if bf16:
                 outs = ker if isinstance(ker, tuple) else (ker,)
                 row.update(calls=K8_CALLS[mode],
-                           ms=cuda_ms(lambda: pixel_segment_nhwc(*args, **kw), 10),
+                           **times(lambda: pixel_segment_nhwc(*args, **kw), 10),
                            plain_ms=cuda_ms(lambda: pixel_segment_plain(*args, **kw), 2, 1),
                            **_bound(nbytes(*args, *outs), x.numel() * NHWC_OPS_PER_PIXEL[mode]))
             rows["pixel_segment_nhwc"].append(row)
@@ -1474,7 +1550,7 @@ def pixel_step_rows(model, gen, bar_at):
                 if timed and dtype == torch.bfloat16:
                     outs = ker if isinstance(ker, tuple) else (ker,)
                     row.update(calls=K5_PIXEL_CALLS[name],
-                               ms=cuda_ms(lambda: gg_fused_step_chw(*args, **kw), 10),
+                               **times(lambda: gg_fused_step_chw(*args, **kw), 10),
                                plain_ms=cuda_ms(lambda: fused_step_plain(*args, **kw), 2, 1),
                                **_bound(nbytes(x, aux_, prev_, wg, wl if glr else None, *outs),
                                         x.numel() * ops))
@@ -1490,7 +1566,7 @@ def pixel_step_rows(model, gen, bar_at):
                                params="pixel snapshot")
                     row.update(_agree(ker, ref, x, dtype, bar_at))
                     if timed and dtype == torch.bfloat16:
-                        row.update(calls=0, ms=cuda_ms(lambda: gg_matvec_chw(*args, **kw), 10),
+                        row.update(calls=0, **times(lambda: gg_matvec_chw(*args, **kw), 10),
                                    plain_ms=cuda_ms(lambda: matvec_plain(*args, **kw), 2, 1),
                                    **_bound(nbytes(x, wg, wl if with_glr else None, ker),
                                             x.numel() * (124 if with_glr else 80)))
@@ -1501,7 +1577,7 @@ def pixel_step_rows(model, gen, bar_at):
                            dtype=str(dtype)[6:], params="pixel snapshot")
                 row.update(_agree(ker, ref, aux, dtype, bar_at))
                 if timed and dtype == torch.bfloat16:
-                    row.update(calls=0, ms=cuda_ms(lambda: gtv_rethresh_chw(*args, **pix), 10),
+                    row.update(calls=0, **times(lambda: gtv_rethresh_chw(*args, **pix), 10),
                                plain_ms=cuda_ms(lambda: rethresh_plain(*args, **pix), 2, 1),
                                **_bound(nbytes(x, aux, wg, ker), x.numel() * 140))
                 rows["gtv_rethresh_chw"].append(row)
@@ -1566,7 +1642,7 @@ def k9_rows(gen, bar_at):
                     del k6
                 if timed and dtype == torch.bfloat16 and stencil == "identity":
                     row.update(calls=K9_CALLS,
-                               ms=cuda_ms(lambda: fused_system_matvec(*args, n_graphs=g), 20),
+                               **times(lambda: fused_system_matvec(*args, n_graphs=g), 20),
                                plain_ms=cuda_ms(lambda: system_matvec_plain(*args, n_graphs=g),
                                                 3, 1),
                                **_bound(sum(t.numel() * t.element_size()
@@ -1593,19 +1669,22 @@ def _bound(nbytes, ops, tensor_ops=0):
 
 
 def kernels_line(smoke):
-    """The per-kernel summary: ms, plain_ms and bound_ms are summed over the
-    calls one request makes (bf16; a timed row counts ``calls`` times): a
-    512x512 request for K1-K4, a 1024x1024 one for K5 (a 512x512 request
-    launches none), one call for K6a and K6b (K5's oracles, on no request's
-    path), a 512x512 pixel request for K7 (CHW route) and K8 (NHWC route),
-    a 512x512 "single" ablation request for K9; rows timed on another basis
-    (K5's pixel mode per 1024x1024 and 2048x2048 pixel request) are summed
-    the same way under ``by_basis``; max_abs_err is the f32 maximum;
+    """The per-kernel summary: ms, device_ms, plain_ms and bound_ms are
+    summed over the calls one request makes (bf16; a timed row counts
+    ``calls`` times): a 512x512 request for K1-K4, a 1024x1024 one for K5
+    (a 512x512 request launches none), one call for K6a and K6b (K5's
+    oracles, on no request's path), a 512x512 pixel request for K7 (CHW
+    route) and K8 (NHWC route), a 512x512 "single" ablation request for K9;
+    rows timed on another basis (K5's pixel mode per 1024x1024 and
+    2048x2048 pixel request, K3 per lite, micro and split-ablation request)
+    are summed the same way under ``by_basis``; max_abs_err is the f32
+    maximum; K3's source is the wgmma stack kernel's, and its rows name the
+    kernel each shape took (``block_stack.cu`` for lite's C = 24 and f32);
     launches are those of the paths' runs (flagship serving, the small
     models, pixel NHWC, pixel CHW, pixel CHW above the cap, each ablation
     config), summed and by path."""
     meta = {
-        "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack.cu",
+        "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack_wgmma.cu",
                               "irdu_tpu/ops/pallas/block_stack.py:214"),
         "fused_gated_block": ("irdu_tpu_torch/kernels/csrc/gated_block.cu",
                               "irdu_tpu/ops/pallas/gated_block.py:94"),
@@ -1635,6 +1714,7 @@ def kernels_line(smoke):
     def summed_over(rows):
         rows = [r for r in rows if r.get("calls", 1)]
         return dict(ms=sum(r["ms"] * r.get("calls", 1) for r in rows),
+                    device_ms=sum(r["device_ms"] * r.get("calls", 1) for r in rows),
                     plain_ms=sum(r["plain_ms"] * r.get("calls", 1) for r in rows),
                     bound_ms=sum(r["bound_ms"] * r.get("calls", 1) for r in rows),
                     calls=sum(r.get("calls", 1) for r in rows))
@@ -1658,6 +1738,8 @@ def kernels_line(smoke):
             max_abs_err_bf16=max(bf16) if bf16 else None,
             per=main_basis,
             ms=sum(r["ms"] * r.get("calls", 1) for r in summed) if summed else None,
+            device_ms=(sum(r["device_ms"] * r.get("calls", 1) for r in summed)
+                       if summed else None),
             plain_ms=sum(r["plain_ms"] * r.get("calls", 1) for r in summed) if summed else None,
             bound_ms=sum(r["bound_ms"] * r.get("calls", 1) for r in summed) if summed else None,
             bound_by=max(summed, key=lambda r: r["bound_ms"])["bound_by"] if summed else None,

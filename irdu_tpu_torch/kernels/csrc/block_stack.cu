@@ -1,8 +1,9 @@
 // K3 and K4: K consecutive LocalNonLinearBlocks of the flagship, CHW, in one
 // pass. Replaces irdu_tpu/ops/pallas/block_stack.py:fused_block_stack (K <= 4)
-// and irdu_tpu/ops/pallas/gated_block.py:fused_gated_block (K = 1). The block,
-// its rounding points, the bound and the design are set out in
-// irdu_tpu_torch/ops/gated_block.py.
+// and irdu_tpu/ops/pallas/gated_block.py:fused_gated_block (K = 1) for the
+// calls the wgmma kernels do not take: f32, and K3 at lite's C = 24 (the
+// rule: ops/block_stack.py:stack_route). The block, its rounding points, the
+// bound and the design are set out in irdu_tpu_torch/ops/gated_block.py.
 //
 // One CTA per output tile. Shared memory holds, for the tile plus a K-pixel
 // halo clipped to the image (the "region", nr pixels, padded to nrp, a

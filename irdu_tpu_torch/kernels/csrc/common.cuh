@@ -1,6 +1,6 @@
 // Shared helpers for the port's CUDA kernels: element loads/stores in f32 or
 // bf16, the stencil coefficients and the re-threshold's edge map, the cross-4
-// and diamond-12 windows, and a window passed by value. Compiled with nvcc
+// and diamond-12 windows. Compiled with nvcc
 // for sm_90a into one shared library with a plain C interface (see
 // ../build.py); no PyTorch headers.
 #pragma once
@@ -57,25 +57,6 @@ __device__ __forceinline__ int d12_dh(int e) {
 __device__ __forceinline__ int d12_dw(int e) {
   constexpr int t[kDiamondEdges] = {0, -1, 0, 1, -2, -1, 1, 2, -1, 0, 1, 0};
   return t[e];
-}
-
-// Any window of up to kMaxEdges offsets, passed to a kernel by value.
-constexpr int kMaxEdges = 12;
-struct Window {
-  int n;
-  int dh[kMaxEdges];
-  int dw[kMaxEdges];
-};
-
-// Fill a Window from n (dh, dw) pairs in host memory; false if n is out of range.
-inline bool make_window(const int* deltas, int n, Window* w) {
-  if (deltas == nullptr || n < 1 || n > kMaxEdges) return false;
-  w->n = n;
-  for (int e = 0; e < n; ++e) {
-    w->dh[e] = deltas[2 * e];
-    w->dw[e] = deltas[2 * e + 1];
-  }
-  return true;
 }
 
 }  // namespace irdu

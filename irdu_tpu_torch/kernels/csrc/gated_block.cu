@@ -44,18 +44,17 @@
 // over C, ddof 1, mean not subtracted) and write y0, rounded to bf16, into
 // Y0.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through cudart
-
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace irdu {
 namespace gated {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
 constexpr int kHc = 32;                     // hidden channels per chunk
 constexpr int kConsumers = 256;             // two warpgroups
@@ -64,8 +63,9 @@ constexpr int kY1Ld = 72;                   // f32 row stride of Y1: 64 + 8
 constexpr int kStages = 2;                  // slots of each weight ring
 constexpr size_t kSmemLimit = 232448;
 
-__host__ __device__ constexpr size_t align1k(size_t n) { return (n + 1023) / 1024 * 1024; }
 __host__ __device__ constexpr int kblocks(int C) { return (C + 63) / 64; }
+// Barrier among the two consumer warpgroups (the producer warp is not in it).
+__device__ __forceinline__ void consumer_sync() { named_sync<kConsumers>(); }
 
 // Shared-memory layout; must match irdu_tpu_torch/ops/gated_block.py:gated_smem_bytes.
 struct Layout {
@@ -95,144 +95,6 @@ struct Args {
   long long dw_st, dw_sh;
   int H, W, nh, th, tw;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma's shared-memory matrix descriptor: K-major, 8-row groups sbo bytes
-// apart, swizzle 1 (128-byte) or 2 (64-byte); the leading offset is unused.
-constexpr int kSw128 = 1, kSw64 = 2;
-__device__ __forceinline__ uint64_t mdesc(uint32_t addr, uint32_t sbo, int swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         ((uint64_t)swizzle << 62);
-}
-
-// D(64 x 32) {+}= A(64 x 16) B(32 x 16)^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D(64 x 64) {+}= A(64 x 16) B(64 x 16)^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D(64 x 96) {+}= A(64 x 16) B(96 x 16)^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N of this warpgroup's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins an accumulator register after a wait, so that no use moves above it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Generic-proxy writes to shared memory, made visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Barrier among the two consumer warpgroups (the producer warp is not in it).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A 2D TMA box load (coordinates innermost first) that completes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Byte offsets of element (row, k) in the swizzled K-major tiles: 128-byte
-// rows (64 bf16, 8-row atoms of 1024 bytes) and 64-byte rows (32 bf16, atoms
-// of 512 bytes): the 16-byte chunk index is XORed with address bits 7-9 / 7-8.
-__device__ __forceinline__ uint32_t sw128(int row, int k) {
-  return row * 128 + ((((k >> 3) ^ row) & 7) << 4) + (k & 7) * 2;
-}
-__device__ __forceinline__ uint32_t sw64(int row, int k) {
-  return row * 64 + ((((k >> 3) ^ (row >> 1)) & 3) << 4) + (k & 7) * 2;
-}
 
 // The expand's rows (region pixels) for C: mr = 192 (C <= 192) or 64, fixed
 // when the kernel is compiled, since ptxas serializes every wgmma that sits
@@ -611,58 +473,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through cudart (the library links
-// cudart only).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 char g_error[256] = "";
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (rows, cols) bf16 matrix with unit column stride and rows `pitch`
-// elements apart, in boxes of box_rows x box_cols, swizzled.
-bool encode(CUtensorMap* map, const void* base, int rows, int cols, long long pitch,
-            int box_rows, int box_cols, CUtensorMapSwizzle swizzle, const char* what) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) {
-    snprintf(g_error, sizeof g_error, "cuTensorMapEncodeTiled not found through cudart");
-    return false;
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) {
-    snprintf(g_error, sizeof g_error, "cuTensorMapEncodeTiled(%s) returned %d", what, (int)r);
-    return false;
-  }
-  return true;
-}
 
 template <int kC, typename P>
 int launch(const Args& a, const void* w1t, long long w1_pitch, const void* w2t,
            long long w2_pitch, int B, cudaStream_t stream) {
   CUtensorMap m1, m2;
   constexpr int kBoxRows = kC / ((kC + 255) / 256);
-  if (!encode(&m1, w1t, 2 * a.nh, kC, w1_pitch, kHc, 64, CU_TENSOR_MAP_SWIZZLE_128B, "w1") ||
-      !encode(&m2, w2t, kC, a.nh, w2_pitch, kBoxRows, kHc, CU_TENSOR_MAP_SWIZZLE_64B, "w2"))
+  if (!encode(&m1, w1t, 2 * a.nh, kC, w1_pitch, kHc, 64, CU_TENSOR_MAP_SWIZZLE_128B, "w1",
+              g_error, sizeof g_error) ||
+      !encode(&m2, w2t, kC, a.nh, w2_pitch, kBoxRows, kHc, CU_TENSOR_MAP_SWIZZLE_64B, "w2",
+              g_error, sizeof g_error))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = layout(kC, expand_rows(kC), kC > 192 ? 64 : 128).total;
   auto kern = gated_kernel<kC, P>;

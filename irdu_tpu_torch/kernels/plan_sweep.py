@@ -1,8 +1,13 @@
-"""Time every launch plan that fits in shared memory of the block kernels
-at the block shapes of the 512x512 and 480x320 requests, in bf16 on one
-CUDA card: K3 (``block_stack.cu``, scale 0) against ``gated_block.plan_tiles``,
-K4 (the wgmma kernel ``gated_block.cu``, scales 1-3: every tile of
-``gated_block.gated_plans``) against ``gated_block.plan_gated_tiles``:
+"""Time every launch plan of the block kernels at the block shapes of the
+512x512 and 480x320 requests, in bf16 on one CUDA card: K3 (the wgmma stack
+kernel ``block_stack_wgmma.cu``, scale 0: every tile of at most 128 pixels
+whose region fits 192) against ``block_stack.plan_stack_tiles``, K4 (the
+wgmma kernel ``gated_block.cu``, scales 1-3: every tile of
+``gated_block.gated_plans``) against ``gated_block.plan_gated_tiles``; and
+K2 (``edge_weights.cu``) at every call of the 512x512 flagship request and
+the pixel model's diamond-12 call, every band of 1-64 rows by 2-8 threads a
+row whose F planes fit ``edge_weights.EDGE_SMEM``, by device time
+(``kernels/timing.py``), against ``edge_weights.plan_edge_tiles``:
 
     python -m irdu_tpu_torch.kernels.plan_sweep [--out sweep.json]
 
@@ -19,8 +24,11 @@ from unittest import mock
 
 import torch
 
+from irdu_tpu_torch.kernels.timing import device_ms
+from irdu_tpu_torch.ops import block_stack as bs
+from irdu_tpu_torch.ops import edge_weights as ew
 from irdu_tpu_torch.ops import gated_block as gb
-from irdu_tpu_torch.ops.block_stack import fused_block_stack, pack_block_params
+from irdu_tpu_torch.ops.windows import DIAMOND12
 
 
 def _params(c, gen):
@@ -53,24 +61,23 @@ def sweep(requests=((512, 512), (480, 320))):
             c, hh, ww, k = 48 << s, h >> s, w >> s, 4 if s == 0 else 1
             x = torch.randn(1, c, hh, ww, device="cuda", generator=gen).bfloat16()
             shape = []
-            if s == 0:  # K3: every tile and chunk of the block kernel
-                packed = pack_block_params([_params(c, gen) for _ in range(4)], torch.bfloat16)
+            if s == 0:  # K3: every tile of the wgmma stack kernel
+                packed = bs.pack_block_params([_params(c, gen) for _ in range(4)],
+                                              torch.bfloat16)
                 def run():
-                    return fused_block_stack(x, *packed)
-                for th in gb.TILE_SIZES:
-                    for tw in gb.TILE_SIZES:
-                        nrp = -(-min(th + 2 * k, hh) * min(tw + 2 * k, ww) // 16) * 16
-                        for hc in (32, 16):
-                            smem = gb.smem_bytes(c, hc, nrp, 2)
-                            if smem > gb.SMEM_LIMIT:
-                                continue
-                            with mock.patch.object(gb, "plan_tiles",
-                                                   return_value=(th, tw, hc, smem)):
-                                ms = _ms(run)
-                            shape.append(dict(c=c, h=hh, w=ww, blocks=k, tile=[th, tw], hc=hc,
-                                              nrp=nrp, ms=ms))
-                th, tw, hc, _ = gb.plan_tiles(1, c, 2 * c, hh, ww, k, 2)
-                picked = next(r for r in shape if r["tile"] == [th, tw] and r["hc"] == hc)
+                    return bs.fused_block_stack(x, *packed)
+                smem = bs.stack_smem_bytes(c, 2 * c)
+                for th in gb.GATED_TILE_SIZES:
+                    for tw in gb.GATED_TILE_SIZES:
+                        if (th * tw > bs.STACK_MP
+                                or min(th + 2, hh) * min(tw + 2, ww) > bs.STACK_MR):
+                            continue
+                        with mock.patch.object(bs, "plan_stack_tiles",
+                                               return_value=(th, tw, smem)):
+                            ms = _ms(run)
+                        shape.append(dict(c=c, h=hh, w=ww, blocks=k, tile=[th, tw], ms=ms))
+                th, tw, _ = bs.plan_stack_tiles(1, c, 2 * c, hh, ww)
+                picked = next(r for r in shape if r["tile"] == [th, tw])
             else:  # K4: every tile of the wgmma kernel
                 p = _params(c, gen)
                 def run():
@@ -89,6 +96,42 @@ def sweep(requests=((512, 512), (480, 320))):
     return rows, summary
 
 
+# K2's calls: (graphs, features, side, window) of the 512x512 flagship
+# request (2G graphs, full and half resolution per scale) and the pixel
+# model's diamond-12 call
+K2_CALLS = tuple((2 * g, f, 512 >> res, None) for s, (g, f) in
+                 enumerate(((8, 6), (16, 6), (16, 12), (32, 12))) for res in (s, s + 1)) + (
+    (48, 3, 512, DIAMOND12),)
+
+
+def sweep_edges():
+    """K2 in bf16 at K2_CALLS: the device time of every band that fits."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, summary = [], []
+    for g, f, side, deltas in K2_CALLS:
+        kw = {} if deltas is None else dict(deltas=deltas)
+        radius = 1 if deltas is None else 2
+        feats = torch.randn(1, g * f, side, side, device="cuda", generator=gen).bfloat16()
+        m = (1 + 0.3 * torch.randn(g, f, device="cuda", generator=gen)).bfloat16()
+        shape = []
+        for bh in (1, 2, 4, 8, 16, 32, 64):
+            for tx in (2, 4, 8):
+                smem = ew.edge_smem_bytes(2, f, f, bh, tx, radius)
+                if bh * tx > 256 or smem > ew.EDGE_SMEM:
+                    continue
+                with mock.patch.object(ew, "plan_edge_tiles", return_value=(bh, tx, f, smem)):
+                    ms = device_ms(lambda: ew.edge_weights_chw(feats, m, n_graphs=g, **kw), 20)
+                shape.append(dict(shape=[1, g * f, side, side], radius=radius, band=[bh, tx],
+                                  device_ms=ms))
+        bh, tx, _, _ = ew.plan_edge_tiles(f, 2, radius)
+        picked = next(r for r in shape if r["band"] == [bh, tx])
+        best = min(shape, key=lambda r: r["device_ms"])
+        rows += shape
+        summary.append(dict(k2=[1, g * f, side, side], fastest=best, picked=picked,
+                            ratio=picked["device_ms"] / best["device_ms"]))
+    return rows, summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m irdu_tpu_torch.kernels.plan_sweep",
                                  description=__doc__,
@@ -98,7 +141,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("plan_sweep needs a CUDA card")
     rows, summary = sweep()
-    for line in summary:
+    k2_rows, k2_summary = sweep_edges()
+    rows += k2_rows
+    for line in summary + k2_summary:
         print(json.dumps(line))
     if args.out:
         with open(args.out, "w") as fh:

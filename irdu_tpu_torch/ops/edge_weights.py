@@ -8,30 +8,38 @@ over the E edges. The window is cross-4 for the flagship (E = 4) and
 diamond-12 for the pixel family (E = 12, offsets up to distance 2). Compute
 in f32; output in the input dtype.
 
-On the card (``kernels/csrc/edge_weights.cu``): one thread per
-(batch, graph, pixel). It reads the F features at the centre and at its E
-neighbours once and accumulates the E + 1 squared norms and the E
-metric-weighted dot products in one pass, so normalization costs no second
-read. The window's offset table goes to the kernel by value and E is a
-template parameter (4 or 12). The work is ~(4E + 2) flops per feature and
-pixel against 2-4 bytes per feature read, so it is bound by device-memory
-bytes (features read once, weights written once); neighbouring threads take
-neighbouring pixels of a row, so every read and write is coalesced, and the
-neighbour reads hit L1/L2.
+On the card (``kernels/csrc/edge_weights.cu``): the work is ~(4E + 2)
+flops per feature and pixel against 2-4 bytes per feature read, so it is
+bound by device-memory bytes (features read once, weights written once). One
+CTA takes one graph and a tile of rows (the band), and copies the band plus
+the window's radius rows (1 for cross-4, 2 for diamond-12) of its feature
+planes into shared memory 16 bytes at a time (cp.async), F planes at once or
+in chunks of fc when they do not fit (``plan_edge_tiles``), with the replicate
+pad of the image's edges filled in beside them. Each thread takes 8 adjacent
+pixels of a row in bf16 (4 in f32), so that neighbouring columns come from
+shared memory and each edge's output leaves in one 16-byte store; it keeps
+the E metric-weighted dots of its pixels in registers, while the squared
+norms are summed once per position of the band and shared by the neighbours
+that read them. Compute in f32, then the softmax over E and the output in
+the input dtype. The metric diagonal is read in its own dtype (f32 or bf16).
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
 from irdu_tpu_torch.ops.shifts import shift2d
-from irdu_tpu_torch.ops.windows import CROSS4
+from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
 
 _NORMALIZE_EPS = 1e-12
-KERNEL_EDGES = (4, 12)  # the window sizes the kernel is built for: cross-4, diamond-12
+KERNEL_WINDOWS = {4: CROSS4, 12: DIAMOND12}  # the windows the kernel is built for, by E
+EDGE_PAD = 8          # shared-memory columns beside a tile, each side
+EDGE_ROWS, EDGE_TX = 16, 8  # a CTA's band: rows, and threads a row
+EDGE_SMEM = 48 * 1024  # shared memory a plan keeps to, unless one feature plane is more
+SMEM_LIMIT = 232448   # bytes of shared memory one H100 block can use
 
 
 def edge_weights_plain(feats: torch.Tensor, multi_m: torch.Tensor,
@@ -58,10 +66,44 @@ def _check(feats, multi_m, n_graphs):
                          f"got {tuple(multi_m.shape)}")
 
 
-def window_arg(deltas):
-    """The window as the kernels take it: a C int array of (dh, dw) pairs."""
-    flat = [v for d in deltas for v in d]
-    return (ctypes.c_int * len(flat))(*flat)
+def window_radius(deltas) -> int:
+    """The rows above and below a pixel that the window reads (1 for
+    cross-4, 2 for diamond-12)."""
+    return max(abs(dh) for dh, _ in deltas)
+
+
+def edge_smem_bytes(esize: int, fc: int, f: int, bh: int, tx: int, radius: int) -> int:
+    """Shared memory of one CTA, as the kernel lays it out: fc feature planes
+    of the tile's bh + 2·radius rows by tx·(16 / esize) + 2·EDGE_PAD columns in
+    the input dtype, the f32 squared norms of those positions, the F squared
+    metric entries; the first two parts 16-byte aligned."""
+    rows, cols = bh + 2 * radius, tx * (16 // esize) + 2 * EDGE_PAD
+
+    def seg(n):
+        return -(-n // 16) * 16
+
+    return seg(esize * fc * rows * cols) + seg(4 * rows * cols) + 4 * f
+
+
+@functools.lru_cache(maxsize=None)
+def plan_edge_tiles(f: int, esize: int, radius: int) -> tuple[int, int, int, int]:
+    """(bh rows, tx threads a row, fc features a chunk, smem bytes) of a
+    launch: bands of EDGE_ROWS rows, EDGE_TX threads a row (each taking
+    16 / esize pixels), and the most features a chunk within EDGE_SMEM (at
+    least one). This band was the fastest, or within 7 % of it, at every K2
+    shape of the 512x512 flagship request and of the pixel model's
+    diamond-12 call in a sweep of bands of 1-64 rows by 2-8 threads on the
+    H100 (``python -m irdu_tpu_torch.kernels.plan_sweep``); thinner bands,
+    which give the small planes of scales 2-3 more CTAs, were slower there."""
+    bh, tx = EDGE_ROWS, EDGE_TX
+    per_feature = edge_smem_bytes(esize, 1, f, bh, tx, radius) - edge_smem_bytes(
+        esize, 0, f, bh, tx, radius)
+    fc = max(1, min(f, (EDGE_SMEM - edge_smem_bytes(esize, 0, f, bh, tx, radius))
+                    // per_feature))
+    smem = edge_smem_bytes(esize, fc, f, bh, tx, radius)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"no edge-weight plan fits F={f} in {SMEM_LIMIT} bytes")
+    return bh, tx, fc, smem
 
 
 def edge_weights_chw(feats: torch.Tensor, multi_m: torch.Tensor, *,
@@ -70,23 +112,31 @@ def edge_weights_chw(feats: torch.Tensor, multi_m: torch.Tensor, *,
     the window ``deltas`` (E offsets, cross-4 by default).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (f32 or bf16 features, contiguous; multi_m any float type, cast to f32;
-    E of 4 or 12)."""
+    (f32 or bf16 features, contiguous; multi_m read as it is when it is f32
+    or bf16 and contiguous, else cast to f32; the cross-4 or diamond-12
+    window)."""
     _check(feats, multi_m, n_graphs)
     if feats.device.type == "cpu":
         return edge_weights_plain(feats, multi_m, n_graphs, deltas)
     if feats.device.type != "cuda" or not feats.is_contiguous():
         raise ValueError("edge_weights_chw needs a contiguous CUDA or CPU tensor")
     n_e = len(deltas)
-    if n_e not in KERNEL_EDGES:
-        raise ValueError(f"the kernel takes windows of {KERNEL_EDGES} edges, not {n_e}")
+    if tuple(map(tuple, deltas)) != KERNEL_WINDOWS.get(n_e):
+        raise ValueError(f"the kernel takes the cross-4 and diamond-12 windows, not {deltas}")
+    radius = window_radius(deltas)
     b, c, h, w = feats.shape
-    m = multi_m.to(device=feats.device, dtype=torch.float32).contiguous()
+    f = c // n_graphs
+    m = multi_m
+    if m.dtype not in (torch.float32, torch.bfloat16) or not m.is_contiguous():
+        m = m.float().contiguous()
+    if m.device != feats.device:
+        raise ValueError(f"edge_weights_chw: multi_m must be on {feats.device}")
+    bh, tx, fc, _ = plan_edge_tiles(f, feats.element_size(), radius)
     out = torch.empty((b, n_graphs, n_e, h, w), dtype=feats.dtype, device=feats.device)
     lib = kernel_library()
     status = lib.irdu_edge_weights(
-        feats.data_ptr(), m.data_ptr(), out.data_ptr(), b, n_graphs,
-        c // n_graphs, h, w, window_arg(deltas), n_e, dtype_code(feats.dtype),
+        feats.data_ptr(), m.data_ptr(), out.data_ptr(), b, n_graphs, f, h, w,
+        n_e, dtype_code(feats.dtype), dtype_code(m.dtype), bh, tx, fc,
         torch.cuda.current_stream(feats.device).cuda_stream)
     check_status("edge_weights_chw", status)
     edge_weights_chw.launches += 1

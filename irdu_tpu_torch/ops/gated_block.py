@@ -33,11 +33,12 @@ C is one of 96, 128, 192, 384 and H a multiple of 32 (every block the
 flagship, lite, micro and the ablation heads serve on K4); anything else
 raises. ``plan_gated_tiles`` picks the tile.
 
-In f32 (not served; the f32 model check) and for K3, the block kernel of
-``kernels/csrc/block_stack.cu`` (K = 1 here): one CTA per output tile of
-(tile_h, tile_w) pixels with a K-pixel halo, the f32 activation in shared
-memory, the hidden dimension in chunks of hc, the 1×1 products as f32 FMAs
-on the CUDA cores (``mma.sync`` in bf16 for K3). Per pixel a block needs
+In f32 (not served; the f32 model check), and for the K3 calls that
+``ops/block_stack.stack_route`` sends there (lite's C = 24, and f32), the
+block kernel of ``kernels/csrc/block_stack.cu`` (K = 1 here): one CTA per
+output tile of (tile_h, tile_w) pixels with a K-pixel halo, the f32
+activation in shared memory, the hidden dimension in chunks of hc, the 1×1
+products as f32 FMAs on the CUDA cores (``mma.sync`` in bf16). Per pixel a block needs
 3·C·2H tensor operations and about 21·2H + 8·C CUDA-core operations
 against 4·C bytes (bf16 in and out), so it is bound by operations: by the
 CUDA-core taps and gate at C ≤ 96 and by the products at C ≥ 192. The halo
@@ -129,10 +130,10 @@ def plan_tiles(b: int, c: int, hidden: int, h: int, w: int, n_blocks: int,
     CTA's time grows with its region's padded pixels nrp and its number of
     hidden chunks H / hc. Of the plans that fit in shared memory, the one with
     the least waves × (nrp + H / hc) wins, on a tie the larger hc. This cost
-    picks the fastest plan, or one within 5 % of it, at each block shape of
-    the 512x512 and 480x320 requests in a sweep of every fitting plan on the
-    H100 (``python -m irdu_tpu_torch.kernels.plan_sweep``). Raises if nothing
-    fits."""
+    picked the fastest plan, or one within 5 % of it, at the flagship's K3
+    shapes of the 512x512 and 480x320 requests in a sweep of every fitting
+    plan on the H100, while they ran on this kernel (before the wgmma stack
+    kernel). Raises if nothing fits."""
     hcs = [v for v in ((32, 16, 8) if esize == 4 else (32, 16)) if hidden % v == 0]
     best = None
     for th in TILE_SIZES:

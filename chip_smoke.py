@@ -63,8 +63,9 @@ Phases, each timed and printed as it ends:
             from its input, so that a kernel returning its input cannot pass;
             kernel and plain times from CUDA events at the 512x512 shapes,
             and beside each kernel time its device time (``device_ms``:
-            torch.profiler over the same repetitions, the kernels' own
-            durations, no host work in the window).
+            torch.profiler over the same repetitions, the durations of the
+            device events linked to the timed calls' launches, no host work
+            in the window; the ``device_ms`` line says how each was taken).
             K1 also on the 480x320 request's 120x80 and 60x40 planes (ragged
             tiles), K4 also at micro's and the ablation heads' widths and K3
             at every other served shape, lite's, micro's and the split
@@ -96,8 +97,11 @@ Phases, each timed and printed as it ends:
             "single" ablation's shape (1, 512, 512, 96), G = 1, and at
             (1, 37, 53, 40), G = 2 (ragged tiles and channel chunks), f32 and
             bf16, against its plain version and (f32) against K6a on the same
-            data permuted to CHW. The planners' shared-memory counts must
-            equal the kernels' own layouts (``layout_mismatches``);
+            data permuted to CHW. K5 two-scale at K5_RAGGED and K8 at
+            K8_RAGGED (ragged tiles, odd H and W, a partial graph group),
+            each mode, f32 and bf16, the same bars, untimed. The planners'
+            shared-memory counts must equal the kernels' own layouts
+            (``layout_mismatches``);
   model     the whole model in f32 with TF32 off on each flagship request's
             noisy image (the first is 1x512x512x3): kernel path against plain
             path (blocks as PyTorch ops, the solver's plain versions),
@@ -112,7 +116,7 @@ The build must take under 60 s and the whole script under 450 s; a run over
 either budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
-results, the serving and model lines, the phase times and, only when every
+results, the serving, model and ``device_ms`` lines, the phase times and, only when every
 phase passed, {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits
 non-zero without a CUDA card, without the package beside this script, or when
 any phase fails.
@@ -209,13 +213,20 @@ ABLATION_F32_BAR = 1e-5  # the f32 forward, kernels against plain, of max(1, max
 K9_SHAPE = (1, 512, 512, 96)  # the "single" ablation's matvec at 512x512, G = 1
 # ragged 8x16 tiles both ways, a partial last channel chunk, chunks across graphs (G = 2)
 K9_RAGGED = (1, 37, 53, 40)
-# K5's pixel mode and K6a/K6b on diamond-12 also at ragged 32x64 tiles, odd H and W
+# K5's pixel mode and K6a/K6b on diamond-12 also at ragged tiles (K5's 16x64,
+# K6a/K6b's 32x64), odd H and W
 STEP_RAGGED = (37, 53)
 K9_CALLS = 3  # per "single" request
 LOUD = (1, 20, 20, 1)  # per-scale factor on the snapshot's μ, ρ, γ in the K1 rows
 # K1 also at the 480x320 request's scale-2 and scale-3 planes (ragged 32x64
 # tiles; the 60x40 plane is smaller than one tile)
 K1_RAGGED = ((2, (120, 80)), (3, (60, 40)))
+# K5 two-scale on ragged 32x64 tiles (every plan's tiles cut short in both
+# directions): (H, W), G, F
+K5_RAGGED = ((74, 134), 2, 6)
+# K8 on ragged 16x32 tiles with odd H and W: G = 5 (a partial last graph
+# group, lane-by-lane loads) and the pixel model's G = 24, F = 3
+K8_RAGGED = ((37, 53), (5, 24), 3)
 # K4 also at the served shapes outside the flagship: micro's C = 128 (hidden
 # 256) at 64², the ablation heads' C = 96 (hidden 256) at 512² and 256²
 K4_EXTRA = ((128, 256, 64, 64), (96, 256, 512, 512), (96, 256, 256, 256))
@@ -306,6 +317,33 @@ def times(fn, reps, repeats=1):
     if repeats > 1:
         out["ms_repeats"] = [round(t, 5) for t in runs]
     return out
+
+
+def device_ms_sessions():
+    """How the run's ``device_ms`` times were taken (``kernels/timing.py``):
+    its profiler sessions, the void ones (run again: a device event with no
+    launch, a timed call short of device events, or no device time), the
+    sessions whose trace lacks device events of their first calls, the
+    times taken by CUDA events after a sleep instead, the range of the
+    trace's launch-to-device lead (negative when it puts device time before
+    the launch), and the largest relative gap between the sum by launch and
+    the sum by the trace's clock. Every session's record goes to
+    ``chiprun_out/device_ms_sessions.json``."""
+    timing = sys.modules.get("irdu_tpu_torch.kernels.timing")
+    sessions = timing.SESSIONS if timing else []
+    with open(os.path.join(OUT_DIR, "device_ms_sessions.json"), "w") as fh:
+        json.dump(sessions, fh)
+    profiled = [r for r in sessions if "by_clock" in r]
+    leads = [r["lead_us"] for r in profiled if r["lead_us"] is not None]
+    both = [r for r in profiled if r["by_launch"] and r["by_clock"]]
+    return {"device_ms": dict(
+        sessions=len(profiled),
+        void=sum(not (r["complete"] and r["by_launch"]) for r in profiled),
+        short_start=sum(min(r["per_call"], default=0) < max(r["per_call"], default=0)
+                        for r in profiled),
+        events_after_sleep=sum("events_after_sleep_ms" in r for r in sessions),
+        lead_us=[min(leads), max(leads)] if leads else None,
+        max_gap=max((abs(r["by_clock"] / r["by_launch"] - 1) for r in both), default=None))}
 
 
 def max_abs(a, b):
@@ -969,7 +1007,7 @@ def phase_kernels(smoke):
                          **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at)}
     pixel = smoke.pixel_model or load_model(device=DEVICE, name="pixel")
     for more in (pixel_rows(pixel, gen, bar_at), pixel_step_rows(pixel, gen, bar_at),
-                 k9_rows(gen, bar_at)):
+                 k9_rows(gen, bar_at), ragged_step_rows(gen, bar_at)):
         for name, rows in more.items():
             smoke.kernel_rows.setdefault(name, []).extend(rows)
     smoke.lines["band_route"] = band_route(model)
@@ -986,15 +1024,19 @@ def phase_kernels(smoke):
 
 def layout_mismatches(model):
     """The planners' shared-memory counts against the kernels' own layouts
-    (the library's ``irdu_block_stack_wgmma_smem`` and
-    ``irdu_edge_weights_smem``): K3's wgmma kernel at every served (C, H)
+    (the library's ``irdu_block_stack_wgmma_smem``,
+    ``irdu_edge_weights_smem``, ``irdu_fused_step_hopper_smem`` and
+    ``irdu_pixel_segment_smem``): K3's wgmma kernel at every served (C, H)
     it takes, K2 at the plan of every call of the 512x512 flagship request
-    and of the pixel model's diamond-12 call, bf16 and f32. Returns the
+    and of the pixel model's diamond-12 call, bf16 and f32; K5 and K8 at
+    every tile plan they are built with, with and without GLR. Returns the
     (what, planner bytes, kernel bytes) that differ."""
     import torch
 
     from irdu_tpu_torch.kernels.build import kernel_library
     from irdu_tpu_torch.ops.block_stack import stack_route, stack_smem_bytes
+    from irdu_tpu_torch.ops import fused_step as fs
+    from irdu_tpu_torch.ops import pixel_nhwc as pn
     from irdu_tpu_torch.ops.edge_weights import plan_edge_tiles
 
     lib = kernel_library()
@@ -1011,6 +1053,21 @@ def layout_mismatches(model):
             bh, tx, fc, smem = plan_edge_tiles(f, esize, radius)
             got = lib.irdu_edge_weights_smem(esize, fc, f, bh, tx, radius)
             out.append((f"K2 G={g} F={f} {side}² e{esize}", smem, got))
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        esize = 4 if code == 0 else 2
+        for two, win in ((True, 0), (False, 0), (False, 1)):
+            for plan in range(len(fs.K5_PLANS[two])):
+                if not fs.k5_has_plan(plan, two, win, dtype):
+                    continue
+                for glr in (False, True):
+                    got = lib.irdu_fused_step_hopper_smem(win, int(two), int(glr), plan, code)
+                    out.append((f"K5 window={win} two={two} glr={glr} plan={plan} e{esize}",
+                                fs.k5_smem_bytes(win, two, glr, plan, esize), got))
+        for plan in range(len(pn.K8_PLANS) if code else 1):
+            for glr in (False, True):
+                got = lib.irdu_pixel_segment_smem(int(glr), plan, code)
+                out.append((f"K8 glr={glr} plan={plan} e{esize}",
+                            pn.k8_smem_bytes(glr, plan, esize), got))
     return [m for m in out if m[1] != m[2]]
 
 
@@ -1049,6 +1106,76 @@ def k1_ragged_rows(model, gen, bar_at):
                              params=f"snapshot, mu/rho/gamma x{LOUD[s]}, cg3",
                              max_abs_err=max_abs(ker, ref), max_ref=float(ref.float().abs().max()),
                              change=change, bar=bar, ok=ok))
+    return rows
+
+
+def ragged_step_rows(gen, bar_at):
+    """K5 two-scale (cross-4, "edge") and K8 against their plain versions on
+    the ragged shapes K5_RAGGED and K8_RAGGED, f32 and bf16, each mode, on
+    seeded inputs: planes U[0, 1), the previous update 0.3·N(0, 1), weights
+    softmaxes of N(0, 1) draws over the window, stencil rows (1, .5, .5, .5)
+    + 0.3·N(0, 1), per-graph scalars 0.3-0.6; untimed."""
+    import torch
+
+    from irdu_tpu_torch.ops.fused_step import fused_scal, fused_step_plain, gg_fused_step_chw
+    from irdu_tpu_torch.ops.pixel_nhwc import pixel_segment_nhwc, pixel_segment_plain
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen)
+
+    def unit(*shape):
+        return torch.rand(*shape, device=DEVICE, generator=gen)
+
+    def soft(*shape, dim):
+        return torch.softmax(rnd(*shape), dim=dim)
+
+    base = torch.tensor([1.0, 0.5, 0.5, 0.5], device=DEVICE)
+    rows = {"gg_fused_step_chw": [], "pixel_segment_nhwc": []}
+    (h, w), g, f = K5_RAGGED
+    c = g * f
+    planes = [unit(1, c, h, w), unit(1, c, h, w), 0.3 * rnd(1, c, h, w)]
+    ws = [soft(1, g, 4, h, w, dim=2), soft(1, g, 4, h, w, dim=2),
+          soft(1, g, 4, h // 2, w // 2, dim=2), soft(1, g, 4, h // 2, w // 2, dim=2)]
+    tables = [base[None, :, None] + 0.3 * rnd(g, 4, f) for _ in range(4)]
+    v = {k: 0.3 + 0.3 * unit(g) for k in ("mu0", "ro0", "mu1", "ro1", "alpha", "beta",
+                                          "gamma0", "gamma1")}
+    scal = fused_scal(g, **v)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, aux, prev = (t.to(dtype) for t in planes)
+        wt = [t.to(dtype) for t in ws]
+        for name, mode, aux_, prev_, kw in (
+                ("rhs", "rhs", None, None, {}),
+                ("cg_prev_emit_update", "cg", aux, prev, dict(emit_update=True)),
+                ("rethresh_y", "rethresh", aux, None, {})):
+            args = (x, aux_, prev_, *wt, *tables, scal)
+            kw = dict(mode=mode, n_graphs=g, **kw)
+            ker, ref = gg_fused_step_chw(*args, **kw), fused_step_plain(*args, **kw)
+            sync()
+            row = dict(case=name, shape=list(x.shape), dtype=str(dtype)[6:], ragged=True,
+                       params="seeded")
+            row.update(_agree(ker, ref, aux_ if mode == "rethresh" else x, dtype, bar_at))
+            rows["gg_fused_step_chw"].append(row)
+    (h, w), graphs, f = K8_RAGGED
+    p = base[None] + 0.2 * rnd(2, 4)
+    for g in graphs:
+        c = g * f
+        planes = [unit(1, h, w, c), unit(1, h, w, c), 0.3 * rnd(1, h, w, c)]
+        packed = [soft(1, h, w, 12, g, dim=3).reshape(1, h, w, 12 * g) for _ in range(2)]
+        sc = torch.stack([0.3 + 0.3 * unit(c) for _ in range(5)])
+        for dtype in (torch.float32, torch.bfloat16):
+            x, aux, prev = (t.to(dtype) for t in planes)
+            wg, wl = (t.to(dtype) for t in packed)
+            for mode, aux_, prev_, wl_ in (("rhs", None, None, None), ("cg1", None, None, wl),
+                                           ("cg2", aux, prev, wl),
+                                           ("rethresh", aux, None, None)):
+                args = (x, aux_, prev_, wg, wl_, p, sc)
+                kw = dict(mode=mode, n_graphs=g)
+                ker, ref = pixel_segment_nhwc(*args, **kw), pixel_segment_plain(*args, **kw)
+                sync()
+                row = dict(mode=mode, shape=list(x.shape), n_graphs=g, dtype=str(dtype)[6:],
+                           ragged=True, params="seeded")
+                row.update(_agree(ker, ref, aux_ if mode == "rethresh" else x, dtype, bar_at))
+                rows["pixel_segment_nhwc"].append(row)
     return rows
 
 
@@ -1692,7 +1819,7 @@ def kernels_line(smoke):
                           "irdu_tpu/ops/pallas/solver_unroll.py:242"),
         "edge_weights_chw": ("irdu_tpu_torch/kernels/csrc/edge_weights.cu",
                              "irdu_tpu/ops/pallas/solver_chw.py:848"),
-        "gg_fused_step_chw": ("irdu_tpu_torch/kernels/csrc/fused_step.cu",
+        "gg_fused_step_chw": ("irdu_tpu_torch/kernels/csrc/fused_step_hopper.cu",
                               "irdu_tpu/ops/pallas/solver_chw.py:511"),
         "gg_matvec_chw": ("irdu_tpu_torch/kernels/csrc/fused_step.cu",
                           "irdu_tpu/ops/pallas/solver_chw.py:735"),
@@ -1892,8 +2019,10 @@ def main() -> int:
         smoke.run("ablation", phase_ablation, smoke)
         smoke.run("kernels", phase_kernels, smoke)
         smoke.run("model", phase_model, smoke)
+    smoke.lines["device_ms"] = device_ms_sessions()
     print(json.dumps(kernels_line(smoke)), flush=True)
-    for key in ("serving", "profile", "small_models", "pixel", "ablation", "band_route", "model"):
+    for key in ("serving", "profile", "small_models", "pixel", "ablation", "band_route", "model",
+                "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:

@@ -4,8 +4,10 @@ own, in the order base, tree, tree, base per round. Compared are every kernel
 row that both trees time (their ``chiprun_out/chip_smoke_kernels.json``: K1
 at the 512x512 request's four scales, K3, K4 at its three, K5, K6a, K6b and
 the pixel and ablation kernels, bf16), the 512x512 request's latency (the
-``blocks_512`` median of six requests with every block on its kernel) and
-the ``band_route`` medians of the scale-0 solve on K1 and on K5's band route.
+``blocks_512`` median of six requests with every block on its kernel), the
+1024x1024 and 2048x2048 requests' (one each), the pixel model's NHWC and
+CHW routes (``routes_*`` medians) and the ``band_route`` medians of the
+scale-0 solve on K1 and on K5's band route.
 
     git archive <commit> irdu_tpu_torch chip_smoke.py | tar -x -C experiments/base
     ln -sfn "$PWD/artifacts" experiments/base/artifacts   # the weights
@@ -13,8 +15,10 @@ the ``band_route`` medians of the scale-0 solve on K1 and on K5's band route.
 
 After each ``chip_smoke.py`` the turn runs DEVICE_PROBE in the same tree,
 through that tree's own wrappers: the device time of K2 at every shape of
-the 512x512 flagship request and at the pixel model's diamond-12 shape, and
-of K3 at the flagship's, each from torch.profiler (the kernels' own
+the 512x512 flagship request and at the pixel model's diamond-12 shape, of
+K3 at the flagship's, of K5 in the 1024x1024 flagship request's five calls
+and of K8 in its four modes at the 512x512 pixel request, each from
+torch.profiler (the kernels' own
 durations over 20 calls, no host work: this tree's ``kernels/timing.py``),
 so that a tree whose ``chip_smoke.py`` records no ``device_ms`` is compared
 too. Rows that both trees' ``chip_smoke.py`` give a ``device_ms`` are
@@ -23,7 +27,8 @@ compared on it as well.
 Per compared row it prints one JSON line: the times of each turn of the
 other checkout ("base") and of this tree ("tree"), their medians, minima and
 maxima, and base / tree. The lines, and each tree's ``profile`` line where
-its ``chip_smoke.py`` has one, also go to ``chiprun_out/ab_sources.json``.
+its ``chip_smoke.py`` has one, also go to ``chiprun_out/ab_sources.json``,
+with each turn's ``device_ms`` line (how its device times were taken).
 """
 
 from __future__ import annotations
@@ -77,13 +82,46 @@ blocks = [dict(scale=rnd(48) * 0.1 + 1, w1=rnd(48, 192) / 48 ** 0.5, dwk=rnd(3, 
           for _ in range(4)]
 args = (rnd(1, 48, 512, 512).bfloat16(), *pack_block_params(blocks, torch.bfloat16))
 out["K3 [1, 48, 512, 512] x4"] = device_ms(lambda: fused_block_stack(*args))
+del args, blocks
+# K5 at the 1024x1024 flagship request's five scale-0 calls (G = 8, F = 6,
+# two-scale cross-4), and K8 in its four modes at the 512x512 pixel request
+# (G = 24, F = 3); weights softmaxes over the window, as K2 gives them
+from irdu_tpu_torch.ops.fused_step import fused_scal, gg_fused_step_chw
+from irdu_tpu_torch.ops.pixel_nhwc import pixel_segment_nhwc
+def unit(*shape):
+    return torch.rand(*shape, device="cuda", generator=gen).bfloat16()
+def soft(*shape, dim=2):
+    return torch.softmax(rnd(*shape), dim=dim).bfloat16()
+x, aux, prev = unit(1, 48, 1024, 1024), unit(1, 48, 1024, 1024), unit(1, 48, 1024, 1024)
+ws = (soft(1, 8, 4, 1024, 1024), soft(1, 8, 4, 1024, 1024), soft(1, 8, 4, 512, 512),
+      soft(1, 8, 4, 512, 512))
+tab = torch.tensor([1.0, 0.5, 0.5, 0.5], device="cuda")[None, :, None].expand(8, 4, 6).contiguous()
+v = torch.full((8,), 0.1, device="cuda")
+scal = fused_scal(8, mu0=v, ro0=v, mu1=v, ro1=v, alpha=v, beta=v, gamma0=v, gamma1=v)
+for name, mode, a_, p_, kw in (("rhs", "rhs", None, None, {}),
+                               ("cg_use_x_rhs", "cg", None, None, dict(use_x_rhs=True)),
+                               ("rethresh_y", "rethresh", aux, None, {}),
+                               ("cg_emit_update", "cg", aux, None, dict(emit_update=True)),
+                               ("cg_prev", "cg", aux, prev, {})):
+    out[f"K5 [1, 48, 1024, 1024] {name}"] = device_ms(lambda: gg_fused_step_chw(
+        x, a_, p_, *ws, tab, tab, tab, tab, scal, mode=mode, n_graphs=8, **kw))
+del x, aux, prev, ws
+x, aux, prev = unit(1, 512, 512, 72), unit(1, 512, 512, 72), unit(1, 512, 512, 72)
+wg, wl = (soft(1, 512, 512, 12, 24, dim=3).reshape(1, 512, 512, 288) for _ in range(2))
+p = torch.tensor([[1.0, 0.5, 0.5, 0.5]] * 2, device="cuda")
+sc = torch.full((5, 72), 0.1, device="cuda")
+for mode, a_, p_, wl_ in (("rhs", None, None, None), ("cg1", None, None, wl),
+                          ("cg2", aux, prev, wl), ("rethresh", aux, None, None)):
+    out[f"K8 [1, 512, 512, 72] {mode}"] = device_ms(lambda: pixel_segment_nhwc(
+        x, a_, p_, wg, wl_, p, sc, mode=mode, n_graphs=24))
 print(json.dumps(out))
 """
 
 
-def _turn(tree: str) -> tuple[dict, dict | None]:
-    """Run ``tree``'s chip_smoke.py once: its timed rows by name, and its
-    profile line (None if it has none). Raises if the run fails."""
+def _turn(tree: str) -> tuple[dict, dict | None, dict | None]:
+    """Run ``tree``'s chip_smoke.py once: its timed rows by name, its
+    profile line and its ``device_ms`` line (None where it has none). Raises
+    if the run fails."""
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
                           text=True)
     if proc.returncode != 0:
@@ -105,12 +143,27 @@ def _turn(tree: str) -> tuple[dict, dict | None]:
     if probe.returncode != 0:
         raise RuntimeError(f"the device probe in {tree} failed ({probe.returncode}):\n"
                            f"{probe.stderr[-3000:]}")
-    timed.update({f"device {k}": v for k, v in
-                  json.loads(probe.stdout.strip().splitlines()[-1]).items()})
+    device = json.loads(probe.stdout.strip().splitlines()[-1])
+    timed.update({f"device {k}": v for k, v in device.items()})
+    k5 = [v for k, v in device.items() if k.startswith("K5 ")]
+    if k5:  # the five calls of one 1024x1024 flagship request
+        timed["device K5 per 1024x1024 request"] = sum(k5)
+    k8 = {k.split()[-1]: v for k, v in device.items() if k.startswith("K8 ")}
+    if k8:  # rhs, cg1, cg2, rethresh, cg1, cg2
+        timed["device K8 per 512x512 pixel request"] = sum(
+            v * (2 if mode in ("cg1", "cg2") else 1) for mode, v in k8.items())
     timed["request 512x512"] = lines["serving"]["blocks_512"]["median_kernels_ms"]
+    for row in lines["serving"]["serving"]:
+        if row["shape"][0] >= 1024:  # one request each, no warm-up of its own
+            timed[f"request {row['shape'][0]}x{row['shape'][1]}"] = row["ms"]
+    for key, route in lines["pixel"].items():
+        if key.startswith("routes_"):
+            side = route["shape"][0]
+            timed[f"pixel NHWC {side}x{side}"] = route["median_nhwc_ms"]
+            timed[f"pixel CHW {side}x{side}"] = route["median_chw_ms"]
     timed["scale-0 solve on K1"] = lines["band_route"]["median_k1_ms"]
     timed["scale-0 solve on the band route"] = lines["band_route"]["median_band_ms"]
-    return timed, lines.get("profile")
+    return timed, lines.get("profile"), lines.get("device_ms")
 
 
 def main(argv=None) -> None:
@@ -125,11 +178,12 @@ def main(argv=None) -> None:
     print(smi.stdout.strip(), flush=True)
     trees = {"base": os.path.abspath(args.base), "tree": REPO}
     turns = {"base": [], "tree": []}
-    profiles = {}
+    profiles, sessions = {}, []
     for _ in range(args.rounds):
         for which in ("base", "tree", "tree", "base"):
-            timed, profiles[which] = _turn(trees[which])
+            timed, profiles[which], how = _turn(trees[which])
             turns[which].append(timed)
+            sessions.append(dict(tree=which, device_ms=how))
     rows = []
     for name in turns["tree"][0]:
         if not all(name in t for side in turns.values() for t in side):
@@ -145,7 +199,8 @@ def main(argv=None) -> None:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "ab_sources.json"), "w") as fh:
         json.dump({"device": smi.stdout.strip(), "order": "base, tree, tree, base per round",
-                   "rounds": args.rounds, "rows": rows, "profiles": profiles}, fh, indent=1)
+                   "rounds": args.rounds, "rows": rows, "profiles": profiles,
+                   "device_ms_by_turn": sessions}, fh, indent=1)
 
 
 if __name__ == "__main__":

@@ -45,6 +45,8 @@ _SIGNATURES = {  # name: (argtypes, restype)
     "irdu_edge_weights": ((_P,) * 3 + (_I,) * 11 + (_P,), _I),
     "irdu_edge_weights_smem": ((_I,) * 6, _L),
     "irdu_fused_step": ((_P,) * 14 + (_I,) * 12 + (_P,), _I),
+    "irdu_fused_step_hopper": ((_P,) * 14 + (_I,) * 13 + (_P,), _I),
+    "irdu_fused_step_hopper_smem": ((_I,) * 5, _L),
     "irdu_gated_block": ((_P,) * 7 + (_I,) * 5 + (_L,) * 4 + (_I,) * 3 + (_P,), _I),
     "irdu_gated_block_error": ((), ctypes.c_char_p),
     "irdu_gg_unroll": ((_P,) * 12 + (_I,) * 7 + (_P,), _I),
@@ -52,7 +54,8 @@ _SIGNATURES = {  # name: (argtypes, restype)
     "irdu_gg_unroll_ctas_per_sm": ((_I,), _I),
     "irdu_pixel_unroll": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
     "irdu_pixel_unroll_scratch_floats": ((_I, _I), _L),
-    "irdu_pixel_segment": ((_P,) * 9 + (_I,) * 7 + (_P,), _I),
+    "irdu_pixel_segment": ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
+    "irdu_pixel_segment_smem": ((_I,) * 3, _L),
     "irdu_system_matvec": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
     "irdu_error_string": ((_I,), ctypes.c_char_p),
 }

@@ -1,15 +1,13 @@
-// K5, K6a and K6b: one unroll step of the GGTV+GGLR solvers (rhs, cg or
-// rethresh; two-scale cross-4 for the flagship, single-scale diamond-12 with
-// the reflect stencil pad for the pixel family), and its single-scale pieces
-// (the system matvec and the ADMM re-threshold), CHW. Replaces
-// irdu_tpu/ops/pallas/solver_chw.py:gg_fused_step_chw (_fused_kernel),
-// gg_matvec_chw (_matvec_kernel) and gtv_rethresh_chw (_rethresh_kernel).
-// The math, the boundary rules and the bound are set out in
-// irdu_tpu_torch/ops/fused_step.py.
+// K6a and K6b: the single-scale pieces of K5's unroll step (the system
+// matvec and the ADMM re-threshold) on the cross-4 or diamond-12 window,
+// CHW. Replaces irdu_tpu/ops/pallas/solver_chw.py:gg_matvec_chw
+// (_matvec_kernel) and gtv_rethresh_chw (_rethresh_kernel), K5's oracles
+// (K5 itself is fused_step_hopper.cu). The math, the boundary rules and the
+// bound are set out in irdu_tpu_torch/ops/fused_step.py.
 //
-// One CTA per 32x64 full-res output tile of one (b, g, f) plane, running
-// the tile step of tile_step.cuh (its stages, boundary rules and shared
-// memory are described there), input and output in one type T.
+// One CTA per 32x64 output tile of one (b, g, f) plane, running the tile
+// step of tile_step.cuh (its stages, boundary rules and shared memory are
+// described there), input and output in one type T.
 
 #include "tile_step.cuh"
 
@@ -53,31 +51,27 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Two-scale on cross-4 (the flagship), single-scale on either window.
+// Single-scale, on either window.
 template <typename T, int kWin>
-int dispatch_win(const Args& a, int B, bool rethresh, bool glr, bool two, cudaStream_t s) {
-  constexpr bool kTwo = kWin == 0;  // two-scale instances exist for cross-4 only
-  if (two && !kTwo) return static_cast<int>(cudaErrorInvalidValue);
-  if (rethresh)
-    return two ? launch<T, kWin, true, false, kTwo>(a, B, s) : launch<T, kWin, true, false, false>(a, B, s);
-  if (glr)
-    return two ? launch<T, kWin, false, true, kTwo>(a, B, s) : launch<T, kWin, false, true, false>(a, B, s);
-  return two ? launch<T, kWin, false, false, kTwo>(a, B, s) : launch<T, kWin, false, false, false>(a, B, s);
+int dispatch_win(const Args& a, int B, bool rethresh, bool glr, cudaStream_t s) {
+  if (rethresh) return launch<T, kWin, true, false, false>(a, B, s);
+  if (glr) return launch<T, kWin, false, true, false>(a, B, s);
+  return launch<T, kWin, false, false, false>(a, B, s);
 }
 
 template <typename T>
-int dispatch(const Args& a, int B, int win, bool rethresh, bool glr, bool two, cudaStream_t s) {
-  return win == 0 ? dispatch_win<T, 0>(a, B, rethresh, glr, two, s)
-                  : dispatch_win<T, 1>(a, B, rethresh, glr, two, s);
+int dispatch(const Args& a, int B, int win, bool rethresh, bool glr, cudaStream_t s) {
+  return win == 0 ? dispatch_win<T, 0>(a, B, rethresh, glr, s)
+                  : dispatch_win<T, 1>(a, B, rethresh, glr, s);
 }
 
 }  // namespace step
 }  // namespace irdu
 
 // x, aux, prev, out, upd (B, G*F, H, W) in one dtype; aux, prev, upd may be
-// null; wl0/wl1/pl0/pl1 are read only with glr, wg1/wl1/pg1/pl1 only
-// two-scale (wg1 non-null). window: 0 cross-4, 1 diamond-12 (single-scale);
-// reflect: the stencil's pad (0 replicate, 1 reflect).
+// null; wl0/pl0 are read only with glr; the half-res operands must be null
+// (single-scale only). window: 0 cross-4, 1 diamond-12; reflect: the
+// stencil's pad (0 replicate, 1 reflect).
 extern "C" int irdu_fused_step(const void* x, const void* aux, const void* prev,
                                const void* wg0, const void* wl0, const void* wg1,
                                const void* wl1, const void* pg0, const void* pl0,
@@ -89,11 +83,10 @@ extern "C" int irdu_fused_step(const void* x, const void* aux, const void* prev,
   const bool two = wg1 != nullptr;
   const bool bad =
       B < 1 || G < 1 || F < 1 || H < 1 || W < 1 || (long long)B * G * F > 65535 ||
-      (two && (H % 2 || W % 2)) || (rethresh && glr) || epi < kEpiAddX || epi > kEpiCg ||
-      window < 0 || window > 1 || (two && window != 0) || (reflect && (H < 2 || W < 2)) ||
+      two || (rethresh && glr) || epi < kEpiAddX || epi > kEpiCg ||
+      window < 0 || window > 1 || (reflect && (H < 2 || W < 2)) ||
       x == nullptr || out == nullptr || wg0 == nullptr || pg0 == nullptr || scal == nullptr ||
-      (two && pg1 == nullptr) ||
-      (glr && (wl0 == nullptr || pl0 == nullptr || (two && (wl1 == nullptr || pl1 == nullptr)))) ||
+      (glr && (wl0 == nullptr || pl0 == nullptr)) ||
       (epi == kEpiCg && !use_x_rhs && aux == nullptr) || (upd != nullptr && epi != kEpiCg);
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, aux, prev, wg0, wl0, wg1, wl1,
@@ -102,8 +95,7 @@ extern "C" int irdu_fused_step(const void* x, const void* aux, const void* prev,
                static_cast<const float*>(scal), out, upd, G, F, H, W, epi, use_x_rhs,
                reflect};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == irdu::kFloat32) return dispatch<float>(a, B, window, rethresh, glr, two, s);
-  if (dtype == irdu::kBFloat16)
-    return dispatch<__nv_bfloat16>(a, B, window, rethresh, glr, two, s);
+  if (dtype == irdu::kFloat32) return dispatch<float>(a, B, window, rethresh, glr, s);
+  if (dtype == irdu::kBFloat16) return dispatch<__nv_bfloat16>(a, B, window, rethresh, glr, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

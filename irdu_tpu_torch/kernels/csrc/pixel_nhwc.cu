@@ -1,55 +1,67 @@
 // K8: one fused segment of the pixel-family unroll (rhs, cg1, cg2 or
-// rethresh), channels-last. Replaces
+// rethresh), channels-last, diamond-12, the stencil's reflect pad. Replaces
 // irdu_tpu/ops/pallas/pixel_nhwc.py:pixel_segment_nhwc (_kernel). The math,
-// the layouts and the bound are set out in irdu_tpu_torch/ops/pixel_nhwc.py.
+// the layouts and the bound are set out in irdu_tpu_torch/ops/pixel_nhwc.py;
+// the padded tile's stages and boundary rules in padded_tile.cuh.
 //
 // Signals are (B, H, W, C = F*G) in planar order c = f*G + g; the edge weights
-// are packed (B, H, W, 12*G), index e*G + g, and broadcast over f. One CTA per
-// 8x16 output tile and per chunk of up to 12 channels of one f (the CTAs of a
-// tile's chunks are neighbours in the grid, so they share its weights in
-// L2). Stages, separated by __syncthreads(), over the tile's region (the
-// tile plus a 4-pixel halo, clipped to the image), every stage plane f32 in
-// shared memory as [region pixel][channel]:
-//   1. X  = x over the region
-//   2. Sg = statsGTV(X), and for cg Sl = statsGLR(X)   (reflect pad)
-//   3. Ag = the zero-padded C^T scatter of w map(w (Sg - shift Sg)) (into X's
-//      space), and for cg Al = Sl - sum_e w_e shift_e Sl
-//   4. t  = rho statsGTV^T(Ag) [+ mu statsGLR^T(Al)] over the tile, and the
-//      segment's epilogue.
-// map is the identity for C^T C and 2 S_gamma(e) - e for the re-threshold.
-// The halo is 4 = stats 1 + edge sum 2 + stats^T 1: the edge sum at p reads
-// the stencil plane at p + d_e and p - d_e only (distance <= 2). JAX's band
-// kernel carries 6 rows because it shifts whole edge-signal arrays.
-//
-// Reads of a derived plane clamp to the region: at an image edge that
-// replicates the plane's own edge, as the reference's shifts do (the stencil
-// mirrors there instead); past an interior region edge it reads a wrong value,
-// and the error moves one pixel inward per stage and never reaches the tile.
-// The C^T scatter and stats^T read zeros outside the image, tested against
-// global indices. The same scheme in CHW, one channel per CTA, is what K5's
-// single-scale diamond-12 mode needs.
+// are packed (B, H, W, 12*G), index e*G + g, and broadcast over f. A CTA
+// takes one kTH x kTW output tile of a group of kN graphs (the CTAs of a
+// tile's groups are neighbours in the grid, so they share its rows in L2)
+// and walks the F features:
+//   - the group's 12 edge weights of the tile (kN lanes of each packed row,
+//     one cp.async of 4-16 bytes a pixel and edge) come into shared memory
+//     once and serve all F features;
+//   - feature f + 1's x box (kN lanes a pixel, from the reflected pixel past
+//     the image edge) comes by cp.async into the second of two buffers while
+//     feature f computes, and stays there for the epilogue;
+//   - every stage works on a pixel's kN lanes with vector shared-memory
+//     accesses; stage planes are [cell][lane].
+// The tile's halo is 4 (stencil 1, edge sum 2, stencil^T 1): a 16x32 tile
+// computes its stencils on 22x38 cells (1.63x the outputs; 3.0x with the
+// 8x16 tiles of the first port). Shared memory (bf16, cg, 16x32, 4 lanes,
+// the served plan): 229,376 bytes, one CTA an SM. Bound by bytes (the
+// weights are 4/3 of a cg segment's).
 
-#include "common.cuh"
+#include "padded_tile.cuh"
 
 namespace irdu {
 namespace nhwc {
 
-constexpr int kTH = 8, kTW = 16;  // output tile
-constexpr int kHalo = 4;
-constexpr int kRegion = (kTH + 2 * kHalo) * (kTW + 2 * kHalo);
-constexpr int kChunk = 12;  // channels per CTA, at most
-constexpr int kThreads = 256;
-constexpr int kRhs = 0, kCg1 = 1, kCg2 = 2, kRethresh = 3;  // as in ops/pixel_nhwc.py
+using namespace irdu::ptile;
 
-struct Region {  // rows [r0, r0 + rh), columns [c0, c0 + rw), inside the image
-  int r0, c0, rh, rw, H, W;
-  // the local pixel index of (i, j) clamped to the region
-  __device__ __forceinline__ int at(int i, int j) const {
-    return (min(max(i, r0), r0 + rh - 1) - r0) * rw + min(max(j, c0), c0 + rw - 1) - c0;
-  }
-  __device__ __forceinline__ bool in_image(int i, int j) const {
-    return i >= 0 && i < H && j >= 0 && j < W;
-  }
+constexpr int kRhs = 0, kCg1 = 1, kCg2 = 2, kRethresh = 3;  // as in ops/pixel_nhwc.py
+constexpr int kE = kDiamondEdges;
+
+// Tile plans, as ops/pixel_nhwc.py's K8_PLANS: {rows, columns, graphs, threads}.
+struct Plan {
+  int th, tw, lanes, threads;
+};
+constexpr int kNumPlans = 3;
+constexpr Plan plan_at(int i) {
+  constexpr Plan plans[kNumPlans] = {{16, 32, 2, 256}, {16, 32, 4, 256}, {32, 32, 2, 256}};
+  return plans[i];
+}
+
+// Plane boxes: the tile with halo 3 (stencil outputs, weights, edge sums);
+// the x box with halo 4.
+template <int kTH, int kTW>
+struct Geo {
+  static constexpr int HS = 3, HX = 4;
+  static constexpr int PH = kTH + 2 * HS, PW = kTW + 2 * HS, NP = PH * PW;
+  static constexpr int XH = kTH + 2 * HX, XW = kTW + 2 * HX, NX = XH * XW;
+};
+
+// Shared memory (bytes, each part 16-aligned): f32 planes Sg, Ag[, Sl, Al]
+// of kN lanes a cell, two x boxes, the weights [e][cell][lane] gtv[, glr].
+template <typename T, bool kGlr, int kTH, int kTW, int kN>
+struct Layout {
+  using G = Geo<kTH, kTW>;
+  static constexpr int NA = kGlr ? 2 : 1;
+  static constexpr size_t kPlanes = up16(sizeof(float) * 2 * NA * G::NP * kN);
+  static constexpr size_t kX = up16(sizeof(T) * G::NX * kN);
+  static constexpr size_t kW = up16(sizeof(T) * NA * kE * G::NP * kN);
+  static constexpr size_t kBytes = kPlanes + 2 * kX + kW;
 };
 
 struct Args {
@@ -57,177 +69,254 @@ struct Args {
   const float* p;     // (2, 4): the GTV and GLR stencil coefficients
   const float* scal;  // (5, C): planar rows mu, rho, gamma, alpha, beta
   void *out, *upd;
-  int H, W, G, F, gc, tiles_h;
+  int H, W, G, F, tiles_w;
 };
 
-// Polynomial 3x3 stencil, reflect pad (edge excluded) at the image edge.
-__device__ __forceinline__ float stats_at(const float* s, const Region& R, const float* p,
-                                          int i, int j, int c, int cn) {
-  const int jr = j + 1 < R.W ? j + 1 : j - 1, jl = j > 0 ? j - 1 : j + 1;
-  const int id = i + 1 < R.H ? i + 1 : i - 1, iu = i > 0 ? i - 1 : i + 1;
-  const float v = s[R.at(i, j) * cn + c];
-  const float r = s[R.at(i, jr) * cn + c], l = s[R.at(i, jl) * cn + c];
-  const float d = s[R.at(id, j) * cn + c], u = s[R.at(iu, j) * cn + c];
-  return p[0] * v + p[1] * (r - v) + p[2] * (d - v) + p[3] * (4.f * v - u - d - l - r);
-}
-
-// Its reference adjoint: flipped taps, zero outside the image.
-__device__ __forceinline__ float stats_t_at(const float* s, const Region& R, const float* p,
-                                            int i, int j, int c, int cn) {
-  const float v = s[R.at(i, j) * cn + c];
-  const float r0 = j + 1 < R.W ? s[R.at(i, j + 1) * cn + c] : 0.f;
-  const float d0 = i + 1 < R.H ? s[R.at(i + 1, j) * cn + c] : 0.f;
-  const float u0 = i > 0 ? s[R.at(i - 1, j) * cn + c] : 0.f;
-  const float l0 = j > 0 ? s[R.at(i, j - 1) * cn + c] : 0.f;
-  return p[0] * v + p[1] * (l0 - v) + p[2] * (u0 - v) + p[3] * (4.f * v - u0 - d0 - l0 - r0);
-}
-
-// sum_e [wei_e(p) - wei_e(p - d_e)], wei_e(q) = w_e(q) map(w_e(q) (s(q) -
-// s(q + d_e))), the second term zero where p - d_e is outside the image.
-// w points at this channel's graph in the packed weights of the batch:
-// w_e(i, j) = w[(i W + j) 12 G + e G].
-template <bool kRe, typename T>
-__device__ __forceinline__ float gtv_edge_sum(const float* s, const Region& R, const T* w,
-                                              int EG, int G, int i, int j, int c, int cn,
-                                              float gamma) {
-  const float sp = s[R.at(i, j) * cn + c];
-  const T* wp_row = w + ((size_t)i * R.W + j) * EG;
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < kDiamondEdges; ++e) {
-    const int dh = d12_dh(e), dw = d12_dw(e);
-    const float wp = ld(wp_row[e * G]);
-    acc += wp * edge_map<kRe>(wp * (sp - s[R.at(i + dh, j + dw) * cn + c]), gamma);
-    const int qi = i - dh, qj = j - dw;
-    if (R.in_image(qi, qj)) {
-      const float wq = ld(w[((size_t)qi * R.W + qj) * EG + e * G]);
-      acc -= wq * edge_map<kRe>(wq * (s[R.at(qi, qj) * cn + c] - sp), gamma);
-    }
+// The kN lanes from src (cn of them valid) to dst: one cp.async where the
+// groups are whole and aligned (kVec), else lane by lane, zero past cn.
+template <int kN, bool kVec, typename T>
+__device__ __forceinline__ void fetch_lanes(T* dst, const T* src, int cn) {
+  if (kVec) {
+    copy_lanes<kN>(dst, src);
+    return;
   }
-  return acc;
-}
-
-// s(p) - sum_e w_e(p) s(p + d_e), the random-walk Laplacian of GLR.
-template <typename T>
-__device__ __forceinline__ float glr_lap(const float* s, const Region& R, const T* w, int EG,
-                                         int G, int i, int j, int c, int cn) {
-  const T* wp_row = w + ((size_t)i * R.W + j) * EG;
-  float acc = 0.f;
 #pragma unroll
-  for (int e = 0; e < kDiamondEdges; ++e)
-    acc += ld(wp_row[e * G]) * s[R.at(i + d12_dh(e), j + d12_dw(e)) * cn + c];
-  return s[R.at(i, j) * cn + c] - acc;
+  for (int n = 0; n < kN; ++n) dst[n] = n < cn ? src[n] : zero<T>();
 }
 
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads) pixel_segment_kernel(Args a) {
-  extern __shared__ float smem[];
+// kVec: G is a multiple of kN, so every group is whole and its lanes aligned.
+template <typename T, int kMode, int kTH, int kTW, int kN, int kNT, bool kVec>
+__global__ void __launch_bounds__(kNT) segment_kernel(const Args a) {
   constexpr bool kGlr = kMode == kCg1 || kMode == kCg2;
   constexpr bool kRe = kMode == kRethresh;
-  const int H = a.H, W = a.W, G = a.G, C = a.F * a.G, EG = kDiamondEdges * a.G;
-  const int nchunk = (G + a.gc - 1) / a.gc;
-  const int f = blockIdx.x / nchunk, g0 = (blockIdx.x % nchunk) * a.gc;
-  const int cn = min(a.gc, G - g0);  // this CTA's channels: f*G + g0 + [0, cn)
-  const int b = blockIdx.z / a.tiles_h;
-  const int ti0 = (blockIdx.z % a.tiles_h) * kTH, tj0 = blockIdx.y * kTW;
-  const int ti1 = min(ti0 + kTH, H), tj1 = min(tj0 + kTW, W);
-  Region R;
-  R.H = H;
-  R.W = W;
-  R.r0 = max(ti0 - kHalo, 0);
-  R.c0 = max(tj0 - kHalo, 0);
-  R.rh = min(ti1 + kHalo, H) - R.r0;
-  R.rw = min(tj1 + kHalo, W) - R.c0;
-  const int n = R.rh * R.rw * cn;
+  using G = Geo<kTH, kTW>;
+  using L = Layout<T, kGlr, kTH, kTW, kN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Sg = reinterpret_cast<float*>(smem);
+  float* Ag = Sg + G::NP * kN;
+  float* Sl = Ag + G::NP * kN;  // cg only
+  float* Al = Sl + G::NP * kN;
+  unsigned char* xbox = smem + L::kPlanes;  // two buffers of L::kX bytes
+  T* Wg = reinterpret_cast<T*>(smem + L::kPlanes + 2 * L::kX);
+  T* Wl = Wg + kE * G::NP * kN;
 
-  float* X = smem;  // Ag once the stencils have read X
-  float* Sg = X + kRegion * a.gc;
-  float* Sl = Sg + kRegion * a.gc;
-  float* Al = Sl + kRegion * a.gc;
+  const int H = a.H, W = a.W, Gn = a.G, C = a.F * Gn, EG = kE * Gn;
+  const int g0 = blockIdx.x * kN, cn = min(kN, Gn - g0);
+  const int ty = blockIdx.y / a.tiles_w, tx = blockIdx.y - ty * a.tiles_w;
+  const int ti0 = ty * kTH, tj0 = tx * kTW;
+  const int oi = ti0 - G::HS, oj = tj0 - G::HS, xi0 = ti0 - G::HX, xj0 = tj0 - G::HX;
+  const size_t pix0 = (size_t)blockIdx.z * H * W;
 
-  const size_t pix0 = (size_t)b * H * W;
-  const int c0 = f * G + g0;  // this CTA's first channel
-  const T* x = static_cast<const T*>(a.x) + pix0 * C + c0;
-  const T* wg = static_cast<const T*>(a.wg) + pix0 * EG + g0;
-  const T* wl = kGlr ? static_cast<const T*>(a.wl) + pix0 * EG + g0 : nullptr;
-  const float* pg = a.p;
-  const float* pl = a.p + 4;
+  // the group's weights, once for all F features; feature 0's x box
+  auto stage_weights = [&](T* dst, const void* src) {
+    const T* w = static_cast<const T*>(src) + g0;
+    for_box<kNT, kE * G::PH, G::PW>([&](int er, int c) {
+      const int e = er / G::PH, gi = oi + er - e * G::PH, gj = oj + c;
+      T* d = dst + (er * G::PW + c) * kN;
+      if (gi < 0 || gi >= H || gj < 0 || gj >= W) {
+#pragma unroll
+        for (int n = 0; n < kN; ++n) d[n] = zero<T>();
+      } else {
+        fetch_lanes<kN, kVec>(d, w + (pix0 + (size_t)gi * W + gj) * EG + e * Gn, cn);
+      }
+    });
+  };
+  auto stage_x = [&](T* dst, int f) {
+    const T* x = static_cast<const T*>(a.x) + f * Gn + g0;
+    for_box<kNT, G::XH, G::XW>([&](int r, int c) {
+      const int gi = pad_index(xi0 + r, H, true), gj = pad_index(xj0 + c, W, true);
+      fetch_lanes<kN, kVec>(dst + (r * G::XW + c) * kN, x + (pix0 + (size_t)gi * W + gj) * C,
+                            cn);
+    });
+  };
+  stage_weights(Wg, a.wg);
+  if (kGlr) stage_weights(Wl, a.wl);
+  stage_x(reinterpret_cast<T*>(xbox), 0);
+  cp_async_commit();
 
-  // 1. x over the region
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const int q = k / cn, c = k - q * cn, li = q / R.rw;
-    const int i = R.r0 + li, j = R.c0 + q - li * R.rw;
-    X[k] = ld(x[((size_t)i * W + j) * C + c]);
-  }
-  __syncthreads();
-  // 2. the stencils
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const int q = k / cn, c = k - q * cn, li = q / R.rw;
-    const int i = R.r0 + li, j = R.c0 + q - li * R.rw;
-    Sg[k] = stats_at(X, R, pg, i, j, c, cn);
-    if (kGlr) Sl[k] = stats_at(X, R, pl, i, j, c, cn);
-  }
-  __syncthreads();
-  // 3. the edge sums
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const int q = k / cn, c = k - q * cn, li = q / R.rw;
-    const int i = R.r0 + li, j = R.c0 + q - li * R.rw;
-    const float gamma = kRe ? a.scal[2 * C + c0 + c] : 0.f;
-    X[k] = gtv_edge_sum<kRe>(Sg, R, wg + c, EG, G, i, j, c, cn, gamma);
-    if (kGlr) Al[k] = glr_lap(Sl, R, wl + c, EG, G, i, j, c, cn);
-  }
-  __syncthreads();
-  // 4. the tile: t and the epilogue
-  const int tw = tj1 - tj0, nt = (ti1 - ti0) * tw * cn;
-  const T* aux = static_cast<const T*>(a.aux);
-  const T* prev = static_cast<const T*>(a.prev);
-  T* out = static_cast<T*>(a.out);
-  T* upd = static_cast<T*>(a.upd);
-  for (int k = threadIdx.x; k < nt; k += kThreads) {
-    const int q = k / cn, c = k - q * cn, qi = q / tw;
-    const int i = ti0 + qi, j = tj0 + q - qi * tw;
-    const int ch = c0 + c;
-    float t = a.scal[C + ch] * stats_t_at(X, R, pg, i, j, c, cn);
-    if (kGlr) t = a.scal[ch] * stats_t_at(Al, R, pl, i, j, c, cn) + t;
-    const size_t idx = (pix0 + (size_t)i * W + j) * C + ch;
-    const float xv = ld(static_cast<const T*>(a.x)[idx]);
-    float o;
-    if (kMode == kRhs) {
-      o = xv + t;
-    } else if (kMode == kRethresh) {
-      o = ld(aux[idx]) + t;
-    } else {
-      float u = kMode == kCg1 ? -t : ld(aux[idx]) - xv - t;
-      if (kMode == kCg2) u += a.scal[4 * C + ch] * ld(prev[idx]);
-      if (kMode == kCg1) st(upd + idx, u);
-      o = xv + a.scal[3 * C + ch] * u;
+  Stats pg, pl;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) pg.p[k] = a.p[k], pl.p[k] = a.p[4 + k];
+
+  for (int f = 0; f < a.F; ++f) {
+    cp_async_wait_all();
+    __syncthreads();  // feature f's x box (and the weights) landed; feature f - 1 is done
+    const T* X = reinterpret_cast<const T*>(xbox + (f & 1) * L::kX);
+    if (f + 1 < a.F) {
+      stage_x(reinterpret_cast<T*>(xbox + ((f + 1) & 1) * L::kX), f + 1);
+      cp_async_commit();
     }
-    st(out + idx, o);
+    // the epilogue's reads (aux, prev) of this thread's pixels, issued now so
+    // that they arrive while the stencils and edge sums run
+    T* out = static_cast<T*>(a.out);
+    T* upd = static_cast<T*>(a.upd);
+    constexpr int kPix = kTH * kTW, kPer = (kPix + kNT - 1) / kNT;
+    constexpr bool kAux = kMode == kCg2 || kMode == kRethresh, kPrev = kMode == kCg2;
+    auto index = [&](int q) {  // the pixel's first lane in x, or -1 past the tile or image
+      const int r = q / kTW, c = q - r * kTW, gi = ti0 + r, gj = tj0 + c;
+      return q < kPix && gi < H && gj < W
+                 ? (long long)(pix0 + (size_t)gi * W + gj) * C + f * Gn + g0
+                 : -1ll;
+    };
+    auto store = [&](void* base, long long idx, const float (&v)[kN]) {
+      T* q = static_cast<T*>(base) + idx;
+      if (kVec) {
+        st_lanes<kN>(q, v);
+      } else {
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+          if (n < cn) st(q + n, v[n]);
+      }
+    };
+    // (whole groups: one vector load a pixel; else lane by lane, the lanes
+    // past the group's last graph reading its last one), converted only
+    // where the epilogue uses them
+    Raw<kN, T> y[kPer], pv[kPer];
+    auto fetch = [&](const void* base, long long idx, Raw<kN, T>& r) {
+      const T* q = static_cast<const T*>(base) + idx;
+      if (kVec) {
+        r = *reinterpret_cast<const Raw<kN, T>*>(q);
+      } else {
+#pragma unroll
+        for (int n = 0; n < kN; ++n) r.v[n] = q[min(n, cn - 1)];
+      }
+    };
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const long long idx = index(threadIdx.x + k * kNT);
+      if (idx < 0) continue;
+      if (kAux) fetch(a.aux, idx, y[k]);
+      if (kPrev) fetch(a.prev, idx, pv[k]);
+    }
+    // this feature's per-channel scalars (lanes past the group's last graph
+    // take its last one's; their results are not stored)
+    float mu[kN], ro[kN], gam[kN], alpha[kN], beta[kN];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int ch = f * Gn + g0 + min(n, cn - 1);
+      mu[n] = a.scal[ch];
+      ro[n] = a.scal[C + ch];
+      gam[n] = a.scal[2 * C + ch];
+      alpha[n] = a.scal[3 * C + ch];
+      beta[n] = a.scal[4 * C + ch];
+    }
+    // 2. the stencils over the tile + 3, at the pixel clamped to the image
+    for_box<kNT, G::PH, G::PW>([&](int r, int c) {
+      const int ci = clampi(oi + r, H), cj = clampi(oj + c, W);
+      stencil_cell<kN, G::XW, kGlr>(X, (ci - xi0) * G::XW + (cj - xj0), pg, pl, Sg, Sl,
+                                    r * G::PW + c);
+    });
+    __syncthreads();
+    // 3. the edge sums over the tile + 1, zero outside the image
+    for_box<kNT, kTH + 2, kTW + 2>([&](int r, int c) {
+      const int pc = (r + G::HS - 1) * G::PW + c + G::HS - 1;
+      const int gi = ti0 - 1 + r, gj = tj0 - 1 + c;
+      if (gi < 0 || gi >= H || gj < 0 || gj >= W)
+        zero_cell<kN, kGlr>(Ag, Al, pc);
+      else
+        edge_cell<kN, 1, kRe, kGlr, G::PW, G::NP>(Sg, Sl, Wg, Wl, pc, gam, Ag, Al);
+    });
+    __syncthreads();
+    // 4. the tile, a pixel's kN lanes a thread: t and the segment's epilogue
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int q = threadIdx.x + k * kNT;
+      const long long idx = index(q);
+      if (idx < 0) continue;
+      const int r = q / kTW, c = q - r * kTW;
+      const int pc = (r + G::HS) * G::PW + c + G::HS;
+      float t[kN], tl[kN], xv[kN], o[kN];
+      stats_t_cell<kN, G::PW>(Ag, pc, pg, t);
+      if (kGlr) stats_t_cell<kN, G::PW>(Al, pc, pl, tl);
+      ld_lanes<kN>(X + ((r + G::HX) * G::XW + c + G::HX) * kN, xv);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) t[n] = kGlr ? mu[n] * tl[n] + ro[n] * t[n] : ro[n] * t[n];
+      if (kMode == kRhs) {
+#pragma unroll
+        for (int n = 0; n < kN; ++n) o[n] = xv[n] + t[n];
+      } else if (kMode == kRethresh) {
+        float yv[kN];
+        y[k].get(yv);
+#pragma unroll
+        for (int n = 0; n < kN; ++n) o[n] = yv[n] + t[n];
+      } else if (kMode == kCg1) {
+        float u[kN];
+#pragma unroll
+        for (int n = 0; n < kN; ++n) u[n] = -t[n], o[n] = xv[n] + alpha[n] * u[n];
+        store(upd, idx, u);
+      } else {
+        float rhs[kN], pr[kN];
+        y[k].get(rhs);
+        pv[k].get(pr);
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          const float u = rhs[n] - xv[n] - t[n] + beta[n] * pr[n];
+          o[n] = xv[n] + alpha[n] * u;
+        }
+      }
+      store(out, idx, o);
+    }
   }
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, int kPlan, bool kVec>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int planes = (kMode == kCg1 || kMode == kCg2) ? 4 : 2;  // X/Ag, Sg [, Sl, Al]
-  const size_t smem = sizeof(float) * planes * (size_t)kRegion * a.gc;
-  auto kern = pixel_segment_kernel<T, kMode>;
+  constexpr Plan p = plan_at(kPlan);
+  constexpr size_t smem =
+      Layout<T, kMode == kCg1 || kMode == kCg2, p.th, p.tw, p.lanes>::kBytes;
+  auto kern = segment_kernel<T, kMode, p.th, p.tw, p.lanes, p.threads, kVec>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nchunk = (a.G + a.gc - 1) / a.gc;
-  const dim3 grid(a.F * nchunk, (a.W + kTW - 1) / kTW, B * a.tiles_h);
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  Args b = a;
+  b.tiles_w = (a.W + p.tw - 1) / p.tw;
+  const int tiles = b.tiles_w * ((a.H + p.th - 1) / p.th);
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.G + p.lanes - 1) / p.lanes, tiles, B);
+  kern<<<grid, p.threads, smem, stream>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const Args& a, int B, int mode, cudaStream_t s) {
+template <typename T, int kPlan, bool kVec>
+int dispatch_mode(const Args& a, int B, int mode, cudaStream_t s) {
   switch (mode) {
-    case kRhs: return launch<T, kRhs>(a, B, s);
-    case kCg1: return launch<T, kCg1>(a, B, s);
-    case kCg2: return launch<T, kCg2>(a, B, s);
-    case kRethresh: return launch<T, kRethresh>(a, B, s);
+    case kRhs: return launch<T, kRhs, kPlan, kVec>(a, B, s);
+    case kCg1: return launch<T, kCg1, kPlan, kVec>(a, B, s);
+    case kCg2: return launch<T, kCg2, kPlan, kVec>(a, B, s);
+    case kRethresh: return launch<T, kRethresh, kPlan, kVec>(a, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Every plan in bf16, plan 0 in f32; whole graph groups (G a multiple of the
+// plan's lanes) on every plan, partial ones on plan 0.
+template <typename T>
+int dispatch(const Args& a, int B, int mode, int plan, cudaStream_t s) {
+  const bool whole = a.G % plan_at(plan).lanes == 0;
+  if (plan == 0)
+    return whole ? dispatch_mode<T, 0, true>(a, B, mode, s)
+                 : dispatch_mode<T, 0, false>(a, B, mode, s);
+  if constexpr (sizeof(T) == 2) {
+    if (whole && plan == 1) return dispatch_mode<T, 1, true>(a, B, mode, s);
+    if (whole && plan == 2) return dispatch_mode<T, 2, true>(a, B, mode, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int kPlan>
+long long plan_bytes(bool glr) {
+  constexpr Plan p = plan_at(kPlan);
+  return static_cast<long long>(glr ? Layout<T, true, p.th, p.tw, p.lanes>::kBytes
+                                    : Layout<T, false, p.th, p.tw, p.lanes>::kBytes);
+}
+
+template <typename T>
+long long smem_of(bool glr, int plan) {
+  switch (plan) {
+    case 0: return plan_bytes<T, 0>(glr);
+    case 1: return plan_bytes<T, 1>(glr);
+    case 2: return plan_bytes<T, 2>(glr);
+    default: return -1;
   }
 }
 
@@ -236,27 +325,34 @@ int dispatch(const Args& a, int B, int mode, cudaStream_t s) {
 
 // x, aux, prev, out, upd (B, H, W, F*G) and wg, wl (B, H, W, 12*G) in one
 // dtype; p (2, 4) and scal (5, F*G) f32. rhs reads x, wg; cg1 x, wg, wl and
-// writes upd; cg2 x, aux, prev, wg, wl; rethresh x, aux, wg.
+// writes upd; cg2 x, aux, prev, wg, wl; rethresh x, aux, wg. plan: the tile
+// plan (ops/pixel_nhwc.py K8_PLANS; plans 1-2 in bf16 only).
 extern "C" int irdu_pixel_segment(const void* x, const void* aux, const void* prev,
                                   const void* wg, const void* wl, const void* p,
                                   const void* scal, void* out, void* upd, int B, int H, int W,
-                                  int G, int F, int mode, int dtype, void* stream) {
+                                  int G, int F, int mode, int plan, int dtype, void* stream) {
   using namespace irdu::nhwc;
-  const int tiles_h = (H + kTH - 1) / kTH;
   const bool glr = mode == kCg1 || mode == kCg2;
   const bool bad =
-      B < 1 || H < 2 || W < 2 || G < 1 || F < 1 || mode < kRhs || mode > kRethresh ||
-      (long long)B * tiles_h > 65535 || (W + kTW - 1) / kTW > 65535 || x == nullptr ||
-      wg == nullptr || p == nullptr || scal == nullptr || out == nullptr ||
-      (glr && wl == nullptr) || (mode == kCg1 && upd == nullptr) ||
-      ((mode == kCg2 || mode == kRethresh) && aux == nullptr) ||
+      B < 1 || B > 65535 || H < 2 || W < 2 || G < 1 || F < 1 || mode < kRhs ||
+      mode > kRethresh || plan < 0 || plan >= kNumPlans || x == nullptr || wg == nullptr ||
+      p == nullptr || scal == nullptr || out == nullptr || (glr && wl == nullptr) ||
+      (mode == kCg1 && upd == nullptr) || ((mode == kCg2 || mode == kRethresh) && aux == nullptr) ||
       (mode == kCg2 && prev == nullptr);
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, aux, prev, wg, wl, static_cast<const float*>(p),
-               static_cast<const float*>(scal), out, upd, H, W, G, F,
-               G < kChunk ? G : kChunk, tiles_h};
+               static_cast<const float*>(scal), out, upd, H, W, G, F, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == irdu::kFloat32) return dispatch<float>(a, B, mode, s);
-  if (dtype == irdu::kBFloat16) return dispatch<__nv_bfloat16>(a, B, mode, s);
+  if (dtype == irdu::kFloat32) return dispatch<float>(a, B, mode, plan, s);
+  if (dtype == irdu::kBFloat16) return dispatch<__nv_bfloat16>(a, B, mode, plan, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The shared memory one CTA of the kernel takes in a mode with GLR (cg1,
+// cg2) or without, or -1 for a plan it does not have.
+extern "C" long long irdu_pixel_segment_smem(int glr, int plan, int dtype) {
+  using namespace irdu::nhwc;
+  if (dtype == irdu::kFloat32) return smem_of<float>(glr, plan);
+  if (dtype == irdu::kBFloat16) return smem_of<__nv_bfloat16>(glr, plan);
+  return -1;
 }

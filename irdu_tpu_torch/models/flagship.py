@@ -39,6 +39,7 @@ from irdu_tpu_torch.models.blocks import (
     RegionalPixelEmbedding,
 )
 from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise, Upsample2x2
+from irdu_tpu_torch.models.registry import require
 from irdu_tpu_torch.ops.block_stack import fused_block_stack, pack_block_params
 from irdu_tpu_torch.ops.gated_block import fused_gated_block
 
@@ -53,9 +54,26 @@ class AbstractMultiScaleGraphFilter(nn.Module):
                  ngraphs: Sequence[int] = (4, 4, 8, 8),
                  num_blocks: Sequence[int] = (4, 6, 6, 8),
                  num_blocks_out: int = 4, eval_cg_iters: int = 3,
-                 eval_filter_scales: Sequence[int] | None = None):
+                 eval_filter_scales: Sequence[int] | None = None, *,
+                 nsubnets: Sequence[int] = (1, 1, 1, 1), window: str = "cross4",
+                 conv_variant: str = "plain", use_pallas_blocks: bool = False,
+                 use_pallas_solver: bool = False, remat: bool = False):
         """eval_filter_scales: filter only these scales' codes, identity
-        elsewhere (not in the reference; None filters all four)."""
+        elsewhere (not in the reference; None filters all four).
+
+        The other keywords are JAX's fields with JAX's defaults, so that a
+        configuration's ``model`` section builds: ``nsubnets`` all 1, the
+        cross-4 ``window`` and the plain ``conv_variant`` are what the port
+        computes (``registry.require`` raises on any other value). The
+        ``use_pallas_*`` flags choose between two computations of the same
+        function in JAX; the port routes by device (kernels on a CUDA
+        tensor, their plain versions on a CPU one) and ``use_kernels``, so
+        both values build the same model. ``remat`` is a training knob with
+        no effect at inference."""
+        require("nsubnets", tuple(nsubnets), [(1,) * len(dims)])
+        require("window", window, ["cross4"])
+        require("conv_variant", conv_variant, ["plain"])
+        del use_pallas_blocks, use_pallas_solver, remat
         super().__init__()
         d, hd = dims, hidden_dims
         self.dims = tuple(dims)

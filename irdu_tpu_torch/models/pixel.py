@@ -10,20 +10,40 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from irdu_tpu_torch.models.registry import require
 from irdu_tpu_torch.solvers.pixel_gtv import MixtureGTV
 
 
 class MultiScaleSequenceDenoiser(nn.Module):
     def __init__(self, n_graphs: int = 24, n_node_fts: int = 3, n_cnn_fts: int = 72,
                  feature_num_blocks=(2, 3, 3), feature_num_refinement: int = 4,
-                 use_pallas_solver: bool = False, use_nhwc_solver: bool = False):
+                 use_pallas_solver: bool = False, use_nhwc_solver: bool = False, *,
+                 window: str = "diamond12", stats_mode: str = "scalar",
+                 n_cgd_iters: int = 4, muy_init=(0.1, 0.0, 0.0, 0.0),
+                 ro_init=(0.1, 0.0, 0.0, 0.0), gamma_init=(0.001, 0.0, 0.0, 0.0),
+                 feature_n_levels: int = 3, remat: bool = False,
+                 eval_skip_solve: bool = False):
+        """The keywords after ``use_nhwc_solver`` are JAX's fields with JAX's
+        defaults, so that a configuration's ``model`` section builds. The
+        ``*_init``s set the solver's initial μ, ρ and γ as JAX's do (their
+        first entries); ``remat`` is a training knob with no effect at
+        inference. ``registry.require`` raises on a value the port does not
+        compute yet: another window, ``stats_mode="none"``, the 4-level
+        feature U-Net, another CG count, the skip-solve probe."""
+        require("window", window, ["diamond12"])
+        require("stats_mode", stats_mode, ["scalar"])
+        require("n_cgd_iters", n_cgd_iters, [4])
+        require("feature_n_levels", feature_n_levels, [3])
+        require("eval_skip_solve", eval_skip_solve, [False])
+        del remat
         super().__init__()
         self.skip_connect_weight03 = nn.Parameter(torch.tensor([0.1, 0.9]))
         self.mixtureGLR_block03 = MixtureGTV(
             n_graphs=n_graphs, n_node_fts=n_node_fts, n_cnn_fts=n_cnn_fts,
             feature_num_blocks=feature_num_blocks,
             feature_num_refinement=feature_num_refinement,
-            use_pallas_unroll=use_pallas_solver, use_nhwc_unroll=use_nhwc_solver)
+            use_pallas_unroll=use_pallas_solver, use_nhwc_unroll=use_nhwc_solver,
+            muy_init=muy_init[0], ro_init=ro_init[0], gamma_init=gamma_init[0])
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img.permute(0, 3, 1, 2)

@@ -2,7 +2,9 @@
 (counterpart: ``irdu_tpu/models/registry.py``), under JAX's names for the
 models the port has. ``create_model(name, **kwargs)`` builds one, randomly
 initialized, from a configuration's ``model`` section without its ``type``;
-``utils.weights.params_to_torch`` puts JAX parameters on it."""
+``utils.weights.params_to_torch`` puts JAX parameters on it. The models
+accept every field of JAX's; a value the port does not compute yet raises
+``NotImplementedError`` naming the field (``require``)."""
 
 from __future__ import annotations
 
@@ -20,6 +22,15 @@ def _registry() -> dict[str, Callable[..., nn.Module]]:
             "multiscale_sequence_denoiser": MultiScaleSequenceDenoiser,
             "multiscale_graph_filter": MultiScaleGraphFilter,
             "one_graph_filter": OneGraphFilter}
+
+
+def require(field: str, value, supported) -> None:
+    """NotImplementedError naming ``field`` unless ``value`` is one of
+    ``supported``: a configuration field whose other values JAX builds and
+    the port does not yet."""
+    if value not in supported:
+        raise NotImplementedError(
+            f"{field}={value!r} is not ported yet; the port builds {field} in {supported}")
 
 
 def available_models() -> list[str]:

@@ -24,15 +24,22 @@ its adjoint (duplicate and scale by 0.25). Per-graph scalars come in K5's
 build theirs from (G,) vectors. Compute is f32; each call's outputs are
 rounded to x's dtype, as the TPU route rounds between its calls.
 
-On the card (``kernels/csrc/fused_step.cu``, its tile step in
-``tile_step.cuh``, which K1 shares): one kernel for all three. A CTA takes a 32×64 full-res tile of one (b, g, f) plane and a 4-pixel halo
-(stats, C shift, Cᵀ shift, statsᵀ: one pixel each, the two shifts up to the
-window's radius together), and for the half-res scale the 16×32 half tile
-with its own 4-pixel halo, box-averaged from x as it loads. Every stage
-plane (x, the stencil outputs, the edge sums) lives in shared memory. Tiles
-start on even pixels, so a half tile is whole 2×2 boxes. Per full-res pixel
-a cg step moves 5 planes of x's dtype plus the per-graph weights and does
-~93 f32 operations, so it is bound by bytes.
+On the card, K5 is ``kernels/csrc/fused_step_hopper.cu``: a CTA takes one
+output tile (32×64 full-res pixels two-scale, 16×64 single-scale:
+``K5_PLANS``) of one graph and walks its F channel planes. The tile's edge
+weights of both scales come into shared memory once, in x's dtype, and
+serve all F planes; plane f + 1's x box comes by cp.async into a second
+buffer while plane f computes. The stage planes (the stencil outputs, the
+edge sums) are f32 in shared memory over a box that is not clipped to the
+image: a cell outside it holds what the reference's padding gives there
+(``kernels/csrc/padded_tile.cuh``), so reads need no clamp. Halos: the
+window's radius r, the edge sums on the tile + 1, the stencils and weights
+on the tile + 1 + r, x on the tile + 2 + r (two-scale: twice the half
+tile's, 6, for the box means). K6a and K6b stay on ``fused_step.cu``: one
+CTA per 32×64 tile of one (b, g, f) plane running the tile step of
+``tile_step.cuh``, which K1 shares. Per full-res pixel a cg step moves 5
+planes of x's dtype plus the per-graph weights and does ~93 f32 operations,
+so it is bound by bytes.
 
 Boundaries: a shift of a derived array (the stencil output, ε) replicates
 that array's own edge, which a read clamped to the tile's region gives at
@@ -66,6 +73,12 @@ from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
 
 MODES = ("rhs", "cg", "rethresh")
+# K5's tile plans (fused_step_hopper.cu): (rows, columns, threads), two-scale
+# and single-scale; K5_PLAN serves where it is built (``k5_has_plan``: plan 1
+# in bf16 on two scales or on diamond-12), plan 0 elsewhere; plan 1 exists
+# for kernels/plan_sweep.py
+K5_PLANS = {True: ((32, 64, 256), (64, 64, 512)), False: ((16, 64, 256), (32, 64, 256))}
+K5_PLAN = 0
 STATS_PADS = ("edge", "reflect")
 # the windows the kernel is built for, by the code it takes (fused_step.cu)
 KERNEL_WINDOWS = {CROSS4: 0, DIAMOND12: 1}
@@ -91,6 +104,48 @@ def identity_table(n_graphs, n_node_fts, device=None):
     tab = torch.zeros(n_graphs, 4, n_node_fts, device=device)
     tab[:, 0] = 1.0
     return tab
+
+
+def k5_has_plan(plan, two_scale, window, dtype):
+    """Whether ``fused_step_hopper.cu`` is built with ``plan`` for a step on
+    ``window`` (the ``KERNEL_WINDOWS`` code) in ``dtype``."""
+    return plan == 0 or (0 <= plan < len(K5_PLANS[two_scale]) and dtype == torch.bfloat16
+                         and (two_scale or window == KERNEL_WINDOWS[DIAMOND12]))
+
+
+def k5_geometry(window, two_scale, plan):
+    """K5's boxes for a tile plan (``fused_step_hopper.cu`` Geo): the tile
+    (th, tw); the stage planes' halo, hs = 1 + r rows and hsc (hs rounded up
+    to even) columns; the x box's, hxr rows, 2 + r or, two-scale, 2·(2 + r)
+    for the half tile's box means, and 8 columns (its rows start on 16-byte
+    chunks); r the window's radius. Half-res planes have the full-res
+    halos."""
+    th, tw, _ = K5_PLANS[two_scale][plan]
+    r = 1 if window == KERNEL_WINDOWS[CROSS4] else 2
+    hs = 1 + r
+    return dict(th=th, tw=tw, r=r, hs=hs, hsc=(hs + 1) & ~1,
+                hxr=2 * (2 + r) if two_scale else 2 + r, hxc=8)
+
+
+def k5_smem_bytes(window, two_scale, glr, plan, esize):
+    """The shared memory of one K5 CTA (``fused_step_hopper.cu`` Layout): f32
+    stage planes (S and A of GTV, and of GLR) over the tile and its
+    ``k5_geometry`` halo, the same at half res, two x boxes and the weights
+    [e][cell] of each scale in the input's dtype; each part rounded up to
+    16 bytes."""
+    geo = k5_geometry(window, two_scale, plan)
+    th, tw, hs, hsc = geo["th"], geo["tw"], geo["hs"], geo["hsc"]
+    n_e = 4 if geo["r"] == 1 else 12
+    n_p = (th + 2 * hs) * (tw + 2 * hsc)
+    n_p1 = (th // 2 + 2 * hs) * (tw // 2 + 2 * hsc) if two_scale else 0
+    n_x = (th + 2 * geo["hxr"]) * (tw + 2 * geo["hxc"])
+    na = 2 if glr else 1
+
+    def up16(n):
+        return (n + 15) // 16 * 16
+
+    return (up16(4 * 2 * na * n_p) + up16(4 * 2 * na * n_p1) + 2 * up16(esize * n_x)
+            + up16(esize * na * n_e * n_p) + up16(esize * na * n_e * n_p1))
 
 
 def _weights(wt):  # (B, G, E, h, w) → E × (B, G, 1, h, w) f32
@@ -206,10 +261,12 @@ def _check_planes(name, x, operands, n_graphs, two_scale, deltas, stats_mode):
 
 def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
             n_graphs, deltas, stats_mode, rethresh, glr, epi, use_x_rhs=False,
-            emit_update=False):
-    """Run the kernel of ``fused_step.cu`` on the card; returns out or
-    (out, upd). ``tables``: GTV, GLR at full res, then at half res; a None
-    table the kernel reads goes to it as the identity stencil."""
+            emit_update=False, plan=None):
+    """Run K5's kernel (``fused_step_hopper.cu``, tile plan ``plan``) or,
+    with ``plan`` None, K6a's and K6b's (``fused_step.cu``, single-scale) on
+    the card; returns out or (out, upd). ``tables``: GTV, GLR at full res,
+    then at half res; a None table the kernel reads goes to it as the
+    identity stencil."""
     two_scale = w_gtv1 is not None
     win = KERNEL_WINDOWS.get(tuple(tuple(d) for d in deltas))
     if win is None or (two_scale and win != KERNEL_WINDOWS[CROSS4]):
@@ -222,8 +279,11 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
         raise ValueError(f"{name} needs x, its other planes and the weights contiguous, "
                          "on one CUDA device, of one dtype")
     b, c, h, w = x.shape
-    if b * c > 65535:
-        raise ValueError(f"{name}: B·C = {b * c} planes exceed the grid's 65535")
+    if (b * n_graphs if plan is not None else b * c) > 65535:
+        raise ValueError(f"{name}: B·{'G' if plan is not None else 'C'} planes exceed "
+                         "the grid's 65535")
+    if plan is not None and not k5_has_plan(plan, two_scale, win, x.dtype):
+        plan = 0
     if stats_mode == "reflect" and min(h, w) < 2:
         raise ValueError(f"{name}: the reflect pad needs H, W ≥ 2, got {h}x{w}")
     dev = x.device
@@ -239,12 +299,16 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    status = kernel_library().irdu_fused_step(
-        ptr(x), ptr(aux), ptr(prev), ptr(w_gtv0), ptr(w_glr0), ptr(w_gtv1), ptr(w_glr1),
-        *(ptr(t) for t in tabs), ptr(sc), ptr(out), ptr(upd), b, n_graphs, c // n_graphs,
-        h, w, int(rethresh), int(glr), epi, int(use_x_rhs), win,
-        int(stats_mode == "reflect"), dtype_code(x.dtype),
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = kernel_library()
+    common = (ptr(x), ptr(aux), ptr(prev), ptr(w_gtv0), ptr(w_glr0), ptr(w_gtv1), ptr(w_glr1),
+              *(ptr(t) for t in tabs), ptr(sc), ptr(out), ptr(upd), b, n_graphs,
+              c // n_graphs, h, w, int(rethresh), int(glr), epi, int(use_x_rhs), win,
+              int(stats_mode == "reflect"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan is None:
+        status = lib.irdu_fused_step(*common, dtype_code(x.dtype), stream)
+    else:
+        status = lib.irdu_fused_step_hopper(*common, plan, dtype_code(x.dtype), stream)
     check_status(name, status)
     return (out, upd) if emit_update else out
 
@@ -292,7 +356,7 @@ def gg_fused_step_chw(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0
                   w_gtv1, w_glr1 if glr and two_scale else None,
                   (pgtv0, pglr0, pgtv1, pglr1), scal, n_graphs=n_graphs, deltas=deltas,
                   stats_mode=stats_mode, rethresh=mode == "rethresh", glr=glr, epi=epi,
-                  use_x_rhs=use_x_rhs, emit_update=emit_update)
+                  use_x_rhs=use_x_rhs, emit_update=emit_update, plan=K5_PLAN)
     gg_fused_step_chw.launches += 1
     return out
 

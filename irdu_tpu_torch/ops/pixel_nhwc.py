@@ -22,13 +22,20 @@ Modes (Q = CᵀC, R = Cᵀ(2·S_γ(C·) − C·), stencil pad "reflect"):
 cg2, rethresh, cg1, cg2, each output rounded to x's dtype as the TPU route
 rounds between its calls.
 
-On the card (``kernels/csrc/pixel_nhwc.cu``): one CTA per 8×16 output tile
-and chunk of up to 12 channels of one f, with a 4-pixel halo (stencil 1,
-edge sum 2, transposed stencil 1), every stage plane f32 in shared memory
-(≤ 72 KB a CTA). A cg segment moves x, aux, prev, both weight arrays and out
-(the weights are 4/3 of it) and does ~130 f32 operations per pixel and
-channel (``NHWC_OPS_PER_PIXEL``), so it is bound by bytes. The kernel takes
-the diamond-12 window; the plain version takes any window.
+On the card (``kernels/csrc/pixel_nhwc.cu``): a CTA takes one 16×32 output
+tile of a group of 4 graphs (bf16; 2 in f32: ``K8_PLANS``) and walks the F
+features: the
+group's 12 edge weights of the tile come into shared memory once (one
+cp.async per pixel and edge) and serve all F; feature f + 1's x box comes by
+cp.async into a second buffer while feature f computes and stays there for
+the epilogue. The stage planes are f32 [cell][lane] over a box that is not
+clipped to the image (``kernels/csrc/padded_tile.cuh``): halo 4 for x
+(stencil 1, edge sum 2, transposed stencil 1), 3 for the stencil outputs
+and the weights, 1 for the edge sums; 1.63× the outputs (3.0× with the
+8×16 tiles of the first port). A cg segment moves x, aux, prev, both weight
+arrays and out (the weights are 4/3 of it) and does ~130 f32 operations per
+pixel and channel (``NHWC_OPS_PER_PIXEL``), so it is bound by bytes. The
+kernel takes the diamond-12 window; the plain version takes any window.
 """
 
 from __future__ import annotations
@@ -40,10 +47,33 @@ from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.windows import DIAMOND12
 
 MODES = ("rhs", "cg1", "cg2", "rethresh")  # the kernel's mode codes, in order
+# K8's tile plans (pixel_nhwc.cu): (rows, columns, graphs a CTA, threads);
+# K8_PLAN serves bf16, the others (bf16 only) exist for kernels/plan_sweep.py;
+# f32, and a G that is not a multiple of the plan's graphs, take plan 0
+K8_PLANS = ((16, 32, 2, 256), (16, 32, 4, 256), (32, 32, 2, 256))
+K8_PLAN = 1  # 16x32 tiles of 4 graphs: the fastest in kernels/plan_sweep.py
+K8_HALO = 4  # the x box's; the stencil outputs and weights have 3, the edge sums 1
 # f32 operations per pixel and channel, counted as ops/pixel_unroll.py counts
 # them: Q 78, GLR 43, R 138; rhs Q + 2; cg1 Q + GLR + 3 + 3; cg2 Q + GLR + 3 + 6;
 # rethresh R + 2
 NHWC_OPS_PER_PIXEL = {"rhs": 80, "cg1": 127, "cg2": 130, "rethresh": 140}
+
+
+def k8_smem_bytes(glr, plan, esize):
+    """The shared memory of one K8 CTA (``pixel_nhwc.cu`` Layout): f32 stage
+    planes (S and A of GTV, and of GLR) over the tile + 3 with a lane per
+    graph of the group, two x boxes (tile + 4) and the 12 weights [e][cell]
+    of each graph operator in the input's dtype; each part rounded up to 16
+    bytes."""
+    th, tw, lanes, _ = K8_PLANS[plan]
+    n_p = (th + 2 * (K8_HALO - 1)) * (tw + 2 * (K8_HALO - 1)) * lanes
+    n_x = (th + 2 * K8_HALO) * (tw + 2 * K8_HALO) * lanes
+    na = 2 if glr else 1
+
+    def up16(n):
+        return (n + 15) // 16 * 16
+
+    return up16(4 * 2 * na * n_p) + 2 * up16(esize * n_x) + up16(esize * na * 12 * n_p)
 
 
 def _planes(t, f, g):  # (B, H, W, F·G) planar → (B, F, G, H, W) f32
@@ -129,6 +159,8 @@ def pixel_segment_nhwc(x, aux, prev, w_gtv, w_glr, p, scal, *, mode, n_graphs,
         raise ValueError("pixel_segment_nhwc needs its signal and weight tensors "
                          "contiguous, on one CUDA device, of one dtype")
     b, h, w, c = x.shape
+    plan = (K8_PLAN if x.dtype == torch.bfloat16 and n_graphs % K8_PLANS[K8_PLAN][2] == 0
+            else 0)
     dev = x.device
     pf = p.to(device=dev, dtype=torch.float32).contiguous()
     sc = scal.to(device=dev, dtype=torch.float32).contiguous()
@@ -143,7 +175,7 @@ def pixel_segment_nhwc(x, aux, prev, w_gtv, w_glr, p, scal, *, mode, n_graphs,
         x.data_ptr(), ptr(aux, mode in ("cg2", "rethresh")), ptr(prev, mode == "cg2"),
         w_gtv.data_ptr(), ptr(w_glr, mode in ("cg1", "cg2")), pf.data_ptr(), sc.data_ptr(),
         out.data_ptr(), ptr(upd, mode == "cg1"), b, h, w,
-        n_graphs, c // n_graphs, MODES.index(mode), dtype_code(x.dtype),
+        n_graphs, c // n_graphs, MODES.index(mode), plan, dtype_code(x.dtype),
         torch.cuda.current_stream(dev).cuda_stream)
     check_status("pixel_segment_nhwc", status)
     pixel_segment_nhwc.launches += 1

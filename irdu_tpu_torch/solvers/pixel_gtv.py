@@ -36,6 +36,8 @@ its flags name, with the same arithmetic.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -62,7 +64,8 @@ class MixtureGTV(nn.Module):
 
     def __init__(self, n_graphs: int = 24, n_node_fts: int = 3, n_cnn_fts: int = 72,
                  feature_num_blocks=(2, 3, 3), feature_num_refinement: int = 4,
-                 use_pallas_unroll: bool = False, use_nhwc_unroll: bool = False):
+                 use_pallas_unroll: bool = False, use_nhwc_unroll: bool = False,
+                 muy_init: float = 0.1, ro_init: float = 0.1, gamma_init: float = 1e-3):
         super().__init__()
         g, f = n_graphs, n_node_fts
         self.n_graphs, self.n_node_fts = g, f
@@ -77,9 +80,9 @@ class MixtureGTV(nn.Module):
         self.combination_weight = GroupedPointwise(g * f, g)
         self.dc_estimator = GatedDConvBlock(N_DC_CHANNELS, f, 2 * N_DC_CHANNELS)
         # raw μ and ρ, log γ
-        self.ro00 = nn.Parameter(torch.full((g,), 0.1))
-        self.muys00 = nn.Parameter(torch.full((g,), 0.1))
-        self.gamma00 = nn.Parameter(torch.full((g,), float(torch.log(torch.tensor(1e-3)))))
+        self.ro00 = nn.Parameter(torch.full((g,), float(ro_init)))
+        self.muys00 = nn.Parameter(torch.full((g,), float(muy_init)))
+        self.gamma00 = nn.Parameter(torch.full((g,), math.log(gamma_init)))
         self.GTVmodule00 = GraphOpParams(g, f, stats_mode="scalar")
         self.GLRmodule00 = GraphOpParams(g, f, stats_mode="scalar")
 

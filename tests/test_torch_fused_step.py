@@ -1,9 +1,9 @@
 """K5, K6a and K6b (``irdu_tpu_torch/ops/fused_step.py``) of the port against
 the JAX package's Pallas kernels in interpret mode, at the shape class of
-tests/test_solver_chw.py, and the CUDA kernel's tiling scheme (each tile with
-a 4-pixel halo per scale, derived planes read through a clamp to the region,
-zeros outside the image by global index) run in PyTorch against the plain
-version."""
+tests/test_solver_chw.py, and the CUDA kernels' tiling schemes run in PyTorch
+against the plain version: K1's, K6a's and K6b's tile step (each tile with a
+4-pixel halo per scale, derived planes read through a clamp to the region,
+zeros outside the image by global index) and K5's padded tile."""
 
 from __future__ import annotations
 
@@ -152,7 +152,8 @@ def test_fused_step_rejects_what_it_does_not_take(what):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA tile step (kernels/csrc/tile_step.cuh) of K5 and K1, transliterated:
+# the CUDA tile step (kernels/csrc/tile_step.cuh) of K1, K6a and K6b,
+# transliterated:
 # each output tile of each channel plane with a 4-pixel halo per scale,
 # derived planes read through a clamp to the region, zeros outside the image
 # by global index (tests/test_torch_solver_unroll.py imports tiled_step)
@@ -296,3 +297,250 @@ def test_kernel_tiling_scheme_matches_plain(mode, th, tw):
         torch.testing.assert_close(upd, want[1], atol=1e-5, rtol=1e-5)
         want = want[0]
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K5's padded tile (kernels/csrc/fused_step_hopper.cu, padded_tile.cuh),
+# transliterated: a CTA per tile and graph walking the F planes, the tile's
+# weights of both scales boxed once (zero outside the image), each plane's x
+# box with the stencil's pad, stage planes over boxes not clipped to the
+# image (S at the clamped pixel, A zero outside it), read by unclamped
+# offsets. Cells the kernel does not compute hold NaN, so a read of one
+# shows in the result. tests/test_torch_fused_step_pixel.py and
+# tests/test_torch_pixel_kernels.py (K8) import these.
+# ---------------------------------------------------------------------------
+
+
+def pad_index(i, n, reflect):
+    """The pixel a pad reads for the indices ``i`` of an axis of n."""
+    if reflect:
+        i = torch.where(i < 0, -i, torch.where(i >= n, 2 * (n - 1) - i, i))
+    return i.clamp(0, n - 1)
+
+
+def zero_box(planes, r0, c0, nr, nc):
+    """(..., H, W) → (..., nr, nc) cells from (r0, c0), zero outside."""
+    h, w = planes.shape[-2:]
+    i, j = torch.arange(r0, r0 + nr), torch.arange(c0, c0 + nc)
+    inside = ((i >= 0) & (i < h))[:, None] & ((j >= 0) & (j < w))[None, :]
+    return planes[..., i.clamp(0, h - 1)[:, None], j.clamp(0, w - 1)[None, :]] * inside
+
+
+def pad_box(planes, r0, c0, nr, nc, reflect):
+    """(..., H, W) → (..., nr, nc) cells from (r0, c0), each the pixel the
+    pad reads."""
+    h, w = planes.shape[-2:]
+    i = pad_index(torch.arange(r0, r0 + nr), h, reflect)
+    j = pad_index(torch.arange(c0, c0 + nc), w, reflect)
+    return planes[..., i[:, None], j[None, :]]
+
+
+def box_at(a, i, j):
+    """a[..., i, j] with row indices i (column) and column indices j (row),
+    which must lie in the box: a read past it is a fault of the scheme."""
+    assert i.min() >= 0 and i.max() < a.shape[-2] and j.min() >= 0 and j.max() < a.shape[-1]
+    return a[..., i[:, None], j[None, :]]
+
+
+def _stencil(p, v, r, d, u, l):  # p (L, 4); taps (L, rows, cols)
+    p = [p[:, k, None, None] for k in range(4)]
+    return p[0] * v + p[1] * (r - v) + p[2] * (d - v) + p[3] * (4 * v - u - d - l - r)
+
+
+def _stencil_t(p, v, r, d, u, l):
+    p = [p[:, k, None, None] for k in range(4)]
+    return p[0] * v + p[1] * (l - v) + p[2] * (u - v) + p[3] * (4 * v - u - d - l - r)
+
+
+def padded_tile_term(geo, taps, wg, wl, pg, pl, ro, mu, gamma, i0, j0, h, w, deltas):
+    """One scale of the padded tile on L lanes: ρ·statsᵀ(Ag) [+ μ·statsᵀ(Al)]
+    on the tile's (L, th, tw) cells. geo: th, tw, hs, hsc (this scale's);
+    taps(di, dj, rows, cols): the stencil's input at the plane cells
+    (rows, cols) clamped to the image, shifted by (di, dj); wg, wl (L, E,
+    PH, PW) weight boxes (wl None without GLR); pg, pl (L, 4); ro, mu,
+    gamma (L,) or None; (i0, j0) the tile's first pixel of an h x w image."""
+    th, tw, hs, hsc = geo["th"], geo["tw"], geo["hs"], geo["hsc"]
+    ph, pw = th + 2 * hs, tw + 2 * hsc
+    n_l = pg.shape[0]
+    # 2. the stencils over the tile + hs
+    rows, cols = torch.arange(ph), torch.arange(hsc - hs, hsc + tw + hs)
+    v, r, d, u, l = (taps(di, dj, rows, cols)
+                     for di, dj in ((0, 0), (0, 1), (1, 0), (-1, 0), (0, -1)))
+
+    def plane(vals):
+        p = torch.full((n_l, ph, pw), float("nan"))
+        p[:, :, hsc - hs:hsc + tw + hs] = vals
+        return p
+
+    sg = plane(_stencil(pg, v, r, d, u, l))
+    sl = plane(_stencil(pl, v, r, d, u, l)) if wl is not None else None
+    # 3. the edge sums over the tile + 1, zero outside the image
+    ar, ac = torch.arange(hs - 1, hs + th + 1), torch.arange(hsc - 1, hsc + tw + 1)
+    gi, gj = i0 - hs + ar, j0 - hsc + ac
+    inside = ((gi >= 0) & (gi < h))[:, None] & ((gj >= 0) & (gj < w))[None, :]
+
+    def at(a, dh, dw):  # (L, rows, cols) plane or (L, E, ...) weights at an offset
+        return box_at(a, ar + dh, ac + dw)
+
+    def emap(eps):
+        if gamma is None:
+            return eps
+        gm = gamma[:, None, None]
+        return 2 * (torch.where(eps < -gm, eps + gm, 0.0)
+                    + torch.where(eps > gm, eps - gm, 0.0)) - eps
+
+    sp, acc = at(sg, 0, 0), 0.0
+    for e, (dh, dw) in enumerate(deltas):
+        wp, wq = at(wg[:, e], 0, 0), at(wg[:, e], -dh, -dw)
+        acc = (acc + wp * emap(wp * (sp - at(sg, dh, dw)))
+               - wq * emap(wq * (at(sg, -dh, -dw) - sp)))
+
+    def a_plane(vals):
+        p = torch.full((n_l, ph, pw), float("nan"))
+        p[:, ar[:, None], ac[None, :]] = torch.where(inside, vals, 0.0)
+        return p
+
+    ag = a_plane(acc)
+    # 4. stats^T on the tile
+    tr, tc = torch.arange(hs, hs + th), torch.arange(hsc, hsc + tw)
+
+    def stats_t(a, p):
+        def t_at(di, dj):
+            return box_at(a, tr + di, tc + dj)
+
+        return _stencil_t(p, t_at(0, 0), t_at(0, 1), t_at(1, 0), t_at(-1, 0), t_at(0, -1))
+
+    t = ro[:, None, None] * stats_t(ag, pg)
+    if wl is not None:
+        al = at(sl, 0, 0) - sum(at(wl[:, e], 0, 0) * at(sl, dh, dw)
+                                for e, (dh, dw) in enumerate(deltas))
+        t = mu[:, None, None] * stats_t(a_plane(al), pl) + t
+    return t
+
+
+def padded_step(x, aux, prev, ws, tables, scal, mode, n_graphs, plan=0, deltas=CROSS4,
+                reflect=False, use_x_rhs=False):
+    """K5 as fused_step_hopper.cu computes it, f32, batch 1: per graph, the
+    tiles of ``fs.K5_PLANS`` in launch order (row-major), each walking the
+    graph's F planes. ws: w_gtv0, w_glr0, w_gtv1, w_glr1 (the half-res pair
+    None single-scale); tables pg0, pl0, pg1, pl1. Returns (out, upd)."""
+    _, c, h, w = x.shape
+    f_n = c // n_graphs
+    two = ws[2] is not None
+    win = fs.KERNEL_WINDOWS[tuple(deltas)]
+    geo = fs.k5_geometry(win, two, plan)
+    th, tw, hs, hsc, hxr, hxc = (geo[k] for k in ("th", "tw", "hs", "hsc", "hxr", "hxc"))
+    geo1 = dict(geo, th=th // 2, tw=tw // 2)
+    h2, w2 = h // 2, w // 2
+    glr = mode == "cg"
+    out, upd = torch.full_like(x, float("nan")), torch.full_like(x, float("nan"))
+    for g in range(n_graphs):
+        mu0, ro0, mu1, ro1, alpha, beta, gam0, gam1 = (v.reshape(1) for v in scal[g])
+        for i0 in range(0, h, th):
+            for j0 in range(0, w, tw):
+                # the tile's weights, once for all F planes
+                wb = [None if wt is None or (k % 2 and not glr) else
+                      zero_box(wt[0, g], i0 - hs, j0 - hsc, th + 2 * hs, tw + 2 * hsc)[None]
+                      if k < 2 else
+                      zero_box(wt[0, g], i0 // 2 - hs, j0 // 2 - hsc, th // 2 + 2 * hs,
+                               tw // 2 + 2 * hsc)[None]
+                      for k, wt in enumerate(ws)]
+                xi0, xj0 = i0 - hxr, j0 - hxc
+                for f in range(f_n):
+                    ch = g * f_n + f
+                    xb = pad_box(x[0, ch], xi0, xj0, th + 2 * hxr, tw + 2 * hxc, reflect)[None]
+                    tab = [None if t is None else t[g, :, f][None] for t in tables]
+
+                    def taps(di, dj, rows, cols, xb=xb):
+                        ci = (i0 - hs + rows).clamp(0, h - 1) - xi0
+                        cj = (j0 - hsc + cols).clamp(0, w - 1) - xj0
+                        return box_at(xb, ci + di, cj + dj)
+
+                    def taps_half(di, dj, rows, cols, xb=xb):
+                        qi = pad_index((i0 // 2 - hs + rows).clamp(0, h2 - 1) + di, h2, reflect)
+                        qj = pad_index((j0 // 2 - hsc + cols).clamp(0, w2 - 1) + dj, w2,
+                                       reflect)
+                        ri, rj = 2 * qi - xi0, 2 * qj - xj0
+                        return 0.25 * (box_at(xb, ri, rj) + box_at(xb, ri, rj + 1)
+                                       + box_at(xb, ri + 1, rj) + box_at(xb, ri + 1, rj + 1))
+
+                    gam = (gam0, gam1) if mode == "rethresh" else (None, None)
+                    t = padded_tile_term(geo, taps, wb[0], wb[1], tab[0], tab[1], ro0, mu0,
+                                         gam[0], i0, j0, h, w, deltas)[0]
+                    if two:  # the 2x2 box's half-res term, once per box
+                        t1 = padded_tile_term(geo1, taps_half, wb[2], wb[3], tab[2], tab[3],
+                                              ro1, mu1, gam[1], i0 // 2, j0 // 2, h2, w2,
+                                              deltas)[0]
+                        t = t + 0.25 * t1.repeat_interleave(2, 0).repeat_interleave(2, 1)
+                    i1, j1 = min(i0 + th, h), min(j0 + tw, w)
+                    t = t[:i1 - i0, :j1 - j0]
+                    xv = xb[0, hxr:hxr + i1 - i0, hxc:hxc + j1 - j0]
+                    sl = (0, ch, slice(i0, i1), slice(j0, j1))
+                    if mode == "rhs":
+                        out[sl] = xv + t
+                    elif mode == "rethresh":
+                        out[sl] = t if aux is None else t + aux[sl]
+                    else:
+                        u = (xv if use_x_rhs else aux[sl]) - (xv + t)
+                        if prev is not None:
+                            u = u + beta * prev[sl]
+                        upd[sl], out[sl] = u, xv + alpha * u
+    return out, upd
+
+
+@pytest.mark.parametrize("mode", ["rhs", "cg", "rethresh"])
+@pytest.mark.parametrize("plan,hw", [(0, (20, 28)), (0, (36, 132)), (1, (66, 70))],
+                         ids=["32x64_one_ragged_tile", "32x64_ragged_rows_and_columns",
+                              "64x64_four_tiles"])
+def test_padded_tile_scheme_matches_plain(mode, plan, hw):
+    """K5's padded tile, two-scale cross-4 "edge", each tile plan: tiles on
+    every image edge, ragged last tiles, half tiles against the half
+    image's edge; the result equals the plain step and no cell the kernel
+    leaves uncomputed is read."""
+    h, w = hw
+    (x, aux, prev), ws, tables, s = _inputs(seed=40 + plan, h=h, w=w)
+    t = [torch.from_numpy(a) for a in (x, aux, prev, *ws, *tables)]
+    x, aux, prev, ws, tables = t[0], t[1], t[2], t[3:7], t[7:]
+    scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
+    aux_m = None if mode == "rhs" else aux
+    prev_m = prev if mode == "cg" else None
+    out, upd = padded_step(x, aux_m, prev_m, ws, tables, scal, mode, G, plan=plan)
+    want = fs.fused_step_plain(x, aux_m, prev_m, *ws, *tables, scal, mode=mode, n_graphs=G,
+                               emit_update=mode == "cg")
+    if mode == "cg":
+        torch.testing.assert_close(upd, want[1], atol=5e-4, rtol=1e-3)
+        want = want[0]
+    torch.testing.assert_close(out, want, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["cg_prev_emit_update", "rethresh_no_y", "cg_single_scale"])
+def test_padded_tile_scheme_matches_jax_kernel(case):
+    """The transliteration against JAX's Pallas kernel in interpret mode at
+    the JAX tests' shape (32x24: one ragged tile), two-scale and single-scale
+    cross-4."""
+    mode, (has_aux, has_prev), kw, two_scale, _ = STEP_CASES[case]
+    (x, aux, prev), ws, tables, s = _inputs(seed=len(case))
+    if not two_scale:
+        ws, tables = ws[:2] + [None, None], tables[:2] + [None, None]
+    scal = np.array(jax_fused_scal(G, **s))
+    args = [x, aux if has_aux else None, prev if has_prev else None, *ws, *tables, scal]
+    jargs, targs = zip(*(_both(a) for a in args))
+    ref = jax_step(*jargs, mode=mode, n_graphs=G, true_h=H, true_w=W, interpret=True, **kw)
+    out, upd = padded_step(targs[0], targs[1], targs[2], targs[3:7], targs[7:11], targs[11],
+                           mode, G)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref[0] if kw else ref),
+                               atol=5e-4, rtol=1e-3)
+    if kw.get("emit_update"):
+        np.testing.assert_allclose(upd.numpy(), np.asarray(ref[1]), atol=5e-4, rtol=1e-3)
+
+
+def test_k5_smem_bytes_fit_the_card():
+    """Every built K5 plan's shared memory fits a CTA (227 KB); the served
+    two-scale bf16 cg plan fits two CTAs an SM."""
+    for two, win in ((True, 0), (False, 0), (False, 1)):
+        for plan in range(len(fs.K5_PLANS[two])):
+            for dtype in (torch.float32, torch.bfloat16):
+                if fs.k5_has_plan(plan, two, win, dtype):
+                    esize = 4 if dtype == torch.float32 else 2
+                    assert fs.k5_smem_bytes(win, two, True, plan, esize) <= 232448
+    assert 2 * (fs.k5_smem_bytes(0, True, True, 0, 2) + 1024) <= 233472

@@ -29,6 +29,7 @@ from irdu_tpu_torch.ops.windows import DIAMOND12
 from irdu_tpu_torch.solvers import gtv_glr
 from irdu_tpu_torch.solvers.pixel_gtv import MixtureGTV
 from irdu_tpu_torch.utils.weights import params_to_torch
+from test_torch_fused_step import padded_step
 
 G, F = 2, 3
 C = G * F
@@ -240,6 +241,53 @@ def test_kernel_tiling_scheme_matches_plain(mode, th, tw):
         torch.testing.assert_close(upd, want[1], atol=1e-5, rtol=1e-5)
         want = want[0]
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["rhs", "cg", "rethresh"])
+@pytest.mark.parametrize("plan,hw", [(0, (21, 69)), (1, (35, 27)), (0, (19, 33))],
+                         ids=["16x64_odd_ragged", "32x64_odd_one_column", "16x64_odd_two_rows"])
+def test_padded_tile_scheme_matches_plain(mode, plan, hw):
+    """K5's padded tile (fused_step_hopper.cu) on diamond-12 with the reflect
+    pad, each single-scale tile plan, odd H and W: tiles on every image edge,
+    ragged last tiles in both directions; the result equals the plain step
+    and no cell the kernel leaves uncomputed is read."""
+    h, w = hw
+    (x, aux, prev), (wg, wl), (pg, pl), s = _inputs(seed=50 + plan, h=h, w=w)
+    x, aux, prev, wg, wl, pg, pl = (torch.from_numpy(np.ascontiguousarray(a))
+                                    for a in (x, aux, prev, wg, wl, pg, pl))
+    scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
+    aux_m = None if mode == "rhs" else aux
+    prev_m = prev if mode == "cg" else None
+    wl_m = wl if mode == "cg" else None
+    out, upd = padded_step(x, aux_m, prev_m, (wg, wl_m, None, None), (pg, pl, None, None),
+                           scal, mode, G, plan=plan, deltas=DIAMOND12, reflect=True)
+    want = fs.fused_step_plain(x, aux_m, prev_m, wg, wl_m, None, None, pg, pl, None, None,
+                               scal, mode=mode, n_graphs=G, emit_update=mode == "cg", **PIXEL)
+    if mode == "cg":
+        torch.testing.assert_close(upd, want[1], atol=5e-4, rtol=1e-3)
+        want = want[0]
+    torch.testing.assert_close(out, want, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["cg_use_x_rhs_emit_update", "rethresh_y"])
+def test_padded_tile_scheme_matches_jax_kernel(case):
+    """The transliteration against JAX's Pallas kernel in interpret mode at
+    the JAX tests' pixel shape (16x128: two tile columns of plan 0)."""
+    mode, has_aux, has_prev, glr, kw, keys, _ = STEP_CASES[case]
+    (x, aux, prev), (wg, wl), (pg, pl), s = _inputs(seed=len(case))
+    scal = np.array(jax_fused_scal(G, **{k: s[k] for k in keys}))
+    args = [x, aux if has_aux else None, prev if has_prev else None, wg,
+            wl if glr else None, None, None, pg, pl if glr else None, None, None, scal]
+    jargs, targs = zip(*(_both(a) for a in args))
+    ref = jax_step(*jargs, mode=mode, n_graphs=G, true_h=H, true_w=W,
+                   deltas=EDGE_DELTAS_DIAMOND12, stats_mode="reflect", interpret=True, **kw)
+    out, upd = padded_step(targs[0], targs[1], targs[2], targs[3:7], targs[7:11], targs[11],
+                           mode, G, deltas=DIAMOND12, reflect=True,
+                           use_x_rhs=bool(kw.get("use_x_rhs")))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref[0] if kw else ref),
+                               atol=5e-4, rtol=1e-3)
+    if kw.get("emit_update"):
+        np.testing.assert_allclose(upd.numpy(), np.asarray(ref[1]), atol=5e-4, rtol=1e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from irdu_tpu_torch.ops.graph import pack_edge_weights
 from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw, pixel_unroll_scal
 from irdu_tpu_torch.ops.windows import DIAMOND12, window_to_deltas
 from irdu_tpu_torch.ops.windows import WINDOWS as PORT_WINDOWS
+from test_torch_fused_step import box_at, pad_box, padded_tile_term, zero_box
 
 G, F = 4, 3
 C = G * F
@@ -260,131 +261,90 @@ def test_pixel_unroll_nhwc_matches_flat_ops():
 
 # ---------------------------------------------------------------------------
 # the K8 CUDA kernel's scheme (kernels/csrc/pixel_nhwc.cu), transliterated:
-# tiles of TH x TW output pixels, a HALO-pixel region clipped to the image,
-# derived-plane reads clamped to the region, the stencil mirrored and the
-# scatter and the transposed stencil zero outside the image
+# per output tile and group of graphs (the last group partial where the
+# group size does not divide G), the group's weight boxes once (zero outside
+# the image), then each feature f's x box of the group's lanes (the reflect
+# pad) through the padded tile of tests/test_torch_fused_step.py: stage
+# planes over boxes not clipped to the image, read by unclamped offsets
 # ---------------------------------------------------------------------------
 
-HALO = 4
 
-
-class _Region:
-    def __init__(self, i0, i1, j0, j1, h, w):
-        self.r0, self.r1 = max(i0 - HALO, 0), min(i1 + HALO, h)
-        self.c0, self.c1 = max(j0 - HALO, 0), min(j1 + HALO, w)
-        self.h, self.w = h, w
-        self.grid = torch.meshgrid(torch.arange(self.r0, self.r1),
-                                   torch.arange(self.c0, self.c1), indexing="ij")
-
-    def at(self, a, i, j):  # a (rows, cols, C) region plane read at (i, j), clamped
-        return a[i.clamp(self.r0, self.r1 - 1) - self.r0, j.clamp(self.c0, self.c1 - 1) - self.c0]
-
-    def inside(self, i, j):
-        return ((i >= 0) & (i < self.h) & (j >= 0) & (j < self.w))[..., None]
-
-
-def _stats(reg, a, p, i, j):
-    jr = torch.where(j + 1 < reg.w, j + 1, j - 1)
-    jl = torch.where(j > 0, j - 1, j + 1)
-    i_d = torch.where(i + 1 < reg.h, i + 1, i - 1)
-    iu = torch.where(i > 0, i - 1, i + 1)
-    v, r, l = reg.at(a, i, j), reg.at(a, i, jr), reg.at(a, i, jl)
-    d, u = reg.at(a, i_d, j), reg.at(a, iu, j)
-    return p[0] * v + p[1] * (r - v) + p[2] * (d - v) + p[3] * (4 * v - u - d - l - r)
-
-
-def _stats_t(reg, a, p, i, j):
-    def z(di, dj):
-        return torch.where(reg.inside(i + di, j + dj), reg.at(a, i + di, j + dj), 0.0)
-
-    v, r0, d0, u0, l0 = reg.at(a, i, j), z(0, 1), z(1, 0), z(-1, 0), z(0, -1)
-    return p[0] * v + p[1] * (l0 - v) + p[2] * (u0 - v) + p[3] * (4 * v - u0 - d0 - l0 - r0)
-
-
-def _edge_map(eps, gamma):
-    if gamma is None:
-        return eps
-    thr = (torch.where(eps < -gamma, eps + gamma, 0.0)
-           + torch.where(eps > gamma, eps - gamma, 0.0))
-    return 2 * thr - eps
-
-
-def _gtv_edge_sum(reg, s, w, i, j, gamma):
-    """w: E × (H, W, C) weights broadcast to the channels."""
-    sp, acc = reg.at(s, i, j), 0.0
-    for e, (dh, dw) in enumerate(DIAMOND12):
-        wp = w[e][i, j]
-        acc = acc + wp * _edge_map(wp * (sp - reg.at(s, i + dh, j + dw)), gamma)
-        qi, qj = i - dh, j - dw
-        wq = w[e][qi.clamp(0, reg.h - 1), qj.clamp(0, reg.w - 1)]
-        nbr = wq * _edge_map(wq * (reg.at(s, qi, qj) - sp), gamma)
-        acc = acc - torch.where(reg.inside(qi, qj), nbr, 0.0)
-    return acc
-
-
-def _glr_lap(reg, s, w, i, j):
-    acc = sum(w[e][i, j] * reg.at(s, i + dh, j + dw) for e, (dh, dw) in enumerate(DIAMOND12))
-    return reg.at(s, i, j) - acc
-
-
-def _tiled_segment(x, aux, prev, wg, wl, p, scal, mode, th=8, tw=16):
-    """K8 tile by tile as the kernel computes it, f32, batch 1, all channels
-    of a tile at once (channels do not interact); returns out, or (out, upd)."""
+def _tiled_segment(x, aux, prev, wg, wl, p, scal, mode, th=16, tw=32, lanes=2, n_graphs=G):
+    """K8 as the kernel computes it, f32, batch 1: the tiles in launch order
+    (row-major), each tile's groups of ``lanes`` graphs, each group walking
+    the F features; returns out, or (out, upd) for cg1."""
     _, h, w, c = x.shape
+    f_n, n_e, hx = c // n_graphs, len(DIAMOND12), pn.K8_HALO
+    geo = dict(th=th, tw=tw, hs=hx - 1, hsc=hx - 1)
+    glr = mode in ("cg1", "cg2")
 
-    def per_channel(packed):  # (1, H, W, E·G) → E × (H, W, C) planar
-        wv = packed[0].reshape(h, w, E, G)
-        return [wv[:, :, e].repeat(1, 1, F) for e in range(E)]
+    def per_graph(packed):  # (1, H, W, E·G) → (G, E, H, W)
+        return packed[0].reshape(h, w, n_e, n_graphs).permute(3, 2, 0, 1)
 
-    wg_c = per_channel(wg)
-    wl_c = per_channel(wl) if wl is not None else None
+    wgv = per_graph(wg)
+    wlv = per_graph(wl) if glr else None
+    xc = x[0].permute(2, 0, 1)  # (C, H, W)
     mu, ro, gamma, alpha, beta = scal
-    out, upd = torch.empty_like(x), torch.empty_like(x)
+    out, upd = torch.full_like(x, float("nan")), torch.full_like(x, float("nan"))
     for i0 in range(0, h, th):
         for j0 in range(0, w, tw):
             i1, j1 = min(i0 + th, h), min(j0 + tw, w)
-            ti, tj = torch.meshgrid(torch.arange(i0, i1), torch.arange(j0, j1), indexing="ij")
-            reg = _Region(i0, i1, j0, j1, h, w)
-            i, j = reg.grid
-            xr = x[0, reg.r0:reg.r1, reg.c0:reg.c1]
-            ag = _gtv_edge_sum(reg, _stats(reg, xr, p[0], i, j), wg_c, i, j,
-                               gamma if mode == "rethresh" else None)
-            t = ro * _stats_t(reg, ag, p[0], ti, tj)
-            if wl_c is not None:
-                al = _glr_lap(reg, _stats(reg, xr, p[1], i, j), wl_c, i, j)
-                t = mu * _stats_t(reg, al, p[1], ti, tj) + t
-            sl = (0, slice(i0, i1), slice(j0, j1))
-            xv = x[sl]
-            if mode == "rhs":
-                out[sl] = xv + t
-            elif mode == "rethresh":
-                out[sl] = aux[sl] + t
-            else:
-                u = -t if mode == "cg1" else aux[sl] - xv - t + beta * prev[sl]
-                upd[sl], out[sl] = u, xv + alpha * u
+            for g0 in range(0, n_graphs, lanes):
+                gs = list(range(g0, min(g0 + lanes, n_graphs)))
+                wgb = zero_box(wgv[gs], i0 - geo["hs"], j0 - geo["hs"], th + 2 * geo["hs"],
+                               tw + 2 * geo["hs"])
+                wlb = (zero_box(wlv[gs], i0 - geo["hs"], j0 - geo["hs"], th + 2 * geo["hs"],
+                                tw + 2 * geo["hs"]) if glr else None)
+                for f in range(f_n):
+                    chs = [f * n_graphs + g for g in gs]
+                    xb = pad_box(xc[chs], i0 - hx, j0 - hx, th + 2 * hx, tw + 2 * hx, True)
+
+                    def taps(di, dj, rows, cols, xb=xb):
+                        ci = (i0 - geo["hs"] + rows).clamp(0, h - 1) - (i0 - hx)
+                        cj = (j0 - geo["hs"] + cols).clamp(0, w - 1) - (j0 - hx)
+                        return box_at(xb, ci + di, cj + dj)
+
+                    lp = [p[k].expand(len(gs), 4) for k in range(2)]
+                    t = padded_tile_term(geo, taps, wgb, wlb, lp[0], lp[1], ro[chs], mu[chs],
+                                         gamma[chs] if mode == "rethresh" else None, i0, j0,
+                                         h, w, DIAMOND12)
+                    t = t[:, :i1 - i0, :j1 - j0].permute(1, 2, 0)
+                    xv = xb[:, hx:hx + i1 - i0, hx:hx + j1 - j0].permute(1, 2, 0)
+                    sl = (0, slice(i0, i1), slice(j0, j1), chs)
+                    if mode == "rhs":
+                        out[sl] = xv + t
+                    elif mode == "rethresh":
+                        out[sl] = aux[sl] + t
+                    else:
+                        u = -t if mode == "cg1" else aux[sl] - xv - t + beta[chs] * prev[sl]
+                        upd[sl], out[sl] = u, xv + alpha[chs] * u
     return (out, upd) if mode == "cg1" else out
 
 
 @pytest.mark.parametrize("mode", list(SEGMENTS))
-@pytest.mark.parametrize("th,tw", [(8, 16), (6, 10)], ids=["kernel_tile", "small_odd_tiles"])
-def test_kernel_tiling_scheme_matches_plain(mode, th, tw):
+@pytest.mark.parametrize("th,tw,lanes", [pn.K8_PLANS[pn.K8_PLAN][:3], (6, 10, 2)],
+                         ids=["kernel_tile", "small_odd_tiles"])
+def test_kernel_tiling_scheme_matches_plain(mode, th, tw, lanes):
     """20x36 image: tiles on every edge, interior tiles, ragged last tiles
-    in both directions; the result equals the plain segment."""
+    in both directions (the served plan's 16x32 tile of 4 graphs, and 6x10
+    of 2); the result equals the plain segment and no cell the kernel
+    leaves uncomputed is read."""
     x, aux, prev, wg, wl, p, planar = map(
         lambda a: a if isinstance(a, dict) else _t(a), _nhwc_inputs(20, 36, seed=21))
     use_aux, use_prev, use_glr = SEGMENTS[mode]
     scal = _t(_rows(planar, 1))
     args = (x, aux if use_aux else None, prev if use_prev else None, wg,
             wl if use_glr else None, p, scal)
-    got = _tiled_segment(*args, mode, th, tw)
+    got = _tiled_segment(*args, mode, th, tw, lanes)
     want = pn.pixel_segment_plain(*args, mode=mode, n_graphs=G)
     for g_, w_ in zip(*((got, want) if mode == "cg1" else ((got,), (want,)))):
         torch.testing.assert_close(g_, w_, atol=1e-5, rtol=1e-5)
 
 
 def test_tiled_unroll_matches_flat_ops_over_several_tiles():
-    """The 6-segment unroll through the kernel's scheme: 20 rows are three
-    tile rows with a ragged bottom one, 36 columns three tile columns."""
+    """The 6-segment unroll through the kernel's scheme: 20 rows and 36
+    columns are two tile rows and two tile columns of the served 16x32
+    tile, the last of each ragged."""
     y72, _, _, wg, wl, p, planar = _nhwc_inputs(20, 36, seed=5)
     ref = _flat_reference(y72, wg, wl, p, planar)
     real = pn.pixel_segment_nhwc
@@ -397,3 +357,64 @@ def test_tiled_unroll_matches_flat_ops_over_several_tiles():
     finally:
         pn.pixel_segment_nhwc = real
     np.testing.assert_allclose(out.numpy(), ref, atol=5e-5, rtol=1e-4)
+
+
+def _grouped_inputs(h, w, n_graphs, seed):
+    """_nhwc_inputs with n_graphs graphs: x, aux, prev, packed weights, p
+    and one step's (5, C) rows."""
+    rng = np.random.RandomState(seed)
+    c = F * n_graphs
+    x, aux = (_t(rng.rand(1, h, w, c).astype(np.float32)) for _ in range(2))
+    prev = _t((0.3 * rng.randn(1, h, w, c)).astype(np.float32))
+    wg, wl = (_t(rng.dirichlet(np.ones(E), size=(1, h, w, n_graphs)).astype(np.float32)
+                 .transpose(0, 1, 2, 4, 3).reshape(1, h, w, E * n_graphs).copy())
+              for _ in range(2))
+    p = _t((np.array([[1.0, 0.5, 0.5, 0.5]]) + 0.2 * rng.randn(2, 4)).astype(np.float32))
+    rows = np.stack([0.2 + 0.1 * rng.rand(c), 0.2 + 0.1 * rng.rand(c), 0.02 + 0.01 * rng.rand(c),
+                     0.5 + 0.1 * rng.randn(c), 0.1 + 0.05 * rng.randn(c)])
+    return x, aux, prev, wg, wl, p, _t(rows.astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", list(SEGMENTS))
+@pytest.mark.parametrize("plan,n_graphs,hw", [
+    (1, 2, (19, 37)), (2, 3, (33, 35)), (1, 8, (17, 18)), (0, 5, (23, 31))],
+    ids=["16x32_4graphs_G2_partial_group", "32x32_2graphs_G3_partial_group",
+         "16x32_4graphs_G8", "16x32_2graphs_G5"])
+def test_grouped_tiles_match_plain(mode, plan, n_graphs, hw):
+    """K8's plans (pixel_nhwc.cu K8_PLANS: tile and graphs a CTA) over odd H
+    and W, a group size that does not divide G (the last group partial) and
+    G = 2 with groups of 4: the transliteration equals the plain segment."""
+    th, tw, lanes, _ = pn.K8_PLANS[plan]
+    x, aux, prev, wg, wl, p, scal = _grouped_inputs(*hw, n_graphs, seed=60 + plan)
+    use_aux, use_prev, use_glr = SEGMENTS[mode]
+    args = (x, aux if use_aux else None, prev if use_prev else None, wg,
+            wl if use_glr else None, p, scal)
+    got = _tiled_segment(*args, mode, th, tw, lanes, n_graphs)
+    want = pn.pixel_segment_plain(*args, mode=mode, n_graphs=n_graphs)
+    for g_, w_ in zip(*((got, want) if mode == "cg1" else ((got,), (want,)))):
+        torch.testing.assert_close(g_, w_, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["cg2", "rethresh"])
+def test_grouped_tiles_match_jax_kernel(mode):
+    """The transliteration with the served plan against JAX's Pallas kernel
+    in interpret mode at the JAX tests' shape (16x128: four tile columns of
+    the served 16x32 tile, one group of 4 graphs)."""
+    x, aux, prev, wg, wl, p, planar = _nhwc_inputs(16, 128, seed=7)
+    use_aux, use_prev, use_glr = SEGMENTS[mode]
+    args = (x, aux if use_aux else None, prev if use_prev else None, wg,
+            wl if use_glr else None, p, _rows(planar, 1))
+    halos = (_halos(_j(wg), 16, RADIUS_W), _halos(_j(wl), 16, RADIUS_W))
+    ref = jax_segment(*map(_j, args[:5]), halos, *map(_j, args[5:]), mode=mode, tile_h=16,
+                      n_graphs=G, deltas=DIAMOND12, interpret=True)
+    th, tw, lanes, _ = pn.K8_PLANS[pn.K8_PLAN]
+    got = _tiled_segment(*map(_t, args), mode, th, tw, lanes)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-4, rtol=1e-3)
+
+
+def test_k8_smem_bytes_fit_the_card():
+    """Every built K8 plan fits a CTA (227 KB): each in bf16, plan 0 (f32's)
+    in f32 too."""
+    for plan in range(len(pn.K8_PLANS)):
+        for esize in ((2, 4) if plan == 0 else (2,)):
+            assert pn.k8_smem_bytes(True, plan, esize) <= 232448

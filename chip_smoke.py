@@ -86,10 +86,14 @@ Phases, each timed and printed as it ends:
             route on the 512x512 request's scale-0 code (K1's cap set to 0):
             f32 within 5e-4 + 1e-3·|ref|, and both routes timed in bf16, in
             turns. K2 on the diamond-12 window at (1, 144, 512, 512), K7 at the
-            512x512 pixel request's shapes and K8 in each mode at 512x512, with
+            512x512 pixel request's shapes and at K7_RAGGED (ragged tiles, a
+            plane below one tile) and K8 in each mode at 512x512, with
             the pixel snapshot's parameters, f32 (the bar above, and for K7
             and K8 the CHANGE_FACTOR rule) and bf16 (K2's and K1's bars), timed
-            in bf16. K5 in each pixel mode (rhs; cg from x, emitting the
+            in bf16; K7's row records the CTAs an SM of its cooperative grid,
+            and the ``k7_band_512`` line times K7 against the pixel solver's
+            six-call K5 band route on the same inputs, by device time, in
+            turns. K5 in each pixel mode (rhs; cg from x, emitting the
             update; cg with beta*prev; rethresh with y) and K6a, K6b on
             diamond-12 with the reflect pad at the 1024x1024 pixel request's
             shape (1, 72, 1024, 1024), G = 24, and at 37x53 (ragged tiles),
@@ -116,7 +120,7 @@ The build must take under 60 s and the whole script under 450 s; a run over
 either budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
-results, the serving, model and ``device_ms`` lines, the phase times and, only when every
+results, the serving, ``k7_band_512``, model and ``device_ms`` lines, the phase times and, only when every
 phase passed, {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits
 non-zero without a CUDA card, without the package beside this script, or when
 any phase fails.
@@ -211,12 +215,16 @@ ABLATION_LAUNCHES = {
 }
 ABLATION_F32_BAR = 1e-5  # the f32 forward, kernels against plain, of max(1, max|ref|)
 K9_SHAPE = (1, 512, 512, 96)  # the "single" ablation's matvec at 512x512, G = 1
-# ragged 8x16 tiles both ways, a partial last channel chunk, chunks across graphs (G = 2)
+# ragged 16x16 tiles both ways, G = 2 graphs of F = 20 channels: a partial last chunk
+# of 8 lanes in each graph
 K9_RAGGED = (1, 37, 53, 40)
 # K5's pixel mode and K6a/K6b on diamond-12 also at ragged tiles (K5's 16x64,
 # K6a/K6b's 32x64), odd H and W
 STEP_RAGGED = (37, 53)
 K9_CALLS = 3  # per "single" request
+# K7 also on ragged 16x64 tiles with odd H and W, and on a plane smaller than
+# one tile, with the pixel snapshot's G = 24, F = 3
+K7_RAGGED = ((37, 53), (12, 40))
 LOUD = (1, 20, 20, 1)  # per-scale factor on the snapshot's μ, ρ, γ in the K1 rows
 # K1 also at the 480x320 request's scale-2 and scale-3 planes (ragged 32x64
 # tiles; the 60x40 plane is smaller than one tile)
@@ -1006,7 +1014,7 @@ def phase_kernels(smoke):
     smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows,
                          **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at)}
     pixel = smoke.pixel_model or load_model(device=DEVICE, name="pixel")
-    for more in (pixel_rows(pixel, gen, bar_at), pixel_step_rows(pixel, gen, bar_at),
+    for more in (pixel_rows(pixel, gen, bar_at, smoke.lines), pixel_step_rows(pixel, gen, bar_at),
                  k9_rows(gen, bar_at), ragged_step_rows(gen, bar_at)):
         for name, rows in more.items():
             smoke.kernel_rows.setdefault(name, []).extend(rows)
@@ -1025,18 +1033,22 @@ def phase_kernels(smoke):
 def layout_mismatches(model):
     """The planners' shared-memory counts against the kernels' own layouts
     (the library's ``irdu_block_stack_wgmma_smem``,
-    ``irdu_edge_weights_smem``, ``irdu_fused_step_hopper_smem`` and
-    ``irdu_pixel_segment_smem``): K3's wgmma kernel at every served (C, H)
+    ``irdu_edge_weights_smem``, ``irdu_fused_step_hopper_smem``,
+    ``irdu_pixel_segment_smem``, ``irdu_pixel_unroll_smem`` and
+    ``irdu_system_matvec_smem``): K3's wgmma kernel at every served (C, H)
     it takes, K2 at the plan of every call of the 512x512 flagship request
     and of the pixel model's diamond-12 call, bf16 and f32; K5 and K8 at
-    every tile plan they are built with, with and without GLR. Returns the
-    (what, planner bytes, kernel bytes) that differ."""
+    every tile plan they are built with, with and without GLR; K7 and K9 at
+    every tile plan they are built with. Returns the (what, planner bytes,
+    kernel bytes) that differ."""
     import torch
 
     from irdu_tpu_torch.kernels.build import kernel_library
     from irdu_tpu_torch.ops.block_stack import stack_route, stack_smem_bytes
     from irdu_tpu_torch.ops import fused_step as fs
     from irdu_tpu_torch.ops import pixel_nhwc as pn
+    from irdu_tpu_torch.ops import pixel_unroll as pu
+    from irdu_tpu_torch.ops import system_matvec as sm
     from irdu_tpu_torch.ops.edge_weights import plan_edge_tiles
 
     lib = kernel_library()
@@ -1068,6 +1080,14 @@ def layout_mismatches(model):
                 got = lib.irdu_pixel_segment_smem(int(glr), plan, code)
                 out.append((f"K8 glr={glr} plan={plan} e{esize}",
                             pn.k8_smem_bytes(glr, plan, esize), got))
+        for plan in range(len(pu.K7_PLANS)):
+            if pu.k7_has_plan(plan, dtype):
+                out.append((f"K7 plan={plan} e{esize}", pu.k7_smem_bytes(plan, esize),
+                            lib.irdu_pixel_unroll_smem(plan, code)))
+        for plan in range(len(sm.K9_PLANS)):
+            if sm.k9_has_plan(plan, dtype):
+                out.append((f"K9 plan={plan} e{esize}", sm.k9_smem_bytes(plan, esize),
+                            lib.irdu_system_matvec_smem(plan, code)))
     return [m for m in out if m[1] != m[2]]
 
 
@@ -1508,23 +1528,26 @@ def block_rows(model, gen, bar_at):
     return rows
 
 
-def pixel_rows(model, gen, bar_at):
+def pixel_rows(model, gen, bar_at, lines):
     """K2 on the diamond-12 window, K7, and K8 in each mode against their
     plain versions at the shapes of a 512x512 pixel request, with the
     snapshot's solver parameters (multiM, the scalar stencils, μ, ρ, γ, α, β),
     f32 (atol 5e-4, rtol 1e-3; K7 and K8 also the CHANGE_FACTOR rule) and
     bf16 (K2: k2_bar; K7, K8: K1's bar), on seeded inputs: features N(0, 1),
     signals U[0, 1), the previous update 0.3·N(0, 1), the weights K2's of the
-    features. Times in bf16 from CUDA events; ``calls``: per pixel request on
-    its route (K2 on diamond-12: 1 on the CHW route, kept out of the
-    flagship request's sum)."""
+    features; K7 also at K7_RAGGED, untimed. Times in bf16 from CUDA events;
+    ``calls``: per pixel request on its route (K2 on diamond-12: 1 on the CHW
+    route, kept out of the flagship request's sum). K7's yardstick goes to
+    ``lines["k7_band_512"]``: the pixel solver's six-call K5 band route on
+    the same bf16 inputs, device time against K7's, in turns."""
     import torch
 
     from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
     from irdu_tpu_torch.ops.graph import pack_edge_weights
     from irdu_tpu_torch.ops.pixel_nhwc import (NHWC_OPS_PER_PIXEL, pixel_segment_nhwc,
                                                pixel_segment_plain)
-    from irdu_tpu_torch.ops.pixel_unroll import (PIXEL_UNROLL_OPS_PER_PIXEL,
+    from irdu_tpu_torch.kernels.build import dtype_code, kernel_library
+    from irdu_tpu_torch.ops.pixel_unroll import (K7_PLAN, K7_PLANS, PIXEL_UNROLL_OPS_PER_PIXEL,
                                                  gg_pixel_unroll_chw, pixel_unroll_plain)
     from irdu_tpu_torch.ops.windows import DIAMOND12
 
@@ -1576,7 +1599,11 @@ def pixel_rows(model, gen, bar_at):
         if bf16:
             row.update(calls=1, **times(lambda: gg_pixel_unroll_chw(*args, n_graphs=g), 5),
                        plain_ms=cuda_ms(lambda: pixel_unroll_plain(*args, n_graphs=g), 2, 1),
+                       ctas_per_sm=kernel_library().irdu_pixel_unroll_ctas_per_sm(
+                           K7_PLAN, dtype_code(dtype)),
+                       plan=list(K7_PLANS[K7_PLAN]),
                        **_bound(nbytes(*args, ker), ker.numel() * PIXEL_UNROLL_OPS_PER_PIXEL))
+            lines["k7_band_512"] = k7_yardstick(mix, args, g)
         rows["gg_pixel_unroll_chw"].append(row)
         del ker, ref
         x, aux = (torch.rand(1, h, w, c, device=DEVICE, generator=gen).to(dtype)
@@ -1605,7 +1632,52 @@ def pixel_rows(model, gen, bar_at):
             del ker, ref
         del x, aux, prev, wgp, wlp
         torch.cuda.empty_cache()
+    for side in K7_RAGGED:  # ragged tiles, a plane below one tile; untimed
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = torch.randn(1, c, *side, device=DEVICE, generator=gen).to(dtype)
+            wt = edge_weights_plain(torch.cat([feats, feats], dim=1), m, 2 * g, DIAMOND12)
+            y = torch.rand(1, f, *side, device=DEVICE, generator=gen).to(dtype)
+            args = (y, wt[:, :g].contiguous(), wt[:, g:].contiguous(), *tables, scal)
+            ker = gg_pixel_unroll_chw(*args, n_graphs=g)
+            ref = pixel_unroll_plain(*args, n_graphs=g)
+            sync()
+            row = dict(shape=list(ker.shape), dtype=str(dtype)[6:], params="pixel snapshot",
+                       case="ragged")
+            row.update(_agree(ker, ref, y.repeat(1, g, 1, 1), dtype, bar_at))
+            rows["gg_pixel_unroll_chw"].append(row)
+            del ker, ref, feats, wt
     return rows
+
+
+def k7_yardstick(mix, args, g, rounds=2):
+    """K7 against the pixel solver's six-call K5 band route (its route above
+    K7's cap, forced here at 512x512) on the same bf16 inputs: device time
+    of one unroll each (``kernels/timing.py``: launch-linked profiler
+    events), K7, band, band, K7 per round. The band route rounds each step's
+    output to bf16 and K7 keeps f32 between its steps, so the outputs are
+    compared only loosely (max|d|, kept with the times)."""
+    from irdu_tpu_torch.kernels.timing import device_ms
+    from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw
+
+    y, wg, wl, pg, pl, scal = args
+
+    def k7():
+        return gg_pixel_unroll_chw(*args, n_graphs=g)
+
+    def band():
+        return mix._band_route(y.repeat(1, g, 1, 1), wg, wl, (pg, pl))
+
+    t = {"k7": [], "band": []}
+    for _ in range(rounds):
+        for name in ("k7", "band", "band", "k7"):
+            t[name].append(round(device_ms(k7 if name == "k7" else band, 5), 5))
+    out = dict(shape=list(y.shape[-2:]), n_graphs=g, k7_device_ms=t["k7"],
+               band_device_ms=t["band"], median_k7_ms=float(np.median(t["k7"])),
+               median_band_ms=float(np.median(t["band"])),
+               band_vs_k7_max_abs=max_abs(band(), k7()),
+               order="k7, band, band, k7, x%d" % rounds, calls={"k7": 1, "band": 6})
+    out["band_over_k7"] = out["median_band_ms"] / out["median_k7_ms"]
+    return out
 
 
 def pixel_step_rows(model, gen, bar_at):
@@ -2021,8 +2093,8 @@ def main() -> int:
         smoke.run("model", phase_model, smoke)
     smoke.lines["device_ms"] = device_ms_sessions()
     print(json.dumps(kernels_line(smoke)), flush=True)
-    for key in ("serving", "profile", "small_models", "pixel", "ablation", "band_route", "model",
-                "device_ms"):
+    for key in ("serving", "profile", "small_models", "pixel", "ablation", "band_route",
+                "k7_band_512", "model", "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:

@@ -16,8 +16,10 @@ scale-0 solve on K1 and on K5's band route.
 After each ``chip_smoke.py`` the turn runs DEVICE_PROBE in the same tree,
 through that tree's own wrappers: the device time of K2 at every shape of
 the 512x512 flagship request and at the pixel model's diamond-12 shape, of
-K3 at the flagship's, of K5 in the 1024x1024 flagship request's five calls
-and of K8 in its four modes at the 512x512 pixel request, each from
+K3 at the flagship's, of K5 in the 1024x1024 flagship request's five calls,
+of K8 in its four modes at the 512x512 pixel request, of K7 at that request
+(CHW route) and of the six-call K5 band route on the same inputs, and of K9
+at the "single" ablation's 512x512 call (three a request), each from
 torch.profiler (the kernels' own
 durations over 20 calls, no host work: this tree's ``kernels/timing.py``),
 so that a tree whose ``chip_smoke.py`` records no ``device_ms`` is compared
@@ -114,6 +116,44 @@ for mode, a_, p_, wl_ in (("rhs", None, None, None), ("cg1", None, None, wl),
                           ("cg2", aux, prev, wl), ("rethresh", aux, None, None)):
     out[f"K8 [1, 512, 512, 72] {mode}"] = device_ms(lambda: pixel_segment_nhwc(
         x, a_, p_, wg, wl_, p, sc, mode=mode, n_graphs=24))
+del x, aux, prev, wg, wl
+# K7 at the 512x512 pixel request (y (1, 3, 512, 512), G = 24, diamond-12),
+# and the six-call K5 band route on the same inputs (its yardstick); K9 at
+# the "single" ablation's (1, 512, 512, 96), G = 1, identity rows
+from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw, pixel_unroll_scal
+from irdu_tpu_torch.ops.system_matvec import fused_system_matvec
+y = unit(1, 3, 512, 512)
+wg, wl = soft(1, 24, 12, 512, 512), soft(1, 24, 12, 512, 512)
+tab = torch.tensor([1.0, 0.5, 0.5, 0.5], device="cuda")[None, :, None].expand(24, 4, 3).contiguous()
+v = torch.full((24,), 0.1, device="cuda")
+cg = torch.full((4, 24), 0.5, device="cuda")
+k7s = pixel_unroll_scal(24, v, v, v, cg, 0.2 * cg).cuda()
+out["K7 [1, 3, 512, 512] G=24"] = device_ms(lambda: gg_pixel_unroll_chw(
+    y, wg, wl, tab, tab, k7s, n_graphs=24))
+yt = y.repeat(1, 24, 1, 1)
+pix = dict(n_graphs=24, deltas=DIAMOND12, stats_mode="reflect")
+def step(x, aux, prev, glr, sc, mode, **kw):
+    return gg_fused_step_chw(x, aux, prev, wg, wl if glr else None, None, None, tab,
+                             tab if glr else None, None, None, sc, mode=mode, **pix, **kw)
+def band():
+    rhs = step(yt, None, None, False, fused_scal(24, ro0=v), "rhs")
+    for r in range(2):
+        o, u = step(rhs, None, None, True, fused_scal(24, mu0=v, ro0=v, alpha=cg[2 * r]), "cg",
+                    use_x_rhs=True, emit_update=True)
+        o = step(o, rhs, u, True, fused_scal(24, mu0=v, ro0=v, alpha=cg[2 * r + 1], beta=v),
+                 "cg")
+        if r == 0:
+            rhs = step(o, yt, None, False, fused_scal(24, ro0=v, gamma0=v), "rethresh")
+    return o
+out["K5 band route [1, 72, 512, 512] G=24, six calls"] = device_ms(band)
+del y, yt, wg, wl
+x = unit(1, 512, 512, 96)
+wgl, wgg = soft(1, 512, 512, 1, 4, dim=4), soft(1, 512, 512, 1, 4, dim=4)
+rows = torch.zeros(4, 96, device="cuda")
+rows[0] = 1.0
+c96 = torch.full((96,), 0.3, device="cuda")
+out["K9 [1, 512, 512, 96] G=1"] = device_ms(lambda: fused_system_matvec(
+    x, wgl, wgg, rows, rows, c96, c96, n_graphs=1))
 print(json.dumps(out))
 """
 
@@ -152,6 +192,12 @@ def _turn(tree: str) -> tuple[dict, dict | None, dict | None]:
     if k8:  # rhs, cg1, cg2, rethresh, cg1, cg2
         timed["device K8 per 512x512 pixel request"] = sum(
             v * (2 if mode in ("cg1", "cg2") else 1) for mode, v in k8.items())
+    for key, calls, name in (("K7 ", 1, "device K7 per 512x512 pixel request"),
+                             ("K5 band route ", 1, "device K5 band route per 512x512 pixel request"),
+                             ("K9 ", 3, "device K9 per 512x512 single request")):
+        hit = [v for k, v in device.items() if k.startswith(key)]
+        if hit:
+            timed[name] = calls * hit[0]
     timed["request 512x512"] = lines["serving"]["blocks_512"]["median_kernels_ms"]
     for row in lines["serving"]["serving"]:
         if row["shape"][0] >= 1024:  # one request each, no warm-up of its own

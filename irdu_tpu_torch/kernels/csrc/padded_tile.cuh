@@ -129,6 +129,11 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// Wait for all but the kPending most recently committed groups.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
 // N lanes of T from global to shared memory, asynchronously where they make
 // a cp.async (4, 8 or 16 bytes, both ends aligned to it).

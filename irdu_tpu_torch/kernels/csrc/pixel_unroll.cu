@@ -2,223 +2,503 @@
 // diamond-12 window, reflect stats pad), CHW. Replaces
 // irdu_tpu/ops/pallas/solver_unroll.py:gg_pixel_unroll_chw
 // (_pixel_unroll_kernel). The math, the reference quirks and the bound are
-// set out in irdu_tpu_torch/ops/pixel_unroll.py.
+// set out in irdu_tpu_torch/ops/pixel_unroll.py; the padded tile's stages
+// and boundary rules in padded_tile.cuh.
 //
-// K1's structure (gg_unroll.cu): one CTA per (b, g, f) plane. The CTA walks
-// its plane once per stage (stencil, edge sums, transposed stencil and
-// combine), keeps every stage plane in f32 global scratch (7 planes per CTA,
-// allocated by the wrapper) and separates stages with __syncthreads().
-// Because each derived plane is materialized whole, a clamped neighbour read
-// replicates that plane's own edge row, as the reference does. The
-// differences from K1: one scale; 12 offsets up to distance 2; the stencil
-// mirrors at the image edge (edge excluded) while neighbour reads clamp and
-// the C^T scatter and the transposed stencil read zeros; y is plane f of the
-// un-tiled (B, F, H, W) image, read where it is needed.
-// Scratch is read through plain pointers (never const __restrict__) so the
-// compiler does not route it through the non-coherent read-only cache.
+// One persistent cooperative launch (K1's structure, gg_unroll.cu). The
+// unroll runs as six phases, each one pass over every (b, g, tile) item,
+// separated by grid barriers:
+//   1. rhs1 = y + rho Q y                                        -> P0
+//   2. CG from x = rhs1:  u0 = -(A - I) rhs1, x1 = rhs1 + a0 u0   -> P1 = x1, P2 = u0
+//   3. u1 = rhs1 - A x1 + b1 u0, x2 = x1 + a1 u1                  -> P0 = x2
+//   4. rhs2 = y + rho C^T(2 S_gamma(C x2) - C x2), the re-threshold -> P1
+//   5. CG from x = rhs2 (round 2 restarts):  u2, x3 = rhs2 + a2 u2 -> P0 = x3, P2 = u2
+//   6. u3 = rhs2 - A x3 + b3 u2, out = x3 + a3 u3                 -> out (channel g*F + f)
+// A phase reads one scratch plane over a box (x) and others only at its own
+// pixels (rhs, prev, y), and never writes the plane it reads over a box, so
+// three f32 scratch planes per channel plane hold everything that crosses
+// tile borders; phase 3 overwrites rhs1 pixel by pixel after reading it.
+// Nothing is rounded between the steps: the arithmetic from y to out is
+// f32, as the TPU kernel's is (K5's band route rounds each step's output).
 //
-// Known limit: at 512^2 the grid is 72 CTAs for 132 SMs, and the stage
-// planes (7 MiB per CTA) spill out of L2.
+// An item is one kTH x kTW output tile of one (b, g); the CTA walks the F
+// planes as K5 does: the graph's weight tiles (GTV, and GLR in the CG
+// phases) come into shared memory once for all F, plane f + 1's x box comes
+// by cp.async into a second buffer while plane f computes, and the stage
+// planes lie over boxes not clipped to the image, read by constant offsets.
+// y is the un-tiled (B, F, H, W) image, read at plane f. The next item's
+// weights and first x box are staged while the current item finishes. The
+// grid is as many CTAs as co-reside (one of 512 threads an SM for the
+// served 32x64 plan: 198,144 bytes of shared memory, at most 128 registers
+// a thread), at most one per item;
+// every CTA reaches every barrier. Scratch written before a barrier is read
+// through L2 (cp.async.cg, ld.global.cg).
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
+#include "padded_tile.cuh"
 
 namespace irdu {
 namespace pix {
 
-constexpr int kThreads = 512;
+namespace cg = cooperative_groups;
+using namespace irdu::ptile;
 
-// Polynomial 3x3 stencil with the reflect pad (numpy/torch "reflect": the
-// neighbour past an edge is the one on the other side, the edge excluded).
-template <typename S>
-__device__ __forceinline__ float stats_at(const S* s, const Stats& c, int i, int j, int H,
-                                          int W) {
-  const int jr = j + 1 < W ? j + 1 : j - 1, jl = j > 0 ? j - 1 : j + 1;
-  const int id = i + 1 < H ? i + 1 : i - 1, iu = i > 0 ? i - 1 : i + 1;
-  const float v = ld(s[i * W + j]);
-  const float r = ld(s[i * W + jr]), l = ld(s[i * W + jl]);
-  const float d = ld(s[id * W + j]), u = ld(s[iu * W + j]);
-  return c.p[0] * v + c.p[1] * (r - v) + c.p[2] * (d - v) +
-         c.p[3] * (4.f * v - u - d - l - r);
+constexpr int kE = kDiamondEdges;
+constexpr int kWin = 1;  // diamond-12
+enum Kind { kRhs, kCgFirst, kCgNext, kRethresh };
+
+// Tile plans, as ops/pixel_unroll.py's K7_PLANS: {rows, columns, threads,
+// CTAs an SM}. Plan 0 serves bf16 (the fastest of 16x64, 32x64 and 32x64 of
+// 256 threads in kernels/plan_sweep.py); plan 1 is f32's, whose weights for
+// a 32x64 tile would not fit.
+struct Plan {
+  int th, tw, threads, ctas;
+};
+constexpr int kNumPlans = 2;
+constexpr Plan plan_at(int i) {
+  constexpr Plan plans[kNumPlans] = {{32, 64, 512, 1}, {16, 64, 256, 1}};
+  return plans[i];
 }
-
-// Its reference adjoint: flipped taps, zero boundary (stats_conv_transpose).
-__device__ __forceinline__ float stats_t_at(const float* s, const Stats& c, int i, int j,
-                                            int H, int W) {
-  const float v = s[i * W + j];
-  const float r0 = j + 1 < W ? s[i * W + j + 1] : 0.f;
-  const float d0 = i + 1 < H ? s[(i + 1) * W + j] : 0.f;
-  const float u0 = i > 0 ? s[(i - 1) * W + j] : 0.f;
-  const float l0 = j > 0 ? s[i * W + j - 1] : 0.f;
-  return c.p[0] * v + c.p[1] * (l0 - v) + c.p[2] * (u0 - v) +
-         c.p[3] * (4.f * v - u0 - d0 - l0 - r0);
-}
-
-// sum_e [wei_e(p) - wei_e(p - d_e)], wei_e(q) = w_e(q) map(w_e(q) (s(q) -
-// s(clamp(q + d_e)))), the second term zero where p - d_e is outside the
-// image: the zero-padded scatter of C^T before its stencil.
-template <bool kRethresh, typename T>
-__device__ __forceinline__ float gtv_edge_sum(const float* s, const T* w, int n, int i, int j,
-                                              int H, int W, float gamma) {
-  const float sp = s[i * W + j];
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < kDiamondEdges; ++e) {
-    const int dh = d12_dh(e), dw = d12_dw(e);
-    const T* we = w + (size_t)e * n;
-    const int ii = min(max(i + dh, 0), H - 1), jj = min(max(j + dw, 0), W - 1);
-    const float wp = ld(we[i * W + j]);
-    acc += wp * edge_map<kRethresh>(wp * (sp - s[ii * W + jj]), gamma);
-    const int qi = i - dh, qj = j - dw;
-    if (qi >= 0 && qi < H && qj >= 0 && qj < W) {
-      const float wq = ld(we[qi * W + qj]);
-      acc -= wq * edge_map<kRethresh>(wq * (s[qi * W + qj] - sp), gamma);
-    }
-  }
-  return acc;
-}
-
-// s(p) - sum_e w_e(p) s(clamp(p + d_e)), the random-walk Laplacian of GLR.
 template <typename T>
-__device__ __forceinline__ float glr_lap(const float* s, const T* w, int n, int i, int j, int H,
-                                         int W) {
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < kDiamondEdges; ++e) {
-    const int ii = min(max(i + d12_dh(e), 0), H - 1);
-    const int jj = min(max(j + d12_dw(e), 0), W - 1);
-    acc += ld(w[(size_t)e * n + i * W + j]) * s[ii * W + jj];
-  }
-  return s[i * W + j] - acc;
-}
+constexpr int plan_of() { return sizeof(T) == 2 ? 0 : 1; }
 
-template <typename T>
-struct Plane {  // one CTA's view of its (b, g, f) problem
-  int H, W, n;
-  const T* y;            // plane f of the un-tiled image
-  const T *wgtv, *wglr;  // (12, H, W)
-  Stats sg, sl;          // GTV / GLR stencils
-  float mu, ro, gam;
-  float *X, *R, *U, *P0, *P1, *P2, *P3;  // scratch planes
+// The boxes of a tile: stage planes with halo HS = 1 + r rows and HSC
+// (even) columns; the x box with halo HXR rows and one 16-byte chunk of
+// columns (8 bf16 or 4 f32), so that its rows start on 16-byte chunks.
+template <int kTH, int kTW>
+struct Geo {
+  static_assert(kTW % 8 == 0, "tiles start on 16-byte chunks");
+  static constexpr int HS = 1 + Win<kWin>::R, HSC = (HS + 1) & ~1;
+  static constexpr int PH = kTH + 2 * HS, PW = kTW + 2 * HSC, NP = PH * PW;
+  static constexpr int HXR = 2 + Win<kWin>::R, XH = kTH + 2 * HXR;
+  template <typename TX>
+  __host__ __device__ static constexpr int hxc() { return 16 / static_cast<int>(sizeof(TX)); }
+  template <typename TX>
+  __host__ __device__ static constexpr int xw() { return kTW + 2 * hxc<TX>(); }
 };
 
-#define FOR_PIXELS(n) for (int p = threadIdx.x; p < (n); p += blockDim.x)
-
-// R = X = y + ro C^T map(C src): round 1's RHS (identity map, src = y) and the
-// re-threshold's (src = X, read only in the first stage).
-template <bool kRethresh, typename T, typename S>
-__device__ void gtv_rhs(const Plane<T>& P, const S* src) {
-  const int H = P.H, W = P.W;
-  FOR_PIXELS(P.n) { const int i = p / W, j = p - i * W; P.P0[p] = stats_at(src, P.sg, i, j, H, W); }
-  __syncthreads();
-  FOR_PIXELS(P.n) {
-    const int i = p / W, j = p - i * W;
-    P.P1[p] = gtv_edge_sum<kRethresh>(P.P0, P.wgtv, P.n, i, j, H, W, P.gam);
-  }
-  __syncthreads();
-  FOR_PIXELS(P.n) {
-    const int i = p / W, j = p - i * W;
-    const float r = ld(P.y[p]) + P.ro * stats_t_at(P.P1, P.sg, i, j, H, W);
-    P.R[p] = r;
-    P.X[p] = r;
-  }
-  __syncthreads();
-}
-
-// One CG step on X: A.X = X + ro Q X + mu GLR X, U' = R - A.X [+ beta U],
-// X += alpha U'. The round's first step (first: X == R) has no momentum; the
-// last step of the unroll writes `out`.
-template <typename T>
-__device__ void cg_step(const Plane<T>& P, float alpha, float beta, bool first, T* out) {
-  const int H = P.H, W = P.W;
-  FOR_PIXELS(P.n) {
-    const int i = p / W, j = p - i * W;
-    P.P0[p] = stats_at(P.X, P.sg, i, j, H, W);
-    P.P1[p] = stats_at(P.X, P.sl, i, j, H, W);
-  }
-  __syncthreads();
-  FOR_PIXELS(P.n) {
-    const int i = p / W, j = p - i * W;
-    P.P2[p] = gtv_edge_sum<false>(P.P0, P.wgtv, P.n, i, j, H, W, 0.f);
-    P.P3[p] = glr_lap(P.P1, P.wglr, P.n, i, j, H, W);
-  }
-  __syncthreads();
-  FOR_PIXELS(P.n) {
-    const int i = p / W, j = p - i * W;
-    const float x = P.X[p];
-    const float ax = x + P.ro * stats_t_at(P.P2, P.sg, i, j, H, W) +
-                     P.mu * stats_t_at(P.P3, P.sl, i, j, H, W);
-    float u = P.R[p] - ax;
-    if (!first) u += beta * P.U[p];
-    P.U[p] = u;
-    const float xn = x + alpha * u;
-    if (out != nullptr) st(out + p, xn); else P.X[p] = xn;
-  }
-  __syncthreads();
-}
+// Shared memory (bytes, each part 16-aligned): f32 planes Sg, Ag, Sl, Al;
+// two x boxes, each large enough for y's type and for f32; the weights
+// [e][cell] gtv, glr in T.
+template <typename T, int kTH, int kTW>
+struct Layout {
+  using G = Geo<kTH, kTW>;
+  static constexpr size_t kPlanes = up16(sizeof(float) * 4 * G::NP);
+  static constexpr size_t kXT = up16(sizeof(T) * G::XH * G::template xw<T>());
+  static constexpr size_t kXF = up16(sizeof(float) * G::XH * G::template xw<float>());
+  static constexpr size_t kX = kXT > kXF ? kXT : kXF;
+  static constexpr size_t kW = up16(sizeof(T) * 2 * kE * G::NP);
+  static constexpr size_t kBytes = kPlanes + 2 * kX + kW;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pixel_unroll_kernel(const T* __restrict__ y, const T* __restrict__ wgtv,
-                    const T* __restrict__ wglr, const float* __restrict__ pgtv,
-                    const float* __restrict__ pglr, const float* __restrict__ scal,
-                    T* __restrict__ out, float* scratch, int G, int F, int H, int W) {
-  const int plane = blockIdx.x;  // (b * G + g) * F + f: channel g*F + f of the output
-  const int f = plane % F;
-  const int bg = plane / F;
-  const int g = bg % G, b = bg / G;
-  Plane<T> P;
-  P.H = H; P.W = W; P.n = H * W;
-  P.y = y + ((size_t)b * F + f) * P.n;
-  P.wgtv = wgtv + (size_t)bg * kDiamondEdges * P.n;
-  P.wglr = wglr + (size_t)bg * kDiamondEdges * P.n;
-  P.sg = load_stats(pgtv, g, F, f);
-  P.sl = load_stats(pglr, g, F, f);
-  const float* sc = scal + g * 9;  // [mu, rho, gamma, a0, a1, a2, a3, b1, b3]
-  P.mu = sc[0]; P.ro = sc[1]; P.gam = sc[2];
-  float* s = scratch + (size_t)plane * 7 * (size_t)P.n;
-  P.X = s;           P.R = P.X + P.n;   P.U = P.R + P.n;   P.P0 = P.U + P.n;
-  P.P1 = P.P0 + P.n; P.P2 = P.P1 + P.n; P.P3 = P.P2 + P.n;
-  T* op = out + (size_t)plane * P.n;
+struct Args {
+  const T* y;            // (B, F, H, W)
+  const T *wg, *wl;      // (B, G, 12, H, W)
+  const float *pg, *pl;  // (G, 4, F) stats tables
+  const float* scal;     // (G, 9): mu, rho, gamma, a0, a1, a2, a3, b1, b3
+  T* out;                // (B, G*F, H, W)
+  float *P0, *P1, *P2;   // f32 scratch, each (B, G*F, H, W)
+  int B, G, F, H, W;
+};
 
-  gtv_rhs<false>(P, P.y);                      // round 1: rhs = y + rho C^T C y
-  cg_step<T>(P, sc[3], 0.f, true, nullptr);
-  cg_step<T>(P, sc[4], sc[7], false, nullptr);  // beta[1]; beta[0] unused
-  gtv_rhs<true>(P, static_cast<const float*>(P.X));  // rhs = y + rho C^T(2 S(Cx) - Cx)
-  cg_step<T>(P, sc[5], 0.f, true, nullptr);     // round 2 restarts from the new rhs
-  cg_step<T>(P, sc[6], sc[8], false, op);       // beta[3]; beta[2] unused
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldcg(const __nv_bfloat16* p) { return __ldcg(p); }
+
+// kPlanes planes of kRows x kCols cells from planes of an H x W image
+// (plane stride n) at origin (r0, c0), zero outside the image; chunks of 4
+// cells in the image by one cp.async (8 bytes in bf16, 16 in f32; c0, kCols
+// and W multiples of 4).
+template <typename T, int kPlanes, int kRows, int kCols, int kNT>
+__device__ __forceinline__ void stage_weights(T* dst, const T* src, size_t n, int r0, int c0,
+                                              int H, int W) {
+  static_assert(kCols % 4 == 0, "whole chunks a row");
+  const bool vec = (W & 3) == 0;
+  for_box<kNT, kPlanes * kRows, kCols / 4>([&](int pr, int cp) {
+    const int e = pr / kRows, r = pr - e * kRows;
+    const int gi = r0 + r, gj = c0 + 4 * cp;
+    T* d = dst + pr * kCols + 4 * cp;
+    const bool row_in = gi >= 0 && gi < H;
+    const T* s = src + e * n + (size_t)(row_in ? gi : 0) * W;
+    if (vec && row_in && gj >= 0 && gj + 3 < W) {
+      copy_lanes<4>(d, s + gj);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      d[k] = row_in && gj + k >= 0 && gj + k < W ? s[gj + k] : zero<T>();
+  });
+}
+
+// A kRows x kCols box of one H x W plane at origin (r0, c0), each cell the
+// pixel the reflect pad reads; 16-byte chunks inside the image by cp.async
+// (c0, kCols and W multiples of the chunk), the rest through L2.
+template <typename TX, int kRows, int kCols, int kNT>
+__device__ __forceinline__ void stage_x(TX* dst, const TX* src, int r0, int c0, int H, int W) {
+  constexpr int kChunk = 16 / static_cast<int>(sizeof(TX));
+  static_assert(kCols % kChunk == 0, "whole chunks a row");
+  const bool vec = W % kChunk == 0;
+  for_box<kNT, kRows, kCols / kChunk>([&](int r, int ck) {
+    const TX* row = src + (size_t)pad_index(r0 + r, H, true) * W;
+    const int gj = c0 + kChunk * ck;
+    TX* d = dst + r * kCols + kChunk * ck;
+    if (vec && gj >= 0 && gj + kChunk <= W) {
+      cp_async<16>(d, row + gj);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) d[k] = ldcg(row + pad_index(gj + k, W, true));
+  });
+}
+
+// One phase: the padded tile on every (b, g, tile) item this CTA takes,
+// walking the item's F planes. x: the plane read over a box (y for kRhs,
+// else f32 scratch); rhs, prev: read at the tile's pixels (kCgNext); o: the
+// output plane; u: the CG update (kCgFirst); alpha, beta: scal columns.
+template <int kKind, typename T, typename TX, typename TO, int kTH, int kTW, int kNT>
+__device__ __forceinline__ void phase(const Args<T>& a, const TX* x, const float* rhs,
+                                      const float* prev, TO* o, float* u, int alpha_k, int beta_k,
+                                      unsigned char* smem) {
+  using G = Geo<kTH, kTW>;
+  using L = Layout<T, kTH, kTW>;
+  constexpr bool kGlr = kKind == kCgFirst || kKind == kCgNext;
+  constexpr bool kRe = kKind == kRethresh;
+  constexpr int XW = G::template xw<TX>(), HXC = G::template hxc<TX>();
+  float* Sg = reinterpret_cast<float*>(smem);
+  float* Ag = Sg + G::NP;
+  float* Sl = Ag + G::NP;
+  float* Al = Sl + G::NP;
+  unsigned char* xbox = smem + L::kPlanes;  // two buffers of L::kX bytes
+  T* Wg = reinterpret_cast<T*>(smem + L::kPlanes + 2 * L::kX);
+  T* Wl = Wg + kE * G::NP;
+
+  const int H = a.H, W = a.W, F = a.F;
+  const size_t n = (size_t)H * W;
+  const int tiles_w = (W + kTW - 1) / kTW;
+  const int tiles = tiles_w * ((H + kTH - 1) / kTH);
+  const int items = a.B * a.G * tiles;
+  // an item's tile origin and x's plane 0: y's (b, 0), or the scratch plane (b, g, 0)
+  auto item_at = [&](int it, int& bg, int& ti0, int& tj0, const TX*& xp) {
+    bg = it / tiles;
+    const int tile = it - bg * tiles, ty = tile / tiles_w;
+    ti0 = ty * kTH;
+    tj0 = (tile - ty * tiles_w) * kTW;
+    xp = x + (kKind == kRhs ? (size_t)(bg / a.G) * F : (size_t)bg * F) * n;
+  };
+  auto stage_item_weights = [&](int bg, int ti0, int tj0) {
+    stage_weights<T, kE, G::PH, G::PW, kNT>(Wg, a.wg + (size_t)bg * kE * n, n, ti0 - G::HS,
+                                            tj0 - G::HSC, H, W);
+    if (kGlr)
+      stage_weights<T, kE, G::PH, G::PW, kNT>(Wl, a.wl + (size_t)bg * kE * n, n, ti0 - G::HS,
+                                              tj0 - G::HSC, H, W);
+  };
+  auto stage_box = [&](int buf, const TX* plane, int ti0, int tj0) {
+    stage_x<TX, G::XH, XW, kNT>(reinterpret_cast<TX*>(xbox + buf * L::kX), plane, ti0 - G::HXR,
+                                tj0 - HXC, H, W);
+  };
+  if (blockIdx.x >= items) return;
+  // cp.async groups, in order: the x box of each step (committed at the top
+  // of the step before), then the weights of an item (committed after the
+  // edge sums of the item before: they load while its last epilogue and the
+  // next item's first stencils run); every thread commits every group
+  {
+    int bg, ti0, tj0;
+    const TX* xp;
+    item_at(blockIdx.x, bg, ti0, tj0, xp);
+    stage_box(0, xp, ti0, tj0);
+    cp_async_commit();
+    stage_item_weights(bg, ti0, tj0);
+    cp_async_commit();
+  }
+  int buf = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int bg, ti0, tj0;
+    const TX* xp;
+    item_at(it, bg, ti0, tj0, xp);
+    const int g = bg % a.G, b = bg / a.G, next = it + gridDim.x;
+    const int oi = ti0 - G::HS, oj = tj0 - G::HSC;  // plane cell (0, 0)
+    const int xi0 = ti0 - G::HXR, xj0 = tj0 - HXC;  // x box cell (0, 0)
+    const float* sc = a.scal + g * 9;
+    const float mu = sc[0], ro = sc[1];
+    const float gam[1] = {sc[2]};
+    const float alpha = alpha_k >= 0 ? sc[alpha_k] : 0.f, beta = beta_k >= 0 ? sc[beta_k] : 0.f;
+
+    for (int f = 0; f < F; ++f, buf ^= 1) {
+      cp_async_wait_group<1>();  // this step's x box (an item's weights may still load)
+      __syncthreads();           // ... landed for every thread; the step before is done
+      const TX* X = reinterpret_cast<const TX*>(xbox + buf * L::kX);
+      if (f + 1 < F) {  // the next step's x box: this item's next plane, or the next item's first
+        stage_box(buf ^ 1, xp + (f + 1) * n, ti0, tj0);
+      } else if (next < items) {
+        int nbg, nti0, ntj0;
+        const TX* nxp;
+        item_at(next, nbg, nti0, ntj0, nxp);
+        stage_box(buf ^ 1, nxp, nti0, ntj0);
+      }
+      cp_async_commit();
+      const Stats sg = load_stats(a.pg, g, F, f), sl = kGlr ? load_stats(a.pl, g, F, f) : Stats{};
+      // the epilogue's reads of this thread's pixel pairs, issued now so that
+      // they arrive while the stencils and edge sums run
+      const size_t base = ((size_t)bg * F + f) * n;  // the (b, g, f) plane
+      const T* yf = a.y + ((size_t)b * F + f) * n;
+      constexpr int kBW = kTW / 2, kPairs = kTH * kBW, kPer = (kPairs + kNT - 1) / kNT;
+      Raw<2, float> rv[kPer], pv[kPer];
+      Raw<2, T> yv[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int q = threadIdx.x + k * kNT, bi = q / kBW, bj = q - bi * kBW;
+        const int gi = ti0 + bi, gj = tj0 + 2 * bj;
+        if (q >= kPairs || gi >= H || gj >= W) continue;
+        const size_t idx = (size_t)gi * W + gj;
+        const int last = gj + 1 < W ? 1 : 0;
+        if (kKind == kCgNext) {
+          rv[k].v[0] = ldcg(rhs + base + idx);
+          rv[k].v[1] = ldcg(rhs + base + idx + last);
+          pv[k].v[0] = ldcg(prev + base + idx);
+          pv[k].v[1] = ldcg(prev + base + idx + last);
+        }
+        if (kKind == kRethresh) {
+          yv[k].v[0] = yf[idx];
+          yv[k].v[1] = yf[idx + last];
+        }
+      }
+
+      // 2. the stencils over the tile + HS, at the pixel clamped to the image
+      constexpr int kSc = G::HSC - G::HS;  // the S box's first column
+      for_box<kNT, G::PH, kTW + 2 * G::HS>([&](int r, int c) {
+        const int ci = clampi(oi + r, H), cj = clampi(oj + c + kSc, W);
+        stencil_cell<1, XW, kGlr>(X, (ci - xi0) * XW + (cj - xj0), sg, sl, Sg, Sl,
+                                  r * G::PW + c + kSc);
+      });
+      if (f == 0) cp_async_wait_group<1>();  // the item's weights (the next x box may load)
+      __syncthreads();
+      // 3. the edge sums over the tile + 1, zero outside the image
+      for_box<kNT, kTH + 2, kTW + 2>([&](int r, int c) {
+        const int pc = (r + G::HS - 1) * G::PW + c + G::HSC - 1;
+        const int gi = ti0 - 1 + r, gj = tj0 - 1 + c;
+        if (gi < 0 || gi >= H || gj < 0 || gj >= W)
+          zero_cell<1, kGlr>(Ag, Al, pc);
+        else
+          edge_cell<1, kWin, kRe, kGlr, G::PW, G::NP>(Sg, Sl, Wg, Wl, pc, gam, Ag, Al);
+      });
+      __syncthreads();
+      if (f + 1 == F && next < items) {  // the weights are free: the next item's
+        int nbg, nti0, ntj0;
+        const TX* nxp;
+        item_at(next, nbg, nti0, ntj0, nxp);
+        stage_item_weights(nbg, nti0, ntj0);
+      }
+      cp_async_commit();
+      // 4. the tile, a pixel pair a thread: t = rho stats^T(Ag) [+ mu stats^T(Al)]
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int q = threadIdx.x + k * kNT, bi = q / kBW, bj = q - bi * kBW;
+        const int gi = ti0 + bi, gj = tj0 + 2 * bj;
+        if (q >= kPairs || gi >= H || gj >= W) continue;
+        const int pc = (G::HS + bi) * G::PW + G::HSC + 2 * bj;
+        float t[2], tl[2], xv[2], ov[2], uv[2];
+        stats_t_pair<G::PW>(Ag, pc, sg, t);
+        if (kGlr) stats_t_pair<G::PW>(Al, pc, sl, tl);
+#pragma unroll
+        for (int d = 0; d < 2; ++d) t[d] = kGlr ? ro * t[d] + mu * tl[d] : ro * t[d];
+        ld_lanes<2>(X + (bi + G::HXR) * XW + 2 * bj + HXC, xv);
+        if (kKind == kRhs) {
+#pragma unroll
+          for (int d = 0; d < 2; ++d) ov[d] = xv[d] + t[d];
+        } else if (kKind == kRethresh) {
+          float yy[2];
+          yv[k].get(yy);
+#pragma unroll
+          for (int d = 0; d < 2; ++d) ov[d] = yy[d] + t[d];
+        } else if (kKind == kCgFirst) {  // x is the rhs: u = rhs - A x = -t
+#pragma unroll
+          for (int d = 0; d < 2; ++d) uv[d] = -t[d], ov[d] = fmaf(alpha, uv[d], xv[d]);
+        } else {
+          float rr[2], pp[2];
+          rv[k].get(rr);
+          pv[k].get(pp);
+#pragma unroll
+          for (int d = 0; d < 2; ++d) {
+            uv[d] = rr[d] - (xv[d] + t[d]) + beta * pp[d];
+            ov[d] = fmaf(alpha, uv[d], xv[d]);
+          }
+        }
+        const size_t idx = base + (size_t)gi * W + gj;
+        const bool pair = gj + 1 < W && (idx & 1) == 0;
+        if (pair) {
+          st_lanes<2>(o + idx, ov);
+          if (kKind == kCgFirst) st_lanes<2>(u + idx, uv);
+        } else {
+          st(o + idx, ov[0]);
+          if (gj + 1 < W) st(o + idx + 1, ov[1]);
+          if (kKind == kCgFirst) {
+            st(u + idx, uv[0]);
+            if (gj + 1 < W) st(u + idx + 1, uv[1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int kTH, int kTW, int kNT, int kCtas>
+__global__ void __launch_bounds__(kNT, kCtas) pixel_unroll_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  // phase<kind, T, x's type, o's type, tile, threads>(a, x, rhs, prev, o, u, alpha, beta)
+  phase<kRhs, T, T, float, kTH, kTW, kNT>(a, a.y, nullptr, nullptr, a.P0, nullptr, -1, -1,
+                                           smem);
+  grid.sync();
+  phase<kCgFirst, T, float, float, kTH, kTW, kNT>(a, a.P0, nullptr, nullptr, a.P1, a.P2, 3, -1,
+                                                   smem);
+  grid.sync();
+  phase<kCgNext, T, float, float, kTH, kTW, kNT>(a, a.P1, a.P0, a.P2, a.P0, nullptr, 4, 7,
+                                                  smem);  // beta[1]; beta[0] unused
+  grid.sync();
+  phase<kRethresh, T, float, float, kTH, kTW, kNT>(a, a.P0, nullptr, nullptr, a.P1, nullptr,
+                                                    -1, -1, smem);
+  grid.sync();
+  phase<kCgFirst, T, float, float, kTH, kTW, kNT>(a, a.P1, nullptr, nullptr, a.P0, a.P2, 5, -1,
+                                                   smem);  // round 2 restarts from rhs2
+  grid.sync();
+  phase<kCgNext, T, float, T, kTH, kTW, kNT>(a, a.P0, a.P1, a.P2, a.out, nullptr, 6, 8,
+                                              smem);  // beta[3]; beta[2] unused
+}
+
+template <typename T, int kPlan>
+constexpr size_t smem_bytes() {
+  constexpr Plan p = plan_at(kPlan);
+  return Layout<T, p.th, p.tw>::kBytes;
+}
+
+template <typename T, int kPlan>
+auto kernel_of() {
+  constexpr Plan p = plan_at(kPlan);
+  return &pixel_unroll_kernel<T, p.th, p.tw, p.threads, p.ctas>;
+}
+
+// The CTAs of the plan's kernel that fit on one SM and the device's SM
+// count, found once per device (after raising the kernel's shared memory
+// limit); a CUDA error status on failure.
+template <typename T, int kPlan>
+cudaError_t occupancy(int* per_sm, int* sms) {
+  constexpr int kDevices = 64;
+  static int cached_per_sm[kDevices], cached_sms[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && cached_per_sm[dev] > 0) {
+    *per_sm = cached_per_sm[dev];
+    *sms = cached_sms[dev];
+    return cudaSuccess;
+  }
+  constexpr size_t smem = smem_bytes<T, kPlan>();
+  auto kern = kernel_of<T, kPlan>();
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, plan_at(kPlan).threads,
+                                                        smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kDevices) {
+    cached_per_sm[dev] = *per_sm;
+    cached_sms[dev] = *sms;
+  }
+  return err;
+}
+
+// A refused cooperative launch (too many CTAs to be co-resident) returns its
+// error; nothing falls back.
+template <typename T, int kPlan>
+int launch(const Args<T>& a, cudaStream_t stream) {
+  constexpr Plan p = plan_at(kPlan);
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = occupancy<T, kPlan>(&per_sm, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const long long tiles = (long long)((a.W + p.tw - 1) / p.tw) * ((a.H + p.th - 1) / p.th);
+  const long long items = (long long)a.B * a.G * tiles;
+  if (items > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(std::min<long long>(items, (long long)per_sm * sms));
+  Args<T> args = a;
+  void* params[] = {&args};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel_of<T, kPlan>()), dim3(grid), dim3(p.threads), params,
+      smem_bytes<T, kPlan>(), stream));
+}
+
+// Each type has its plan (plan_of).
+template <typename T>
+int dispatch(const Args<T>& a, int plan, cudaStream_t s) {
+  if (plan != plan_of<T>()) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T, plan_of<T>()>(a, s);
+}
+
+template <typename T>
+int ctas_per_sm(int plan) {
+  int per_sm = -1, sms = 0;
+  if (plan != plan_of<T>()) return -1;
+  return occupancy<T, plan_of<T>()>(&per_sm, &sms) == cudaSuccess ? per_sm : -1;
 }
 
 }  // namespace pix
 }  // namespace irdu
 
-extern "C" long long irdu_pixel_unroll_scratch_floats(int H, int W) { return 7LL * H * W; }
+// Three f32 scratch planes (P0, P1, P2) per channel plane of the output.
+extern "C" long long irdu_pixel_unroll_scratch_floats(int H, int W) { return 3LL * H * W; }
+
+// The shared memory one CTA of the plan's kernel takes (ops/pixel_unroll.py
+// k7_smem_bytes holds its planner to it), or -1 for a plan it does not have.
+extern "C" long long irdu_pixel_unroll_smem(int plan, int dtype) {
+  using namespace irdu::pix;
+  if (dtype == irdu::kBFloat16 && plan == plan_of<__nv_bfloat16>())
+    return smem_bytes<__nv_bfloat16, plan_of<__nv_bfloat16>()>();
+  if (dtype == irdu::kFloat32 && plan == plan_of<float>()) return smem_bytes<float, plan_of<float>()>();
+  return -1;
+}
+
+// The CTAs of the plan's kernel that fit on one SM (the cooperative grid is
+// this times the SM count, at most one per item), or -1.
+extern "C" int irdu_pixel_unroll_ctas_per_sm(int plan, int dtype) {
+  if (dtype == irdu::kFloat32) return irdu::pix::ctas_per_sm<float>(plan);
+  if (dtype == irdu::kBFloat16) return irdu::pix::ctas_per_sm<__nv_bfloat16>(plan);
+  return -1;
+}
 
 // y (B, F, H, W); wgtv, wglr (B, G, 12, H, W); pgtv, pglr (G, 4, F) f32;
-// scal (G, 9) f32; out (B, G*F, H, W); scratch B*G*F x 7*H*W f32.
+// scal (G, 9) f32; out (B, G*F, H, W); scratch 3 * B*G*F*H*W f32. plan: the
+// tile plan (ops/pixel_unroll.py K7_PLANS: 0 for bf16, 1 for f32).
 extern "C" int irdu_pixel_unroll(const void* y, const void* wgtv, const void* wglr,
                                  const void* pgtv, const void* pglr, const void* scal,
                                  void* out, void* scratch, int B, int G, int F, int H, int W,
-                                 int dtype, void* stream) {
-  if (B < 1 || G < 1 || F < 1 || H < 2 || W < 2 || (long long)B * G * F > 2147483647LL)
+                                 int plan, int dtype, void* stream) {
+  using namespace irdu::pix;
+  if (B < 1 || G < 1 || F < 1 || H < 2 || W < 2 || plan < 0 || plan >= kNumPlans ||
+      y == nullptr || wgtv == nullptr || wglr == nullptr || pgtv == nullptr ||
+      pglr == nullptr || scal == nullptr || out == nullptr || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B * G * F);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* scr = static_cast<float*>(scratch);
+  const size_t n = (size_t)B * G * F * H * W;
   const float* pg = static_cast<const float*>(pgtv);
   const float* pl = static_cast<const float*>(pglr);
   const float* sc = static_cast<const float*>(scal);
-  float* scr = static_cast<float*>(scratch);
   if (dtype == irdu::kFloat32) {
     using T = float;
-    irdu::pix::pixel_unroll_kernel<T><<<grid, irdu::pix::kThreads, 0, s>>>(
-        static_cast<const T*>(y), static_cast<const T*>(wgtv), static_cast<const T*>(wglr),
-        pg, pl, sc, static_cast<T*>(out), scr, G, F, H, W);
-  } else if (dtype == irdu::kBFloat16) {
-    using T = __nv_bfloat16;
-    irdu::pix::pixel_unroll_kernel<T><<<grid, irdu::pix::kThreads, 0, s>>>(
-        static_cast<const T*>(y), static_cast<const T*>(wgtv), static_cast<const T*>(wglr),
-        pg, pl, sc, static_cast<T*>(out), scr, G, F, H, W);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    const Args<T> a{static_cast<const T*>(y), static_cast<const T*>(wgtv),
+                    static_cast<const T*>(wglr), pg, pl, sc, static_cast<T*>(out),
+                    scr, scr + n, scr + 2 * n, B, G, F, H, W};
+    return dispatch<T>(a, plan, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == irdu::kBFloat16) {
+    using T = __nv_bfloat16;
+    const Args<T> a{static_cast<const T*>(y), static_cast<const T*>(wgtv),
+                    static_cast<const T*>(wglr), pg, pl, sc, static_cast<T*>(out),
+                    scr, scr + n, scr + 2 * n, B, G, F, H, W};
+    return dispatch<T>(a, plan, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,51 +2,73 @@
 // cross-4 window, channels-last. Replaces
 // irdu_tpu/ops/pallas/solver_matvec.py:fused_system_matvec (_kernel). The
 // math, the layouts and the bound are set out in
-// irdu_tpu_torch/ops/system_matvec.py.
+// irdu_tpu_torch/ops/system_matvec.py; the padded tile's boundary rules in
+// padded_tile.cuh.
 //
 // x and out are (B, H, W, C) with C = G*F, channel c of graph c / F; the edge
 // weights are (B, H, W, G, 4), edge order (-1,0), (0,-1), (0,1), (1,0); the
-// stencil rows (4, C) and mu, rho (C,) are f32. One CTA per 8x16 output tile
-// and per chunk of up to 16 channels. Stages, separated by __syncthreads(),
-// over the tile's region (the tile plus a 4-pixel halo, clipped to the
-// image), every stage plane f32 in shared memory as [region pixel][channel]:
-//   1. X  = x over the region
-//   2. Sg = statsGTV(X), Sl = statsGLR(X)            (replicate pad)
-//   3. Ag = the zero-padded C^T scatter of w (w (Sg - shift Sg)), into X's
-//      space; Al = Sl - sum_e w_e shift_e Sl
-//   4. out = x + rho statsGTV^T(Ag) + mu statsGLR^T(Al) over the tile.
-// Past an interior region edge a clamped read is wrong; the stencil, the edge
-// sum (it reads the stencil plane at p + d_e and p - d_e) and the transposed
-// stencil each move that error one pixel inward, 3 in all, so the 4-pixel
-// halo (K5's) keeps it off the tile.
-//
+// stencil rows (4, C) and mu, rho (C,) are f32. A CTA takes one kTH x kTW
+// output tile of one image and walks its channels in chunks of kN lanes,
+// graph by graph (a chunk never straddles two graphs; the last chunk of a
+// graph may be partial):
+//   - the graph's 4 GLR and 4 GTV weights of the tile come into shared
+//     memory once, as [cell][edge], and serve all its chunks (at G = 1 all
+//     C channels); the next graph's are staged while a chunk's epilogue runs;
+//   - chunk j + 1's x box (kN lanes a cell: one 16-byte cp.async in bf16)
+//     comes into the second of two buffers while chunk j computes, and stays
+//     there for the epilogue; its per-lane stencil rows, mu and rho go to a
+//     small table beside it;
+//   - stage planes are f32 [cell][lane] over boxes not clipped to the image,
+//     each thread working on one quad (4 lanes) of a cell: S (both
+//     stencils, at the pixel clamped to the image, so a derived array
+//     replicates its own edge) on the tile + 2, A (the edge sums, zero
+//     outside the image) on the tile + 1, x (the replicate pad) on the
+//     tile + 3;
+//   - the epilogue stores 16 bytes a pixel in bf16: the two quads of a cell
+//     sit in neighbouring threads, which pair their halves by a shuffle.
 // Boundaries (irdu_tpu/ops/pallas/solver_matvec.py:19-23): the stencil's
-// input x replicates its edge; a shift of a derived plane (the stencil
-// output) replicates that plane's own edge, which a read clamped to the
-// region gives at an image edge (the region ends there); the C^T scatter and
-// the transposed stencil read zeros outside the image, tested against global
-// indices.
+// input x replicates its edge; a shift of a derived plane replicates that
+// plane's own edge; the C^T scatter and the transposed stencil read zeros.
 
-#include "common.cuh"
+#include "padded_tile.cuh"
 
 namespace irdu {
 namespace matvec {
 
-constexpr int kTH = 8, kTW = 16;  // output tile
-constexpr int kHalo = 4;
-constexpr int kRegion = (kTH + 2 * kHalo) * (kTW + 2 * kHalo);
-constexpr int kChunk = 16;  // channels per CTA, at most
-constexpr int kThreads = 256;
+using namespace irdu::ptile;
 
-struct Region {  // rows [r0, r0 + rh), columns [c0, c0 + rw), inside the image
-  int r0, c0, rh, rw, H, W;
-  // the local pixel index of (i, j) clamped to the region
-  __device__ __forceinline__ int at(int i, int j) const {
-    return (min(max(i, r0), r0 + rh - 1) - r0) * rw + min(max(j, c0), c0 + rw - 1) - c0;
-  }
-  __device__ __forceinline__ bool in_image(int i, int j) const {
-    return i >= 0 && i < H && j >= 0 && j < W;
-  }
+// Tile plans, as ops/system_matvec.py's K9_PLANS: {rows, columns, lanes,
+// threads, CTAs an SM}; the fastest of 8x32, 16x32 and 16x16 tiles of 8
+// lanes in kernels/plan_sweep.py.
+struct Plan {
+  int th, tw, lanes, threads, ctas;
+};
+constexpr int kNumPlans = 1;
+constexpr Plan plan_at(int i) {
+  constexpr Plan plans[kNumPlans] = {{16, 16, 8, 256, 2}};
+  return plans[i];
+}
+constexpr int kCoefs = 10;  // per lane: GTV stencil p0-p3, GLR stencil p0-p3, mu, rho
+
+// Halos: S and the weights on the tile + 2, x on the tile + 3.
+template <int kTH, int kTW>
+struct Geo {
+  static constexpr int HS = 2, HX = 3;
+  static constexpr int PH = kTH + 2 * HS, PW = kTW + 2 * HS, NP = PH * PW;
+  static constexpr int XH = kTH + 2 * HX, XW = kTW + 2 * HX, NX = XH * XW;
+};
+
+// Shared memory (bytes, each part 16-aligned): f32 planes Sg, Ag, Sl, Al of
+// kN lanes a cell; two x boxes of kN lanes a cell; the weights [cell][edge]
+// gtv, glr; two coefficient tables [coef][lane].
+template <typename T, int kTH, int kTW, int kN>
+struct Layout {
+  using G = Geo<kTH, kTW>;
+  static constexpr size_t kPlanes = up16(sizeof(float) * 4 * G::NP * kN);
+  static constexpr size_t kX = up16(sizeof(T) * G::NX * kN);
+  static constexpr size_t kW = up16(sizeof(T) * 2 * 4 * G::NP);
+  static constexpr size_t kC = up16(sizeof(float) * kCoefs * kN);
+  static constexpr size_t kBytes = kPlanes + 2 * kX + kW + 2 * kC;
 };
 
 struct Args {
@@ -54,171 +76,330 @@ struct Args {
   const float *pl, *pg;     // (4, C) stencil rows p01, p02a, p02b, p03
   const float *mu, *ro;     // (C,)
   void* out;
-  int H, W, C, F, G, tiles_h;
+  int H, W, C, F, G, tiles_w;
 };
 
-// One channel's stencil coefficients, read from the (4, C) rows.
-__device__ __forceinline__ Stats stats_of(const float* rows, int C, int ch) {
-  Stats s;
+// kN lanes from global to shared memory by 16-byte cp.async (or one of 4 or
+// 8 bytes where the lanes make less).
+template <int kN, typename T>
+__device__ __forceinline__ void copy_cell(T* dst, const T* src) {
+  constexpr int kB = kN * static_cast<int>(sizeof(T));
+  if constexpr (kB > 16) {
+    static_assert(kB % 16 == 0, "whole 16-byte chunks");
 #pragma unroll
-  for (int k = 0; k < 4; ++k) s.p[k] = rows[k * C + ch];
-  return s;
+    for (int k = 0; k < kB / 16; ++k) {
+      constexpr int kStep = 16 / static_cast<int>(sizeof(T));
+      cp_async<16>(dst + k * kStep, src + k * kStep);
+    }
+  } else {
+    copy_lanes<kN>(dst, src);
+  }
 }
 
-// Polynomial 3x3 stencil, replicate pad (the clamp to the region).
-__device__ __forceinline__ float stats_at(const float* s, const Region& R, const Stats& p,
-                                          int i, int j, int c, int cn) {
-  const float v = s[R.at(i, j) * cn + c];
-  const float r = s[R.at(i, j + 1) * cn + c], d = s[R.at(i + 1, j) * cn + c];
-  const float u = s[R.at(i - 1, j) * cn + c], l = s[R.at(i, j - 1) * cn + c];
-  return p.p[0] * v + p.p[1] * (r - v) + p.p[2] * (d - v) + p.p[3] * (4.f * v - u - d - l - r);
+// A quad (4 lanes) of T at p as f32.
+__device__ __forceinline__ void ld_quad(const float* p, float (&v)[4]) { ld_lanes<4>(p, v); }
+__device__ __forceinline__ void ld_quad(const __nv_bfloat16* p, float (&v)[4]) {
+  ld_lanes<4>(p, v);
 }
 
-// Its reference adjoint: flipped taps, zero outside the image.
-__device__ __forceinline__ float stats_t_at(const float* s, const Region& R, const Stats& p,
-                                            int i, int j, int c, int cn) {
-  const float v = s[R.at(i, j) * cn + c];
-  const float r0 = j + 1 < R.W ? s[R.at(i, j + 1) * cn + c] : 0.f;
-  const float d0 = i + 1 < R.H ? s[R.at(i + 1, j) * cn + c] : 0.f;
-  const float u0 = i > 0 ? s[R.at(i - 1, j) * cn + c] : 0.f;
-  const float l0 = j > 0 ? s[R.at(i, j - 1) * cn + c] : 0.f;
-  return p.p[0] * v + p.p[1] * (l0 - v) + p.p[2] * (u0 - v) +
-         p.p[3] * (4.f * v - u0 - d0 - l0 - r0);
+// Lane n of a quad (n a constant once unrolled).
+__device__ __forceinline__ float lane(const float4& v, int n) {
+  return n == 0 ? v.x : (n == 1 ? v.y : (n == 2 ? v.z : v.w));
 }
 
-// sum_e [wei_e(p) - wei_e(p - d_e)], wei_e(q) = w_e(q)^2 (s(q) - s(q + d_e)),
-// the second term zero where p - d_e is outside the image. w points at this
-// channel's graph in the batch's weights: w_e(i, j) = w[(i W + j) 4 G + e].
-template <typename T>
-__device__ __forceinline__ float gtv_edge_sum(const float* s, const Region& R, const T* w,
-                                              int G4, int i, int j, int c, int cn) {
-  const float sp = s[R.at(i, j) * cn + c];
-  const T* wp = w + ((size_t)i * R.W + j) * G4;
-  float acc = 0.f;
+// stats (kT = false) or stats^T (kT = true) of 4 lanes from the centre and
+// its right, down, up and left neighbours, per-lane coefficients p[k].
+template <bool kT>
+__device__ __forceinline__ void stencil4(const float4 (&p)[4], const float (&v)[4],
+                                         const float (&r)[4], const float (&d)[4],
+                                         const float (&u)[4], const float (&l)[4],
+                                         float (&o)[4]) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int dh = dh_of(e), dw = dw_of(e);
-    const float we = ld(wp[e]);
-    acc += we * we * (sp - s[R.at(i + dh, j + dw) * cn + c]);
-    const int qi = i - dh, qj = j - dw;
-    if (R.in_image(qi, qj)) {
-      const float wq = ld(w[((size_t)qi * R.W + qj) * G4 + e]);
-      acc -= wq * wq * (s[R.at(qi, qj) * cn + c] - sp);
+  for (int n = 0; n < 4; ++n) {
+    const float s = 4.f * v[n] - u[n] - d[n] - l[n] - r[n];
+    const float p0 = lane(p[0], n), p1 = lane(p[1], n), p2 = lane(p[2], n), p3 = lane(p[3], n);
+    o[n] = kT ? p0 * v[n] + p1 * (l[n] - v[n]) + p2 * (u[n] - v[n]) + p3 * s
+              : p0 * v[n] + p1 * (r[n] - v[n]) + p2 * (d[n] - v[n]) + p3 * s;
+  }
+}
+
+// The 4 coefficient quads k0 .. k0 + 3 of quad q from a [coef][lane] table.
+template <int kN>
+__device__ __forceinline__ void coef_quads(const float* tab, int k0, int q, float4 (&p)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) p[k] = *reinterpret_cast<const float4*>(tab + (k0 + k) * kN + 4 * q);
+}
+
+// kVec: F is a multiple of kN (every chunk whole, its lanes aligned).
+template <typename T, int kTH, int kTW, int kN, int kNT, int kCtas, bool kVec>
+__global__ void __launch_bounds__(kNT, kCtas) system_matvec_kernel(const Args a) {
+  using G = Geo<kTH, kTW>;
+  using L = Layout<T, kTH, kTW, kN>;
+  constexpr int QN = kN / 4;  // quads a cell
+  static_assert(kN % 4 == 0 && kNT % (2 * QN) == 0, "a thread keeps one quad of every cell");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Sg = reinterpret_cast<float*>(smem);
+  float* Ag = Sg + G::NP * kN;
+  float* Sl = Ag + G::NP * kN;
+  float* Al = Sl + G::NP * kN;
+  unsigned char* xbox = smem + L::kPlanes;  // two buffers of L::kX bytes
+  T* Wg = reinterpret_cast<T*>(smem + L::kPlanes + 2 * L::kX);  // [cell][edge]
+  T* Wl = Wg + 4 * G::NP;
+  float* coef = reinterpret_cast<float*>(smem + L::kPlanes + 2 * L::kX + L::kW);  // 2 tables
+
+  const int H = a.H, W = a.W, C = a.C, F = a.F, Gn = a.G;
+  const int ty = blockIdx.x / a.tiles_w, tx = blockIdx.x - ty * a.tiles_w;
+  const int ti0 = ty * kTH, tj0 = tx * kTW;
+  const int oi = ti0 - G::HS, oj = tj0 - G::HS, xi0 = ti0 - G::HX, xj0 = tj0 - G::HX;
+  const size_t pix0 = (size_t)blockIdx.y * H * W;
+  const T* x = static_cast<const T*>(a.x);
+  const int per_graph = (F + kN - 1) / kN, chunks = Gn * per_graph;
+  const int q = threadIdx.x % QN;  // this thread's quad in every stage
+
+  // graph g's weights of the tile, [cell][edge], zero outside the image
+  auto stage_weights = [&](int g) {
+    const T* wg = static_cast<const T*>(a.wg) + g * 4;
+    const T* wl = static_cast<const T*>(a.wl) + g * 4;
+    for_box<kNT, 2 * G::PH, G::PW>([&](int hr, int c) {
+      const int op = hr >= G::PH, r = hr - op * G::PH;
+      const int gi = oi + r, gj = oj + c;
+      T* d = (op ? Wl : Wg) + (r * G::PW + c) * 4;
+      if (gi < 0 || gi >= H || gj < 0 || gj >= W) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] = zero<T>();
+      } else {
+        copy_lanes<4>(d, (op ? wl : wg) + (pix0 + (size_t)gi * W + gj) * 4 * Gn);
+      }
+    });
+  };
+  // chunk j's channels: graph j / per_graph, first channel c0, cn lanes valid
+  auto chunk_of = [&](int j, int& g, int& c0, int& cn) {
+    g = j / per_graph;
+    const int k = j - g * per_graph;
+    c0 = g * F + k * kN;
+    cn = min(kN, F - k * kN);
+  };
+  // chunk j's x box (the replicate pad) and its coefficient table
+  auto stage_chunk = [&](int j, int buf) {
+    int g, c0, cn;
+    chunk_of(j, g, c0, cn);
+    T* dst = reinterpret_cast<T*>(xbox + buf * L::kX);
+    for_box<kNT, G::XH, G::XW>([&](int r, int c) {
+      const int gi = clampi(xi0 + r, H), gj = clampi(xj0 + c, W);
+      const T* s = x + (pix0 + (size_t)gi * W + gj) * C + c0;
+      T* d = dst + (r * G::XW + c) * kN;
+      if (kVec) {
+        copy_cell<kN>(d, s);
+      } else {
+#pragma unroll
+        for (int n = 0; n < kN; ++n) d[n] = n < cn ? s[n] : zero<T>();
+      }
+    });
+    float* tab = coef + buf * (L::kC / sizeof(float));
+    for (int k = threadIdx.x; k < kCoefs * kN; k += kNT) {
+      const int row = k / kN, ch = c0 + min(k - row * kN, cn - 1);
+      tab[k] = row < 4 ? a.pg[row * C + ch]
+                       : (row < 8 ? a.pl[(row - 4) * C + ch] : (row == 8 ? a.mu[ch] : a.ro[ch]));
+    }
+  };
+
+  stage_weights(0);
+  stage_chunk(0, 0);
+  cp_async_commit();
+  for (int j = 0; j < chunks; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk j's box, table (and weights) landed; chunk j - 1 is done
+    const T* X = reinterpret_cast<const T*>(xbox + (j & 1) * L::kX);
+    const float* tab = coef + (j & 1) * (L::kC / sizeof(float));
+    if (j + 1 < chunks) {
+      stage_chunk(j + 1, (j + 1) & 1);
+      cp_async_commit();
+    }
+    // 2. both stencils over the tile + 2, at the pixel clamped to the image
+    {
+      float4 pg[4], pl[4];
+      coef_quads<kN>(tab, 0, q, pg);
+      coef_quads<kN>(tab, 4, q, pl);
+      for_box<kNT, G::PH, G::PW * QN>([&](int r, int cq) {
+        const int c = cq / QN;
+        const int ci = clampi(oi + r, H), cj = clampi(oj + c, W);
+        const int xc = ((ci - xi0) * G::XW + (cj - xj0)) * kN + 4 * q;
+        float v[4], rr[4], d[4], u[4], l[4], o[4];
+        ld_quad(X + xc, v);
+        ld_quad(X + xc + kN, rr);
+        ld_quad(X + xc + G::XW * kN, d);
+        ld_quad(X + xc - G::XW * kN, u);
+        ld_quad(X + xc - kN, l);
+        const int pc = (r * G::PW + c) * kN + 4 * q;
+        stencil4<false>(pg, v, rr, d, u, l, o);
+        st_lanes<4>(Sg + pc, o);
+        stencil4<false>(pl, v, rr, d, u, l, o);
+        st_lanes<4>(Sl + pc, o);
+      });
+    }
+    __syncthreads();
+    // 3. the edge sums over the tile + 1, zero outside the image:
+    //    Ag = sum_e w_e(p)^2 (Sg(p) - Sg(p + d_e)) - w_e(p - d_e)^2 (Sg(p - d_e) - Sg(p)),
+    //    Al = Sl(p) - sum_e w_e(p) Sl(p + d_e)
+    for_box<kNT, kTH + 2, (kTW + 2) * QN>([&](int r, int cq) {
+      const int c = cq / QN;
+      const int cell = (r + G::HS - 1) * G::PW + c + G::HS - 1;
+      const int pc = cell * kN + 4 * q;
+      const int gi = ti0 - 1 + r, gj = tj0 - 1 + c;
+      float ag[4], al[4];
+      if (gi < 0 || gi >= H || gj < 0 || gj >= W) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) ag[n] = al[n] = 0.f;
+      } else {
+        float sp[4], s0[4], wp[4], wl[4];
+        ld_quad(Sg + pc, sp);
+        ld_quad(Sl + pc, s0);
+        ld_lanes<4>(Wg + cell * 4, wp);
+        ld_lanes<4>(Wl + cell * 4, wl);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) ag[n] = 0.f, al[n] = s0[n];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int off = dh_of(e) * G::PW + dw_of(e);
+          const float wq = ld(Wg[(cell - off) * 4 + e]);
+          float sn[4], sq[4], ln[4];
+          ld_quad(Sg + pc + off * kN, sn);
+          ld_quad(Sg + pc - off * kN, sq);
+          ld_quad(Sl + pc + off * kN, ln);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            ag[n] += wp[e] * wp[e] * (sp[n] - sn[n]) - wq * wq * (sq[n] - sp[n]);
+            al[n] -= wl[e] * ln[n];
+          }
+        }
+      }
+      st_lanes<4>(Ag + pc, ag);
+      st_lanes<4>(Al + pc, al);
+    });
+    __syncthreads();
+    int g, c0, cn;
+    chunk_of(j, g, c0, cn);
+    if (j + 1 < chunks && (j + 1) / per_graph != g) {  // the next graph's weights
+      stage_weights(g + 1);
+      cp_async_commit();
+    }
+    // 4. the tile: x + rho stats^T(Ag) + mu stats^T(Al), a quad a thread; every
+    //    thread runs every round (the quads of a cell pair up by a shuffle)
+    {
+      float4 pg[4], pl[4];
+      coef_quads<kN>(tab, 0, q, pg);
+      coef_quads<kN>(tab, 4, q, pl);
+      const float4 mu = *reinterpret_cast<const float4*>(tab + 8 * kN + 4 * q);
+      const float4 ro = *reinterpret_cast<const float4*>(tab + 9 * kN + 4 * q);
+      constexpr int kItems = kTH * kTW * QN, kPer = (kItems + kNT - 1) / kNT;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int it = threadIdx.x + k * kNT, p = it / QN;
+        const int r = p / kTW, c = p - r * kTW, gi = ti0 + r, gj = tj0 + c;
+        const bool live = it < kItems && gi < H && gj < W;
+        float o[4] = {0.f, 0.f, 0.f, 0.f};
+        if (live) {
+          const int pc = ((r + G::HS) * G::PW + c + G::HS) * kN + 4 * q;
+          float v[4], rr[4], d[4], u[4], l[4], tg[4], tl[4], xv[4];
+          ld_quad(Ag + pc, v);
+          ld_quad(Ag + pc + kN, rr);
+          ld_quad(Ag + pc + G::PW * kN, d);
+          ld_quad(Ag + pc - G::PW * kN, u);
+          ld_quad(Ag + pc - kN, l);
+          stencil4<true>(pg, v, rr, d, u, l, tg);
+          ld_quad(Al + pc, v);
+          ld_quad(Al + pc + kN, rr);
+          ld_quad(Al + pc + G::PW * kN, d);
+          ld_quad(Al + pc - G::PW * kN, u);
+          ld_quad(Al + pc - kN, l);
+          stencil4<true>(pl, v, rr, d, u, l, tl);
+          ld_quad(X + ((r + G::HX) * G::XW + c + G::HX) * kN + 4 * q, xv);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) o[n] = xv[n] + lane(ro, n) * tg[n] + lane(mu, n) * tl[n];
+        }
+        T* dst = static_cast<T*>(a.out) + (pix0 + (size_t)gi * W + gj) * C + c0;
+        if constexpr (kVec && sizeof(T) == 2 && QN == 2) {
+          // quad 0 takes quad 1's four bf16 and stores the cell's 16 bytes
+          __nv_bfloat162 h[2] = {__floats2bfloat162_rn(o[0], o[1]),
+                                 __floats2bfloat162_rn(o[2], o[3])};
+          unsigned w0 = *reinterpret_cast<unsigned*>(&h[0]);
+          unsigned w1 = *reinterpret_cast<unsigned*>(&h[1]);
+          const unsigned v0 = __shfl_xor_sync(0xffffffffu, w0, 1);
+          const unsigned v1 = __shfl_xor_sync(0xffffffffu, w1, 1);
+          if (live && q == 0) *reinterpret_cast<uint4*>(dst) = make_uint4(w0, w1, v0, v1);
+        } else if constexpr (kVec) {
+          if (live) st_lanes<4>(dst + 4 * q, o);
+        } else if (live) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            if (4 * q + n < cn) st(dst + 4 * q + n, o[n]);
+        }
+      }
     }
   }
-  return acc;
 }
 
-// s(p) - sum_e w_e(p) s(p + d_e), the random-walk Laplacian of GLR.
-template <typename T>
-__device__ __forceinline__ float glr_lap(const float* s, const Region& R, const T* w, int G4,
-                                         int i, int j, int c, int cn) {
-  const T* wp = w + ((size_t)i * R.W + j) * G4;
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc += ld(wp[e]) * s[R.at(i + dh_of(e), j + dw_of(e)) * cn + c];
-  return s[R.at(i, j) * cn + c] - acc;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) system_matvec_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int H = a.H, W = a.W, C = a.C, G4 = 4 * a.G;
-  const int c0 = blockIdx.x * kChunk;
-  const int cn = min(kChunk, C - c0);  // this CTA's channels: c0 + [0, cn)
-  const int b = blockIdx.z / a.tiles_h;
-  const int ti0 = (blockIdx.z % a.tiles_h) * kTH, tj0 = blockIdx.y * kTW;
-  const int ti1 = min(ti0 + kTH, H), tj1 = min(tj0 + kTW, W);
-  Region R;
-  R.H = H;
-  R.W = W;
-  R.r0 = max(ti0 - kHalo, 0);
-  R.c0 = max(tj0 - kHalo, 0);
-  R.rh = min(ti1 + kHalo, H) - R.r0;
-  R.rw = min(tj1 + kHalo, W) - R.c0;
-  const int n = R.rh * R.rw * cn;
-
-  float* X = smem;  // Ag once the stencils have read X
-  float* Sg = X + kRegion * kChunk;
-  float* Sl = Sg + kRegion * kChunk;
-  float* Al = Sl + kRegion * kChunk;
-
-  const size_t pix0 = (size_t)b * H * W;
-  const T* x = static_cast<const T*>(a.x) + pix0 * C + c0;
-  const T* wg = static_cast<const T*>(a.wg) + pix0 * G4;
-  const T* wl = static_cast<const T*>(a.wl) + pix0 * G4;
-
-  // 1. x over the region
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const int q = k / cn, c = k - q * cn, li = q / R.rw;
-    const int i = R.r0 + li, j = R.c0 + q - li * R.rw;
-    X[k] = ld(x[((size_t)i * W + j) * C + c]);
-  }
-  __syncthreads();
-  // 2. the stencils
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const int q = k / cn, c = k - q * cn, li = q / R.rw;
-    const int i = R.r0 + li, j = R.c0 + q - li * R.rw;
-    Sg[k] = stats_at(X, R, stats_of(a.pg, C, c0 + c), i, j, c, cn);
-    Sl[k] = stats_at(X, R, stats_of(a.pl, C, c0 + c), i, j, c, cn);
-  }
-  __syncthreads();
-  // 3. the edge sums
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const int q = k / cn, c = k - q * cn, li = q / R.rw;
-    const int i = R.r0 + li, j = R.c0 + q - li * R.rw;
-    const int g4 = (c0 + c) / a.F * 4;
-    X[k] = gtv_edge_sum(Sg, R, wg + g4, G4, i, j, c, cn);
-    Al[k] = glr_lap(Sl, R, wl + g4, G4, i, j, c, cn);
-  }
-  __syncthreads();
-  // 4. the tile: x + rho stats^T(Ag) + mu stats^T(Al)
-  const int tw = tj1 - tj0, nt = (ti1 - ti0) * tw * cn;
-  T* out = static_cast<T*>(a.out);
-  for (int k = threadIdx.x; k < nt; k += kThreads) {
-    const int q = k / cn, c = k - q * cn, qi = q / tw;
-    const int i = ti0 + qi, j = tj0 + q - qi * tw;
-    const int ch = c0 + c;
-    const size_t idx = (pix0 + (size_t)i * W + j) * C + ch;
-    const float t = a.ro[ch] * stats_t_at(X, R, stats_of(a.pg, C, ch), i, j, c, cn) +
-                    a.mu[ch] * stats_t_at(Al, R, stats_of(a.pl, C, ch), i, j, c, cn);
-    st(out + idx, ld(static_cast<const T*>(a.x)[idx]) + t);
-  }
-}
-
-template <typename T>
+template <typename T, int kPlan, bool kVec>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 4 * (size_t)kRegion * kChunk;  // X/Ag, Sg, Sl, Al
-  auto kern = system_matvec_kernel<T>;
+  constexpr Plan p = plan_at(kPlan);
+  constexpr size_t smem = Layout<T, p.th, p.tw, p.lanes>::kBytes;
+  auto kern = system_matvec_kernel<T, p.th, p.tw, p.lanes, p.threads, p.ctas, kVec>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.C + kChunk - 1) / kChunk, (a.W + kTW - 1) / kTW, B * a.tiles_h);
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  Args b = a;
+  b.tiles_w = (a.W + p.tw - 1) / p.tw;
+  const long long tiles = (long long)b.tiles_w * ((a.H + p.th - 1) / p.th);
+  if (tiles > 2147483647LL || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<dim3(static_cast<unsigned>(tiles), B), p.threads, smem, stream>>>(b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whole chunks (F a multiple of the lanes) vectorised.
+template <typename T>
+int dispatch(const Args& a, int B, int plan, cudaStream_t s) {
+  if (plan != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool whole = a.F % plan_at(0).lanes == 0;
+  return whole ? launch<T, 0, true>(a, B, s) : launch<T, 0, false>(a, B, s);
+}
+
+template <typename T, int kPlan>
+long long plan_bytes() {
+  constexpr Plan p = plan_at(kPlan);
+  return static_cast<long long>(Layout<T, p.th, p.tw, p.lanes>::kBytes);
 }
 
 }  // namespace matvec
 }  // namespace irdu
 
 // x, out (B, H, W, C) and wl, wg (B, H, W, G, 4) in one dtype; pl, pg (4, C)
-// and mu, ro (C,) f32; C = G * F.
+// and mu, ro (C,) f32; C = G * F. plan: the tile plan (ops/system_matvec.py
+// K9_PLANS).
 extern "C" int irdu_system_matvec(const void* x, const void* wl, const void* wg,
                                   const void* pl, const void* pg, const void* mu,
                                   const void* ro, void* out, int B, int H, int W, int C,
-                                  int G, int dtype, void* stream) {
+                                  int G, int plan, int dtype, void* stream) {
   using namespace irdu::matvec;
-  const int tiles_h = (H + kTH - 1) / kTH;
-  const bool bad = B < 1 || H < 1 || W < 1 || C < 1 || G < 1 || C % G ||
-                   (long long)B * tiles_h > 65535 || (W + kTW - 1) / kTW > 65535 ||
-                   x == nullptr || wl == nullptr || wg == nullptr || pl == nullptr ||
-                   pg == nullptr || mu == nullptr || ro == nullptr || out == nullptr;
+  const bool bad = B < 1 || H < 1 || W < 1 || C < 1 || G < 1 || C % G || plan < 0 ||
+                   plan >= kNumPlans || x == nullptr || wl == nullptr || wg == nullptr ||
+                   pl == nullptr || pg == nullptr || mu == nullptr || ro == nullptr ||
+                   out == nullptr;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, wl, wg, static_cast<const float*>(pl), static_cast<const float*>(pg),
                static_cast<const float*>(mu), static_cast<const float*>(ro), out,
-               H, W, C, C / G, G, tiles_h};
+               H, W, C, C / G, G, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == irdu::kFloat32) return launch<float>(a, B, s);
-  if (dtype == irdu::kBFloat16) return launch<__nv_bfloat16>(a, B, s);
+  if (dtype == irdu::kFloat32) return dispatch<float>(a, B, plan, s);
+  if (dtype == irdu::kBFloat16) return dispatch<__nv_bfloat16>(a, B, plan, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The shared memory one CTA of the plan's kernel takes (ops/system_matvec.py
+// k9_smem_bytes holds its planner to it), or -1 for a plan it does not have.
+extern "C" long long irdu_system_matvec_smem(int plan, int dtype) {
+  using namespace irdu::matvec;
+  if (plan != 0) return -1;
+  if (dtype == irdu::kFloat32) return plan_bytes<float, 0>();
+  if (dtype == irdu::kBFloat16) return plan_bytes<__nv_bfloat16, 0>();
+  return -1;
 }

@@ -22,13 +22,20 @@ output is in x's dtype. JAX casts the weights, rows and scales to x's dtype;
 the port casts the weights to it and keeps the rows and scales in f32, as its
 other kernels do.
 
-On the card (``kernels/csrc/system_matvec.cu``): one CTA per 8×16 tile of
-pixels and chunk of up to 16 channels, the tile plus a 4-pixel halo in shared
-memory as [pixel][channel] f32 stage planes (x, the two stencils, the two
-edge sums: 96 KB, two CTAs per SM); each graph's 4 weights are read per pixel
-from L1/L2 and shared by its channels. JAX's TPU rules (H % 8, W % 8) are not
-copied: the kernel takes any H and W. Per pixel and channel it reads and
-writes one element (2 bytes each in bf16) and does 69 f32 operations
+On the card (``kernels/csrc/system_matvec.cu``): K5's padded tile
+(``kernels/csrc/padded_tile.cuh``) on the cross-4 window with channel lanes.
+A CTA takes one output tile (``K9_PLANS[K9_PLAN]``) of one image and walks
+the C channels graph by graph in chunks of 8 lanes (a chunk never straddles
+two graphs; the last of a graph may be partial); the graph's 4 GLR and 4
+GTV weights of the tile come into shared memory once and serve all its
+chunks (at G = 1 all of them); the next chunk's x box (8 lanes a cell, one
+16-byte cp.async in bf16) comes into a second buffer while the chunk
+computes; the f32 stage planes are [cell][lane] over boxes not clipped to
+the image: x on the tile + 3 (1.9× the tile's pixels at 16×16), S and the
+weights on the tile + 2, the edge sums on the tile + 1; the output leaves
+in 16-byte stores. JAX's TPU rules (H % 8, W % 8) are not copied: the kernel
+takes any H, W and G. Per pixel and channel it reads and writes one element
+(2 bytes each in bf16) and does 69 f32 operations
 (``OPS_PER_PIXEL_CHANNEL``), so at F = 96 it is bound by bytes.
 """
 
@@ -44,6 +51,36 @@ from irdu_tpu_torch.ops import graph
 # scatter 2·4; GLR's Laplacian 2·4 + 1; the two transposed stencils 9 each;
 # ρ·, μ· and the two adds 4: 69, as K6a with GLR and the identity.
 OPS_PER_PIXEL_CHANNEL = 69
+# K9's tile plans (system_matvec.cu): (rows, columns, lanes, threads, CTAs an
+# SM); 16x16 tiles of 8 lanes, the fastest of 8x32, 16x32 and 16x16 in
+# kernels/plan_sweep.py
+K9_PLANS = ((16, 16, 8, 256, 2),)
+K9_PLAN = 0
+K9_HALO = 3  # the x box's; S and the weights have 2, the edge sums 1
+
+
+def k9_has_plan(plan, dtype):
+    """Whether ``system_matvec.cu`` is built with ``plan`` in ``dtype``
+    (every plan in both types)."""
+    return 0 <= plan < len(K9_PLANS) and dtype in (torch.float32, torch.bfloat16)
+
+
+def k9_smem_bytes(plan, esize):
+    """The shared memory of one K9 CTA (``system_matvec.cu`` Layout): four
+    f32 stage planes (S and A of GTV and GLR) of 8 lanes a cell over the
+    tile + 2, two x boxes of 8 lanes over the tile + 3 in the input's dtype,
+    the 4 weights [cell][edge] of both operators over the tile + 2, and two
+    tables of 10 f32 coefficients a lane; each part rounded up to 16
+    bytes."""
+    th, tw, lanes, _, _ = K9_PLANS[plan]
+    n_p = (th + 2 * (K9_HALO - 1)) * (tw + 2 * (K9_HALO - 1))
+    n_x = (th + 2 * K9_HALO) * (tw + 2 * K9_HALO)
+
+    def up16(n):
+        return (n + 15) // 16 * 16
+
+    return (up16(4 * 4 * n_p * lanes) + 2 * up16(esize * n_x * lanes)
+            + up16(esize * 2 * 4 * n_p) + 2 * up16(4 * 10 * lanes))
 
 
 def identity_rows(c, device=None):
@@ -121,7 +158,7 @@ def fused_system_matvec(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, *, n_
     out = torch.empty_like(x)
     status = kernel_library().irdu_system_matvec(
         x.data_ptr(), wl.data_ptr(), wg.data_ptr(), pl.data_ptr(), pg.data_ptr(),
-        mu.data_ptr(), ro.data_ptr(), out.data_ptr(), b, h, w, c, n_graphs,
+        mu.data_ptr(), ro.data_ptr(), out.data_ptr(), b, h, w, c, n_graphs, K9_PLAN,
         dtype_code(x.dtype), torch.cuda.current_stream(dev).cuda_stream)
     check_status("fused_system_matvec", status)
     fused_system_matvec.launches += 1

@@ -1,9 +1,9 @@
 """K9 (``irdu_tpu_torch/ops/system_matvec.py``) of the port against the JAX
 package's ``fused_system_matvec`` in interpret mode, against the port's K6a
-on the same data in CHW, and the CUDA kernel's tiling scheme (8x16 tiles
-with a 4-pixel halo, channels-last, derived planes read through a clamp to
-the region, zeros outside the image by global index) run in PyTorch against
-the plain version. Tolerances: JAX's own ``atol=1e-4, rtol=1e-4`` for its
+on the same data in CHW, and the CUDA kernel's scheme (the padded tile on
+the cross-4 window, channels-last chunks of 8 lanes walked graph by graph,
+the graph's weights staged once a tile) run in PyTorch against the plain
+version and JAX. Tolerances: JAX's own ``atol=1e-4, rtol=1e-4`` for its
 kernel (tests/test_pallas_kernels.py), 1e-5 between the port's own f32
 formulations."""
 
@@ -20,6 +20,7 @@ from irdu_tpu.ops.windows import EDGE_DELTAS_CROSS4
 from irdu_tpu_torch.ops import system_matvec as sm
 from irdu_tpu_torch.ops.fused_step import matvec_plain
 from irdu_tpu_torch.ops.windows import CROSS4
+from test_torch_fused_step import box_at, pad_box, padded_tile_term, zero_box
 
 
 def _inputs(seed, b=2, h=32, w=16, g=2, f=4):
@@ -99,71 +100,111 @@ def test_rejects_wrong_shapes(what):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's scheme (kernels/csrc/system_matvec.cu), transliterated
+# the CUDA kernel's scheme (kernels/csrc/system_matvec.cu), transliterated:
+# per output tile, graph by graph, the graph's weight boxes once (zero
+# outside the image), then each chunk of up to 8 channels (never across two
+# graphs) through the padded tile of tests/test_torch_fused_step.py on the
+# cross-4 window: x on the tile + 3 with the replicate pad, S and the
+# weights on the tile + 2, the edge sums on the tile + 1, stage planes over
+# boxes not clipped to the image and read by unclamped offsets
 # ---------------------------------------------------------------------------
 
-HALO = 4
 
-
-def _tiled(x, wglr, wgtv, pl, pg, mu, ro, g, th, tw):
-    """K9 tile by tile as the kernel computes it, f32, batch 1: every stage
-    over the tile's region (the tile plus HALO pixels, clipped to the image),
-    reads clamped to the region, the scatter and statsᵀ zero outside the
-    image."""
+def lane_tiled(x, wglr, wgtv, pl, pg, mu, ro, g, th, tw, lanes=8):
+    """K9 as the kernel computes it, f32, batch 1: the tiles in launch order,
+    in each the graphs in turn, in each its chunks of ``lanes`` channels
+    (the last one partial where F is not a multiple); rows None are the
+    identity stencil. Cells the kernel leaves unwritten stay NaN."""
     _, h, w, c = x.shape
     f = c // g
-    graph_of = torch.arange(c) // f
-    out = torch.empty_like(x)
+    hs, hx = 2, sm.K9_HALO
+    geo = dict(th=th, tw=tw, hs=hs, hsc=hs)
+    pl = sm.identity_rows(c) if pl is None else pl
+    pg = sm.identity_rows(c) if pg is None else pg
+    xc = x[0].permute(2, 0, 1)  # (C, H, W)
+    wgv, wlv = (wt[0].permute(2, 3, 0, 1) for wt in (wgtv, wglr))  # (G, 4, H, W)
+    out = torch.full_like(x, float("nan"))
     for i0 in range(0, h, th):
         for j0 in range(0, w, tw):
             i1, j1 = min(i0 + th, h), min(j0 + tw, w)
-            r0, r1, c0, c1 = max(i0 - HALO, 0), min(i1 + HALO, h), max(j0 - HALO, 0), min(j1 + HALO, w)
-            gi, gj = torch.meshgrid(torch.arange(r0, r1), torch.arange(c0, c1), indexing="ij")
+            for gi in range(g):
+                wgb, wlb = (zero_box(wv[gi], i0 - hs, j0 - hs, th + 2 * hs, tw + 2 * hs)
+                            for wv in (wgv, wlv))
+                for k0 in range(0, f, lanes):
+                    chs = list(range(gi * f + k0, gi * f + min(k0 + lanes, f)))
+                    n = len(chs)
+                    xb = pad_box(xc[chs], i0 - hx, j0 - hx, th + 2 * hx, tw + 2 * hx, False)
 
-            def at(a, i, j):  # (rows, cols, C) region plane at (i, j) clamped
-                return a[i.clamp(r0, r1 - 1) - r0, j.clamp(c0, c1 - 1) - c0]
+                    def taps(di, dj, rows, cols, xb=xb):
+                        ci = (i0 - hs + rows).clamp(0, h - 1) - (i0 - hx)
+                        cj = (j0 - hs + cols).clamp(0, w - 1) - (j0 - hx)
+                        return box_at(xb, ci + di, cj + dj)
 
-            def inside(i, j):
-                return ((i >= 0) & (i < h) & (j >= 0) & (j < w))[..., None]
-
-            def wt(wa, e, i, j):  # the channel's graph's weight of edge e at (i, j)
-                return wa[0, i.clamp(0, h - 1), j.clamp(0, w - 1)][..., graph_of, e]
-
-            def stats(a, p):
-                v, r, d = at(a, gi, gj), at(a, gi, gj + 1), at(a, gi + 1, gj)
-                u, l = at(a, gi - 1, gj), at(a, gi, gj - 1)
-                return p[0] * v + p[1] * (r - v) + p[2] * (d - v) + p[3] * (4 * v - u - d - l - r)
-
-            def stats_t(a, p, i, j):
-                def z(di, dj):
-                    return torch.where(inside(i + di, j + dj), at(a, i + di, j + dj), 0.0)
-
-                v, r_, d_, u_, l_ = at(a, i, j), z(0, 1), z(1, 0), z(-1, 0), z(0, -1)
-                return p[0] * v + p[1] * (l_ - v) + p[2] * (u_ - v) + p[3] * (4 * v - u_ - d_ - l_ - r_)
-
-            xr = x[0, r0:r1, c0:c1]
-            sg, sl = stats(xr, pg), stats(xr, pl)
-            ag, al = 0.0, at(sl, gi, gj)
-            for e, (dh, dw) in enumerate(CROSS4):
-                we = wt(wgtv, e, gi, gj)
-                ag = ag + we * we * (at(sg, gi, gj) - at(sg, gi + dh, gj + dw))
-                qi, qj = gi - dh, gj - dw
-                wq = wt(wgtv, e, qi, qj)
-                nbr = wq * wq * (at(sg, qi, qj) - at(sg, gi, gj))
-                ag = ag - torch.where(inside(qi, qj), nbr, 0.0)
-                al = al - wt(wglr, e, gi, gj) * at(sl, gi + dh, gj + dw)
-            ti, tj = torch.meshgrid(torch.arange(i0, i1), torch.arange(j0, j1), indexing="ij")
-            out[0, i0:i1, j0:j1] = (x[0, i0:i1, j0:j1] + ro * stats_t(ag, pg, ti, tj)
-                                    + mu * stats_t(al, pl, ti, tj))
+                    t = padded_tile_term(geo, taps, wgb.expand(n, -1, -1, -1),
+                                         wlb.expand(n, -1, -1, -1), pg[:, chs].T, pl[:, chs].T,
+                                         ro[chs], mu[chs], None, i0, j0, h, w, CROSS4)
+                    xv = xb[:, hx:hx + i1 - i0, hx:hx + j1 - j0]
+                    out[0, i0:i1, j0:j1, chs] = (xv + t[:, :i1 - i0, :j1 - j0]).permute(1, 2, 0)
     return out
 
 
 @pytest.mark.parametrize("th,tw", [(8, 16), (5, 7)], ids=["8x16", "5x7_ragged"])
 def test_kernel_tiling_scheme_matches_plain(th, tw):
-    """20x28 plane, 2 graphs of 4 channels: tiles on every image edge,
-    interior tiles and ragged last tiles give the plain version."""
+    """20x28 plane, 2 graphs of 4 channels (one partial chunk each): tiles on
+    every image edge, interior tiles and ragged last tiles give the plain
+    version, and no cell the scheme leaves uncomputed is read."""
     x, wglr, wgtv, pl, pg, mu, ro = (torch.from_numpy(a) for a in
                                      _inputs(seed=6, b=1, h=20, w=28))
-    out = _tiled(x, wglr, wgtv, pl, pg, mu, ro, 2, th, tw)
+    out = lane_tiled(x, wglr, wgtv, pl, pg, mu, ro, 2, th, tw)
     want = sm.system_matvec_plain(x, wglr, wgtv, pl, pg, mu, ro, n_graphs=2)
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("tile,hw,g,f,rows", [
+    ((8, 32), (20, 70), 1, 24, True), ((16, 32), (37, 53), 2, 20, True),
+    ((16, 16), (9, 17), 3, 5, True), ((8, 32), (17, 33), 2, 16, False),
+    ((16, 32), (40, 36), 1, 8, True)],
+    ids=["8x32_G1_whole_chunks", "16x32_G2_F20_partial_chunks", "16x16_F5_below_a_chunk",
+         "8x32_identity_rows", "16x32_one_chunk_three_tile_rows"])
+def test_lane_tiles_match_plain(tile, hw, g, f, rows):
+    """K9's scheme on the swept tiles (8 lanes) over odd H and W, G = 1
+    (every chunk shares the weights), F not a multiple of the lanes (the
+    last chunk of each graph partial: K9_RAGGED's F = 20), F below one
+    chunk, and the None rows of the no-stats ablations: the transliteration
+    equals the plain version within JAX's tolerance for this kernel (the
+    per-lane sums run in another order than the plain version's)."""
+    th, tw = tile
+    lanes = sm.K9_PLANS[sm.K9_PLAN][2]
+    x, wglr, wgtv, pl, pg, mu, ro = (torch.from_numpy(a) for a in
+                                     _inputs(seed=70 + th + tw, b=1, h=hw[0], w=hw[1], g=g, f=f))
+    if not rows:
+        pl = pg = None
+    out = lane_tiled(x, wglr, wgtv, pl, pg, mu, ro, g, th, tw, lanes)
+    want = sm.system_matvec_plain(x, wglr, wgtv, pl, pg, mu, ro, n_graphs=g)
+    assert not torch.isnan(out).any()
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("g,f", [(1, 16), (2, 12)], ids=["G1", "G2_partial_chunks"])
+def test_lane_tiles_match_jax_kernel(g, f):
+    """The served plan's transliteration against JAX's Pallas kernel in
+    interpret mode at the JAX test's shape (32x16: two tile rows of the
+    served 16x16 tile)."""
+    args = _inputs(seed=80 + g, b=1, g=g, f=f)
+    ref = jax_matvec(*(jnp.asarray(a) for a in args), n_graphs=g, tile_h=8, interpret=True)
+    th, tw, lanes, _, _ = sm.K9_PLANS[sm.K9_PLAN]
+    out = lane_tiled(*(torch.from_numpy(a) for a in args), g, th, tw, lanes)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k9_smem_bytes_fit_the_card(dtype):
+    """Every built K9 plan fits a CTA (227 KB) as many times an SM as
+    K9_PLANS names (228 KB, 1 KB reserved a CTA), in bf16 and f32."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    built = [p for p in range(len(sm.K9_PLANS)) if sm.k9_has_plan(p, dtype)]
+    assert sm.K9_PLAN in built
+    for plan in built:
+        smem = sm.k9_smem_bytes(plan, esize)
+        assert smem <= 232448
+        assert sm.K9_PLANS[plan][4] * (smem + 1024) <= 233472

@@ -472,12 +472,27 @@ def psnr(clean, out):
     return round(psnr_255(clean * 255, img_as_ubyte(np.clip(out, 0, 1))), 3)
 
 
-def phase_build():
-    from irdu_tpu_torch.kernels.build import build
+def phase_build(smoke):
+    """Build the library; ptxas's report of K7's and K9's kernels (registers,
+    stack, spills) goes to ``lines["ptxas"]``, with every ptxas warning of
+    the build. Fails if the library was built here and an instance of K7 or
+    K9 spills or none is reported."""
+    from irdu_tpu_torch.kernels.build import build, ptxas_report
 
     path, log, seconds = build()
     with open(os.path.join(OUT_DIR, "nvcc_build.log"), "w") as fh:
         fh.write(log)
+    smoke.lines["ptxas"] = dict(
+        {name: ptxas_report(log, kernel) for name, kernel in
+         (("gg_pixel_unroll_chw", "pixel_unroll_kernel"),
+          ("fused_system_matvec", "system_matvec_kernel"))},
+        warnings=sorted({ln.strip() for ln in log.splitlines() if "warning" in ln}),
+        built=bool(log))
+    if log:  # built here: every K7 and K9 instance reported, none spilling
+        for name in ("gg_pixel_unroll_chw", "fused_system_matvec"):
+            entries = smoke.lines["ptxas"][name]
+            require(entries and all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+                                    for e in entries), f"ptxas: {name} spills: {entries}")
     print(f"build: {seconds:.2f} s (one nvcc per source and a link, sm_90a) -> "
           f"{os.path.relpath(path, REPO)}", flush=True)
     return seconds
@@ -1039,7 +1054,7 @@ def layout_mismatches(model):
     it takes, K2 at the plan of every call of the 512x512 flagship request
     and of the pixel model's diamond-12 call, bf16 and f32; K5 and K8 at
     every tile plan they are built with, with and without GLR; K7 and K9 at
-    every tile plan they are built with. Returns the (what, planner bytes,
+    the tile of each type. Returns the (what, planner bytes,
     kernel bytes) that differ."""
     import torch
 
@@ -1080,14 +1095,8 @@ def layout_mismatches(model):
                 got = lib.irdu_pixel_segment_smem(int(glr), plan, code)
                 out.append((f"K8 glr={glr} plan={plan} e{esize}",
                             pn.k8_smem_bytes(glr, plan, esize), got))
-        for plan in range(len(pu.K7_PLANS)):
-            if pu.k7_has_plan(plan, dtype):
-                out.append((f"K7 plan={plan} e{esize}", pu.k7_smem_bytes(plan, esize),
-                            lib.irdu_pixel_unroll_smem(plan, code)))
-        for plan in range(len(sm.K9_PLANS)):
-            if sm.k9_has_plan(plan, dtype):
-                out.append((f"K9 plan={plan} e{esize}", sm.k9_smem_bytes(plan, esize),
-                            lib.irdu_system_matvec_smem(plan, code)))
+        out.append((f"K7 e{esize}", pu.k7_smem_bytes(dtype), lib.irdu_pixel_unroll_smem(code)))
+        out.append((f"K9 e{esize}", sm.k9_smem_bytes(dtype), lib.irdu_system_matvec_smem(code)))
     return [m for m in out if m[1] != m[2]]
 
 
@@ -1539,7 +1548,8 @@ def pixel_rows(model, gen, bar_at, lines):
     ``calls``: per pixel request on its route (K2 on diamond-12: 1 on the CHW
     route, kept out of the flagship request's sum). K7's yardstick goes to
     ``lines["k7_band_512"]``: the pixel solver's six-call K5 band route on
-    the same bf16 inputs, device time against K7's, in turns."""
+    the same bf16 inputs, device time against K7's, in turns. The f32 K7 row
+    keeps its tile's device time (``f32_device_ms``), out of the sums."""
     import torch
 
     from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
@@ -1547,7 +1557,8 @@ def pixel_rows(model, gen, bar_at, lines):
     from irdu_tpu_torch.ops.pixel_nhwc import (NHWC_OPS_PER_PIXEL, pixel_segment_nhwc,
                                                pixel_segment_plain)
     from irdu_tpu_torch.kernels.build import dtype_code, kernel_library
-    from irdu_tpu_torch.ops.pixel_unroll import (K7_PLAN, K7_PLANS, PIXEL_UNROLL_OPS_PER_PIXEL,
+    from irdu_tpu_torch.kernels.timing import device_ms
+    from irdu_tpu_torch.ops.pixel_unroll import (K7_TILES, PIXEL_UNROLL_OPS_PER_PIXEL,
                                                  gg_pixel_unroll_chw, pixel_unroll_plain)
     from irdu_tpu_torch.ops.windows import DIAMOND12
 
@@ -1596,14 +1607,15 @@ def pixel_rows(model, gen, bar_at, lines):
         sync()
         row = dict(shape=list(ker.shape), dtype=str(dtype)[6:], params="pixel snapshot")
         row.update(_agree(ker, ref, y.repeat(1, g, 1, 1), dtype, bar_at))
+        row.update(ctas_per_sm=kernel_library().irdu_pixel_unroll_ctas_per_sm(
+            dtype_code(dtype)), tile=list(K7_TILES[dtype]))
         if bf16:
             row.update(calls=1, **times(lambda: gg_pixel_unroll_chw(*args, n_graphs=g), 5),
                        plain_ms=cuda_ms(lambda: pixel_unroll_plain(*args, n_graphs=g), 2, 1),
-                       ctas_per_sm=kernel_library().irdu_pixel_unroll_ctas_per_sm(
-                           K7_PLAN, dtype_code(dtype)),
-                       plan=list(K7_PLANS[K7_PLAN]),
                        **_bound(nbytes(*args, ker), ker.numel() * PIXEL_UNROLL_OPS_PER_PIXEL))
             lines["k7_band_512"] = k7_yardstick(mix, args, g)
+        else:  # the f32 tile's device time, on no request's path (kept out of the sums)
+            row.update(f32_device_ms=device_ms(lambda: gg_pixel_unroll_chw(*args, n_graphs=g), 5))
         rows["gg_pixel_unroll_chw"].append(row)
         del ker, ref
         x, aux = (torch.rand(1, h, w, c, device=DEVICE, generator=gen).to(dtype)
@@ -2082,7 +2094,7 @@ def main() -> int:
     smoke = Smoke()
     smoke.lines["device"] = {"nvidia_smi": card, "torch": torch.__version__,
                              "cuda": torch.version.cuda}
-    build_s = smoke.run("build", phase_build)
+    build_s = smoke.run("build", phase_build, smoke)
     if not smoke.failed:
         smoke.run("serving", phase_serving, smoke)
         smoke.run("profile", phase_profile, smoke)
@@ -2093,8 +2105,8 @@ def main() -> int:
         smoke.run("model", phase_model, smoke)
     smoke.lines["device_ms"] = device_ms_sessions()
     print(json.dumps(kernels_line(smoke)), flush=True)
-    for key in ("serving", "profile", "small_models", "pixel", "ablation", "band_route",
-                "k7_band_512", "model", "device_ms"):
+    for key in ("ptxas", "serving", "profile", "small_models", "pixel", "ablation",
+                "band_route", "k7_band_512", "model", "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:

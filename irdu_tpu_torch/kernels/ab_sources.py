@@ -18,7 +18,8 @@ through that tree's own wrappers: the device time of K2 at every shape of
 the 512x512 flagship request and at the pixel model's diamond-12 shape, of
 K3 at the flagship's, of K5 in the 1024x1024 flagship request's five calls,
 of K8 in its four modes at the 512x512 pixel request, of K7 at that request
-(CHW route) and of the six-call K5 band route on the same inputs, and of K9
+(CHW route) and of the pixel solver's six-call K5 band route on the same
+inputs, and of K9
 at the "single" ablation's 512x512 call (three a request), each from
 torch.profiler (the kernels' own
 durations over 20 calls, no host work: this tree's ``kernels/timing.py``),
@@ -117,36 +118,25 @@ for mode, a_, p_, wl_ in (("rhs", None, None, None), ("cg1", None, None, wl),
     out[f"K8 [1, 512, 512, 72] {mode}"] = device_ms(lambda: pixel_segment_nhwc(
         x, a_, p_, wg, wl_, p, sc, mode=mode, n_graphs=24))
 del x, aux, prev, wg, wl
-# K7 at the 512x512 pixel request (y (1, 3, 512, 512), G = 24, diamond-12),
-# and the six-call K5 band route on the same inputs (its yardstick); K9 at
-# the "single" ablation's (1, 512, 512, 96), G = 1, identity rows
-from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw, pixel_unroll_scal
+# K7 at the 512x512 pixel request (y (1, 3, 512, 512), G = 24, diamond-12)
+# and its yardstick, the pixel solver's own six-call K5 band route
+# (MixtureGTV._band_route, as chip_smoke.py's k7_yardstick times it) on the
+# same inputs, both with a fresh MixtureGTV's solver parameters; K9 at the
+# "single" ablation's (1, 512, 512, 96), G = 1, identity rows
+from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw
 from irdu_tpu_torch.ops.system_matvec import fused_system_matvec
+from irdu_tpu_torch.solvers.pixel_gtv import MixtureGTV
+mix = MixtureGTV(n_graphs=24).cuda()
 y = unit(1, 3, 512, 512)
 wg, wl = soft(1, 24, 12, 512, 512), soft(1, 24, 12, 512, 512)
-tab = torch.tensor([1.0, 0.5, 0.5, 0.5], device="cuda")[None, :, None].expand(24, 4, 3).contiguous()
-v = torch.full((24,), 0.1, device="cuda")
-cg = torch.full((4, 24), 0.5, device="cuda")
-k7s = pixel_unroll_scal(24, v, v, v, cg, 0.2 * cg).cuda()
-out["K7 [1, 3, 512, 512] G=24"] = device_ms(lambda: gg_pixel_unroll_chw(
-    y, wg, wl, tab, tab, k7s, n_graphs=24))
-yt = y.repeat(1, 24, 1, 1)
-pix = dict(n_graphs=24, deltas=DIAMOND12, stats_mode="reflect")
-def step(x, aux, prev, glr, sc, mode, **kw):
-    return gg_fused_step_chw(x, aux, prev, wg, wl if glr else None, None, None, tab,
-                             tab if glr else None, None, None, sc, mode=mode, **pix, **kw)
-def band():
-    rhs = step(yt, None, None, False, fused_scal(24, ro0=v), "rhs")
-    for r in range(2):
-        o, u = step(rhs, None, None, True, fused_scal(24, mu0=v, ro0=v, alpha=cg[2 * r]), "cg",
-                    use_x_rhs=True, emit_update=True)
-        o = step(o, rhs, u, True, fused_scal(24, mu0=v, ro0=v, alpha=cg[2 * r + 1], beta=v),
-                 "cg")
-        if r == 0:
-            rhs = step(o, yt, None, False, fused_scal(24, ro0=v, gamma0=v), "rethresh")
-    return o
-out["K5 band route [1, 72, 512, 512] G=24, six calls"] = device_ms(band)
-del y, yt, wg, wl
+with torch.no_grad():
+    tables = (mix.GTVmodule00.stats_table(), mix.GLRmodule00.stats_table())
+    k7s = mix._scal()
+    out["K7 [1, 3, 512, 512] G=24"] = device_ms(lambda: gg_pixel_unroll_chw(
+        y, wg, wl, *tables, k7s, n_graphs=24))
+    out["K5 band route [1, 72, 512, 512] G=24, six calls"] = device_ms(
+        lambda: mix._band_route(y.repeat(1, 24, 1, 1), wg, wl, tables))
+del mix, y, wg, wl
 x = unit(1, 512, 512, 96)
 wgl, wgg = soft(1, 512, 512, 1, 4, dim=4), soft(1, 512, 512, 1, 4, dim=4)
 rows = torch.zeros(4, 96, device="cuda")

@@ -22,6 +22,7 @@ import glob
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -52,14 +53,14 @@ _SIGNATURES = {  # name: (argtypes, restype)
     "irdu_gg_unroll": ((_P,) * 12 + (_I,) * 7 + (_P,), _I),
     "irdu_gg_unroll_scratch_floats": ((_I, _I), _L),
     "irdu_gg_unroll_ctas_per_sm": ((_I,), _I),
-    "irdu_pixel_unroll": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
+    "irdu_pixel_unroll": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
     "irdu_pixel_unroll_scratch_floats": ((_I, _I), _L),
-    "irdu_pixel_unroll_smem": ((_I, _I), _L),
-    "irdu_pixel_unroll_ctas_per_sm": ((_I, _I), _I),
+    "irdu_pixel_unroll_smem": ((_I,), _L),
+    "irdu_pixel_unroll_ctas_per_sm": ((_I,), _I),
     "irdu_pixel_segment": ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
     "irdu_pixel_segment_smem": ((_I,) * 3, _L),
-    "irdu_system_matvec": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
-    "irdu_system_matvec_smem": ((_I, _I), _L),
+    "irdu_system_matvec": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
+    "irdu_system_matvec_smem": ((_I,), _L),
     "irdu_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -127,6 +128,30 @@ def build() -> tuple[str, str, float]:
     seconds = time.perf_counter() - t0
     os.replace(f"{stem}.tmp", path)  # atomic: a concurrent loader never sees half a file
     return path, "".join(logs), seconds
+
+
+def ptxas_report(log: str, match: str) -> list[dict]:
+    """The entry functions in ``-Xptxas -v`` messages whose mangled name
+    holds ``match``: name, registers a thread, stack frame and spill stores
+    and loads (bytes each)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            cur = dict(name=entry.group(1)) if match in entry.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if cur is not None and frame:
+            cur.update(stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                       spill_loads=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if cur is not None and used:
+            cur["registers"] = int(used.group(1))
+            cur = None
+    return out
 
 
 def serial_build_seconds() -> float:

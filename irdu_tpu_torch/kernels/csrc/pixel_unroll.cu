@@ -29,7 +29,7 @@
 // y is the un-tiled (B, F, H, W) image, read at plane f. The next item's
 // weights and first x box are staged while the current item finishes. The
 // grid is as many CTAs as co-reside (one of 512 threads an SM for the
-// served 32x64 plan: 198,144 bytes of shared memory, at most 128 registers
+// served bf16 32x64 tile: 198,144 bytes of shared memory, at most 128 registers
 // a thread), at most one per item;
 // every CTA reaches every barrier. Scratch written before a barrier is read
 // through L2 (cp.async.cg, ld.global.cg).
@@ -50,20 +50,18 @@ constexpr int kE = kDiamondEdges;
 constexpr int kWin = 1;  // diamond-12
 enum Kind { kRhs, kCgFirst, kCgNext, kRethresh };
 
-// Tile plans, as ops/pixel_unroll.py's K7_PLANS: {rows, columns, threads,
-// CTAs an SM}. Plan 0 serves bf16 (the fastest of 16x64, 32x64 and 32x64 of
-// 256 threads in kernels/plan_sweep.py); plan 1 is f32's, whose weights for
-// a 32x64 tile would not fit.
-struct Plan {
+// The tile of each type, as ops/pixel_unroll.py's K7_TILES: {rows, columns,
+// threads, CTAs an SM}. bf16 takes 32x64 tiles of 512 threads, the fastest
+// of 16x64, 32x64 and 32x64 of 256 threads on the card (PERF.md, K7's design
+// note); f32 takes 16x64 tiles of 256 threads, as a 32x64 tile's f32 weights
+// would not fit.
+struct Tile {
   int th, tw, threads, ctas;
 };
-constexpr int kNumPlans = 2;
-constexpr Plan plan_at(int i) {
-  constexpr Plan plans[kNumPlans] = {{32, 64, 512, 1}, {16, 64, 256, 1}};
-  return plans[i];
-}
 template <typename T>
-constexpr int plan_of() { return sizeof(T) == 2 ? 0 : 1; }
+constexpr Tile tile_of() {
+  return sizeof(T) == 2 ? Tile{32, 64, 512, 1} : Tile{16, 64, 256, 1};
+}
 
 // The boxes of a tile: stage planes with halo HS = 1 + r rows and HSC
 // (even) columns; the x box with halo HXR rows and one 16-byte chunk of
@@ -368,22 +366,22 @@ __global__ void __launch_bounds__(kNT, kCtas) pixel_unroll_kernel(const Args<T> 
                                               smem);  // beta[3]; beta[2] unused
 }
 
-template <typename T, int kPlan>
+template <typename T>
 constexpr size_t smem_bytes() {
-  constexpr Plan p = plan_at(kPlan);
+  constexpr Tile p = tile_of<T>();
   return Layout<T, p.th, p.tw>::kBytes;
 }
 
-template <typename T, int kPlan>
+template <typename T>
 auto kernel_of() {
-  constexpr Plan p = plan_at(kPlan);
+  constexpr Tile p = tile_of<T>();
   return &pixel_unroll_kernel<T, p.th, p.tw, p.threads, p.ctas>;
 }
 
-// The CTAs of the plan's kernel that fit on one SM and the device's SM
+// The CTAs of the type's kernel that fit on one SM and the device's SM
 // count, found once per device (after raising the kernel's shared memory
 // limit); a CUDA error status on failure.
-template <typename T, int kPlan>
+template <typename T>
 cudaError_t occupancy(int* per_sm, int* sms) {
   constexpr int kDevices = 64;
   static int cached_per_sm[kDevices], cached_sms[kDevices];
@@ -395,12 +393,12 @@ cudaError_t occupancy(int* per_sm, int* sms) {
     *sms = cached_sms[dev];
     return cudaSuccess;
   }
-  constexpr size_t smem = smem_bytes<T, kPlan>();
-  auto kern = kernel_of<T, kPlan>();
+  constexpr size_t smem = smem_bytes<T>();
+  auto kern = kernel_of<T>();
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, plan_at(kPlan).threads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, tile_of<T>().threads,
                                                         smem);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && dev < kDevices) {
@@ -412,11 +410,11 @@ cudaError_t occupancy(int* per_sm, int* sms) {
 
 // A refused cooperative launch (too many CTAs to be co-resident) returns its
 // error; nothing falls back.
-template <typename T, int kPlan>
+template <typename T>
 int launch(const Args<T>& a, cudaStream_t stream) {
-  constexpr Plan p = plan_at(kPlan);
+  constexpr Tile p = tile_of<T>();
   int per_sm = 0, sms = 0;
-  const cudaError_t err = occupancy<T, kPlan>(&per_sm, &sms);
+  const cudaError_t err = occupancy<T>(&per_sm, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const long long tiles = (long long)((a.W + p.tw - 1) / p.tw) * ((a.H + p.th - 1) / p.th);
@@ -426,22 +424,14 @@ int launch(const Args<T>& a, cudaStream_t stream) {
   Args<T> args = a;
   void* params[] = {&args};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel_of<T, kPlan>()), dim3(grid), dim3(p.threads), params,
-      smem_bytes<T, kPlan>(), stream));
-}
-
-// Each type has its plan (plan_of).
-template <typename T>
-int dispatch(const Args<T>& a, int plan, cudaStream_t s) {
-  if (plan != plan_of<T>()) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<T, plan_of<T>()>(a, s);
+      reinterpret_cast<const void*>(kernel_of<T>()), dim3(grid), dim3(p.threads), params,
+      smem_bytes<T>(), stream));
 }
 
 template <typename T>
-int ctas_per_sm(int plan) {
+int ctas_per_sm() {
   int per_sm = -1, sms = 0;
-  if (plan != plan_of<T>()) return -1;
-  return occupancy<T, plan_of<T>()>(&per_sm, &sms) == cudaSuccess ? per_sm : -1;
+  return occupancy<T>(&per_sm, &sms) == cudaSuccess ? per_sm : -1;
 }
 
 }  // namespace pix
@@ -450,35 +440,34 @@ int ctas_per_sm(int plan) {
 // Three f32 scratch planes (P0, P1, P2) per channel plane of the output.
 extern "C" long long irdu_pixel_unroll_scratch_floats(int H, int W) { return 3LL * H * W; }
 
-// The shared memory one CTA of the plan's kernel takes (ops/pixel_unroll.py
-// k7_smem_bytes holds its planner to it), or -1 for a plan it does not have.
-extern "C" long long irdu_pixel_unroll_smem(int plan, int dtype) {
+// The shared memory one CTA takes in dtype (ops/pixel_unroll.py
+// k7_smem_bytes holds its planner to it), or -1 for another dtype.
+extern "C" long long irdu_pixel_unroll_smem(int dtype) {
   using namespace irdu::pix;
-  if (dtype == irdu::kBFloat16 && plan == plan_of<__nv_bfloat16>())
-    return smem_bytes<__nv_bfloat16, plan_of<__nv_bfloat16>()>();
-  if (dtype == irdu::kFloat32 && plan == plan_of<float>()) return smem_bytes<float, plan_of<float>()>();
+  if (dtype == irdu::kBFloat16) return smem_bytes<__nv_bfloat16>();
+  if (dtype == irdu::kFloat32) return smem_bytes<float>();
   return -1;
 }
 
-// The CTAs of the plan's kernel that fit on one SM (the cooperative grid is
+// The CTAs of dtype's kernel that fit on one SM (the cooperative grid is
 // this times the SM count, at most one per item), or -1.
-extern "C" int irdu_pixel_unroll_ctas_per_sm(int plan, int dtype) {
-  if (dtype == irdu::kFloat32) return irdu::pix::ctas_per_sm<float>(plan);
-  if (dtype == irdu::kBFloat16) return irdu::pix::ctas_per_sm<__nv_bfloat16>(plan);
+extern "C" int irdu_pixel_unroll_ctas_per_sm(int dtype) {
+  if (dtype == irdu::kFloat32) return irdu::pix::ctas_per_sm<float>();
+  if (dtype == irdu::kBFloat16) return irdu::pix::ctas_per_sm<__nv_bfloat16>();
   return -1;
 }
 
 // y (B, F, H, W); wgtv, wglr (B, G, 12, H, W); pgtv, pglr (G, 4, F) f32;
-// scal (G, 9) f32; out (B, G*F, H, W); scratch 3 * B*G*F*H*W f32. plan: the
-// tile plan (ops/pixel_unroll.py K7_PLANS: 0 for bf16, 1 for f32).
+// scal (G, 9) f32; out (B, G*F, H, W); scratch 3 * B*G*F*H*W f32. The tile
+// follows the dtype (tile_of).
 extern "C" int irdu_pixel_unroll(const void* y, const void* wgtv, const void* wglr,
                                  const void* pgtv, const void* pglr, const void* scal,
                                  void* out, void* scratch, int B, int G, int F, int H, int W,
-                                 int plan, int dtype, void* stream) {
+                                 int dtype, void* stream) {
   using namespace irdu::pix;
-  if (B < 1 || G < 1 || F < 1 || H < 2 || W < 2 || plan < 0 || plan >= kNumPlans ||
-      y == nullptr || wgtv == nullptr || wglr == nullptr || pgtv == nullptr ||
-      pglr == nullptr || scal == nullptr || out == nullptr || scratch == nullptr)
+  if (B < 1 || G < 1 || F < 1 || H < 2 || W < 2 || y == nullptr || wgtv == nullptr ||
+      wglr == nullptr || pgtv == nullptr || pglr == nullptr || scal == nullptr ||
+      out == nullptr || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* scr = static_cast<float*>(scratch);
@@ -491,14 +480,14 @@ extern "C" int irdu_pixel_unroll(const void* y, const void* wgtv, const void* wg
     const Args<T> a{static_cast<const T*>(y), static_cast<const T*>(wgtv),
                     static_cast<const T*>(wglr), pg, pl, sc, static_cast<T*>(out),
                     scr, scr + n, scr + 2 * n, B, G, F, H, W};
-    return dispatch<T>(a, plan, s);
+    return launch<T>(a, s);
   }
   if (dtype == irdu::kBFloat16) {
     using T = __nv_bfloat16;
     const Args<T> a{static_cast<const T*>(y), static_cast<const T*>(wgtv),
                     static_cast<const T*>(wglr), pg, pl, sc, static_cast<T*>(out),
                     scr, scr + n, scr + 2 * n, B, G, F, H, W};
-    return dispatch<T>(a, plan, s);
+    return launch<T>(a, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

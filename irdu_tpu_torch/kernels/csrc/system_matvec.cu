@@ -37,17 +37,13 @@ namespace matvec {
 
 using namespace irdu::ptile;
 
-// Tile plans, as ops/system_matvec.py's K9_PLANS: {rows, columns, lanes,
-// threads, CTAs an SM}; the fastest of 8x32, 16x32 and 16x16 tiles of 8
-// lanes in kernels/plan_sweep.py.
-struct Plan {
+// The tile, as ops/system_matvec.py's K9_TILE: {rows, columns, lanes,
+// threads, CTAs an SM}; 16x16 tiles of 8 lanes, the fastest of 8x32, 16x32
+// and 16x16 on the card (PERF.md, K9's design note).
+struct Tile {
   int th, tw, lanes, threads, ctas;
 };
-constexpr int kNumPlans = 1;
-constexpr Plan plan_at(int i) {
-  constexpr Plan plans[kNumPlans] = {{16, 16, 8, 256, 2}};
-  return plans[i];
-}
+constexpr Tile kTile = {16, 16, 8, 256, 2};
 constexpr int kCoefs = 10;  // per lane: GTV stencil p0-p3, GLR stencil p0-p3, mu, rho
 
 // Halos: S and the weights on the tile + 2, x on the tile + 3.
@@ -339,9 +335,9 @@ __global__ void __launch_bounds__(kNT, kCtas) system_matvec_kernel(const Args a)
   }
 }
 
-template <typename T, int kPlan, bool kVec>
+template <typename T, bool kVec>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr Plan p = plan_at(kPlan);
+  constexpr Tile p = kTile;
   constexpr size_t smem = Layout<T, p.th, p.tw, p.lanes>::kBytes;
   auto kern = system_matvec_kernel<T, p.th, p.tw, p.lanes, p.threads, p.ctas, kVec>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -357,49 +353,43 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 // Whole chunks (F a multiple of the lanes) vectorised.
 template <typename T>
-int dispatch(const Args& a, int B, int plan, cudaStream_t s) {
-  if (plan != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool whole = a.F % plan_at(0).lanes == 0;
-  return whole ? launch<T, 0, true>(a, B, s) : launch<T, 0, false>(a, B, s);
+int dispatch(const Args& a, int B, cudaStream_t s) {
+  return a.F % kTile.lanes == 0 ? launch<T, true>(a, B, s) : launch<T, false>(a, B, s);
 }
 
-template <typename T, int kPlan>
-long long plan_bytes() {
-  constexpr Plan p = plan_at(kPlan);
-  return static_cast<long long>(Layout<T, p.th, p.tw, p.lanes>::kBytes);
+template <typename T>
+constexpr long long tile_bytes() {
+  return static_cast<long long>(Layout<T, kTile.th, kTile.tw, kTile.lanes>::kBytes);
 }
 
 }  // namespace matvec
 }  // namespace irdu
 
 // x, out (B, H, W, C) and wl, wg (B, H, W, G, 4) in one dtype; pl, pg (4, C)
-// and mu, ro (C,) f32; C = G * F. plan: the tile plan (ops/system_matvec.py
-// K9_PLANS).
+// and mu, ro (C,) f32; C = G * F.
 extern "C" int irdu_system_matvec(const void* x, const void* wl, const void* wg,
                                   const void* pl, const void* pg, const void* mu,
                                   const void* ro, void* out, int B, int H, int W, int C,
-                                  int G, int plan, int dtype, void* stream) {
+                                  int G, int dtype, void* stream) {
   using namespace irdu::matvec;
-  const bool bad = B < 1 || H < 1 || W < 1 || C < 1 || G < 1 || C % G || plan < 0 ||
-                   plan >= kNumPlans || x == nullptr || wl == nullptr || wg == nullptr ||
-                   pl == nullptr || pg == nullptr || mu == nullptr || ro == nullptr ||
-                   out == nullptr;
+  const bool bad = B < 1 || H < 1 || W < 1 || C < 1 || G < 1 || C % G || x == nullptr ||
+                   wl == nullptr || wg == nullptr || pl == nullptr || pg == nullptr ||
+                   mu == nullptr || ro == nullptr || out == nullptr;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, wl, wg, static_cast<const float*>(pl), static_cast<const float*>(pg),
                static_cast<const float*>(mu), static_cast<const float*>(ro), out,
                H, W, C, C / G, G, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == irdu::kFloat32) return dispatch<float>(a, B, plan, s);
-  if (dtype == irdu::kBFloat16) return dispatch<__nv_bfloat16>(a, B, plan, s);
+  if (dtype == irdu::kFloat32) return dispatch<float>(a, B, s);
+  if (dtype == irdu::kBFloat16) return dispatch<__nv_bfloat16>(a, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The shared memory one CTA of the plan's kernel takes (ops/system_matvec.py
-// k9_smem_bytes holds its planner to it), or -1 for a plan it does not have.
-extern "C" long long irdu_system_matvec_smem(int plan, int dtype) {
+// The shared memory one CTA takes in dtype (ops/system_matvec.py
+// k9_smem_bytes holds its planner to it), or -1 for another dtype.
+extern "C" long long irdu_system_matvec_smem(int dtype) {
   using namespace irdu::matvec;
-  if (plan != 0) return -1;
-  if (dtype == irdu::kFloat32) return plan_bytes<float, 0>();
-  if (dtype == irdu::kBFloat16) return plan_bytes<__nv_bfloat16, 0>();
+  if (dtype == irdu::kFloat32) return tile_bytes<float>();
+  if (dtype == irdu::kBFloat16) return tile_bytes<__nv_bfloat16>();
   return -1;
 }

@@ -11,11 +11,8 @@ row whose F planes fit ``edge_weights.EDGE_SMEM``, by device time
 (``fused_step_hopper.cu``) at the 1024x1024 flagship request's scale-0 step
 and the 1024x1024 pixel request's CHW step, K8 (``pixel_nhwc.cu``) at the
 512x512 pixel request's segment, in each mode and every tile plan
-(``fused_step.K5_PLANS``, ``pixel_nhwc.K8_PLANS``), K7 (``pixel_unroll.cu``)
-at the 512x512 pixel request's unroll and K9 (``system_matvec.cu``) at the
-"single" ablation's 512x512 matvec, every tile plan (``K7_PLANS``,
-``K9_PLANS``), by device time, against the served plan (``K5_PLAN``,
-``K8_PLAN``, ``K7_PLAN``, ``K9_PLAN``):
+(``fused_step.K5_PLANS``, ``pixel_nhwc.K8_PLANS``), by device time, against
+the served plan (``K5_PLAN``, ``K8_PLAN``):
 
     python -m irdu_tpu_torch.kernels.plan_sweep [--out sweep.json]
 
@@ -38,8 +35,6 @@ from irdu_tpu_torch.ops import edge_weights as ew
 from irdu_tpu_torch.ops import fused_step as fs
 from irdu_tpu_torch.ops import gated_block as gb
 from irdu_tpu_torch.ops import pixel_nhwc as pn
-from irdu_tpu_torch.ops import pixel_unroll as pu
-from irdu_tpu_torch.ops import system_matvec as sm
 from irdu_tpu_torch.ops.windows import DIAMOND12
 
 
@@ -213,67 +208,17 @@ def sweep_steps():
     return rows, summary
 
 
-def sweep_unrolls():
-    """K7 and K9 in bf16, every tile plan built for it, by device time: K7 at the 512x512
-    pixel request's unroll (y (1, 3, 512, 512), G = 24, diamond-12), K9 at
-    (1, 512, 512, 96), G = 1 (the "single" ablation's), identity rows.
-    Inputs U[0, 1), weights softmaxes of N(0, 1) draws, the scalars 0.1
-    (α 0.5)."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, summary = [], []
-
-    def rnd(*shape):
-        return torch.rand(*shape, device="cuda", generator=gen).bfloat16()
-
-    g, n = 24, 512
-    y = rnd(1, 3, n, n)
-    wg, wl = (_softmax_weights(gen, 1, g, 12, n, n).bfloat16() for _ in range(2))
-    tab = (torch.tensor([1.0, 0.5, 0.5, 0.5], device="cuda")[None, :, None]
-           .expand(g, 4, 3).contiguous())
-    v = torch.full((g,), 0.1, device="cuda")
-    cg = torch.full((4, g), 0.5, device="cuda")
-    scal = pu.pixel_unroll_scal(g, v, v, v, cg, 0.2 * cg)
-    x = rnd(1, n, n, 96)
-    wx = [torch.softmax(torch.randn(1, n, n, 1, 4, device="cuda", generator=gen), dim=-1)
-          .bfloat16() for _ in range(2)]
-    rows96 = sm.identity_rows(96, "cuda")
-    c96 = torch.full((96,), 0.3, device="cuda")
-    for name, mod, attr, plans, built, run in (
-            ("k7", pu, "K7_PLAN", pu.K7_PLANS, pu.k7_has_plan,
-             lambda: pu.gg_pixel_unroll_chw(y, wg, wl, tab, tab, scal, n_graphs=g)),
-            ("k9", sm, "K9_PLAN", sm.K9_PLANS, sm.k9_has_plan,
-             lambda: sm.fused_system_matvec(x, *wx, rows96, rows96, c96, c96, n_graphs=1))):
-        shape = []
-        for plan in range(len(plans)):
-            if not built(plan, torch.bfloat16):
-                continue
-            with mock.patch.object(mod, attr, plan):
-                shape.append({name: list((y if name == "k7" else x).shape),
-                              "plan": list(plans[plan]), "device_ms": device_ms(run, 10)})
-        rows += shape
-        best = min(shape, key=lambda r: r["device_ms"])
-        picked = next(r for r in shape if r["plan"] == list(plans[getattr(mod, attr)]))
-        summary.append({name: best[name], "fastest": best, "picked": picked,
-                        "ratio": picked["device_ms"] / best["device_ms"]})
-    return rows, summary
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m irdu_tpu_torch.kernels.plan_sweep",
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="write every timing to this JSON file")
-    ap.add_argument("--steps-only", action="store_true", help="sweep K5, K7, K8 and K9 only")
-    ap.add_argument("--unrolls-only", action="store_true", help="sweep K7 and K9 only")
+    ap.add_argument("--steps-only", action="store_true", help="sweep K5 and K8 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("plan_sweep needs a CUDA card")
-    rows, summary = sweep_unrolls()
-    if not args.unrolls_only:
-        part = sweep_steps()
-        rows += part[0]
-        summary += part[1]
-    if not (args.steps_only or args.unrolls_only):
+    rows, summary = sweep_steps()
+    if not args.steps_only:
         for part in (sweep(), sweep_edges()):
             rows += part[0]
             summary += part[1]

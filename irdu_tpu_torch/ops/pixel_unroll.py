@@ -33,7 +33,7 @@ plane (``irdu_pixel_unroll_scratch_floats``), allocated here; a phase
 never writes the plane it reads over a box. The arithmetic from ỹ to the
 output is f32 with nothing rounded between the steps; the next item's
 weights and first x box are staged while the current item finishes. The
-tile plan is ``K7_PLANS[K7_PLAN]`` in bf16 (32×64 tiles, one CTA of 512
+tile follows the dtype (``K7_TILES``): 32×64 in bf16 (one CTA of 512
 threads an SM) and 16×64 in f32. The whole solve needs
 ~732 f32 operations per pixel and plane (each edge term once;
 ``PIXEL_UNROLL_OPS_PER_PIXEL``), so with the data moved once it is bound by
@@ -62,33 +62,23 @@ from irdu_tpu_torch.ops.windows import DIAMOND12
 # 78 + 43 + 3 = 124. The two RHS builds 78 + 2 and 138 + 2; four CG steps
 # 124 each plus their updates 3, 5, 3, 5.
 PIXEL_UNROLL_OPS_PER_PIXEL = 80 + 140 + 4 * 124 + 16
-# K7's tile plans (pixel_unroll.cu): (rows, columns, threads, CTAs an SM).
-# K7_PLAN serves bf16: 32x64 tiles, the fastest of 16x64, 32x64 and 32x64 of
-# 256 threads in kernels/plan_sweep.py; f32 takes plan 1, as a 32x64 tile's
-# f32 weights would not fit a CTA
-K7_PLANS = ((32, 64, 512, 1), (16, 64, 256, 1))
-K7_PLAN = 0
+# K7's tile of each dtype, as pixel_unroll.cu picks it: (rows, columns,
+# threads, CTAs an SM). bf16 takes 32x64 tiles, the fastest of 16x64, 32x64
+# and 32x64 of 256 threads on the card (PERF.md, K7's design note); f32 takes
+# 16x64, as a 32x64 tile's f32 weights would not fit a CTA
+K7_TILES = {torch.bfloat16: (32, 64, 512, 1), torch.float32: (16, 64, 256, 1)}
 K7_HALO = 4  # the x box's rows; the stage planes have 3 rows and 4 columns
 
 
-def k7_plan(dtype):
-    """The plan ``pixel_unroll.cu`` is built with for ``dtype``."""
-    return K7_PLAN if dtype == torch.bfloat16 else 1
-
-
-def k7_has_plan(plan, dtype):
-    """Whether ``pixel_unroll.cu`` is built with ``plan`` in ``dtype``."""
-    return plan == k7_plan(dtype)
-
-
-def k7_smem_bytes(plan, esize):
-    """The shared memory of one K7 CTA (``pixel_unroll.cu`` Layout): four
-    f32 stage planes (S and A of GTV and GLR) over the tile + 3 rows and
-    + 4 columns; two x boxes over the tile + 4 rows and + one 16-byte chunk
-    of columns, each as large as the larger of y's box and an f32 box; the
-    12 weights [e][cell] of both operators in the input's dtype; each part
-    rounded up to 16 bytes."""
-    th, tw, _, _ = K7_PLANS[plan]
+def k7_smem_bytes(dtype):
+    """The shared memory of one K7 CTA in ``dtype`` (``pixel_unroll.cu``
+    Layout): four f32 stage planes (S and A of GTV and GLR) over the tile
+    + 3 rows and + 4 columns; two x boxes over the tile + 4 rows and + one
+    16-byte chunk of columns, each as large as the larger of y's box and an
+    f32 box; the 12 weights [e][cell] of both operators in the input's dtype;
+    each part rounded up to 16 bytes."""
+    th, tw, _, _ = K7_TILES[dtype]
+    esize = torch.tensor([], dtype=dtype).element_size()
     n_p = (th + 6) * (tw + 8)
 
     def up16(n):
@@ -186,11 +176,10 @@ def gg_pixel_unroll_chw(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
     lib = kernel_library()
     scratch = torch.empty((b * g * f, lib.irdu_pixel_unroll_scratch_floats(h, w)),
                           dtype=torch.float32, device=dev)
-    plan = k7_plan(y.dtype)
     status = lib.irdu_pixel_unroll(
         y.data_ptr(), w_gtv.data_ptr(), w_glr.data_ptr(), tabs[0].data_ptr(),
         tabs[1].data_ptr(), sc.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        b, g, f, h, w, plan, dtype_code(y.dtype), torch.cuda.current_stream(dev).cuda_stream)
+        b, g, f, h, w, dtype_code(y.dtype), torch.cuda.current_stream(dev).cuda_stream)
     check_status("gg_pixel_unroll_chw", status)
     gg_pixel_unroll_chw.launches += 1
     return out

@@ -24,7 +24,7 @@ other kernels do.
 
 On the card (``kernels/csrc/system_matvec.cu``): K5's padded tile
 (``kernels/csrc/padded_tile.cuh``) on the cross-4 window with channel lanes.
-A CTA takes one output tile (``K9_PLANS[K9_PLAN]``) of one image and walks
+A CTA takes one 16×16 output tile (``K9_TILE``) of one image and walks
 the C channels graph by graph in chunks of 8 lanes (a chunk never straddles
 two graphs; the last of a graph may be partial); the graph's 4 GLR and 4
 GTV weights of the tile come into shared memory once and serve all its
@@ -51,28 +51,22 @@ from irdu_tpu_torch.ops import graph
 # scatter 2·4; GLR's Laplacian 2·4 + 1; the two transposed stencils 9 each;
 # ρ·, μ· and the two adds 4: 69, as K6a with GLR and the identity.
 OPS_PER_PIXEL_CHANNEL = 69
-# K9's tile plans (system_matvec.cu): (rows, columns, lanes, threads, CTAs an
-# SM); 16x16 tiles of 8 lanes, the fastest of 8x32, 16x32 and 16x16 in
-# kernels/plan_sweep.py
-K9_PLANS = ((16, 16, 8, 256, 2),)
-K9_PLAN = 0
+# K9's tile, as system_matvec.cu has it: (rows, columns, lanes, threads,
+# CTAs an SM); 16x16 tiles of 8 lanes, the fastest of 8x32, 16x32 and 16x16
+# on the card (PERF.md, K9's design note)
+K9_TILE = (16, 16, 8, 256, 2)
 K9_HALO = 3  # the x box's; S and the weights have 2, the edge sums 1
 
 
-def k9_has_plan(plan, dtype):
-    """Whether ``system_matvec.cu`` is built with ``plan`` in ``dtype``
-    (every plan in both types)."""
-    return 0 <= plan < len(K9_PLANS) and dtype in (torch.float32, torch.bfloat16)
-
-
-def k9_smem_bytes(plan, esize):
-    """The shared memory of one K9 CTA (``system_matvec.cu`` Layout): four
-    f32 stage planes (S and A of GTV and GLR) of 8 lanes a cell over the
-    tile + 2, two x boxes of 8 lanes over the tile + 3 in the input's dtype,
-    the 4 weights [cell][edge] of both operators over the tile + 2, and two
-    tables of 10 f32 coefficients a lane; each part rounded up to 16
-    bytes."""
-    th, tw, lanes, _, _ = K9_PLANS[plan]
+def k9_smem_bytes(dtype):
+    """The shared memory of one K9 CTA in ``dtype`` (``system_matvec.cu``
+    Layout): four f32 stage planes (S and A of GTV and GLR) of 8 lanes a
+    cell over the tile + 2, two x boxes of 8 lanes over the tile + 3 in the
+    input's dtype, the 4 weights [cell][edge] of both operators over the
+    tile + 2, and two tables of 10 f32 coefficients a lane; each part rounded
+    up to 16 bytes."""
+    th, tw, lanes, _, _ = K9_TILE
+    esize = torch.tensor([], dtype=dtype).element_size()
     n_p = (th + 2 * (K9_HALO - 1)) * (tw + 2 * (K9_HALO - 1))
     n_x = (th + 2 * K9_HALO) * (tw + 2 * K9_HALO)
 
@@ -158,8 +152,8 @@ def fused_system_matvec(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, *, n_
     out = torch.empty_like(x)
     status = kernel_library().irdu_system_matvec(
         x.data_ptr(), wl.data_ptr(), wg.data_ptr(), pl.data_ptr(), pg.data_ptr(),
-        mu.data_ptr(), ro.data_ptr(), out.data_ptr(), b, h, w, c, n_graphs, K9_PLAN,
-        dtype_code(x.dtype), torch.cuda.current_stream(dev).cuda_stream)
+        mu.data_ptr(), ro.data_ptr(), out.data_ptr(), b, h, w, c, n_graphs, dtype_code(x.dtype),
+        torch.cuda.current_stream(dev).cuda_stream)
     check_status("fused_system_matvec", status)
     fused_system_matvec.launches += 1
     return out

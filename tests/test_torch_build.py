@@ -1,0 +1,78 @@
+"""The kernel library's host side on the CPU: every ctypes signature in
+``kernels/build.py`` against its ``extern "C"`` declaration in
+``kernels/csrc`` (the number of arguments and whether each is a pointer),
+and ``ptxas_report`` on hand-made ``-Xptxas -v`` messages."""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import re
+
+import pytest
+
+from irdu_tpu_torch.kernels import build
+
+SIGNATURES = sorted(build._SIGNATURES)
+
+
+def _declarations():
+    """{name: [parameter text]} of every extern "C" function in csrc."""
+    out = {}
+    for path in glob.glob(os.path.join(build.CSRC_DIR, "*.cu")):
+        with open(path) as fh:
+            text = fh.read()
+        for m in re.finditer(r'extern "C"[^(;{]*?\b(irdu_\w+)\s*\(([^)]*)\)', text):
+            params = " ".join(m.group(2).split())
+            out[m.group(1)] = [] if params in ("", "void") else params.split(",")
+    return out
+
+
+@pytest.mark.parametrize("name", SIGNATURES)
+def test_signature_matches_the_source(name):
+    """The ctypes argument list has the C declaration's length, with a
+    pointer exactly where the declaration has one."""
+    decl = _declarations()
+    assert name in decl, f"{name} is declared in no source under kernels/csrc"
+    argtypes, _ = build._SIGNATURES[name]
+    params = decl[name]
+    assert len(argtypes) == len(params), (name, params)
+    for arg, param in zip(argtypes, params):
+        assert (arg is ctypes.c_void_p) == ("*" in param), (name, param)
+
+
+LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN4irdu3pix19pixel_unroll_kernelI13__nv_bfloat16Li32ELi64ELi512ELi1EEEvNS0_4ArgsIT_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4irdu3pix19pixel_unroll_kernelI13__nv_bfloat16Li32ELi64ELi512ELi1EEEvNS0_4ArgsIT_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN4irdu3pix19pixel_unroll_kernelIfLi16ELi64ELi256ELi1EEEvNS0_4ArgsIT_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4irdu3pix19pixel_unroll_kernelIfLi16ELi64ELi256ELi1EEEvNS0_4ArgsIT_EE
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 219 registers, used 1 barriers, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN4irdu6matvec20system_matvec_kernelIfLi16ELi16ELi8ELi256ELi2ELb1EEEvNS0_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4irdu6matvec20system_matvec_kernelIfLi16ELi16ELi8ELi256ELi2ELb1EEEvNS0_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 126 registers, used 1 barriers, 432 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("match,want", [
+    ("pixel_unroll_kernel", [(128, 0, 0, 0), (219, 8, 4, 12)]),
+    ("system_matvec_kernel", [(126, 0, 0, 0)]),
+    ("gated_block", []),
+], ids=["two_instances", "one_instance", "none"])
+def test_ptxas_report(match, want):
+    """Each entry function whose name holds ``match`` gets its own
+    registers, stack and spills, in the log's order."""
+    got = build.ptxas_report(LOG, match)
+    assert [(r["registers"], r["stack"], r["spill_stores"], r["spill_loads"])
+            for r in got] == want
+    assert all(match in r["name"] for r in got)
+
+
+def test_ptxas_report_of_an_empty_log():
+    """A library that was already built leaves no messages: no entries."""
+    assert build.ptxas_report("", "pixel_unroll_kernel") == []

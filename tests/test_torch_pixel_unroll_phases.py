@@ -38,9 +38,9 @@ PHASES = (
 SCRATCH = ("P0", "P1", "P2")
 
 
-def phased_unroll(y, wg, wl, pg, pl, scal, n_graphs, tile=pu.K7_PLANS[pu.K7_PLAN][:2]):
+def phased_unroll(y, wg, wl, pg, pl, scal, n_graphs, tile=pu.K7_TILES[torch.bfloat16][:2]):
     """K7 as pixel_unroll.cu computes it, f32, batch 1, on ``tile`` (rows,
-    columns; the served plan's by default): the phases of PHASES in order
+    columns; the served bf16 tile by default): the phases of PHASES in order
     (the grid barriers), in each the (graph, tile) items in launch order,
     each walking the F planes. Returns (out, the scratch planes)."""
     _, f_n, h, w = y.shape
@@ -195,13 +195,9 @@ def test_scratch_is_three_f32_planes_per_channel_plane():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_k7_smem_bytes_fit_the_card(dtype):
-    """Each type's K7 plan (32x64 tiles in bf16, 16x64 in f32) fits a CTA
-    (227 KB) as many times an SM as K7_PLANS names (228 KB, 1 KB reserved a
-    CTA), and it is the only plan built for that type."""
-    esize = 2 if dtype == torch.bfloat16 else 4
-    plan = pu.k7_plan(dtype)
-    assert [p for p in range(len(pu.K7_PLANS)) if pu.k7_has_plan(p, dtype)] == [plan]
-    smem = pu.k7_smem_bytes(plan, esize)
+    """Each type's K7 tile (32x64 in bf16, 16x64 in f32) fits a CTA (227 KB)
+    as many times an SM as K7_TILES names (228 KB, 1 KB reserved a CTA)."""
+    smem = pu.k7_smem_bytes(dtype)
     assert smem <= 232448
-    assert pu.K7_PLANS[plan][3] * (smem + 1024) <= 233472
-    assert pu.K7_PLANS[plan][:2] == ((32, 64) if dtype == torch.bfloat16 else (16, 64))
+    assert pu.K7_TILES[dtype][3] * (smem + 1024) <= 233472
+    assert pu.K7_TILES[dtype][:2] == ((32, 64) if dtype == torch.bfloat16 else (16, 64))

@@ -174,7 +174,7 @@ def test_lane_tiles_match_plain(tile, hw, g, f, rows):
     equals the plain version within JAX's tolerance for this kernel (the
     per-lane sums run in another order than the plain version's)."""
     th, tw = tile
-    lanes = sm.K9_PLANS[sm.K9_PLAN][2]
+    lanes = sm.K9_TILE[2]
     x, wglr, wgtv, pl, pg, mu, ro = (torch.from_numpy(a) for a in
                                      _inputs(seed=70 + th + tw, b=1, h=hw[0], w=hw[1], g=g, f=f))
     if not rows:
@@ -187,24 +187,20 @@ def test_lane_tiles_match_plain(tile, hw, g, f, rows):
 
 @pytest.mark.parametrize("g,f", [(1, 16), (2, 12)], ids=["G1", "G2_partial_chunks"])
 def test_lane_tiles_match_jax_kernel(g, f):
-    """The served plan's transliteration against JAX's Pallas kernel in
+    """The served tile's transliteration against JAX's Pallas kernel in
     interpret mode at the JAX test's shape (32x16: two tile rows of the
     served 16x16 tile)."""
     args = _inputs(seed=80 + g, b=1, g=g, f=f)
     ref = jax_matvec(*(jnp.asarray(a) for a in args), n_graphs=g, tile_h=8, interpret=True)
-    th, tw, lanes, _, _ = sm.K9_PLANS[sm.K9_PLAN]
+    th, tw, lanes, _, _ = sm.K9_TILE
     out = lane_tiled(*(torch.from_numpy(a) for a in args), g, th, tw, lanes)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_k9_smem_bytes_fit_the_card(dtype):
-    """Every built K9 plan fits a CTA (227 KB) as many times an SM as
-    K9_PLANS names (228 KB, 1 KB reserved a CTA), in bf16 and f32."""
-    esize = 2 if dtype == torch.bfloat16 else 4
-    built = [p for p in range(len(sm.K9_PLANS)) if sm.k9_has_plan(p, dtype)]
-    assert sm.K9_PLAN in built
-    for plan in built:
-        smem = sm.k9_smem_bytes(plan, esize)
-        assert smem <= 232448
-        assert sm.K9_PLANS[plan][4] * (smem + 1024) <= 233472
+    """K9's tile fits a CTA (227 KB) as many times an SM as K9_TILE names
+    (228 KB, 1 KB reserved a CTA), in bf16 and f32."""
+    smem = sm.k9_smem_bytes(dtype)
+    assert smem <= 232448
+    assert sm.K9_TILE[4] * (smem + 1024) <= 233472

@@ -131,6 +131,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -218,8 +219,8 @@ K9_SHAPE = (1, 512, 512, 96)  # the "single" ablation's matvec at 512x512, G = 1
 # ragged 16x16 tiles both ways, G = 2 graphs of F = 20 channels: a partial last chunk
 # of 8 lanes in each graph
 K9_RAGGED = (1, 37, 53, 40)
-# K5's pixel mode and K6a/K6b on diamond-12 also at ragged tiles (K5's 16x64,
-# K6a/K6b's 32x64), odd H and W
+# K5's pixel mode and K6a/K6b on diamond-12 also at ragged tiles (the
+# single-scale 16x64 tiles K6a/K6b launch too), odd H and W
 STEP_RAGGED = (37, 53)
 K9_CALLS = 3  # per "single" request
 # K7 also on ragged 16x64 tiles with odd H and W, and on a plane smaller than
@@ -473,10 +474,11 @@ def psnr(clean, out):
 
 
 def phase_build(smoke):
-    """Build the library; ptxas's report of K7's and K9's kernels (registers,
-    stack, spills) goes to ``lines["ptxas"]``, with every ptxas warning of
-    the build. Fails if the library was built here and an instance of K7 or
-    K9 spills or none is reported."""
+    """Build the library; ptxas's report of K1's, K5's (which K6a and K6b
+    launch too), K7's and K9's kernels (registers, stack, spills) goes to
+    ``lines["ptxas"]``, with every ptxas warning of the build. Fails if the
+    library was built here and an instance of K7 or K9 spills or none is
+    reported."""
     from irdu_tpu_torch.kernels.build import build, ptxas_report
 
     path, log, seconds = build()
@@ -484,7 +486,8 @@ def phase_build(smoke):
         fh.write(log)
     smoke.lines["ptxas"] = dict(
         {name: ptxas_report(log, kernel) for name, kernel in
-         (("gg_pixel_unroll_chw", "pixel_unroll_kernel"),
+         (("gg_unroll_chw", "gg_unroll_kernel"), ("gg_fused_step_chw", "step_kernel"),
+          ("gg_pixel_unroll_chw", "pixel_unroll_kernel"),
           ("fused_system_matvec", "system_matvec_kernel"))},
         warnings=sorted({ln.strip() for ln in log.splitlines() if "warning" in ln}),
         built=bool(log))
@@ -1052,8 +1055,9 @@ def layout_mismatches(model):
     ``irdu_pixel_segment_smem``, ``irdu_pixel_unroll_smem`` and
     ``irdu_system_matvec_smem``): K3's wgmma kernel at every served (C, H)
     it takes, K2 at the plan of every call of the 512x512 flagship request
-    and of the pixel model's diamond-12 call, bf16 and f32; K5 and K8 at
-    every tile plan they are built with, with and without GLR; K7 and K9 at
+    and of the pixel model's diamond-12 call, bf16 and f32; K5 (and so
+    K6a's and K6b's single-scale launches) and K8 at every tile plan they
+    are built with, with and without GLR; K7 and K9 at
     the tile of each type. Returns the (what, planner bytes,
     kernel bytes) that differ."""
     import torch
@@ -1366,7 +1370,11 @@ def _agree(ker, ref, base, dtype, bar_at):
 def k6_composition(args, kw, g):
     """K5's output from K6a/K6b calls and the box resampling, as the JAX
     tests compose it (tests/test_solver_chw.py::test_fused_*): the system
-    matvec or re-threshold at each scale, then the step's update."""
+    matvec or re-threshold at each scale, then the step's update. K6a and
+    K6b run K5's single-scale kernel body, so this holds K5's two-scale
+    path (the half-res stencils on the x box's box means, the 2x2 box's
+    half-res term) and its epilogues against that body; each call is also
+    held against its plain version in its own rows."""
     from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
     from irdu_tpu_torch.ops.fused_step import gg_matvec_chw, gtv_rethresh_chw
 
@@ -1879,6 +1887,22 @@ def _bound(nbytes, ops, tensor_ops=0):
     return out
 
 
+def source_headers(source):
+    """The repo's headers that a kernel source includes, directly or through
+    another header, as paths in the repo (common.cuh aside)."""
+    csrc = os.path.dirname(source)
+    found, todo = [], [source]
+    while todo:
+        with open(os.path.join(REPO, todo.pop())) as fh:
+            names = re.findall(r'^#include "([\w.]+)"', fh.read(), re.M)
+        for n in names:
+            path = f"{csrc}/{n}"
+            if n != "common.cuh" and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def kernels_line(smoke):
     """The per-kernel summary: ms, device_ms, plain_ms and bound_ms are
     summed over the calls one request makes (bf16; a timed row counts
@@ -1905,9 +1929,9 @@ def kernels_line(smoke):
                              "irdu_tpu/ops/pallas/solver_chw.py:848"),
         "gg_fused_step_chw": ("irdu_tpu_torch/kernels/csrc/fused_step_hopper.cu",
                               "irdu_tpu/ops/pallas/solver_chw.py:511"),
-        "gg_matvec_chw": ("irdu_tpu_torch/kernels/csrc/fused_step.cu",
+        "gg_matvec_chw": ("irdu_tpu_torch/kernels/csrc/fused_step_hopper.cu",
                           "irdu_tpu/ops/pallas/solver_chw.py:735"),
-        "gtv_rethresh_chw": ("irdu_tpu_torch/kernels/csrc/fused_step.cu",
+        "gtv_rethresh_chw": ("irdu_tpu_torch/kernels/csrc/fused_step_hopper.cu",
                              "irdu_tpu/ops/pallas/solver_chw.py:799"),
         "gg_pixel_unroll_chw": ("irdu_tpu_torch/kernels/csrc/pixel_unroll.cu",
                                 "irdu_tpu/ops/pallas/solver_unroll.py:394"),
@@ -1942,7 +1966,8 @@ def kernels_line(smoke):
         f32 = [r["max_abs_err"] for r in rows if r["dtype"] == "float32"]
         bf16 = [r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"]
         out.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, route="cuda", source=source, headers=source_headers(source),
+            replaces=replaces,
             launches=sum(c.get(name, 0) for c in smoke.path_counts.values()),
             launches_by_path={k: c.get(name, 0) for k, c in smoke.path_counts.items()},
             max_abs_err=max(f32) if f32 else None,

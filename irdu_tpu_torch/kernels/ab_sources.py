@@ -19,13 +19,20 @@ the 512x512 flagship request and at the pixel model's diamond-12 shape, of
 K3 at the flagship's, of K5 in the 1024x1024 flagship request's five calls,
 of K8 in its four modes at the 512x512 pixel request, of K7 at that request
 (CHW route) and of the pixel solver's six-call K5 band route on the same
-inputs, and of K9
+inputs, of K6a (GLR and the identity) and K6b (with y) on K5's scale-0
+operands, and of K9
 at the "single" ablation's 512x512 call (three a request), each from
 torch.profiler (the kernels' own
 durations over 20 calls, no host work: this tree's ``kernels/timing.py``),
 so that a tree whose ``chip_smoke.py`` records no ``device_ms`` is compared
 too. Rows that both trees' ``chip_smoke.py`` give a ``device_ms`` are
 compared on it as well.
+
+Before the turns it compiles each tree's copy of every source in
+CODE_SOURCES with this tree's nvcc flags and compares what comes out per
+entry function: ptxas's registers, stack and spills, and a digest of the
+SASS (``cuobjdump -sass``). Its line goes first; ``--code-only`` stops
+there.
 
 Per compared row it prints one JSON line: the times of each turn of the
 other checkout ("base") and of this tree ("tree"), their medians, minima and
@@ -37,6 +44,7 @@ with each turn's ``device_ms`` line (how its device times were taken).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -44,7 +52,12 @@ import sys
 
 import numpy as np
 
+from irdu_tpu_torch.kernels import build
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# sources whose generated code both trees are expected to share (K1's, whose
+# header lost the code only other kernels used)
+CODE_SOURCES = ("gg_unroll.cu",)
 # what tells two kernel rows of chip_smoke_kernels.json apart, besides the kernel
 ROW_KEYS = ("scale", "request", "case", "mode", "blocks", "n_graphs", "shape", "dtype")
 # run with python -c in a tree's root, so that it imports that tree's package;
@@ -108,6 +121,12 @@ for name, mode, a_, p_, kw in (("rhs", "rhs", None, None, {}),
                                ("cg_prev", "cg", aux, prev, {})):
     out[f"K5 [1, 48, 1024, 1024] {name}"] = device_ms(lambda: gg_fused_step_chw(
         x, a_, p_, *ws, tab, tab, tab, tab, scal, mode=mode, n_graphs=8, **kw))
+# K6a (GLR and the identity) and K6b (with y) on the same scale-0 operands
+from irdu_tpu_torch.ops.fused_step import gg_matvec_chw, gtv_rethresh_chw
+out["K6a [1, 48, 1024, 1024] glr, identity"] = device_ms(lambda: gg_matvec_chw(
+    x, ws[1], ws[0], tab, tab, v, v, n_graphs=8))
+out["K6b [1, 48, 1024, 1024] y"] = device_ms(lambda: gtv_rethresh_chw(
+    x, aux, ws[0], tab, v, v, n_graphs=8))
 del x, aux, prev, ws
 x, aux, prev = unit(1, 512, 512, 72), unit(1, 512, 512, 72), unit(1, 512, 512, 72)
 wg, wl = (soft(1, 512, 512, 12, 24, dim=3).reshape(1, 512, 512, 288) for _ in range(2))
@@ -148,6 +167,49 @@ print(json.dumps(out))
 """
 
 
+def sass_digests(sass: str) -> dict:
+    """{entry function: sha256 of its SASS lines} from ``cuobjdump -sass``."""
+    out, name, lines = {}, None, []
+    for line in sass.splitlines() + ["Function : "]:
+        if "Function : " in line:
+            if name:
+                out[name] = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+            name, lines = line.split("Function : ", 1)[1].strip(), []
+        elif name:
+            lines.append(line.strip())
+    return out
+
+
+def compiled_code(tree: str, source: str) -> dict:
+    """``source`` under ``tree``'s kernels/csrc compiled alone with this
+    tree's flags: per entry function its ptxas report and SASS digest (None
+    without cuobjdump)."""
+    src = os.path.join(tree, "irdu_tpu_torch", "kernels", "csrc", source)
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    obj = os.path.join(build.BUILD_DIR, f"code.{os.getpid()}.o")
+    try:
+        log = build._nvcc([build.nvcc_path(), *build.NVCC_FLAGS, "-c", src, "-o", obj])
+        cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+        sass = (subprocess.run([cuobjdump, "-sass", obj], capture_output=True, text=True,
+                               check=True).stdout if os.path.isfile(cuobjdump) else None)
+    finally:
+        if os.path.exists(obj):
+            os.remove(obj)
+    digests = sass_digests(sass) if sass is not None else {}
+    return {r["name"]: dict(r, sass=digests.get(r["name"])) for r in build.ptxas_report(log, "")}
+
+
+def compare_code(base: str) -> dict:
+    """CODE_SOURCES' generated code in ``base`` and in this tree: each
+    entry function's report in both, and whether they are equal (registers,
+    stack, spills and SASS digest)."""
+    out = {}
+    for source in CODE_SOURCES:
+        a, b = compiled_code(base, source), compiled_code(REPO, source)
+        out[source] = dict(same=a == b, base=a, tree=b)
+    return out
+
+
 def _turn(tree: str) -> tuple[dict, dict | None, dict | None]:
     """Run ``tree``'s chip_smoke.py once: its timed rows by name, its
     profile line and its ``device_ms`` line (None where it has none). Raises
@@ -175,7 +237,7 @@ def _turn(tree: str) -> tuple[dict, dict | None, dict | None]:
                            f"{probe.stderr[-3000:]}")
     device = json.loads(probe.stdout.strip().splitlines()[-1])
     timed.update({f"device {k}": v for k, v in device.items()})
-    k5 = [v for k, v in device.items() if k.startswith("K5 ")]
+    k5 = [v for k, v in device.items() if k.startswith("K5 [1, 48, 1024, 1024] ")]
     if k5:  # the five calls of one 1024x1024 flagship request
         timed["device K5 per 1024x1024 request"] = sum(k5)
     k8 = {k.split()[-1]: v for k, v in device.items() if k.startswith("K8 ")}
@@ -208,10 +270,19 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("base", help="the other checkout's root")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--code-only", action="store_true",
+                    help="compare the generated code of CODE_SOURCES only")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
+    code = compare_code(os.path.abspath(args.base))
+    print(json.dumps({"code": code}), flush=True)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    if args.code_only:
+        with open(os.path.join(REPO, "chiprun_out", "ab_code.json"), "w") as fh:
+            json.dump({"device": smi.stdout.strip(), "code": code}, fh, indent=1)
+        return
     trees = {"base": os.path.abspath(args.base), "tree": REPO}
     turns = {"base": [], "tree": []}
     profiles, sessions = {}, []
@@ -232,10 +303,9 @@ def main(argv=None) -> None:
         row["base_over_tree"] = row["base"]["median_ms"] / row["tree"]["median_ms"]
         print(json.dumps(row), flush=True)
         rows.append(row)
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "ab_sources.json"), "w") as fh:
         json.dump({"device": smi.stdout.strip(), "order": "base, tree, tree, base per round",
-                   "rounds": args.rounds, "rows": rows, "profiles": profiles,
+                   "rounds": args.rounds, "code": code, "rows": rows, "profiles": profiles,
                    "device_ms_by_turn": sessions}, fh, indent=1)
 
 

@@ -45,7 +45,6 @@ _SIGNATURES = {  # name: (argtypes, restype)
     "irdu_block_stack_wgmma_smem": ((_I, _I), _L),
     "irdu_edge_weights": ((_P,) * 3 + (_I,) * 11 + (_P,), _I),
     "irdu_edge_weights_smem": ((_I,) * 6, _L),
-    "irdu_fused_step": ((_P,) * 14 + (_I,) * 12 + (_P,), _I),
     "irdu_fused_step_hopper": ((_P,) * 14 + (_I,) * 13 + (_P,), _I),
     "irdu_fused_step_hopper_smem": ((_I,) * 5, _L),
     "irdu_gated_block": ((_P,) * 7 + (_I,) * 5 + (_L,) * 4 + (_I,) * 3 + (_P,), _I),

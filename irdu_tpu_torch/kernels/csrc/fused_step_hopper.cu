@@ -2,9 +2,12 @@
 // two-scale cross-4 for the flagship's planes above 768x1024, single-scale
 // cross-4 or diamond-12, the latter with the reflect stencil pad for the
 // pixel family), CHW, input and output in one type T. Replaces
-// irdu_tpu/ops/pallas/solver_chw.py:gg_fused_step_chw (_fused_kernel). The
-// math and the bound are set out in irdu_tpu_torch/ops/fused_step.py; the
-// padded tile's stages and boundary rules in padded_tile.cuh.
+// irdu_tpu/ops/pallas/solver_chw.py:gg_fused_step_chw (_fused_kernel), and
+// through its single-scale launches K6a gg_matvec_chw (_matvec_kernel: the
+// system, GLR on or off, with the epilogue x + T or T) and K6b
+// gtv_rethresh_chw (_rethresh_kernel: [y +] T). The math and the bound are
+// set out in irdu_tpu_torch/ops/fused_step.py; the padded tile's stages and
+// boundary rules in padded_tile.cuh.
 //
 // A CTA takes one output tile (kTH x kTW full-res pixels, even, so the half
 // tile is whole 2x2 boxes) of one graph g and walks its F channel planes:

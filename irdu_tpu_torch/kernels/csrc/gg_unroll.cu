@@ -47,7 +47,7 @@ using step::kTW;
 using step::StepIO;
 
 constexpr int kCtasPerSm = 2;
-constexpr size_t kSmem = step::tile_smem_bytes(true, true);
+constexpr size_t kSmem = step::kTileSmem;
 
 template <typename T>
 struct Args {
@@ -67,7 +67,7 @@ __device__ __forceinline__ IO planes(const Args<T>& a, const typename IO::TX* x,
                                      typename IO::TU* upd, int epi, int use_x_rhs) {
   return IO{x,       x_add,   aux,     prev,    out,     upd,     a.wgtv0, a.wglr0, a.wgtv1,
             a.wglr1, a.pgtv0, a.pglr0, a.pgtv1, a.pglr1, a.G,     a.F,     a.H,     a.W,
-            epi,     use_x_rhs, 0};
+            epi,     use_x_rhs};
 }
 
 // One phase: the tile step on every (plane, tile) item this CTA takes. The
@@ -86,8 +86,8 @@ __device__ void phase(const IO& io, const float* scal, int alpha_k, int xadd_k, 
     const Coefs k{sc[0], sc[1], sc[2], sc[3], alpha_k >= 0 ? sc[6 + alpha_k] : 0.f, sc[9],
                   sc[4], sc[5], xadd_k >= 0 ? sc[6 + xadd_k] : 0.f};
     const int ty = tile / tiles_x;
-    step::step_tile<0, kRethresh, kGlr, true>(io, k, bg * io.F + f, ty * kTH,
-                                              (tile - ty * tiles_x) * kTW, smem);
+    step::step_tile<kRethresh, kGlr>(io, k, bg * io.F + f, ty * kTH,
+                                     (tile - ty * tiles_x) * kTW, smem);
   }
 }
 

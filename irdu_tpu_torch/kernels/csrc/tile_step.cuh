@@ -1,34 +1,32 @@
-// One unroll step of the GGTV+GGLR solvers on one output tile of one
-// (b, g, f) plane: the device code of K5 (fused_step.cu, one tile per CTA)
-// and of K1 (gg_unroll.cu, a persistent CTA walking tiles). The math, the
-// boundary rules and the bounds are set out in irdu_tpu_torch/ops/fused_step.py
-// and ops/solver_unroll.py.
+// One step of the flagship's two-scale GGTV+GGLR unroll on one output tile
+// of one (b, g, f) plane: the device code of K1 (gg_unroll.cu, a persistent
+// CTA walking tiles), on the cross-4 window with the "edge" stencil pad. The
+// math, the boundary rules and the bounds are set out in
+// irdu_tpu_torch/ops/solver_unroll.py and ops/fused_step.py. (K5, K6a and
+// K6b run on the padded tile of padded_tile.cuh instead: fused_step_hopper.cu.)
 //
 // A tile is 32x64 full-res pixels. Stages, separated by __syncthreads(), over
-// the tile's region (the tile plus a 4-pixel halo, clipped to the image) and,
-// two-scale, over the half tile's region (16x32 plus its own 4 half-res
-// pixels, box-averaged from x):
+// the tile's region (the tile plus a 4-pixel halo, clipped to the image) and
+// over the half tile's region (16x32 plus its own 4 half-res pixels,
+// box-averaged from x):
 //   1. X  = x over the region;           XD = Dn x over the half region
 //   2. Sg = statsGTV(X), Sl = statsGLR(X) (and at half res)
 //   3. Ag = the zero-padded C^T scatter of w * map(w * (Sg - shift Sg)),
 //      Al = Sl - sum_e w_e shift_e Sl  (and at half res)
 //   4. T1 = rho1 statsGTV^T(Ag1) + mu1 statsGLR^T(Al1) over the half tile
 //   5. T  = rho0 statsGTV^T(Ag) + mu0 statsGLR^T(Al) + 0.25 T1 up, then the
-//      epilogue: x + T (rhs, matvec), [aux +] T (rethresh, matvec without
-//      identity), or the CG update.
+//      epilogue: x + T (rhs), [aux +] T (rethresh), or the CG update.
 // map is the identity for C^T C and 2 S_gamma(e) - e for the re-threshold.
 // Every stage plane is f32 in shared memory (<= 76.8 KB a tile).
 //
 // Reads of a derived plane are clamped to the region: at an image edge that
 // replicates the plane's own edge, as the reference's shifts do; past an
 // interior edge it is a halo value that is wrong, and the error moves inward
-// by 1 (stencil) + the window's radius r <= 2 (edge sums) + 1 (stencil^T)
-// <= 4 pixels, so it never reaches the tile. The stencil's own input x pads
-// by replication ("edge") or by reflection without the edge ("reflect", the
-// pixel family): a read past the image edge mirrors to the pixel on the other
-// side. The C^T scatter and the transposed stencil read zeros outside the
-// image, tested against global indices. The window (cross-4 or diamond-12)
-// is a template parameter; diamond-12 runs single-scale only.
+// by 1 (stencil) + 1 (the cross-4 edge sums) + 1 (stencil^T) = 3 <= 4
+// pixels, so it never reaches the tile. The stencil's own input x pads by
+// replication, which the same clamp gives. The C^T scatter and the
+// transposed stencil read zeros outside the image, tested against global
+// indices.
 #pragma once
 
 #include "common.cuh"
@@ -37,16 +35,15 @@ namespace irdu {
 namespace step {
 
 constexpr int kTH = 32, kTW = 64;  // full-res tile; even, so half tiles are whole boxes
-constexpr int kHalo = 4;           // stats 1, the edge sum's shifts r <= 2, stats^T 1
+constexpr int kHalo = 4;           // stats 1, the edge sum's shifts 1, stats^T 1 (and a spare)
 constexpr int kThreads = 256;
 constexpr int kR0 = (kTH + 2 * kHalo) * (kTW + 2 * kHalo);          // full-res region
 constexpr int kR1 = (kTH / 2 + 2 * kHalo) * (kTW / 2 + 2 * kHalo);  // half-res region
 constexpr int kEpiAddX = 0, kEpiAddAux = 1, kEpiCg = 2;  // as in ops/fused_step.py
 
-// f32 shared memory of one tile: X (XD), Sg, Ag [, Sl, Al] at each scale.
-__host__ __device__ constexpr size_t tile_smem_bytes(bool glr, bool two_scale) {
-  return sizeof(float) * ((glr ? 5 : 3) * (size_t)kR0 + (two_scale ? (glr ? 5 : 3) * kR1 : 0));
-}
+// f32 shared memory of one tile with GLR, the most a step takes: X (XD), Sg,
+// Ag, Sl, Al at each scale.
+constexpr size_t kTileSmem = sizeof(float) * 5 * ((size_t)kR0 + kR1);
 
 // Rows [r0, r0 + rh) and columns [c0, c0 + rw) of an H x W plane; the
 // region lies inside the image.
@@ -72,23 +69,16 @@ __device__ __forceinline__ Region region(int i0, int i1, int j0, int j1, int H, 
   return R;
 }
 
-// The window's offsets: cross-4 (kWin 0) or diamond-12 (kWin 1).
-template <int kWin>
-struct Win {
-  static constexpr int E = kWin == 0 ? 4 : kDiamondEdges;
-  __device__ __forceinline__ static int dh(int e) { return kWin == 0 ? dh_of(e) : d12_dh(e); }
-  __device__ __forceinline__ static int dw(int e) { return kWin == 0 ? dw_of(e) : d12_dw(e); }
-};
+constexpr int kEdges = 4;  // cross-4: (dh, dw) = (dh_of(e), dw_of(e))
 
 // Polynomial 3x3 stencil (ops.graph.stats_conv): past the image edge a read
-// replicates the edge (the clamp to the region, which ends there) or, with
-// reflect, takes the pixel on the other side of it.
+// replicates the edge (the clamp to the region, which ends there).
 __device__ __forceinline__ float stats_at(const float* s, const Region& R, const Stats& c,
-                                          int i, int j, bool reflect) {
-  const int jr = j + 1 < R.W ? j + 1 : (reflect ? j - 1 : j);
-  const int jl = j > 0 ? j - 1 : (reflect ? j + 1 : j);
-  const int id = i + 1 < R.H ? i + 1 : (reflect ? i - 1 : i);
-  const int iu = i > 0 ? i - 1 : (reflect ? i + 1 : i);
+                                          int i, int j) {
+  const int jr = j + 1 < R.W ? j + 1 : j;
+  const int jl = j > 0 ? j - 1 : j;
+  const int id = i + 1 < R.H ? i + 1 : i;
+  const int iu = i > 0 ? i - 1 : i;
   const float v = s[R.at(i, j)];
   const float r = s[R.at(i, jr)], d = s[R.at(id, j)];
   const float u = s[R.at(iu, j)], l = s[R.at(i, jl)];
@@ -111,15 +101,15 @@ __device__ __forceinline__ float stats_t_at(const float* s, const Region& R, con
 // s(q + d_e))), the second term zero where p - d_e is outside the image.
 // s(p + d_e) past the image edge is s(p) (the replicate pad), which the
 // clamp gives since the region ends there.
-template <int kWin, bool kRethresh, typename T>
+template <bool kRethresh, typename T>
 __device__ __forceinline__ float gtv_edge_sum(const float* s, const Region& R,
                                               const T* __restrict__ w, size_t n, int i, int j,
                                               float gamma) {
   const float sp = s[R.at(i, j)];
   float acc = 0.f;
 #pragma unroll
-  for (int e = 0; e < Win<kWin>::E; ++e) {
-    const int dh = Win<kWin>::dh(e), dw = Win<kWin>::dw(e);
+  for (int e = 0; e < kEdges; ++e) {
+    const int dh = dh_of(e), dw = dw_of(e);
     const T* we = w + e * n;
     const float wp = ld(we[(size_t)i * R.W + j]);
     acc += wp * edge_map<kRethresh>(wp * (sp - s[R.at(i + dh, j + dw)]), gamma);
@@ -133,14 +123,13 @@ __device__ __forceinline__ float gtv_edge_sum(const float* s, const Region& R,
 }
 
 // s(p) - sum_e w_e(p) s(p + d_e), the random-walk Laplacian of GLR.
-template <int kWin, typename T>
+template <typename T>
 __device__ __forceinline__ float glr_lap(const float* s, const Region& R,
                                          const T* __restrict__ w, size_t n, int i, int j) {
   float acc = 0.f;
 #pragma unroll
-  for (int e = 0; e < Win<kWin>::E; ++e)
-    acc += ld(w[e * n + (size_t)i * R.W + j]) *
-           s[R.at(i + Win<kWin>::dh(e), j + Win<kWin>::dw(e))];
+  for (int e = 0; e < kEdges; ++e)
+    acc += ld(w[e * n + (size_t)i * R.W + j]) * s[R.at(i + dh_of(e), j + dw_of(e))];
   return s[R.at(i, j)] - acc;
 }
 
@@ -156,21 +145,21 @@ __device__ __forceinline__ void for_region(const Region& R, Fn fn) {
 // Stage 2 on one scale's region: the stencils.
 template <bool kGlr>
 __device__ __forceinline__ void stencils(const float* X, float* Sg, float* Sl, const Region& R,
-                                         const Stats& sg, const Stats& sl, bool reflect) {
+                                         const Stats& sg, const Stats& sl) {
   for_region(R, [&](int p, int i, int j) {
-    Sg[p] = stats_at(X, R, sg, i, j, reflect);
-    if (kGlr) Sl[p] = stats_at(X, R, sl, i, j, reflect);
+    Sg[p] = stats_at(X, R, sg, i, j);
+    if (kGlr) Sl[p] = stats_at(X, R, sl, i, j);
   });
 }
 
 // Stage 3 on one scale's region: the edge sums.
-template <int kWin, bool kRethresh, bool kGlr, typename T>
+template <bool kRethresh, bool kGlr, typename T>
 __device__ __forceinline__ void edge_sums(const float* Sg, const float* Sl, float* Ag, float* Al,
                                           const Region& R, const T* __restrict__ wg,
                                           const T* __restrict__ wl, size_t n, float gamma) {
   for_region(R, [&](int p, int i, int j) {
-    Ag[p] = gtv_edge_sum<kWin, kRethresh>(Sg, R, wg, n, i, j, gamma);
-    if (kGlr) Al[p] = glr_lap<kWin>(Sl, R, wl, n, i, j);
+    Ag[p] = gtv_edge_sum<kRethresh>(Sg, R, wg, n, i, j, gamma);
+    if (kGlr) Al[p] = glr_lap(Sl, R, wl, n, i, j);
   });
 }
 
@@ -192,9 +181,8 @@ struct Coefs {
 // One step's planes, each (B, G*F, H, W), and its weights (B, G, E, H, W) /
 // (B, G, E, H/2, W/2) in T. The input is x, or x + x_coef * x_add when
 // the IO's kXAdd is set (x_coef from the graph's Coefs); aux, prev, out and
-// upd may be null. Each plane has its own element type: K5 reads and writes T
-// throughout, K1 carries f32 between its steps and reads and writes T at its
-// ends.
+// upd may be null. Each plane has its own element type: K1 carries f32
+// between its steps and reads and writes T at its ends.
 template <typename T_, typename TX_, typename TA_, typename TP_, typename TO_, typename TU_,
           bool kL2_, bool kXAdd_ = false>
 struct StepIO {
@@ -214,16 +202,16 @@ struct StepIO {
   TU* upd;
   const T *wg0, *wl0, *wg1, *wl1;
   const float *pg0, *pl0, *pg1, *pl1;  // (G, 4, F) stats tables
-  int G, F, H, W, epi, use_x_rhs, reflect;
+  int G, F, H, W, epi, use_x_rhs;
 };
 
 // The step on the output tile with top-left pixel (ti0, tj0) of channel
-// plane `plane` = (b * G + g) * F + f; smem holds tile_smem_bytes(kGlr,
-// kTwoScale). Ends with a barrier, so the caller may start the next tile.
-template <int kWin, bool kRethresh, bool kGlr, bool kTwoScale, class IO>
+// plane `plane` = (b * G + g) * F + f; smem holds kTileSmem bytes. Ends
+// with a barrier, so the caller may start the next tile.
+template <bool kRethresh, bool kGlr, class IO>
 __device__ __forceinline__ void step_tile(const IO& io, const Coefs& k, int plane, int ti0,
                                           int tj0, float* smem) {
-  constexpr int E = Win<kWin>::E;
+  constexpr int E = kEdges;
   constexpr bool kL2 = IO::kL2;
   using T = typename IO::T;
   const int f = plane % io.F, bg = plane / io.F, g = bg % io.G;
@@ -259,51 +247,46 @@ __device__ __forceinline__ void step_tile(const IO& io, const Coefs& k, int plan
   };
   const T* __restrict__ wg0 = io.wg0 + bg * E * n0;
   const T* __restrict__ wl0 = kGlr ? io.wl0 + bg * E * n0 : nullptr;
-  const T* __restrict__ wg1 = kTwoScale ? io.wg1 + bg * E * n1 : nullptr;
-  const T* __restrict__ wl1 = kTwoScale && kGlr ? io.wl1 + bg * E * n1 : nullptr;
+  const T* __restrict__ wg1 = io.wg1 + bg * E * n1;
+  const T* __restrict__ wl1 = kGlr ? io.wl1 + bg * E * n1 : nullptr;
   const Stats sg0 = load_stats(io.pg0, g, io.F, f);
   const Stats sl0 = kGlr ? load_stats(io.pl0, g, io.F, f) : Stats{};
-  const Stats sg1 = kTwoScale ? load_stats(io.pg1, g, io.F, f) : Stats{};
-  const Stats sl1 = kTwoScale && kGlr ? load_stats(io.pl1, g, io.F, f) : Stats{};
+  const Stats sg1 = load_stats(io.pg1, g, io.F, f);
+  const Stats sl1 = kGlr ? load_stats(io.pl1, g, io.F, f) : Stats{};
 
   // 1. x over the region; its 2x2 box mean over the half region
   for_region(R0, [&](int p, int i, int j) { X[p] = xat((size_t)i * W + j); });
-  if (kTwoScale) {
-    for_region(R1, [&](int p, int i, int j) {
-      const size_t b = (size_t)(2 * i) * W + 2 * j;
-      XD[p] = 0.25f * (xat(b) + xat(b + 1) + xat(b + W) + xat(b + W + 1));
-    });
-  }
+  for_region(R1, [&](int p, int i, int j) {
+    const size_t b = (size_t)(2 * i) * W + 2 * j;
+    XD[p] = 0.25f * (xat(b) + xat(b + 1) + xat(b + W) + xat(b + W + 1));
+  });
   __syncthreads();
   // 2. the stencils
-  const bool reflect = io.reflect != 0;
-  stencils<kGlr>(X, Sg, Sl, R0, sg0, sl0, reflect);
-  if (kTwoScale) stencils<kGlr>(XD, Sg1, Sl1, R1, sg1, sl1, reflect);
+  stencils<kGlr>(X, Sg, Sl, R0, sg0, sl0);
+  stencils<kGlr>(XD, Sg1, Sl1, R1, sg1, sl1);
   __syncthreads();
   // 3. the edge sums
-  edge_sums<kWin, kRethresh, kGlr>(Sg, Sl, Ag, Al, R0, wg0, wl0, n0, k.gam0);
-  if (kTwoScale) edge_sums<kWin, kRethresh, kGlr>(Sg1, Sl1, Ag1, Al1, R1, wg1, wl1, n1, k.gam1);
+  edge_sums<kRethresh, kGlr>(Sg, Sl, Ag, Al, R0, wg0, wl0, n0, k.gam0);
+  edge_sums<kRethresh, kGlr>(Sg1, Sl1, Ag1, Al1, R1, wg1, wl1, n1, k.gam1);
   __syncthreads();
   // 4. the half tile's term, into XD's space
   const int hi0 = ti0 / 2, hj0 = tj0 / 2, tw2 = (tj1 - tj0) / 2;
   float* T1 = XD;
-  if (kTwoScale) {
-    const int nt = (ti1 - ti0) / 2 * tw2;
-    for (int q = threadIdx.x; q < nt; q += kThreads) {
-      const int qi = q / tw2, i = hi0 + qi, j = hj0 + q - qi * tw2;
-      float t = k.ro1 * stats_t_at(Ag1, R1, sg1, i, j);
-      if (kGlr) t += k.mu1 * stats_t_at(Al1, R1, sl1, i, j);
-      T1[q] = t;
-    }
-    __syncthreads();
+  const int nt1 = (ti1 - ti0) / 2 * tw2;
+  for (int q = threadIdx.x; q < nt1; q += kThreads) {
+    const int qi = q / tw2, i = hi0 + qi, j = hj0 + q - qi * tw2;
+    float t = k.ro1 * stats_t_at(Ag1, R1, sg1, i, j);
+    if (kGlr) t += k.mu1 * stats_t_at(Al1, R1, sl1, i, j);
+    T1[q] = t;
   }
+  __syncthreads();
   // 5. the tile: T and the epilogue
   const int tw = tj1 - tj0, nt = (ti1 - ti0) * tw;
   for (int q = threadIdx.x; q < nt; q += kThreads) {
     const int qi = q / tw, i = ti0 + qi, j = tj0 + q - qi * tw;
     float t = k.ro0 * stats_t_at(Ag, R0, sg0, i, j);
     if (kGlr) t += k.mu0 * stats_t_at(Al, R0, sl0, i, j);
-    if (kTwoScale) t += 0.25f * T1[(i / 2 - hi0) * tw2 + (j / 2 - hj0)];
+    t += 0.25f * T1[(i / 2 - hi0) * tw2 + (j / 2 - hj0)];
     const float xv = X[R0.at(i, j)];
     const size_t idx = base + (size_t)i * W + j;
     float o;

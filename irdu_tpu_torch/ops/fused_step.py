@@ -24,33 +24,30 @@ its adjoint (duplicate and scale by 0.25). Per-graph scalars come in K5's
 build theirs from (G,) vectors. Compute is f32; each call's outputs are
 rounded to x's dtype, as the TPU route rounds between its calls.
 
-On the card, K5 is ``kernels/csrc/fused_step_hopper.cu``: a CTA takes one
-output tile (32×64 full-res pixels two-scale, 16×64 single-scale:
-``K5_PLANS``) of one graph and walks its F channel planes. The tile's edge
-weights of both scales come into shared memory once, in x's dtype, and
-serve all F planes; plane f + 1's x box comes by cp.async into a second
-buffer while plane f computes. The stage planes (the stencil outputs, the
-edge sums) are f32 in shared memory over a box that is not clipped to the
-image: a cell outside it holds what the reference's padding gives there
-(``kernels/csrc/padded_tile.cuh``), so reads need no clamp. Halos: the
-window's radius r, the edge sums on the tile + 1, the stencils and weights
-on the tile + 1 + r, x on the tile + 2 + r (two-scale: twice the half
-tile's, 6, for the box means). K6a and K6b stay on ``fused_step.cu``: one
-CTA per 32×64 tile of one (b, g, f) plane running the tile step of
-``tile_step.cuh``, which K1 shares. Per full-res pixel a cg step moves 5
-planes of x's dtype plus the per-graph weights and does ~93 f32 operations,
-so it is bound by bytes.
+On the card, K5, K6a and K6b are one kernel,
+``kernels/csrc/fused_step_hopper.cu`` (K6a and K6b are its single-scale
+launches with their own epilogues: x + T or T for the matvec, [y +] T for
+the re-threshold): a CTA takes one output tile (32×64 full-res pixels
+two-scale, 16×64 single-scale: ``K5_PLANS``) of one graph and walks its F
+channel planes. The tile's edge weights of both scales come into shared
+memory once, in x's dtype, and serve all F planes; plane f + 1's x box
+comes by cp.async into a second buffer while plane f computes. The stage
+planes (the stencil outputs, the edge sums) are f32 in shared memory over a
+box that is not clipped to the image: a cell outside it holds what the
+reference's padding gives there (``kernels/csrc/padded_tile.cuh``), so
+reads need no clamp. Halos: the window's radius r, the edge sums on the
+tile + 1, the stencils and weights on the tile + 1 + r, x on the tile + 2 +
+r (two-scale: twice the half tile's, 6, for the box means). Per full-res
+pixel a cg step moves 5 planes of x's dtype plus the per-graph weights and
+does ~93 f32 operations, so it is bound by bytes; so are K6a and K6b.
 
 Boundaries: a shift of a derived array (the stencil output, ε) replicates
-that array's own edge, which a read clamped to the tile's region gives at
-an image edge (the region stops at the image); the Cᵀ scatter and statsᵀ
-read zeros outside the image, tested against global indices. Inside the
-image a read past the region is wrong, and the error moves inward by one
-pixel in the stencil, by the window's radius (≤ 2) in the edge sums and by
-one pixel in statsᵀ: 4 pixels, so it never reaches the tile. JAX's band
-kernel carries 2r + 2 rows of x (6 on diamond-12) because it shifts whole
-edge-signal arrays; the per-pixel edge sum reads the stencil plane at p ± d
-only, so the 4-pixel halo serves both windows.
+that array's own edge, which the padded tile's S cells outside the image
+hold (the stencil at the pixel clamped to the image); the Cᵀ scatter and
+statsᵀ read zeros outside the image, which the weight and edge-sum cells
+there hold. JAX's band kernel carries 2r + 2 rows of x (6 on diamond-12)
+because it shifts whole edge-signal arrays; the per-pixel edge sum reads
+the stencil plane at p ± d only, so the halos above serve both windows.
 
 Windows and pads: the flagship's cross-4 window with the "edge" stencil pad,
 and the pixel family's diamond-12 window with the "reflect" pad (numpy
@@ -80,9 +77,9 @@ MODES = ("rhs", "cg", "rethresh")
 K5_PLANS = {True: ((32, 64, 256), (64, 64, 512)), False: ((16, 64, 256), (32, 64, 256))}
 K5_PLAN = 0
 STATS_PADS = ("edge", "reflect")
-# the windows the kernel is built for, by the code it takes (fused_step.cu)
+# the windows the kernel is built for, by the code it takes (fused_step_hopper.cu)
 KERNEL_WINDOWS = {CROSS4: 0, DIAMOND12: 1}
-# the kernel's epilogues (fused_step.cu)
+# the kernel's epilogues (fused_step_hopper.cu)
 _EPI_ADD_X, _EPI_ADD_AUX, _EPI_CG = 0, 1, 2
 
 
@@ -261,12 +258,11 @@ def _check_planes(name, x, operands, n_graphs, two_scale, deltas, stats_mode):
 
 def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
             n_graphs, deltas, stats_mode, rethresh, glr, epi, use_x_rhs=False,
-            emit_update=False, plan=None):
-    """Run K5's kernel (``fused_step_hopper.cu``, tile plan ``plan``) or,
-    with ``plan`` None, K6a's and K6b's (``fused_step.cu``, single-scale) on
-    the card; returns out or (out, upd). ``tables``: GTV, GLR at full res,
-    then at half res; a None table the kernel reads goes to it as the
-    identity stencil."""
+            emit_update=False):
+    """Run the kernel (``fused_step_hopper.cu``, tile plan ``K5_PLAN`` where
+    it is built, else plan 0) on the card; returns out or (out, upd).
+    ``tables``: GTV, GLR at full res, then at half res; a None table the
+    kernel reads goes to it as the identity stencil."""
     two_scale = w_gtv1 is not None
     win = KERNEL_WINDOWS.get(tuple(tuple(d) for d in deltas))
     if win is None or (two_scale and win != KERNEL_WINDOWS[CROSS4]):
@@ -279,11 +275,9 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
         raise ValueError(f"{name} needs x, its other planes and the weights contiguous, "
                          "on one CUDA device, of one dtype")
     b, c, h, w = x.shape
-    if (b * n_graphs if plan is not None else b * c) > 65535:
-        raise ValueError(f"{name}: B·{'G' if plan is not None else 'C'} planes exceed "
-                         "the grid's 65535")
-    if plan is not None and not k5_has_plan(plan, two_scale, win, x.dtype):
-        plan = 0
+    if b * n_graphs > 65535:
+        raise ValueError(f"{name}: B·G exceeds the grid's 65535")
+    plan = K5_PLAN if k5_has_plan(K5_PLAN, two_scale, win, x.dtype) else 0
     if stats_mode == "reflect" and min(h, w) < 2:
         raise ValueError(f"{name}: the reflect pad needs H, W ≥ 2, got {h}x{w}")
     dev = x.device
@@ -299,16 +293,11 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = kernel_library()
-    common = (ptr(x), ptr(aux), ptr(prev), ptr(w_gtv0), ptr(w_glr0), ptr(w_gtv1), ptr(w_glr1),
-              *(ptr(t) for t in tabs), ptr(sc), ptr(out), ptr(upd), b, n_graphs,
-              c // n_graphs, h, w, int(rethresh), int(glr), epi, int(use_x_rhs), win,
-              int(stats_mode == "reflect"))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if plan is None:
-        status = lib.irdu_fused_step(*common, dtype_code(x.dtype), stream)
-    else:
-        status = lib.irdu_fused_step_hopper(*common, plan, dtype_code(x.dtype), stream)
+    status = kernel_library().irdu_fused_step_hopper(
+        ptr(x), ptr(aux), ptr(prev), ptr(w_gtv0), ptr(w_glr0), ptr(w_gtv1), ptr(w_glr1),
+        *(ptr(t) for t in tabs), ptr(sc), ptr(out), ptr(upd), b, n_graphs, c // n_graphs, h, w,
+        int(rethresh), int(glr), epi, int(use_x_rhs), win, int(stats_mode == "reflect"), plan,
+        dtype_code(x.dtype), torch.cuda.current_stream(dev).cuda_stream)
     check_status(name, status)
     return (out, upd) if emit_update else out
 
@@ -356,7 +345,7 @@ def gg_fused_step_chw(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0
                   w_gtv1, w_glr1 if glr and two_scale else None,
                   (pgtv0, pglr0, pgtv1, pglr1), scal, n_graphs=n_graphs, deltas=deltas,
                   stats_mode=stats_mode, rethresh=mode == "rethresh", glr=glr, epi=epi,
-                  use_x_rhs=use_x_rhs, emit_update=emit_update, plan=K5_PLAN)
+                  use_x_rhs=use_x_rhs, emit_update=emit_update)
     gg_fused_step_chw.launches += 1
     return out
 

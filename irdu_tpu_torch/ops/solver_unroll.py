@@ -23,8 +23,7 @@ launch per call that runs the unroll as the phases of the band route (rhs_a;
 CG step 1; the re-threshold to rhs_b; CG step 2, emitting u₁; CG step 3 on
 x₂ = x₁ + α₁u₁ formed as it is read), each one pass over every 32×64 output
 tile with a 4-pixel halo of every (b, g, f) plane, with the tile step of
-``kernels/csrc/tile_step.cuh`` (K6a's and K6b's too) and every stage plane in
-shared memory.
+``kernels/csrc/tile_step.cuh`` and every stage plane in shared memory.
 Between the phases only x, rhs_b and u cross tile borders: three f32
 scratch planes per channel plane, allocated here; nothing is rounded between
 the CG steps (the band route rounds each step's output to y's dtype). A

@@ -1,7 +1,8 @@
 """The kernel library's host side on the CPU: every ctypes signature in
 ``kernels/build.py`` against its ``extern "C"`` declaration in
 ``kernels/csrc`` (the number of arguments and whether each is a pointer),
-and ``ptxas_report`` on hand-made ``-Xptxas -v`` messages."""
+every declaration against a signature, and ``ptxas_report`` on hand-made
+``-Xptxas -v`` messages."""
 
 from __future__ import annotations
 
@@ -42,6 +43,13 @@ def test_signature_matches_the_source(name):
         assert (arg is ctypes.c_void_p) == ("*" in param), (name, param)
 
 
+def test_every_declaration_is_bound():
+    """The library exports exactly the functions the signature table binds:
+    no source under kernels/csrc declares an entry point that nothing
+    loads."""
+    assert sorted(_declarations()) == SIGNATURES
+
+
 LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN4irdu3pix19pixel_unroll_kernelI13__nv_bfloat16Li32ELi64ELi512ELi1EEEvNS0_4ArgsIT_EE' for 'sm_90a'
@@ -76,3 +84,50 @@ def test_ptxas_report(match, want):
 def test_ptxas_report_of_an_empty_log():
     """A library that was already built leaves no messages: no entries."""
     assert build.ptxas_report("", "pixel_unroll_kernel") == []
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN4irdu6unroll16gg_unroll_kernelIfEEvNS0_4ArgsIT_EE
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN4irdu6unroll16gg_unroll_kernelI13__nv_bfloat16EEvNS0_4ArgsIT_EE
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_sass_digests_tell_functions_apart():
+    """``ab_sources.sass_digests``: one digest per entry function of a
+    ``cuobjdump -sass`` listing; equal code gives equal digests, and one
+    changed instruction changes only its function's."""
+    from irdu_tpu_torch.kernels.ab_sources import sass_digests
+
+    got = sass_digests(SASS)
+    assert len(got) == 2 and len(set(got.values())) == 1
+    changed = sass_digests(SASS.replace("EXIT ;", "BRA 0x0 ;", 1))
+    names = list(got)
+    assert changed[names[0]] != got[names[0]] and changed[names[1]] == got[names[1]]
+
+
+def test_kernel_sources_name_their_headers():
+    """chip_smoke.py's ``source_headers``: the repo headers a kernel source
+    includes, directly or through a header (K5/K6a/K6b and K7 on the padded
+    tile, K1 on its tile step), each a file in the repo."""
+    import importlib.util
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    csrc = "irdu_tpu_torch/kernels/csrc"
+    for source, want in (("fused_step_hopper.cu", ["padded_tile.cuh"]),
+                         ("pixel_unroll.cu", ["padded_tile.cuh"]),
+                         ("gg_unroll.cu", ["tile_step.cuh"]),
+                         ("edge_weights.cu", [])):
+        got = smoke.source_headers(f"{csrc}/{source}")
+        assert got == [f"{csrc}/{h}" for h in want], source
+        assert all(os.path.isfile(os.path.join(repo, h)) for h in got)

@@ -1,11 +1,14 @@
 """K5, K6a and K6b (``irdu_tpu_torch/ops/fused_step.py``) of the port against
 the JAX package's Pallas kernels in interpret mode, at the shape class of
 tests/test_solver_chw.py, and the CUDA kernels' tiling schemes run in PyTorch
-against the plain version: K1's, K6a's and K6b's tile step (each tile with a
-4-pixel halo per scale, derived planes read through a clamp to the region,
-zeros outside the image by global index) and K5's padded tile."""
+against the plain version: K1's tile step (each tile with a 4-pixel halo per
+scale, derived planes read through a clamp to the region, zeros outside the
+image by global index) and the padded tile of K5, which K6a and K6b launch
+single-scale with their own epilogues."""
 
 from __future__ import annotations
+
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -152,8 +155,7 @@ def test_fused_step_rejects_what_it_does_not_take(what):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA tile step (kernels/csrc/tile_step.cuh) of K1, K6a and K6b,
-# transliterated:
+# the CUDA tile step (kernels/csrc/tile_step.cuh) of K1, transliterated:
 # each output tile of each channel plane with a 4-pixel halo per scale,
 # derived planes read through a clamp to the region, zeros outside the image
 # by global index (tests/test_torch_solver_unroll.py imports tiled_step)
@@ -420,10 +422,24 @@ def padded_tile_term(geo, taps, wg, wl, pg, pl, ro, mu, gamma, i0, j0, h, w, del
 
 def padded_step(x, aux, prev, ws, tables, scal, mode, n_graphs, plan=0, deltas=CROSS4,
                 reflect=False, use_x_rhs=False):
-    """K5 as fused_step_hopper.cu computes it, f32, batch 1: per graph, the
-    tiles of ``fs.K5_PLANS`` in launch order (row-major), each walking the
-    graph's F planes. ws: w_gtv0, w_glr0, w_gtv1, w_glr1 (the half-res pair
-    None single-scale); tables pg0, pl0, pg1, pl1. Returns (out, upd)."""
+    """K5 in ``mode`` as fused_step_hopper.cu computes it (``padded_kernel``
+    with the arguments ``gg_fused_step_chw`` launches it with). Returns
+    (out, upd)."""
+    epi = {"rhs": fs._EPI_ADD_X, "rethresh": fs._EPI_ADD_AUX, "cg": fs._EPI_CG}[mode]
+    return padded_kernel(x, aux, prev, ws, tables, scal, n_graphs, rethresh=mode == "rethresh",
+                         glr=mode == "cg", epi=epi, use_x_rhs=use_x_rhs, plan=plan,
+                         deltas=deltas, reflect=reflect)
+
+
+def padded_kernel(x, aux, prev, ws, tables, scal, n_graphs, *, rethresh, glr, epi,
+                  use_x_rhs=False, plan=0, deltas=CROSS4, reflect=False):
+    """fused_step_hopper.cu on the arguments of its C entry point, f32,
+    batch 1: per graph, the tiles of ``fs.K5_PLANS`` in launch order
+    (row-major), each walking the graph's F planes. ws: w_gtv0, w_glr0,
+    w_gtv1, w_glr1 (the half-res pair None single-scale); tables pg0, pl0,
+    pg1, pl1; the re-threshold's map with ``rethresh``, the GLR terms with
+    ``glr``; ``epi`` the epilogue: x + T, [aux +] T or the CG update.
+    Returns (out, upd)."""
     _, c, h, w = x.shape
     f_n = c // n_graphs
     two = ws[2] is not None
@@ -432,7 +448,6 @@ def padded_step(x, aux, prev, ws, tables, scal, mode, n_graphs, plan=0, deltas=C
     th, tw, hs, hsc, hxr, hxc = (geo[k] for k in ("th", "tw", "hs", "hsc", "hxr", "hxc"))
     geo1 = dict(geo, th=th // 2, tw=tw // 2)
     h2, w2 = h // 2, w // 2
-    glr = mode == "cg"
     out, upd = torch.full_like(x, float("nan")), torch.full_like(x, float("nan"))
     for g in range(n_graphs):
         mu0, ro0, mu1, ro1, alpha, beta, gam0, gam1 = (v.reshape(1) for v in scal[g])
@@ -464,7 +479,7 @@ def padded_step(x, aux, prev, ws, tables, scal, mode, n_graphs, plan=0, deltas=C
                         return 0.25 * (box_at(xb, ri, rj) + box_at(xb, ri, rj + 1)
                                        + box_at(xb, ri + 1, rj) + box_at(xb, ri + 1, rj + 1))
 
-                    gam = (gam0, gam1) if mode == "rethresh" else (None, None)
+                    gam = (gam0, gam1) if rethresh else (None, None)
                     t = padded_tile_term(geo, taps, wb[0], wb[1], tab[0], tab[1], ro0, mu0,
                                          gam[0], i0, j0, h, w, deltas)[0]
                     if two:  # the 2x2 box's half-res term, once per box
@@ -476,9 +491,9 @@ def padded_step(x, aux, prev, ws, tables, scal, mode, n_graphs, plan=0, deltas=C
                     t = t[:i1 - i0, :j1 - j0]
                     xv = xb[0, hxr:hxr + i1 - i0, hxc:hxc + j1 - j0]
                     sl = (0, ch, slice(i0, i1), slice(j0, j1))
-                    if mode == "rhs":
+                    if epi == fs._EPI_ADD_X:
                         out[sl] = xv + t
-                    elif mode == "rethresh":
+                    elif epi == fs._EPI_ADD_AUX:
                         out[sl] = t if aux is None else t + aux[sl]
                     else:
                         u = (xv if use_x_rhs else aux[sl]) - (xv + t)
@@ -532,6 +547,115 @@ def test_padded_tile_scheme_matches_jax_kernel(case):
                                atol=5e-4, rtol=1e-3)
     if kw.get("emit_update"):
         np.testing.assert_allclose(upd.numpy(), np.asarray(ref[1]), atol=5e-4, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K6a and K6b: single-scale launches of K5's kernel
+# ---------------------------------------------------------------------------
+
+# K6a's (matvec) and K6b's (rethresh) variants: wrapper, GLR, identity, y
+K6_CASES = {
+    "matvec_glr_identity": ("matvec", True, True, False),
+    "matvec_glr": ("matvec", True, False, False),
+    "matvec_gtv_identity": ("matvec", False, True, False),
+    "matvec_gtv": ("matvec", False, False, False),
+    "rethresh_y": ("rethresh", False, False, True),
+    "rethresh_no_y": ("rethresh", False, False, False),
+}
+
+
+def k6_calls(case, x, y, wg, wl, pg, pl, mu, ro, gamma, n_graphs, **kw):
+    """The K6 wrapper of ``case`` and its plain version, each a function of
+    x, with the other operands bound (torch tensors; y unused by K6a and
+    dropped by K6b without y)."""
+    kind, with_glr, identity, with_y = K6_CASES[case]
+    if kind == "matvec":
+        kw.update(n_graphs=n_graphs, add_identity=identity, with_glr=with_glr)
+        return ((lambda v: fs.gg_matvec_chw(v, wl, wg, pl, pg, mu, ro, **kw)),
+                (lambda v: fs.matvec_plain(v, wl, wg, pl, pg, mu, ro, **kw)))
+    y = y if with_y else None
+    kw.update(n_graphs=n_graphs)
+    return ((lambda v: fs.gtv_rethresh_chw(v, y, wg, pg, gamma, ro, **kw)),
+            (lambda v: fs.rethresh_plain(v, y, wg, pg, gamma, ro, **kw)))
+
+
+def through_kernel(wrapper, x, n_graphs, plan=0):
+    """``wrapper(x)`` as the card runs it: called with x on the meta device
+    it takes its launch route, and the launch it asks for (the arguments of
+    ``fs._launch``; a None stats table as the identity stencil, as there)
+    runs through ``padded_kernel`` on x with tile plan ``plan``. Returns
+    out."""
+    calls = []
+
+    def launch(name, x_, aux, prev, wg0, wl0, wg1, wl1, tables, scal, **kw):
+        calls.append((aux, prev, (wg0, wl0, wg1, wl1), tables, scal, kw))
+        return torch.empty_like(x_)
+
+    with mock.patch.object(fs, "_launch", launch):
+        wrapper(x.to("meta"))
+    (aux, prev, ws, tables, scal, kw), = calls
+    tables = [fs.identity_table(n_graphs, x.shape[1] // n_graphs) if t is None else t
+              for t in tables]
+    out, _ = padded_kernel(x, aux, prev, ws, tables, scal, n_graphs, rethresh=kw["rethresh"],
+                           glr=kw["glr"], epi=kw["epi"], use_x_rhs=kw.get("use_x_rhs", False),
+                           plan=plan, deltas=kw["deltas"],
+                           reflect=kw["stats_mode"] == "reflect")
+    return out
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+@pytest.mark.parametrize("hw", [(21, 37), (35, 133)],
+                         ids=["16x64_one_odd_tile", "16x64_ragged_rows_and_columns"])
+def test_k6_padded_tile_matches_plain(case, hw):
+    """K6a and K6b on cross-4 "edge", the launch each wrapper asks for run
+    through K5's single-scale padded tile (16x64 tiles), odd H and W, tiles
+    on every image edge, ragged last tiles: the plain version's result, no
+    cell the kernel leaves uncomputed read; and the output moves its input."""
+    (x, y, _), ws, tables, s = _inputs(seed=60 + len(case), h=hw[0], w=hw[1])
+    x, y, wg, wl, pg, pl, mu, ro, gamma = (torch.from_numpy(a) for a in (
+        x, y, ws[0], ws[1], tables[0], tables[1], s["mu0"], s["ro0"], s["gamma0"]))
+    wrapper, plain = k6_calls(case, x, y, wg, wl, pg, pl, mu, ro, gamma, G)
+    out, want = through_kernel(wrapper, x, G), plain(x)
+    torch.testing.assert_close(out, want, atol=5e-4, rtol=1e-3)
+    base = x if K6_CASES[case][2] else y if K6_CASES[case][3] else 0.0
+    assert (want - base).abs().max() > 0.05
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_k6_padded_tile_matches_jax_kernel(case):
+    """The launches of K6a and K6b through the padded tile against JAX's
+    ``gg_matvec_chw`` and ``gtv_rethresh_chw`` in interpret mode at the JAX
+    tests' shape (32x24: two ragged 16x64 tile rows)."""
+    kind, with_glr, identity, with_y = K6_CASES[case]
+    (x, y, _), ws, tables, s = _inputs(seed=70 + len(case))
+    if kind == "matvec":
+        args = [x, ws[1], ws[0], tables[1], tables[0], s["mu0"], s["ro0"]]
+        jargs, _ = zip(*(_both(a) for a in args))
+        ref = jax_matvec(*jargs, n_graphs=G, true_h=H, true_w=W, add_identity=identity,
+                         with_glr=with_glr, interpret=True)
+    else:
+        args = [x, y if with_y else None, ws[0], tables[0], s["gamma0"], s["ro0"]]
+        jargs, _ = zip(*(_both(a) for a in args))
+        ref = jax_rethresh(*jargs, n_graphs=G, true_h=H, true_w=W, interpret=True)
+    xt, yt, wg, wl, pg, pl, mu, ro, gamma = (torch.from_numpy(a) for a in (
+        x, y, ws[0], ws[1], tables[0], tables[1], s["mu0"], s["ro0"], s["gamma0"]))
+    wrapper, _ = k6_calls(case, xt, yt, wg, wl, pg, pl, mu, ro, gamma, G)
+    np.testing.assert_allclose(through_kernel(wrapper, xt, G).numpy(), np.asarray(ref),
+                               atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("window", [0, 1], ids=["cross4", "diamond12"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k6_smem_bytes_fit_the_card(window, dtype):
+    """Every single-scale instance K6a and K6b can launch on ``window`` in
+    ``dtype`` (each plan built there, GLR on and off) fits a CTA (227 KB)."""
+    esize = 4 if dtype == torch.float32 else 2
+    plans = [p for p in range(len(fs.K5_PLANS[False]))
+             if fs.k5_has_plan(p, False, window, dtype)]
+    assert 0 in plans
+    for plan in plans:
+        for glr in (False, True):
+            assert fs.k5_smem_bytes(window, False, glr, plan, esize) <= 232448
 
 
 def test_k5_smem_bytes_fit_the_card():

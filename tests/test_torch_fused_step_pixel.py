@@ -1,12 +1,13 @@
 """K5's pixel mode and K6a/K6b on the pixel family's window
 (``irdu_tpu_torch/ops/fused_step.py``: single scale, diamond-12, the reflect
 stencil pad) against the JAX package's Pallas kernels in interpret mode, the
-CUDA kernel's tiling scheme on that window (a 4-pixel halo for a radius-2
-window) run in PyTorch against the plain version, and the pixel family's
-CHW band route (6 K5 steps) against JAX's ``_forward_chw`` with both caps
-at 0. Tolerances: the JAX tests' 2e-4 (rhs, rethresh, K6a, K6b) and 3e-4
-(cg) for the kernels (tests/test_solver_chw.py), 1e-5 between the port's own
-f32 formulations, JAX's kernel-vs-jnp ``atol=5e-4, rtol=1e-3`` for the
+CUDA kernel's padded tile on that window (K5's steps, and the launches K6a
+and K6b make of it) run in PyTorch against the plain version and JAX, and
+the pixel family's CHW band route (6 K5 steps) against JAX's
+``_forward_chw`` with both caps at 0. Tolerances: the JAX tests' 2e-4
+(rhs, rethresh, K6a, K6b) and 3e-4 (cg) for the kernels
+(tests/test_solver_chw.py), 1e-5 between the port's own f32 formulations,
+JAX's kernel-vs-jnp ``atol=5e-4, rtol=1e-3`` for the padded tile and the
 route."""
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from irdu_tpu_torch.ops.windows import DIAMOND12
 from irdu_tpu_torch.solvers import gtv_glr
 from irdu_tpu_torch.solvers.pixel_gtv import MixtureGTV
 from irdu_tpu_torch.utils.weights import params_to_torch
-from test_torch_fused_step import padded_step
+from test_torch_fused_step import K6_CASES, k6_calls, padded_step, through_kernel
 
 G, F = 2, 3
 C = G * F
@@ -137,110 +138,9 @@ def test_identity_table_equals_no_stats():
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's scheme on the diamond-12 window, transliterated
+# K5's padded tile (fused_step_hopper.cu) on the diamond-12 window, and the
+# single-scale launches of it that K6a and K6b make, transliterated
 # ---------------------------------------------------------------------------
-
-HALO = 4
-
-
-def _tiled_pixel_step(x, aux, prev, wg, wl, pg, pl, scal, mode, th, tw, use_x_rhs=False):
-    """K5 single-scale on diamond-12 with the reflect pad, tile by tile as
-    the kernel computes it (fused_step.cu), f32, batch 1; returns (out, upd)."""
-    _, c, h, w = x.shape
-    f = c // G
-    out, upd = torch.empty_like(x), torch.empty_like(x)
-    for ch in range(c):
-        g = ch // f
-        mu, ro, _, _, alpha, beta, gam, _ = scal[g]
-        p_g, p_l = pg[g, :, ch % f], pl[g, :, ch % f]
-        w_g, w_l = wg[0, g], wl[0, g]
-        for i0 in range(0, h, th):
-            for j0 in range(0, w, tw):
-                i1, j1 = min(i0 + th, h), min(j0 + tw, w)
-                r0, r1 = max(i0 - HALO, 0), min(i1 + HALO, h)
-                c0, c1 = max(j0 - HALO, 0), min(j1 + HALO, w)
-                gi, gj = torch.meshgrid(torch.arange(r0, r1), torch.arange(c0, c1), indexing="ij")
-                ti, tj = torch.meshgrid(torch.arange(i0, i1), torch.arange(j0, j1), indexing="ij")
-
-                def at(a, i, j):
-                    return a[i.clamp(r0, r1 - 1) - r0, j.clamp(c0, c1 - 1) - c0]
-
-                def inside(i, j):
-                    return (i >= 0) & (i < h) & (j >= 0) & (j < w)
-
-                def stats(a, p):  # the reflect pad at the image edge, clamp elsewhere
-                    jr = torch.where(gj + 1 < w, gj + 1, gj - 1)
-                    jl = torch.where(gj > 0, gj - 1, gj + 1)
-                    id_ = torch.where(gi + 1 < h, gi + 1, gi - 1)
-                    iu = torch.where(gi > 0, gi - 1, gi + 1)
-                    v, r, l = at(a, gi, gj), at(a, gi, jr), at(a, gi, jl)
-                    d, u = at(a, id_, gj), at(a, iu, gj)
-                    return p[0] * v + p[1] * (r - v) + p[2] * (d - v) + p[3] * (4 * v - u - d - l - r)
-
-                def stats_t(a, p):
-                    def z(di, dj):
-                        return torch.where(inside(ti + di, tj + dj), at(a, ti + di, tj + dj), 0.0)
-
-                    v = at(a, ti, tj)
-                    r_, d_, u_, l_ = z(0, 1), z(1, 0), z(-1, 0), z(0, -1)
-                    return p[0] * v + p[1] * (l_ - v) + p[2] * (u_ - v) + p[3] * (4 * v - u_ - d_ - l_ - r_)
-
-                def emap(eps):
-                    if mode != "rethresh":
-                        return eps
-                    thr = (torch.where(eps < -gam, eps + gam, 0.0)
-                           + torch.where(eps > gam, eps - gam, 0.0))
-                    return 2 * thr - eps
-
-                xr = x[0, ch, r0:r1, c0:c1]
-                sg = stats(xr, p_g)
-                ag = 0.0
-                for e, (dh, dw) in enumerate(DIAMOND12):
-                    wp = w_g[e][gi, gj]
-                    ag = ag + wp * emap(wp * (at(sg, gi, gj) - at(sg, gi + dh, gj + dw)))
-                    qi, qj = gi - dh, gj - dw
-                    wq = w_g[e][qi.clamp(0, h - 1), qj.clamp(0, w - 1)]
-                    nbr = wq * emap(wq * (at(sg, qi, qj) - at(sg, gi, gj)))
-                    ag = ag - torch.where(inside(qi, qj), nbr, 0.0)
-                t = ro * stats_t(ag, p_g)
-                if mode == "cg":
-                    sl = stats(xr, p_l)
-                    al = at(sl, gi, gj) - sum(w_l[e][gi, gj] * at(sl, gi + dh, gj + dw)
-                                              for e, (dh, dw) in enumerate(DIAMOND12))
-                    t = t + mu * stats_t(al, p_l)
-                sl_ = (0, ch, slice(i0, i1), slice(j0, j1))
-                xv = x[sl_]
-                if mode == "rhs":
-                    out[sl_] = xv + t
-                elif mode == "rethresh":
-                    out[sl_] = t + aux[sl_]
-                else:
-                    u = (xv if use_x_rhs else aux[sl_]) - (xv + t)
-                    if prev is not None:
-                        u = u + beta * prev[sl_]
-                    upd[sl_], out[sl_] = u, xv + alpha * u
-    return out, upd
-
-
-@pytest.mark.parametrize("mode", ["rhs", "cg", "rethresh"])
-@pytest.mark.parametrize("th,tw", [(8, 12), (5, 7)], ids=["8x12", "5x7_ragged"])
-def test_kernel_tiling_scheme_matches_plain(mode, th, tw):
-    """20x28 planes on diamond-12 with the reflect pad: tiles on every image
-    edge, interior tiles and ragged last tiles give the plain step."""
-    (x, aux, prev), (wg, wl), (pg, pl), s = _inputs(seed=30, h=20, w=28)
-    x, aux, prev, wg, wl, pg, pl = (torch.from_numpy(np.ascontiguousarray(a))
-                                    for a in (x, aux, prev, wg, wl, pg, pl))
-    scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
-    aux_m = None if mode == "rhs" else aux
-    prev_m = prev if mode == "cg" else None
-    out, upd = _tiled_pixel_step(x, aux_m, prev_m, wg, wl, pg, pl, scal, mode, th, tw)
-    want = fs.fused_step_plain(x, aux_m, prev_m, wg, wl if mode == "cg" else None, None, None,
-                               pg, pl, None, None, scal, mode=mode, n_graphs=G,
-                               emit_update=mode == "cg", **PIXEL)
-    if mode == "cg":
-        torch.testing.assert_close(upd, want[1], atol=1e-5, rtol=1e-5)
-        want = want[0]
-    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("mode", ["rhs", "cg", "rethresh"])
@@ -288,6 +188,49 @@ def test_padded_tile_scheme_matches_jax_kernel(case):
                                atol=5e-4, rtol=1e-3)
     if kw.get("emit_update"):
         np.testing.assert_allclose(upd.numpy(), np.asarray(ref[1]), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+@pytest.mark.parametrize("plan,hw", [(0, (19, 69)), (1, (35, 27))],
+                         ids=["16x64_odd_two_rows", "32x64_odd_one_column"])
+def test_k6_padded_tile_matches_plain(case, plan, hw):
+    """K6a and K6b on diamond-12 with the reflect pad, the launch each
+    wrapper asks for run through K5's single-scale padded tile in each tile
+    plan built there (plan 1 in bf16), odd H and W, ragged last tiles: the
+    plain version's result, no cell the kernel leaves uncomputed read; and
+    the output moves its input."""
+    (x, y, _), (wg, wl), (pg, pl), s = _inputs(seed=80 + plan + len(case), h=hw[0], w=hw[1])
+    x, y, wg, wl, pg, pl, mu, ro, gamma = (torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        x, y, wg, wl, pg, pl, s["mu0"], s["ro0"], s["gamma0"]))
+    wrapper, plain = k6_calls(case, x, y, wg, wl, pg, pl, mu, ro, gamma, G, **PIXEL)
+    out, want = through_kernel(wrapper, x, G, plan=plan), plain(x)
+    torch.testing.assert_close(out, want, atol=5e-4, rtol=1e-3)
+    base = x if K6_CASES[case][2] else y if K6_CASES[case][3] else 0.0
+    assert (want - base).abs().max() > 0.05
+
+
+@pytest.mark.parametrize("case", ["matvec_glr", "rethresh_y"])
+def test_k6_padded_tile_matches_jax_kernel(case):
+    """The launches of K6a and K6b through the padded tile on diamond-12
+    with the reflect pad against JAX's kernels in interpret mode at the JAX
+    tests' pixel shape (16x128: two tile columns of plan 0)."""
+    kind, with_glr, identity, with_y = K6_CASES[case]
+    (x, y, _), (wg, wl), (pg, pl), s = _inputs(seed=90 + len(case))
+    jax_pixel = dict(n_graphs=G, true_h=H, true_w=W, deltas=EDGE_DELTAS_DIAMOND12,
+                     stats_mode="reflect", interpret=True)
+    if kind == "matvec":
+        jargs, _ = zip(*(_both(a) for a in (x, wl, wg, pl, pg, s["mu0"], s["ro0"])))
+        ref = jax_matvec(*jargs, add_identity=identity, with_glr=with_glr, **jax_pixel)
+    else:
+        jargs, _ = zip(*(_both(a) for a in (x, y if with_y else None, wg, pg, s["gamma0"],
+                                             s["ro0"])))
+        ref = jax_rethresh(*jargs, **jax_pixel)
+    xt, yt, wgt, wlt, pgt, plt, mu, ro, gamma = (
+        torch.from_numpy(np.ascontiguousarray(a))
+        for a in (x, y, wg, wl, pg, pl, s["mu0"], s["ro0"], s["gamma0"]))
+    wrapper, _ = k6_calls(case, xt, yt, wgt, wlt, pgt, plt, mu, ro, gamma, G, **PIXEL)
+    np.testing.assert_allclose(through_kernel(wrapper, xt, G).numpy(), np.asarray(ref),
+                               atol=5e-4, rtol=1e-3)
 
 
 # ---------------------------------------------------------------------------

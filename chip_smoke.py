@@ -114,16 +114,50 @@ Phases, each timed and printed as it ends:
             route, and at 512x512 the CHW route, against both solver flags
             off), on a 484x324 crop of the 512x512 one (H % 8 == 4, W %
             16 == 4: ragged tiles) on both kernel routes, and on the 1024x1024
-            request on the CHW route (K5's pixel mode).
+            request on the CHW route (K5's pixel mode);
+  eval      the eval protocol (irdu_tpu_torch.eval.harness.evaluate_pairs,
+            bucket 64, seed-2204 sigma=25 noise) on the synthetic val set
+            (data.synthetic.synthetic_val_set: 6 images at 384x512, made in
+            memory) with each served snapshot in bf16 (EVAL_SNAPSHOTS: the
+            flagship, lite and micro at cg3 and cg1, the pixel model on its
+            served NHWC route and on its CHW route), counts zeroed just before
+            each and read just after (6 times one image's launches,
+            EVAL_PER_IMAGE): each mean PSNR with a JAX number (EVAL_TARGETS)
+            within EVAL_BAR_DB of it, every variant's mean and per-image PSNR
+            and gap printed on a line; each snapshot's cg3 in f32. The
+            flagship (cg3) and the pixel model also at batches of 1 and
+            EVAL_BATCH (evaluate_pairs_batched, scored on the card, MP/s
+            printed): per-image PSNRs
+            within EVAL_SAME_DB of one image a call; and the flagship in f32
+            with its kernels against their plain versions, per image within
+            EVAL_SAME_DB;
+  variants  the three configurations of conv_variant and the v4 pixel core
+            (VARIANT_MODELS, the configs' model sections at their widths;
+            seeded weights) serve the 512x512 request in bf16, counts zeroed
+            just before: the conv-variant flagships launch as the plain one
+            (σ and the gain folded into the kernels), the no-stencil pixel
+            core K2 and 6 K8 (VARIANT_LAUNCHES); every kernel call held
+            against its plain version, the pixel core's CHW route (K2, K7)
+            too; served again with the kernels off; then in f32
+            with the kernels on and off, max|d| <= VARIANT_F32_ATOL and <=
+            ABLATION_F32_BAR of max(1, max|ref|) (seeded non-expansive
+            weights give outputs near 0.004);
+  tile      tiled inference (parallel.spatial.tiled_forward, TILE-pixel tiles,
+            TILE_HALO halo) on the flagship: f32 at TILE_F32, kernels against
+            plain, max|d| <= 1e-3; bf16 at TILE_BF16 through
+            predict.denoise(tile=TILE), counts zeroed just before (16 tiles,
+            each a 512x512 request's launches), timed in turns against the
+            whole-image request, both PSNRs and their gap printed.
 
 The build must take under 60 s and the whole script under 450 s; a run over
 either budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
-results, the serving, ``k7_band_512``, model and ``device_ms`` lines, the phase times and, only when every
-phase passed, {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits
-non-zero without a CUDA card, without the package beside this script, or when
-any phase fails.
+results, the serving, ``k7_band_512``, model, eval, variants, tile and
+``device_ms`` lines, the phase times and, only when every phase passed,
+{"ok": true, "device": {...}}. Details go to chiprun_out/. Exits non-zero
+without a CUDA card, without the package beside this script, or when any
+phase fails.
 """
 
 from __future__ import annotations
@@ -247,6 +281,56 @@ K3_EXTRA = (("lite", 24, 48, 2, 512, 512, 3), ("lite", 48, 96, 3, 256, 256, 2),
             ("micro", 16, 32, 2, 512, 512, 3), ("micro", 32, 64, 2, 256, 256, 2),
             ("micro", 64, 128, 2, 128, 128, 2),
             ("ablation_no_orders_split", 48, 128, 3, 512, 512, 2))
+# the eval protocol (irdu_tpu_torch.eval): the synthetic val set (6 images,
+# 384x512), seed-2204 sigma=25 noise, bucket 64; each served snapshot's
+# variants, and the JAX package's PSNR on the same protocol (bf16 on the TPU)
+EVAL_SNAPSHOTS = (("flagship", (3, 1)), ("lite", (3, 1)), ("micro", (3, 1)), ("pixel", (3,)))
+EVAL_TARGETS = {
+    "flagship-cg3": (47.335, "artifacts/round5_eval/curve_cont100k.log:4"),
+    "lite-cg3": (32.224, "PERF.md at 577e783, lines 170-178"),
+    "lite-cg1": (32.174, "PERF.md at 577e783, lines 170-178"),
+    "micro-cg3": (31.307, "PERF.md at 577e783, lines 170-178"),
+    "micro-cg1": (31.162, "PERF.md at 577e783, lines 170-178"),
+    "pixel": (36.84, "PERF.md at 577e783, line 342"),
+}
+EVAL_BAR_DB = 0.05  # BASELINE.md:25
+EVAL_SAME_DB = 0.01  # batched against sequential; kernels against plain in f32
+EVAL_BATCH = 4
+# launches of one 384x512 val image (the served route; pixel on NHWC, and on CHW)
+EVAL_PER_IMAGE = {"flagship": launches(3, 32, 4, 8, 0), **SMALL_MODELS, "pixel": PIXEL_NHWC,
+                  "pixel-chw": PIXEL_CHW}
+# the configurations the registry built last: their ``model:`` sections as the
+# files give them (a CPU test holds these to the files), served at 512x512 with
+# seeded weights; the pixel model with both solver flags on, as predict serves
+# its family: its no-stencil core takes K2 and K8 with the identity stencil
+VARIANT_MODELS = {
+    "flagship_sigma25_nonexpansive": {
+        "type": "abstract_multiscale_graph_filter", "n_channels_in": 3, "n_channels_out": 3,
+        "dims": [48, 96, 192, 384], "hidden_dims": [96, 192, 384, 768],
+        "nsubnets": [1, 1, 1, 1], "ngraphs": [8, 16, 16, 32], "num_blocks": [4, 6, 6, 8],
+        "num_blocks_out": 4, "conv_variant": "non_expansive"},
+    "flagship_sigma25_spectral": {
+        "type": "abstract_multiscale_graph_filter", "n_channels_in": 3, "n_channels_out": 3,
+        "dims": [48, 96, 192, 384], "hidden_dims": [96, 192, 384, 768],
+        "nsubnets": [1, 1, 1, 1], "ngraphs": [8, 16, 16, 32], "num_blocks": [4, 6, 6, 8],
+        "num_blocks_out": 4, "conv_variant": "spectral_norm"},
+    "lightformer_pixel_v4": {
+        "type": "multiscale_sequence_denoiser", "n_graphs": 16, "n_node_fts": 3,
+        "n_cnn_fts": 48, "window": "diamond12", "stats_mode": "none", "feature_n_levels": 4},
+}
+VARIANT_SERVE = {"multiscale_sequence_denoiser": {"use_pallas_solver": True,
+                                                   "use_nhwc_solver": True}}
+# the served routes' launches: the variant's factors folded into the block
+# kernels' operands, the no-stencil pixel core on NHWC
+VARIANT_LAUNCHES = {"flagship_sigma25_nonexpansive": PER_REQUEST[(512, 512)],
+                    "flagship_sigma25_spectral": PER_REQUEST[(512, 512)],
+                    "lightformer_pixel_v4": PIXEL_NHWC}
+VARIANT_F32_ATOL = 1e-3
+# tiled inference on the flagship: f32 at TILE_F32 (kernels against plain),
+# bf16 at TILE_BF16 (timed against the whole-image request, in turns)
+TILE, TILE_HALO = 512, 64
+TILE_F32, TILE_BF16 = (1024, 1024), (2048, 2048)
+TILE_ROUNDS = 2
 PROFILE_REQUESTS = 5  # steady 512x512 flagship requests under torch.profiler
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
 
@@ -801,8 +885,10 @@ def phase_ablation(smoke):
         want = ABLATION_LAUNCHES[r["config"]]
         require(r["launches"] == want, f"{r['config']}: launches {r['launches']}, want {want}")
         require(r["finite"], f"{r['config']}: output not finite")
-        require(r["calls_ok"], f"{r['config']}: a kernel call disagrees with its plain "
-                f"version, or the calls are not those launched (max|d| {r['max_abs_err']})")
+        for route, res in (("served", r), ("chw", r.get("chw", r))):
+            require(res["calls_ok"], f"{r['config']} ({route}): a kernel call disagrees with "
+                    f"its plain version, or the calls are not those launched "
+                    f"(max|d| {res['max_abs_err']})")
     for r in f32_rows:
         require(r["finite"] and r["max_abs_err"] <= ABLATION_F32_BAR * max(1.0, r["max_ref"]),
                 f"{r['config']}: f32 kernels vs plain max|d| {r['max_abs_err']} "
@@ -2084,6 +2170,267 @@ def pixel_model_rows(saved):
     return rows
 
 
+def counted(fn):
+    """fn() with every launch count set to 0 just before and read just after."""
+    kern = wrappers()
+    for k in kern.values():
+        k.launches = 0
+    out = fn()
+    sync()
+    return out, {n: k.launches for n, k in kern.items()}
+
+
+def times_launches(per, n):
+    return {k: n * v for k, v in per.items()}
+
+
+def phase_eval(smoke):
+    """The eval protocol on the synthetic val set in bf16 for every served
+    snapshot and variant (``EVAL_SNAPSHOTS``): mean and per-image PSNR, each
+    gated one within EVAL_BAR_DB of its JAX target, the launches of the
+    run 6 times one image's; the pixel model's CHW route too (no target);
+    each snapshot's cg3 in f32. Then batches of 1 and EVAL_BATCH against one
+    image a call (``evaluate_pairs_batched`` with ``device_metrics``) for the
+    flagship and the pixel model, and the flagship in f32 with its kernels
+    against their plain versions: per-image PSNRs within EVAL_SAME_DB."""
+    import torch
+
+    from irdu_tpu_torch.data.synthetic import synthetic_val_set
+    from irdu_tpu_torch.eval.curve import variant_tag
+    from irdu_tpu_torch.eval.harness import evaluate_pairs, evaluate_pairs_batched
+    from irdu_tpu_torch.predict import batch_forward, load_model
+
+    images = synthetic_val_set()
+
+    def protocol(model):
+        return evaluate_pairs(batch_forward(model), images, 25.0, bucket=64)
+
+    def gap(a, b):
+        return max(abs(x - y) for x, y in zip(a, b))
+
+    rows, batched, lines = [], [], []
+
+    def record(tag, per, res, counts, dtype="bfloat16"):
+        target, source = EVAL_TARGETS.get(tag, (None, None))
+        row = dict(variant=tag, dtype=dtype, psnr=res["mean_psnr"], psnr_per_image=res["psnr"],
+                   target=target, target_source=source,
+                   gap_db=None if target is None else res["mean_psnr"] - target,
+                   launches=counts, want=times_launches(EVAL_PER_IMAGE[per], len(images)))
+        rows.append(row)
+        lines.append(f"eval {tag} ({dtype}): mean {row['psnr']:.4f} dB, target "
+                     f"{target if target is not None else 'none'}"
+                     + ("" if target is None else f", gap {row['gap_db']:+.4f}")
+                     + f"; per image {[round(p, 4) for p in res['psnr']]}")
+        print(lines[-1], flush=True)
+        return row
+
+    def batch_check(tag, model, seq):
+        # batch 1 and EVAL_BATCH through the one function: like-for-like MP/s
+        for size in (1, EVAL_BATCH):
+            res, counts = counted(lambda: evaluate_pairs_batched(
+                batch_forward(model), images, 25.0, bucket=64, batch_size=size,
+                device_metrics=True))
+            smoke.path_counts[f"eval_b{size}_{tag}"] = counts
+            batched.append(dict(variant=tag, batch=size, psnr_per_image=res["psnr"],
+                                max_gap_db=gap(res["psnr"], seq), mp_per_s=res["mp_per_s"],
+                                launches=counts))
+            print(f"eval {tag} batch {size}: {res['mp_per_s']:.3f} MP/s, max gap to one "
+                  f"image a call {batched[-1]['max_gap_db']:.5f} dB", flush=True)
+
+    for name, cgs in EVAL_SNAPSHOTS:
+        for cg in cgs:
+            tag = variant_tag(name, cg, None)
+            model = load_model(device=DEVICE, name=name, cg_iters=cg)
+            res, smoke.path_counts[f"eval_{tag}"] = counted(lambda: protocol(model))
+            record(tag, name, res, smoke.path_counts[f"eval_{tag}"])
+            if name == "flagship" and cg == 3:
+                batch_check(tag, model, res["psnr"])
+            if name == "pixel":
+                batch_check(tag, model, res["psnr"])
+                mix = model.mixtureGLR_block03
+                try:
+                    mix.use_nhwc_unroll = False
+                    chw, smoke.path_counts["eval_pixel_chw"] = counted(lambda: protocol(model))
+                finally:
+                    mix.use_nhwc_unroll = True
+                record("pixel-chw", "pixel-chw", chw, smoke.path_counts["eval_pixel_chw"])
+            del model
+            torch.cuda.empty_cache()
+        model = load_model(device=DEVICE, dtype=torch.float32, name=name)
+        ker = protocol(model)
+        rows.append(dict(variant=variant_tag(name, 3, None), dtype="float32", psnr=ker["mean_psnr"],
+                         psnr_per_image=ker["psnr"]))
+        print(f"eval {rows[-1]['variant']} (float32): mean {ker['mean_psnr']:.4f} dB", flush=True)
+        if name == "flagship":
+            set_kernels(model, False)
+            plain = protocol(model)
+            f32 = dict(variant="flagship-cg3", psnr_kernels=ker["psnr"], psnr_plain=plain["psnr"],
+                       max_gap_db=gap(ker["psnr"], plain["psnr"]))
+        del model
+        torch.cuda.empty_cache()
+    smoke.lines["eval"] = {"eval": rows, "batched": batched, "f32_kernels_vs_plain": f32,
+                           "images": "synthetic_val_set(): 6 at 384x512", "sigma": 25.0,
+                           "bucket": 64, "bar_db": EVAL_BAR_DB, "same_db": EVAL_SAME_DB}
+    for r in rows:
+        if r.get("target") is not None:
+            require(abs(r["gap_db"]) <= EVAL_BAR_DB,
+                    f"eval {r['variant']}: {r['psnr']:.4f} dB, target {r['target']}")
+        if "want" in r:
+            require(r["launches"] == r["want"], f"eval {r['variant']}: launches "
+                    f"{r['launches']}, want {r['want']}")
+    for b in batched:
+        require(b["max_gap_db"] <= EVAL_SAME_DB, f"eval {b['variant']}: batch {b['batch']} "
+                f"against one image a call, {b['max_gap_db']} dB")
+    require(f32["max_gap_db"] <= EVAL_SAME_DB,
+            f"eval flagship f32: kernels against plain, {f32['max_gap_db']} dB")
+
+
+def variant_model(name, dtype):
+    """The config's model through the registry, served as its family is
+    (VARIANT_SERVE), weights from torch's default generator seeded with the
+    config's index (the spectral u vectors are the port's own seeded draw)."""
+    import torch
+
+    from irdu_tpu_torch.models.registry import create_model
+
+    kw = dict(VARIANT_MODELS[name])
+    kind = kw.pop("type")
+    torch.manual_seed(sorted(VARIANT_MODELS).index(name))
+    model = create_model(kind, **kw, **VARIANT_SERVE.get(kind, {}))
+    return model.to(device=DEVICE, dtype=dtype).eval().requires_grad_(False)
+
+
+def kernels_on(model, on):
+    """Every kernel switch of the model: set_kernels' and the pixel solver's
+    two route flags (both off: the plain route)."""
+    set_kernels(model, on)
+    for m in model.modules():
+        if hasattr(m, "use_nhwc_unroll"):
+            m.use_nhwc_unroll = m.use_pallas_unroll = on
+
+
+def phase_variants(smoke):
+    """The three configurations with conv variants or the v4 pixel core
+    (VARIANT_MODELS), seeded weights: each serves the 512x512 request in
+    bf16, counts zeroed just before, the launches VARIANT_LAUNCHES, every
+    kernel call held against its plain version (the pixel model on its CHW
+    route as well, K2 and K7 checked the same way); once more with the kernels
+    off; then in f32 with the kernels on and off, max|d| <= VARIANT_F32_ATOL
+    and <= ABLATION_F32_BAR of max(1, max|ref|)."""
+    import torch
+
+    from irdu_tpu_torch.predict import denoise
+
+    clean, noisy = request_images()[0]
+    x = torch.from_numpy(noisy[None]).to(DEVICE)
+    rows = []
+    for name in VARIANT_MODELS:
+        sites = pixel_sites() if "pixel" in name else flagship_sites()
+        model = variant_model(name, torch.bfloat16)
+        denoise(model, noisy)  # warm-up
+        sync()
+        (row,), smoke.path_counts[f"variant_{name}"] = serve(model, [(clean, noisy, REQUESTS[0])])
+        row.update(config=name, **checked_request(model, noisy, VARIANT_LAUNCHES[name], sites))
+        if "pixel" in name:  # the CHW route too: K2 and K7, the stencil the identity
+            model.mixtureGLR_block03.use_nhwc_unroll = False
+            row["chw"] = checked_request(model, noisy, PIXEL_CHW, sites)
+        kernels_on(model, False)
+        off = denoise(model, noisy)
+        row["kernels_off_finite"] = bool(np.isfinite(off).all())
+        del model
+        model = variant_model(name, torch.float32)
+        with torch.inference_mode():
+            kernels_on(model, True)
+            ker = model(x)
+            kernels_on(model, False)
+            ref = model(x)
+        sync()
+        row.update(f32_max_abs_err=max_abs(ker, ref), f32_max_ref=float(ref.abs().max()),
+                   f32_finite=bool(torch.isfinite(ker).all()))
+        rows.append(row)
+        print(f"variants {name}: {row['ms']} ms, launches "
+              f"{ {k: v for k, v in row['launches'].items() if v} }, f32 kernels vs plain "
+              f"{row['f32_max_abs_err']:.3g}", flush=True)
+        del model, ker, ref
+        torch.cuda.empty_cache()
+    smoke.lines["variants"] = {"variants": rows, "weights": "random, seeded (variant_model)",
+                               "f32_atol": VARIANT_F32_ATOL}
+    for r in rows:
+        want = VARIANT_LAUNCHES[r["config"]]
+        require(r["launches"] == want, f"{r['config']}: launches {r['launches']}, want {want}")
+        require(r["finite"] and r["kernels_off_finite"] and r["f32_finite"],
+                f"{r['config']}: output not finite")
+        for route, res in (("served", r), ("chw", r.get("chw", r))):
+            require(res["calls_ok"], f"{r['config']} ({route}): a kernel call disagrees with "
+                    f"its plain version, or the calls are not those launched "
+                    f"(max|d| {res['max_abs_err']})")
+        require(r["f32_max_abs_err"] <= min(VARIANT_F32_ATOL,
+                                             ABLATION_F32_BAR * max(1.0, r["f32_max_ref"])),
+                f"{r['config']}: f32 kernels vs plain max|d| {r['f32_max_abs_err']}")
+
+
+def phase_tile(smoke):
+    """Tiled inference on the flagship (TILE-pixel tiles, TILE_HALO halo):
+    in f32 at TILE_F32, the kernels against their plain versions within
+    1e-3; in bf16 at TILE_BF16, the tiled request (counts zeroed just before,
+    16 tiles' launches) and the whole-image request timed in turns
+    (tiled, whole, whole, tiled) with both PSNRs and their gap (not gated:
+    the halo's edge sees other context than the whole image does)."""
+    import torch
+
+    from irdu_tpu_torch.parallel.spatial import tiled_forward
+    from irdu_tpu_torch.predict import batch_forward, denoise, load_model
+
+    by_size = dict(zip(REQUESTS, request_images()))
+    clean, noisy = by_size[TILE_F32]
+    model = load_model(device=DEVICE, dtype=torch.float32)
+    set_kernels(model, True)
+    ker = tiled_forward(batch_forward(model), noisy, tile=TILE, halo=TILE_HALO)
+    set_kernels(model, False)
+    ref = tiled_forward(batch_forward(model), noisy, tile=TILE, halo=TILE_HALO)
+    f32 = dict(shape=list(TILE_F32), max_abs_err=float(np.abs(ker - ref).max()),
+               psnr_kernels=psnr(clean, ker), psnr_plain=psnr(clean, ref),
+               finite=bool(np.isfinite(ker).all()))
+    del model
+    torch.cuda.empty_cache()
+
+    model = smoke.model
+    clean, noisy = by_size[TILE_BF16]
+    denoise(model, noisy, tile=TILE)  # warm-up of the tile shapes
+    sync()
+    out, counts = counted(lambda: denoise(model, noisy, tile=TILE))
+    smoke.path_counts["tile"] = counts
+    n_tiles = int(np.prod([-(-n // TILE) for n in TILE_BF16]))
+    times = {"tiled": [], "whole": []}
+    for _ in range(TILE_ROUNDS):
+        for kind in ("tiled", "whole", "whole", "tiled"):
+            sync()
+            t0 = time.perf_counter()
+            res = denoise(model, noisy, tile=TILE if kind == "tiled" else 0)
+            sync()
+            times[kind].append(round((time.perf_counter() - t0) * 1e3, 3))
+            if kind == "whole":
+                whole = res
+    row = dict(shape=list(TILE_BF16), tile=TILE, halo=TILE_HALO, tiles=n_tiles, launches=counts,
+               want=times_launches(PER_REQUEST[(512, 512)], n_tiles),
+               tiled_ms=times["tiled"], whole_ms=times["whole"],
+               median_tiled_ms=float(np.median(times["tiled"])),
+               median_whole_ms=float(np.median(times["whole"])),
+               psnr_noisy=psnr(clean, noisy), psnr_tiled=psnr(clean, out),
+               psnr_whole=psnr(clean, whole), finite=bool(np.isfinite(out).all()),
+               order="tiled, whole, whole, tiled, x%d" % TILE_ROUNDS)
+    row["psnr_gap_db"] = round(row["psnr_tiled"] - row["psnr_whole"], 3)
+    smoke.lines["tile"] = {"tile": row, "f32": f32, "dtype": "bfloat16"}
+    print(f"tile {TILE_BF16}: tiled {row['median_tiled_ms']} ms, {row['psnr_tiled']} dB; "
+          f"whole {row['median_whole_ms']} ms, {row['psnr_whole']} dB", flush=True)
+    require(f32["finite"] and f32["max_abs_err"] <= 1e-3,
+            f"tile f32: kernels vs plain max|d| {f32['max_abs_err']}")
+    require(row["launches"] == row["want"], f"tile: launches {row['launches']}, "
+            f"want {row['want']}")
+    require(row["finite"] and row["psnr_tiled"] > row["psnr_noisy"],
+            f"tile: PSNR {row['psnr_noisy']} -> {row['psnr_tiled']}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2128,10 +2475,13 @@ def main() -> int:
         smoke.run("ablation", phase_ablation, smoke)
         smoke.run("kernels", phase_kernels, smoke)
         smoke.run("model", phase_model, smoke)
+        smoke.run("eval", phase_eval, smoke)
+        smoke.run("variants", phase_variants, smoke)
+        smoke.run("tile", phase_tile, smoke)
     smoke.lines["device_ms"] = device_ms_sessions()
     print(json.dumps(kernels_line(smoke)), flush=True)
     for key in ("ptxas", "serving", "profile", "small_models", "pixel", "ablation",
-                "band_route", "k7_band_512", "model", "device_ms"):
+                "band_route", "k7_band_512", "model", "eval", "variants", "tile", "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:

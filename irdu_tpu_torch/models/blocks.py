@@ -1,40 +1,70 @@
 """Encoder/decoder blocks of the flagship LGU model, channels-first
-(counterpart: ``irdu_tpu/models/blocks.py``, "plain" variant, one subnet)."""
+(counterpart: ``irdu_tpu/models/blocks.py``, one subnet). ``conv_variant``
+is JAX's: "plain", "spectral_norm" or "non_expansive" (``models/layers.py``)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from irdu_tpu_torch.models.layers import Conv3x3Replicate, GroupedPointwise, uniform_param
+from irdu_tpu_torch.models.layers import (
+    VARIANTS,
+    Conv3x3Replicate,
+    GroupedPointwise,
+    cached,
+    non_expansive_scale,
+    uniform_param,
+)
 from irdu_tpu_torch.solvers.gtv_glr import MixtureGTVGLR
 
 
 class CustomLayerNorm(nn.Module):
     """Per-pixel variance normalization over channels with a learned
     per-channel scale: ``x / sqrt(var + 1e-5) * scale``, the variance unbiased
-    (ddof=1). The mean is NOT subtracted from the output."""
+    (ddof=1). The mean is NOT subtracted from the output. ``conv_variant``:
+    "spectral_norm" divides the scale by its L2 norm; "non_expansive"
+    multiplies the output by tanh(1/(|scale|·s + 1e-16)), s the learned
+    ``scaling_factor``."""
 
-    def __init__(self, nchannels: int):
+    def __init__(self, nchannels: int, conv_variant: str = "plain"):
         super().__init__()
+        if conv_variant not in VARIANTS:
+            raise ValueError(f"conv_variant must be one of {VARIANTS}, got {conv_variant!r}")
+        self.conv_variant = conv_variant
         self.weighted_transform = uniform_param((nchannels,), 1)
+        if conv_variant == "non_expansive":
+            self.scaling_factor = nn.Parameter(torch.ones(nchannels))
+
+    def effective_scale(self) -> torch.Tensor:
+        """The scale with the variant's factor in it, in its dtype (the
+        block kernels' ``scale`` operand)."""
+        t = self.weighted_transform
+        if self.conv_variant == "spectral_norm":
+            return cached(self, (t,), lambda: t / torch.clamp(
+                torch.linalg.vector_norm(t.float()), min=1e-12).to(t.dtype))
+        if self.conv_variant == "non_expansive":
+            s = self.scaling_factor
+            return cached(self, (t, s), lambda: (t.float() * non_expansive_scale(
+                t.abs().float(), s.float())).to(t.dtype))
+        return t
 
     def forward(self, x):
         c = x.shape[1]
         mean = x.mean(dim=1, keepdim=True)
         var = ((x - mean) ** 2).sum(dim=1, keepdim=True) / (c - 1)
-        return x / torch.sqrt(var + 1e-5) * self.weighted_transform[None, :, None, None]
+        return x / torch.sqrt(var + 1e-5) * self.effective_scale()[None, :, None, None]
 
 
 class LocalGatedLinearBlock(nn.Module):
     """1×1 expand → 3×3 depthwise (replicate pad) → gate σ(m)·m·u → 1×1 project."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, conv_variant: str = "plain"):
         super().__init__()
         h2 = 2 * hidden_dim
-        self.channels_linear_op = GroupedPointwise(dim, h2)
-        self.channels_local_linear_op = Conv3x3Replicate(h2, h2, groups=h2)
-        self.project_out = GroupedPointwise(hidden_dim, dim)
+        self.channels_linear_op = GroupedPointwise(dim, h2, variant=conv_variant)
+        self.channels_local_linear_op = Conv3x3Replicate(h2, h2, groups=h2,
+                                                         variant=conv_variant)
+        self.project_out = GroupedPointwise(hidden_dim, dim, variant=conv_variant)
 
     def forward(self, x):
         x = self.channels_local_linear_op(self.channels_linear_op(x))
@@ -43,23 +73,26 @@ class LocalGatedLinearBlock(nn.Module):
 
 
 class LocalNonLinearBlock(nn.Module):
-    """norm → gated block, with a learned 2-way skip."""
+    """norm → gated block, with a learned 2-way skip. The block kernels'
+    operands (``gated_params``) carry the variant's factors folded into the
+    scale and the three kernels, so that every variant runs on K3/K4 (JAX
+    sends only a "plain" block to its Pallas kernel)."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, conv_variant: str = "plain"):
         super().__init__()
         self.skip_weight = nn.Parameter(torch.ones(2))
-        self.norm = CustomLayerNorm(dim)
-        self.local_linear = LocalGatedLinearBlock(dim, hidden_dim)
+        self.norm = CustomLayerNorm(dim, conv_variant)
+        self.local_linear = LocalGatedLinearBlock(dim, hidden_dim, conv_variant)
 
     def gated_params(self) -> dict:
-        """The block kernels' operands, views of this block's parameters in
-        the JAX layouts: scale (C,), w1 (C, 2H), dwk (3, 3, 2H), w2 (H, C),
-        skip (2,)."""
+        """The block kernels' operands in the JAX layouts: scale (C,), w1
+        (C, 2H), dwk (3, 3, 2H), w2 (H, C), skip (2,); for a "plain" block
+        views of its parameters, else the folded scale and kernels."""
         ll = self.local_linear
-        return dict(scale=self.norm.weighted_transform,
-                    w1=ll.channels_linear_op.weight[:, :, 0, 0].t(),
-                    dwk=ll.channels_local_linear_op.weight[:, 0].permute(1, 2, 0),
-                    w2=ll.project_out.weight[:, :, 0, 0].t(),
+        return dict(scale=self.norm.effective_scale(),
+                    w1=ll.channels_linear_op.folded()[:, :, 0, 0].t(),
+                    dwk=ll.channels_local_linear_op.folded()[:, 0].permute(1, 2, 0),
+                    w2=ll.project_out.folded()[:, :, 0, 0].t(),
                     skip=self.skip_weight)
 
     def forward(self, x):
@@ -70,9 +103,9 @@ class LocalNonLinearBlock(nn.Module):
 class RegionalPixelEmbedding(nn.Module):
     """3×3 replicate-pad patch embedding."""
 
-    def __init__(self, c_in: int, dim: int):
+    def __init__(self, c_in: int, dim: int, conv_variant: str = "plain"):
         super().__init__()
-        self.channels_local_linear_op01 = Conv3x3Replicate(c_in, dim)
+        self.channels_local_linear_op01 = Conv3x3Replicate(c_in, dim, variant=conv_variant)
 
     def forward(self, x):
         return self.channels_local_linear_op01(x)

@@ -23,7 +23,10 @@ W % 128 == 0 for K3 (a TPU lane rule) and sends other widths to K4; the port
 does not, so at 480×320 its scale 0 runs K3 where JAX runs K4. The routing
 differs there, the arithmetic does not. With ``use_kernels`` False every
 block runs as its module's PyTorch ops (cuDNN on the card): the on-card
-reference the kernel path is held to.
+reference the kernel path is held to. A ``conv_variant`` other than "plain"
+(spectral norm, non-expansive) takes the same routes: its factors are
+folded into the blocks' kernel operands (``blocks.gated_params``), where
+JAX runs such blocks on XLA outside its Pallas kernels.
 """
 
 from __future__ import annotations
@@ -63,8 +66,10 @@ class AbstractMultiScaleGraphFilter(nn.Module):
 
         The other keywords are JAX's fields with JAX's defaults, so that a
         configuration's ``model`` section builds: ``nsubnets`` all 1, the
-        cross-4 ``window`` and the plain ``conv_variant`` are what the port
-        computes (``registry.require`` raises on any other value). The
+        cross-4 ``window`` are what the port computes (``registry.require``
+        raises on any other value). ``conv_variant`` ("plain",
+        "spectral_norm", "non_expansive") goes to the embed, the blocks, the
+        down/up samples, the combines and the head, not the solvers. The
         ``use_pallas_*`` flags choose between two computations of the same
         function in JAX; the port routes by device (kernels on a CUDA
         tensor, their plain versions on a CPU one) and ``use_kernels``, so
@@ -72,7 +77,6 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         no effect at inference."""
         require("nsubnets", tuple(nsubnets), [(1,) * len(dims)])
         require("window", window, ["cross4"])
-        require("conv_variant", conv_variant, ["plain"])
         del use_pallas_blocks, use_pallas_solver, remat
         super().__init__()
         d, hd = dims, hidden_dims
@@ -80,26 +84,27 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         self.eval_filter_scales = (None if eval_filter_scales is None
                                    else tuple(eval_filter_scales))
         self.use_kernels = True
+        cv = conv_variant
 
         def blocks(prefix, s, n):
-            mods = [LocalNonLinearBlock(d[s], hd[s]) for _ in range(n)]
+            mods = [LocalNonLinearBlock(d[s], hd[s], cv) for _ in range(n)]
             for i, m in enumerate(mods):
                 self.add_module(f"{prefix}_{i}", m)
             return mods
 
-        self.patch_3x3_embeding = RegionalPixelEmbedding(n_channels_in, d[0])
+        self.patch_3x3_embeding = RegionalPixelEmbedding(n_channels_in, d[0], cv)
         self.encoder_scales = [blocks(f"encoder_scale_{s:02d}", s, num_blocks[s])
                                for s in range(4)]
-        self.down_samples = [Downsample2x2(d[s], d[s + 1]) for s in range(3)]
+        self.down_samples = [Downsample2x2(d[s], d[s + 1], cv) for s in range(3)]
         self.local_filters = [
             LocalLowpassFilteringBlock(d[s], ngraphs[s], eval_cg_iters=eval_cg_iters)
             for s in range(4)]
-        self.up_samples = [Upsample2x2(d[s + 1], d[s]) for s in range(3)]
-        self.combine_channels = [GroupedPointwise(2 * d[s], d[s]) for s in range(3)]
+        self.up_samples = [Upsample2x2(d[s + 1], d[s], cv) for s in range(3)]
+        self.combine_channels = [GroupedPointwise(2 * d[s], d[s], cv) for s in range(3)]
         self.decoder_scales = [blocks(f"decoder_scale_{s:02d}", s, num_blocks[s])
                                for s in range(3)]
         self.refining_block = blocks("refining_block", 0, num_blocks_out)
-        self.linear_output = GroupedPointwise(d[0], n_channels_out)
+        self.linear_output = GroupedPointwise(d[0], n_channels_out, cv)
         for s in range(3):
             self.add_module(f"down_sample_{s:02d}_{s + 1:02d}", self.down_samples[s])
             self.add_module(f"up_sample_{s + 1:02d}_{s:02d}", self.up_samples[s])

@@ -11,7 +11,29 @@ JAX package's flax kernel of the same layer (counterpart:
   Upsample2x2       flax (I, 4O), col (a·2+b)·O+o → conv_transpose2d (I, O, 2, 2)
 
 Initialization follows torch's Conv2d default, U(±1/√fan_in), as the JAX
-package does. The pixel family's PixelShuffle and PixelUnshuffle are
+package does.
+
+``variant`` (the flagship's ``conv_variant``; one channel group):
+
+  "plain"          the conv as it stands;
+  "spectral_norm"  the kernel divided by σ, its top singular value estimated
+                   by one power iteration from the buffer ``kernel_u`` (JAX's
+                   "spectral" collection, ``{name}_u``), which inference leaves
+                   as it is (JAX's collection is immutable there);
+  "non_expansive"  the output scaled by tanh(1/(|W|∗1 · s + 1e-16)), |W|∗1 the
+                   conv of |kernel| with a ones input, s the learned per-output
+                   ``scaling_factor``.
+
+Both factors are constant per output channel (and, for the up-sample, per
+output phase), so ``folded()`` multiplies them into the kernel, and the
+blocks hand the folded kernels to K3/K4 as a plain block's. A model that
+autograd does not record keeps its folded kernels (``cached``) until a
+weight, u or scaling factor changes.
+
+σ is computed on JAX's matricization (O, everything else) of the flax
+kernel; a permutation of its columns leaves σ as it is, so only the row
+order, which ``kernel_u`` indexes, follows flax (``Upsample2x2``: rows
+(a·2+b)·O + o). The pixel family's PixelShuffle and PixelUnshuffle are
 ``F.pixel_shuffle`` and ``F.pixel_unshuffle``: in NCHW they order channels
 as the JAX package's ``pixel_shuffle``/``pixel_unshuffle`` do (c·r² + a·r + b).
 """
@@ -25,50 +47,135 @@ import torch.nn.functional as F
 from torch import nn
 
 
+VARIANTS = ("plain", "spectral_norm", "non_expansive")
+
+
 def uniform_param(shape, fan_in):
     """A parameter drawn from U(±1/√fan_in), torch's Conv2d default."""
     bound = 1.0 / math.sqrt(fan_in)
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
 
 
-class GroupedPointwise(nn.Module):
+def spectral_normalize(weight: torch.Tensor, mat: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``weight`` / σ, σ = uᵀ·M·v with v = Mᵀu/‖Mᵀu‖ (one power iteration
+    from the stored u, in f32; u is not updated). ``mat``: the kernel's
+    matricization (O, ·) with JAX's row order."""
+    mat, u = mat.float(), u.float()
+    v = mat.t() @ u
+    v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+    sigma = torch.clamp(torch.dot(u, mat @ v), min=1e-12)
+    return weight / sigma.to(weight.dtype)
+
+
+def non_expansive_scale(norm: torch.Tensor, scaling_factor: torch.Tensor) -> torch.Tensor:
+    """tanh(1/(|W|∗1 · s + 1e-16)), ``norm`` (|W|∗1) and ``scaling_factor``
+    shaped to broadcast against each other."""
+    return torch.tanh(1.0 / (norm * scaling_factor + 1e-16))
+
+
+def cached(owner: nn.Module, sources, compute):
+    """``compute()``, kept on ``owner`` while every tensor of ``sources``
+    keeps its storage and its version (a write through ``.data`` is not
+    seen). Computed afresh where autograd records a source, and for
+    inference tensors, which have no version. The entry holds the sources,
+    so that a new tensor cannot take their memory and their key."""
+    if (any(t.is_inference() for t in sources)
+            or torch.is_grad_enabled() and any(t.requires_grad for t in sources)):
+        return compute()
+    key = [(t.data_ptr(), t._version) for t in sources]
+    entry = owner.__dict__.get("_cached")
+    if entry is None or entry[0] != key:
+        entry = owner.__dict__["_cached"] = (key, tuple(sources), compute())
+    return entry[2]
+
+
+class VariantConv(nn.Module):
+    """The ``variant`` machinery shared by the flagship's convs: a subclass
+    sets ``weight``, ``OUT_DIM`` (the weight's output-channel dim) and, where
+    they differ from a conv2d's, ``rows`` (the flax matricization's rows) and
+    ``gain`` (|W|∗1 per output, shaped to broadcast over the weight)."""
+
+    OUT_DIM = 0
+
+    def _variant(self, variant: str, n_rows: int, features: int):
+        if variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+        self.variant = variant
+        if variant == "spectral_norm":
+            # JAX draws u ~ N(0, 1/O) from its PRNGKey(0); a JAX model's u is
+            # carried across by utils.weights.params_to_torch(spectral=...)
+            gen = torch.Generator().manual_seed(0)
+            self.register_buffer("kernel_u", torch.randn(n_rows, generator=gen)
+                                 / math.sqrt(n_rows))
+        elif variant == "non_expansive":
+            self.scaling_factor = nn.Parameter(torch.ones(features))
+
+    def folded(self) -> torch.Tensor:
+        """The kernel with the variant's factor in it, in the weight's dtype:
+        W/σ, or W times the non-expansive scale of its output; a plain
+        conv's weight itself."""
+        if self.variant == "plain":
+            return self.weight
+        extra = self.kernel_u if self.variant == "spectral_norm" else self.scaling_factor
+        return cached(self, (self.weight, extra), self._fold)
+
+    def _fold(self) -> torch.Tensor:
+        w = self.weight
+        if self.variant == "spectral_norm":
+            return spectral_normalize(w, self.rows(), self.kernel_u)
+        s = self.scaling_factor.float().reshape([-1 if d == self.OUT_DIM else 1 for d in range(4)])
+        return (w.float() * non_expansive_scale(self.gain(), s)).to(w.dtype)
+
+    def rows(self) -> torch.Tensor:  # (O, ·) in JAX's row order
+        return self.weight.reshape(self.weight.shape[0], -1)
+
+    def gain(self) -> torch.Tensor:  # |W|∗1 per output channel, (O, 1, 1, 1)
+        return self.weight.abs().float().sum(dim=(1, 2, 3), keepdim=True)
+
+
+class GroupedPointwise(VariantConv):
     """1×1 conv, no bias."""
 
-    def __init__(self, c_in: int, features: int):
+    def __init__(self, c_in: int, features: int, variant: str = "plain"):
         super().__init__()
         self.weight = uniform_param((features, c_in, 1, 1), c_in)
+        self._variant(variant, features, features)
 
     @staticmethod
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
         return k.t()[:, :, None, None]
 
     def forward(self, x):
-        return F.conv2d(x, self.weight)
+        return F.conv2d(x, self.folded())
 
 
-class Conv3x3Replicate(nn.Module):
-    """3×3 stride-1 conv with replicate padding, no bias."""
+class Conv3x3Replicate(VariantConv):
+    """3×3 stride-1 conv with replicate padding, no bias. Under replicate
+    padding a ones input stays ones, so the non-expansive gain Σ|W| is
+    constant over space."""
 
-    def __init__(self, c_in: int, features: int, groups: int = 1):
+    def __init__(self, c_in: int, features: int, groups: int = 1, variant: str = "plain"):
         super().__init__()
         self.groups = groups
         self.weight = uniform_param((features, c_in // groups, 3, 3), c_in // groups * 9)
+        self._variant(variant, features, features)
 
     @staticmethod
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
         return k.permute(3, 2, 0, 1)
 
     def forward(self, x):
-        return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), self.weight,
+        return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), self.folded(),
                         groups=self.groups)
 
 
-class Downsample2x2(nn.Module):
+class Downsample2x2(VariantConv):
     """Learned 2×2 stride-2 conv, no bias."""
 
-    def __init__(self, c_in: int, features: int):
+    def __init__(self, c_in: int, features: int, variant: str = "plain"):
         super().__init__()
         self.weight = uniform_param((features, c_in, 2, 2), c_in * 4)
+        self._variant(variant, features, features)
 
     @staticmethod
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
@@ -76,24 +183,36 @@ class Downsample2x2(nn.Module):
         return k.reshape(2, 2, four_i // 4, o).permute(3, 2, 0, 1)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, stride=2)
+        return F.conv2d(x, self.folded(), stride=2)
 
 
-class Upsample2x2(nn.Module):
-    """Learned 2×2 stride-2 transpose conv, no bias."""
+class Upsample2x2(VariantConv):
+    """Learned 2×2 stride-2 transpose conv, no bias. JAX's kernel is
+    (I, 4·O) with columns (a·2+b)·O + o, so its spectral rows are 4·O and its
+    non-expansive gain is per output channel and phase (a, b): output pixel
+    (2h + a, 2w + b) takes tap (a, b) alone, so the gain folds into it."""
 
-    def __init__(self, c_in: int, features: int):
+    def __init__(self, c_in: int, features: int, variant: str = "plain"):
         super().__init__()
         # torch's conv_transpose init takes fan_in from the output side
         self.weight = uniform_param((c_in, features, 2, 2), features * 4)
+        self._variant(variant, 4 * features, features)
 
     @staticmethod
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
         i, four_o = k.shape
         return k.reshape(i, 2, 2, four_o // 4).permute(0, 3, 1, 2)
 
+    OUT_DIM = 1
+
+    def rows(self):
+        return self.weight.permute(2, 3, 1, 0).reshape(-1, self.weight.shape[0])
+
+    def gain(self):  # (1, O, 2, 2): output channel o, phase (a, b), one tap each
+        return self.weight.abs().float().sum(dim=0, keepdim=True)
+
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, stride=2)
+        return F.conv_transpose2d(x, self.folded(), stride=2)
 
 
 def box_down2x2(x: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,7 @@
 ``MultiScaleSequenceDenoiser``): a learnable 0.1/0.9 global skip around one
 ``MixtureGTV`` block. Images are NHWC (B, H, W, 3) at the model boundary, as
 in the JAX package, and channels-first inside; H and W multiples of 4 (the
-feature U-Net).
+feature U-Net; 8 with ``feature_n_levels=4``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from irdu_tpu_torch.solvers.pixel_gtv import MixtureGTV
 
 class MultiScaleSequenceDenoiser(nn.Module):
     def __init__(self, n_graphs: int = 24, n_node_fts: int = 3, n_cnn_fts: int = 72,
-                 feature_num_blocks=(2, 3, 3), feature_num_refinement: int = 4,
+                 feature_num_blocks=(2, 3, 3, 4), feature_num_refinement: int = 4,
                  use_pallas_solver: bool = False, use_nhwc_solver: bool = False, *,
                  window: str = "diamond12", stats_mode: str = "scalar",
                  n_cgd_iters: int = 4, muy_init=(0.1, 0.0, 0.0, 0.0),
@@ -27,13 +27,13 @@ class MultiScaleSequenceDenoiser(nn.Module):
         defaults, so that a configuration's ``model`` section builds. The
         ``*_init``s set the solver's initial μ, ρ and γ as JAX's do (their
         first entries); ``remat`` is a training knob with no effect at
-        inference. ``registry.require`` raises on a value the port does not
-        compute yet: another window, ``stats_mode="none"``, the 4-level
-        feature U-Net, another CG count, the skip-solve probe."""
+        inference. ``stats_mode`` ("scalar", or "none": the v4 core, no
+        stencil) and ``feature_n_levels`` (3, or 4: the v4 full-depth feature
+        U-Net) go to the solver. ``registry.require`` raises on a value the
+        port does not compute yet: another window, another CG count, the
+        skip-solve probe (JAX's accounting run without the unroll)."""
         require("window", window, ["diamond12"])
-        require("stats_mode", stats_mode, ["scalar"])
         require("n_cgd_iters", n_cgd_iters, [4])
-        require("feature_n_levels", feature_n_levels, [3])
         require("eval_skip_solve", eval_skip_solve, [False])
         del remat
         super().__init__()
@@ -43,7 +43,8 @@ class MultiScaleSequenceDenoiser(nn.Module):
             feature_num_blocks=feature_num_blocks,
             feature_num_refinement=feature_num_refinement,
             use_pallas_unroll=use_pallas_solver, use_nhwc_unroll=use_nhwc_solver,
-            muy_init=muy_init[0], ro_init=ro_init[0], gamma_init=gamma_init[0])
+            muy_init=muy_init[0], ro_init=ro_init[0], gamma_init=gamma_init[0],
+            stats_mode=stats_mode, feature_n_levels=feature_n_levels)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img.permute(0, 3, 1, 2)

@@ -100,28 +100,40 @@ class Upsample(nn.Module):
 
 
 class FeatureExtraction(nn.Module):
-    """The 3-level FFBlock U-Net that gives the edge-weight features and the
-    DC channels. Level 1 decodes at 2·dim: the upsampled code is concatenated
-    with the level-1 skip and not reduced."""
+    """The FFBlock U-Net that gives the edge-weight features and the DC
+    channels. Level 1 decodes at 2·dim: the upsampled code is concatenated
+    with the level-1 skip and not reduced. ``n_levels``: 3, the truncated
+    U-Net of the v5+ family, or 4, the v4 full depth (down3_4, the latent
+    FFBlocks at 8·dim, up4_3, reduce_chan_level3, decoder_level3)."""
 
     def __init__(self, c_in: int, out_channels: int, dim: int, num_blocks: Sequence[int],
-                 num_refinement_blocks: int, ffn_expansion_factor: float):
+                 num_refinement_blocks: int, ffn_expansion_factor: float, n_levels: int = 3):
         super().__init__()
+        if n_levels not in (3, 4):
+            raise ValueError(f"n_levels must be 3 or 4, got {n_levels}")
         d, ff = dim, ffn_expansion_factor
+        self.n_levels = n_levels
         self.patch_embed = OverlapPatchEmbed(c_in, d)
         self.down1_2 = Downsample(d)
         self.down2_3 = Downsample(2 * d)
+        stages = [("encoder_level1", num_blocks[0], d),
+                  ("encoder_level2", num_blocks[1], 2 * d),
+                  ("encoder_level3", num_blocks[2], 4 * d)]
+        if n_levels == 4:
+            self.down3_4 = Downsample(4 * d)
+            self.up4_3 = Upsample(8 * d)
+            self.reduce_chan_level3 = GroupedPointwise(8 * d, 4 * d)
+            stages += [("latent", num_blocks[3], 8 * d),
+                       ("decoder_level3", num_blocks[2], 4 * d)]
         self.up3_2 = Upsample(4 * d)
         self.reduce_chan_level2 = GroupedPointwise(4 * d, 2 * d)
         self.up2_1 = Upsample(2 * d)
         self.output = Conv3x3Zero(2 * d, out_channels)
+        stages += [("decoder_level2", num_blocks[1], 2 * d),
+                   ("decoder_level1", num_blocks[0], 2 * d),
+                   ("refinement", num_refinement_blocks, 2 * d)]
         self.stages = {}  # stage → the names of its FFBlocks, in order
-        for stage, n, width in (("encoder_level1", num_blocks[0], d),
-                                ("encoder_level2", num_blocks[1], 2 * d),
-                                ("encoder_level3", num_blocks[2], 4 * d),
-                                ("decoder_level2", num_blocks[1], 2 * d),
-                                ("decoder_level1", num_blocks[0], 2 * d),
-                                ("refinement", num_refinement_blocks, 2 * d)):
+        for stage, n, width in stages:
             self.stages[stage] = [f"{stage}_{i}" for i in range(n)]
             for name in self.stages[stage]:
                 self.add_module(name, FFBlock(width, ff))
@@ -135,6 +147,11 @@ class FeatureExtraction(nn.Module):
         enc1 = self._stage("encoder_level1", self.patch_embed(x))
         enc2 = self._stage("encoder_level2", self.down1_2(enc1))
         x = self._stage("encoder_level3", self.down2_3(enc2))
+        if self.n_levels == 4:
+            enc3 = x
+            x = self._stage("latent", self.down3_4(x))
+            x = self.reduce_chan_level3(torch.cat([self.up4_3(x), enc3], dim=1))
+            x = self._stage("decoder_level3", x)
         x = self.reduce_chan_level2(torch.cat([self.up3_2(x), enc2], dim=1))
         x = self._stage("decoder_level2", x)
         x = self._stage("decoder_level1", torch.cat([self.up2_1(x), enc1], dim=1))

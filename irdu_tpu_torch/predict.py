@@ -10,6 +10,9 @@
     # the pixel-domain family (MultiScaleSequenceDenoiser)
     python -m irdu_tpu_torch.predict --model pixel --input clean.png --sigma 25 --output out.png
 
+    # a large image as overlapping 512x512 tiles (64-pixel halo)
+    python -m irdu_tpu_torch.predict --input big.png --sigma 25 --tile 512 --output out.png
+
 The model runs on the CUDA card in bf16 (params and activations) through the
 port's kernels (flagship, lite, micro: K3 and K4 for the encoder/decoder
 blocks, K1, K2 and K5 for the solver; pixel: K2 and K8, or K2 and K7 on
@@ -85,16 +88,34 @@ def load_model(weights: str | None = None, device: str | torch.device = "cuda",
     return model.to(device=device, dtype=dtype).eval().requires_grad_(False)
 
 
-def denoise(model: torch.nn.Module, noisy_hwc: np.ndarray) -> np.ndarray:
-    """Denoise one (H, W, 3) float image in [0, 1]: numpy reflect pad to a
-    multiple of 16, forward, crop, clamp to [0, 1]. Returns float32 (H, W, 3)."""
-    h, w = noisy_hwc.shape[:2]
-    pad = np.pad(np.asarray(noisy_hwc, np.float32),
-                 ((0, (-h) % 16), (0, (-w) % 16), (0, 0)), mode="reflect")
+def batch_forward(model: torch.nn.Module):
+    """The model as the eval harness and the tiler call it: a float32 numpy
+    batch (B, H, W, 3), H and W multiples of 16, to the float32 output
+    tensor on the model's device."""
     p = next(model.parameters())
-    x = torch.from_numpy(pad[None]).to(device=p.device, dtype=p.dtype)
-    with torch.inference_mode():
-        y = model(x)[0, :h, :w].float().cpu().numpy()
+
+    def forward(batch: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
+        with torch.inference_mode():
+            return model(x.to(device=p.device, dtype=p.dtype)).float()
+
+    return forward
+
+
+def denoise(model: torch.nn.Module, noisy_hwc: np.ndarray, *, tile: int = 0) -> np.ndarray:
+    """Denoise one (H, W, 3) float image in [0, 1]: numpy reflect pad to a
+    multiple of 16, forward, crop, clamp to [0, 1]. Returns float32 (H, W, 3).
+    tile > 0: run overlapping tile × tile tiles with a 64-pixel halo
+    (``parallel.spatial.tiled_forward``), for images too large for one pass."""
+    noisy_hwc = np.asarray(noisy_hwc, np.float32)
+    if tile:
+        from irdu_tpu_torch.parallel.spatial import tiled_forward
+
+        return np.clip(tiled_forward(batch_forward(model), noisy_hwc, tile=tile, halo=64),
+                       0.0, 1.0)
+    h, w = noisy_hwc.shape[:2]
+    pad = np.pad(noisy_hwc, ((0, (-h) % 16), (0, (-w) % 16), (0, 0)), mode="reflect")
+    y = batch_forward(model)(pad[None])[0, :h, :w].cpu().numpy()
     return np.clip(y, 0.0, 1.0)
 
 
@@ -121,6 +142,9 @@ def main(argv=None, device: str = "cuda"):
                          "--input is already noisy")
     ap.add_argument("--cg-iters", type=int, default=3,
                     help="solver unroll length (3 = exact reference semantics)")
+    ap.add_argument("--tile", type=int, default=0,
+                    help=">0: overlapping-tile inference (tile size in pixels, "
+                         "64-pixel halo) for images too large for one pass")
     args = ap.parse_args(argv)
 
     from PIL import Image
@@ -143,9 +167,9 @@ def main(argv=None, device: str = "cuda"):
             clean_255 = np.asarray(Image.open(args.clean).convert("RGB"), np.float32)
     noisy = noisy.astype(np.float32)
 
-    denoise(model, noisy)  # warm-up (kernel build, allocator): report steady state
+    denoise(model, noisy, tile=args.tile)  # warm-up (kernel build, allocator)
     t0 = time.perf_counter()
-    restored = denoise(model, noisy)
+    restored = denoise(model, noisy, tile=args.tile)
     dt = time.perf_counter() - t0
 
     out_u8 = img_as_ubyte(restored)
@@ -156,7 +180,7 @@ def main(argv=None, device: str = "cuda"):
         "device": str(next(model.parameters()).device),
         "shape": list(img.shape[:2]), "seconds": round(dt, 3),
         "megapixels_per_s": round(img.shape[0] * img.shape[1] / dt / 1e6, 3),
-        "output": args.output,
+        "output": args.output, "tile": args.tile,
     }
     if clean_255 is not None:
         report["psnr_noisy"] = round(psnr_255(

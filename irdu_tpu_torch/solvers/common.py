@@ -38,6 +38,9 @@ class GraphOpParams(nn.Module):
                             for k, _ in _STATS_INIT], dim=1).contiguous()
 
     def stats_scalars(self) -> torch.Tensor:
-        """The four scalar coefficients as a (4,) f32 tensor (scalar mode)."""
+        """The four scalar coefficients as a (4,) f32 tensor (scalar mode);
+        without a stencil the identity's, [1, 0, 0, 0]."""
+        if self.stats_mode == "none":
+            return torch.tensor([1.0, 0.0, 0.0, 0.0], device=self.multiM.device)
         return torch.cat([getattr(self, f"stats_{k}").float().reshape(1)
                           for k, _ in _STATS_INIT])

@@ -26,6 +26,12 @@ Three routes, chosen per call by JAX's flags and in JAX's precedence:
   plain (neither): the same unroll in plain PyTorch (the JAX jnp path), on
         any device; the on-card reference the kernel routes are held to.
 
+With ``stats_mode="none"`` (the v4 core: no stencil) every route runs as
+with the scalar stencil, the stencil the identity: K7 and K5 take None
+tables as the table [1, 0, 0, 0], K8 those four scalars, and s = 1·v +
+0·(…) is v exactly. JAX sends this core to its jnp path, since its fused
+kernels read the scalar stencil's parameters; the arithmetic is the same.
+
 JAX computes the NHWC route's weights outside its kernels; the port has K2
 for them. JAX's ``_nhwc_ok`` and ``_chw_ok`` also ask H % 16 == 0 (NHWC),
 H % 8 == 0 (CHW) and W % 128 == 0: TPU band and lane rules the port does
@@ -63,10 +69,13 @@ class MixtureGTV(nn.Module):
     window is diamond-12."""
 
     def __init__(self, n_graphs: int = 24, n_node_fts: int = 3, n_cnn_fts: int = 72,
-                 feature_num_blocks=(2, 3, 3), feature_num_refinement: int = 4,
+                 feature_num_blocks=(2, 3, 3, 4), feature_num_refinement: int = 4,
                  use_pallas_unroll: bool = False, use_nhwc_unroll: bool = False,
-                 muy_init: float = 0.1, ro_init: float = 0.1, gamma_init: float = 1e-3):
+                 muy_init: float = 0.1, ro_init: float = 0.1, gamma_init: float = 1e-3,
+                 stats_mode: str = "scalar", feature_n_levels: int = 3):
         super().__init__()
+        if stats_mode not in ("scalar", "none"):
+            raise ValueError(f"stats_mode must be 'scalar' or 'none', got {stats_mode!r}")
         g, f = n_graphs, n_node_fts
         self.n_graphs, self.n_node_fts = g, f
         self.deltas = DIAMOND12
@@ -76,15 +85,15 @@ class MixtureGTV(nn.Module):
         self.betaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), 0.1))
         self.patchs_features_extraction = FeatureExtraction(
             f, g * f + N_DC_CHANNELS, n_cnn_fts, feature_num_blocks,
-            feature_num_refinement, FFN_EXPANSION)
+            feature_num_refinement, FFN_EXPANSION, n_levels=feature_n_levels)
         self.combination_weight = GroupedPointwise(g * f, g)
         self.dc_estimator = GatedDConvBlock(N_DC_CHANNELS, f, 2 * N_DC_CHANNELS)
         # raw μ and ρ, log γ
         self.ro00 = nn.Parameter(torch.full((g,), float(ro_init)))
         self.muys00 = nn.Parameter(torch.full((g,), float(muy_init)))
         self.gamma00 = nn.Parameter(torch.full((g,), math.log(gamma_init)))
-        self.GTVmodule00 = GraphOpParams(g, f, stats_mode="scalar")
-        self.GLRmodule00 = GraphOpParams(g, f, stats_mode="scalar")
+        self.GTVmodule00 = GraphOpParams(g, f, stats_mode=stats_mode)
+        self.GLRmodule00 = GraphOpParams(g, f, stats_mode=stats_mode)
 
     def route(self) -> str:
         """"nhwc", "chw" or "plain", from the flags alone: every route takes

@@ -53,17 +53,24 @@ def _flatten(tree, prefix=()):
 
 
 @torch.no_grad()
-def params_to_torch(flax_params: dict, model: torch.nn.Module) -> None:
+def params_to_torch(flax_params: dict, model: torch.nn.Module, spectral: dict | None = None) -> None:
     """Copy a nested flax params dict (optionally under a top-level
-    ``"params"`` key) onto ``model``.
+    ``"params"`` key) onto ``model``, and the ``"spectral"`` collection's
+    ``*_u`` vectors onto its buffers of the same names.
 
     Module attribute names mirror the flax scope names, so a flax path
     ``a/b/c/kernel`` lands on ``model.a.b.c.weight`` through the owning
     module's ``kernel_to_torch`` (layout conversion); every other leaf
-    lands on the parameter of the same name. Raises KeyError on a flax
-    leaf with no parameter or a parameter no leaf set, and ValueError on
-    a shape mismatch."""
+    lands on the parameter of the same name (``scaling_factor`` too).
+    ``spectral``: the collection's tree (default: ``flax_params["spectral"]``
+    when the dict holds both collections); its leaves are variables, not
+    params, and ``a/b/c/kernel_u`` lands on the buffer ``a.b.c.kernel_u``.
+    Raises KeyError on a flax leaf with no parameter or buffer, a parameter
+    no leaf set, or, when a spectral tree is given, a ``kernel_u`` buffer it
+    does not set; ValueError on a shape mismatch."""
     tree = flax_params.get("params", flax_params)
+    if spectral is None and "params" in flax_params:
+        spectral = flax_params.get("spectral")
     named = dict(model.named_parameters())
     done = set()
     for path, arr in _flatten(tree):
@@ -78,13 +85,30 @@ def params_to_torch(flax_params: dict, model: torch.nn.Module) -> None:
             if name not in named:
                 raise KeyError(f"flax leaf {'/'.join(path)} has no parameter {name}")
             value = torch.tensor(np.asarray(arr))
-        param = named[name]
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: snapshot shape {tuple(value.shape)} "
-                             f"!= parameter shape {tuple(param.shape)}")
-        param.copy_(value)
+        _copy(named[name], value, name)
         done.add(name)
     missing = sorted(set(named) - done)
     if missing:
         raise KeyError(f"parameters not set by the snapshot: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
+    if spectral is None:
+        return
+    buffers = {n: b for n, b in model.named_buffers() if n.endswith("kernel_u")}
+    done = set()
+    for path, arr in _flatten(spectral):
+        name = ".".join(path)
+        if name not in buffers:
+            raise KeyError(f"spectral leaf {'/'.join(path)} has no buffer {name}")
+        _copy(buffers[name], torch.tensor(np.asarray(arr, np.float32)), name)
+        done.add(name)
+    missing = sorted(set(buffers) - done)
+    if missing:
+        raise KeyError(f"spectral vectors not set: {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
+
+
+def _copy(dst: torch.Tensor, value: torch.Tensor, name: str) -> None:
+    if tuple(value.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: snapshot shape {tuple(value.shape)} "
+                         f"!= parameter shape {tuple(dst.shape)}")
+    dst.copy_(value)

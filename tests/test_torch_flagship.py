@@ -156,6 +156,10 @@ def test_port_sources_import_no_jax():
     paths = sorted(glob.glob(os.path.join(REPO, "irdu_tpu_torch", "**", "*.py"),
                              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(paths) > 10
+    rel = {os.path.relpath(p, REPO) for p in paths}
+    assert {f"irdu_tpu_torch/{m}.py" for m in (
+        "data/synthetic", "data/degradations", "eval/metrics", "eval/harness", "eval/curve",
+        "parallel/spatial")} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

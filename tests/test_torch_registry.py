@@ -2,16 +2,18 @@
 ``irdu_tpu.models.registry`` and the port's ``irdu_tpu_torch.models.registry``.
 
 Where both build, JAX's parameter tree (shapes from ``jax.eval_shape`` of
-``init`` at 16×16, zero-filled) goes onto the port's model through
-``params_to_torch``, which raises on a name with no parameter, a parameter
-no name sets, or a shape that differs. Where the port does not compute a
-value yet, it raises ``NotImplementedError`` naming the field; the models it
-does not have (GLR boosting, Restormer) raise ``KeyError``.
+``init`` at 16×16, zero-filled; with it the "spectral" collection's u
+vectors) goes onto the port's model through ``params_to_torch``, which
+raises on a name with no parameter or buffer, a parameter no name sets, or
+a shape that differs. Where the port does not compute a value yet, it
+raises ``NotImplementedError`` naming the field; the models it does not
+have (GLR boosting, Restormer) raise ``KeyError``.
 """
 
 from __future__ import annotations
 
 import glob
+import importlib.util
 import os
 
 import jax
@@ -27,11 +29,10 @@ from irdu_tpu_torch.utils.weights import params_to_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.basename(p)[:-len(".yaml")]
                  for p in glob.glob(os.path.join(REPO, "configs", "*.yaml")))
-# the field the port names for a configuration it does not build yet
-NOT_PORTED = {"flagship_sigma25_nonexpansive": "conv_variant",
-              "flagship_sigma25_spectral": "conv_variant",
-              "lightformer_pixel_v4": "stats_mode"}
 NOT_IN_PORT = {"glr_boosting", "restormer_sigma25"}  # KeyError
+# the configurations of the options the port built last, as chip_smoke.py serves them
+VARIANT_CONFIGS = ("flagship_sigma25_nonexpansive", "flagship_sigma25_spectral",
+                   "lightformer_pixel_v4")
 
 
 def _model_section(config):
@@ -43,38 +44,40 @@ def _model_section(config):
 def test_every_config_is_covered():
     """19 configurations, each with an expected outcome below."""
     assert len(CONFIGS) == 19
-    assert set(NOT_PORTED) | NOT_IN_PORT <= set(CONFIGS)
+    assert NOT_IN_PORT | set(VARIANT_CONFIGS) <= set(CONFIGS)
 
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_config_builds_in_both_registries(config):
     """JAX builds every configuration. The port builds it with JAX's
-    parameter tree, or names the field it does not compute yet, or does not
-    have the model at all."""
+    parameter tree (the three of conv_variant and the v4 pixel core since
+    they are ported), or does not have the model at all."""
     name, kw = _model_section(config)
     jm = jax_registry.create_model(name, **kw)
     if config in NOT_IN_PORT:
         with pytest.raises(KeyError, match="available"):
             registry.create_model(name, **kw)
         return
-    if config in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=NOT_PORTED[config]):
-            registry.create_model(name, **kw)
-        return
-    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3))))
+    _builds_with_jax_tree(jm, registry.create_model(name, **kw))
+
+
+def _builds_with_jax_tree(jax_model, port, hw=16):
+    """JAX's variables at hw×hw, zero-filled, onto the port's model: every
+    parameter set (to zero) and, with a "spectral" collection, every u
+    vector set (to zero)."""
+    shapes = jax.eval_shape(lambda: jax_model.init(jax.random.PRNGKey(0),
+                                                   jnp.zeros((1, hw, hw, 3))))
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
-    port = registry.create_model(name, **kw)
     params_to_torch(zeros, port)
     assert not any(p.detach().any() for p in port.parameters())
+    assert ("spectral" in zeros) == any(n.endswith("kernel_u") for n, _ in port.named_buffers())
+    assert not any(b.any() for n, b in port.named_buffers() if n.endswith("kernel_u"))
 
 
 @pytest.mark.parametrize("model,field,value", [
     ("abstract_multiscale_graph_filter", "nsubnets", (2, 1, 1, 1)),
     ("abstract_multiscale_graph_filter", "window", "diamond12"),
-    ("abstract_multiscale_graph_filter", "conv_variant", "spectral_norm"),
     ("multiscale_sequence_denoiser", "window", "cross4"),
-    ("multiscale_sequence_denoiser", "stats_mode", "none"),
-    ("multiscale_sequence_denoiser", "feature_n_levels", 4),
     ("multiscale_sequence_denoiser", "n_cgd_iters", 3),
     ("multiscale_sequence_denoiser", "eval_skip_solve", True)])
 def test_unported_field_values_name_the_field(model, field, value):
@@ -82,6 +85,35 @@ def test_unported_field_values_name_the_field(model, field, value):
     NotImplementedError naming the field."""
     with pytest.raises(NotImplementedError, match=field):
         registry.create_model(model, **{field: value})
+
+
+@pytest.mark.parametrize("model,field,value", [
+    ("abstract_multiscale_graph_filter", "conv_variant", "spectral_norm"),
+    ("abstract_multiscale_graph_filter", "conv_variant", "non_expansive"),
+    ("multiscale_sequence_denoiser", "stats_mode", "none"),
+    ("multiscale_sequence_denoiser", "feature_n_levels", 4)])
+def test_ported_field_values_build_with_jax_tree(model, field, value):
+    """The values the port computes since it took them (they named their
+    field before): the model builds with JAX's parameter tree."""
+    kw = {field: value}
+    if model == "multiscale_sequence_denoiser":  # narrow, to keep JAX's shapes cheap
+        kw.update(n_graphs=2, n_cnn_fts=8, feature_num_blocks=(1, 1, 1, 1),
+                  feature_num_refinement=1)
+    _builds_with_jax_tree(jax_registry.create_model(model, **kw),
+                          registry.create_model(model, **kw))
+
+
+def test_chip_smoke_variant_dicts_equal_the_configs():
+    """chip_smoke.py keeps the three configurations' ``model:`` sections
+    itself (the card's machine has no PyYAML); they equal the files."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    want = {}
+    for config in VARIANT_CONFIGS:
+        with open(os.path.join(REPO, "configs", f"{config}.yaml")) as fh:
+            want[config] = yaml.safe_load(fh)["model"]
+    assert mod.VARIANT_MODELS == want
 
 
 def test_pixel_inits_set_the_initial_parameters_as_jax():

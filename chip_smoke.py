@@ -147,13 +147,29 @@ Phases, each timed and printed as it ends:
             plain, max|d| <= 1e-3; bf16 at TILE_BF16 through
             predict.denoise(tile=TILE), counts zeroed just before (16 tiles,
             each a 512x512 request's launches), timed in turns against the
-            whole-image request, both PSNRs and their gap printed.
+            whole-image request, both PSNRs and their gap printed;
+  train     the trainer (irdu_tpu_torch.train) on the card, each of the
+            configs flagship_sigma25, micro_distill_sigma25 and
+            lightformer_pixel_sigma (TRAIN_CONFIGS, held to the YAML by a CPU
+            test) cut to stage 0 with TRAIN_PATCHES crops, on the synthetic
+            train set in memory: the flagship at full width in f32 runs 3
+            steps with a checkpoint and an eval, resumes in a fresh Trainer
+            to step 6 (state and batches bitwise, no launch in a step, every
+            parameter with a non-zero gradient); one loss and backward on the
+            card against the CPU; distillation from the 86k flagship in bf16
+            on K3, K4, K2 and K1 (each teacher forward one 128x128 request's
+            launches, its first step's calls held against their plain
+            versions, the student none, remat on against off), 20 steps on
+            one batch lowering the loss; the pixel model 4 steps; the trained
+            student written with save_params_npz and served by predict in the
+            eval protocol with micro's launches; the autograd guard raising
+            (``phase_train``).
 
-The build must take under 60 s and the whole script under 450 s; a run over
-either budget fails.
+The build must take under 60 s, the train phase under 90 s and the whole
+script under 450 s; a run over any budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
-results, the serving, ``k7_band_512``, model, eval, variants, tile and
+results, the serving, ``k7_band_512``, model, eval, variants, tile, train and
 ``device_ms`` lines, the phase times and, only when every phase passed,
 {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits non-zero
 without a CUDA card, without the package beside this script, or when any
@@ -162,6 +178,7 @@ phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -175,7 +192,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-BUDGET_S = {"build": 60, "total": 450}
+BUDGET_S = {"build": 60, "train": 90, "total": 450}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -331,6 +348,76 @@ VARIANT_F32_ATOL = 1e-3
 TILE, TILE_HALO = 512, 64
 TILE_F32, TILE_BF16 = (1024, 1024), (2048, 2048)
 TILE_ROUNDS = 2
+# the training configurations as the files give them (the card's machine has
+# no PyYAML; a CPU test holds these to the files): manual_seed, model,
+# parallel, datasets.train without its two paths, train
+_FLAGSHIP_STAGES = [{"patch_size": 128, "batch_size": 4, "max_num_patchs": 800000},
+                    {"patch_size": 192, "batch_size": 3, "max_num_patchs": 600000},
+                    {"patch_size": 256, "batch_size": 2, "max_num_patchs": 400000},
+                    {"patch_size": 384, "batch_size": 1, "max_num_patchs": 200000}]
+_FLAGSHIP_NOISE = {"dist_mode": "addictive_noise_scale", "lambda_noise": 25.0,
+                   "use_data_aug": True, "seed": 2204}
+TRAIN_CONFIGS = {
+    "flagship_sigma25": {
+        "manual_seed": 3407,
+        "model": {"type": "abstract_multiscale_graph_filter", "n_channels_in": 3,
+                  "n_channels_out": 3, "dims": [48, 96, 192, 384],
+                  "hidden_dims": [96, 192, 384, 768], "nsubnets": [1, 1, 1, 1],
+                  "ngraphs": [8, 16, 16, 32], "num_blocks": [4, 6, 6, 8], "num_blocks_out": 4},
+        "parallel": {"data_parallel": "auto"},
+        "datasets_train": _FLAGSHIP_NOISE,
+        "train": {"num_epochs": 1, "stages": _FLAGSHIP_STAGES, "schedule": {"type": "flagship"},
+                  "use_aux_losses": True, "loss02_weight": 0.1, "loss03_weight": 0.5,
+                  "verbose_rate": 100, "checkpoint_rate": 5000, "eval_rate": 1000,
+                  "keep_checkpoints": 5}},
+    "micro_distill_sigma25": {
+        "manual_seed": 3407,
+        "model": {"type": "abstract_multiscale_graph_filter", "n_channels_in": 3,
+                  "n_channels_out": 3, "dims": [16, 32, 64, 128],
+                  "hidden_dims": [32, 64, 128, 256], "nsubnets": [1, 1, 1, 1],
+                  "ngraphs": [4, 4, 8, 8], "num_blocks": [2, 2, 2, 2], "num_blocks_out": 2,
+                  "remat": True},
+        "parallel": {"data_parallel": "auto"},
+        "datasets_train": _FLAGSHIP_NOISE,
+        "train": {"num_epochs": 1, "stages": _FLAGSHIP_STAGES, "schedule": {"type": "flagship"},
+                  "use_aux_losses": True, "loss02_weight": 0.1, "loss03_weight": 0.5,
+                  "distill": {"model": {"type": "abstract_multiscale_graph_filter",
+                                        "dims": [48, 96, 192, 384],
+                                        "hidden_dims": [96, 192, 384, 768],
+                                        "ngraphs": [8, 16, 16, 32], "num_blocks": [4, 6, 6, 8],
+                                        "num_blocks_out": 4, "use_pallas_blocks": True,
+                                        "use_pallas_solver": True},
+                              "weights": "artifacts/weights/flagship_synthetic_2050.npz",
+                              "weight": 1.0, "dtype": "bfloat16"},
+                  "verbose_rate": 100, "checkpoint_rate": 5000, "eval_rate": 1000,
+                  "keep_checkpoints": 5}},
+    "lightformer_pixel_sigma": {
+        "manual_seed": 3407,
+        "model": {"type": "multiscale_sequence_denoiser", "n_graphs": 24, "n_node_fts": 3,
+                  "n_cnn_fts": 72, "window": "diamond12"},
+        "parallel": {"data_parallel": "auto"},
+        "datasets_train": {"dist_mode": "vary_addictive_noise",
+                           "lambda_noise": [[1.0, 10.0, 15.0, 20.0, 25.0],
+                                            [0.1, 0.1, 0.1, 0.1, 0.6]],
+                           "use_data_aug": True},
+        "train": {"num_epochs": 1,
+                  "stages": [{"patch_size": 64, "batch_size": 16, "max_num_patchs": 800000},
+                             {"patch_size": 128, "batch_size": 4, "max_num_patchs": 600000},
+                             {"patch_size": 256, "batch_size": 2, "max_num_patchs": 400000},
+                             {"patch_size": 512, "batch_size": 1, "max_num_patchs": 200000}],
+                  "schedule": {"type": "multistep", "base_lr": 0.0004,
+                               "milestones": [200000, 500000, 650000], "gamma": 0.5},
+                  "use_aux_losses": False}},
+}
+# the train phase cuts each run to stage 0 with TRAIN_PATCHES crop positions
+# (the configs' 800000 cost seconds of crop draws a dataset) and points the
+# distillation teacher at the 86k snapshot: .chiprunignore leaves the
+# config's flagship_synthetic_2050.npz out of the copy
+TRAIN_PATCHES = 2400
+TRAIN_TEACHER = "artifacts/weights/flagship_cont100k_35000.npz"
+TRAIN_STEPS = {"flagship": (3, 6), "distill": 6, "pixel": 4, "fixed_batch": 20}
+TRAIN_GRAD_RTOL = 1e-3  # card against CPU: max|d| <= this of max(1e-6, max|g_cpu|), per tensor
+TRAIN_LOSS_RTOL = 1e-5
 PROFILE_REQUESTS = 5  # steady 512x512 flagship requests under torch.profiler
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
 
@@ -529,15 +616,6 @@ def block_ops_per_pixel(c, hidden2):
 
 def k2_bar(ker, ref):
     return within(ker, ref, 4e-3, 0.0)
-
-
-def set_kernels(model, on):
-    """Route every module of the model that has the switch (the flagship's
-    blocks, the solvers, the ablations' feature heads) through the kernels
-    (True) or their plain versions (False)."""
-    for m in model.modules():
-        if hasattr(m, "use_kernels"):
-            m.use_kernels = on
 
 
 @functools.lru_cache(maxsize=1)
@@ -850,6 +928,7 @@ def phase_ablation(smoke):
     against its plain version; then in f32, kernels against plain."""
     import torch
 
+    from irdu_tpu_torch.models.registry import set_kernels
     from irdu_tpu_torch.predict import denoise
 
     clean, noisy = request_images()[0]
@@ -969,15 +1048,13 @@ def ablation_sites():
                                 k1_bar))
 
 
-def checked_request(model, noisy, want, sites=None):
-    """Serve one request with every kernel call held against its plain
-    version on that call's own tensors (both outputs of a K5 call that emits
-    its update, or of a K8 cg1 segment); the max|d| of each kernel, and
-    whether every call agreed and the calls per kernel are ``want``.
-    ``sites``: where the model looks its kernels up (default: the flagship's)."""
-    from irdu_tpu_torch.predict import denoise
-
-    sites = sites or flagship_sites()
+@contextlib.contextmanager
+def kernel_checks(sites):
+    """While open, every kernel call through ``sites`` is held against its
+    plain version on that call's own tensors (both outputs of a K5 call that
+    emits its update, or of a K8 cg1 segment). Yields the record:
+    {"log": {kernel: [(max|d|, ok), ...]}, "share", "rms"} (K3 and K4: the
+    largest share beyond one ulp and RMS ratio of ``block_bar``)."""
     log = {name: [] for _, name, _, _ in sites}
     share = {n: 0.0 for n in ("fused_block_stack", "fused_gated_block") if n in log}
     rms = dict(share)
@@ -1007,15 +1084,33 @@ def checked_request(model, noisy, want, sites=None):
     for (mod, name, plain, bar), kernel in zip(sites, saved):
         setattr(mod, name, checked(name, kernel, plain, bar))
     try:
-        denoise(model, noisy)
+        yield {"log": log, "share": share, "rms": rms}
     finally:
         for (mod, name, _, _), kernel in zip(sites, saved):
             setattr(mod, name, kernel)
+
+
+def checks_summary(rec, want):
+    """A ``kernel_checks`` record: the max|d| of each kernel, and whether
+    every call agreed and the calls per kernel are ``want``."""
+    log = rec["log"]
     return dict(max_abs_err={n: max((e for e, _ in v), default=None) for n, v in log.items()},
-                beyond_one_ulp_share=share, rms_vs_plain=rms,
+                beyond_one_ulp_share=rec["share"], rms_vs_plain=rec["rms"],
                 calls_checked=sum(len(v) for v in log.values()),
                 calls_ok=all(len(v) == want[n] for n, v in log.items())
                 and all(ok for v in log.values() for _, ok in v))
+
+
+def checked_request(model, noisy, want, sites=None):
+    """Serve one request with every kernel call held against its plain
+    version (``kernel_checks``); the max|d| of each kernel, and whether
+    every call agreed and the calls per kernel are ``want``.
+    ``sites``: where the model looks its kernels up (default: the flagship's)."""
+    from irdu_tpu_torch.predict import denoise
+
+    with kernel_checks(sites or flagship_sites()) as rec:
+        denoise(model, noisy)
+    return checks_summary(rec, want)
 
 
 def _filter_params(model, s):
@@ -2096,6 +2191,7 @@ def phase_model(smoke):
     float16, to keep the output directory small)."""
     import torch
 
+    from irdu_tpu_torch.models.registry import set_kernels
     from irdu_tpu_torch.predict import load_model
 
     model = load_model(device=DEVICE, dtype=torch.float32)
@@ -2198,6 +2294,7 @@ def phase_eval(smoke):
     from irdu_tpu_torch.data.synthetic import synthetic_val_set
     from irdu_tpu_torch.eval.curve import variant_tag
     from irdu_tpu_torch.eval.harness import evaluate_pairs, evaluate_pairs_batched
+    from irdu_tpu_torch.models.registry import set_kernels
     from irdu_tpu_torch.predict import batch_forward, load_model
 
     images = synthetic_val_set()
@@ -2303,6 +2400,8 @@ def variant_model(name, dtype):
 def kernels_on(model, on):
     """Every kernel switch of the model: set_kernels' and the pixel solver's
     two route flags (both off: the plain route)."""
+    from irdu_tpu_torch.models.registry import set_kernels
+
     set_kernels(model, on)
     for m in model.modules():
         if hasattr(m, "use_nhwc_unroll"):
@@ -2378,6 +2477,7 @@ def phase_tile(smoke):
     the halo's edge sees other context than the whole image does)."""
     import torch
 
+    from irdu_tpu_torch.models.registry import set_kernels
     from irdu_tpu_torch.parallel.spatial import tiled_forward
     from irdu_tpu_torch.predict import batch_forward, denoise, load_model
 
@@ -2431,6 +2531,425 @@ def phase_tile(smoke):
             f"tile: PSNR {row['psnr_noisy']} -> {row['psnr_tiled']}")
 
 
+def train_config(name, corpus, **train):
+    """The trainer's configuration of ``name``: its sections (TRAIN_CONFIGS)
+    cut to stage 0 with TRAIN_PATCHES crop positions, the corpus (csv_path,
+    root_folder), ``train``'s keys over its train section, the teacher at
+    TRAIN_TEACHER and the synthetic val set as its eval set."""
+    import copy
+
+    src = copy.deepcopy(TRAIN_CONFIGS[name])
+    tc = src["train"]
+    tc["stages"] = [dict(tc["stages"][0], max_num_patchs=TRAIN_PATCHES)]
+    tc.update(train)
+    if "distill" in tc:
+        tc["distill"]["weights"] = os.path.join(REPO, TRAIN_TEACHER)
+    return {"name": name, "manual_seed": src["manual_seed"], "model": src["model"],
+            "parallel": src["parallel"],
+            "datasets": {"train": dict(src["datasets_train"], **corpus)}, "train": tc,
+            "eval": {"sigma": 25.0, "datasets": {"synthetic_val": {}}}}
+
+
+def train_corpus(root):
+    """The 24 synthetic train images (``synthetic_train_set``), listed in a CSV
+    written with ``csv`` under ``root``, and the images by the CSV's paths:
+    (the config's dataset paths, {path: image})."""
+    import csv
+
+    from irdu_tpu_torch.data.synthetic import synthetic_train_set
+
+    images = {f"t{i:03d}.png": im for i, im in enumerate(synthetic_train_set())}
+    os.makedirs(root, exist_ok=True)
+    csv_path = os.path.join(root, "train.csv")
+    with open(csv_path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["index", "path", "height", "width", "nchannels"])
+        for i, (path, im) in enumerate(images.items()):
+            w.writerow([i, path, im.shape[0], im.shape[1], im.shape[2]])
+    return {"csv_path": csv_path, "root_folder": root}, images
+
+
+def launch_counts():
+    return {n: k.launches for n, k in wrappers().items()}
+
+
+def counts_since(before):
+    return {n: c - before[n] for n, c in launch_counts().items()}
+
+
+def smoke_trainer(conf, workdir, images, record, check_first=False):
+    """A ``Trainer`` that takes the corpus as arrays and the synthetic val set
+    as its eval set, and records each step: its ms (synchronized), loss,
+    launches, host copy of the batch, and how many parameter tensors got a
+    non-zero gradient (all finite?). ``check_first``: the first step's
+    kernel calls held against their plain versions (``kernel_checks``)."""
+    from irdu_tpu_torch.data.synthetic import synthetic_val_set
+    from irdu_tpu_torch.train.trainer import Trainer
+
+    class SmokeTrainer(Trainer):
+        def _stage_dataset(self, stage, epoch):
+            return super()._stage_dataset(stage, epoch, images=images)
+
+        def _eval_images(self, spec):
+            return synthetic_val_set()
+
+        def _train_step_for(self, remat):
+            step = super()._train_step_for(remat)
+
+            def recorded(state, noisy, clean, gen):
+                sync()
+                before = launch_counts()
+                t0 = time.perf_counter()
+                if check_first and not record:
+                    with kernel_checks(flagship_sites()) as rec:
+                        state, m = step(state, noisy, clean, gen)
+                    checks = checks_summary(rec, PER_REQUEST[(512, 512)])
+                else:
+                    state, m = step(state, noisy, clean, gen)
+                    checks = None
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                grads = [p.grad for p in state.model.parameters()]
+                record.append(dict(step=state.step, ms=ms, loss=float(m["loss"]),
+                                   psnr=float(m["psnr"]), launches=counts_since(before),
+                                   checks=checks, batch=(noisy.cpu(), clean.cpu()),
+                                   grads_nonzero=sum(g is not None and bool(g.ne(0).any())
+                                                     for g in grads),
+                                   grads_finite=all(g is None or bool(g.isfinite().all())
+                                                    for g in grads)))
+                return state, m
+
+            return recorded
+
+    return SmokeTrainer(conf, workdir=workdir, device=DEVICE)
+
+
+def step_times(record, batch):
+    """Median ms of the recorded steps after each run's first, and images/s."""
+    ms = float(np.median([r["ms"] for r in record[1:]] or [record[0]["ms"]]))
+    return dict(step_ms=[round(r["ms"], 3) for r in record], median_step_ms=round(ms, 3),
+                images_per_s=round(batch / ms * 1e3, 3))
+
+
+def no_launches(counts):
+    return not any(counts.values())
+
+
+def same_tensors(a, b):
+    """Host tensors, pairwise bitwise equal."""
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def adam_moments(optimizer):
+    return [t.detach().cpu().clone() for st in optimizer.state.values()
+            for k in ("exp_avg", "exp_avg_sq") for t in (st[k],)]
+
+
+def grad_gaps(grads, ref):
+    """Per tensor max|d| over max(1e-6, max|ref|): the worst and its name."""
+    worst, name = 0.0, None
+    for n, g in ref.items():
+        gap = float((grads[n].cpu() - g).abs().max()) / max(1e-6, float(g.abs().max()))
+        if gap > worst:
+            worst, name = gap, n
+    return worst, name
+
+
+def loss_and_grads(model, noisy, clean, noise, extra=None):
+    from irdu_tpu_torch.train.steps import flagship_loss
+
+    model.zero_grad(set_to_none=True)
+    loss, den = flagship_loss(model, noisy, clean, latent_noise=noise)
+    if extra is not None:
+        loss = loss + extra(den)
+    loss.backward()
+    return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def code_noise(batch, dims, side, device, seed=0):
+    """Standard normal latent draws for the codes of a batch of side² images."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rs.randn(batch, d, side >> s, side >> s).astype(np.float32))
+                 .to(device) for s, d in enumerate(dims))
+
+
+def phase_train(smoke):
+    """The trainer on the card (``irdu_tpu_torch.train``), each config cut to
+    stage 0 (``train_config``) on the synthetic train set:
+
+      1. flagship_sigma25 at full width, f32, 128² batch 4: ``Trainer.run``
+         to step 3 (a checkpoint; the eval protocol on the synthetic val set
+         at step 3, on the kernels: 6 images' launches), then a fresh
+         ``Trainer`` on the same workdir resumes and runs to step 6. The
+         restored params and Adam moments equal the saved ones bitwise, the
+         batches of steps 4-6 equal a straight run's (its loader's batches
+         3-5) bitwise, every loss is finite, every parameter tensor gets a
+         finite non-zero gradient in every step (the tensors that moved are
+         counted, not gated) and no kernel launched in a step; the step's ms
+         and images/s printed;
+      2. one ``flagship_loss`` and its backward on a 128² batch with the
+         latent noise passed in, on the card and on the CPU (TF32 off):
+         loss within TRAIN_LOSS_RTOL, each gradient tensor within
+         TRAIN_GRAD_RTOL of its max;
+      3. micro_distill_sigma25 (micro student, remat on; the 86k flagship
+         teacher in bf16 on the kernels), 6 steps: each teacher forward
+         launches one 128² request's K3, K4, K1 and K2 (PER_REQUEST at
+         512²'s counts) and the student nothing; every teacher kernel call of
+         the first step is held against its plain version; the teacher's
+         params are bitwise unchanged; one step's gradients with remat on and
+         off within TRAIN_GRAD_RTOL; then TRAIN_STEPS["fixed_batch"] steps on
+         one batch end below the first step's loss;
+      4. lightformer_pixel_sigma at full width, 64² batch 16, 4 steps (its
+         aux losses off): finite losses, no launch;
+      5. the trained student written by ``save_params_npz`` (bf16) and
+         loaded by ``predict.load_model(name="micro")``: the eval protocol in
+         bf16, 6 images' micro launches (EVAL_PER_IMAGE), its PSNR printed
+         (no target); in f32 its kernels against their plain versions, per
+         image within EVAL_SAME_DB;
+      6. the guard: a flagship forward on the card with the kernels on and
+         parameters requiring grad raises its RuntimeError."""
+    import copy
+    import shutil
+
+    import torch
+
+    from irdu_tpu_torch.data.loader import batched_loader
+    from irdu_tpu_torch.data.synthetic import synthetic_val_set
+    from irdu_tpu_torch.eval.harness import evaluate_pairs
+    from irdu_tpu_torch.models.registry import create_model, set_kernels, set_remat
+    from irdu_tpu_torch.predict import batch_forward, load_model
+    from irdu_tpu_torch.train.steps import teacher_forward
+    from irdu_tpu_torch.utils.weights import params_from_torch, save_params_npz
+
+    work = os.path.join(REPO, "experiments", "chip_smoke_train")  # git-ignored, removed after
+    shutil.rmtree(work, ignore_errors=True)
+    corpus, images = train_corpus(os.path.join(work, "corpus"))
+    line, fails = {"teacher_weights_override": TRAIN_TEACHER,
+                   "max_num_patchs": TRAIN_PATCHES, "stage": 0}, []
+    print(f"train: teacher weights overridden to {TRAIN_TEACHER} (the config's "
+          "flagship_synthetic_2050.npz is left out of the copy); stage 0 with "
+          f"{TRAIN_PATCHES} crop positions", flush=True)
+
+    def check(cond, what):
+        if not cond:
+            fails.append(what)
+
+    # 1. flagship: run, checkpoint, resume
+    first, then = TRAIN_STEPS["flagship"]
+    wd = os.path.join(work, "flagship")
+    rec_a, rec_b = [], []
+    conf = train_config("flagship_sigma25", corpus, max_steps=first, checkpoint_rate=first,
+                        eval_rate=first, verbose_rate=1)
+    tr = smoke_trainer(conf, wd, images, rec_a)
+    initial = [p.detach().cpu().clone() for p in tr.model.parameters()]
+    eval_before = launch_counts()
+    tr.run()
+    sync()
+    eval_launches = {n: c - sum(r["launches"][n] for r in rec_a)
+                     for n, c in counts_since(eval_before).items()}
+    saved = [p.detach().cpu().clone() for p in tr.model.parameters()]
+    saved_moments = adam_moments(tr.state.optimizer)
+    del tr
+    conf = train_config("flagship_sigma25", corpus, max_steps=then, checkpoint_rate=first,
+                        eval_rate=0, verbose_rate=1)
+    tr = smoke_trainer(conf, wd, images, rec_b)
+    restored_ok = (tr.state.step == first and same_tensors(
+        saved, [p.detach().cpu() for p in tr.model.parameters()])
+        and same_tensors(saved_moments, adam_moments(tr.state.optimizer)))
+    tr.run()
+    sync()
+    final = [p.detach().cpu() for p in tr.model.parameters()]
+    ds = tr._stage_dataset(conf["train"]["stages"][0], 0)
+    straight = [b for _, b in zip(range(then), batched_loader(ds, 4))][first:]
+    batches_ok = len(rec_b) == then - first and all(
+        same_tensors(r["batch"], (torch.from_numpy(n), torch.from_numpy(c)))
+        for r, (n, c) in zip(rec_b, straight))
+    recs = rec_a + rec_b
+    # every tensor must get a non-zero gradient in every step (a graph cut
+    # would leave some at zero); whether a tensor moves is reported: the
+    # solvers' log-parameters start at log(1e-4), where their gradients
+    # (~1e-12) give Adam updates of ~lr·1e-4, below an f32 ulp of the value
+    moved = sum(not torch.equal(a, b) for a, b in zip(initial, final))
+    line["flagship"] = dict(
+        steps=[r["step"] for r in recs], loss=[r["loss"] for r in recs],
+        psnr=[r["psnr"] for r in recs], restored_bitwise=restored_ok,
+        resumed_batches_bitwise=batches_ok, params_moved=f"{moved}/{len(final)}",
+        grads_nonzero=[r["grads_nonzero"] for r in recs],
+        step_launches=sum(sum(r["launches"].values()) for r in recs),
+        eval_launches=eval_launches,
+        eval_want=times_launches(EVAL_PER_IMAGE["flagship"], 6), **step_times(recs, 4))
+    smoke.path_counts["train_eval_flagship_f32"] = eval_launches
+    smoke.path_counts["train_steps_flagship"] = {n: sum(r["launches"][n] for r in recs)
+                                                 for n in KERNEL_NAMES}
+    print(f"train flagship: {line['flagship']['median_step_ms']} ms a step "
+          f"({line['flagship']['images_per_s']} images/s, 128x128 batch 4, f32), losses "
+          f"{[round(x, 5) for x in line['flagship']['loss']]}", flush=True)
+    check(restored_ok, "flagship: the restored params or Adam moments differ from the saved")
+    check(batches_ok, "flagship: the batches after the resume differ from a straight run's")
+    check(all(np.isfinite(r["loss"]) for r in recs), "flagship: a loss is not finite")
+    check(all(r["grads_nonzero"] == len(final) and r["grads_finite"] for r in recs),
+          f"flagship: parameter tensors with a zero or non-finite gradient: "
+          f"{[len(final) - r['grads_nonzero'] for r in recs]}")
+    check(all(no_launches(r["launches"]) for r in recs), "flagship: a kernel launched in a step")
+    check(eval_launches == line["flagship"]["eval_want"],
+          f"flagship: eval launches {eval_launches}")
+    batch = rec_a[0]["batch"]
+    del tr, initial, saved, saved_moments, final
+    torch.cuda.empty_cache()
+
+    # 2. the card's gradient against the CPU's
+    torch.manual_seed(0)
+    mc = dict(TRAIN_CONFIGS["flagship_sigma25"]["model"])
+    model = create_model(mc.pop("type"), **mc)
+    set_kernels(model, False)
+    cpu_model = copy.deepcopy(model)
+    model.to(DEVICE)
+    noise = code_noise(4, mc["dims"], 128, "cpu")
+    loss_gpu, g_gpu = loss_and_grads(model, batch[0].to(DEVICE), batch[1].to(DEVICE),
+                                     tuple(n.to(DEVICE) for n in noise))
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = loss_and_grads(cpu_model, batch[0], batch[1], noise)
+    cpu_s = time.perf_counter() - t0
+    gap, where = grad_gaps(g_gpu, g_cpu)
+    line["grad_vs_cpu"] = dict(loss_card=loss_gpu, loss_cpu=loss_cpu,
+                               loss_rel=abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+                               worst_grad_gap=gap, worst_tensor=where, tensors=len(g_cpu),
+                               cpu_s=round(cpu_s, 3), tf32=torch.backends.cudnn.allow_tf32)
+    print(f"train grad: loss card {loss_gpu:.7f} cpu {loss_cpu:.7f}; worst gradient gap "
+          f"{gap:.3g} of max ({where})", flush=True)
+    check(line["grad_vs_cpu"]["loss_rel"] <= TRAIN_LOSS_RTOL, "grad: loss card vs CPU")
+    check(gap <= TRAIN_GRAD_RTOL, f"grad: {where} card vs CPU {gap}")
+    del cpu_model, g_cpu, g_gpu
+
+    # 6. the guard (this model's parameters require grad)
+    set_kernels(model, True)
+    before = launch_counts()
+    try:
+        model(torch.rand(1, 64, 64, 3, device=DEVICE))
+        guard = "no error"
+    except RuntimeError as exc:
+        guard = str(exc)
+    line["guard"] = dict(message=guard, launches=sum(counts_since(before).values()))
+    check("set_kernels(model, False)" in guard and not line["guard"]["launches"],
+          f"guard: {guard}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 3. distillation
+    rec_d, tcounts = [], []
+    conf = train_config("micro_distill_sigma25", corpus, max_steps=TRAIN_STEPS["distill"],
+                        checkpoint_rate=0, eval_rate=0, verbose_rate=1)
+    tr = smoke_trainer(conf, os.path.join(work, "distill"), images, rec_d, check_first=True)
+    teacher = tr.teacher
+    teacher_before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    forward = teacher.forward
+
+    def counted_forward(x):
+        b = launch_counts()
+        out = forward(x)
+        tcounts.append(counts_since(b))
+        return out
+
+    teacher.forward = counted_forward
+    tr.run()
+    sync()
+    teacher.forward = forward
+    want = PER_REQUEST[(512, 512)]
+    student = [{n: r["launches"][n] - t[n] for n in KERNEL_NAMES} for r, t in zip(rec_d, tcounts)]
+    teacher_same = all(torch.equal(v, teacher.state_dict()[k]) for k, v in teacher_before.items())
+    student_model = tr.model
+    noisy, clean = (t.to(DEVICE) for t in rec_d[0]["batch"])
+    t_out = teacher_forward(teacher, noisy)
+    distill_term = lambda den: torch.mean(torch.abs(den - t_out))  # noqa: E731
+    noise = code_noise(4, TRAIN_CONFIGS["micro_distill_sigma25"]["model"]["dims"], 128, DEVICE)
+    set_remat(student_model, True)
+    _, g_on = loss_and_grads(student_model, noisy, clean, noise, distill_term)
+    set_remat(student_model, False)
+    _, g_off = loss_and_grads(student_model, noisy, clean, noise, distill_term)
+    set_remat(student_model, True)
+    remat_gap, remat_where = grad_gaps(g_on, {n: g.cpu() for n, g in g_off.items()})
+    fixed = []
+    for _ in range(TRAIN_STEPS["fixed_batch"]):
+        _, m = tr.train_step(tr.state, noisy, clean, None, latent_noise=noise)
+        fixed.append(float(m["loss"]))
+    line["distill"] = dict(
+        steps=[r["step"] for r in rec_d], loss=[r["loss"] for r in rec_d],
+        teacher_launches=tcounts, student_launches=student, teacher_want=want,
+        first_step_checks={k: v for k, v in rec_d[0]["checks"].items()},
+        teacher_params_bitwise_unchanged=teacher_same, remat_grad_gap=remat_gap,
+        remat_worst_tensor=remat_where, fixed_batch_loss=[fixed[0], fixed[-1]],
+        **step_times(rec_d, 4))
+    smoke.path_counts["train_teacher"] = {n: sum(t[n] for t in tcounts) for n in KERNEL_NAMES}
+    print(f"train distill: {line['distill']['median_step_ms']} ms a step "
+          f"({line['distill']['images_per_s']} images/s); teacher calls checked "
+          f"{rec_d[0]['checks']['calls_checked']}; remat gap {remat_gap:.3g}; fixed batch "
+          f"{fixed[0]:.5f} -> {fixed[-1]:.5f}", flush=True)
+    check(len(tcounts) == len(rec_d) and all(t == want for t in tcounts),
+          f"distill: teacher launches {tcounts}")
+    check(all(no_launches(s) for s in student), f"distill: student launches {student}")
+    check(rec_d[0]["checks"]["calls_ok"], "distill: a teacher kernel call disagrees with its "
+          f"plain version ({rec_d[0]['checks']['max_abs_err']})")
+    check(teacher_same, "distill: the teacher's params changed")
+    check(remat_gap <= TRAIN_GRAD_RTOL, f"distill: remat on vs off {remat_where} {remat_gap}")
+    check(all(np.isfinite(r["loss"]) for r in rec_d), "distill: a loss is not finite")
+    check(fixed[-1] < fixed[0], f"distill: fixed batch loss {fixed[0]} -> {fixed[-1]}")
+
+    # 5. serving the trained student
+    path = os.path.join(work, "micro_trained.npz")
+    save_params_npz(path, params_from_torch(student_model), dtype=torch.bfloat16)
+    del tr, teacher, student_model, g_on, g_off
+    torch.cuda.empty_cache()
+    val = synthetic_val_set()
+    served = load_model(weights=path, device=DEVICE, name="micro")
+    res, counts = counted(lambda: evaluate_pairs(batch_forward(served), val, 25.0, bucket=64))
+    smoke.path_counts["train_eval_micro_trained"] = counts
+    f32 = load_model(weights=path, device=DEVICE, dtype=torch.float32, name="micro")
+    ker = evaluate_pairs(batch_forward(f32), val, 25.0, bucket=64)
+    set_kernels(f32, False)
+    plain = evaluate_pairs(batch_forward(f32), val, 25.0, bucket=64)
+    f32_gap = max(abs(a - b) for a, b in zip(ker["psnr"], plain["psnr"]))
+    line["served_student"] = dict(psnr_bf16=res["mean_psnr"], psnr_per_image=res["psnr"],
+                                  launches=counts,
+                                  want=times_launches(EVAL_PER_IMAGE["micro"], len(val)),
+                                  f32_kernels_vs_plain_max_gap_db=f32_gap,
+                                  snapshot_bytes=os.path.getsize(path))
+    print(f"train served student (micro, bf16): {res['mean_psnr']:.4f} dB on the synthetic val "
+          f"set (no target); f32 kernels vs plain {f32_gap:.5f} dB", flush=True)
+    check(counts == line["served_student"]["want"], f"served student: launches {counts}")
+    check(f32_gap <= EVAL_SAME_DB, f"served student: f32 kernels vs plain {f32_gap} dB")
+    del served, f32
+    torch.cuda.empty_cache()
+
+    # 4. pixel
+    rec_p = []
+    conf = train_config("lightformer_pixel_sigma", corpus, max_steps=TRAIN_STEPS["pixel"],
+                        checkpoint_rate=0, eval_rate=0, verbose_rate=1)
+    tr = smoke_trainer(conf, os.path.join(work, "pixel"), images, rec_p)
+    tr.run()
+    sync()
+    line["pixel"] = dict(steps=[r["step"] for r in rec_p], loss=[r["loss"] for r in rec_p],
+                         step_launches=sum(sum(r["launches"].values()) for r in rec_p),
+                         **step_times(rec_p, 16))
+    smoke.path_counts["train_steps_student"] = {
+        n: smoke.path_counts["train_steps_flagship"][n] + sum(s[n] for s in student)
+        + sum(r["launches"][n] for r in rec_p) for n in KERNEL_NAMES}
+    print(f"train pixel: {line['pixel']['median_step_ms']} ms a step "
+          f"({line['pixel']['images_per_s']} images/s, 64x64 batch 16, f32), losses "
+          f"{[round(x, 5) for x in line['pixel']['loss']]}", flush=True)
+    check(all(np.isfinite(r["loss"]) for r in rec_p), "pixel: a loss is not finite")
+    check(all(no_launches(r["launches"]) for r in rec_p), "pixel: a kernel launched in a step")
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    line["failed_checks"] = fails
+    smoke.lines["train"] = line
+    require(not fails, f"train: {fails}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2478,17 +2997,23 @@ def main() -> int:
         smoke.run("eval", phase_eval, smoke)
         smoke.run("variants", phase_variants, smoke)
         smoke.run("tile", phase_tile, smoke)
+        smoke.run("train", phase_train, smoke)
     smoke.lines["device_ms"] = device_ms_sessions()
-    print(json.dumps(kernels_line(smoke)), flush=True)
+    kernels = kernels_line(smoke)
+    print(json.dumps(kernels), flush=True)
     for key in ("ptxas", "serving", "profile", "small_models", "pixel", "ablation",
-                "band_route", "k7_band_512", "model", "eval", "variants", "tile", "device_ms"):
+                "band_route", "k7_band_512", "model", "eval", "variants", "tile", "train",
+                "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_lines.json"), "w") as fh:
-        json.dump(smoke.lines, fh, indent=1)
+        json.dump(dict(smoke.lines, kernels=kernels, path_counts=smoke.path_counts), fh, indent=1)
     total = time.perf_counter() - t_start
     if build_s is not None and build_s > BUDGET_S["build"]:
         smoke.failed.append(f"build over its {BUDGET_S['build']} s budget ({build_s:.1f} s)")
+    if smoke.phases.get("train", 0) > BUDGET_S["train"]:
+        smoke.failed.append(f"train over its {BUDGET_S['train']} s budget "
+                            f"({smoke.phases['train']:.1f} s)")
     if total > BUDGET_S["total"]:
         smoke.failed.append(f"run over its {BUDGET_S['total']} s budget ({total:.1f} s)")
     print(card)  # again beside the results: the card's name and power limit

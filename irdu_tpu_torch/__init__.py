@@ -6,5 +6,7 @@ The package imports torch and numpy only; the JAX package is the reference
 it is tested against, never a dependency. Hand-written CUDA kernels live
 under ``kernels/csrc`` and are built with nvcc at first use
 (``kernels/build.py``); every kernel wrapper runs its plain PyTorch version
-for CPU tensors and launches the kernel for CUDA tensors.
+for CPU tensors and launches the kernel for CUDA tensors, or raises where
+autograd would record the launch. ``train/`` trains the models on the plain
+versions with autograd, as the JAX package trains on its jnp path.
 """

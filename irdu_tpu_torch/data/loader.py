@@ -1,0 +1,101 @@
+"""Batched loading and device prefetch (counterpart:
+``irdu_tpu/data/loader.py``).
+
+``batched_loader`` assembles (noisy, clean) numpy batches in a thread pool
+over ``dataset[i]`` (numpy releases the GIL for the heavy parts), one batch
+ahead of the consumer. JAX's "native" backend, its C++ batch assembler, is
+not ported (ROADMAP queue 1, "the native C++ batch path"): "auto" is the
+thread pool, and "native" raises.
+
+``device_prefetch`` turns the numpy batches into tensors on the device,
+``size`` batches in flight: on a CUDA device each batch goes through pinned
+host memory and is copied with ``non_blocking=True``, so the copy overlaps
+the step; on the CPU the tensors share the numpy arrays' memory.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+
+def batched_loader(
+    dataset,
+    batch_size: int,
+    *,
+    num_workers: int = 4,
+    drop_last: bool = True,
+    indices: Iterable[int] | None = None,
+    backend: str = "auto",
+    skip_batches: int = 0,
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Yield (noisy, clean) batches stacked on axis 0, in index order.
+
+    skip_batches: fast-forward the index stream by that many batches without
+    making them (a mid-stage resume). An item is a pure function of (dataset
+    seed, index), so the stream after the skip is the one a replay gives.
+    """
+    if backend == "native":
+        raise NotImplementedError(
+            "the native C++ batch backend is not ported (ROADMAP queue 1: the native "
+            "C++ batch path); use backend='auto' or 'python'")
+    if backend not in ("auto", "python"):
+        raise ValueError(f"unknown loader backend: {backend}")
+    idx_iter = iter(indices) if indices is not None else iter(range(len(dataset)))
+    if skip_batches:
+        next(itertools.islice(idx_iter, skip_batches * batch_size,
+                              skip_batches * batch_size), None)
+
+    item_pool = ThreadPoolExecutor(max_workers=num_workers)
+
+    def fetch(batch_idx):
+        items = list(item_pool.map(dataset.__getitem__, batch_idx))
+        return np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
+
+    def batches():
+        while True:
+            batch_idx = list(itertools.islice(idx_iter, batch_size))
+            if not batch_idx or (drop_last and len(batch_idx) < batch_size):
+                return
+            yield batch_idx
+
+    try:
+        with ThreadPoolExecutor(max_workers=1) as prefetcher:
+            pending = collections.deque()
+            for batch_idx in batches():
+                pending.append(prefetcher.submit(fetch, batch_idx))
+                if len(pending) >= 2:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
+    finally:
+        item_pool.shutdown(wait=False)
+
+
+def device_prefetch(iterator: Iterator, device: str | torch.device = "cuda", *,
+                    size: int = 2) -> Iterator:
+    """Each batch (a tuple of numpy arrays) as tensors on ``device``, with
+    ``size`` batches in flight. CUDA: pinned host copies, copied to the card
+    with ``non_blocking=True`` on the current stream (the step that reads
+    them runs after the copy on the same stream). CPU: ``torch.from_numpy``,
+    no copy."""
+    device = torch.device(device)
+    queue = collections.deque()
+
+    def put(batch):
+        tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
+        if device.type == "cpu":
+            return tensors
+        return tuple(t.pin_memory().to(device, non_blocking=True) for t in tensors)
+
+    for batch in iterator:
+        queue.append(put(batch))
+        if len(queue) >= size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()

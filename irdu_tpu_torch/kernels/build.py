@@ -186,6 +186,23 @@ def dtype_code(dtype: torch.dtype) -> int:
     return _DTYPE_CODES[dtype]
 
 
+def refuse_grad(kernel: str, *args) -> None:
+    """Raise RuntimeError where a kernel would launch into a graph autograd
+    records: the first tensor argument off the CPU (a CPU tensor takes the
+    differentiable plain version), grad enabled and a tensor argument that
+    requires grad. A kernel writes its output through a raw pointer, so the
+    graph would end there without a word and the parameters upstream get no
+    gradient. There is no fallback: train with the kernels off."""
+    tensors = [t for t in args if isinstance(t, torch.Tensor)]
+    if (tensors and tensors[0].device.type != "cpu" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        raise RuntimeError(
+            f"{kernel}: a kernel launch cannot carry gradients, and an input requires "
+            "grad; run the model's plain versions with "
+            "irdu_tpu_torch.models.registry.set_kernels(model, False), or call it under "
+            "torch.inference_mode()")
+
+
 def check_status(kernel: str, status: int) -> None:
     """Raise if a launch returned a CUDA error."""
     if status != 0:

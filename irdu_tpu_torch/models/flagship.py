@@ -41,7 +41,7 @@ from irdu_tpu_torch.models.blocks import (
     LocalNonLinearBlock,
     RegionalPixelEmbedding,
 )
-from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise, Upsample2x2
+from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise, Upsample2x2, remat_call
 from irdu_tpu_torch.models.registry import require
 from irdu_tpu_torch.ops.block_stack import fused_block_stack, pack_block_params
 from irdu_tpu_torch.ops.gated_block import fused_gated_block
@@ -73,17 +73,21 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         ``use_pallas_*`` flags choose between two computations of the same
         function in JAX; the port routes by device (kernels on a CUDA
         tensor, their plain versions on a CPU one) and ``use_kernels``, so
-        both values build the same model. ``remat`` is a training knob with
-        no effect at inference."""
+        both values build the same model. ``remat`` (the attribute of the
+        same name; ``registry.set_remat`` flips it) recomputes each block of
+        the plain route and each filtering block in the backward pass
+        (``layers.remat_call``), JAX's ``nn.remat``: a training-memory knob
+        with the same values and no effect at inference."""
         require("nsubnets", tuple(nsubnets), [(1,) * len(dims)])
         require("window", window, ["cross4"])
-        del use_pallas_blocks, use_pallas_solver, remat
+        del use_pallas_blocks, use_pallas_solver
         super().__init__()
         d, hd = dims, hidden_dims
         self.dims = tuple(dims)
         self.eval_filter_scales = (None if eval_filter_scales is None
                                    else tuple(eval_filter_scales))
         self.use_kernels = True
+        self.remat = remat
         cv = conv_variant
 
         def blocks(prefix, s, n):
@@ -117,7 +121,7 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         x = self.patch_3x3_embeding(img.permute(0, 3, 1, 2))
         codes = []
         for s in range(4):
-            x = run_blocks(x, self.encoder_scales[s], self.use_kernels)
+            x = run_blocks(x, self.encoder_scales[s], self.use_kernels, self.remat)
             codes.append(x)
             if s < 3:
                 x = self.down_samples[s](x)
@@ -127,7 +131,7 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         """Per-scale unrolled graph filtering of the codes
         (``eval_filter_scales`` passes the others through)."""
         keep = range(4) if self.eval_filter_scales is None else self.eval_filter_scales
-        return tuple(f(c) if s in keep else c
+        return tuple(remat_call(f, c, self.remat) if s in keep else c
                      for s, (f, c) in enumerate(zip(self.local_filters, codes)))
 
     def decode(self, codes) -> torch.Tensor:
@@ -137,8 +141,8 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         for s in (2, 1, 0):
             x = self.up_samples[s](x)
             x = self.combine_channels[s](torch.cat([x, codes[s]], dim=1))
-            x = run_blocks(x, self.decoder_scales[s], self.use_kernels)
-        x = run_blocks(x, self.refining_block, self.use_kernels)
+            x = run_blocks(x, self.decoder_scales[s], self.use_kernels, self.remat)
+        x = run_blocks(x, self.refining_block, self.use_kernels, self.remat)
         return self.linear_output(x).permute(0, 2, 3, 1)
 
     def enc_dec(self, img: torch.Tensor) -> torch.Tensor:
@@ -148,14 +152,15 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         return self.decode(self.filtering(self.encode(img)))
 
 
-def run_blocks(x, blocks, use_kernels=True):
+def run_blocks(x, blocks, use_kernels=True, remat=False):
     """A list of LocalNonLinearBlocks over x (B, C, H, W): with
     ``use_kernels``, through K3 in chunks of ``STACK_MAX_BLOCKS`` when
     C ≤ ``STACK_MAX_DIM``, else block by block through K4; without, as the
-    modules' PyTorch ops. The ablations' feature heads run here too."""
+    modules' PyTorch ops, each recomputed in the backward pass with
+    ``remat``. The ablations' feature heads run here too."""
     if not use_kernels:
         for block in blocks:
-            x = block(x)
+            x = remat_call(block, x, remat)
         return x
     if x.shape[1] <= STACK_MAX_DIM:
         for k in range(0, len(blocks), STACK_MAX_BLOCKS):

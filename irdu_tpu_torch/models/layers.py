@@ -1,8 +1,9 @@
 """Layers of the flagship and the pixel family, channels-first (B, C, H, W).
 
 Weights are stored in PyTorch's conv layouts; ``kernel_to_torch`` converts the
-JAX package's flax kernel of the same layer (counterpart:
-``irdu_tpu/models/layers.py``, "plain" variant, one channel group):
+JAX package's flax kernel of the same layer, and ``kernel_from_torch`` back
+(counterpart: ``irdu_tpu/models/layers.py``, "plain" variant, one channel
+group):
 
   GroupedPointwise  flax (I, O)            → conv2d (O, I, 1, 1)
   Conv3x3Replicate  flax HWIO (3, 3, I/g, O) → conv2d (O, I/g, 3, 3)
@@ -45,6 +46,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 VARIANTS = ("plain", "spectral_norm", "non_expansive")
@@ -87,6 +89,17 @@ def cached(owner: nn.Module, sources, compute):
     if entry is None or entry[0] != key:
         entry = owner.__dict__["_cached"] = (key, tuple(sources), compute())
     return entry[2]
+
+
+def remat_call(module: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``module(x)``; with ``remat`` and grad enabled, through
+    ``torch.utils.checkpoint`` (non-reentrant): the activations inside are
+    not kept but recomputed in the backward pass, as JAX's ``nn.remat``
+    does. The values and the gradients are the same; the module's
+    parameter names are untouched."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, x, use_reentrant=False)
+    return module(x)
 
 
 class VariantConv(nn.Module):
@@ -145,6 +158,10 @@ class GroupedPointwise(VariantConv):
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
         return k.t()[:, :, None, None]
 
+    @staticmethod
+    def kernel_from_torch(w: torch.Tensor) -> torch.Tensor:
+        return w[:, :, 0, 0].t()
+
     def forward(self, x):
         return F.conv2d(x, self.folded())
 
@@ -164,6 +181,10 @@ class Conv3x3Replicate(VariantConv):
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
         return k.permute(3, 2, 0, 1)
 
+    @staticmethod
+    def kernel_from_torch(w: torch.Tensor) -> torch.Tensor:
+        return w.permute(2, 3, 1, 0)
+
     def forward(self, x):
         return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), self.folded(),
                         groups=self.groups)
@@ -181,6 +202,10 @@ class Downsample2x2(VariantConv):
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
         four_i, o = k.shape
         return k.reshape(2, 2, four_i // 4, o).permute(3, 2, 0, 1)
+
+    @staticmethod
+    def kernel_from_torch(w: torch.Tensor) -> torch.Tensor:
+        return w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
 
     def forward(self, x):
         return F.conv2d(x, self.folded(), stride=2)
@@ -202,6 +227,10 @@ class Upsample2x2(VariantConv):
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
         i, four_o = k.shape
         return k.reshape(i, 2, 2, four_o // 4).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def kernel_from_torch(w: torch.Tensor) -> torch.Tensor:
+        return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
 
     OUT_DIM = 1
 
@@ -237,6 +266,7 @@ class Conv3x3Zero(nn.Module):
         self.weight = uniform_param((features, c_in // groups, 3, 3), c_in // groups * 9)
 
     kernel_to_torch = staticmethod(Conv3x3Replicate.kernel_to_torch)
+    kernel_from_torch = staticmethod(Conv3x3Replicate.kernel_from_torch)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, padding=1, groups=self.groups)

@@ -26,16 +26,17 @@ class MultiScaleSequenceDenoiser(nn.Module):
         """The keywords after ``use_nhwc_solver`` are JAX's fields with JAX's
         defaults, so that a configuration's ``model`` section builds. The
         ``*_init``s set the solver's initial μ, ρ and γ as JAX's do (their
-        first entries); ``remat`` is a training knob with no effect at
-        inference. ``stats_mode`` ("scalar", or "none": the v4 core, no
-        stencil) and ``feature_n_levels`` (3, or 4: the v4 full-depth feature
-        U-Net) go to the solver. ``registry.require`` raises on a value the
+        first entries); ``remat`` (the solver's and its feature U-Net's
+        attribute; ``registry.set_remat`` flips it) recomputes each FFBlock
+        and the plain route's unroll in the backward pass, a training-memory
+        knob with no effect at inference. ``stats_mode`` ("scalar", or
+        "none": the v4 core, no stencil) and ``feature_n_levels`` (3, or 4:
+        the v4 full-depth feature U-Net) go to the solver. ``registry.require`` raises on a value the
         port does not compute yet: another window, another CG count, the
         skip-solve probe (JAX's accounting run without the unroll)."""
         require("window", window, ["diamond12"])
         require("n_cgd_iters", n_cgd_iters, [4])
         require("eval_skip_solve", eval_skip_solve, [False])
-        del remat
         super().__init__()
         self.skip_connect_weight03 = nn.Parameter(torch.tensor([0.1, 0.9]))
         self.mixtureGLR_block03 = MixtureGTV(
@@ -44,7 +45,7 @@ class MultiScaleSequenceDenoiser(nn.Module):
             feature_num_refinement=feature_num_refinement,
             use_pallas_unroll=use_pallas_solver, use_nhwc_unroll=use_nhwc_solver,
             muy_init=muy_init[0], ro_init=ro_init[0], gamma_init=gamma_init[0],
-            stats_mode=stats_mode, feature_n_levels=feature_n_levels)
+            stats_mode=stats_mode, feature_n_levels=feature_n_levels, remat=remat)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img.permute(0, 3, 1, 2)

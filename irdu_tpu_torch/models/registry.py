@@ -44,3 +44,22 @@ def create_model(name: str, **kwargs) -> nn.Module:
     if name not in registry:
         raise KeyError(f"unknown model {name!r}; available: {sorted(registry)}")
     return registry[name](**kwargs)
+
+
+def set_kernels(model: nn.Module, on: bool) -> None:
+    """Route every module of ``model`` that has the switch (the flagship's
+    blocks and solvers, the ablations' feature heads and solvers, the pixel
+    solver) through the kernels (True) or their plain versions (False, on any
+    device: the differentiable route training takes)."""
+    for m in model.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = on
+
+
+def set_remat(model: nn.Module, on: bool) -> None:
+    """Flip ``remat`` on every module of ``model`` that has it (the
+    flagship; the pixel solver and its feature U-Net): recompute the blocks
+    in the backward pass instead of keeping their activations."""
+    for m in model.modules():
+        if hasattr(m, "remat"):
+            m.remat = on

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from irdu_tpu_torch.models.layers import Conv3x3Zero, GroupedPointwise
+from irdu_tpu_torch.models.layers import Conv3x3Zero, GroupedPointwise, remat_call
 
 
 class ChannelVarNorm(nn.Module):
@@ -104,11 +104,14 @@ class FeatureExtraction(nn.Module):
     channels. Level 1 decodes at 2·dim: the upsampled code is concatenated
     with the level-1 skip and not reduced. ``n_levels``: 3, the truncated
     U-Net of the v5+ family, or 4, the v4 full depth (down3_4, the latent
-    FFBlocks at 8·dim, up4_3, reduce_chan_level3, decoder_level3)."""
+    FFBlocks at 8·dim, up4_3, reduce_chan_level3, decoder_level3). ``remat``:
+    each FFBlock recomputed in the backward pass (``layers.remat_call``)."""
 
     def __init__(self, c_in: int, out_channels: int, dim: int, num_blocks: Sequence[int],
-                 num_refinement_blocks: int, ffn_expansion_factor: float, n_levels: int = 3):
+                 num_refinement_blocks: int, ffn_expansion_factor: float, n_levels: int = 3,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if n_levels not in (3, 4):
             raise ValueError(f"n_levels must be 3 or 4, got {n_levels}")
         d, ff = dim, ffn_expansion_factor
@@ -140,7 +143,7 @@ class FeatureExtraction(nn.Module):
 
     def _stage(self, stage, x):
         for name in self.stages[stage]:
-            x = getattr(self, name)(x)
+            x = remat_call(getattr(self, name), x, self.remat)
         return x
 
     def forward(self, x):

@@ -48,7 +48,7 @@ import functools
 
 import torch
 
-from irdu_tpu_torch.kernels.build import kernel_library
+from irdu_tpu_torch.kernels.build import kernel_library, refuse_grad
 from irdu_tpu_torch.ops.gated_block import (GATED_HC, GATED_TILE_SIZES, NUM_SMS, SMEM_LIMIT,
                                             block_f32, launch_blocks)
 
@@ -191,6 +191,7 @@ def fused_block_stack(x, scales, w1t, dwk, w2t, skips):
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     that ``stack_route`` names (what each takes: ``launch_stack``,
     ``gated_block.launch_blocks``) or raises."""
+    refuse_grad("fused_block_stack", x, scales, w1t, dwk, w2t, skips)
     _check(x, scales, w1t, dwk, w2t, skips)
     if x.device.type == "cpu":
         return block_stack_plain(x, scales, w1t, dwk, w2t, skips)

@@ -30,7 +30,8 @@ import functools
 
 import torch
 
-from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
+from irdu_tpu_torch.ops.graph import at_least_f32
 from irdu_tpu_torch.ops.shifts import shift2d
 from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
 
@@ -47,10 +48,10 @@ def edge_weights_plain(feats: torch.Tensor, multi_m: torch.Tensor,
     """feats (B, G·F, H, W), multi_m (G, F) → weights (B, G, E, H, W)."""
     b, c, h, w = feats.shape
     f = c // n_graphs
-    x = feats.float().reshape(b, n_graphs, f, h, w)
+    x = at_least_f32(feats).reshape(b, n_graphs, f, h, w)
     norm = torch.sqrt(torch.sum(x * x, dim=2, keepdim=True))
     t = x / torch.clamp(norm, min=_NORMALIZE_EPS)
-    t = t * multi_m.float().reshape(1, n_graphs, f, 1, 1)
+    t = t * at_least_f32(multi_m).reshape(1, n_graphs, f, 1, 1)
     sims = [torch.sum(t * shift2d(t, dh, dw), dim=2) for dh, dw in deltas]
     return torch.softmax(torch.stack(sims, dim=2), dim=2).to(feats.dtype)
 
@@ -115,6 +116,7 @@ def edge_weights_chw(feats: torch.Tensor, multi_m: torch.Tensor, *,
     (f32 or bf16 features, contiguous; multi_m read as it is when it is f32
     or bf16 and contiguous, else cast to f32; the cross-4 or diamond-12
     window)."""
+    refuse_grad("edge_weights_chw", feats, multi_m)
     _check(feats, multi_m, n_graphs)
     if feats.device.type == "cpu":
         return edge_weights_plain(feats, multi_m, n_graphs, deltas)

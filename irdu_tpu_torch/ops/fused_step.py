@@ -64,7 +64,7 @@ from __future__ import annotations
 
 import torch
 
-from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
@@ -318,6 +318,8 @@ def gg_fused_step_chw(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (x, aux, prev and the weights contiguous, of one dtype: f32 or bf16;
     the windows in ``_launch``) or raises."""
+    refuse_grad("gg_fused_step_chw", x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
+                pgtv1, pglr1, scal)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if emit_update and mode != "cg":
@@ -361,6 +363,7 @@ def gg_matvec_chw(x, w_glr, w_gtv, pglr, pgtv, mu, ro, *, n_graphs, deltas=CROSS
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
+    refuse_grad("gg_matvec_chw", x, w_glr, w_gtv, pglr, pgtv, mu, ro)
     _check_planes("gg_matvec_chw", x, [
         ("w0", "w_glr", w_glr if with_glr else None), ("w0", "w_gtv", w_gtv),
         ("table", "pglr", pglr), ("table", "pgtv", pgtv)], n_graphs, False, deltas,
@@ -388,6 +391,7 @@ def gtv_rethresh_chw(x, y, w_gtv, pgtv, gamma, ro, *, n_graphs, deltas=CROSS4,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
+    refuse_grad("gtv_rethresh_chw", x, y, w_gtv, pgtv, gamma, ro)
     _check_planes("gtv_rethresh_chw", x, [
         ("plane", "y", y), ("w0", "w_gtv", w_gtv), ("table", "pgtv", pgtv)], n_graphs,
         False, deltas, stats_mode)

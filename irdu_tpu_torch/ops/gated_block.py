@@ -61,7 +61,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 
 EPS = 1e-5
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
@@ -318,6 +318,7 @@ def fused_gated_block(x, scale, w1, dwk, w2, skip):
     A CPU tensor takes the plain version; a bf16 CUDA tensor launches the
     wgmma kernel (what it takes: ``launch_gated``), an f32 one the block
     kernel's CUDA-core path (``launch_blocks``), or they raise."""
+    refuse_grad("fused_gated_block", x, scale, w1, dwk, w2, skip)
     _check(x, scale, w1, dwk, w2, skip)
     if x.device.type == "cpu":
         return gated_block_plain(x, scale, w1, dwk, w2, skip)

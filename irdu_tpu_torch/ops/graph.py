@@ -24,12 +24,19 @@ from irdu_tpu_torch.ops.windows import CROSS4
 Stats = Sequence[torch.Tensor]
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, the compute type of the kernels and of their plain
+    versions, or as it is in f64 (a float64 gradient check of the plain
+    route)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def stats_table_terms(tab: torch.Tensor | None) -> Stats | None:
     """A (G, 4, F) stats table as the four coefficients, each (G, F, 1, 1) f32
     (broadcast over the planes of (…, G, F, H, W) signals); None stays None."""
     if tab is None:
         return None
-    tab = tab.float()
+    tab = at_least_f32(tab)
     return [tab[:, k, :, None, None] for k in range(4)]
 
 

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.windows import DIAMOND12
 
@@ -146,6 +146,7 @@ def pixel_segment_nhwc(x, aux, prev, w_gtv, w_glr, p, scal, *, mode, n_graphs,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (diamond-12; x, aux, prev and the weights contiguous, on one device, of
     one dtype, f32 or bf16; H, W ≥ 2; p and scal any float type)."""
+    refuse_grad("pixel_segment_nhwc", x, aux, prev, w_gtv, w_glr, p, scal)
     _check(x, aux, prev, w_gtv, w_glr, p, scal, mode, n_graphs, deltas)
     used = {"rhs": (x, w_gtv), "cg1": (x, w_gtv, w_glr), "cg2": (x, aux, prev, w_gtv, w_glr),
             "rethresh": (x, aux, w_gtv)}[mode]

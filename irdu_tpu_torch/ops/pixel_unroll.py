@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import torch
 
-from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.windows import DIAMOND12
 
@@ -93,7 +93,7 @@ def k7_smem_bytes(dtype):
 def pixel_unroll_scal(n_graphs, mu, ro, gamma, alphas, betas):
     """The (G, 9) f32 table [μ, ρ, γ, α₀, α₁, α₂, α₃, β₁, β₃]. alphas/betas:
     (4, G) CG tables; only β[1] and β[3] are used."""
-    cols = [torch.as_tensor(v).float().reshape(n_graphs)
+    cols = [graph.at_least_f32(torch.as_tensor(v)).reshape(n_graphs)
             for v in (mu, ro, gamma, alphas[0], alphas[1], alphas[2], alphas[3],
                       betas[1], betas[3])]
     return torch.stack(cols, dim=1).contiguous()
@@ -101,14 +101,16 @@ def pixel_unroll_scal(n_graphs, mu, ro, gamma, alphas, betas):
 
 def pixel_unroll_plain(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
                        deltas=DIAMOND12, stats_mode="reflect"):
-    """The unroll in plain PyTorch, f32 compute, output in y's dtype."""
+    """The unroll in plain PyTorch, f32 compute (f64 for f64 inputs), output
+    in y's dtype."""
     b, f, h, w = y.shape
     g = n_graphs
-    yv = y.float()[:, None]  # (B, 1, F, H, W): broadcast over the graphs
-    wg = [w_gtv.float()[:, :, e:e + 1] for e in range(len(deltas))]
-    wl = [w_glr.float()[:, :, e:e + 1] for e in range(len(deltas))]
+    yv = graph.at_least_f32(y)[:, None]  # (B, 1, F, H, W): broadcast over the graphs
+    wg = [graph.at_least_f32(w_gtv)[:, :, e:e + 1] for e in range(len(deltas))]
+    wl = [graph.at_least_f32(w_glr)[:, :, e:e + 1] for e in range(len(deltas))]
     pg, pl = graph.stats_table_terms(pgtv), graph.stats_table_terms(pglr)
-    mu, ro, gam, *rest = (scal[:, k].float().reshape(g, 1, 1, 1) for k in range(9))
+    mu, ro, gam, *rest = (graph.at_least_f32(scal[:, k]).reshape(g, 1, 1, 1)
+                          for k in range(9))
     alpha, beta1, beta3 = rest[:4], rest[4], rest[5]
 
     def matvec(x):
@@ -154,6 +156,7 @@ def gg_pixel_unroll_chw(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (diamond-12, reflect pad; y and the weights contiguous, all f32 or all
     bf16; H, W ≥ 2; tables any float type, cast to f32)."""
+    refuse_grad("gg_pixel_unroll_chw", y, w_gtv, w_glr, pgtv, pglr, scal)
     _check(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas)
     if y.device.type == "cpu":
         return pixel_unroll_plain(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs=n_graphs,

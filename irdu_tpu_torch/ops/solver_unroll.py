@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
 from irdu_tpu_torch.ops import graph
 
@@ -138,6 +138,8 @@ def gg_unroll_chw(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (y and the weights contiguous and all f32 or all bf16; tables any float
     type, cast to f32)."""
+    refuse_grad("gg_unroll_chw", y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1,
+                pglr1, scal)
     tables = (pgtv0, pglr0, pgtv1, pglr1)
     _check(y, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, n_graphs,
            eval_cg_iters, stats_mode)

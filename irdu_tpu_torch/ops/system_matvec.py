@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library
+from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 
 # f32 operations per pixel and channel, each edge term once (an add, mul or
@@ -134,6 +134,7 @@ def fused_system_matvec(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, *, n_
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (x contiguous, f32 or bf16; the weights cast to x's dtype, the rows and
     scales to f32) or raises."""
+    refuse_grad("fused_system_matvec", x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c)
     _check(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, n_graphs)
     if x.device.type == "cpu":
         return system_matvec_plain(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c,

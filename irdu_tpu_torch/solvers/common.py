@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from irdu_tpu_torch.ops.graph import at_least_f32
+
 _STATS_INIT = (("p01", 1.0), ("p02a", 0.5), ("p02b", 0.5), ("p03", 0.5))
 STATS_MODES = ("per_channel", "scalar", "none")
 
@@ -30,11 +32,12 @@ class GraphOpParams(nn.Module):
                 setattr(self, f"stats_{k}", nn.Parameter(torch.full(shape, v)))
 
     def stats_table(self) -> torch.Tensor | None:
-        """(G, 4, F) f32 table [p01, p02a, p02b, p03], the kernels' layout; a
+        """(G, 4, F) f32 (f64 for f64 parameters) table [p01, p02a, p02b, p03],
+        the kernels' layout; a
         scalar coefficient is broadcast over (G, F); None without a stencil."""
         if self.stats_mode == "none":
             return None
-        return torch.stack([getattr(self, f"stats_{k}").float().expand(self.shape)
+        return torch.stack([at_least_f32(getattr(self, f"stats_{k}")).expand(self.shape)
                             for k, _ in _STATS_INIT], dim=1).contiguous()
 
     def stats_scalars(self) -> torch.Tensor:

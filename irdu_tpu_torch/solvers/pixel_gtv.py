@@ -10,7 +10,9 @@ graph; a learned softmax score over the graphs combines the hypotheses and
 the DC term is added back. Channels-first (B, 3, H, W), H and W multiples of
 4 (the feature U-Net).
 
-Three routes, chosen per call by JAX's flags and in JAX's precedence:
+Three routes, chosen per call by JAX's flags and in JAX's precedence (with
+the attribute ``use_kernels`` False, ``registry.set_kernels``' switch, the
+plain route whatever the flags say):
 
   NHWC  (``use_nhwc_unroll``): K2 once on 2G stacked graphs (the same
         features under the GTV and the GLR metric), its weights packed
@@ -46,12 +48,13 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from irdu_tpu_torch.models.layers import GroupedPointwise
 from irdu_tpu_torch.models.restormer_blocks import FeatureExtraction, GatedDConvBlock
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
 from irdu_tpu_torch.ops.fused_step import fused_scal, gg_fused_step_chw
-from irdu_tpu_torch.ops.graph import pack_edge_weights
+from irdu_tpu_torch.ops.graph import at_least_f32, pack_edge_weights
 from irdu_tpu_torch.ops.pixel_nhwc import pixel_unroll_nhwc
 from irdu_tpu_torch.ops.pixel_unroll import (gg_pixel_unroll_chw, pixel_unroll_plain,
                                              pixel_unroll_scal)
@@ -72,7 +75,10 @@ class MixtureGTV(nn.Module):
                  feature_num_blocks=(2, 3, 3, 4), feature_num_refinement: int = 4,
                  use_pallas_unroll: bool = False, use_nhwc_unroll: bool = False,
                  muy_init: float = 0.1, ro_init: float = 0.1, gamma_init: float = 1e-3,
-                 stats_mode: str = "scalar", feature_n_levels: int = 3):
+                 stats_mode: str = "scalar", feature_n_levels: int = 3, remat: bool = False):
+        """``remat``: the plain route's unroll (edge weights included)
+        recomputed in the backward pass, and the feature U-Net's FFBlocks
+        (its own attribute), as JAX's ``remat`` does."""
         super().__init__()
         if stats_mode not in ("scalar", "none"):
             raise ValueError(f"stats_mode must be 'scalar' or 'none', got {stats_mode!r}")
@@ -81,11 +87,13 @@ class MixtureGTV(nn.Module):
         self.deltas = DIAMOND12
         self.use_pallas_unroll = use_pallas_unroll
         self.use_nhwc_unroll = use_nhwc_unroll
+        self.use_kernels = True
+        self.remat = remat
         self.alphaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), 0.5))
         self.betaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), 0.1))
         self.patchs_features_extraction = FeatureExtraction(
             f, g * f + N_DC_CHANNELS, n_cnn_fts, feature_num_blocks,
-            feature_num_refinement, FFN_EXPANSION, n_levels=feature_n_levels)
+            feature_num_refinement, FFN_EXPANSION, n_levels=feature_n_levels, remat=remat)
         self.combination_weight = GroupedPointwise(g * f, g)
         self.dc_estimator = GatedDConvBlock(N_DC_CHANNELS, f, 2 * N_DC_CHANNELS)
         # raw μ and ρ, log γ
@@ -96,8 +104,10 @@ class MixtureGTV(nn.Module):
         self.GLRmodule00 = GraphOpParams(g, f, stats_mode=stats_mode)
 
     def route(self) -> str:
-        """"nhwc", "chw" or "plain", from the flags alone: every route takes
-        any H and W."""
+        """"nhwc", "chw" or "plain", from ``use_kernels`` and the flags
+        alone: every route takes any H and W."""
+        if not self.use_kernels:
+            return "plain"
         if self.use_nhwc_unroll:
             return "nhwc"
         return "chw" if self.use_pallas_unroll else "plain"
@@ -112,7 +122,12 @@ class MixtureGTV(nn.Module):
         if route == "nhwc":
             out = self._unroll_nhwc(ew, y_tilde)
         else:
-            out = (self._unroll_chw if route == "chw" else self._unroll_plain)(ew, y_tilde)
+            if route == "chw":
+                out = self._unroll_chw(ew, y_tilde)
+            elif self.remat and torch.is_grad_enabled():
+                out = checkpoint(self._unroll_plain, ew, y_tilde, use_reentrant=False)
+            else:
+                out = self._unroll_plain(ew, y_tilde)
             b, _, h, w = out.shape
             out = out.reshape(b, g, f, h, w)  # channel g·F + f
         # the mixture: a softmax score over the graphs
@@ -121,8 +136,8 @@ class MixtureGTV(nn.Module):
 
     def _scal(self):
         return pixel_unroll_scal(self.n_graphs, self.muys00, self.ro00,
-                                 torch.exp(self.gamma00.float()), self.alphaCGD.float(),
-                                 self.betaCGD.float())
+                                 torch.exp(at_least_f32(self.gamma00)),
+                                 at_least_f32(self.alphaCGD), at_least_f32(self.betaCGD))
 
     def _unroll_plain(self, ew, y_tilde):
         """JAX's jnp path: each operator's weights, then the unroll on the

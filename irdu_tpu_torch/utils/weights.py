@@ -1,11 +1,16 @@
-"""Load the npz weight snapshots written by the JAX package and put them
-onto the port's modules.
+"""The npz weight snapshots of the JAX package: load them and put them onto
+the port's modules (``load_params_npz``, ``params_to_torch``), and take a
+port model's parameters back to JAX's tree and write them in the same
+format (``params_from_torch``, ``save_params_npz``), so that a model the
+port trains is served by the port and by the JAX package alike.
 
 Snapshot format (written by ``irdu_tpu.utils.weights.save_params_npz``):
 keys are ``/``-joined flax parameter paths; a ``::bf16`` suffix marks a
 bfloat16 leaf stored as its raw uint16 bits; int8 pointwise snapshots store
 a 2-D kernel as ``<path>/__q8__`` (int8) plus ``<path>/__q8scale__`` (f32,
-per output channel). This copy needs numpy only.
+per output channel). This copy needs numpy and torch; ``save_params_npz``
+writes no int8 snapshot (JAX's ``int8_pointwise`` waits for the port of
+``deploy.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +22,13 @@ import torch
 def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
     """Exact bfloat16 → float32: the bf16 bits are the high half of the f32."""
     return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def f32_to_bf16_bits(arr: np.ndarray) -> np.ndarray:
+    """float32 → the bfloat16 bits (uint16), rounded to nearest even, as
+    ``ml_dtypes``' cast rounds them."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
 
 
 def load_params_npz(path: str) -> dict:
@@ -112,3 +124,68 @@ def _copy(dst: torch.Tensor, value: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: snapshot shape {tuple(value.shape)} "
                          f"!= parameter shape {tuple(dst.shape)}")
     dst.copy_(value)
+
+
+def _set(tree: dict, path, value) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value
+
+
+@torch.no_grad()
+def params_from_torch(model: torch.nn.Module, spectral: bool | None = None) -> dict:
+    """The reverse of ``params_to_torch``: JAX's variables tree of ``model``,
+    {"params": ...} with flax names and layouts (``kernel_from_torch`` of
+    each weight's module), as float32 numpy arrays (a bf16 model's values
+    widened exactly); with ``spectral`` (default: when the model has
+    ``kernel_u`` buffers) also {"spectral": ...}, the u vectors. The tree
+    goes back onto the model through ``params_to_torch`` unchanged, and
+    ``save_params_npz`` writes it as JAX's snapshot of the same model."""
+    def host(t):
+        return np.ascontiguousarray(t.detach().float().cpu().numpy())
+
+    params: dict = {}
+    for name, p in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        if leaf == "weight" and hasattr(mod, "kernel_from_torch"):
+            path = (owner.split(".") if owner else []) + ["kernel"]
+            _set(params, path, host(mod.kernel_from_torch(p)))
+        else:
+            _set(params, name.split("."), host(p))
+    tree = {"params": params}
+    buffers = [(n, b) for n, b in model.named_buffers() if n.endswith("kernel_u")]
+    if spectral or (spectral is None and buffers):
+        tree["spectral"] = {}
+        for name, b in buffers:
+            _set(tree["spectral"], name.split("."), host(b))
+    return tree
+
+
+def save_params_npz(path: str, tree: dict, dtype=None) -> None:
+    """Write a nested tree (numpy arrays or tensors; ``params_from_torch``
+    gives one) in JAX's ``save_params_npz`` format: keys the ``/``-joined
+    paths, ``np.savez_compressed``. ``dtype`` casts every leaf:
+    ``torch.bfloat16`` (or "bfloat16") stores the bf16 bits as uint16 under
+    ``<key>::bf16``, as JAX does; None keeps each leaf's dtype (a bf16
+    tensor stored the same way)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    flat = {}
+    for parts, arr in _flatten(tree):
+        key = "/".join(parts)
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu()
+            if dtype is None and arr.dtype == torch.bfloat16:
+                flat[key + "::bf16"] = arr.view(torch.int16).numpy().view(np.uint16)
+                continue
+            arr = arr.float().numpy() if arr.dtype == torch.bfloat16 else arr.numpy()
+        arr = np.asarray(arr)
+        if dtype == torch.bfloat16:
+            flat[key + "::bf16"] = f32_to_bf16_bits(arr)
+        elif dtype is not None:
+            flat[key] = arr.astype(str(dtype).removeprefix("torch."))
+        else:
+            flat[key] = arr
+    np.savez_compressed(path, **flat)

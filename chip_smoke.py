@@ -130,7 +130,12 @@ Phases, each timed and printed as it ends:
             printed): per-image PSNRs
             within EVAL_SAME_DB of one image a call; and the flagship in f32
             with its kernels against their plain versions, per image within
-            EVAL_SAME_DB;
+            EVAL_SAME_DB. Then the other snapshots with a JAX number
+            (EVAL_MORE): the 50k flagship at cg3, cg1 and both with filter
+            scales 1-3, the sigma-15 and sigma-50 flagships (the noise at
+            their own sigma) and the distilled micro at cg3 and cg1, each
+            within EVAL_BAR_DB of its EVAL_TARGETS number with its launches,
+            and each snapshot's cg3 in f32;
   variants  the three configurations of conv_variant and the v4 pixel core
             (VARIANT_MODELS, the configs' model sections at their widths;
             seeded weights) serve the 512x512 request in bf16, counts zeroed
@@ -148,6 +153,21 @@ Phases, each timed and printed as it ends:
             predict.denoise(tile=TILE), counts zeroed just before (16 tiles,
             each a 512x512 request's launches), timed in turns against the
             whole-image request, both PSNRs and their gap printed;
+  natural   the natural-image set (artifacts/natural_eval: 4 RGB PNGs read
+            without PIL, with their suspect masks) through eval.natural in
+            bf16: the noisy input's rows at sigma 25, 15 and 50 within
+            NATURAL_NOISY_DB of the JAX script's, and the nine snapshots of
+            NATURAL_ROWS (each at its sigma) within EVAL_BAR_DB of JAX's means,
+            per-image gaps printed, 4 images' launches each;
+  deploy    the serving export (irdu_tpu_torch.deploy): the 50k flagship in
+            bf16, again with int8 pointwise weights, and the pixel model, each
+            exported at 1x384x512x3 to a file, loaded by a fresh
+            load_exported and run through the protocol: within EVAL_BAR_DB of
+            JAX's number (44.743, 44.911, 36.84), every image within
+            EVAL_SAME_DB of the same model run eagerly, with the eager run's
+            launches; the int8 artifact carries 110 int8 tensors and is the
+            smaller; bytes, export and load seconds and the request ms eager
+            against the artifact (in turns) printed;
   train     the trainer (irdu_tpu_torch.train) on the card, each of the
             configs flagship_sigma25, micro_distill_sigma25 and
             lightformer_pixel_sigma (TRAIN_CONFIGS, held to the YAML by a CPU
@@ -156,7 +176,8 @@ Phases, each timed and printed as it ends:
             steps with a checkpoint and an eval, resumes in a fresh Trainer
             to step 6 (state and batches bitwise, no launch in a step, every
             parameter with a non-zero gradient); one loss and backward on the
-            card against the CPU; distillation from the 86k flagship in bf16
+            card against the CPU; distillation from the config's teacher
+            (flagship_synthetic_2050.npz) in bf16
             on K3, K4, K2 and K1 (each teacher forward one 128x128 request's
             launches, its first step's calls held against their plain
             versions, the student none, remat on against off), 20 steps on
@@ -165,11 +186,13 @@ Phases, each timed and printed as it ends:
             eval protocol with micro's launches; the autograd guard raising
             (``phase_train``).
 
-The build must take under 60 s, the train phase under 90 s and the whole
-script under 450 s; a run over any budget fails.
+The build must take under 60 s, the train phase under 90 s, the deploy
+phase under 120 s and the whole script under 450 s; a run over any budget
+fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
-results, the serving, ``k7_band_512``, model, eval, variants, tile, train and
+results, the serving, ``k7_band_512``, model, eval, variants, tile, natural,
+deploy, train and
 ``device_ms`` lines, the phase times and, only when every phase passed,
 {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits non-zero
 without a CUDA card, without the package beside this script, or when any
@@ -192,7 +215,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-BUDGET_S = {"build": 60, "train": 90, "total": 450}
+BUDGET_S = {"build": 60, "train": 90, "deploy": 120, "total": 450}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -310,12 +333,70 @@ EVAL_TARGETS = {
     "micro-cg1": (31.162, "PERF.md at 577e783, lines 170-178"),
     "pixel": (36.84, "PERF.md at 577e783, line 342"),
 }
+# the other snapshots with a JAX number on the protocol: (label, family,
+# snapshot, sigma of the noise, (cg_iters, filter_scales) per variant); each
+# variant's tag is eval.curve.variant_tag(label, cg, filter_scales)
+EVAL_MORE = (
+    ("flagship50k", "flagship", "flagship_50k_51000.npz", 25.0,
+     ((3, None), (1, None), (3, (1, 2, 3)), (1, (1, 2, 3)))),
+    ("s15", "flagship", "flagship_synthetic_s15_2050.npz", 15.0, ((3, None),)),
+    ("s50", "flagship", "flagship_synthetic_s50_2050.npz", 50.0, ((3, None),)),
+    ("distill50k", "micro", "micro_distill50k_2050.npz", 25.0, ((3, None), (1, None))),
+)
+EVAL_TARGETS.update({
+    "flagship50k-cg3": (44.743, "artifacts/round4_eval/curve_flagship50k.log:2"),
+    "flagship50k-cg1": (41.434, "artifacts/round4_eval/curve_flagship50k.log:3"),
+    "flagship50k-cg3-fs123": (39.504, "artifacts/round4_eval/curve_flagship50k.log:4"),
+    "flagship50k-cg1-fs123": (39.493, "artifacts/round4_eval/curve_flagship50k.log:5"),
+    "s15-cg3": (34.787, "artifacts/round5_eval/curve_s15.log:4 (sigma 15)"),
+    "s50-cg3": (31.512, "artifacts/round5_eval/curve_s50.log:4 (sigma 50)"),
+    "distill50k-cg3": (31.383, "artifacts/round4_eval/curve_distill50k.json"),
+    "distill50k-cg1": (31.220, "artifacts/round4_eval/curve_distill50k.json"),
+})
 EVAL_BAR_DB = 0.05  # BASELINE.md:25
 EVAL_SAME_DB = 0.01  # batched against sequential; kernels against plain in f32
 EVAL_BATCH = 4
 # launches of one 384x512 val image (the served route; pixel on NHWC, and on CHW)
 EVAL_PER_IMAGE = {"flagship": launches(3, 32, 4, 8, 0), **SMALL_MODELS, "pixel": PIXEL_NHWC,
-                  "pixel-chw": PIXEL_CHW}
+                  "pixel-chw": PIXEL_CHW,
+                  "flagship-fs123": launches(3, 32, 3, 6, 0)}  # scale 0 not filtered
+# the natural-image set (artifacts/natural_eval: 4 RGB PNGs, 66x484, 124x143,
+# 157x483, 470x235, and their suspect masks) through eval.natural in bf16: the
+# noisy input's rows (sigma: psnr, masked psnr, source) and each snapshot's
+# mean (sigma, family, snapshot, JAX's mean, JAX's per-image row), from the
+# JAX script's results_sigma*.jsonl and logs
+NATURAL_NOISY = {25.0: (20.584919084147636, 20.58418993708186,
+                        "artifacts/natural_eval/results_sigma25.jsonl:1"),
+                 15.0: (24.8693972636648, 24.869601951620016,
+                        "artifacts/round5_eval/nat_s15.log:1"),
+                 50.0: (15.067518997534416, 15.063832718427465,
+                        "artifacts/round5_eval/nat_s50.log:1")}
+NATURAL_NOISY_DB = 1e-6
+NATURAL_ROWS = (
+    (25.0, "flagship", "flagship_cont100k_35000.npz", 29.144, (31.463, 27.467, 30.173, 27.473)),
+    (25.0, "flagship", "flagship_50k_51000.npz", 28.713, (31.488, 26.273, 30.127, 26.964)),
+    (25.0, "flagship", "flagship_synthetic_2050.npz", 24.427, (26.528, 20.793, 25.39, 24.996)),
+    (25.0, "lite", "lite_synthetic_2050.npz", 24.339, (27.007, 20.735, 25.331, 24.286)),
+    (25.0, "micro", "micro_synthetic_2050.npz", 24.030, (26.482, 21.101, 25.241, 23.296)),
+    (25.0, "micro", "micro_distill50k_2050.npz", 23.941, (26.536, 21.029, 25.038, 23.159)),
+    (25.0, "pixel", "pixel_synthetic_2050.npz", 25.635, (28.766, 21.118, 26.131, 26.524)),
+    (15.0, "flagship", "flagship_synthetic_s15_2050.npz", 26.066, (28.072, 21.872, 27.203, 27.118)),
+    (50.0, "flagship", "flagship_synthetic_s50_2050.npz", 23.410, (25.887, 20.056, 24.21, 23.489)),
+)
+# the serving export (irdu_tpu_torch.deploy) on the card: (tag, family,
+# snapshot, int8 pointwise weights, input shape, JAX's protocol PSNR and its
+# source); each artifact runs the protocol on the synthetic val set
+DEPLOY_ROWS = (
+    ("flagship50k-bf16", "flagship", "flagship_50k_51000.npz", False, (1, 384, 512, 3),
+     44.743, "artifacts/round4_eval/curve_flagship50k.log:2"),
+    ("flagship50k-int8", "flagship", "flagship_50k_51000.npz", True, (1, 384, 512, 3),
+     44.911, "artifacts/round4_eval/int8.log:6"),
+    ("pixel-bf16", "pixel", "pixel_synthetic_2050.npz", False, (1, 384, 512, 3),
+     36.84, "PERF.md at 577e783, line 342"),
+)
+DEPLOY_INT8_KERNELS = 110  # JAX's count of quantized 2-D kernels (int8.log:6)
+DEPLOY_ROUNDS = 2  # request timing, eager and artifact in turns
+DEPLOY_REQUESTS = 5  # timed requests a turn
 # the configurations the registry built last: their ``model:`` sections as the
 # files give them (a CPU test holds these to the files), served at 512x512 with
 # seeded weights; the pixel model with both solver flags on, as predict serves
@@ -410,11 +491,8 @@ TRAIN_CONFIGS = {
                   "use_aux_losses": False}},
 }
 # the train phase cuts each run to stage 0 with TRAIN_PATCHES crop positions
-# (the configs' 800000 cost seconds of crop draws a dataset) and points the
-# distillation teacher at the 86k snapshot: .chiprunignore leaves the
-# config's flagship_synthetic_2050.npz out of the copy
+# (the configs' 800000 cost seconds of crop draws a dataset)
 TRAIN_PATCHES = 2400
-TRAIN_TEACHER = "artifacts/weights/flagship_cont100k_35000.npz"
 TRAIN_STEPS = {"flagship": (3, 6), "distill": 6, "pixel": 4, "fixed_batch": 20}
 TRAIN_GRAD_RTOL = 1e-3  # card against CPU: max|d| <= this of max(1e-6, max|g_cpu|), per tensor
 TRAIN_LOSS_RTOL = 1e-5
@@ -1556,7 +1634,7 @@ def k6_composition(args, kw, g):
     path (the half-res stencils on the x box's box means, the 2x2 box's
     half-res term) and its epilogues against that body; each call is also
     held against its plain version in its own rows."""
-    from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
+    from irdu_tpu_torch.ops.graph import box_down2x2, box_up2x2
     from irdu_tpu_torch.ops.fused_step import gg_matvec_chw, gtv_rethresh_chw
 
     x, aux, prev, wg0, wl0, wg1, wl1, pg0, pl0, pg1, pl1, scal = args
@@ -2299,22 +2377,22 @@ def phase_eval(smoke):
 
     images = synthetic_val_set()
 
-    def protocol(model):
-        return evaluate_pairs(batch_forward(model), images, 25.0, bucket=64)
+    def protocol(model, sigma=25.0):
+        return evaluate_pairs(batch_forward(model), images, sigma, bucket=64)
 
     def gap(a, b):
         return max(abs(x - y) for x, y in zip(a, b))
 
     rows, batched, lines = [], [], []
 
-    def record(tag, per, res, counts, dtype="bfloat16"):
+    def record(tag, per, res, counts, dtype="bfloat16", sigma=25.0):
         target, source = EVAL_TARGETS.get(tag, (None, None))
-        row = dict(variant=tag, dtype=dtype, psnr=res["mean_psnr"], psnr_per_image=res["psnr"],
-                   target=target, target_source=source,
+        row = dict(variant=tag, dtype=dtype, sigma=sigma, psnr=res["mean_psnr"],
+                   psnr_per_image=res["psnr"], target=target, target_source=source,
                    gap_db=None if target is None else res["mean_psnr"] - target,
                    launches=counts, want=times_launches(EVAL_PER_IMAGE[per], len(images)))
         rows.append(row)
-        lines.append(f"eval {tag} ({dtype}): mean {row['psnr']:.4f} dB, target "
+        lines.append(f"eval {tag} ({dtype}, sigma {sigma:g}): mean {row['psnr']:.4f} dB, target "
                      f"{target if target is not None else 'none'}"
                      + ("" if target is None else f", gap {row['gap_db']:+.4f}")
                      + f"; per image {[round(p, 4) for p in res['psnr']]}")
@@ -2355,8 +2433,8 @@ def phase_eval(smoke):
             torch.cuda.empty_cache()
         model = load_model(device=DEVICE, dtype=torch.float32, name=name)
         ker = protocol(model)
-        rows.append(dict(variant=variant_tag(name, 3, None), dtype="float32", psnr=ker["mean_psnr"],
-                         psnr_per_image=ker["psnr"]))
+        rows.append(dict(variant=variant_tag(name, 3, None), dtype="float32", sigma=25.0,
+                         psnr=ker["mean_psnr"], psnr_per_image=ker["psnr"]))
         print(f"eval {rows[-1]['variant']} (float32): mean {ker['mean_psnr']:.4f} dB", flush=True)
         if name == "flagship":
             set_kernels(model, False)
@@ -2365,8 +2443,27 @@ def phase_eval(smoke):
                        max_gap_db=gap(ker["psnr"], plain["psnr"]))
         del model
         torch.cuda.empty_cache()
+    for label, family, fname, sigma, variants in EVAL_MORE:
+        path = os.path.join(REPO, "artifacts", "weights", fname)
+        for cg, fs in variants:
+            tag = variant_tag(label, cg, fs)
+            model = load_model(path, DEVICE, name=family, cg_iters=cg, filter_scales=fs)
+            res, smoke.path_counts[f"eval_{tag}"] = counted(lambda: protocol(model, sigma))
+            per = family if fs is None else f"{family}-fs{''.join(map(str, fs))}"
+            record(tag, per, res, smoke.path_counts[f"eval_{tag}"], sigma=sigma)
+            del model
+            torch.cuda.empty_cache()
+        model = load_model(path, DEVICE, torch.float32, name=family)
+        ker = protocol(model, sigma)
+        rows.append(dict(variant=variant_tag(label, 3, None), dtype="float32", sigma=sigma,
+                         psnr=ker["mean_psnr"], psnr_per_image=ker["psnr"]))
+        print(f"eval {rows[-1]['variant']} (float32, sigma {sigma:g}): mean "
+              f"{ker['mean_psnr']:.4f} dB", flush=True)
+        del model
+        torch.cuda.empty_cache()
     smoke.lines["eval"] = {"eval": rows, "batched": batched, "f32_kernels_vs_plain": f32,
-                           "images": "synthetic_val_set(): 6 at 384x512", "sigma": 25.0,
+                           "images": "synthetic_val_set(): 6 at 384x512",
+                           "sigma": "25 unless the row says",
                            "bucket": 64, "bar_db": EVAL_BAR_DB, "same_db": EVAL_SAME_DB}
     for r in rows:
         if r.get("target") is not None:
@@ -2531,11 +2628,169 @@ def phase_tile(smoke):
             f"tile: PSNR {row['psnr_noisy']} -> {row['psnr_tiled']}")
 
 
+def phase_natural(smoke):
+    """The natural-image set through ``eval.natural`` on the card in bf16:
+    the noisy input's rows at sigma 25, 15 and 50 within NATURAL_NOISY_DB of
+    the JAX script's (they cover the PNG reader, the masks, the noise, the
+    pad and the rounding), then each snapshot of NATURAL_ROWS at its sigma,
+    counts zeroed just before and read just after (4 times one image's
+    launches, EVAL_PER_IMAGE): its mean within EVAL_BAR_DB of JAX's, the
+    per-image gaps and the masked mean printed."""
+    import torch
+
+    from irdu_tpu_torch.eval import natural
+
+    images, masks = natural.load_set()
+    noisy, rows = [], []
+    for sigma, (want, want_masked, source) in NATURAL_NOISY.items():
+        r = natural.noisy_row(images, masks, sigma)
+        noisy.append(dict(sigma=sigma, psnr=r["psnr"], masked_psnr=r["masked_psnr"],
+                          target=want, masked_target=want_masked, source=source,
+                          gap_db=r["psnr"] - want, masked_gap_db=r["masked_psnr"] - want_masked))
+        print(f"natural noisy input, sigma {sigma:g}: {r['psnr']:.9f} dB (JAX {want:.9f}), "
+              f"masked {r['masked_psnr']:.9f} (JAX {want_masked:.9f})", flush=True)
+    for sigma, family, fname, target, per_image in NATURAL_ROWS:
+        path = os.path.join(natural.WEIGHTS, fname)
+        row, counts = counted(lambda: natural.snapshot_row(family, path, images, masks, sigma,
+                                                           device=DEVICE))
+        smoke.path_counts[f"natural_{fname[:-len('.npz')]}"] = counts
+        rows.append(dict(row, sigma=sigma, target=target, gap_db=row["psnr"] - target,
+                         per_image_target=list(per_image),
+                         per_image_gap=[round(a - b, 3) for a, b in zip(row["per_image"],
+                                                                        per_image)],
+                         launches=counts,
+                         want=times_launches(EVAL_PER_IMAGE[family], len(images))))
+        print(f"natural {fname} (sigma {sigma:g}, bf16): mean {row['psnr']:.4f} dB, JAX "
+              f"{target}, gap {rows[-1]['gap_db']:+.4f}; masked {row['masked_psnr']:.4f}; "
+              f"per-image gaps {rows[-1]['per_image_gap']}", flush=True)
+        torch.cuda.empty_cache()
+    smoke.lines["natural"] = {"noisy": noisy, "rows": rows, "bar_db": EVAL_BAR_DB,
+                              "noisy_bar_db": NATURAL_NOISY_DB, "bucket": natural.BUCKET,
+                              "images": [list(im.shape) for im in images]}
+    for r in noisy:
+        require(abs(r["gap_db"]) <= NATURAL_NOISY_DB and abs(r["masked_gap_db"])
+                <= NATURAL_NOISY_DB, f"natural noisy input at sigma {r['sigma']}: {r}")
+    for r in rows:
+        require(abs(r["gap_db"]) <= EVAL_BAR_DB,
+                f"natural {r['snapshot']}: {r['psnr']:.4f} dB, JAX {r['target']}")
+        require(r["launches"] == r["want"],
+                f"natural {r['snapshot']}: launches {r['launches']}, want {r['want']}")
+
+
+def phase_deploy(smoke):
+    """The serving export on the card (``irdu_tpu_torch.deploy``): each
+    DEPLOY_ROWS model exported by ``export_forward`` into a file under the
+    git-ignored experiments/, loaded by a fresh ``load_exported`` and run
+    through the protocol on the synthetic val set (sigma 25, bucket 64),
+    counts zeroed just before and read just after; the same model run
+    eagerly (the int8 one with the same dequantized weights) through the
+    protocol too. Gates: the artifact's mean within EVAL_BAR_DB of JAX's
+    number, every image within EVAL_SAME_DB of the eager run, the artifact's
+    launches those of the eager run and 6 times one image's
+    (EVAL_PER_IMAGE); the int8 artifact carries DEPLOY_INT8_KERNELS int8
+    tensors and is smaller than the bf16 one. Printed: max|d| of the outputs
+    on one image, the bytes, the export and load seconds, and the request
+    ms eager against the artifact in turns."""
+    import copy
+    import shutil
+
+    import torch
+
+    from irdu_tpu_torch import deploy
+    from irdu_tpu_torch.data.synthetic import synthetic_val_set
+    from irdu_tpu_torch.eval.harness import evaluate_pairs
+    from irdu_tpu_torch.predict import batch_forward, load_model
+
+    work = os.path.join(REPO, "experiments", "chip_smoke_deploy")  # git-ignored, removed after
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    images = synthetic_val_set()
+    rows = []
+    for tag, family, fname, int8, shape, target, source in DEPLOY_ROWS:
+        weights = os.path.join(REPO, "artifacts", "weights", fname)
+        model = load_model(weights, DEVICE, torch.float32 if int8 else torch.bfloat16,
+                           name=family)
+        path = os.path.join(work, f"{tag}.pt2")
+        t0 = time.perf_counter()
+        deploy.export_forward(model, *shape[:3], dtype=torch.bfloat16, path=path,
+                              pointwise_int8=int8, info=dict(model=family, weights=fname))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = deploy.load_exported(path)
+        load_s = time.perf_counter() - t0
+        if int8:  # the same dequantized weights, eagerly
+            model = copy.deepcopy(model)
+            deploy.quantize_pointwise(model, torch.bfloat16)
+
+        def artifact(batch):
+            return run(torch.from_numpy(np.ascontiguousarray(batch, np.float32))).float()
+
+        art, art_counts = counted(lambda: evaluate_pairs(artifact, images, 25.0, bucket=64))
+        eager, eager_counts = counted(lambda: evaluate_pairs(batch_forward(model), images, 25.0,
+                                                             bucket=64))
+        smoke.path_counts[f"deploy_{tag}"] = art_counts
+        x = torch.from_numpy((images[0][None] / 255.0).astype(np.float32)).to(DEVICE)
+        with torch.inference_mode():
+            diff = (run(x).float() - model(x.to(torch.bfloat16)).float()).abs().max().item()
+        x = x.to(torch.bfloat16)
+        ms = {"eager": [], "artifact": []}
+        for _ in range(DEPLOY_ROUNDS):
+            for kind in ("eager", "artifact", "artifact", "eager"):
+                fn = run if kind == "artifact" else model
+                for _ in range(DEPLOY_REQUESTS):
+                    sync()
+                    t0 = time.perf_counter()
+                    with torch.inference_mode():
+                        fn(x)
+                    sync()
+                    ms[kind].append((time.perf_counter() - t0) * 1e3)
+        rows.append(dict(
+            tag=tag, weights=fname, int8=int8, input=list(shape), psnr=art["mean_psnr"],
+            psnr_eager=eager["mean_psnr"], target=target, target_source=source,
+            gap_db=art["mean_psnr"] - target,
+            max_gap_eager_db=max(abs(a - b) for a, b in zip(art["psnr"], eager["psnr"])),
+            max_abs_diff_eager=diff, bytes=os.path.getsize(path),
+            int8_tensors=run.meta["int8_tensors"], kernel_ops=run.meta["kernel_ops"],
+            export_s=round(export_s, 3), load_s=round(load_s, 3),
+            request_ms_eager=round(float(np.median(ms["eager"])), 3),
+            request_ms_artifact=round(float(np.median(ms["artifact"])), 3),
+            request_ms_order=f"eager, artifact, artifact, eager, x{DEPLOY_ROUNDS}, "
+                             f"{DEPLOY_REQUESTS} requests a turn",
+            launches=art_counts, launches_eager=eager_counts,
+            want=times_launches(EVAL_PER_IMAGE[family], len(images))))
+        r = rows[-1]
+        print(f"deploy {tag}: {r['bytes']} bytes, {r['int8_tensors']} int8 tensors, export "
+              f"{r['export_s']} s, load {r['load_s']} s; protocol {r['psnr']:.4f} dB (JAX "
+              f"{target}, gap {r['gap_db']:+.4f}; eager {r['psnr_eager']:.4f}, max gap "
+              f"{r['max_gap_eager_db']:.5f}); max|d| to eager {diff:.4g}; request ms eager "
+              f"{r['request_ms_eager']} artifact {r['request_ms_artifact']}", flush=True)
+        del model, run
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    smoke.lines["deploy"] = {"rows": rows, "is_exporting": hasattr(torch.compiler, "is_exporting"),
+                             "bar_db": EVAL_BAR_DB, "same_db": EVAL_SAME_DB}
+    for r in rows:
+        require(abs(r["gap_db"]) <= EVAL_BAR_DB,
+                f"deploy {r['tag']}: {r['psnr']:.4f} dB, JAX {r['target']}")
+        require(r["max_gap_eager_db"] <= EVAL_SAME_DB,
+                f"deploy {r['tag']}: artifact against eager {r['max_gap_eager_db']} dB")
+        require(r["launches"] == r["launches_eager"] == r["want"],
+                f"deploy {r['tag']}: launches {r['launches']}, eager {r['launches_eager']}, "
+                f"want {r['want']}")
+    by_tag = {r["tag"]: r for r in rows}
+    int8, bf16 = by_tag["flagship50k-int8"], by_tag["flagship50k-bf16"]
+    require(int8["int8_tensors"] == DEPLOY_INT8_KERNELS,
+            f"deploy: {int8['int8_tensors']} int8 tensors, JAX {DEPLOY_INT8_KERNELS}")
+    require(int8["bytes"] < bf16["bytes"],
+            f"deploy: int8 artifact {int8['bytes']} bytes, bf16 {bf16['bytes']}")
+
+
 def train_config(name, corpus, **train):
     """The trainer's configuration of ``name``: its sections (TRAIN_CONFIGS)
     cut to stage 0 with TRAIN_PATCHES crop positions, the corpus (csv_path,
-    root_folder), ``train``'s keys over its train section, the teacher at
-    TRAIN_TEACHER and the synthetic val set as its eval set."""
+    root_folder), ``train``'s keys over its train section, the config's own
+    teacher snapshot (its path taken from the repo's root)
+    and the synthetic val set as its eval set."""
     import copy
 
     src = copy.deepcopy(TRAIN_CONFIGS[name])
@@ -2543,7 +2798,7 @@ def train_config(name, corpus, **train):
     tc["stages"] = [dict(tc["stages"][0], max_num_patchs=TRAIN_PATCHES)]
     tc.update(train)
     if "distill" in tc:
-        tc["distill"]["weights"] = os.path.join(REPO, TRAIN_TEACHER)
+        tc["distill"]["weights"] = os.path.join(REPO, tc["distill"]["weights"])
     return {"name": name, "manual_seed": src["manual_seed"], "model": src["model"],
             "parallel": src["parallel"],
             "datasets": {"train": dict(src["datasets_train"], **corpus)}, "train": tc,
@@ -2695,8 +2950,8 @@ def phase_train(smoke):
          latent noise passed in, on the card and on the CPU (TF32 off):
          loss within TRAIN_LOSS_RTOL, each gradient tensor within
          TRAIN_GRAD_RTOL of its max;
-      3. micro_distill_sigma25 (micro student, remat on; the 86k flagship
-         teacher in bf16 on the kernels), 6 steps: each teacher forward
+      3. micro_distill_sigma25 (micro student, remat on; the config's
+         flagship teacher, flagship_synthetic_2050.npz, in bf16 on the kernels), 6 steps: each teacher forward
          launches one 128² request's K3, K4, K1 and K2 (PER_REQUEST at
          512²'s counts) and the student nothing; every teacher kernel call of
          the first step is held against its plain version; the teacher's
@@ -2728,10 +2983,10 @@ def phase_train(smoke):
     work = os.path.join(REPO, "experiments", "chip_smoke_train")  # git-ignored, removed after
     shutil.rmtree(work, ignore_errors=True)
     corpus, images = train_corpus(os.path.join(work, "corpus"))
-    line, fails = {"teacher_weights_override": TRAIN_TEACHER,
-                   "max_num_patchs": TRAIN_PATCHES, "stage": 0}, []
-    print(f"train: teacher weights overridden to {TRAIN_TEACHER} (the config's "
-          "flagship_synthetic_2050.npz is left out of the copy); stage 0 with "
+    teacher_npz = TRAIN_CONFIGS["micro_distill_sigma25"]["train"]["distill"]["weights"]
+    line, fails = {"teacher_weights": teacher_npz, "max_num_patchs": TRAIN_PATCHES,
+                   "stage": 0}, []
+    print(f"train: the distillation teacher is the config's {teacher_npz}; stage 0 with "
           f"{TRAIN_PATCHES} crop positions", flush=True)
 
     def check(cond, what):
@@ -2997,12 +3252,15 @@ def main() -> int:
         smoke.run("eval", phase_eval, smoke)
         smoke.run("variants", phase_variants, smoke)
         smoke.run("tile", phase_tile, smoke)
+        smoke.run("natural", phase_natural, smoke)
+        smoke.run("deploy", phase_deploy, smoke)
         smoke.run("train", phase_train, smoke)
     smoke.lines["device_ms"] = device_ms_sessions()
     kernels = kernels_line(smoke)
     print(json.dumps(kernels), flush=True)
     for key in ("ptxas", "serving", "profile", "small_models", "pixel", "ablation",
-                "band_route", "k7_band_512", "model", "eval", "variants", "tile", "train",
+                "band_route", "k7_band_512", "model", "eval", "variants", "tile", "natural",
+                "deploy", "train",
                 "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
@@ -3011,9 +3269,10 @@ def main() -> int:
     total = time.perf_counter() - t_start
     if build_s is not None and build_s > BUDGET_S["build"]:
         smoke.failed.append(f"build over its {BUDGET_S['build']} s budget ({build_s:.1f} s)")
-    if smoke.phases.get("train", 0) > BUDGET_S["train"]:
-        smoke.failed.append(f"train over its {BUDGET_S['train']} s budget "
-                            f"({smoke.phases['train']:.1f} s)")
+    for phase in ("train", "deploy"):
+        if smoke.phases.get(phase, 0) > BUDGET_S[phase]:
+            smoke.failed.append(f"{phase} over its {BUDGET_S[phase]} s budget "
+                                f"({smoke.phases[phase]:.1f} s)")
     if total > BUDGET_S["total"]:
         smoke.failed.append(f"run over its {BUDGET_S['total']} s budget ({total:.1f} s)")
     print(card)  # again beside the results: the card's name and power limit

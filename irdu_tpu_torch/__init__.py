@@ -7,6 +7,8 @@ it is tested against, never a dependency. Hand-written CUDA kernels live
 under ``kernels/csrc`` and are built with nvcc at first use
 (``kernels/build.py``); every kernel wrapper runs its plain PyTorch version
 for CPU tensors and launches the kernel for CUDA tensors, or raises where
-autograd would record the launch. ``train/`` trains the models on the plain
+autograd would record the launch; a traced call (``torch.export``) goes
+through the same wrapper as a ``torch.ops.irdu`` operator
+(``kernels/library.py``), which ``deploy.py``'s artifacts call. ``train/`` trains the models on the plain
 versions with autograd, as the JAX package trains on its jnp path.
 """

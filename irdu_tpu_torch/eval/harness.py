@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from irdu_tpu_torch.data.degradations import eval_noise
+from irdu_tpu_torch.data.png import read_png, write_png
 from irdu_tpu_torch.eval.metrics import img_as_ubyte, psnr_255
 
 
@@ -67,7 +68,7 @@ def evaluate_pairs(
     output is cropped, so only the model's boundary sees it). masks: per
     image a boolean H×W array of pixels to leave out of an extra
     "masked_psnr", or None. save_dir: write the clean, noisy and denoised
-    PNGs under the reference's names (needs PIL).
+    PNGs under the reference's names.
 
     Returns {"psnr": [...], "mean_psnr": float, "seconds": [...]}, with
     "masked_psnr"/"mean_masked_psnr" and "ssim"/"mean_ssim" when asked.
@@ -97,15 +98,12 @@ def evaluate_pairs(
             ssims.append(ssim_255(img_true_255, restored_255))
         if save_dir:
             # "{dataset}_sigma{σ}_{img}_{tag}_denoised.png", the reference's names
-            from PIL import Image
-
             stem = f"{dataset_name}_sigma{int(sigma)}_{img_i:03d}"
-            Image.fromarray(img_255.astype(np.uint8)).save(
-                os.path.join(save_dir, f"{stem}_clean.png"))
-            Image.fromarray(img_as_ubyte(np.clip(noisy[:h, :w], 0, 1))).save(
-                os.path.join(save_dir, f"{stem}_noisy.png"))
-            Image.fromarray(restored_255.astype(np.uint8)).save(
-                os.path.join(save_dir, f"{stem}_{save_tag}_denoised.png"))
+            write_png(os.path.join(save_dir, f"{stem}_clean.png"), img_255.astype(np.uint8))
+            write_png(os.path.join(save_dir, f"{stem}_noisy.png"),
+                      img_as_ubyte(np.clip(noisy[:h, :w], 0, 1)))
+            write_png(os.path.join(save_dir, f"{stem}_{save_tag}_denoised.png"),
+                      restored_255.astype(np.uint8))
     out = {"psnr": psnrs, "mean_psnr": float(np.mean(psnrs)), "seconds": times}
     if masked_psnrs:
         out["masked_psnr"] = masked_psnrs
@@ -215,11 +213,23 @@ def read_image_index(csv_path: str) -> list[dict]:
 
 
 def load_benchmark_images(csv_path: str, root_folder: str) -> list[np.ndarray]:
-    """The images a CSV index names, as uint8 arrays (needs PIL)."""
-    from PIL import Image
-
-    return [np.array(Image.open(os.path.join(root_folder, info["path"])))
+    """The PNG images a CSV index names, as uint8 arrays (``data/png.py``,
+    which reads them as ``np.array(PIL.Image.open(p))`` does)."""
+    return [read_png(os.path.join(root_folder, info["path"]))
             for info in read_image_index(csv_path)]
+
+
+def load_masks(csv_path: str, mask_dir: str) -> list[np.ndarray | None]:
+    """Per image of a CSV index, its suspect-pixel mask as a boolean H×W
+    array (pixel > 127), or None where it has none: the mask of
+    ``<stem>.png`` is ``<stem with "_true" as "_suspect">.png`` in
+    ``mask_dir`` (``scripts/eval_natural_benchmark.py``'s rule)."""
+    masks = []
+    for info in read_image_index(csv_path):
+        stem = os.path.splitext(os.path.basename(info["path"]))[0]
+        path = os.path.join(mask_dir, stem.replace("_true", "_suspect") + ".png")
+        masks.append(read_png(path) > 127 if os.path.exists(path) else None)
+    return masks
 
 
 def run_benchmark_eval(forward: Callable, datasets: dict[str, tuple[str, str]],

@@ -48,6 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from irdu_tpu_torch.kernels import library
+
 
 VARIANTS = ("plain", "spectral_norm", "non_expansive")
 
@@ -79,9 +81,10 @@ def cached(owner: nn.Module, sources, compute):
     """``compute()``, kept on ``owner`` while every tensor of ``sources``
     keeps its storage and its version (a write through ``.data`` is not
     seen). Computed afresh where autograd records a source, and for
-    inference tensors, which have no version. The entry holds the sources,
-    so that a new tensor cannot take their memory and their key."""
-    if (any(t.is_inference() for t in sources)
+    inference tensors, which have no version, and in a trace, whose tensors
+    have no storage. The entry holds the sources, so that a new tensor cannot
+    take their memory and their key."""
+    if (library.tracing() or any(t.is_inference() for t in sources)
             or torch.is_grad_enabled() and any(t.requires_grad for t in sources)):
         return compute()
     key = [(t.data_ptr(), t._version) for t in sources]
@@ -242,17 +245,6 @@ class Upsample2x2(VariantConv):
 
     def forward(self, x):
         return F.conv_transpose2d(x, self.folded(), stride=2)
-
-
-def box_down2x2(x: torch.Tensor) -> torch.Tensor:
-    """Fixed 2×2 box mean over the last two axes (the solver's down-scale)."""
-    return 0.25 * (x[..., 0::2, 0::2] + x[..., 0::2, 1::2]
-                   + x[..., 1::2, 0::2] + x[..., 1::2, 1::2])
-
-
-def box_up2x2(t: torch.Tensor) -> torch.Tensor:
-    """Adjoint of ``box_down2x2``: duplicate each pixel 2×2 AND scale by 0.25."""
-    return 0.25 * t.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
 class Conv3x3Zero(nn.Module):

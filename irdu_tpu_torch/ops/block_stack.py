@@ -48,6 +48,7 @@ import functools
 
 import torch
 
+from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import kernel_library, refuse_grad
 from irdu_tpu_torch.ops.gated_block import (GATED_HC, GATED_TILE_SIZES, NUM_SMS, SMEM_LIMIT,
                                             block_f32, launch_blocks)
@@ -193,6 +194,12 @@ def fused_block_stack(x, scales, w1t, dwk, w2t, skips):
     ``gated_block.launch_blocks``) or raises."""
     refuse_grad("fused_block_stack", x, scales, w1t, dwk, w2t, skips)
     _check(x, scales, w1t, dwk, w2t, skips)
+    run = _OP if library.tracing() else _run
+    return run(x, scales, w1t, dwk, w2t, skips)
+
+
+def _run(x, scales, w1t, dwk, w2t, skips):
+    """The untraced call: the plain version on the CPU, else the launch."""
     if x.device.type == "cpu":
         return block_stack_plain(x, scales, w1t, dwk, w2t, skips)
     if stack_route(x.dtype, x.shape[1], w2t.shape[2]) == "wgmma":
@@ -205,3 +212,6 @@ def fused_block_stack(x, scales, w1t, dwk, w2t, skips):
 
 
 fused_block_stack.launches = 0
+_OP = library.define(
+    "fused_block_stack(Tensor x, Tensor scales, Tensor w1t, Tensor dwk, Tensor w2t, "
+    "Tensor skips) -> Tensor", _run, lambda x, *rest: x.new_empty(x.shape))

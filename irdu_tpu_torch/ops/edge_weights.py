@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops.graph import at_least_f32
 from irdu_tpu_torch.ops.shifts import shift2d
@@ -118,6 +119,13 @@ def edge_weights_chw(feats: torch.Tensor, multi_m: torch.Tensor, *,
     window)."""
     refuse_grad("edge_weights_chw", feats, multi_m)
     _check(feats, multi_m, n_graphs)
+    if library.tracing():
+        return _OP(feats, multi_m, n_graphs, library.flat_deltas(deltas))
+    return _run(feats, multi_m, n_graphs, deltas)
+
+
+def _run(feats, multi_m, n_graphs, deltas):
+    """The untraced call: the plain version on the CPU, else the launch."""
     if feats.device.type == "cpu":
         return edge_weights_plain(feats, multi_m, n_graphs, deltas)
     if feats.device.type != "cuda" or not feats.is_contiguous():
@@ -146,3 +154,9 @@ def edge_weights_chw(feats: torch.Tensor, multi_m: torch.Tensor, *,
 
 
 edge_weights_chw.launches = 0
+_OP = library.define(
+    "edge_weights_chw(Tensor feats, Tensor multi_m, int n_graphs, int[] deltas) -> Tensor",
+    lambda feats, multi_m, n_graphs, deltas: _run(feats, multi_m, n_graphs,
+                                                  library.window(deltas)),
+    lambda feats, multi_m, n_graphs, deltas: feats.new_empty(
+        (feats.shape[0], n_graphs, len(deltas) // 2, *feats.shape[2:])))

@@ -64,9 +64,10 @@ from __future__ import annotations
 
 import torch
 
+from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
-from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
 from irdu_tpu_torch.ops import graph
+from irdu_tpu_torch.ops.graph import box_down2x2, box_up2x2
 from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
 
 MODES = ("rhs", "cg", "rethresh")
@@ -336,6 +337,20 @@ def gg_fused_step_chw(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0
         ("table", "pgtv0", pgtv0), ("table", "pglr0", pglr0),
         ("table", "pgtv1", pgtv1), ("table", "pglr1", pglr1), ("scal", "scal", scal)],
         n_graphs, two_scale, deltas, stats_mode)
+    args = (x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1, pglr1, scal,
+            mode, n_graphs)
+    if library.tracing():
+        out = _STEP_OP(*args, library.flat_deltas(deltas), stats_mode, with_glr, use_x_rhs,
+                       emit_update)
+        return tuple(out) if emit_update else out[0]
+    return _run_step(*args, deltas, stats_mode, with_glr, use_x_rhs, emit_update)
+
+
+def _run_step(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1, pglr1, scal,
+              mode, n_graphs, deltas, stats_mode, with_glr, use_x_rhs, emit_update):
+    """The untraced call: the plain version on the CPU, else the launch."""
+    glr = mode == "cg" and with_glr
+    two_scale = w_gtv1 is not None
     kw = dict(mode=mode, n_graphs=n_graphs, deltas=deltas, stats_mode=stats_mode,
               with_glr=with_glr, use_x_rhs=use_x_rhs, emit_update=emit_update)
     if x.device.type == "cpu":
@@ -368,6 +383,21 @@ def gg_matvec_chw(x, w_glr, w_gtv, pglr, pgtv, mu, ro, *, n_graphs, deltas=CROSS
         ("w0", "w_glr", w_glr if with_glr else None), ("w0", "w_gtv", w_gtv),
         ("table", "pglr", pglr), ("table", "pgtv", pgtv)], n_graphs, False, deltas,
         stats_mode)
+    if library.tracing():
+        return _MATVEC_OP(x, w_glr, w_gtv, pglr, pgtv, _f32(mu, x), _f32(ro, x), n_graphs,
+                          library.flat_deltas(deltas), stats_mode, add_identity, with_glr)
+    return _run_matvec(x, w_glr, w_gtv, pglr, pgtv, mu, ro, n_graphs, deltas, stats_mode,
+                       add_identity, with_glr)
+
+
+def _f32(v, x):
+    """A per-graph scalar as the f32 tensor an operator takes."""
+    return torch.as_tensor(v, dtype=torch.float32, device=x.device)
+
+
+def _run_matvec(x, w_glr, w_gtv, pglr, pgtv, mu, ro, n_graphs, deltas, stats_mode,
+                add_identity, with_glr):
+    """The untraced call: the plain version on the CPU, else the launch."""
     if x.device.type == "cpu":
         return matvec_plain(x, w_glr, w_gtv, pglr, pgtv, mu, ro, n_graphs=n_graphs,
                             deltas=deltas, stats_mode=stats_mode,
@@ -395,6 +425,14 @@ def gtv_rethresh_chw(x, y, w_gtv, pgtv, gamma, ro, *, n_graphs, deltas=CROSS4,
     _check_planes("gtv_rethresh_chw", x, [
         ("plane", "y", y), ("w0", "w_gtv", w_gtv), ("table", "pgtv", pgtv)], n_graphs,
         False, deltas, stats_mode)
+    if library.tracing():
+        return _RETHRESH_OP(x, y, w_gtv, pgtv, _f32(gamma, x), _f32(ro, x), n_graphs,
+                            library.flat_deltas(deltas), stats_mode)
+    return _run_rethresh(x, y, w_gtv, pgtv, gamma, ro, n_graphs, deltas, stats_mode)
+
+
+def _run_rethresh(x, y, w_gtv, pgtv, gamma, ro, n_graphs, deltas, stats_mode):
+    """The untraced call: the plain version on the CPU, else the launch."""
     if x.device.type == "cpu":
         return rethresh_plain(x, y, w_gtv, pgtv, gamma, ro, n_graphs=n_graphs,
                               deltas=deltas, stats_mode=stats_mode)
@@ -407,3 +445,29 @@ def gtv_rethresh_chw(x, y, w_gtv, pgtv, gamma, ro, *, n_graphs, deltas=CROSS4,
 
 
 gtv_rethresh_chw.launches = 0
+
+
+def _like(x, *rest):
+    return x.new_empty(x.shape)
+
+
+_STEP_OP = library.define(
+    "gg_fused_step_chw(Tensor x, Tensor? aux, Tensor? prev, Tensor w_gtv0, Tensor? w_glr0, "
+    "Tensor? w_gtv1, Tensor? w_glr1, Tensor? pgtv0, Tensor? pglr0, Tensor? pgtv1, "
+    "Tensor? pglr1, Tensor scal, str mode, int n_graphs, int[] deltas, str stats_mode, "
+    "bool with_glr, bool use_x_rhs, bool emit_update) -> Tensor[]",
+    lambda *a: list(_as_tuple(_run_step(*a[:14], library.window(a[14]), *a[15:]))),
+    lambda x, *a: [x.new_empty(x.shape) for _ in range(2 if a[-1] else 1)])
+_MATVEC_OP = library.define(
+    "gg_matvec_chw(Tensor x, Tensor? w_glr, Tensor w_gtv, Tensor? pglr, Tensor? pgtv, "
+    "Tensor mu, Tensor ro, int n_graphs, int[] deltas, str stats_mode, bool add_identity, "
+    "bool with_glr) -> Tensor",
+    lambda *a: _run_matvec(*a[:8], library.window(a[8]), *a[9:]), _like)
+_RETHRESH_OP = library.define(
+    "gtv_rethresh_chw(Tensor x, Tensor? y, Tensor w_gtv, Tensor? pgtv, Tensor gamma, "
+    "Tensor ro, int n_graphs, int[] deltas, str stats_mode) -> Tensor",
+    lambda *a: _run_rethresh(*a[:7], library.window(a[7]), a[8]), _like)
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)

@@ -61,6 +61,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 
 EPS = 1e-5
@@ -320,6 +321,12 @@ def fused_gated_block(x, scale, w1, dwk, w2, skip):
     kernel's CUDA-core path (``launch_blocks``), or they raise."""
     refuse_grad("fused_gated_block", x, scale, w1, dwk, w2, skip)
     _check(x, scale, w1, dwk, w2, skip)
+    run = _OP if library.tracing() else _run
+    return run(x, scale, w1, dwk, w2, skip)
+
+
+def _run(x, scale, w1, dwk, w2, skip):
+    """The untraced call: the plain version on the CPU, else the launch."""
     if x.device.type == "cpu":
         return gated_block_plain(x, scale, w1, dwk, w2, skip)
     if x.dtype == torch.bfloat16:
@@ -332,3 +339,6 @@ def fused_gated_block(x, scale, w1, dwk, w2, skip):
 
 
 fused_gated_block.launches = 0
+_OP = library.define(
+    "fused_gated_block(Tensor x, Tensor scale, Tensor w1, Tensor dwk, Tensor w2, "
+    "Tensor skip) -> Tensor", _run, lambda x, *rest: x.new_empty(x.shape))

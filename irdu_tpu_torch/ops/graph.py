@@ -24,6 +24,17 @@ from irdu_tpu_torch.ops.windows import CROSS4
 Stats = Sequence[torch.Tensor]
 
 
+def box_down2x2(x: torch.Tensor) -> torch.Tensor:
+    """Fixed 2×2 box mean over the last two axes (the solver's down-scale)."""
+    return 0.25 * (x[..., 0::2, 0::2] + x[..., 0::2, 1::2]
+                   + x[..., 1::2, 0::2] + x[..., 1::2, 1::2])
+
+
+def box_up2x2(t: torch.Tensor) -> torch.Tensor:
+    """Adjoint of ``box_down2x2``: duplicate each pixel 2×2 AND scale by 0.25."""
+    return 0.25 * t.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
     """``t`` in f32, the compute type of the kernels and of their plain
     versions, or as it is in f64 (a float64 gradient check of the plain

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.windows import DIAMOND12
@@ -148,6 +149,15 @@ def pixel_segment_nhwc(x, aux, prev, w_gtv, w_glr, p, scal, *, mode, n_graphs,
     one dtype, f32 or bf16; H, W ≥ 2; p and scal any float type)."""
     refuse_grad("pixel_segment_nhwc", x, aux, prev, w_gtv, w_glr, p, scal)
     _check(x, aux, prev, w_gtv, w_glr, p, scal, mode, n_graphs, deltas)
+    if library.tracing():
+        out = _OP(x, aux, prev, w_gtv, w_glr, p, scal, mode, n_graphs,
+                  library.flat_deltas(deltas))
+        return tuple(out) if mode == "cg1" else out[0]
+    return _run(x, aux, prev, w_gtv, w_glr, p, scal, mode, n_graphs, deltas)
+
+
+def _run(x, aux, prev, w_gtv, w_glr, p, scal, mode, n_graphs, deltas):
+    """The untraced call: the plain version on the CPU, else the launch."""
     used = {"rhs": (x, w_gtv), "cg1": (x, w_gtv, w_glr), "cg2": (x, aux, prev, w_gtv, w_glr),
             "rethresh": (x, aux, w_gtv)}[mode]
     if x.device.type == "cpu":
@@ -184,6 +194,12 @@ def pixel_segment_nhwc(x, aux, prev, w_gtv, w_glr, p, scal, *, mode, n_graphs,
 
 
 pixel_segment_nhwc.launches = 0
+_OP = library.define(
+    "pixel_segment_nhwc(Tensor x, Tensor? aux, Tensor? prev, Tensor w_gtv, Tensor? w_glr, "
+    "Tensor p, Tensor scal, str mode, int n_graphs, int[] deltas) -> Tensor[]",
+    lambda *a: (lambda out: list(out) if a[7] == "cg1" else [out])(
+        _run(*a[:9], library.window(a[9]))),
+    lambda x, *a: [x.new_empty(x.shape) for _ in range(2 if a[6] == "cg1" else 1)])
 
 
 def pixel_unroll_nhwc(y72, w_gtv, w_glr, p, scal, *, n_graphs, deltas=DIAMOND12):

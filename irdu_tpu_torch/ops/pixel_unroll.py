@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.windows import DIAMOND12
@@ -158,6 +159,14 @@ def gg_pixel_unroll_chw(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
     bf16; H, W ≥ 2; tables any float type, cast to f32)."""
     refuse_grad("gg_pixel_unroll_chw", y, w_gtv, w_glr, pgtv, pglr, scal)
     _check(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas)
+    if library.tracing():
+        return _OP(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, library.flat_deltas(deltas),
+                   stats_mode)
+    return _run(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas, stats_mode)
+
+
+def _run(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas, stats_mode):
+    """The untraced call: the plain version on the CPU, else the launch."""
     if y.device.type == "cpu":
         return pixel_unroll_plain(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs=n_graphs,
                                   deltas=deltas, stats_mode=stats_mode)
@@ -189,3 +198,8 @@ def gg_pixel_unroll_chw(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
 
 
 gg_pixel_unroll_chw.launches = 0
+_OP = library.define(
+    "gg_pixel_unroll_chw(Tensor y, Tensor w_gtv, Tensor w_glr, Tensor? pgtv, Tensor? pglr, "
+    "Tensor scal, int n_graphs, int[] deltas, str stats_mode) -> Tensor",
+    lambda *a: _run(*a[:7], library.window(a[7]), a[8]),
+    lambda y, *a: y.new_empty((y.shape[0], a[5] * y.shape[1], *y.shape[2:])))

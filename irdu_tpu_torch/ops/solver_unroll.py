@@ -39,9 +39,10 @@ from __future__ import annotations
 
 import torch
 
+from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
-from irdu_tpu_torch.models.layers import box_down2x2, box_up2x2
 from irdu_tpu_torch.ops import graph
+from irdu_tpu_torch.ops.graph import box_down2x2, box_up2x2
 
 
 def unroll_scal(n_graphs, mu0, ro0, mu1, ro1, gamma0, gamma1, alphas, betas):
@@ -143,6 +144,14 @@ def gg_unroll_chw(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1,
     tables = (pgtv0, pglr0, pgtv1, pglr1)
     _check(y, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, n_graphs,
            eval_cg_iters, stats_mode)
+    run = _OP if library.tracing() else _run
+    return run(y, w_gtv0, w_glr0, w_gtv1, w_glr1, *tables, scal, n_graphs, eval_cg_iters)
+
+
+def _run(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1, pglr1, scal, n_graphs,
+         eval_cg_iters):
+    """The untraced call: the plain version on the CPU, else the launch."""
+    tables = (pgtv0, pglr0, pgtv1, pglr1)
     if y.device.type == "cpu":
         return gg_unroll_plain(y, w_gtv0, w_glr0, w_gtv1, w_glr1, *tables, scal,
                                n_graphs=n_graphs, eval_cg_iters=eval_cg_iters)
@@ -171,3 +180,7 @@ def gg_unroll_chw(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1,
 
 
 gg_unroll_chw.launches = 0
+_OP = library.define(
+    "gg_unroll_chw(Tensor y, Tensor w_gtv0, Tensor w_glr0, Tensor w_gtv1, Tensor w_glr1, "
+    "Tensor pgtv0, Tensor pglr0, Tensor pgtv1, Tensor pglr1, Tensor scal, int n_graphs, "
+    "int eval_cg_iters) -> Tensor", _run, lambda y, *rest: y.new_empty(y.shape))

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 
@@ -136,6 +137,12 @@ def fused_system_matvec(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, *, n_
     scales to f32) or raises."""
     refuse_grad("fused_system_matvec", x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c)
     _check(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, n_graphs)
+    run = _OP if library.tracing() else _run
+    return run(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, n_graphs)
+
+
+def _run(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, n_graphs):
+    """The untraced call: the plain version on the CPU, else the launch."""
     if x.device.type == "cpu":
         return system_matvec_plain(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c,
                                    n_graphs=n_graphs)
@@ -161,3 +168,7 @@ def fused_system_matvec(x, w_glr, w_gtv, stats_glr, stats_gtv, mu_c, ro_c, *, n_
 
 
 fused_system_matvec.launches = 0
+_OP = library.define(
+    "fused_system_matvec(Tensor x, Tensor w_glr, Tensor w_gtv, Tensor? stats_glr, "
+    "Tensor? stats_gtv, Tensor mu_c, Tensor ro_c, int n_graphs) -> Tensor", _run,
+    lambda x, *rest: x.new_empty(x.shape))

@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from irdu_tpu_torch.data.png import read_rgb, write_png
 from irdu_tpu_torch.models.flagship import (
     AbstractMultiScaleGraphFilter,
     flagship_config,
@@ -119,13 +120,39 @@ def denoise(model: torch.nn.Module, noisy_hwc: np.ndarray, *, tile: int = 0) -> 
     return np.clip(y, 0.0, 1.0)
 
 
+def _pil(path: str):
+    try:
+        from PIL import Image
+    except ImportError as exc:
+        raise SystemExit(f"{path}: only PNG is read and written without PIL, "
+                         "which is not installed") from exc
+    return Image
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as (H, W, 3) uint8, as PIL's ``convert("RGB")`` gives
+    it: a PNG through ``data/png.py``, another format through PIL."""
+    if path.lower().endswith(".png"):
+        return read_rgb(path)
+    return np.asarray(_pil(path).open(path).convert("RGB"))
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) uint8: PNG through ``data/png.py``, another format
+    through PIL."""
+    if path.lower().endswith(".png"):
+        write_png(path, img)
+    else:
+        _pil(path).fromarray(img).save(path)
+
+
 def main(argv=None, device: str = "cuda"):
     from irdu_tpu_torch.eval.metrics import img_as_ubyte, psnr_255
 
     ap = argparse.ArgumentParser(
         prog="python -m irdu_tpu_torch.predict", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--input", required=True, help="input PNG/JPEG")
+    ap.add_argument("--input", required=True, help="input PNG (other formats need PIL)")
     ap.add_argument("--output", required=True, help="denoised PNG path")
     ap.add_argument("--model", default="flagship", choices=FAMILY)
     ap.add_argument("--weights", default=None,
@@ -147,8 +174,6 @@ def main(argv=None, device: str = "cuda"):
                          "64-pixel halo) for images too large for one pass")
     args = ap.parse_args(argv)
 
-    from PIL import Image
-
     try:
         model = load_model(args.weights, device, name=args.model,
                            cg_iters=args.cg_iters)
@@ -156,7 +181,7 @@ def main(argv=None, device: str = "cuda"):
         sys.exit(str(exc))
 
     clean_255 = None
-    img = np.asarray(Image.open(args.input).convert("RGB"), np.float32)
+    img = read_image(args.input).astype(np.float32)
     if args.sigma is not None:
         clean_255 = img
         rs = np.random.RandomState(args.seed)
@@ -164,7 +189,7 @@ def main(argv=None, device: str = "cuda"):
     else:
         noisy = img / 255.0
         if args.clean:
-            clean_255 = np.asarray(Image.open(args.clean).convert("RGB"), np.float32)
+            clean_255 = read_image(args.clean).astype(np.float32)
     noisy = noisy.astype(np.float32)
 
     denoise(model, noisy, tile=args.tile)  # warm-up (kernel build, allocator)
@@ -173,7 +198,7 @@ def main(argv=None, device: str = "cuda"):
     dt = time.perf_counter() - t0
 
     out_u8 = img_as_ubyte(restored)
-    Image.fromarray(out_u8).save(args.output)
+    write_image(args.output, out_u8)
     report = {
         "model": args.model,
         "weights": os.path.basename(args.weights or DEFAULT_WEIGHTS[args.model]),

@@ -8,9 +8,10 @@ Snapshot format (written by ``irdu_tpu.utils.weights.save_params_npz``):
 keys are ``/``-joined flax parameter paths; a ``::bf16`` suffix marks a
 bfloat16 leaf stored as its raw uint16 bits; int8 pointwise snapshots store
 a 2-D kernel as ``<path>/__q8__`` (int8) plus ``<path>/__q8scale__`` (f32,
-per output channel). This copy needs numpy and torch; ``save_params_npz``
-writes no int8 snapshot (JAX's ``int8_pointwise`` waits for the port of
-``deploy.py``).
+per output channel). This copy needs numpy and torch. The int8 scheme is
+JAX's, bit for bit (``quantize_kernel_int8``): a symmetric per-output-channel
+scale max|w|/127 (0 taken as 1), ``np.round``, clipped to ±127; dequantized
+as ``q.astype(f32) * s``, then cast to the model's dtype.
 """
 
 from __future__ import annotations
@@ -31,9 +32,52 @@ def f32_to_bf16_bits(arr: np.ndarray) -> np.ndarray:
     return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
 
 
-def load_params_npz(path: str) -> dict:
+def quantize_kernel_int8(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-output-channel int8 of a 2-D (1×1-conv) flax kernel
+    (I, O): (q int8 (I, O), scale f32 (1, O)), JAX's arithmetic."""
+    w = np.asarray(w, np.float32)
+    scale = np.abs(w).max(axis=0, keepdims=True) / 127.0
+    scale = np.where(scale == 0, 1.0, scale)
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return q, scale.astype(np.float32)
+
+
+def quantize_pointwise_int8(tree: dict) -> dict:
+    """Every 2-D ``kernel`` leaf as a {"__q8__": q, "__q8scale__": scale}
+    dict; the other leaves as float32 numpy arrays (tensors copied to the
+    host). ``dequantize_pointwise`` is the inverse."""
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        arr = _host(node)
+        if name == "kernel" and arr.ndim == 2:
+            q, s = quantize_kernel_int8(arr)
+            return {"__q8__": q, "__q8scale__": s}
+        return arr
+
+    return walk(tree)
+
+
+def dequantize_pointwise(tree: dict) -> dict:
+    """Each {"__q8__", "__q8scale__"} dict as ``q.astype(f32) * scale``, the
+    other leaves as float32 (cast to the model's dtype where they land)."""
+    if "__q8__" in tree:
+        return tree["__q8__"].astype(np.float32) * tree["__q8scale__"].astype(np.float32)
+    return {k: dequantize_pointwise(v) if isinstance(v, dict) else v.astype(np.float32)
+            for k, v in tree.items()}
+
+
+def _host(node) -> np.ndarray:
+    if isinstance(node, torch.Tensor):
+        return node.detach().float().cpu().numpy()
+    return np.asarray(node)
+
+
+def load_params_npz(path: str, keep_int8: bool = False) -> dict:
     """Rebuild the nested params dict as float32 numpy arrays (bf16 leaves
-    widened exactly, int8 pointwise kernels dequantized)."""
+    widened exactly). int8 pointwise kernels are dequantized
+    (``dequantize_pointwise``) unless ``keep_int8``, which keeps their
+    {"__q8__" int8, "__q8scale__" f32} dicts as stored."""
     out: dict = {}
     with np.load(path) as data:
         for key in data.files:
@@ -46,13 +90,14 @@ def load_params_npz(path: str) -> dict:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = arr
-    return _dequantize(out)
+    return _widen(out) if keep_int8 else dequantize_pointwise(out)
 
 
-def _dequantize(node):
+def _widen(node):
+    """Every leaf as float32 but the int8 dicts' own."""
     if "__q8__" in node:
-        return node["__q8__"].astype(np.float32) * node["__q8scale__"].astype(np.float32)
-    return {k: _dequantize(v) if isinstance(v, dict) else v.astype(np.float32)
+        return node
+    return {k: _widen(v) if isinstance(v, dict) else v.astype(np.float32)
             for k, v in node.items()}
 
 
@@ -163,18 +208,25 @@ def params_from_torch(model: torch.nn.Module, spectral: bool | None = None) -> d
     return tree
 
 
-def save_params_npz(path: str, tree: dict, dtype=None) -> None:
+def save_params_npz(path: str, tree: dict, dtype=None, int8_pointwise: bool = False) -> None:
     """Write a nested tree (numpy arrays or tensors; ``params_from_torch``
     gives one) in JAX's ``save_params_npz`` format: keys the ``/``-joined
     paths, ``np.savez_compressed``. ``dtype`` casts every leaf:
     ``torch.bfloat16`` (or "bfloat16") stores the bf16 bits as uint16 under
     ``<key>::bf16``, as JAX does; None keeps each leaf's dtype (a bf16
-    tensor stored the same way)."""
+    tensor stored the same way). ``int8_pointwise`` stores every 2-D kernel
+    as int8 and its f32 scale (``quantize_pointwise_int8``, from the leaves'
+    values before any cast), which ``dtype`` leaves as they are."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
+    if int8_pointwise:
+        tree = quantize_pointwise_int8(tree)
     flat = {}
     for parts, arr in _flatten(tree):
         key = "/".join(parts)
+        if parts[-1].startswith("__q8"):
+            flat[key] = np.asarray(arr)
+            continue
         if isinstance(arr, torch.Tensor):
             arr = arr.detach().cpu()
             if dtype is None and arr.dtype == torch.bfloat16:

@@ -105,7 +105,10 @@ Phases, each timed and printed as it ends:
             K8_RAGGED (ragged tiles, odd H and W, a partial graph group),
             each mode, f32 and bf16, the same bars, untimed. The planners'
             shared-memory counts must equal the kernels' own layouts
-            (``layout_mismatches``);
+            (``layout_mismatches``). K2 on the ring-8 window at GLR
+            boosting's four calls of a 512x512 request (BOOSTING_K2, the
+            snapshot's metric diagonals), f32 and bf16, timed in bf16
+            (``boosting_k2_rows``);
   model     the whole model in f32 with TF32 off on each flagship request's
             noisy image (the first is 1x512x512x3): kernel path against plain
             path (blocks as PyTorch ops, the solver's plain versions),
@@ -159,6 +162,21 @@ Phases, each timed and printed as it ends:
             NATURAL_NOISY_DB of the JAX script's, and the nine snapshots of
             NATURAL_ROWS (each at its sigma) within EVAL_BAR_DB of JAX's means,
             per-image gaps printed, 4 images' launches each;
+  baselines GLR boosting and the baselines with their snapshots
+            (BASELINE_ROWS), loaded by predict.load_model in bf16: the eval
+            protocol on the synthetic val set (dncnn, drunet, restormer
+            within EVAL_BAR_DB of JAX's 21.901, 30.461, 38.373; boosting's
+            printed, JAX has none) and the natural set at sigma 25 (within
+            EVAL_BAR_DB of JAX's 24.952, 21.718, 24.902, 25.224, per-image
+            gaps printed), counts zeroed just before each: boosting exactly
+            4 K2 (ring-8) an image and no other kernel, its natural run
+            again with every K2 call held against its plain version; the
+            baselines no launch at all; each model's 512x512 request timed
+            (data). Then the zoo's eight models without a snapshot
+            (BASELINE_SEEDED, the JAX constructors' default widths, seeded
+            weights) at 128x128: f32 on the card within 1e-3 of max(1,
+            max|ref|) of the same weights on the CPU, bf16 finite, no
+            launch (``phase_baselines``);
   deploy    the serving export (irdu_tpu_torch.deploy): the 50k flagship in
             bf16, again with int8 pointwise weights, and the pixel model, each
             exported at 1x384x512x3 to a file, loaded by a fresh
@@ -186,13 +204,13 @@ Phases, each timed and printed as it ends:
             eval protocol with micro's launches; the autograd guard raising
             (``phase_train``).
 
-The build must take under 60 s, the train phase under 90 s, the deploy
-phase under 120 s and the whole script under 450 s; a run over any budget
-fails.
+The build must take under 60 s, the train and baselines phases under 90 s
+each, the deploy phase under 120 s and the whole script under 450 s; a run
+over any budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
 results, the serving, ``k7_band_512``, model, eval, variants, tile, natural,
-deploy, train and
+baselines, deploy, train and
 ``device_ms`` lines, the phase times and, only when every phase passed,
 {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits non-zero
 without a CUDA card, without the package beside this script, or when any
@@ -215,7 +233,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-BUDGET_S = {"build": 60, "train": 90, "deploy": 120, "total": 450}
+BUDGET_S = {"build": 60, "train": 90, "deploy": 120, "baselines": 90, "total": 450}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -383,6 +401,34 @@ NATURAL_ROWS = (
     (15.0, "flagship", "flagship_synthetic_s15_2050.npz", 26.066, (28.072, 21.872, 27.203, 27.118)),
     (50.0, "flagship", "flagship_synthetic_s50_2050.npz", 23.410, (25.887, 20.056, 24.21, 23.489)),
 )
+# GLR boosting and the baselines with their snapshots (bf16; predict's builds,
+# JAX's constructions): (family, snapshot, JAX's protocol number and its
+# source, or None: JAX has none, JAX's natural-set sigma-25 mean and per-image
+# row, artifacts/natural_eval/results_sigma25.jsonl:10-13)
+BASELINE_ROWS = (
+    ("boosting", "boosting_synthetic_2050.npz", None,
+     24.952, (26.283, 22.426, 26.521, 24.578)),
+    ("dncnn", "dncnn_synthetic_2050.npz", (21.901, "artifacts/round4_eval/curve_dncnn.log:2"),
+     21.718, (21.912, 20.848, 21.638, 22.472)),
+    ("drunet", "drunet_synthetic_2050.npz", (30.461, "artifacts/round4_eval/curve_drunet.log:2"),
+     24.902, (26.378, 21.979, 26.391, 24.861)),
+    ("restormer", "restormer_synthetic_2050.npz",
+     (38.373, "artifacts/round4_eval/curve_restormer.log:4"),
+     25.224, (28.026, 20.906, 25.726, 26.236)),
+)
+# one image's launches: boosting's K2 once a level on ring-8; the baselines none
+BASELINE_PER_IMAGE = {"boosting": launches(0, 0, 0, 4, 0)}
+# GLR boosting's K2 calls at a FRAME² request: (level, node features F); G = 5
+BOOSTING_K2 = ((0, 12), (1, 12), (2, 24), (3, 48))
+BOOSTING_GRAPHS = 5
+# the models of the zoo without a snapshot, at the JAX constructors' default
+# widths with weights from a seeded generator: one BASELINE_SIDE² request each,
+# f32 on the card against the same weights on the CPU within BASELINE_F32_BAR
+# of max(1, max|ref|), then bf16 on the card, finite; model: input channels
+BASELINE_SEEDED = {"fdncnn": 2, "ircnn": 1, "unet": 1, "resunet": 1, "unetres_subp": 1,
+                   "unetplus": 3, "nonlocal_unet": 3, "swinir": 3}
+BASELINE_SIDE = 128
+BASELINE_F32_BAR = 1e-3
 # the serving export (irdu_tpu_torch.deploy) on the card: (tag, family,
 # snapshot, int8 pointwise weights, input shape, JAX's protocol PSNR and its
 # source); each artifact runs the protocol on the synthetic val set
@@ -1292,7 +1338,7 @@ def phase_kernels(smoke):
                          **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at)}
     pixel = smoke.pixel_model or load_model(device=DEVICE, name="pixel")
     for more in (pixel_rows(pixel, gen, bar_at, smoke.lines), pixel_step_rows(pixel, gen, bar_at),
-                 k9_rows(gen, bar_at), ragged_step_rows(gen, bar_at)):
+                 k9_rows(gen, bar_at), ragged_step_rows(gen, bar_at), boosting_k2_rows(gen)):
         for name, rows in more.items():
             smoke.kernel_rows.setdefault(name, []).extend(rows)
     smoke.lines["band_route"] = band_route(model)
@@ -2065,6 +2111,49 @@ def pixel_step_rows(model, gen, bar_at):
     return rows
 
 
+def boosting_k2_rows(gen):
+    """K2 on the ring-8 window at GLR boosting's four calls of a FRAME²
+    request (BOOSTING_K2: level k's (1, 5·F, FRAME >> k, FRAME >> k)), with
+    the boosting snapshot's metric diagonals, features N(0, 1): f32 (atol
+    5e-4, rtol 1e-3) and bf16 (k2_bar) against the plain version, the bf16
+    call timed (one call a request), its bound by bytes (features read once,
+    E = 8 weights written once) and operations."""
+    import torch
+
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
+    from irdu_tpu_torch.ops.windows import RING8
+    from irdu_tpu_torch.utils.weights import load_params_npz
+
+    tree = load_params_npz(os.path.join(REPO, "artifacts", "weights",
+                                        "boosting_synthetic_2050.npz"))["params"]
+    g, rows = BOOSTING_GRAPHS, []
+    for level, f in BOOSTING_K2:
+        h = w = FRAME >> level
+        m32 = torch.from_numpy(tree[f"level_{level}"]["GLRmodule"]["multiM"]).to(DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = torch.randn(1, g * f, h, w, device=DEVICE, generator=gen).to(dtype)
+            m = m32.to(dtype)
+            ker = edge_weights_chw(feats, m, n_graphs=g, deltas=RING8)
+            ref = edge_weights_plain(feats, m, g, RING8)
+            sync()
+            bf16 = dtype == torch.bfloat16
+            row = dict(window="ring8", level=level, shape=list(feats.shape), graphs=g,
+                       dtype=str(dtype)[6:], params="boosting snapshot multiM",
+                       max_abs_err=max_abs(ker, ref),
+                       ok=k2_bar(ker, ref) if bf16 else within(ker, ref, 5e-4, 1e-3))
+            if bf16:
+                nbytes = (feats.numel() + ker.numel()) * 2 + m.numel() * 2
+                row.update(basis=f"{FRAME}x{FRAME} boosting request", calls=1,
+                           **times(lambda: edge_weights_chw(feats, m, n_graphs=g, deltas=RING8),
+                                   20),
+                           plain_ms=cuda_ms(lambda: edge_weights_plain(feats, m, g, RING8), 5),
+                           **_bound(nbytes, h * w * g * k2_ops_per_pixel_graph(f, 8)))
+            rows.append(row)
+            del ker, ref, feats
+    torch.cuda.empty_cache()
+    return {"edge_weights_chw": rows}
+
+
 def k9_rows(gen, bar_at):
     """K9 against its plain version at the "single" ablation's shape
     K9_SHAPE, G = 1, and at K9_RAGGED, G = 2, f32 and bf16, and in f32
@@ -2170,13 +2259,15 @@ def kernels_line(smoke):
     oracles, on no request's path), a 512x512 pixel request for K7 (CHW
     route) and K8 (NHWC route), a 512x512 "single" ablation request for K9;
     rows timed on another basis (K5's pixel mode per 1024x1024 and
-    2048x2048 pixel request, K3 per lite, micro and split-ablation request)
-    are summed the same way under ``by_basis``; max_abs_err is the f32
+    2048x2048 pixel request, K3 per lite, micro and split-ablation request,
+    K2 on ring-8 per 512x512 boosting request) are summed the same way
+    under ``by_basis``; max_abs_err is the f32
     maximum; K3's source is the wgmma stack kernel's, and its rows name the
     kernel each shape took (``block_stack.cu`` for lite's C = 24 and f32);
     launches are those of the paths' runs (flagship serving, the small
     models, pixel NHWC, pixel CHW, pixel CHW above the cap, each ablation
-    config), summed and by path."""
+    config, GLR boosting's protocol and natural runs), summed and by
+    path."""
     meta = {
         "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack_wgmma.cu",
                               "irdu_tpu/ops/pallas/block_stack.py:214"),
@@ -2675,6 +2766,121 @@ def phase_natural(smoke):
                 f"natural {r['snapshot']}: {r['psnr']:.4f} dB, JAX {r['target']}")
         require(r["launches"] == r["want"],
                 f"natural {r['snapshot']}: launches {r['launches']}, want {r['want']}")
+
+
+def boosting_sites():
+    """Where models/glr_boosting.py looks K2 up."""
+    from irdu_tpu_torch.models import glr_boosting
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+
+    return ((glr_boosting, "edge_weights_chw", edge_weights_plain, k2_bar),)
+
+
+def phase_baselines(smoke):
+    """GLR boosting and the baselines on the card. Each snapshot model of
+    BASELINE_ROWS, loaded by predict.load_model in bf16: the eval protocol
+    on the synthetic val set (gated within EVAL_BAR_DB of JAX's number where
+    JAX has one; boosting's printed with none) and the natural set at sigma
+    25 through eval.natural (within EVAL_BAR_DB of JAX's mean, per-image gaps
+    printed), counts zeroed just before each and read just after: boosting 4
+    K2 (ring-8) an image and nothing else, the baselines no launch at all;
+    boosting's natural run once more with every K2 call held against its
+    plain version (k2_bar); each model's FRAME² request timed (the median of
+    eval.curve.request_ms, data). Then the zoo's seeded models
+    (BASELINE_SEEDED, default widths, seed k): one BASELINE_SIDE² request,
+    f32 on the card against the same weights on the CPU within
+    BASELINE_F32_BAR of max(1, max|ref|), then bf16 on the card, finite."""
+    import torch
+
+    from irdu_tpu_torch.data.synthetic import synthetic_val_set
+    from irdu_tpu_torch.eval import natural
+    from irdu_tpu_torch.eval.curve import request_ms
+    from irdu_tpu_torch.eval.harness import evaluate_pairs
+    from irdu_tpu_torch.models.registry import create_model
+    from irdu_tpu_torch.predict import batch_forward, load_model
+
+    val = synthetic_val_set()
+    images, masks = natural.load_set()
+    rows, seeded = [], []
+    for family, fname, protocol, target, per_image in BASELINE_ROWS:
+        path = os.path.join(natural.WEIGHTS, fname)
+        model = load_model(path, DEVICE, name=family)
+        want = BASELINE_PER_IMAGE.get(family, launches(0, 0, 0, 0, 0))
+        res, counts = counted(lambda: evaluate_pairs(batch_forward(model), val, 25.0, bucket=64))
+        smoke.path_counts[f"baselines_{family}_eval"] = counts
+        nat, nat_counts = counted(lambda: natural.snapshot_row(family, path, images, masks, 25.0,
+                                                               device=DEVICE))
+        smoke.path_counts[f"baselines_{family}_natural"] = nat_counts
+        row = dict(family=family, snapshot=fname, dtype="bfloat16",
+                   psnr=res["mean_psnr"], psnr_per_image=res["psnr"],
+                   target=protocol and protocol[0], target_source=protocol and protocol[1],
+                   gap_db=protocol and res["mean_psnr"] - protocol[0], launches=counts,
+                   want=times_launches(want, len(val)),
+                   natural=nat["psnr"], natural_masked=nat["masked_psnr"],
+                   natural_target=target, natural_gap_db=nat["psnr"] - target,
+                   natural_per_image_gap=[round(a - b, 3) for a, b in zip(nat["per_image"],
+                                                                          per_image)],
+                   natural_launches=nat_counts,
+                   natural_want=times_launches(want, len(images)))
+        if family == "boosting":
+            with kernel_checks(boosting_sites()) as rec:
+                natural.snapshot_row(family, path, images, masks, 25.0, device=DEVICE)
+            row["natural_checked"] = checks_summary(
+                rec, {"edge_weights_chw": want["edge_weights_chw"] * len(images)})
+        ms = request_ms(model)
+        row.update(request_ms=ms, median_request_ms=float(np.median(ms)),
+                   request=f"{FRAME}x{FRAME} predict.denoise")
+        rows.append(row)
+        print(f"baselines {family} (bf16): protocol {row['psnr']:.4f} dB, target "
+              f"{row['target'] if protocol else 'none'}"
+              + ("" if not protocol else f", gap {row['gap_db']:+.4f}")
+              + f"; natural {nat['psnr']:.4f} dB, JAX {target}, gap {row['natural_gap_db']:+.4f}, "
+              f"per-image gaps {row['natural_per_image_gap']}; {FRAME}x{FRAME} request "
+              f"{row['median_request_ms']:.3f} ms", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    for k, (name, c_in) in enumerate(BASELINE_SEEDED.items()):
+        torch.manual_seed(k)
+        model = create_model(name).eval().requires_grad_(False)
+        x = torch.from_numpy(np.random.RandomState(k).rand(
+            1, BASELINE_SIDE, BASELINE_SIDE, c_in).astype(np.float32))
+        with torch.inference_mode():
+            ref = model(x)
+        model.to(DEVICE)
+        with torch.inference_mode():
+            out, counts = counted(lambda: model(x.to(DEVICE)).cpu())
+        model.to(torch.bfloat16)
+        with torch.inference_mode():
+            half = model(x.to(DEVICE, torch.bfloat16)).float().cpu()
+        smoke.path_counts[f"baselines_{name}"] = counts
+        big = max(1.0, float(ref.abs().max()))
+        seeded.append(dict(model=name, shape=list(x.shape), max_abs_err=max_abs(out, ref),
+                           max_ref=float(ref.abs().max()), bar=BASELINE_F32_BAR * big,
+                           bf16_finite=bool(torch.isfinite(half).all()),
+                           bf16_max_abs_vs_f32=max_abs(half, ref), launches=counts))
+        print(f"baselines {name} (seeded, {BASELINE_SIDE}x{BASELINE_SIDE}): f32 card vs CPU "
+              f"max|d| {seeded[-1]['max_abs_err']:.3e} (bar {seeded[-1]['bar']:.1e}); bf16 "
+              f"finite {seeded[-1]['bf16_finite']}", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    smoke.lines["baselines"] = {"snapshots": rows, "seeded": seeded, "bar_db": EVAL_BAR_DB,
+                                "f32_bar": BASELINE_F32_BAR, "sigma": 25.0}
+    for r in rows:
+        if r["target"] is not None:
+            require(abs(r["gap_db"]) <= EVAL_BAR_DB,
+                    f"baselines {r['family']}: protocol {r['psnr']:.4f} dB, JAX {r['target']}")
+        require(abs(r["natural_gap_db"]) <= EVAL_BAR_DB,
+                f"baselines {r['family']}: natural {r['natural']:.4f} dB, "
+                f"JAX {r['natural_target']}")
+        require(r["launches"] == r["want"] and r["natural_launches"] == r["natural_want"],
+                f"baselines {r['family']}: launches {r['launches']} / {r['natural_launches']}, "
+                f"want {r['want']} / {r['natural_want']}")
+        if "natural_checked" in r:
+            require(r["natural_checked"]["calls_ok"], f"baselines {r['family']}: a K2 call "
+                    f"disagrees with its plain version: {r['natural_checked']}")
+    for r in seeded:
+        require(r["max_abs_err"] <= r["bar"] and r["bf16_finite"]
+                and not any(r["launches"].values()), f"baselines {r['model']}: {r}")
 
 
 def phase_deploy(smoke):
@@ -3253,6 +3459,7 @@ def main() -> int:
         smoke.run("variants", phase_variants, smoke)
         smoke.run("tile", phase_tile, smoke)
         smoke.run("natural", phase_natural, smoke)
+        smoke.run("baselines", phase_baselines, smoke)
         smoke.run("deploy", phase_deploy, smoke)
         smoke.run("train", phase_train, smoke)
     smoke.lines["device_ms"] = device_ms_sessions()
@@ -3260,7 +3467,7 @@ def main() -> int:
     print(json.dumps(kernels), flush=True)
     for key in ("ptxas", "serving", "profile", "small_models", "pixel", "ablation",
                 "band_route", "k7_band_512", "model", "eval", "variants", "tile", "natural",
-                "deploy", "train",
+                "baselines", "deploy", "train",
                 "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
@@ -3269,7 +3476,7 @@ def main() -> int:
     total = time.perf_counter() - t_start
     if build_s is not None and build_s > BUDGET_S["build"]:
         smoke.failed.append(f"build over its {BUDGET_S['build']} s budget ({build_s:.1f} s)")
-    for phase in ("train", "deploy"):
+    for phase in ("train", "deploy", "baselines"):
         if smoke.phases.get(phase, 0) > BUDGET_S[phase]:
             smoke.failed.append(f"{phase} over its {BUDGET_S[phase]} s budget "
                                 f"({smoke.phases[phase]:.1f} s)")

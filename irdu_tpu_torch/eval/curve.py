@@ -4,14 +4,16 @@
     python -m irdu_tpu_torch.eval.curve --model flagship
     python -m irdu_tpu_torch.eval.curve --model lite --filter-scales 1,2,3
     python -m irdu_tpu_torch.eval.curve --model pixel
+    python -m irdu_tpu_torch.eval.curve --model drunet       # restormer, swinir, dncnn
 
 Variants: the full unroll (cg3) and a one-step one (cg1), and with
 ``--filter-scales`` both again filtering only those scales (cg3-fs, cg1-fs);
-the pixel model has one. Each is evaluated by the reference protocol
-(``harness.evaluate_pairs``, bucket 64, seed-2204 noise) on the synthetic
-val set (``data.synthetic.synthetic_val_set``: 6 images at 384×512, made in
-memory, no PNG read) with the model ``predict.load_model`` gives (bf16 on
-the card). Throughput is the card's own: the median over ``REQUESTS``
+the pixel model, GLR boosting and the baselines (``predict.BASELINES``;
+SwinIR has no snapshot: pass ``--weights``) have one. Each is evaluated by
+the reference protocol (``harness.evaluate_pairs``, bucket 64, seed-2204
+noise) on the synthetic val set (``data.synthetic.synthetic_val_set``: 6
+images at 384×512, made in memory, no PNG read) with the model
+``predict.load_model`` gives (bf16 on the card). Throughput is the card's own: the median over ``REQUESTS``
 timed 512×512 ``predict.denoise`` requests after warm-up, host clock,
 synchronized on both sides.
 
@@ -32,16 +34,18 @@ import torch
 
 from irdu_tpu_torch.data.synthetic import synthetic_val_set
 from irdu_tpu_torch.eval.harness import evaluate_pairs
-from irdu_tpu_torch.predict import FAMILY, batch_forward, denoise, load_model
+from irdu_tpu_torch.predict import BASELINES, FAMILY, batch_forward, denoise, load_model
 
 REQUESTS = 10  # timed 512x512 requests a variant
 WARMUP = 3
 SIDE = 512
+ONE_VARIANT = ("pixel", "boosting", *BASELINES)  # no unroll knobs: the model as built
 
 
 def variants(name: str, filter_scales=None) -> list[tuple[int, tuple[int, ...] | None]]:
-    """(cg_iters, filter_scales) per variant; the pixel model's unroll is fixed."""
-    if name == "pixel":
+    """(cg_iters, filter_scales) per variant; one for a model without the
+    flagship's unroll knobs."""
+    if name in ONE_VARIANT:
         return [(3, None)]
     out = [(3, None), (1, None)]
     if filter_scales is not None:
@@ -50,7 +54,7 @@ def variants(name: str, filter_scales=None) -> list[tuple[int, tuple[int, ...] |
 
 
 def variant_tag(name: str, cg: int, filter_scales) -> str:
-    tag = name if name == "pixel" else f"{name}-cg{cg}"
+    tag = name if name in ONE_VARIANT else f"{name}-cg{cg}"
     return tag + ("" if filter_scales is None else "-fs" + "".join(map(str, filter_scales)))
 
 
@@ -105,7 +109,7 @@ def main(argv=None, device: str = "cuda"):
     ap = argparse.ArgumentParser(prog="python -m irdu_tpu_torch.eval.curve",
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--model", default="flagship", choices=FAMILY)
+    ap.add_argument("--model", default="flagship", choices=(*FAMILY, *BASELINES))
     ap.add_argument("--weights", default=None,
                     help="npz snapshot (default: predict.DEFAULT_WEIGHTS[model])")
     ap.add_argument("--sigma", type=float, default=25.0,
@@ -115,8 +119,8 @@ def main(argv=None, device: str = "cuda"):
                          "the -fs variants")
     args = ap.parse_args(argv)
     fs = None if args.filter_scales is None else [int(s) for s in args.filter_scales.split(",")]
-    if args.model == "pixel" and fs is not None:
-        ap.error("--filter-scales does not apply to the pixel model")
+    if args.model in ONE_VARIANT and fs is not None:
+        ap.error(f"--filter-scales does not apply to the {args.model} model")
     print(card(), flush=True)
     rows = run(args.model, args.weights, args.sigma, fs, device)
     for r in rows:

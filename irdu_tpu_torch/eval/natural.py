@@ -33,7 +33,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 DATA = os.path.join(_REPO, "artifacts", "natural_eval")
 WEIGHTS = os.path.join(_REPO, "artifacts", "weights")
 BUCKET = 64
-# JAX's list restricted to the families the port serves, in its order
+# JAX's list, in its order (scripts/eval_natural_benchmark.py); a snapshot
+# that is not in the tree (swinir_synthetic_2050.npz) is skipped, as there
 SNAPSHOTS = [
     ("flagship", "flagship_synthetic_2050.npz"),
     ("flagship", "flagship_ext_6050.npz"),
@@ -43,10 +44,13 @@ SNAPSHOTS = [
     ("micro", "micro_synthetic_2050.npz"),
     ("micro", "micro_distill03_2050.npz"),
     ("pixel", "pixel_synthetic_2050.npz"),
+    ("boosting", "boosting_synthetic_2050.npz"),
+    ("drunet", "drunet_synthetic_2050.npz"),
+    ("dncnn", "dncnn_synthetic_2050.npz"),
+    ("restormer", "restormer_synthetic_2050.npz"),
+    ("swinir", "swinir_synthetic_2050.npz"),
     ("flagship", "flagship_cont100k_35000.npz"),
 ]
-# families in JAX's list that the port does not build yet
-NOT_PORTED = ("boosting", "drunet", "dncnn", "restormer", "swinir")
 
 
 def load_set(data: str = DATA) -> tuple[list[np.ndarray], list[np.ndarray | None] | None]:
@@ -71,9 +75,6 @@ def snapshot_row(name: str, weights: str, images, masks, sigma: float, *,
     the card, f32 on the CPU unless ``dtype``) through the protocol."""
     from irdu_tpu_torch.predict import batch_forward, load_model
 
-    if name in NOT_PORTED:
-        raise ValueError(f"the port does not build the {name!r} family yet "
-                         "(ROADMAP.md, queue 1 item 5: GLR boosting, then the baselines)")
     model = load_model(weights, device, dtype, name=name)
     res = evaluate_pairs(batch_forward(model), images, sigma, bucket=bucket, masks=masks)
     return {"snapshot": os.path.basename(weights), "model": name, "psnr": res["mean_psnr"],
@@ -98,8 +99,6 @@ def main(argv=None, device: str = "cuda"):
     print(json.dumps(noisy), flush=True)
     if args.weights:
         todo = [(args.model or "flagship", args.weights)]
-    elif args.model in NOT_PORTED:
-        todo = [(args.model, "")]
     else:
         todo = [(name, os.path.join(WEIGHTS, f)) for name, f in SNAPSHOTS
                 if args.model in (None, name) and os.path.exists(os.path.join(WEIGHTS, f))]

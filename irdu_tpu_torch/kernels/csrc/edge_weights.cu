@@ -8,10 +8,10 @@
 // neighbour's and m the metric diagonal, the similarity of the normalized,
 // metric-scaled features is  sum_f c_f n_f m_f^2 / (max(|c|,eps) max(|n|,eps)).
 // The features are walked in chunks of fc planes. Per chunk the CTA copies
-// the tile plus R rows above and below (R = 1 for cross-4, 2 for diamond-12;
-// rows clamped to the image, the replicate pad) and kPad columns on each side
-// into shared memory, 16 bytes at a time by cp.async when W is a multiple of
-// the vector (else element by element), and fills the 2 columns beyond each
+// the tile plus R rows above and below (R = 1 for cross-4 and ring-8, 2 for
+// diamond-12; rows clamped to the image, the replicate pad) and kPad columns
+// on each side into shared memory, 16 bytes at a time by cp.async when W is a
+// multiple of the vector (else element by element), and fills the 2 columns beyond each
 // image edge with the edge's values; then every position's squared features
 // are added to Nsq (once per position, shared by the neighbours that read
 // it), and each thread reads, per feature, its pixels' 2R + 1 rows as strips
@@ -52,9 +52,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
-// The built-in windows: E = 4 is cross-4 (radius 1), E = 12 diamond-12
-// (radius 2), in the edge order of ops/windows.py; with a constant e the
-// offsets fold away.
+// The built-in windows: E = 4 is cross-4 (radius 1), E = 8 ring-8 (the 3x3
+// ring, radius 1), E = 12 diamond-12 (radius 2), in the edge order of
+// ops/windows.py; with a constant e the offsets fold away.
 template <int E>
 struct Win;
 template <>
@@ -62,6 +62,15 @@ struct Win<4> {
   static constexpr int R = 1;
   static __device__ __forceinline__ int dh(int e) { return dh_of(e); }
   static __device__ __forceinline__ int dw(int e) { return dw_of(e); }
+};
+template <>
+struct Win<8> {  // row-major over the 3x3 ring: (-1,-1) (-1,0) (-1,1) (0,-1) (0,1) (1,-1) (1,0) (1,1)
+  static constexpr int R = 1;
+  static __device__ __forceinline__ int dh(int e) { return e < 3 ? -1 : (e < 5 ? 0 : 1); }
+  static __device__ __forceinline__ int dw(int e) {
+    constexpr int t[8] = {-1, 0, 1, -1, 1, -1, 0, 1};
+    return t[e];
+  }
 };
 template <>
 struct Win<12> {
@@ -318,8 +327,11 @@ int launch(const void* feats, const void* m, int m_bf16, void* out, int B, int G
 template <typename T>
 int dispatch(const void* feats, const void* m, int m_bf16, void* out, int n_edges, int B, int G,
              int F, int H, int W, int bh, int tx, int fc, cudaStream_t s) {
-  return n_edges == 4 ? launch<T, 4>(feats, m, m_bf16, out, B, G, F, H, W, bh, tx, fc, s)
-                      : launch<T, 12>(feats, m, m_bf16, out, B, G, F, H, W, bh, tx, fc, s);
+  switch (n_edges) {
+    case 4: return launch<T, 4>(feats, m, m_bf16, out, B, G, F, H, W, bh, tx, fc, s);
+    case 8: return launch<T, 8>(feats, m, m_bf16, out, B, G, F, H, W, bh, tx, fc, s);
+    default: return launch<T, 12>(feats, m, m_bf16, out, B, G, F, H, W, bh, tx, fc, s);
+  }
 }
 
 }  // namespace ew
@@ -331,20 +343,20 @@ extern "C" long long irdu_edge_weights_smem(int esize, int fc, int F, int bh, in
 }
 
 // feats (B, G*F, H, W) and out (B, G, E, H, W) in dtype; multi_m (G, F) f32
-// (mdtype 0) or bf16 (1), contiguous; n_edges 4 (cross-4) or 12
+// (mdtype 0) or bf16 (1), contiguous; n_edges 4 (cross-4), 8 (ring-8) or 12
 // (diamond-12), the windows of ops/windows.py; the plan (bh rows, tx
 // threads a row, fc features a chunk) of edge_weights.plan_edge_tiles.
 extern "C" int irdu_edge_weights(const void* feats, const void* multi_m, void* out, int B,
                                  int G, int F, int H, int W, int n_edges, int dtype, int mdtype,
                                  int bh, int tx, int fc, void* stream) {
   using namespace irdu::ew;
-  if ((n_edges != 4 && n_edges != 12) || B < 1 || G < 1 || F < 1 || H < 1 || W < 1 ||
+  if ((n_edges != 4 && n_edges != 8 && n_edges != 12) || B < 1 || G < 1 || F < 1 || H < 1 || W < 1 ||
       bh < 1 || tx < 1 || tx * bh > 256 || fc < 1 || fc > F ||
       (mdtype != irdu::kFloat32 && mdtype != irdu::kBFloat16) ||
       (dtype != irdu::kFloat32 && dtype != irdu::kBFloat16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int esize = dtype == irdu::kFloat32 ? 4 : 2;
-  if (smem_bytes(esize, fc, F, bh, tx, n_edges == 4 ? 1 : 2) > kSmemLimit)
+  if (smem_bytes(esize, fc, F, bh, tx, n_edges == 12 ? 2 : 1) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mb = mdtype == irdu::kBFloat16;

@@ -150,11 +150,13 @@ class VariantConv(nn.Module):
 
 
 class GroupedPointwise(VariantConv):
-    """1×1 conv, no bias."""
+    """1×1 conv, no bias unless ``use_bias`` (U(±1/√fan_in), as the kernel)."""
 
-    def __init__(self, c_in: int, features: int, variant: str = "plain"):
+    def __init__(self, c_in: int, features: int, variant: str = "plain",
+                 use_bias: bool = False):
         super().__init__()
         self.weight = uniform_param((features, c_in, 1, 1), c_in)
+        self.bias = uniform_param((features,), c_in) if use_bias else None
         self._variant(variant, features, features)
 
     @staticmethod
@@ -166,7 +168,7 @@ class GroupedPointwise(VariantConv):
         return w[:, :, 0, 0].t()
 
     def forward(self, x):
-        return F.conv2d(x, self.folded())
+        return F.conv2d(x, self.folded(), self.bias)
 
 
 class Conv3x3Replicate(VariantConv):
@@ -248,17 +250,20 @@ class Upsample2x2(VariantConv):
 
 
 class Conv3x3Zero(nn.Module):
-    """3×3 stride-1 conv with zero padding (torch Conv2d padding=1), no bias;
-    the pixel family's feature U-Net and DC estimator use it. Same flax
-    kernel layout as ``Conv3x3Replicate``."""
+    """3×3 stride-1 conv with zero padding (torch Conv2d padding=1), no bias
+    unless ``use_bias``; the pixel family's feature U-Net and DC estimator,
+    Restormer, SwinIR and DRUNet use it. Same flax kernel layout as
+    ``Conv3x3Replicate``."""
 
-    def __init__(self, c_in: int, features: int, groups: int = 1):
+    def __init__(self, c_in: int, features: int, groups: int = 1, use_bias: bool = False):
         super().__init__()
         self.groups = groups
-        self.weight = uniform_param((features, c_in // groups, 3, 3), c_in // groups * 9)
+        fan_in = c_in // groups * 9
+        self.weight = uniform_param((features, c_in // groups, 3, 3), fan_in)
+        self.bias = uniform_param((features,), fan_in) if use_bias else None
 
     kernel_to_torch = staticmethod(Conv3x3Replicate.kernel_to_torch)
     kernel_from_torch = staticmethod(Conv3x3Replicate.kernel_from_torch)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, padding=1, groups=self.groups)
+        return F.conv2d(x, self.weight, self.bias, padding=1, groups=self.groups)

@@ -4,18 +4,19 @@ Replaces the TPU kernel ``irdu_tpu/ops/pallas/solver_chw.py:edge_weights_chw``
 (body ``_edgew_kernel``). For each pixel and graph: L2-normalize the F node
 features (norm clamped at 1e-12), scale by the metric diagonal multiM, take
 the dot product with each neighbour of the window (replicate-padded), softmax
-over the E edges. The window is cross-4 for the flagship (E = 4) and
-diamond-12 for the pixel family (E = 12, offsets up to distance 2). Compute
-in f32; output in the input dtype.
+over the E edges. The window is cross-4 for the flagship (E = 4),
+diamond-12 for the pixel family (E = 12, offsets up to distance 2) and
+ring-8 for GLR boosting (E = 8, the 3×3 ring). Compute in f32; output in
+the input dtype.
 
 On the card (``kernels/csrc/edge_weights.cu``): the work is ~(4E + 2)
 flops per feature and pixel against 2-4 bytes per feature read, so it is
 bound by device-memory bytes (features read once, weights written once). One
 CTA takes one graph and a tile of rows (the band), and copies the band plus
-the window's radius rows (1 for cross-4, 2 for diamond-12) of its feature
-planes into shared memory 16 bytes at a time (cp.async), F planes at once or
-in chunks of fc when they do not fit (``plan_edge_tiles``), with the replicate
-pad of the image's edges filled in beside them. Each thread takes 8 adjacent
+the window's radius rows (1 for cross-4 and ring-8, 2 for diamond-12) of its
+feature planes into shared memory 16 bytes at a time (cp.async), F planes at
+once or in chunks of fc when they do not fit (``plan_edge_tiles``), with the
+replicate pad of the image's edges filled in beside them. Each thread takes 8 adjacent
 pixels of a row in bf16 (4 in f32), so that neighbouring columns come from
 shared memory and each edge's output leaves in one 16-byte store; it keeps
 the E metric-weighted dots of its pixels in registers, while the squared
@@ -32,12 +33,11 @@ import torch
 
 from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
-from irdu_tpu_torch.ops.graph import at_least_f32
-from irdu_tpu_torch.ops.shifts import shift2d
-from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
+from irdu_tpu_torch.ops.graph import at_least_f32, extract_edge_weights
+from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12, RING8
 
-_NORMALIZE_EPS = 1e-12
-KERNEL_WINDOWS = {4: CROSS4, 12: DIAMOND12}  # the windows the kernel is built for, by E
+# the windows the kernel is built for, by E
+KERNEL_WINDOWS = {4: CROSS4, 8: RING8, 12: DIAMOND12}
 EDGE_PAD = 8          # shared-memory columns beside a tile, each side
 EDGE_ROWS, EDGE_TX = 16, 8  # a CTA's band: rows, and threads a row
 EDGE_SMEM = 48 * 1024  # shared memory a plan keeps to, unless one feature plane is more
@@ -46,15 +46,10 @@ SMEM_LIMIT = 232448   # bytes of shared memory one H100 block can use
 
 def edge_weights_plain(feats: torch.Tensor, multi_m: torch.Tensor,
                        n_graphs: int, deltas=CROSS4) -> torch.Tensor:
-    """feats (B, G·F, H, W), multi_m (G, F) → weights (B, G, E, H, W)."""
-    b, c, h, w = feats.shape
-    f = c // n_graphs
-    x = at_least_f32(feats).reshape(b, n_graphs, f, h, w)
-    norm = torch.sqrt(torch.sum(x * x, dim=2, keepdim=True))
-    t = x / torch.clamp(norm, min=_NORMALIZE_EPS)
-    t = t * at_least_f32(multi_m).reshape(1, n_graphs, f, 1, 1)
-    sims = [torch.sum(t * shift2d(t, dh, dw), dim=2) for dh, dw in deltas]
-    return torch.softmax(torch.stack(sims, dim=2), dim=2).to(feats.dtype)
+    """feats (B, G·F, H, W), multi_m (G, F) → weights (B, G, E, H, W):
+    ``ops.graph.extract_edge_weights`` in f32, returned in the input dtype."""
+    return extract_edge_weights(at_least_f32(feats), at_least_f32(multi_m), n_graphs,
+                                deltas).to(feats.dtype)
 
 
 def _check(feats, multi_m, n_graphs):
@@ -70,7 +65,7 @@ def _check(feats, multi_m, n_graphs):
 
 def window_radius(deltas) -> int:
     """The rows above and below a pixel that the window reads (1 for
-    cross-4, 2 for diamond-12)."""
+    cross-4 and ring-8, 2 for diamond-12)."""
     return max(abs(dh) for dh, _ in deltas)
 
 
@@ -115,8 +110,8 @@ def edge_weights_chw(feats: torch.Tensor, multi_m: torch.Tensor, *,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (f32 or bf16 features, contiguous; multi_m read as it is when it is f32
-    or bf16 and contiguous, else cast to f32; the cross-4 or diamond-12
-    window)."""
+    or bf16 and contiguous, else cast to f32; the cross-4, ring-8 or
+    diamond-12 window)."""
     refuse_grad("edge_weights_chw", feats, multi_m)
     _check(feats, multi_m, n_graphs)
     if library.tracing():
@@ -132,7 +127,8 @@ def _run(feats, multi_m, n_graphs, deltas):
         raise ValueError("edge_weights_chw needs a contiguous CUDA or CPU tensor")
     n_e = len(deltas)
     if tuple(map(tuple, deltas)) != KERNEL_WINDOWS.get(n_e):
-        raise ValueError(f"the kernel takes the cross-4 and diamond-12 windows, not {deltas}")
+        raise ValueError(f"the kernel takes the cross-4, ring-8 and diamond-12 windows, "
+                         f"not {deltas}")
     radius = window_radius(deltas)
     b, c, h, w = feats.shape
     f = c // n_graphs

@@ -116,6 +116,54 @@ def glr_apply(x, w, p, deltas=CROSS4, pad_mode="edge"):
     return stats_conv_transpose(s - acc, p)
 
 
+_NORMALIZE_EPS = 1e-12  # torch.nn.functional.normalize's
+
+
+def _split_graphs(x: torch.Tensor, n_graphs: int) -> torch.Tensor:
+    """(B, G·C, H, W) as its (B, G, C, H, W) view."""
+    b, c, h, w = x.shape
+    return x.reshape(b, n_graphs, c // n_graphs, h, w)
+
+
+def normalize_features(feats: torch.Tensor, multi_m: torch.Tensor, n_graphs: int) -> torch.Tensor:
+    """Node features (B, G·F, H, W) L2-normalized within each graph's F
+    block (the norm clamped at 1e-12), then scaled by the metric diagonal
+    ``multi_m`` (G, F); returned as (B, G, F, H, W)."""
+    x = _split_graphs(feats, n_graphs)
+    norm = torch.sqrt(torch.sum(x * x, dim=2, keepdim=True))
+    return x / torch.clamp(norm, min=_NORMALIZE_EPS) * multi_m[None, :, :, None, None]
+
+
+def extract_edge_weights(feats: torch.Tensor, multi_m: torch.Tensor, n_graphs: int,
+                         deltas=CROSS4) -> torch.Tensor:
+    """Row-stochastic edge weights (B, G, E, H, W) of features (B, G·F, H, W):
+    the dot product over F of the normalized, metric-scaled features of the
+    pixel and of each neighbour of ``deltas`` (replicate-padded), softmax
+    over the E edges; in the features' dtype. (JAX also returns the softmax
+    row sums, identically 1.)"""
+    t = normalize_features(feats, multi_m, n_graphs)
+    sims = [torch.sum(t * shift2d(t, dh, dw), dim=2) for dh, dw in deltas]
+    return torch.softmax(torch.stack(sims, dim=2), dim=2)
+
+
+def op_l_norm(x: torch.Tensor, weights: torch.Tensor, n_graphs: int,
+              deltas=CROSS4) -> torch.Tensor:
+    """Random-walk normalized Laplacian ``x − Σ_e w_e ⊙ shift_e(x)`` of
+    x (B, G·C, H, W), each graph's C planes weighted by its weights
+    (B, G, E, H, W), neighbours read with replicate padding."""
+    xg = _split_graphs(x, n_graphs)
+    acc = None
+    for e, (dh, dw) in enumerate(deltas):
+        term = weights[:, :, e:e + 1] * shift2d(xg, dh, dw)
+        acc = term if acc is None else acc + term
+    return (xg - acc).reshape(x.shape)
+
+
+def per_graph_scale(x: torch.Tensor, vec_g: torch.Tensor) -> torch.Tensor:
+    """x (B, G·C, H, W) times a per-graph vector (G,), broadcast over C."""
+    return (_split_graphs(x, vec_g.shape[0]) * vec_g[None, :, None, None, None]).reshape(x.shape)
+
+
 def soft_threshold(delta: torch.Tensor, gamma) -> torch.Tensor:
     """Edge-domain soft shrinkage S_γ."""
     zero = torch.zeros((), dtype=delta.dtype, device=delta.device)

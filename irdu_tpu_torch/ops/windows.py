@@ -32,5 +32,9 @@ DIAMOND12 = window_to_deltas(np.array([[0, 0, 1, 0, 0],
                                        [1, 1, 0, 1, 1],
                                        [0, 1, 1, 1, 0],
                                        [0, 0, 1, 0, 0]]))
+# 8-neighbour full 3×3 ring, GLR boosting's window.
+RING8 = window_to_deltas(np.array([[1, 1, 1],
+                                   [1, 0, 1],
+                                   [1, 1, 1]]))
 
-WINDOWS = {"cross4": CROSS4, "diamond12": DIAMOND12}
+WINDOWS = {"cross4": CROSS4, "diamond12": DIAMOND12, "ring8": RING8}

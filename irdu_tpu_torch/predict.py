@@ -44,30 +44,55 @@ from irdu_tpu_torch.utils.weights import load_params_npz, params_to_torch
 
 _CONFIGS = {"flagship": flagship_config, "lite": flagship_lite_config,
             "micro": flagship_micro_config}
-FAMILY = (*_CONFIGS, "pixel")
+FAMILY = (*_CONFIGS, "pixel")  # the CLI's choices, JAX's
+# the baselines as JAX's eval scripts build them (scripts/eval_natural_benchmark.py
+# and scripts/psnr_vs_throughput.py: the same constructions): registry name, fields
+BASELINES = {
+    "restormer": ("restormer", {"norm_type": "BiasFree"}),
+    "drunet": ("drunet", {"in_nc": 3, "out_nc": 3}),
+    "dncnn": ("dncnn", {"in_nc": 3, "out_nc": 3, "nc": 64, "nb": 17, "act_mode": "R"}),
+    "swinir": ("swinir", {}),
+}
+# every family ``build_model`` and ``load_model`` take: GLR boosting (its
+# default build) and the baselines besides the CLI's
+FAMILIES = (*FAMILY, "boosting", *BASELINES)
 _WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "artifacts", "weights")
 # The 86k-step flagship snapshot (σ=25), pinned: the newest-by-name file in
 # the directory is a σ=50 snapshot. lite, micro and pixel take the file JAX's
 # default_weights picks, the last of the name by sort order.
+# GLR boosting and the baselines take their one snapshot (SwinIR has none).
 DEFAULT_WEIGHTS = {name: os.path.join(_WEIGHTS_DIR, fname) for name, fname in (
     ("flagship", "flagship_cont100k_35000.npz"), ("lite", "lite_synthetic_2050.npz"),
-    ("micro", "micro_synthetic_2050.npz"), ("pixel", "pixel_synthetic_2050.npz"))}
+    ("micro", "micro_synthetic_2050.npz"), ("pixel", "pixel_synthetic_2050.npz"),
+    ("boosting", "boosting_synthetic_2050.npz"), ("drunet", "drunet_synthetic_2050.npz"),
+    ("dncnn", "dncnn_synthetic_2050.npz"), ("restormer", "restormer_synthetic_2050.npz"))}
 
 
 def build_model(name: str = "flagship", *, cg_iters: int = 3, filter_scales=None):
     """One member of the family, randomly initialized. filter_scales: filter
     only these scales' codes (None: all four). The pixel model (24 graphs × 3
     node features, 72-wide feature U-Net, diamond-12) takes neither knob and
-    runs its unroll on the kernel routes (NHWC first, then CHW)."""
+    runs its unroll on the kernel routes (NHWC first, then CHW); nor do GLR
+    boosting (its default build: 4 levels, 5 graphs, ring-8, 5 CG steps) and
+    the baselines (``BASELINES``)."""
+    if name not in FAMILIES:
+        raise ValueError(f"unknown model {name!r}; choose from {sorted(FAMILIES)}")
+    if name not in _CONFIGS and (filter_scales is not None or cg_iters != 3):
+        raise ValueError(f"--filter-scales/--cg-iters do not apply to the {name} "
+                         "model (its unroll, if any, is fixed); remove them")
     if name == "pixel":
-        if filter_scales is not None or cg_iters != 3:
-            raise ValueError("--filter-scales/--cg-iters do not apply to the pixel "
-                             "model (its unroll is fixed); remove them")
         return MultiScaleSequenceDenoiser(n_graphs=24, n_node_fts=3, n_cnn_fts=72,
                                           use_pallas_solver=True, use_nhwc_solver=True)
-    if name not in _CONFIGS:
-        raise ValueError(f"unknown model {name!r}; choose from {sorted(FAMILY)}")
+    if name == "boosting":
+        from irdu_tpu_torch.models.glr_boosting import GLRBoostingPyramid
+
+        return GLRBoostingPyramid()
+    if name in BASELINES:
+        from irdu_tpu_torch.models.registry import create_model
+
+        kind, kw = BASELINES[name]
+        return create_model(kind, **kw)
     return AbstractMultiScaleGraphFilter(eval_cg_iters=cg_iters,
                                          eval_filter_scales=filter_scales,
                                          **_CONFIGS[name]())

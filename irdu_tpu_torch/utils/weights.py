@@ -109,22 +109,52 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _torch_leaf(model: torch.nn.Module, owner: str, leaf: str) -> str:
+    """The torch name of flax leaf ``leaf`` of module ``owner``: the
+    module's ``FLAX_NAMES`` entry (a BatchNorm's ``scale`` is its ``weight``,
+    its ``mean`` its ``running_mean``), else the leaf's own name."""
+    try:
+        mod = model.get_submodule(owner)
+    except AttributeError:
+        return leaf
+    return getattr(mod, "FLAX_NAMES", {}).get(leaf, leaf)
+
+
+def _stat_buffers(model: torch.nn.Module) -> dict:
+    """The buffers a flax ``batch_stats`` collection sets (a BatchNorm's
+    running mean and variance), by torch name, with their flax paths."""
+    out = {}
+    for owner, mod in model.named_modules():
+        own = dict(mod.named_buffers(recurse=False))
+        for flax_name, name in getattr(mod, "FLAX_NAMES", {}).items():
+            if name in own:
+                out[f"{owner}.{name}" if owner else name] = (
+                    own[name], (owner.split(".") if owner else []) + [flax_name])
+    return out
+
+
 @torch.no_grad()
 def params_to_torch(flax_params: dict, model: torch.nn.Module, spectral: dict | None = None) -> None:
     """Copy a nested flax params dict (optionally under a top-level
-    ``"params"`` key) onto ``model``, and the ``"spectral"`` collection's
-    ``*_u`` vectors onto its buffers of the same names.
+    ``"params"`` key) onto ``model``, the ``"spectral"`` collection's
+    ``*_u`` vectors onto its buffers of the same names, and the
+    ``"batch_stats"`` collection onto the BatchNorm running statistics.
 
     Module attribute names mirror the flax scope names, so a flax path
     ``a/b/c/kernel`` lands on ``model.a.b.c.weight`` through the owning
     module's ``kernel_to_torch`` (layout conversion); every other leaf
-    lands on the parameter of the same name (``scaling_factor`` too).
+    lands on the parameter of the same name (``scaling_factor`` too), or of
+    the name the owning module's ``FLAX_NAMES`` gives it.
     ``spectral``: the collection's tree (default: ``flax_params["spectral"]``
     when the dict holds both collections); its leaves are variables, not
     params, and ``a/b/c/kernel_u`` lands on the buffer ``a.b.c.kernel_u``.
-    Raises KeyError on a flax leaf with no parameter or buffer, a parameter
-    no leaf set, or, when a spectral tree is given, a ``kernel_u`` buffer it
-    does not set; ValueError on a shape mismatch."""
+    ``flax_params["batch_stats"]`` (next to "params"): ``a/bn/mean`` and
+    ``a/bn/var`` land on ``a.bn.running_mean`` and ``running_var``. Raises
+    KeyError on a flax leaf with no parameter or buffer, a parameter no leaf
+    set, when a spectral tree is given a ``kernel_u`` buffer it does not
+    set, and a running statistic that no batch_stats leaf sets (a model
+    with BatchNorms needs the collection); ValueError on a shape
+    mismatch."""
     tree = flax_params.get("params", flax_params)
     if spectral is None and "params" in flax_params:
         spectral = flax_params.get("spectral")
@@ -138,7 +168,7 @@ def params_to_torch(flax_params: dict, model: torch.nn.Module, spectral: dict | 
                 raise KeyError(f"flax leaf {'/'.join(path)} has no parameter {name}")
             value = model.get_submodule(owner).kernel_to_torch(torch.tensor(np.asarray(arr)))
         else:
-            name = ".".join(path)
+            name = ".".join((*path[:-1], _torch_leaf(model, owner, path[-1])))
             if name not in named:
                 raise KeyError(f"flax leaf {'/'.join(path)} has no parameter {name}")
             value = torch.tensor(np.asarray(arr))
@@ -148,20 +178,30 @@ def params_to_torch(flax_params: dict, model: torch.nn.Module, spectral: dict | 
     if missing:
         raise KeyError(f"parameters not set by the snapshot: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
+    stats = _stat_buffers(model)
+    stats_tree = flax_params.get("batch_stats", {}) if "params" in flax_params else {}
+    _copy_collection(model, stats_tree, {n: b for n, (b, _) in stats.items()}, "batch_stats",
+                     "running statistics")
     if spectral is None:
         return
     buffers = {n: b for n, b in model.named_buffers() if n.endswith("kernel_u")}
+    _copy_collection(model, spectral, buffers, "spectral", "spectral vectors")
+
+
+def _copy_collection(model, tree: dict, buffers: dict, what: str, kind: str) -> None:
+    """A variable collection's leaves onto ``buffers`` (torch name →
+    buffer), each leaf named as ``params_to_torch`` names it; every buffer
+    must be set."""
     done = set()
-    for path, arr in _flatten(spectral):
-        name = ".".join(path)
+    for path, arr in _flatten(tree):
+        name = ".".join((*path[:-1], _torch_leaf(model, ".".join(path[:-1]), path[-1])))
         if name not in buffers:
-            raise KeyError(f"spectral leaf {'/'.join(path)} has no buffer {name}")
+            raise KeyError(f"{what} leaf {'/'.join(path)} has no buffer {name}")
         _copy(buffers[name], torch.tensor(np.asarray(arr, np.float32)), name)
         done.add(name)
     missing = sorted(set(buffers) - done)
     if missing:
-        raise KeyError(f"spectral vectors not set: {missing[:8]}"
-                       f"{' ...' if len(missing) > 8 else ''}")
+        raise KeyError(f"{kind} not set: {missing[:8]}{' ...' if len(missing) > 8 else ''}")
 
 
 def _copy(dst: torch.Tensor, value: torch.Tensor, name: str) -> None:
@@ -182,11 +222,13 @@ def _set(tree: dict, path, value) -> None:
 def params_from_torch(model: torch.nn.Module, spectral: bool | None = None) -> dict:
     """The reverse of ``params_to_torch``: JAX's variables tree of ``model``,
     {"params": ...} with flax names and layouts (``kernel_from_torch`` of
-    each weight's module), as float32 numpy arrays (a bf16 model's values
-    widened exactly); with ``spectral`` (default: when the model has
-    ``kernel_u`` buffers) also {"spectral": ...}, the u vectors. The tree
-    goes back onto the model through ``params_to_torch`` unchanged, and
-    ``save_params_npz`` writes it as JAX's snapshot of the same model."""
+    each weight's module, ``FLAX_NAMES`` read backwards), as float32 numpy
+    arrays (a bf16 model's values widened exactly); with ``spectral``
+    (default: when the model has ``kernel_u`` buffers) also {"spectral":
+    ...}, the u vectors; when the model has BatchNorms also {"batch_stats":
+    ...}, their running statistics. The tree goes back onto the model
+    through ``params_to_torch`` unchanged, and ``save_params_npz`` writes it
+    as JAX's snapshot of the same model."""
     def host(t):
         return np.ascontiguousarray(t.detach().float().cpu().numpy())
 
@@ -194,12 +236,18 @@ def params_from_torch(model: torch.nn.Module, spectral: bool | None = None) -> d
     for name, p in model.named_parameters():
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner)
+        path = owner.split(".") if owner else []
         if leaf == "weight" and hasattr(mod, "kernel_from_torch"):
-            path = (owner.split(".") if owner else []) + ["kernel"]
-            _set(params, path, host(mod.kernel_from_torch(p)))
+            _set(params, path + ["kernel"], host(mod.kernel_from_torch(p)))
         else:
-            _set(params, name.split("."), host(p))
+            flax = {v: k for k, v in getattr(mod, "FLAX_NAMES", {}).items()}
+            _set(params, path + [flax.get(leaf, leaf)], host(p))
     tree = {"params": params}
+    stats = _stat_buffers(model)
+    if stats:
+        tree["batch_stats"] = {}
+        for b, path in stats.values():
+            _set(tree["batch_stats"], path, host(b))
     buffers = [(n, b) for n, b in model.named_buffers() if n.endswith("kernel_u")]
     if spectral or (spectral is None and buffers):
         tree["spectral"] = {}

@@ -113,12 +113,13 @@ def test_kernel_route_matches_plain_route():
 
 
 def test_registry_names_and_unported_models():
-    assert registry.available_models() == [
-        "abstract_multiscale_graph_filter", "multiscale_graph_filter",
-        "multiscale_sequence_denoiser", "one_graph_filter"]
-    assert set(registry.available_models()) <= set(jax_registry.available_models())
+    """The port's registry has JAX's 16 names (none left unported): GLR
+    boosting builds; a name neither has raises KeyError."""
+    assert registry.available_models() == jax_registry.available_models()
+    assert len(registry.available_models()) == 16
+    assert type(registry.create_model("glr_boosting_pyramid")).__name__ == "GLRBoostingPyramid"
     with pytest.raises(KeyError, match="available"):
-        registry.create_model("glr_boosting_pyramid")
+        registry.create_model("no_such_model")
 
 
 def _chip_smoke():

@@ -15,7 +15,7 @@ import torch
 from irdu_tpu.ops.pallas.solver_chw import edge_weights_chw as jax_edge_weights
 from irdu_tpu_torch.ops import edge_weights as ew
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
-from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
+from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12, RING8, WINDOWS
 from irdu_tpu_torch.predict import _CONFIGS
 
 # (B, n_graphs, F, H, W): 2G graphs as the solver batches GTV and GLR
@@ -121,16 +121,17 @@ def _band_scheme(feats, multi_m, g, deltas, esize, plan=None):
 # (B, graphs, F, H, W, window, element size): a vector-aligned width and
 # odd widths (element copies, ragged last tiles), H a multiple of 8 for JAX
 BAND_CASES = [(1, 4, 3, 16, 40, "cross4", 2), (2, 6, 5, 16, 37, "diamond12", 2),
-              (1, 4, 12, 24, 30, "cross4", 4), (1, 3, 7, 8, 21, "diamond12", 4)]
+              (1, 4, 12, 24, 30, "cross4", 4), (1, 3, 7, 8, 21, "diamond12", 4),
+              (1, 5, 12, 16, 40, "ring8", 2), (1, 2, 9, 8, 27, "ring8", 4)]
 
 
 @pytest.mark.parametrize("case", BAND_CASES, ids=lambda c: "{}x{}x{}_{}x{}_{}_e{}".format(*c))
 def test_band_scheme_matches_plain_and_jax(case):
-    """Both windows, ragged H and W, F from 3 to 12, the bf16 and f32 plans:
+    """Every window, ragged H and W, F from 3 to 12, the bf16 and f32 plans:
     within 1e-5 of the plain version (the same f32 function, summed in
     another order) and JAX's kernel's bar (5e-4, 1e-3)."""
     b, g, f, h, w, win, esize = case
-    deltas = {"cross4": CROSS4, "diamond12": DIAMOND12}[win]
+    deltas = WINDOWS[win]
     feats, multi_m = _inputs(b, g, f, h, w, seed=f)
     ft, mt = torch.from_numpy(feats), torch.from_numpy(multi_m)
     out = _band_scheme(ft, mt, g, deltas, esize)
@@ -144,11 +145,11 @@ def test_band_scheme_matches_plain_and_jax(case):
     np.testing.assert_allclose(out.numpy(), ref, atol=5e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("win", ["cross4", "diamond12"])
+@pytest.mark.parametrize("win", ["cross4", "diamond12", "ring8"])
 def test_band_scheme_in_feature_chunks(win):
     """F = 8 in chunks of 3, 3, 2 (the plan the ablations' F = 96 takes, at a
     small size), 8-row bands of 4 threads a row: equal to the plain version."""
-    deltas = {"cross4": CROSS4, "diamond12": DIAMOND12}[win]
+    deltas = WINDOWS[win]
     feats, multi_m = (torch.from_numpy(a) for a in _inputs(1, 2, 8, 19, 45, seed=3))
     out = _band_scheme(feats, multi_m, 2, deltas, 2, plan=(8, 4, 3, None))
     torch.testing.assert_close(out, edge_weights_plain(feats, multi_m, 2, deltas),
@@ -160,7 +161,8 @@ def _served_edge_calls():
     model's two calls a scale (the full- and half-resolution features of 2G
     graphs) at its request sizes; the pixel model's 2G = 48 graphs of 3
     features on diamond-12; the ablations' one-graph heads (2 graphs of 96
-    features)."""
+    features); GLR boosting's four levels on ring-8 (5 graphs of 12, 12, 24
+    and 48 features at full, half, quarter and eighth resolution)."""
     calls = set()
     sizes = ((512, 512), (480, 320), (256, 384), (1024, 1024), (2048, 2048))
     for name in ("flagship", "lite", "micro"):
@@ -172,6 +174,9 @@ def _served_edge_calls():
     for h, w in ((512, 512), (480, 320), (1024, 1024), (2048, 2048)):
         calls.add((1, 48, 3, h, w, 2))
     calls |= {(1, 2, 96, 512, 512, 1), (1, 2, 96, 256, 256, 1)}
+    for h, w in sizes:
+        for k, f in enumerate((12, 12, 24, 48)):
+            calls.add((1, 5, f, h >> k, w >> k, 1))
     return sorted(calls)
 
 
@@ -201,3 +206,5 @@ def test_edge_smem_layout_bytes():
 
 def test_window_radius():
     assert ew.window_radius(CROSS4) == 1 and ew.window_radius(DIAMOND12) == 2
+    assert ew.window_radius(RING8) == 1
+    assert {len(d): d for d in WINDOWS.values()} == ew.KERNEL_WINDOWS

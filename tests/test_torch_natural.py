@@ -2,10 +2,14 @@
 the JAX package's: the noisy-input rows of its result files (which cover the
 PNG reader, the masks, the noise, the pad and the rounding), the masks by the
 JAX script's rule, one image through the micro snapshot on both sides, the
-CLI's rows and the families the port does not serve."""
+CLI's rows, the snapshot list and the baselines' constructions against the
+JAX scripts', and a row of each family the port serves since GLR boosting
+and the baselines."""
 
 from __future__ import annotations
 
+import ast
+import importlib.util
 import json
 import os
 from pathlib import Path
@@ -21,7 +25,14 @@ from irdu_tpu.models.flagship import AbstractMultiScaleGraphFilter as JaxFlagshi
 from irdu_tpu.models.flagship import flagship_micro_config
 from irdu_tpu.utils.weights import load_params_npz as jax_load
 from irdu_tpu_torch.eval import harness, natural
-from irdu_tpu_torch.predict import DEFAULT_WEIGHTS, batch_forward, load_model
+from irdu_tpu_torch.predict import (
+    BASELINES,
+    DEFAULT_WEIGHTS,
+    batch_forward,
+    build_model,
+    load_model,
+)
+from irdu_tpu_torch.utils.weights import params_from_torch, save_params_npz
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "artifacts", "natural_eval")
@@ -119,9 +130,46 @@ def test_cli_rows_have_the_jax_keys(tmp_path, capsys):
     assert [json.loads(ln) for ln in out.read_text().splitlines()] == [lines[1]]
 
 
-@pytest.mark.parametrize("family", natural.NOT_PORTED)
-def test_unported_families_raise(natural_set, family):
+def _jax_script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_snapshots_and_baselines_are_the_jax_scripts():
+    """The snapshot list is JAX's, in its order (a snapshot not in the tree,
+    swinir's, skipped as there); the baselines are built as both JAX eval
+    scripts build them."""
+    script = _jax_script("eval_natural_benchmark")
+    assert natural.SNAPSHOTS == [(n, os.path.basename(p)) for n, p in script.SNAPSHOTS]
+    assert BASELINES == script.BASELINES
+    with open(os.path.join(REPO, "scripts", "psnr_vs_throughput.py")) as fh:
+        tree = ast.parse(fh.read())
+    curve = [ast.literal_eval(n.value) for n in ast.walk(tree) if isinstance(n, ast.Assign)
+             and any(getattr(t, "id", None) == "BASELINES" for t in n.targets)]
+    assert curve == [BASELINES]
+    assert not os.path.exists(os.path.join(natural.WEIGHTS, "swinir_synthetic_2050.npz"))
+
+
+@pytest.mark.parametrize("family", ["boosting", "drunet", "dncnn", "restormer", "swinir"])
+def test_unported_families_raise(natural_set, family, tmp_path):
+    """Each family the port did not serve before GLR boosting and the
+    baselines now yields a row on the CPU: its snapshot (SwinIR, which has
+    none, a seeded one written by ``save_params_npz``) in f32 at its
+    published width, on a 16x24 crop of the 124x143 image (bucket 8), with
+    the keys of JAX's rows."""
     images, masks = natural_set
-    with pytest.raises(ValueError, match="queue 1 item 5"):
-        natural.snapshot_row(family, "x.npz", images, masks, 25.0, device="cpu")
-    assert family not in {name for name, _ in natural.SNAPSHOTS}
+    img, mask = [images[1][40:56, 60:84]], [masks[1][40:56, 60:84]]
+    weights = DEFAULT_WEIGHTS.get(family)
+    if weights is None:
+        torch.manual_seed(0)
+        weights = str(tmp_path / "swinir.npz")
+        save_params_npz(weights, params_from_torch(build_model(family)))
+    row = natural.snapshot_row(family, weights, img, mask, 25.0, device="cpu", bucket=8)
+    with open(os.path.join(DATA, "results_sigma25.jsonl")) as fh:
+        jax_keys = [list(json.loads(ln)) for ln in fh][1]
+    assert list(row) == jax_keys and row["model"] == family
+    assert len(row["per_image"]) == 1 and np.isfinite(row["psnr"]) and row["psnr"] > 5.0
+    assert (family, os.path.basename(weights)) in natural.SNAPSHOTS or family == "swinir"

@@ -6,14 +6,16 @@ Where both build, JAX's parameter tree (shapes from ``jax.eval_shape`` of
 vectors) goes onto the port's model through ``params_to_torch``, which
 raises on a name with no parameter or buffer, a parameter no name sets, or
 a shape that differs. Where the port does not compute a value yet, it
-raises ``NotImplementedError`` naming the field; the models it does not
-have (GLR boosting, Restormer) raise ``KeyError``.
+raises ``NotImplementedError`` naming the field. Every field of each JAX
+model's constructor is a parameter of the port's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import importlib.util
+import inspect
 import os
 
 import jax
@@ -29,7 +31,8 @@ from irdu_tpu_torch.utils.weights import params_to_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.basename(p)[:-len(".yaml")]
                  for p in glob.glob(os.path.join(REPO, "configs", "*.yaml")))
-NOT_IN_PORT = {"glr_boosting", "restormer_sigma25"}  # KeyError
+# the configurations the port built last (GLR boosting, Restormer)
+NEW_IN_PORT = {"glr_boosting", "restormer_sigma25"}
 # the configurations of the options the port built last, as chip_smoke.py serves them
 VARIANT_CONFIGS = ("flagship_sigma25_nonexpansive", "flagship_sigma25_spectral",
                    "lightformer_pixel_v4")
@@ -44,20 +47,16 @@ def _model_section(config):
 def test_every_config_is_covered():
     """19 configurations, each with an expected outcome below."""
     assert len(CONFIGS) == 19
-    assert NOT_IN_PORT | set(VARIANT_CONFIGS) <= set(CONFIGS)
+    assert NEW_IN_PORT | set(VARIANT_CONFIGS) <= set(CONFIGS)
 
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_config_builds_in_both_registries(config):
-    """JAX builds every configuration. The port builds it with JAX's
+    """JAX builds every configuration, and the port builds it with JAX's
     parameter tree (the three of conv_variant and the v4 pixel core since
-    they are ported), or does not have the model at all."""
+    they are ported, GLR boosting and Restormer since they are)."""
     name, kw = _model_section(config)
     jm = jax_registry.create_model(name, **kw)
-    if config in NOT_IN_PORT:
-        with pytest.raises(KeyError, match="available"):
-            registry.create_model(name, **kw)
-        return
     _builds_with_jax_tree(jm, registry.create_model(name, **kw))
 
 
@@ -130,3 +129,21 @@ def test_pixel_inits_set_the_initial_parameters_as_jax():
     for name in ("muys00", "ro00", "gamma00"):
         np.testing.assert_allclose(getattr(port, name).detach().numpy(),
                                    np.asarray(solver[name]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("model", jax_registry.available_models())
+def test_port_accepts_every_jax_field(model):
+    """Each JAX model's constructor fields (flax dataclass fields, but flax's
+    own ``parent`` and ``name``) are parameters of the port's constructor,
+    with JAX's default where JAX has one."""
+    jax_cls = jax_registry._REGISTRY[model]
+    port = inspect.signature(registry._registry()[model]).parameters
+    for f in dataclasses.fields(jax_cls):
+        if f.name in ("parent", "name"):
+            continue
+        assert f.name in port, f"{model}: JAX field {f.name} missing"
+        if f.default is not dataclasses.MISSING and not f.name.startswith("use_pallas"):
+            want = f.default
+            got = port[f.name].default
+            assert (tuple(got) if isinstance(got, (list, tuple)) else got) == (
+                tuple(want) if isinstance(want, (list, tuple)) else want), (model, f.name)

@@ -202,15 +202,26 @@ Phases, each timed and printed as it ends:
             one batch lowering the loss; the pixel model 4 steps; the trained
             student written with save_params_npz and served by predict in the
             eval protocol with micro's launches; the autograd guard raising
-            (``phase_train``).
+            (``phase_train``);
+  stages    every curriculum stage of flagship_sigma25 (128² batch 4 to 384²
+            batch 1) and lightformer_pixel_sigma (64² batch 16 to 512² batch
+            1) at full width in f32, each stage alone, remat off then on: 2
+            Trainer steps each, the second step's ms, peak allocated and
+            reserved GiB, finite losses and gradients, no launch in a step;
+            out of memory with remat off is a recorded reading (the bytes
+            asked for), with remat on a failure. The native C++ batch path
+            (data/native) built with g++; on the flagship's stage 3 and the
+            pixel's stage 0 the step loop's wait in next(loader) against its
+            step for the python and the native backend, and their first 3
+            batches bitwise equal (``phase_stages``).
 
-The build must take under 60 s, the train and baselines phases under 90 s
-each, the deploy phase under 120 s and the whole script under 450 s; a run
-over any budget fails.
+The build must take under 60 s, the train, baselines and stages phases under
+90 s each, the deploy phase under 120 s and the whole script under 450 s; a
+run over any budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
 results, the serving, ``k7_band_512``, model, eval, variants, tile, natural,
-baselines, deploy, train and
+baselines, deploy, train, stages and
 ``device_ms`` lines, the phase times and, only when every phase passed,
 {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits non-zero
 without a CUDA card, without the package beside this script, or when any
@@ -233,7 +244,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-BUDGET_S = {"build": 60, "train": 90, "deploy": 120, "baselines": 90, "total": 450}
+BUDGET_S = {"build": 60, "train": 90, "deploy": 120, "baselines": 90, "stages": 90,
+            "total": 450}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -540,6 +552,15 @@ TRAIN_CONFIGS = {
 # (the configs' 800000 cost seconds of crop draws a dataset)
 TRAIN_PATCHES = 2400
 TRAIN_STEPS = {"flagship": (3, 6), "distill": 6, "pixel": 4, "fixed_batch": 20}
+# the stages phase: every stage of these configs alone, STAGE_STEPS steps
+# from STAGE_BATCHES batches of crops, under remat off and on; the loop's
+# wait on its loader measured on the stage LOADER_WAIT names, LOADER_STEPS
+# steps a backend
+STAGE_CONFIGS = ("flagship_sigma25", "lightformer_pixel_sigma")
+STAGE_STEPS, STAGE_BATCHES = 2, 3
+LOADER_WAIT = {"flagship_sigma25": 3, "lightformer_pixel_sigma": 0}
+LOADER_STEPS = 5
+GIB = 2 ** 30
 TRAIN_GRAD_RTOL = 1e-3  # card against CPU: max|d| <= this of max(1e-6, max|g_cpu|), per tensor
 TRAIN_LOSS_RTOL = 1e-5
 PROFILE_REQUESTS = 5  # steady 512x512 flagship requests under torch.profiler
@@ -3411,6 +3432,213 @@ def phase_train(smoke):
     require(not fails, f"train: {fails}")
 
 
+def stage_config(name, corpus, stage_idx, remat, batches=STAGE_BATCHES):
+    """``train_config`` of ``name`` with the one stage ``stage_idx`` as its
+    stages list: the config's patch and batch size, ``batches`` batches of
+    crops, the stage's ``remat`` set; STAGE_STEPS steps, no eval."""
+    conf = train_config(name, corpus, max_steps=STAGE_STEPS, checkpoint_rate=0, eval_rate=0,
+                        verbose_rate=1)
+    stage = TRAIN_CONFIGS[name]["train"]["stages"][stage_idx]
+    conf["train"]["stages"] = [dict(stage, max_num_patchs=batches * stage["batch_size"],
+                                    remat=remat)]
+    return conf
+
+
+def requested_bytes(message):
+    """The bytes an out-of-memory error says the allocator asked for."""
+    m = re.search(r"Tried to allocate ([\d.]+) ([KMGT]?i?B)", message)
+    if not m:
+        return None
+    unit = {"B": 1, "KiB": 2**10, "MiB": 2**20, "GiB": 2**30, "TiB": 2**40}.get(m.group(2), 1)
+    return int(float(m.group(1)) * unit)
+
+
+def loader_wait(tr, stage, steps=LOADER_STEPS):
+    """The step loop of ``Trainer.run`` driven by hand on ``tr``'s model and
+    step, for each backend: the ms the loop blocks in ``next(loader)`` (the
+    device prefetch over ``batched_loader``), of which ``loader_ms`` is spent
+    in ``batched_loader``'s own ``next`` (waiting for the batch to be made;
+    the rest is the prefetch's pinned copy), the garbage collections during
+    the waits, and the synchronized step ms after each; the first wait
+    includes the loader's start. Then the first 3 native batches against
+    the python backend's, bitwise."""
+    import gc
+    import itertools
+
+    import torch
+
+    from irdu_tpu_torch.data.loader import batched_loader, device_prefetch
+
+    def timed(batches, spent):
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            spent.append(time.perf_counter() - t0)
+            if batch is None:
+                return
+            yield batch
+
+    def collections():
+        return sum(g["collections"] for g in gc.get_stats())
+
+    ds = tr._stage_dataset(stage, 0)
+    out = dict(patch=stage["patch_size"], batch=stage["batch_size"],
+               native_compatible=ds.native_compatible())
+    for backend in ("python", "native"):
+        spent = []
+        it = device_prefetch(timed(batched_loader(ds, stage["batch_size"], backend=backend),
+                                   spent), DEVICE)
+        wait_ms, loader_ms, ms, gcs = [], [], [], 0
+        for _ in range(steps):
+            before, c0 = len(spent), collections()
+            t0 = time.perf_counter()
+            noisy, clean = next(it)
+            t1 = time.perf_counter()
+            gcs += collections() - c0
+            loader_ms.append(sum(spent[before:]) * 1e3)
+            tr.state, _ = tr.train_step(tr.state, noisy, clean, tr.generator)
+            sync()
+            wait_ms.append((t1 - t0) * 1e3)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        it.close()
+        out[backend] = dict(wait_ms=[round(w, 3) for w in wait_ms],
+                            loader_ms=[round(w, 3) for w in loader_ms],
+                            step_ms=[round(s, 3) for s in ms],
+                            gc_collections_in_waits=gcs,
+                            median_wait_ms=round(float(np.median(wait_ms[1:])), 3),
+                            median_loader_ms=round(float(np.median(loader_ms[1:])), 3),
+                            median_step_ms=round(float(np.median(ms[1:])), 3))
+    firsts = {b: list(itertools.islice(batched_loader(ds, stage["batch_size"], backend=b), 3))
+              for b in ("python", "native")}
+    out["native_vs_python_bitwise"] = len(firsts["native"]) == 3 and all(
+        np.array_equal(a, c) and np.array_equal(b, d)
+        for (a, b), (c, d) in zip(firsts["python"], firsts["native"]))
+    del firsts
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_stages(smoke):
+    """Every curriculum stage of flagship_sigma25 and lightformer_pixel_sigma
+    (STAGE_CONFIGS; full width, f32) on the card, each alone: a config whose
+    stages list is that one stage (STAGE_BATCHES batches of crops from the
+    synthetic train set, 420-519 px, so the 512² crops are padded), under
+    remat off, then on. For each (config, stage, remat), after
+    ``reset_peak_memory_stats``: STAGE_STEPS ``Trainer`` steps, the second
+    step's ms, ``max_memory_allocated`` and ``max_memory_reserved`` in GiB
+    (and what was allocated before the run), finite losses and gradients, no
+    kernel launch in a step. An out-of-memory error with remat off is a
+    reading (``oom``, the bytes asked for); with remat on every stage must
+    complete. The run's checkpoint at ``max_steps`` is not written (it would
+    time a 160 MB file write, not the stage). On the stage named in
+    LOADER_WAIT of each config (remat as the config trains, off, unless that
+    ran out of memory) the loop's wait in ``next(loader)`` against the step,
+    for the python and the native backend, and native against python
+    batches bitwise (``loader_wait``)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from irdu_tpu_torch.data import native
+    from irdu_tpu_torch.models.registry import set_remat
+
+    work = os.path.join(REPO, "experiments", "chip_smoke_stages")  # git-ignored, removed after
+    shutil.rmtree(work, ignore_errors=True)
+    corpus, images = train_corpus(os.path.join(work, "corpus"))
+    t0 = time.perf_counter()
+    lib_ok = native.available()
+    line = {"card": smoke.lines.get("device", {}).get("nvidia_smi"), "steps": STAGE_STEPS,
+            "native_library": dict(available=lib_ok, error=native.load_error(),
+                                   seconds_to_build_and_load=round(time.perf_counter() - t0, 3),
+                                   compiler=native.compiler(), flags=list(native.CXX_FLAGS)),
+            "runs": [], "loader_wait": {}}
+    fails = []
+    if not lib_ok:
+        fails.append(f"the native library: {native.load_error()}")
+    counts = {n: 0 for n in KERNEL_NAMES}
+    for name in STAGE_CONFIGS:
+        for idx, stage in enumerate(TRAIN_CONFIGS[name]["train"]["stages"]):
+            for remat in (False, True):
+                rec = []
+                tr = smoke_trainer(stage_config(name, corpus, idx, remat),
+                                   os.path.join(work, f"{name}_{idx}_{int(remat)}"), images, rec)
+                tr.ckpt.save = lambda *a, **k: False
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                oom = None
+                try:
+                    tr.run()
+                    sync()
+                except (torch.cuda.OutOfMemoryError, RuntimeError) as exc:
+                    if not re.search(r"out of memory|ALLOC_FAILED", str(exc)):
+                        raise
+                    oom = str(exc)
+                row = dict(config=name, stage=idx, patch=stage["patch_size"],
+                           batch=stage["batch_size"],
+                           pixels=stage["patch_size"] ** 2 * stage["batch_size"], remat=remat,
+                           steps=len(rec), step2_ms=round(rec[1]["ms"], 3) if len(rec) > 1 else None,
+                           step_ms=[round(r["ms"], 3) for r in rec],
+                           peak_allocated_gib=round(torch.cuda.max_memory_allocated() / GIB, 3),
+                           peak_reserved_gib=round(torch.cuda.max_memory_reserved() / GIB, 3),
+                           allocated_before_gib=round(before / GIB, 3),
+                           loss=[r["loss"] for r in rec],
+                           loss_finite=all(np.isfinite(r["loss"]) for r in rec),
+                           grads_finite=all(r["grads_finite"] for r in rec),
+                           step_launches=sum(sum(r["launches"].values()) for r in rec),
+                           oom=oom is not None)
+                if oom is not None:
+                    row.update(oom_request_bytes=requested_bytes(oom), oom_message=oom[:300])
+                for r in rec:
+                    for n in KERNEL_NAMES:
+                        counts[n] += r["launches"][n]
+                line["runs"].append(row)
+                print(f"stages {name} {idx} ({stage['patch_size']}² batch {stage['batch_size']}) "
+                      f"remat {remat}: " + (f"OOM asking {row['oom_request_bytes']} bytes, "
+                                            f"peak {row['peak_allocated_gib']} GiB"
+                                            if oom else
+                                            f"step 2 {row['step2_ms']} ms, peak "
+                                            f"{row['peak_allocated_gib']} GiB allocated, "
+                                            f"{row['peak_reserved_gib']} reserved"), flush=True)
+                what = f"{name} stage {idx} remat {remat}"
+                if oom is None or remat:
+                    if oom is not None:
+                        fails.append(f"{what}: out of memory ({row['oom_request_bytes']} bytes)")
+                    elif len(rec) != STAGE_STEPS:
+                        fails.append(f"{what}: {len(rec)} steps")
+                    if not (row["loss_finite"] and row["grads_finite"]):
+                        fails.append(f"{what}: a loss or gradient is not finite")
+                    if row["step_launches"]:
+                        fails.append(f"{what}: {row['step_launches']} kernel launches in a step")
+                if (idx == LOADER_WAIT[name] and name not in line["loader_wait"]
+                        and oom is None and lib_ok):
+                    set_remat(tr.model, remat)
+                    wait = loader_wait(tr, tr.config["train"]["stages"][0] | {
+                        "max_num_patchs": (LOADER_STEPS + 2) * stage["batch_size"]})
+                    wait["remat"] = remat
+                    line["loader_wait"][name] = wait
+                    print(f"stages loader wait, {name} stage {idx}: " + ", ".join(
+                        f"{b} {wait[b]['median_wait_ms']} ms ({wait[b]['median_loader_ms']} "
+                        f"in the loader) of a {wait[b]['median_step_ms']} ms step"
+                        for b in ("python", "native"))
+                        + f"; native batches bitwise {wait['native_vs_python_bitwise']}",
+                        flush=True)
+                    if not wait["native_vs_python_bitwise"]:
+                        fails.append(f"{name}: native batches differ from python batches")
+                del tr, rec
+                gc.collect()
+                torch.cuda.empty_cache()
+        if lib_ok and name not in line["loader_wait"]:
+            fails.append(f"{name}: no loader-wait reading")
+    smoke.path_counts["stages_steps"] = counts
+    shutil.rmtree(work, ignore_errors=True)
+    line["failed_checks"] = fails
+    smoke.lines["stages"] = line
+    require(not fails, f"stages: {fails}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3462,12 +3690,13 @@ def main() -> int:
         smoke.run("baselines", phase_baselines, smoke)
         smoke.run("deploy", phase_deploy, smoke)
         smoke.run("train", phase_train, smoke)
+        smoke.run("stages", phase_stages, smoke)
     smoke.lines["device_ms"] = device_ms_sessions()
     kernels = kernels_line(smoke)
     print(json.dumps(kernels), flush=True)
     for key in ("ptxas", "serving", "profile", "small_models", "pixel", "ablation",
                 "band_route", "k7_band_512", "model", "eval", "variants", "tile", "natural",
-                "baselines", "deploy", "train",
+                "baselines", "deploy", "train", "stages",
                 "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
@@ -3476,7 +3705,7 @@ def main() -> int:
     total = time.perf_counter() - t_start
     if build_s is not None and build_s > BUDGET_S["build"]:
         smoke.failed.append(f"build over its {BUDGET_S['build']} s budget ({build_s:.1f} s)")
-    for phase in ("train", "deploy", "baselines"):
+    for phase in ("train", "deploy", "baselines", "stages"):
         if smoke.phases.get(phase, 0) > BUDGET_S[phase]:
             smoke.failed.append(f"{phase} over its {BUDGET_S[phase]} s budget "
                                 f"({smoke.phases[phase]:.1f} s)")

@@ -13,10 +13,10 @@ that a shared seed gives the same patches and noise):
 
 Images are read with PIL at first use and cached; ``images`` hands them over
 as arrays instead (the card's machine has no PIL). ``build_image_index``
-writes the ``index,path,height,width,nchannels`` CSV schema. JAX's native
-C++ batch path (``get_batch``) is not ported: ``native_compatible`` is
-False, and ``data.loader.batched_loader`` assembles batches in a thread
-pool.
+writes the ``index,path,height,width,nchannels`` CSV schema.
+``get_batch`` assembles a whole batch in the native C++ path
+(``data/native``), bitwise what ``__getitem__`` stacks, wherever
+``native_compatible`` holds.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import Mapping
 import numpy as np
 
 from irdu_tpu_torch.data.augment import dihedral_augment, sample_augment_mode
-from irdu_tpu_torch.data.degradations import add_noise
+from irdu_tpu_torch.data.degradations import _ALIASES, add_noise
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 
@@ -243,7 +243,51 @@ class PatchDataset:
             noisy = np.clip(noisy, 0.0, 1.0)
         return noisy, patch
 
+    # -- native batch path -------------------------------------------------
+
     def native_compatible(self) -> bool:
-        """False: JAX's C++ batch path is not ported (``batched_loader``
-        assembles every batch in its thread pool)."""
-        return False
+        """True when ``get_batch`` serves items bit-identically to
+        ``__getitem__`` (JAX's conditions): the native library builds and
+        loads, the sources are 3-channel (uint8 where they are already
+        loaded), the noise mode is one of the four, and when augmenting the
+        /16-floored patch is square."""
+        from irdu_tpu_torch.data import native
+
+        if not native.available():
+            return False
+        if any(t["nchannels"] != 3 for t in self._tiles if t["nchannels"] <= 3):
+            return False
+        if any(im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 3
+               for im in self._cache.values()):
+            return False
+        mode = _ALIASES.get(self.dist_mode, self.dist_mode)
+        if mode not in ("addictive_noise", "addictive_noise_scale",
+                        "vary_addictive_noise", "none", "", None):
+            return False
+        ph, pw = self.patch_size
+        if self.use_data_aug and (ph // 16) * 16 != (pw // 16) * 16:
+            return False
+        return True
+
+    def get_batch(self, indices, num_threads: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        """The (noisy, clean) batch of ``indices`` assembled in the native C++
+        path, items across ``num_threads`` threads (0: one a core, up to one
+        an item): bitwise ``__getitem__``'s items stacked."""
+        from irdu_tpu_torch.data import native
+
+        recs = [self._patches[int(i)] for i in indices]
+        images = [np.ascontiguousarray(self._image(r["path"])) for r in recs]
+        crops = np.array([[r["row"], r["col"]] for r in recs], np.int32)
+        pads = np.array([r["padding"] for r in recs], np.uint8)
+        idx = np.asarray(list(indices), np.int64)
+        clip = self.clip_noisy if self.clip_noisy is not None else (self.sampling == "resize")
+        return native.make_pairs(
+            images, crops, pads, idx,
+            patch_size=tuple(self.patch_size),
+            seed=self._item_seed,
+            use_aug=self.use_data_aug,
+            dist_mode=_ALIASES.get(self.dist_mode, self.dist_mode),
+            lambda_noise=self.lambda_noise,
+            clip=bool(clip),
+            num_threads=num_threads,
+        )

@@ -1,11 +1,19 @@
 """Batched loading and device prefetch (counterpart:
 ``irdu_tpu/data/loader.py``).
 
-``batched_loader`` assembles (noisy, clean) numpy batches in a thread pool
-over ``dataset[i]`` (numpy releases the GIL for the heavy parts), one batch
-ahead of the consumer. JAX's "native" backend, its C++ batch assembler, is
-not ported (ROADMAP queue 1, "the native C++ batch path"): "auto" is the
-thread pool, and "native" raises.
+``batched_loader`` assembles (noisy, clean) numpy batches one batch ahead
+of the consumer, with one of two backends:
+
+  * "native": the C++ batch assembler (``data/native``): crop, pad,
+    augment, normalize and noise in C++ threads, bitwise the python
+    backend's batches (numpy's RNG reproduced); it raises when the library
+    cannot be built or loaded or the dataset is not ``native_compatible``;
+  * "python": a thread pool over ``dataset[i]`` (numpy releases the GIL for
+    the heavy parts).
+
+"auto" takes JAX's choice: native when the dataset's ``native_compatible()``
+holds, else the thread pool. Unlike JAX's "auto", a native batch that fails
+raises instead of being assembled again in Python.
 
 ``device_prefetch`` turns the numpy batches into tensors on the device,
 ``size`` batches in flight: on a CUDA device each batch goes through pinned
@@ -40,20 +48,26 @@ def batched_loader(
     making them (a mid-stage resume). An item is a pure function of (dataset
     seed, index), so the stream after the skip is the one a replay gives.
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "the native C++ batch backend is not ported (ROADMAP queue 1: the native "
-            "C++ batch path); use backend='auto' or 'python'")
-    if backend not in ("auto", "python"):
+    if backend not in ("auto", "native", "python"):
         raise ValueError(f"unknown loader backend: {backend}")
+    compatible = getattr(dataset, "native_compatible", lambda: False)
+    use_native = backend == "native" or (backend == "auto" and compatible())
+    if backend == "native" and not compatible():
+        from irdu_tpu_torch.data import native
+
+        why = "" if native.available() else f" (the native library: {native.load_error()})"
+        raise RuntimeError(f"backend='native': {type(dataset).__name__} is not "
+                           f"native_compatible(){why}")
     idx_iter = iter(indices) if indices is not None else iter(range(len(dataset)))
     if skip_batches:
         next(itertools.islice(idx_iter, skip_batches * batch_size,
                               skip_batches * batch_size), None)
 
-    item_pool = ThreadPoolExecutor(max_workers=num_workers)
+    item_pool = None if use_native else ThreadPoolExecutor(max_workers=num_workers)
 
     def fetch(batch_idx):
+        if use_native:
+            return dataset.get_batch(batch_idx, num_threads=num_workers)
         items = list(item_pool.map(dataset.__getitem__, batch_idx))
         return np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
 
@@ -74,7 +88,8 @@ def batched_loader(
             while pending:
                 yield pending.popleft().result()
     finally:
-        item_pool.shutdown(wait=False)
+        if item_pool is not None:
+            item_pool.shutdown(wait=False)
 
 
 def device_prefetch(iterator: Iterator, device: str | torch.device = "cuda", *,

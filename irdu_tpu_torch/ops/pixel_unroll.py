@@ -50,6 +50,7 @@ the same values exactly. The plain version takes any window and pad.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
@@ -101,9 +102,12 @@ def pixel_unroll_scal(n_graphs, mu, ro, gamma, alphas, betas):
 
 
 def pixel_unroll_plain(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
-                       deltas=DIAMOND12, stats_mode="reflect"):
+                       deltas=DIAMOND12, stats_mode="reflect", remat=False):
     """The unroll in plain PyTorch, f32 compute (f64 for f64 inputs), output
-    in y's dtype."""
+    in y's dtype. ``remat``: each of JAX's segments (the first RHS, each CG
+    round, the re-threshold's RHS) through ``torch.utils.checkpoint``
+    (non-reentrant), which keeps only the segment's inputs for the backward
+    pass and recomputes the rest, as JAX's ``jax.checkpoint`` of each does."""
     b, f, h, w = y.shape
     g = n_graphs
     yv = graph.at_least_f32(y)[:, None]  # (B, 1, F, H, W): broadcast over the graphs
@@ -124,10 +128,19 @@ def pixel_unroll_plain(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
         upd = rhs - matvec(x) + bt * upd
         return x + a1 * upd
 
-    rhs = yv + ro * graph.gtv_apply(yv, wg, pg, deltas, stats_mode)
-    x = cg_round(rhs, alpha[0], beta1, alpha[1])
-    rhs = yv + ro * graph.gtv_rethresh_apply(x, wg, pg, gam, deltas, stats_mode)
-    x = cg_round(rhs, alpha[2], beta3, alpha[3])
+    def first_rhs(yv):
+        return yv + ro * graph.gtv_apply(yv, wg, pg, deltas, stats_mode)
+
+    def rethresh_rhs(x):
+        return yv + ro * graph.gtv_rethresh_apply(x, wg, pg, gam, deltas, stats_mode)
+
+    def segment(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+    rhs = segment(first_rhs, yv)
+    x = segment(cg_round, rhs, alpha[0], beta1, alpha[1])
+    rhs = segment(rethresh_rhs, x)
+    x = segment(cg_round, rhs, alpha[2], beta3, alpha[3])
     return x.reshape(b, g * f, h, w).to(y.dtype)
 
 

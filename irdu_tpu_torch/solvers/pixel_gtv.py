@@ -48,9 +48,8 @@ import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from irdu_tpu_torch.models.layers import GroupedPointwise
+from irdu_tpu_torch.models.layers import GroupedPointwise, remat_call
 from irdu_tpu_torch.models.restormer_blocks import FeatureExtraction, GatedDConvBlock
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
 from irdu_tpu_torch.ops.fused_step import fused_scal, gg_fused_step_chw
@@ -76,9 +75,10 @@ class MixtureGTV(nn.Module):
                  use_pallas_unroll: bool = False, use_nhwc_unroll: bool = False,
                  muy_init: float = 0.1, ro_init: float = 0.1, gamma_init: float = 1e-3,
                  stats_mode: str = "scalar", feature_n_levels: int = 3, remat: bool = False):
-        """``remat``: the plain route's unroll (edge weights included)
-        recomputed in the backward pass, and the feature U-Net's FFBlocks
-        (its own attribute), as JAX's ``remat`` does."""
+        """``remat``: the plain route's unroll recomputed in the backward
+        pass segment by segment (the edge weights, the first RHS, each CG
+        round, the re-threshold's RHS: ``_unroll_plain``), and the feature
+        U-Net's FFBlocks (its own attribute), as JAX's ``remat`` does."""
         super().__init__()
         if stats_mode not in ("scalar", "none"):
             raise ValueError(f"stats_mode must be 'scalar' or 'none', got {stats_mode!r}")
@@ -124,10 +124,9 @@ class MixtureGTV(nn.Module):
         else:
             if route == "chw":
                 out = self._unroll_chw(ew, y_tilde)
-            elif self.remat and torch.is_grad_enabled():
-                out = checkpoint(self._unroll_plain, ew, y_tilde, use_reentrant=False)
             else:
-                out = self._unroll_plain(ew, y_tilde)
+                out = self._unroll_plain(ew, y_tilde,
+                                         remat=self.remat and torch.is_grad_enabled())
             b, _, h, w = out.shape
             out = out.reshape(b, g, f, h, w)  # channel g·F + f
         # the mixture: a softmax score over the graphs
@@ -139,15 +138,21 @@ class MixtureGTV(nn.Module):
                                  torch.exp(at_least_f32(self.gamma00)),
                                  at_least_f32(self.alphaCGD), at_least_f32(self.betaCGD))
 
-    def _unroll_plain(self, ew, y_tilde):
+    def _unroll_plain(self, ew, y_tilde, remat=False):
         """JAX's jnp path: each operator's weights, then the unroll on the
-        plain versions."""
+        plain versions. ``remat``: JAX's segments (both operators' weights,
+        the first RHS, each CG round, the re-threshold's RHS) each recomputed
+        in the backward pass."""
         g, d = self.n_graphs, self.deltas
-        w_gtv = edge_weights_plain(ew, self.GTVmodule00.multiM, g, d)
-        w_glr = edge_weights_plain(ew, self.GLRmodule00.multiM, g, d)
+
+        def edge_weights(ew):
+            return (edge_weights_plain(ew, self.GTVmodule00.multiM, g, d),
+                    edge_weights_plain(ew, self.GLRmodule00.multiM, g, d))
+
+        w_gtv, w_glr = remat_call(edge_weights, ew, remat)
         return pixel_unroll_plain(
             y_tilde, w_gtv, w_glr, self.GTVmodule00.stats_table(),
-            self.GLRmodule00.stats_table(), self._scal(), n_graphs=g, deltas=d)
+            self.GLRmodule00.stats_table(), self._scal(), n_graphs=g, deltas=d, remat=remat)
 
     def _edge_weights(self, ew):
         """Both operators' weights from one K2 call on 2G stacked graphs:

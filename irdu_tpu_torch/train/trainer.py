@@ -16,7 +16,9 @@ resumed run draws other noise than a straight one from the resume on.
 
 Images reach the datasets through ``_stage_dataset`` and the eval through
 ``_eval_images``: both read the configuration's CSV and PNG files (PIL); a
-subclass can hand over arrays instead.
+subclass can hand over arrays instead. The loader's "auto" backend, as in
+JAX, assembles the batches in the native C++ path when the dataset is
+``native_compatible()``, else in a thread pool: the same batches, bitwise.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 synthetic corpus writer, ``PatchDataset`` in its three sampling modes,
 ``batched_loader`` with and without ``skip_batches``, augmentation and
 colour; and the port's own rules (arrays instead of files, the CPU prefetch,
-the native backend refused)."""
+the native backend refused for a dataset it cannot serve). The native batch
+path itself is ``test_torch_native_data.py``'s."""
 
 from __future__ import annotations
 
@@ -80,13 +81,18 @@ def test_patch_dataset_items_match_jax(corpus, mode):
             for a, b in zip(ours[i], theirs[i]):
                 assert a.dtype == b.dtype == np.float32
                 np.testing.assert_array_equal(a, b)
-    assert not ours.native_compatible()
+    # every mode's corpus is native-compatible: the native batch is the items
+    assert ours.native_compatible()
+    noisy, clean = ours.get_batch(range(len(ours)))
+    np.testing.assert_array_equal(noisy, np.stack([theirs[i][0] for i in range(len(ours))]))
+    np.testing.assert_array_equal(clean, np.stack([theirs[i][1] for i in range(len(ours))]))
 
 
 @pytest.mark.parametrize("skip", [0, 3])
 def test_batched_loader_matches_jax(corpus, skip):
     """The batches, after an index-only skip of ``skip`` batches too, bitwise
-    JAX's thread-pool loader's (its native backend is not asked for)."""
+    JAX's thread-pool loader's (its native backend is not asked for; the
+    port's "auto" takes its own native path)."""
     root, csv_path, _, _ = corpus
     kw = dict(csv_path=csv_path, root_folder=root, patch_size=(32, 32), max_num_patchs=30,
               use_data_aug=True, seed=5)
@@ -148,8 +154,13 @@ def test_device_prefetch_on_the_cpu_makes_no_copy():
 
 
 def test_native_backend_is_refused():
-    with pytest.raises(NotImplementedError, match="native C\\+\\+ batch path"):
-        next(batched_loader([(np.zeros(1), np.zeros(1))], 1, backend="native"))
+    """A dataset without ``native_compatible`` (a list of pairs): "native"
+    raises, "auto" stacks its items."""
+    pairs = [(np.zeros(1), np.ones(1))]
+    with pytest.raises(RuntimeError, match="not native_compatible"):
+        next(batched_loader(pairs, 1, backend="native"))
+    noisy, clean = next(batched_loader(pairs, 1, backend="auto"))
+    assert noisy.shape == clean.shape == (1, 1) and clean[0, 0] == 1
 
 
 def test_synthetic_train_set_is_the_convergence_draw():

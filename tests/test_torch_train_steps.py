@@ -4,11 +4,9 @@ launch route), ``set_kernels`` reaching the pixel solver, ``remat`` on
 against off, the loss's latent draws, the lr index of an update, and a
 float64 finite-difference check of the pixel loss's gradient.
 
-The pixel family has no JAX gradient reference here: one eager
-``jax.value_and_grad`` of the 72-wide pixel model's loss would add minutes
-of op compiles to the suite (the tiny flagship's alone costs ~100 s,
-``test_torch_train_grad.py``); ROADMAP keeps it as a later item. The plain
-route's gradient is held to central differences instead.
+The pixel family's JAX gradient reference, on a narrow pixel model, is
+``test_torch_train_pixel_grad.py``; here the plain route's gradient is also
+held to central differences in float64.
 """
 
 from __future__ import annotations

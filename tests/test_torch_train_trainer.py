@@ -3,7 +3,8 @@ params of a resumed run without aux losses are a straight run's, bitwise;
 with them, the restored state and the batches are, and the latent noise
 restarts from the seed as JAX's key does), the logs and the periodic eval,
 a finished run, the per-stage remat override, distillation, the checkpoint
-directory's rules, the multi-device refusal and the CLI."""
+directory's rules, the multi-device refusal and the CLI; the "auto" loader's
+native batches train to the thread pool's params, bitwise."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import pytest
 import torch
 import yaml
 
+import irdu_tpu_torch.train.trainer as trainer_module
+from irdu_tpu_torch.data.dataset import PatchDataset
 from irdu_tpu_torch.data.synthetic import write_synthetic_corpus
 from irdu_tpu_torch.models.registry import create_model
 from irdu_tpu_torch.train.checkpoints import CheckpointManager
@@ -256,3 +259,48 @@ def test_cli_trains_two_steps_on_the_cpu(corpus, tmp_path):
     assert os.path.isdir(wd / "checkpoints" / "2")
     log = (wd / "train.log").read_text()
     assert "iter=2 time=" in log and "Init model with total parameters:" in log
+
+
+class Counted(PatchDataset):
+    """Counts the items each path assembles (``calls``, per class)."""
+
+    calls: dict = {}
+
+    def get_batch(self, indices, num_threads=0):
+        type(self).calls["native"] = type(self).calls.get("native", 0) + len(indices)
+        return super().get_batch(indices, num_threads)
+
+    def __getitem__(self, idx):
+        type(self).calls["python"] = type(self).calls.get("python", 0) + 1
+        return super().__getitem__(idx)
+
+
+class PythonOnly(Counted):
+    calls: dict = {}
+
+    def native_compatible(self):
+        return False
+
+
+def test_native_batches_train_as_the_thread_pool(corpus, tmp_path, monkeypatch):
+    """The trainer's "auto" loader takes the native path on its PNG corpus:
+    3 steps give the params, bitwise, of 3 steps on a dataset that reports
+    ``native_compatible() == False`` (the thread pool), and 2 native steps
+    resumed mid-stage to 3 give them too."""
+    def run(cls, workdir, n):
+        monkeypatch.setattr(trainer_module, "PatchDataset", cls)
+        trainer = Trainer(_config(corpus, max_steps=n, use_aux_losses=False),
+                          workdir=str(tmp_path / workdir), device="cpu")
+        trainer.run()
+        return trainer
+
+    native = run(Counted, "native", 3)
+    python = run(PythonOnly, "python", 3)
+    assert Counted.calls.get("native", 0) >= 6 and "python" not in Counted.calls
+    assert PythonOnly.calls.get("python", 0) >= 6 and "native" not in PythonOnly.calls
+    assert _equal(_params(native), _params(python))
+    assert _equal(_moments(native), _moments(python))
+    run(Counted, "resumed", 2)
+    resumed = run(Counted, "resumed", 3)
+    assert resumed.data_state == {"epoch": 0, "stage": 0, "offset": 2}
+    assert _equal(_params(resumed), _params(native))

@@ -198,7 +198,7 @@ Phases, each timed and printed as it ends:
             (flagship_synthetic_2050.npz) in bf16
             on K3, K4, K2 and K1 (each teacher forward one 128x128 request's
             launches, its first step's calls held against their plain
-            versions, the student none, remat on against off), 20 steps on
+            versions, the student none, remat on against off), 10 steps on
             one batch lowering the loss; the pixel model 4 steps; the trained
             student written with save_params_npz and served by predict in the
             eval protocol with micro's launches; the autograd guard raising
@@ -213,15 +213,40 @@ Phases, each timed and printed as it ends:
             (data/native) built with g++; on the flagship's stage 3 and the
             pixel's stage 0 the step loop's wait in next(loader) against its
             step for the python and the native backend, and their first 3
-            batches bitwise equal (``phase_stages``).
+            batches bitwise equal (``phase_stages``). Stages 1-3 run with
+            remat off only (STAGE_REMAT: room for the parallel phase);
+  parallel  multi-GPU on the one card (``phase_parallel``): two groups of
+            PARALLEL_WORLD gloo ranks spawned together after the build (the
+            train legs in one, the serving paths in the other), each rank
+            on cuda:0, each reporting its launches: two DDP steps of
+            flagship_sigma25's model (full width, f32, plain versions) on
+            global batches of
+            PARALLEL_BATCH 128² images, loss and gradients within
+            TRAIN_GRAD_RTOL of each tensor's max of one process's steps on
+            the same batches, no launch in a step; one tensor-parallel step
+            (tp = 2, the Megatron and expert splits) on PARALLEL_TP_BATCH of
+            them, loss within 1e-4 of one process's; the 86k snapshot in
+            bf16 on the 2048x2048 request through halo_shard_forward
+            (PARALLEL_HALO rows; each rank's 1152x2048 window: 3 K3, 32 K4,
+            3 K1, 8 K2, 5 K5) and sharded_tiled_forward (PARALLEL_TILE tiles,
+            PARALLEL_TILE_HALO halo; each rank 32 windows of 320x320 as one
+            batch: 3 K3, 32 K4, 4 K1, 8 K2), max|d| within K1's bf16 bar of
+            the whole-image request and of the one-rank run of the same
+            function, both PSNRs printed, rank 0's first run of each path
+            with every kernel call held against its plain version. Meanwhile
+            NCCL at world size 1 in this process: one DDP step (loss within
+            1e-4 of one process's) and one halo_shard_forward (the whole
+            image).
+            The line names the backends, world sizes and how the halo rows
+            travelled (host buffers under gloo).
 
-The build must take under 60 s, the train, baselines and stages phases under
-90 s each, the deploy phase under 120 s and the whole script under 450 s; a
-run over any budget fails.
+The build must take under 60 s, the parallel phase under 60 s, the train,
+baselines and stages phases under 90 s each, the deploy phase under 120 s
+and the whole script under 450 s; a run over any budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
 results, the serving, ``k7_band_512``, model, eval, variants, tile, natural,
-baselines, deploy, train, stages and
+baselines, deploy, train, stages, parallel and
 ``device_ms`` lines, the phase times and, only when every phase passed,
 {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits non-zero
 without a CUDA card, without the package beside this script, or when any
@@ -245,7 +270,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 BUDGET_S = {"build": 60, "train": 90, "deploy": 120, "baselines": 90, "stages": 90,
-            "total": 450}
+            "parallel": 60, "total": 450}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -453,7 +478,7 @@ DEPLOY_ROWS = (
      36.84, "PERF.md at 577e783, line 342"),
 )
 DEPLOY_INT8_KERNELS = 110  # JAX's count of quantized 2-D kernels (int8.log:6)
-DEPLOY_ROUNDS = 2  # request timing, eager and artifact in turns
+DEPLOY_ROUNDS = 1  # request timing, eager and artifact in turns
 DEPLOY_REQUESTS = 5  # timed requests a turn
 # the configurations the registry built last: their ``model:`` sections as the
 # files give them (a CPU test holds these to the files), served at 512x512 with
@@ -486,7 +511,7 @@ VARIANT_F32_ATOL = 1e-3
 # bf16 at TILE_BF16 (timed against the whole-image request, in turns)
 TILE, TILE_HALO = 512, 64
 TILE_F32, TILE_BF16 = (1024, 1024), (2048, 2048)
-TILE_ROUNDS = 2
+TILE_ROUNDS = 1
 # the training configurations as the files give them (the card's machine has
 # no PyYAML; a CPU test holds these to the files): manual_seed, model,
 # parallel, datasets.train without its two paths, train
@@ -551,15 +576,26 @@ TRAIN_CONFIGS = {
 # the train phase cuts each run to stage 0 with TRAIN_PATCHES crop positions
 # (the configs' 800000 cost seconds of crop draws a dataset)
 TRAIN_PATCHES = 2400
-TRAIN_STEPS = {"flagship": (3, 6), "distill": 6, "pixel": 4, "fixed_batch": 20}
+TRAIN_STEPS = {"flagship": (3, 6), "distill": 4, "pixel": 4, "fixed_batch": 10}
+TRAIN_GRAD_BATCH = 1  # images of the step's batch in the card-against-CPU gradient
 # the stages phase: every stage of these configs alone, STAGE_STEPS steps
 # from STAGE_BATCHES batches of crops, under remat off and on; the loop's
 # wait on its loader measured on the stage LOADER_WAIT names, LOADER_STEPS
 # steps a backend
 STAGE_CONFIGS = ("flagship_sigma25", "lightformer_pixel_sigma")
 STAGE_STEPS, STAGE_BATCHES = 2, 3
+STAGE_REMAT = {1: (False,), 2: (False,), 3: (False,)}  # by stage index; else off, on
+# the parallel phase: spawned gloo ranks on the one card; the train legs on
+# flagship_sigma25's model at its stage-0 patch, the serving legs on the
+# 86k snapshot at the last REQUESTS image
+PARALLEL_WORLD = 2
+PARALLEL_GROUPS = ("train", "paths")  # two groups of PARALLEL_WORLD ranks, run together
+PARALLEL_SIDE, PARALLEL_BATCH, PARALLEL_STEPS, PARALLEL_TP_BATCH = 128, 4, 2, 2
+PARALLEL_SEED = 20
+PARALLEL_HALO, PARALLEL_TILE, PARALLEL_TILE_HALO = 64, 256, 32
+PARALLEL_LOSS_ATOL = 1e-4  # tensor parallel against one process (JAX's dryrun bar)
 LOADER_WAIT = {"flagship_sigma25": 3, "lightformer_pixel_sigma": 0}
-LOADER_STEPS = 5
+LOADER_STEPS = 3
 GIB = 2 ** 30
 TRAIN_GRAD_RTOL = 1e-3  # card against CPU: max|d| <= this of max(1e-6, max|g_cpu|), per tensor
 TRAIN_LOSS_RTOL = 1e-5
@@ -766,12 +802,14 @@ def k2_bar(ker, ref):
 @functools.lru_cache(maxsize=1)
 def request_images():
     """The flagship requests' (clean, noisy) images, made once."""
-    images = []
-    for k, (h, w) in enumerate(REQUESTS):
-        clean = piecewise_smooth(h, w, seed=k)
-        noise = np.random.RandomState(2204).normal(0, 25 / 255.0, clean.shape)
-        images.append((clean, (clean + noise).astype(np.float32)))
-    return tuple(images)
+    return tuple(request_image(k) for k in range(len(REQUESTS)))
+
+
+def request_image(k):
+    """REQUESTS[k]'s (clean, noisy) image."""
+    clean = piecewise_smooth(*REQUESTS[k], seed=k)
+    noise = np.random.RandomState(2204).normal(0, 25 / 255.0, clean.shape)
+    return clean, (clean + noise).astype(np.float32)
 
 
 def psnr(clean, out):
@@ -1022,7 +1060,7 @@ def phase_pixel(smoke):
         check_row(r, PIXEL_CHW_BAND)
 
 
-def route_times(mix, model, noisy, rounds=3):
+def route_times(mix, model, noisy, rounds=1):
     """One pixel request on the NHWC and the CHW route, in turns: nhwc, chw,
     chw, nhwc per round (both routes warmed up before)."""
     from irdu_tpu_torch.predict import denoise
@@ -3173,12 +3211,14 @@ def phase_train(smoke):
          finite non-zero gradient in every step (the tensors that moved are
          counted, not gated) and no kernel launched in a step; the step's ms
          and images/s printed;
-      2. one ``flagship_loss`` and its backward on a 128² batch with the
-         latent noise passed in, on the card and on the CPU (TF32 off):
+      2. one ``flagship_loss`` and its backward on TRAIN_GRAD_BATCH 128²
+         images of step 1's batch with the latent noise passed in, on the
+         card and on the CPU (TF32 off):
          loss within TRAIN_LOSS_RTOL, each gradient tensor within
          TRAIN_GRAD_RTOL of its max;
       3. micro_distill_sigma25 (micro student, remat on; the config's
-         flagship teacher, flagship_synthetic_2050.npz, in bf16 on the kernels), 6 steps: each teacher forward
+         flagship teacher, flagship_synthetic_2050.npz, in bf16 on the kernels),
+         TRAIN_STEPS["distill"] steps: each teacher forward
          launches one 128² request's K3, K4, K1 and K2 (PER_REQUEST at
          512²'s counts) and the student nothing; every teacher kernel call of
          the first step is held against its plain version; the teacher's
@@ -3290,7 +3330,8 @@ def phase_train(smoke):
     set_kernels(model, False)
     cpu_model = copy.deepcopy(model)
     model.to(DEVICE)
-    noise = code_noise(4, mc["dims"], 128, "cpu")
+    noise = code_noise(TRAIN_GRAD_BATCH, mc["dims"], 128, "cpu")
+    batch = tuple(t[:TRAIN_GRAD_BATCH] for t in batch)
     loss_gpu, g_gpu = loss_and_grads(model, batch[0].to(DEVICE), batch[1].to(DEVICE),
                                      tuple(n.to(DEVICE) for n in noise))
     t0 = time.perf_counter()
@@ -3523,14 +3564,15 @@ def phase_stages(smoke):
     (STAGE_CONFIGS; full width, f32) on the card, each alone: a config whose
     stages list is that one stage (STAGE_BATCHES batches of crops from the
     synthetic train set, 420-519 px, so the 512² crops are padded), under
-    remat off, then on. For each (config, stage, remat), after
-    ``reset_peak_memory_stats``: STAGE_STEPS ``Trainer`` steps, the second
-    step's ms, ``max_memory_allocated`` and ``max_memory_reserved`` in GiB
-    (and what was allocated before the run), finite losses and gradients, no
-    kernel launch in a step. An out-of-memory error with remat off is a
-    reading (``oom``, the bytes asked for); with remat on every stage must
-    complete. The run's checkpoint at ``max_steps`` is not written (it would
-    time a 160 MB file write, not the stage). On the stage named in
+    remat off, then on (stages 1-3 off only, STAGE_REMAT). For each
+    (config, stage, remat), after ``reset_peak_memory_stats``: STAGE_STEPS
+    ``Trainer`` steps, the second step's ms, ``max_memory_allocated`` and
+    ``max_memory_reserved`` in GiB (and what was allocated before the run),
+    finite losses and gradients, no kernel launch in a step. An
+    out-of-memory error with remat off is a reading (``oom``, the bytes asked for);
+    with remat on (stage 0) the run must complete. The run's checkpoint at
+    ``max_steps`` is not written (it would time a 160 MB file write, not the
+    stage). On the stage named in
     LOADER_WAIT of each config (remat as the config trains, off, unless that
     ran out of memory) the loop's wait in ``next(loader)`` against the step,
     for the python and the native backend, and native against python
@@ -3559,7 +3601,7 @@ def phase_stages(smoke):
     counts = {n: 0 for n in KERNEL_NAMES}
     for name in STAGE_CONFIGS:
         for idx, stage in enumerate(TRAIN_CONFIGS[name]["train"]["stages"]):
-            for remat in (False, True):
+            for remat in STAGE_REMAT.get(idx, (False, True)):
                 rec = []
                 tr = smoke_trainer(stage_config(name, corpus, idx, remat),
                                    os.path.join(work, f"{name}_{idx}_{int(remat)}"), images, rec)
@@ -3639,6 +3681,329 @@ def phase_stages(smoke):
     require(not fails, f"stages: {fails}")
 
 
+def flagship_launches(h, w):
+    """A flagship forward's launches on (h, w) images, whatever the batch:
+    3 K3, 32 K4, 8 K2 and, per scale s, one K1 where the solver's
+    (h/2^s, w/2^s) plane takes it (``gtv_glr._mega_ok``), else the band
+    route's 5 K5: what PER_REQUEST lists for its requests."""
+    from irdu_tpu_torch.solvers.gtv_glr import _mega_ok
+
+    k1 = sum(_mega_ok((1, 1, h >> s, w >> s)) for s in range(4))
+    return launches(K3_PER_REQUEST, K4_PER_REQUEST, k1, 8, 5 * (4 - k1))
+
+
+def parallel_batches():
+    """PARALLEL_STEPS global (noisy, clean) batches of PARALLEL_BATCH
+    PARALLEL_SIDE² seeded piecewise-smooth images with sigma-25 noise, on the
+    host."""
+    import torch
+
+    out = []
+    for k in range(PARALLEL_STEPS):
+        clean = np.stack([piecewise_smooth(PARALLEL_SIDE, PARALLEL_SIDE,
+                                           seed=PARALLEL_SEED + k * PARALLEL_BATCH + i)
+                          for i in range(PARALLEL_BATCH)])
+        noisy = clean + np.random.RandomState(PARALLEL_SEED + k).normal(0, 25 / 255.0,
+                                                                         clean.shape)
+        out.append((torch.from_numpy(noisy.astype(np.float32)), torch.from_numpy(clean)))
+    return out
+
+
+def parallel_train(batches, mesh=None, ddp=False, grads=True):
+    """flagship_sigma25's model (full width, f32, plain versions, the init
+    seeded with PARALLEL_SEED, the config's lr schedule) stepped once per
+    global batch on ``mesh`` (None: one process; each rank takes its slice),
+    the latent noise from a generator seeded alike: per step the loss, ms,
+    launches and (``grads``) the gradients on the host; and the peak GiB
+    allocated. ``ddp``: the objective in DDP even with one data rank."""
+    import torch
+    from torch.nn.parallel import DistributedDataParallel
+
+    from irdu_tpu_torch.models.registry import create_model, set_kernels
+    from irdu_tpu_torch.parallel.mesh import shard_batch
+    from irdu_tpu_torch.train.steps import (Objective, create_train_state, distribute,
+                                            make_train_step)
+    from irdu_tpu_torch.train.trainer import build_schedule
+
+    t0 = time.perf_counter()
+    conf = dict(TRAIN_CONFIGS["flagship_sigma25"]["model"])
+    torch.manual_seed(PARALLEL_SEED)
+    model = create_model(conf.pop("type"), **conf).to(DEVICE)
+    set_kernels(model, False)
+    state = create_train_state(model, build_schedule({"type": "flagship"}))
+    if mesh is not None:
+        distribute(state, mesh)
+        if ddp and state.ddp is None:
+            state.ddp = DistributedDataParallel(
+                Objective(model), device_ids=[torch.cuda.current_device()],
+                process_group=mesh.data_group, broadcast_buffers=False)
+    step = make_train_step()
+    gen = torch.Generator(device=DEVICE).manual_seed(PARALLEL_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    rows = [dict(setup_s=round(time.perf_counter() - t0, 3))]
+    for noisy, clean in batches:
+        noisy, clean = (shard_batch((noisy, clean), mesh) if mesh is not None
+                        else (noisy.to(DEVICE), clean.to(DEVICE)))
+        sync()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, noisy, clean, gen)
+        sync()
+        row = dict(loss=float(m["loss"]), ms=round((time.perf_counter() - t0) * 1e3, 3),
+                   launches=counts_since(before))
+        if grads:
+            row["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        rows.append(row)
+    peak = round(torch.cuda.max_memory_allocated() / GIB, 3)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return rows[1:], dict(peak_gib=peak, setup_s=rows[0]["setup_s"])
+
+
+def parallel_paths(model, noisy, mesh, check):
+    """``halo_shard_forward`` and ``sharded_tiled_forward`` of the bf16
+    flagship on ``mesh``: a run with (``check``) every kernel call held
+    against its plain version (the other ranks run it plainly: it is
+    collective), which also warms the path up, then a counted and timed
+    one. Per path the image, its ms, launches and the checks."""
+    from irdu_tpu_torch.parallel.spatial import halo_shard_forward, sharded_tiled_forward
+    from irdu_tpu_torch.predict import batch_forward
+
+    fwd = batch_forward(model)
+    h, w = noisy.shape[:2]
+    win = PARALLEL_TILE + 2 * PARALLEL_TILE_HALO
+    paths = {"halo": (lambda: halo_shard_forward(fwd, noisy, mesh, halo=PARALLEL_HALO),
+                      flagship_launches(h // mesh.dp + 2 * PARALLEL_HALO, w)),
+             "tiled": (lambda: sharded_tiled_forward(fwd, noisy, mesh, tile=PARALLEL_TILE,
+                                                     halo=PARALLEL_TILE_HALO),
+                       flagship_launches(win, win))}
+    out = {}
+    for name, (run, want) in paths.items():
+        checks = None
+        if check:
+            with kernel_checks(flagship_sites()) as rec:
+                run()
+            checks = checks_summary(rec, want)
+        else:
+            run()
+        t0 = time.perf_counter()
+        image, counts = counted(run)
+        ms = round((time.perf_counter() - t0) * 1e3, 3)
+        out[name] = dict(image=image, ms=ms, launches=counts, want=want, checks=checks)
+    return out
+
+
+def parallel_rank(rank, world, work, t_start, legs):
+    """One gloo rank of the parallel phase on cuda:0, started at ``t_start``
+    (the parent's clock) in the group of ``legs``: "train" (the DDP steps,
+    then the tensor-parallel step) or "paths" (both spatial paths). Its
+    results and each leg's seconds go to ``work``/<legs>_rank<rank>.pt."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from irdu_tpu_torch.kernels.build import library_path
+    from irdu_tpu_torch.parallel.mesh import host_staged, init_distributed, make_mesh
+    from irdu_tpu_torch.parallel.tensor import make_dp_tp_mesh
+    from irdu_tpu_torch.predict import load_model
+
+    require(os.path.isfile(library_path()), "a rank found no built kernel library")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # gloo: NCCL takes one rank a card; rank % device_count puts both on cuda:0
+    dev = init_distributed("cuda", backend="gloo", rank=rank, world_size=world,
+                           init_method="file://" + os.path.join(work, f"rendezvous_{legs}"))
+    try:
+        out = dict(rank=rank, backend=dist.get_backend(), world=dist.get_world_size(),
+                   halo_rows="host buffers" if host_staged() else "device buffers",
+                   legs_s={"start": round(time.perf_counter() - t_start, 3)})
+        t0 = time.perf_counter()
+        if legs == "train":
+            batches = parallel_batches()
+            out["dp"], out["dp_info"] = parallel_train(batches, make_mesh(dev),
+                                                       grads=rank == 0)
+            out["legs_s"]["dp"], t0 = round(time.perf_counter() - t0, 3), time.perf_counter()
+            out["tp"], out["tp_info"] = parallel_train(
+                [tuple(t[:PARALLEL_TP_BATCH] for t in batches[0])], make_dp_tp_mesh(world, dev),
+                grads=False)
+            out["legs_s"]["tp"] = round(time.perf_counter() - t0, 3)
+        else:
+            _, noisy = request_image(len(REQUESTS) - 1)
+            out["paths"] = parallel_paths(load_model(device=dev), noisy, make_mesh(dev),
+                                          check=rank == 0)
+            out["legs_s"]["paths"] = round(time.perf_counter() - t0, 3)
+            for p in out["paths"].values():
+                p["digest"] = hashlib.sha256(np.ascontiguousarray(p["image"]).tobytes()).hexdigest()
+                if rank:
+                    del p["image"]
+        torch.save(out, os.path.join(work, f"{legs}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(smoke):
+    """Multi-GPU on the one card (see the module docstring): two groups of
+    PARALLEL_WORLD gloo ranks spawned on cuda:0, and while they run the
+    one-process references and NCCL at world size 1 in this process."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from irdu_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from irdu_tpu_torch.parallel.spatial import halo_shard_forward, sharded_tiled_forward
+    from irdu_tpu_torch.predict import batch_forward, load_model
+
+    for hw in REQUESTS:
+        require(flagship_launches(*hw) == PER_REQUEST[hw], f"flagship_launches{hw}")
+    os.makedirs(os.path.join(REPO, "experiments"), exist_ok=True)  # git-ignored
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=os.path.join(REPO, "experiments"))
+    fails = []
+    ranks_run = []
+    try:
+        torch.cuda.empty_cache()
+        # two groups of ranks, the train legs and the serving paths, start
+        # together (~10-15 s to reach the card; each makes its own seeded
+        # inputs) while the references run here
+        t0 = time.perf_counter()
+        for legs in PARALLEL_GROUPS:
+            ranks_run.append(mp.start_processes(
+                parallel_rank, args=(PARALLEL_WORLD, work, t0, legs), nprocs=PARALLEL_WORLD,
+                join=False, start_method="spawn"))
+        batches = parallel_batches()
+        size = REQUESTS[-1]
+        clean, noisy = request_image(len(REQUESTS) - 1)
+        ref_dp, ref_info = parallel_train(batches)
+        ref_tp, _ = parallel_train([tuple(t[:PARALLEL_TP_BATCH] for t in batches[0])],
+                                   grads=False)
+        model = smoke.model if smoke.model is not None else load_model(device=DEVICE)
+        fwd = batch_forward(model)
+        fwd(noisy[None])
+        sync()
+        t1 = time.perf_counter()
+        whole = fwd(noisy[None])[0].cpu().numpy()
+        whole_ms = round((time.perf_counter() - t1) * 1e3, 3)
+        one_rank = sharded_tiled_forward(fwd, noisy, tile=PARALLEL_TILE, halo=PARALLEL_TILE_HALO)
+        torch.cuda.empty_cache()
+        # NCCL at world size 1, here, while the gloo ranks run
+        dev = init_distributed("cuda", rank=0, world_size=1,
+                               init_method="file://" + os.path.join(work, "nccl"))
+        try:
+            mesh = make_mesh(dev)
+            nccl_step, _ = parallel_train(batches[:1], mesh, ddp=True, grads=False)
+            nccl_halo = halo_shard_forward(fwd, noisy, mesh, halo=PARALLEL_HALO)
+            nccl = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                        ddp_loss=nccl_step[0]["loss"], ddp_ms=nccl_step[0]["ms"],
+                        ddp_loss_gap=abs(nccl_step[0]["loss"] - ref_dp[0]["loss"]),
+                        halo_max_abs_vs_whole=float(np.abs(nccl_halo - whole).max()),
+                        halo_within_k1_bar=k1_bar(torch.from_numpy(nccl_halo),
+                                                  torch.from_numpy(whole)))
+        finally:
+            dist.destroy_process_group()
+        refs_s = round(time.perf_counter() - t0, 3)
+        torch.cuda.empty_cache()
+        for run in ranks_run:
+            while not run.join():
+                pass
+        ranks_run = []
+        spawn_s = round(time.perf_counter() - t0, 3)
+        groups = {legs: [torch.load(os.path.join(work, f"{legs}_rank{r}.pt"), weights_only=False)
+                         for r in range(PARALLEL_WORLD)] for legs in PARALLEL_GROUPS}
+        ranks = [{**t, **p, "legs_s": {"train": t["legs_s"], "paths": p["legs_s"]}}
+                 for t, p in zip(groups["train"], groups["paths"])]
+
+        dp_rows = []
+        for k, ref in enumerate(ref_dp):
+            row = dict(step=k + 1, ref_loss=ref["loss"], ref_ms=ref["ms"],
+                       loss=[r["dp"][k]["loss"] for r in ranks],
+                       ms=[r["dp"][k]["ms"] for r in ranks],
+                       launches=[sum(r["dp"][k]["launches"].values()) for r in ranks])
+            row["grad_gap"], row["grad_gap_tensor"] = grad_gaps(ranks[0]["dp"][k]["grads"],
+                                                                ref["grads"])
+            row["loss_gap"] = max(abs(v - ref["loss"]) for v in row["loss"]) / abs(ref["loss"])
+            dp_rows.append(row)
+            if row["loss_gap"] > TRAIN_GRAD_RTOL or row["grad_gap"] > TRAIN_GRAD_RTOL:
+                fails.append(f"dp step {k + 1}: loss gap {row['loss_gap']}, gradient gap "
+                             f"{row['grad_gap']} ({row['grad_gap_tensor']})")
+            if any(row["launches"]) or ref["launches"] and any(ref["launches"].values()):
+                fails.append(f"dp step {k + 1}: kernel launches {row['launches']}")
+        tp_row = dict(ref_loss=ref_tp[0]["loss"], ref_ms=ref_tp[0]["ms"],
+                      loss=[r["tp"][0]["loss"] for r in ranks],
+                      ms=[r["tp"][0]["ms"] for r in ranks],
+                      launches=[sum(r["tp"][0]["launches"].values()) for r in ranks],
+                      peak_gib=[r["tp_info"]["peak_gib"] for r in ranks],
+                      setup_s=[r["tp_info"]["setup_s"] for r in ranks])
+        tp_row["loss_gap"] = max(abs(v - tp_row["ref_loss"]) for v in tp_row["loss"])
+        if tp_row["loss_gap"] > PARALLEL_LOSS_ATOL or any(tp_row["launches"]):
+            fails.append(f"tp: loss gap {tp_row['loss_gap']}, launches {tp_row['launches']}")
+
+        path_rows = {}
+        for name, ref_img in (("halo", whole), ("tiled", one_rank)):
+            mine = ranks[0]["paths"][name]
+            img = mine["image"]
+            row = dict(ms=[r["paths"][name]["ms"] for r in ranks],
+                       launches=[r["paths"][name]["launches"] for r in ranks],
+                       want=mine["want"], checks=mine["checks"],
+                       same_on_every_rank=len({r["paths"][name]["digest"] for r in ranks}) == 1,
+                       max_abs_vs_ref=float(np.abs(img - ref_img).max()),
+                       within_k1_bar=k1_bar(torch.from_numpy(img), torch.from_numpy(ref_img)),
+                       psnr=psnr(clean, np.clip(img, 0, 1)),
+                       psnr_ref=psnr(clean, np.clip(ref_img, 0, 1)),
+                       finite=bool(np.isfinite(img).all()))
+            row["psnr_gap_db"] = round(row["psnr"] - row["psnr_ref"], 4)
+            row["psnr_gap_to_whole_db"] = round(row["psnr"] - psnr(clean, np.clip(whole, 0, 1)), 4)
+            for r in ranks:
+                smoke.path_counts[f"parallel_{name}_rank{r['rank']}"] = r["paths"][name]["launches"]
+            path_rows[name] = row
+            if not (row["within_k1_bar"] and row["finite"] and row["same_on_every_rank"]):
+                fails.append(f"{name}: max|d| {row['max_abs_vs_ref']} to the "
+                             f"{'whole image' if name == 'halo' else 'one-rank run'}")
+            if any(c != mine["want"] for c in row["launches"]) or not mine["checks"]["calls_ok"]:
+                fails.append(f"{name}: launches {row['launches']}, want {mine['want']}, "
+                             f"checks {mine['checks']}")
+
+        if nccl["ddp_loss_gap"] > PARALLEL_LOSS_ATOL or not nccl["halo_within_k1_bar"]:
+            fails.append(f"nccl world 1: {nccl}")
+
+        line = dict(card=smoke.lines.get("device", {}).get("nvidia_smi"),
+                    backends=[dict(backend=ranks[0]["backend"], world=ranks[0]["world"],
+                                   groups=list(PARALLEL_GROUPS), device="cuda:0 (every rank)",
+                                   halo_rows=ranks[0]["halo_rows"]),
+                              dict(backend=nccl["backend"], world=nccl["world"],
+                                   device=f"cuda:{torch.cuda.current_device()}",
+                                   halo_rows="none (one rank: the whole image)")],
+                    ranks_s=spawn_s, references_s=refs_s,
+                    rank_legs_s=[r["legs_s"] for r in ranks],
+                    train=dict(side=PARALLEL_SIDE, global_batch=PARALLEL_BATCH, steps=dp_rows,
+                               ref_peak_gib=ref_info["peak_gib"],
+                               peak_gib=[r["dp_info"]["peak_gib"] for r in ranks],
+                               setup_s=[r["dp_info"]["setup_s"] for r in ranks]),
+                    tp=dict(tp=PARALLEL_WORLD, global_batch=PARALLEL_TP_BATCH, **tp_row),
+                    image=list(size), whole_ms=whole_ms, halo=dict(halo=PARALLEL_HALO,
+                                                                   **path_rows["halo"]),
+                    tiled=dict(tile=PARALLEL_TILE, halo=PARALLEL_TILE_HALO, **path_rows["tiled"]),
+                    nccl=nccl, failed_checks=fails)
+        smoke.lines["parallel"] = line
+        print(f"parallel: {PARALLEL_WORLD} gloo ranks on cuda:0 (done in {spawn_s} s; halo "
+              f"rows via {ranks[0]['halo_rows']}): dp steps {[r['ms'] for r in dp_rows]} ms, "
+              f"gradient gaps {[r['grad_gap'] for r in dp_rows]}; tp loss gap "
+              f"{tp_row['loss_gap']}; halo {path_rows['halo']['ms']} ms "
+              f"({path_rows['halo']['psnr']} dB, whole {whole_ms} ms "
+              f"{path_rows['halo']['psnr_ref']} dB), tiled {path_rows['tiled']['ms']} ms "
+              f"({path_rows['tiled']['psnr']} dB); nccl world 1: {nccl}", flush=True)
+    finally:
+        for run in ranks_run:  # a failure here: stop the ranks
+            for proc in run.processes:
+                proc.terminate()
+            for proc in run.processes:
+                proc.join()
+        shutil.rmtree(work, ignore_errors=True)
+    require(not fails, f"parallel: {fails}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3691,12 +4056,13 @@ def main() -> int:
         smoke.run("deploy", phase_deploy, smoke)
         smoke.run("train", phase_train, smoke)
         smoke.run("stages", phase_stages, smoke)
+        smoke.run("parallel", phase_parallel, smoke)
     smoke.lines["device_ms"] = device_ms_sessions()
     kernels = kernels_line(smoke)
     print(json.dumps(kernels), flush=True)
     for key in ("ptxas", "serving", "profile", "small_models", "pixel", "ablation",
                 "band_route", "k7_band_512", "model", "eval", "variants", "tile", "natural",
-                "baselines", "deploy", "train", "stages",
+                "baselines", "deploy", "train", "stages", "parallel",
                 "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
@@ -3705,7 +4071,7 @@ def main() -> int:
     total = time.perf_counter() - t_start
     if build_s is not None and build_s > BUDGET_S["build"]:
         smoke.failed.append(f"build over its {BUDGET_S['build']} s budget ({build_s:.1f} s)")
-    for phase in ("train", "deploy", "baselines", "stages"):
+    for phase in ("train", "deploy", "baselines", "stages", "parallel"):
         if smoke.phases.get(phase, 0) > BUDGET_S[phase]:
             smoke.failed.append(f"{phase} over its {BUDGET_S[phase]} s budget "
                                 f"({smoke.phases[phase]:.1f} s)")

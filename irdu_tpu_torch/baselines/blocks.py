@@ -17,6 +17,7 @@ it on XLA too.
 from __future__ import annotations
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
@@ -66,9 +67,14 @@ class BatchNorm(nn.BatchNorm2d):
     statistics normalize, as flax computes them (f32, the variance
     E[x²] − E[x]² clipped at 0, biased), and the running statistics move
     by 0.1 of the way to them (torch's momentum 0.1 is flax's 0.9; torch's
-    own layer would move the variance to the unbiased estimate)."""
+    own layer would move the variance to the unbiased estimate). Under data
+    parallelism (``data``: the data group and its size, set by
+    ``train.steps.distribute``) the statistics are the global batch's, as
+    JAX's over its sharded batch axis: the ranks' equal-sized means of x
+    and x² are averaged by an all-reduce, with its gradient."""
 
     FLAX_NAMES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+    data = None  # (process group, ranks) of the data axis
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-4, momentum=0.1)
@@ -77,8 +83,12 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+        moments = torch.stack([xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))])
+        if self.data is not None:
+            group, ranks = self.data
+            moments = dist_fn.all_reduce(moments, group=group) / ranks
+        mean, sq = moments.unbind()
+        var = torch.clamp(sq - mean.square(), min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)

@@ -15,6 +15,11 @@ of the consumer, with one of two backends:
 holds, else the thread pool. Unlike JAX's "auto", a native batch that fails
 raises instead of being assembled again in Python.
 
+Under data parallelism (``shard``) each rank assembles only its contiguous
+slice of every global batch: an item is a pure function of (dataset seed,
+index), so the slices of all ranks stacked are the one-device batch, on
+either backend.
+
 ``device_prefetch`` turns the numpy batches into tensors on the device,
 ``size`` batches in flight: on a CUDA device each batch goes through pinned
 host memory and is copied with ``non_blocking=True``, so the copy overlaps
@@ -41,13 +46,21 @@ def batched_loader(
     indices: Iterable[int] | None = None,
     backend: str = "auto",
     skip_batches: int = 0,
+    shard: tuple[int, int] | None = None,
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Yield (noisy, clean) batches stacked on axis 0, in index order.
 
-    skip_batches: fast-forward the index stream by that many batches without
-    making them (a mid-stage resume). An item is a pure function of (dataset
-    seed, index), so the stream after the skip is the one a replay gives.
+    skip_batches: fast-forward the index stream by that many (global)
+    batches without making them (a mid-stage resume). An item is a pure
+    function of (dataset seed, index), so the stream after the skip is the
+    one a replay gives. shard (index, count): yield only slice ``index`` of
+    ``count`` equal contiguous slices of each ``batch_size`` batch, which
+    must divide by ``count``.
     """
+    index, count = shard or (0, 1)
+    if batch_size % count:
+        raise ValueError(f"global batch {batch_size} does not divide by {count} ranks")
+    per_rank = batch_size // count
     if backend not in ("auto", "native", "python"):
         raise ValueError(f"unknown loader backend: {backend}")
     compatible = getattr(dataset, "native_compatible", lambda: False)
@@ -76,7 +89,7 @@ def batched_loader(
             batch_idx = list(itertools.islice(idx_iter, batch_size))
             if not batch_idx or (drop_last and len(batch_idx) < batch_size):
                 return
-            yield batch_idx
+            yield batch_idx[index * per_rank:(index + 1) * per_rank]
 
     try:
         with ThreadPoolExecutor(max_workers=1) as prefetcher:

@@ -5,6 +5,7 @@ is JAX's: "plain", "spectral_norm" or "non_expansive" (``models/layers.py``)."""
 from __future__ import annotations
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 from torch import nn
 
 from irdu_tpu_torch.models.layers import (
@@ -56,7 +57,15 @@ class CustomLayerNorm(nn.Module):
 
 
 class LocalGatedLinearBlock(nn.Module):
-    """1×1 expand → 3×3 depthwise (replicate pad) → gate σ(m)·m·u → 1×1 project."""
+    """1×1 expand → 3×3 depthwise (replicate pad) → gate σ(m)·m·u → 1×1 project.
+
+    Under tensor parallelism (``tp``, set by
+    ``parallel.tensor.shard_train_state``) the block holds its rank's mask
+    and u channels of the expand and the depthwise conv and the matching
+    input rows of the project, and all-reduces its output over the model
+    group: the Megatron split."""
+
+    tp = None  # parallel.tensor.ModelShard
 
     def __init__(self, dim: int, hidden_dim: int, conv_variant: str = "plain"):
         super().__init__()
@@ -69,7 +78,10 @@ class LocalGatedLinearBlock(nn.Module):
     def forward(self, x):
         x = self.channels_local_linear_op(self.channels_linear_op(x))
         mask, u = x.chunk(2, dim=1)
-        return self.project_out(torch.sigmoid(mask) * mask * u)
+        y = self.project_out(torch.sigmoid(mask) * mask * u)
+        if self.tp is not None:
+            y = dist_fn.all_reduce(y, group=self.tp.group)
+        return y
 
 
 class LocalNonLinearBlock(nn.Module):
@@ -89,6 +101,9 @@ class LocalNonLinearBlock(nn.Module):
         (C, 2H), dwk (3, 3, 2H), w2 (H, C), skip (2,); for a "plain" block
         views of its parameters, else the folded scale and kernels."""
         ll = self.local_linear
+        if ll.tp is not None:
+            raise RuntimeError("a block split over the model axis has no kernel operands: "
+                               "gather the model (parallel.tensor.full_state_dict) to serve it")
         return dict(scale=self.norm.effective_scale(),
                     w1=ll.channels_linear_op.folded()[:, :, 0, 0].t(),
                     dwk=ll.channels_local_linear_op.folded()[:, 0].permute(1, 2, 0),

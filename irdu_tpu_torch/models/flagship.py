@@ -83,7 +83,7 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         del use_pallas_blocks, use_pallas_solver
         super().__init__()
         d, hd = dims, hidden_dims
-        self.dims = tuple(dims)
+        self.dims, self.hidden_dims, self.ngraphs = tuple(dims), tuple(hidden_dims), tuple(ngraphs)
         self.eval_filter_scales = (None if eval_filter_scales is None
                                    else tuple(eval_filter_scales))
         self.use_kernels = True

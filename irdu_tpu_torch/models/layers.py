@@ -112,6 +112,8 @@ class VariantConv(nn.Module):
     ``gain`` (|W|∗1 per output, shaped to broadcast over the weight)."""
 
     OUT_DIM = 0
+    groups = 1
+    shard = None  # (Placement, ModelShard) where the model axis splits the weight
 
     def _variant(self, variant: str, n_rows: int, features: int):
         if variant not in VARIANTS:
@@ -132,21 +134,27 @@ class VariantConv(nn.Module):
         conv's weight itself."""
         if self.variant == "plain":
             return self.weight
+        if self.shard is not None:
+            # a slice of the weight (tensor parallel): σ and the gain read the
+            # whole kernel, gathered from the model group, then sliced again
+            from irdu_tpu_torch.parallel.tensor import gather_full, local_part
+
+            pl, shard = self.shard
+            return local_part(self._fold(gather_full(self.weight, pl, shard)), pl, shard)
         extra = self.kernel_u if self.variant == "spectral_norm" else self.scaling_factor
-        return cached(self, (self.weight, extra), self._fold)
+        return cached(self, (self.weight, extra), lambda: self._fold(self.weight))
 
-    def _fold(self) -> torch.Tensor:
-        w = self.weight
+    def _fold(self, w: torch.Tensor) -> torch.Tensor:
         if self.variant == "spectral_norm":
-            return spectral_normalize(w, self.rows(), self.kernel_u)
+            return spectral_normalize(w, self.rows(w), self.kernel_u)
         s = self.scaling_factor.float().reshape([-1 if d == self.OUT_DIM else 1 for d in range(4)])
-        return (w.float() * non_expansive_scale(self.gain(), s)).to(w.dtype)
+        return (w.float() * non_expansive_scale(self.gain(w), s)).to(w.dtype)
 
-    def rows(self) -> torch.Tensor:  # (O, ·) in JAX's row order
-        return self.weight.reshape(self.weight.shape[0], -1)
+    def rows(self, w: torch.Tensor) -> torch.Tensor:  # (O, ·) in JAX's row order
+        return w.reshape(w.shape[0], -1)
 
-    def gain(self) -> torch.Tensor:  # |W|∗1 per output channel, (O, 1, 1, 1)
-        return self.weight.abs().float().sum(dim=(1, 2, 3), keepdim=True)
+    def gain(self, w: torch.Tensor) -> torch.Tensor:  # |W|∗1 per output channel, (O, 1, 1, 1)
+        return w.abs().float().sum(dim=(1, 2, 3), keepdim=True)
 
 
 class GroupedPointwise(VariantConv):
@@ -239,11 +247,11 @@ class Upsample2x2(VariantConv):
 
     OUT_DIM = 1
 
-    def rows(self):
-        return self.weight.permute(2, 3, 1, 0).reshape(-1, self.weight.shape[0])
+    def rows(self, w):
+        return w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
 
-    def gain(self):  # (1, O, 2, 2): output channel o, phase (a, b), one tap each
-        return self.weight.abs().float().sum(dim=0, keepdim=True)
+    def gain(self, w):  # (1, O, 2, 2): output channel o, phase (a, b), one tap each
+        return w.abs().float().sum(dim=0, keepdim=True)
 
     def forward(self, x):
         return F.conv_transpose2d(x, self.folded(), stride=2)

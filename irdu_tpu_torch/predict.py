@@ -115,13 +115,14 @@ def load_model(weights: str | None = None, device: str | torch.device = "cuda",
 
 
 def batch_forward(model: torch.nn.Module):
-    """The model as the eval harness and the tiler call it: a float32 numpy
-    batch (B, H, W, 3), H and W multiples of 16, to the float32 output
-    tensor on the model's device."""
+    """The model as the eval harness and the tilers call it: a float32 batch
+    (B, H, W, 3), numpy or a tensor, H and W multiples of 16, to the float32
+    output tensor on the model's device."""
     p = next(model.parameters())
 
-    def forward(batch: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
+    def forward(batch) -> torch.Tensor:
+        x = (batch if isinstance(batch, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(batch, np.float32)))
         with torch.inference_mode():
             return model(x.to(device=p.device, dtype=p.dtype)).float()
 

@@ -37,7 +37,7 @@ class GraphOpParams(nn.Module):
         scalar coefficient is broadcast over (G, F); None without a stencil."""
         if self.stats_mode == "none":
             return None
-        return torch.stack([at_least_f32(getattr(self, f"stats_{k}")).expand(self.shape)
+        return torch.stack([at_least_f32(getattr(self, f"stats_{k}")).expand(self.multiM.shape)
                             for k, _ in _STATS_INIT], dim=1).contiguous()
 
     def stats_scalars(self) -> torch.Tensor:

@@ -94,6 +94,7 @@ class MixtureGTVGLR(nn.Module):
         self.GLRmodule00 = GraphOpParams(g, f, stats_mode)
         self.GTVmodule01 = GraphOpParams(g, f, stats_mode)
         self.GLRmodule01 = GraphOpParams(g, f, stats_mode)
+        self.tp = None  # parallel.tensor.ModelShard under the expert split
 
     def _heads(self, x):
         """The full- and half-res features, each (B, 2C, h, w), GTV first."""
@@ -102,9 +103,10 @@ class MixtureGTVGLR(nn.Module):
         return (self.patchs_features_extraction00(x),
                 half(self.patchs_features_extraction01_down(x)))
 
-    def _tables(self):
-        """The four (G, 4, F) stats tables; a missing stencil as the identity."""
-        g, f = self.n_graphs, self.n_node_fts
+    def _tables(self, g):
+        """The four (g, 4, F) stats tables of the g graphs held here; a
+        missing stencil as the identity."""
+        f = self.n_node_fts
         return tuple(identity_table(g, f, mod.multiM.device) if t is None else t
                      for mod in (self.GTVmodule00, self.GLRmodule00, self.GTVmodule01,
                                  self.GLRmodule01)
@@ -115,29 +117,44 @@ class MixtureGTVGLR(nn.Module):
         ew = edge_weights_chw if self.use_kernels else edge_weights_plain
 
         f00, f01 = self._heads(x)
+        if self.tp is not None:
+            # expert split: this rank's G/tp graphs, their code channels and
+            # their GTV and GLR feature rows; the solved channels gathered
+            from irdu_tpu_torch.parallel.tensor import Placement, gather_full
+
+            tp, c = self.tp, x.shape[1]
+            g //= tp.size
+            lo, hi = tp.index * g * self.n_node_fts, (tp.index + 1) * g * self.n_node_fts
+            x = x[:, lo:hi]
+            f00, f01 = (torch.cat([f[:, lo:hi], f[:, c + lo:c + hi]], dim=1) for f in (f00, f01))
+            return gather_full(self._solve(x, f00, f01, g, ew), Placement(1), tp)
+        return self._solve(x, f00, f01, g, ew)
+
+    def _solve(self, x, f00, f01, g, ew):
+        """The unroll of g graphs on the code x and the features of its GTV
+        and GLR graphs (f00 at full, f01 at half resolution)."""
         w00 = ew(f00, torch.cat([self.GTVmodule00.multiM, self.GLRmodule00.multiM]),
                  n_graphs=2 * g)
         w01 = ew(f01, torch.cat([self.GTVmodule01.multiM, self.GLRmodule01.multiM]),
                  n_graphs=2 * g)
         weights = (w00[:, :g].contiguous(), w00[:, g:].contiguous(),
                    w01[:, :g].contiguous(), w01[:, g:].contiguous())
-        tables = self._tables()
+        tables = self._tables(g)
         if _mega_ok(x.shape):
             unroll = gg_unroll_chw if self.use_kernels else gg_unroll_plain
             return unroll(x.contiguous(), *weights, *tables, unroll_scal(
                 g, *self._positive(), self.alphaCGD, self.betaCGD),
                 n_graphs=g, eval_cg_iters=self.eval_cg_iters)
-        return self._band_route(x.contiguous(), weights, tables)
+        return self._band_route(x.contiguous(), weights, tables, g)
 
     def _positive(self):
         """exp of the log-parameters: μ₀, ρ₀, μ₁, ρ₁, γ₀, γ₁ per graph."""
         return tuple(torch.exp(p.float()) for p in (
             self.muys00, self.ro00, self.muys01, self.ro01, self.gamma00, self.gamma01))
 
-    def _band_route(self, y, weights, tables):
-        """The unroll as K5 steps (JAX ``_forward_chw``'s band route), each
-        output rounded to y's dtype."""
-        g = self.n_graphs
+    def _band_route(self, y, weights, tables, g):
+        """The unroll of g graphs as K5 steps (JAX ``_forward_chw``'s band
+        route), each output rounded to y's dtype."""
         step = gg_fused_step_chw if self.use_kernels else fused_step_plain
         wg0, wl0, wg1, wl1 = weights
         pg0, pl0, pg1, pl1 = tables

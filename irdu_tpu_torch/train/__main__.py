@@ -2,7 +2,13 @@
 
 The YAML-driven trainer on the card (``--device cpu`` on the host). Reading
 the YAML file needs PyYAML; without it, build the configuration as a dict
-and hand it to ``irdu_tpu_torch.train.trainer.Trainer``."""
+and hand it to ``irdu_tpu_torch.train.trainer.Trainer``.
+
+On N cards: ``torchrun --nproc_per_node N -m irdu_tpu_torch.train --config
+...``; each rank joins the process group from torchrun's environment (NCCL
+on the cards, gloo with ``--device cpu``) and trains on
+``cuda:{rank % device_count}``; the config's ``parallel`` section splits the
+N ranks into data_parallel × tensor_parallel ("auto": N // tensor_parallel)."""
 
 from __future__ import annotations
 

@@ -12,6 +12,13 @@ directory is not written again (orbax skips it too), and at most
 step's when its name ends in digits that parse to the step (JAX's rule for
 step names other than ``str(step)``). Saves are synchronous; ``wait`` is
 there for JAX's API.
+
+On a mesh every rank calls ``save``: the state is gathered to the
+single-device layout (``parallel.tensor.gather_train_state``), rank 0 alone
+writes it, and every rank waits for the write before going on. Every rank
+restores from the same files, into a state of the single-device layout
+(which the trainer then cuts to its mesh), so that a checkpoint written
+under any dp × tp resumes under any other, one process included.
 """
 
 from __future__ import annotations
@@ -23,14 +30,18 @@ import shutil
 from typing import Any
 
 import torch
+import torch.distributed as dist
+
+from irdu_tpu_torch.parallel.tensor import gather_train_state
 
 STATE_FILE, DATA_FILE = "state.pt", "data.json"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, *, max_to_keep: int | None = None):
+    def __init__(self, directory: str, *, max_to_keep: int | None = None, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def _step_dirs(self) -> dict[int, str]:
@@ -45,15 +56,24 @@ class CheckpointManager:
 
     def save(self, step: int, state, data_state: dict[str, Any] | None = None) -> bool:
         """Write step ``step`` of ``state`` (a ``steps.TrainState``); False,
-        and nothing written, when the step is already on disk."""
+        and nothing written, when the step is already on disk (on a mesh:
+        False on every rank but 0)."""
+        model_sd, opt_sd = gather_train_state(state, self.mesh)
+        written = False
+        if self.mesh is None or self.mesh.rank == 0:
+            written = self._write(step, model_sd, opt_sd, data_state)
+        if dist.is_initialized():
+            dist.barrier()
+        return written
+
+    def _write(self, step, model_sd, opt_sd, data_state) -> bool:
         if step in self._step_dirs():
             return False
         final = os.path.join(self.directory, str(step))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save({"step": step, "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict()},
+        torch.save({"step": step, "model": model_sd, "optimizer": opt_sd},
                    os.path.join(tmp, STATE_FILE))
         if data_state is not None:
             with open(os.path.join(tmp, DATA_FILE), "w") as fh:

@@ -4,9 +4,16 @@ PSNR logs every ``verbose_rate`` steps, checkpoints every
 ``checkpoint_rate`` steps with auto-resume (the data position too), the eval
 protocol every ``eval_rate`` steps, ``max_steps`` to stop early.
 
-On one device: ``parallel.data_parallel`` "auto" resolves to 1, and a data-
-or tensor-parallel degree above 1 raises (ROADMAP queue 1 item 5, multi-GPU).
-The model trains in f32 on the plain versions of its kernels
+Parallelism (``parallel: {data_parallel, tensor_parallel}``, JAX's rules,
+``resolve_parallel``): the ranks of the default process group (``torchrun
+--nproc_per_node N``; ``parallel.mesh.init_distributed`` joins it) form a
+dp × tp mesh; each rank trains on its slice of every global batch
+(``data.loader.batched_loader(shard=)``), the student wrapped in DDP over
+the data group, and under tp > 1 split over the model group
+(``parallel.tensor``; the flagship family only). Each rank runs on
+``cuda:{rank % device_count}`` (or the CPU). Logs, the periodic eval and the
+checkpoint files are rank 0's; the eval of a split model runs on a gathered
+copy. The model trains in f32 on the plain versions of its kernels
 (``registry.set_kernels(model, False)``), with autograd; the periodic eval
 and a distillation teacher run on the kernels.
 
@@ -23,6 +30,7 @@ JAX, assembles the batches in the native C++ path when the dataset is
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Any
@@ -34,12 +42,14 @@ from irdu_tpu_torch.data.dataset import PatchDataset
 from irdu_tpu_torch.data.loader import batched_loader, device_prefetch
 from irdu_tpu_torch.eval.harness import evaluate_pairs, load_benchmark_images
 from irdu_tpu_torch.models.registry import create_model, set_kernels, set_remat
+from irdu_tpu_torch.parallel.mesh import build_mesh, init_distributed, world_size
+from irdu_tpu_torch.parallel.tensor import check_tp_divisibility, full_state_dict
 from irdu_tpu_torch.predict import batch_forward
 from irdu_tpu_torch.train.checkpoints import CheckpointManager
 from irdu_tpu_torch.train.schedules import (flagship_lr_schedule, multistep_schedule,
                                             multistep_then_cosine)
-from irdu_tpu_torch.train.steps import (create_train_state, make_distill_train_step,
-                                        make_train_step)
+from irdu_tpu_torch.train.steps import (create_train_state, distribute,
+                                        make_distill_train_step, make_train_step)
 from irdu_tpu_torch.utils.config import pretty_config
 from irdu_tpu_torch.utils.logging import get_root_logger
 from irdu_tpu_torch.utils.seeding import set_random_seed
@@ -67,17 +77,20 @@ def build_schedule(conf: dict):
     raise ValueError(f"unknown schedule type {kind}")
 
 
-def resolve_parallel(par_conf: dict) -> int:
-    """The data-parallel degree on one device: 1. NotImplementedError for a
-    degree above 1, data or tensor parallel."""
+def resolve_parallel(par_conf: dict, world: int | None = None) -> tuple[int, int]:
+    """(data_parallel, tensor_parallel) of a configuration's ``parallel``
+    section on ``world`` ranks (default: the process group's size, 1
+    without one), JAX's rule: "auto" is ``world // tensor_parallel`` (at
+    least 1). ValueError when dp · tp is not the world size."""
+    world = world_size() if world is None else world
+    n_tp = int(par_conf.get("tensor_parallel", 1))
     n_dp = par_conf.get("data_parallel", "auto")
-    n_tp = par_conf.get("tensor_parallel", 1)
-    n_dp = 1 if n_dp == "auto" else int(n_dp)
-    if n_dp > 1 or int(n_tp) > 1:
-        raise NotImplementedError(
-            f"data_parallel={n_dp}, tensor_parallel={n_tp}: the port trains on one device; "
-            "multi-GPU training waits for ROADMAP queue 1 item 5 (DDP, tensor parallel)")
-    return n_dp
+    n_dp = max(1, world // n_tp) if n_dp == "auto" else int(n_dp)
+    if n_dp * n_tp != world:
+        raise ValueError(f"data_parallel={n_dp} x tensor_parallel={n_tp} needs {n_dp * n_tp} "
+                         f"ranks; the run has {world} (torchrun --nproc_per_node "
+                         f"{n_dp * n_tp})")
+    return n_dp, n_tp
 
 
 class Trainer:
@@ -85,19 +98,39 @@ class Trainer:
                  device: str | torch.device = "cuda"):
         self.config = config
         self.name = config["name"]
-        self.device = torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = init_distributed("cuda")  # cuda:{rank % device_count}
+        else:
+            init_distributed(device.type)
+        self.device = device
         self.workdir = workdir or os.path.join(
             config.get("path", {}).get("root_dir", "experiments"), self.name)
         os.makedirs(self.workdir, exist_ok=True)
+        n_dp, n_tp = resolve_parallel(config.get("parallel", {}))
+        self.mesh = build_mesh(n_dp, n_tp, self.device)
+        self.rank0 = self.mesh.rank == 0
         self.logger = get_root_logger(
-            f"irdu.{self.name}", log_file=os.path.join(self.workdir, "train.log"))
+            f"irdu.{self.name}" + ("" if self.rank0 else f".rank{self.mesh.rank}"),
+            log_level=logging.INFO if self.rank0 else logging.WARNING,
+            log_file=os.path.join(self.workdir, "train.log") if self.rank0 else None)
         self.logger.info("config:\n%s", pretty_config(config))
+        self.logger.info("mesh: data_parallel=%d tensor_parallel=%d", n_dp, n_tp)
 
-        resolve_parallel(config.get("parallel", {}))
         # seeds the model's initial parameters too (torch's default generators)
         self.generator = set_random_seed(config.get("manual_seed", 2204), self.device)
         model_conf = dict(config["model"])
         self.model = create_model(model_conf.pop("type"), **model_conf).to(self.device)
+        if n_tp > 1:
+            from irdu_tpu_torch.models.flagship import AbstractMultiScaleGraphFilter
+
+            if not isinstance(self.model, AbstractMultiScaleGraphFilter):
+                raise NotImplementedError(
+                    f"tensor_parallel={n_tp} splits the flagship family only; "
+                    f"{config['model']['type']} waits for ROADMAP queue 1, the port's list "
+                    "of what is left, item 1 (the expert split of MixtureGTV, the ablation "
+                    "solvers, boosting and the baselines)")
+            check_tp_divisibility(self.model, n_tp)
         set_kernels(self.model, False)
         self._remat_default = bool(config["model"].get("remat", False))
 
@@ -132,7 +165,9 @@ class Trainer:
             self.train_step = make_train_step(**loss_kw)
 
         self.ckpt = CheckpointManager(os.path.join(self.workdir, "checkpoints"),
-                                      max_to_keep=tc.get("keep_checkpoints", 5))
+                                      max_to_keep=tc.get("keep_checkpoints", 5),
+                                      mesh=self.mesh)
+        # restored in the single-device layout, then cut to the mesh
         self.state, self.data_state = self.ckpt.restore(self.state)
         if self.data_state:
             # a restored run must not restart from scratch without a word
@@ -140,6 +175,7 @@ class Trainer:
                 "resume restored data_state but state.step == 0: the checkpoint "
                 "restore returned a fresh train state")
             self.logger.info("Resumed from step %d", self.state.step)
+        distribute(self.state, self.mesh)
 
         self.verbose_rate = tc.get("verbose_rate", 100)
         self.ckpt_rate = tc.get("checkpoint_rate", 5000)
@@ -185,24 +221,43 @@ class Trainer:
         """An eval set's uint8 images, from its CSV index (needs PIL)."""
         return load_benchmark_images(spec["csv_path"], spec["root_folder"])
 
+    def _eval_model(self) -> torch.nn.Module | None:
+        """The model the eval runs, on rank 0 (None elsewhere): the student
+        itself, or under tp > 1 a whole copy built from the gathered
+        parameters (every rank takes part in the gather)."""
+        if self.mesh.tp == 1:
+            return self.model if self.rank0 else None
+        sd = full_state_dict(self.model, self.mesh)
+        if not self.rank0:
+            return None
+        conf = dict(self.config["model"])
+        model = create_model(conf.pop("type"), **conf).to(self.device)
+        model.load_state_dict(sd)
+        return model
+
     def run_eval(self) -> dict[str, float]:
-        """The eval protocol on each configured set, the model on its kernels
-        (the served forward, in the model's dtype) and back off after."""
+        """The eval protocol on each configured set, on rank 0, the model on
+        its kernels (the served forward, in the model's dtype) and back off
+        after; {} on the other ranks."""
         results = {}
         eval_conf = self.config.get("eval")
         if not eval_conf:
             return results
-        set_kernels(self.model, True)
-        try:
-            for name, spec in eval_conf.get("datasets", {}).items():
-                out = evaluate_pairs(batch_forward(self.model), self._eval_images(spec),
-                                     eval_conf.get("sigma", 25.0),
-                                     bucket=eval_conf.get("bucket"))
-                results[name] = out["mean_psnr"]
-                self.logger.info("FINISH VAL step=%d dataset=%s psnr_testing=%.4f",
-                                 self.state.step, name, out["mean_psnr"])
-        finally:
-            set_kernels(self.model, False)
+        model = self._eval_model()
+        if model is not None:
+            set_kernels(model, True)
+            try:
+                for name, spec in eval_conf.get("datasets", {}).items():
+                    out = evaluate_pairs(batch_forward(model), self._eval_images(spec),
+                                         eval_conf.get("sigma", 25.0),
+                                         bucket=eval_conf.get("bucket"))
+                    results[name] = out["mean_psnr"]
+                    self.logger.info("FINISH VAL step=%d dataset=%s psnr_testing=%.4f",
+                                     self.state.step, name, out["mean_psnr"])
+            finally:
+                set_kernels(model, False)
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()
         return results
 
     # -- loop ------------------------------------------------------------
@@ -229,7 +284,8 @@ class Trainer:
                 # give (each item a function of its index), at no loader cost
                 skip_here = skip if (epoch == start_epoch and stage_idx == start_stage) else 0
                 loader = device_prefetch(
-                    batched_loader(ds, stage["batch_size"], skip_batches=skip_here),
+                    batched_loader(ds, stage["batch_size"], skip_batches=skip_here,
+                                   shard=(self.mesh.data_index, self.mesh.dp)),
                     self.device)
                 offset = skip_here
                 for noisy, clean in loader:

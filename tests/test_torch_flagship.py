@@ -159,7 +159,7 @@ def test_port_sources_import_no_jax():
     rel = {os.path.relpath(p, REPO) for p in paths}
     assert {f"irdu_tpu_torch/{m}.py" for m in (
         "data/synthetic", "data/degradations", "eval/metrics", "eval/harness", "eval/curve",
-        "parallel/spatial")} <= rel
+        "parallel/spatial", "parallel/mesh", "parallel/tensor")} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

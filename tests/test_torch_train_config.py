@@ -105,11 +105,12 @@ def test_schedule_functions_match_jax_directly():
 @pytest.mark.parametrize("parallel", [{"data_parallel": 2}, {"tensor_parallel": 2},
                                       {"data_parallel": "auto", "tensor_parallel": 4}])
 def test_multi_device_training_is_refused(parallel):
-    """The port trains on one device; a degree above 1 names ROADMAP queue 1
-    item 5. "auto" and 1 resolve to 1."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    """Without a process group the run is one rank: a degree above 1 is
+    refused (dp · tp must be the world size, as JAX's mesh needs that many
+    devices). "auto" and 1 resolve to 1 × 1."""
+    with pytest.raises(ValueError, match="needs [0-9]+ ranks; the run has 1"):
         resolve_parallel(parallel)
-    assert resolve_parallel({"data_parallel": "auto"}) == resolve_parallel({}) == 1
+    assert resolve_parallel({"data_parallel": "auto"}) == resolve_parallel({}) == (1, 1)
 
 
 def test_chip_smoke_train_configs_equal_the_files():

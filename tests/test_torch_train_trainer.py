@@ -3,7 +3,7 @@ params of a resumed run without aux losses are a straight run's, bitwise;
 with them, the restored state and the batches are, and the latent noise
 restarts from the seed as JAX's key does), the logs and the periodic eval,
 a finished run, the per-stage remat override, distillation, the checkpoint
-directory's rules, the multi-device refusal and the CLI; the "auto" loader's
+directory's rules, the refusal of a degree the run lacks and the CLI; the "auto" loader's
 native batches train to the thread pool's params, bitwise."""
 
 from __future__ import annotations
@@ -236,9 +236,11 @@ def test_checkpoint_directory_rules(tmp_path):
 
 
 def test_multi_device_config_is_refused(corpus, tmp_path):
+    """A data-parallel degree the process group does not have (here one
+    process, no group) is refused before anything is built."""
     conf = _config(corpus)
     conf["parallel"] = {"data_parallel": 4}
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(ValueError, match="needs 4 ranks; the run has 1"):
         Trainer(conf, workdir=str(tmp_path), device="cpu")
 
 

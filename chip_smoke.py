@@ -109,6 +109,21 @@ Phases, each timed and printed as it ends:
             boosting's four calls of a 512x512 request (BOOSTING_K2, the
             snapshot's metric diagonals), f32 and bf16, timed in bf16
             (``boosting_k2_rows``);
+  windows   every graph window the solver kernels take beyond the served ones
+            (``phase_windows``): the pixel model (its snapshot, bf16) on
+            cross-4 and ring-8 serves 512x512 on NHWC (1 K2, 6 K8), 512x512 on
+            CHW (1 K2, 1 K7) and 1024x1024 on CHW (1 K2, 6 K5), and the 86k
+            flagship on diamond-12 and ring-8 serves 512x512 with every plane
+            on the K5 band route (band_launches: 3 K3, 32 K4, 8 K2, 20 K5, no
+            K1), each with its counts zeroed just before and read just
+            after, then once more with every kernel call held against its
+            plain version (K2's bar; K1's for K5, K7, K8) and recorded, each
+            kernel's calls of a request replayed and timed (ms, device_ms,
+            plain_ms, bound); the pixel model with eval_skip_solve launches
+            nothing; one f32 row per kernel and window at the served shapes
+            (K2; K5 in the pixel mode at 1024x1024 and two-scale at the
+            flagship's 512x512 scale 0; K7; K8 in each mode), each moving its
+            input by CHANGE_FACTOR times its bar;
   model     the whole model in f32 with TF32 off on each flagship request's
             noisy image (the first is 1x512x512x3): kernel path against plain
             path (blocks as PyTorch ops, the solver's plain versions),
@@ -240,12 +255,13 @@ Phases, each timed and printed as it ends:
             The line names the backends, world sizes and how the halo rows
             travelled (host buffers under gloo).
 
-The build must take under 60 s, the parallel phase under 60 s, the train,
+The build must take under 60 s, the windows phase under 30 s, the parallel
+phase under 60 s, the train,
 baselines and stages phases under 90 s each, the deploy phase under 120 s
 and the whole script under 450 s; a run over any budget fails.
 
 Stdout ends with the card's name and power limit, a JSON line of per-kernel
-results, the serving, ``k7_band_512``, model, eval, variants, tile, natural,
+results, the serving, ``k7_band_512``, windows, model, eval, variants, tile, natural,
 baselines, deploy, train, stages, parallel and
 ``device_ms`` lines, the phase times and, only when every phase passed,
 {"ok": true, "device": {...}}. Details go to chiprun_out/. Exits non-zero
@@ -270,7 +286,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 BUDGET_S = {"build": 60, "train": 90, "deploy": 120, "baselines": 90, "stages": 90,
-            "parallel": 60, "total": 450}
+            "parallel": 60, "windows": 30, "total": 450}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -310,6 +326,19 @@ PIXEL_CHW = launches(0, 0, 0, 1, 0, k7=1)
 PIXEL_BAND_REQUESTS = ((1024, 1024), (2048, 2048))
 PIXEL_CHW_BAND = launches(0, 0, 0, 1, 6)
 K8_CALLS = {"rhs": 1, "cg1": 2, "cg2": 2, "rethresh": 1}  # per pixel request
+# the windows phase: the pixel model on its other windows, each served on
+# the routes and sizes of WINDOW_PIXEL_RUNS; the flagship on its other
+# windows at WINDOW_FLAGSHIP_REQUEST (every plane on the K5 band route:
+# band_launches); the kernels whose calls there are timed (WINDOW_REPS
+# replays of a request's calls)
+WINDOW_PIXEL = ("cross4", "ring8")
+WINDOW_PIXEL_RUNS = (("nhwc", (512, 512), PIXEL_NHWC), ("chw", (512, 512), PIXEL_CHW),
+                     ("chw", (1024, 1024), launches(0, 0, 0, 1, 6)))
+WINDOW_FLAGSHIP = ("diamond12", "ring8")
+WINDOW_FLAGSHIP_REQUEST = (512, 512)
+WINDOW_KERNELS = ("edge_weights_chw", "gg_fused_step_chw", "gg_pixel_unroll_chw",
+                  "pixel_segment_nhwc")
+WINDOW_REPS = 3
 # K5's pixel mode per pixel request on the CHW route above the cap
 K5_PIXEL_CALLS = {"rhs": 1, "cg_use_x_rhs_emit_update": 2, "cg_prev": 2, "rethresh_y": 1}
 # the six configs/ablation_*.yaml models, their ``model:`` sections as the
@@ -578,6 +607,7 @@ TRAIN_CONFIGS = {
 TRAIN_PATCHES = 2400
 TRAIN_STEPS = {"flagship": (3, 6), "distill": 4, "pixel": 4, "fixed_batch": 10}
 TRAIN_GRAD_BATCH = 1  # images of the step's batch in the card-against-CPU gradient
+TRAIN_GRAD_SIDE = 64  # ... each its top-left crop of this side (the CPU's backward is the cost)
 # the stages phase: every stage of these configs alone, STAGE_STEPS steps
 # from STAGE_BATCHES batches of crops, under remat off and on; the loop's
 # wait on its loader measured on the stage LOADER_WAIT names, LOADER_STEPS
@@ -1420,9 +1450,9 @@ def layout_mismatches(model):
     ``irdu_system_matvec_smem``): K3's wgmma kernel at every served (C, H)
     it takes, K2 at the plan of every call of the 512x512 flagship request
     and of the pixel model's diamond-12 call, bf16 and f32; K5 (and so
-    K6a's and K6b's single-scale launches) and K8 at every tile plan they
-    are built with, with and without GLR; K7 and K9 at
-    the tile of each type. Returns the (what, planner bytes,
+    K6a's and K6b's single-scale launches) and K8 on every window at every
+    tile plan they are built with, with and without GLR; K7 on every window
+    and K9 at the tile of each type. Returns the (what, planner bytes,
     kernel bytes) that differ."""
     import torch
 
@@ -1450,20 +1480,22 @@ def layout_mismatches(model):
             out.append((f"K2 G={g} F={f} {side}² e{esize}", smem, got))
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         esize = 4 if code == 0 else 2
-        for two, win in ((True, 0), (False, 0), (False, 1)):
-            for plan in range(len(fs.K5_PLANS[two])):
+        for two, win in ((two, win) for two in (True, False) for win in range(3)):
+            for plan in range(len(fs.k5_plans(two, win))):
                 if not fs.k5_has_plan(plan, two, win, dtype):
                     continue
                 for glr in (False, True):
                     got = lib.irdu_fused_step_hopper_smem(win, int(two), int(glr), plan, code)
                     out.append((f"K5 window={win} two={two} glr={glr} plan={plan} e{esize}",
                                 fs.k5_smem_bytes(win, two, glr, plan, esize), got))
-        for plan in range(len(pn.K8_PLANS) if code else 1):
-            for glr in (False, True):
-                got = lib.irdu_pixel_segment_smem(int(glr), plan, code)
-                out.append((f"K8 glr={glr} plan={plan} e{esize}",
-                            pn.k8_smem_bytes(glr, plan, esize), got))
-        out.append((f"K7 e{esize}", pu.k7_smem_bytes(dtype), lib.irdu_pixel_unroll_smem(code)))
+        for win, plans in pn.K8_WINDOW_PLANS.items():
+            for plan in range(len(plans) if code else 1):
+                for glr in (False, True):
+                    got = lib.irdu_pixel_segment_smem(win, int(glr), plan, code)
+                    out.append((f"K8 window={win} glr={glr} plan={plan} e{esize}",
+                                pn.k8_smem_bytes(glr, plan, esize, win), got))
+            out.append((f"K7 window={win} e{esize}", pu.k7_smem_bytes(dtype, win),
+                        lib.irdu_pixel_unroll_smem(win, code)))
         out.append((f"K9 e{esize}", sm.k9_smem_bytes(dtype), lib.irdu_system_matvec_smem(code)))
     return [m for m in out if m[1] != m[2]]
 
@@ -1926,11 +1958,11 @@ def pixel_rows(model, gen, bar_at, lines):
 
     from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
     from irdu_tpu_torch.ops.graph import pack_edge_weights
-    from irdu_tpu_torch.ops.pixel_nhwc import (NHWC_OPS_PER_PIXEL, pixel_segment_nhwc,
+    from irdu_tpu_torch.ops.pixel_nhwc import (nhwc_ops_per_pixel, pixel_segment_nhwc,
                                                pixel_segment_plain)
     from irdu_tpu_torch.kernels.build import dtype_code, kernel_library
     from irdu_tpu_torch.kernels.timing import device_ms
-    from irdu_tpu_torch.ops.pixel_unroll import (K7_TILES, PIXEL_UNROLL_OPS_PER_PIXEL,
+    from irdu_tpu_torch.ops.pixel_unroll import (K7_TILES, pixel_unroll_ops_per_pixel,
                                                  gg_pixel_unroll_chw, pixel_unroll_plain)
     from irdu_tpu_torch.ops.windows import DIAMOND12
 
@@ -1980,11 +2012,11 @@ def pixel_rows(model, gen, bar_at, lines):
         row = dict(shape=list(ker.shape), dtype=str(dtype)[6:], params="pixel snapshot")
         row.update(_agree(ker, ref, y.repeat(1, g, 1, 1), dtype, bar_at))
         row.update(ctas_per_sm=kernel_library().irdu_pixel_unroll_ctas_per_sm(
-            dtype_code(dtype)), tile=list(K7_TILES[dtype]))
+            1, dtype_code(dtype)), tile=list(K7_TILES[dtype]))
         if bf16:
             row.update(calls=1, **times(lambda: gg_pixel_unroll_chw(*args, n_graphs=g), 5),
                        plain_ms=cuda_ms(lambda: pixel_unroll_plain(*args, n_graphs=g), 2, 1),
-                       **_bound(nbytes(*args, ker), ker.numel() * PIXEL_UNROLL_OPS_PER_PIXEL))
+                       **_bound(nbytes(*args, ker), ker.numel() * pixel_unroll_ops_per_pixel()))
             lines["k7_band_512"] = k7_yardstick(mix, args, g)
         else:  # the f32 tile's device time, on no request's path (kept out of the sums)
             row.update(f32_device_ms=device_ms(lambda: gg_pixel_unroll_chw(*args, n_graphs=g), 5))
@@ -2011,7 +2043,7 @@ def pixel_rows(model, gen, bar_at, lines):
                 row.update(calls=K8_CALLS[mode],
                            **times(lambda: pixel_segment_nhwc(*args, **kw), 10),
                            plain_ms=cuda_ms(lambda: pixel_segment_plain(*args, **kw), 2, 1),
-                           **_bound(nbytes(*args, *outs), x.numel() * NHWC_OPS_PER_PIXEL[mode]))
+                           **_bound(nbytes(*args, *outs), x.numel() * nhwc_ops_per_pixel(mode)))
             rows["pixel_segment_nhwc"].append(row)
             del ker, ref
         del x, aux, prev, wgp, wlp
@@ -2411,6 +2443,385 @@ def dark_split(clean, out):
     return dict(near_black_px_share=round(float(dark.mean()), 4),
                 near_black_err_share=round(float(err[dark].sum() / err.sum()), 4),
                 psnr_near_black=db(dark), psnr_rest=db(~dark))
+
+
+# ---------------------------------------------------------------------------
+# the windows phase: every graph window the solver kernels take beyond the
+# served ones (the pixel family on cross-4 and ring-8, the flagship on
+# diamond-12 and ring-8), and the skip-solve probe
+# ---------------------------------------------------------------------------
+
+
+def band_launches(model, hw):
+    """The flagship's launches on ``hw`` when every plane takes the band route
+    (a window other than cross-4: K1 is built for cross-4 only), derived from
+    the model: PER_REQUEST's blocks, K2 twice a filtering block, no K1, and
+    per filtering block the K5 steps ``gtv_glr._band_route`` issues at its
+    ``eval_cg_iters`` (rhs, cg; then rethresh, cg; then cg)."""
+    steps = {1: 2, 2: 4, 3: 5}
+    want = dict(PER_REQUEST[hw])
+    want.update(gg_unroll_chw=0, edge_weights_chw=2 * len(model.local_filters),
+                gg_fused_step_chw=sum(steps[f.local_filter.eval_cg_iters]
+                                      for f in model.local_filters))
+    return want
+
+
+@contextlib.contextmanager
+def on_window(solvers, name):
+    """Each solver's graph window set to ``name`` (its ``deltas``; no
+    parameter depends on the window), restored after."""
+    from irdu_tpu_torch.ops.windows import WINDOWS
+
+    saved = [m.deltas for m in solvers]
+    for m in solvers:
+        m.deltas = WINDOWS[name]
+    try:
+        yield
+    finally:
+        for m, d in zip(solvers, saved):
+            m.deltas = d
+
+
+@contextlib.contextmanager
+def recorded_calls(sites):
+    """While open, each call through ``sites`` is kept as (args, kwargs)
+    under its kernel's name and passed on (nested inside ``kernel_checks``,
+    to the checked call)."""
+    calls = {name: [] for _, name, _, _ in sites}
+    saved = [getattr(mod, name) for mod, name, _, _ in sites]
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        call.launches = 0  # as kernel_checks' wrappers: K8 counts through its module's name
+        return call
+
+    for (mod, name, _, _), fn in zip(sites, saved):
+        setattr(mod, name, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name, _, _), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+
+def k5_window_ops(mode, n_edges, two, glr=True, y=False, prev=False):
+    """f32 operations one K5 call needs per full-res pixel of one plane on a
+    window of E edges, each edge term once (``ops.pixel_unroll.edge_ops``):
+    its term (rhs Q, cg Q [+ GLR], rethresh R), two-scale plus a quarter of
+    the half-res term and of its box mean and upsampled add (4); then the
+    epilogue: rhs 1, cg rhs − (x + T) and x + α·upd 4 (β·prev 2), rethresh y 1."""
+    from irdu_tpu_torch.ops.pixel_unroll import edge_ops
+
+    ops = edge_ops(n_edges)
+    term = {"rhs": ops["q"], "cg": ops["q"] + ops["glr"] * glr, "rethresh": ops["rethresh"]}[mode]
+    return term + (term + 4) / 4 * two + {"rhs": 1, "cg": 4 + 2 * prev, "rethresh": y}[mode]
+
+
+def call_cost(name, args, kw, out):
+    """The bytes one recorded call moves (each tensor argument read once,
+    each output written once) and the f32 operations it does."""
+    import torch
+
+    from irdu_tpu_torch.ops.pixel_nhwc import nhwc_ops_per_pixel
+    from irdu_tpu_torch.ops.pixel_unroll import pixel_unroll_ops_per_pixel
+
+    tensors = [t for t in (*args, *kw.values(), *(out if isinstance(out, tuple) else (out,)))
+               if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n_e = len(kw["deltas"])
+    if name == "edge_weights_chw":
+        feats, g = args[0], kw["n_graphs"]
+        b, c, h, w = feats.shape
+        return nbytes, b * h * w * g * k2_ops_per_pixel_graph(c // g, n_e)
+    if name == "gg_fused_step_chw":
+        x, aux, prev = args[:3]
+        return nbytes, x.numel() * k5_window_ops(
+            kw["mode"], n_e, args[5] is not None, glr=kw.get("with_glr", True),
+            y=aux is not None, prev=prev is not None)
+    if name == "gg_pixel_unroll_chw":
+        return nbytes, out.numel() * pixel_unroll_ops_per_pixel(n_e)
+    return nbytes, args[0].numel() * nhwc_ops_per_pixel(kw["mode"], n_e)  # K8
+
+
+def replay_rows(calls, summary, sites, basis, window):
+    """One bf16 row per kernel of a request's recorded calls: all its calls
+    replayed, timed as one (``times``: CUDA events and device time over
+    WINDOW_REPS replays), the plain versions' time, the bound summed over the
+    calls, the max|d| of the checked run's calls; ``calls`` 1 (the row is a
+    request's)."""
+    kern = wrappers()
+    plains = {name: plain for _, name, plain, _ in sites}
+    rows = {}
+    for name, recs in calls.items():
+        if not recs or name not in WINDOW_KERNELS:
+            continue
+        nbytes = ops = 0
+        for args, kw in recs:
+            b, o = call_cost(name, args, kw, kern[name](*args, **kw))
+            nbytes, ops = nbytes + b, ops + o
+        sync()
+
+        def run(fn, recs=recs):
+            for args, kw in recs:
+                fn(*args, **kw)
+
+        rows[name] = [dict(
+            window=window, basis=basis, dtype="bfloat16", calls=1, n_calls=len(recs),
+            max_abs_err=summary["max_abs_err"][name], ok=summary["calls_ok"],
+            **times(lambda: run(kern[name]), WINDOW_REPS),
+            plain_ms=cuda_ms(lambda: run(plains[name]), 1, 1), **_bound(nbytes, ops))]
+    return rows
+
+
+def window_request(model, solvers, window, noisy, clean, hw, want, sites):
+    """One request on ``window``: served with every count zeroed just before
+    and read just after, then again with every kernel call held against its
+    plain version and recorded; returns the served row (its launches, the
+    checks), the counts, the recorded calls and the checks' summary."""
+    with on_window(solvers, window):
+        (row,), counts = serve(model, [(clean, noisy, hw)])
+        with kernel_checks(sites) as rec, recorded_calls(sites) as calls:
+            from irdu_tpu_torch.predict import denoise
+
+            denoise(model, noisy)
+        summary = checks_summary(rec, want)
+    row.update(window=window, **summary)
+    row["launches_ok"] = row["launches"] == want
+    return row, counts, calls, summary
+
+
+def phase_windows(smoke):
+    """The pixel model (its snapshot, bf16) on cross-4 and ring-8 serves
+    512x512 on NHWC (1 K2, 6 K8), 512x512 on CHW (1 K2, 1 K7) and 1024x1024
+    on CHW (1 K2, 6 K5), and the 86k flagship on diamond-12 and ring-8 serves
+    512x512 (band_launches: 3 K3, 32 K4, 8 K2, 20 K5, no K1), each with its
+    counts zeroed just before and read just after, then once more with every
+    kernel call held against its plain version (K2's bar; K5, K7, K8 K1's)
+    and recorded; each kernel's calls of each request replayed and timed
+    (``replay_rows``). The pixel model with ``eval_skip_solve`` on 512x512
+    launches nothing. Then one f32 row per kernel and window at the served
+    shapes (``window_f32_rows``), which must move its input by
+    CHANGE_FACTOR times its bar."""
+    import torch
+
+    from irdu_tpu_torch.predict import denoise, load_model
+
+    by_size = dict(zip(REQUESTS, request_images()))
+    pixel = smoke.pixel_model or load_model(device=DEVICE, name="pixel")
+    mix = pixel.mixtureGLR_block03
+    flagship = smoke.model or load_model(device=DEVICE)
+    solvers = [f.local_filter for f in flagship.local_filters]
+    requests, new_rows = [], {}
+
+    def add(rows):
+        for name, rs in rows.items():
+            new_rows.setdefault(name, []).extend(rs)
+
+    try:
+        for window in WINDOW_PIXEL:
+            for route, hw, want in WINDOW_PIXEL_RUNS:
+                mix.use_nhwc_unroll = route == "nhwc"
+                clean, noisy = by_size[hw]
+                with on_window([mix], window):
+                    denoise(pixel, noisy)  # warm-up
+                path = f"windows_pixel_{window}_{route}_{hw[0]}"
+                row, smoke.path_counts[path], calls, summary = window_request(
+                    pixel, [mix], window, noisy, clean, hw, want, pixel_sites())
+                requests.append(dict(row, model="pixel", route=route))
+                add(replay_rows(calls, summary, pixel_sites(),
+                                f"{hw[0]}x{hw[1]} pixel request, {route.upper()} route, "
+                                f"{window}", window))
+                del calls
+        mix.use_nhwc_unroll = True
+        hw = WINDOW_PIXEL_RUNS[0][1]  # the served route's 512x512 request
+        clean, noisy = by_size[hw]
+        mix.eval_skip_solve = True
+        denoise(pixel, noisy)
+        (skip,), smoke.path_counts["windows_pixel_skip_solve"] = serve(
+            pixel, [(clean, noisy, hw)])
+    finally:
+        mix.use_nhwc_unroll, mix.eval_skip_solve = True, False
+    requests.append(dict(skip, model="pixel", route="eval_skip_solve",
+                         launches_ok=not any(skip["launches"].values())))
+    hw = WINDOW_FLAGSHIP_REQUEST
+    want = band_launches(flagship, hw)
+    clean, noisy = by_size[hw]
+    for window in WINDOW_FLAGSHIP:
+        with on_window(solvers, window):
+            denoise(flagship, noisy)  # warm-up
+        row, smoke.path_counts[f"windows_flagship_{window}"], calls, summary = window_request(
+            flagship, solvers, window, noisy, clean, hw, want, flagship_sites())
+        requests.append(dict(row, model="flagship"))
+        add(replay_rows(calls, summary, flagship_sites(),
+                        f"{hw[0]}x{hw[1]} request, {window}", window))
+        del calls
+    torch.cuda.empty_cache()
+    add(window_f32_rows(pixel, flagship))
+    for name, rows in new_rows.items():
+        smoke.kernel_rows.setdefault(name, []).extend(rows)
+    smoke.lines["windows"] = {
+        "requests": requests, "rows": new_rows, "card": smoke.lines["device"]["nvidia_smi"],
+        "weights": {"pixel": "pixel_synthetic_2050.npz",
+                    "flagship": "flagship_cont100k_35000.npz"}, "dtype": "bfloat16"}
+    for r in requests:
+        what = f"windows: {r['model']} {r.get('window')} {r.get('route')} {r['shape']}"
+        require(r["launches_ok"] and r["finite"],
+                f"{what}: launches {r['launches']}, finite {r['finite']}")
+        require(r.get("calls_ok", True), f"{what}: a kernel call disagrees with its plain "
+                f"version, or the calls are not those launched (max|d| {r.get('max_abs_err')})")
+    bad = [(k, r) for k, rows in new_rows.items() for r in rows if not r["ok"]]
+    require(not bad, f"windows: rows disagree with their plain versions, or an f32 row "
+            f"moved its input by under {CHANGE_FACTOR}x the bar: {bad}")
+
+
+def window_f32_rows(pixel, flagship):
+    """One f32 row per kernel and window, kernel against plain on seeded
+    inputs at the served shapes (atol 5e-4, rtol 1e-3; K5, K7 and K8 also
+    moving their input by CHANGE_FACTOR times that bar, ``_agree``): K2, K7
+    and K8 in each mode at the 512x512 pixel request's shapes and K5's four
+    pixel-mode calls at 1024x1024 (pixel snapshot parameters) on cross-4 and
+    ring-8; K2 and K5's two-scale calls at the 512x512 flagship request's
+    scale 0 (the 86k snapshot's scale-0 parameters) on diamond-12 and
+    ring-8."""
+    import torch
+
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
+    from irdu_tpu_torch.ops.fused_step import fused_scal, fused_step_plain, gg_fused_step_chw
+    from irdu_tpu_torch.ops.graph import pack_edge_weights
+    from irdu_tpu_torch.ops.pixel_nhwc import pixel_segment_nhwc, pixel_segment_plain
+    from irdu_tpu_torch.ops.pixel_unroll import gg_pixel_unroll_chw, pixel_unroll_plain
+    from irdu_tpu_torch.ops.windows import WINDOWS
+
+    f32 = torch.float32
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    rows = {"edge_weights_chw": [], "gg_fused_step_chw": [], "gg_pixel_unroll_chw": [],
+            "pixel_segment_nhwc": []}
+
+    def bar_at(ref, dtype):
+        return 5e-4 + 1e-3 * float(ref.float().abs().max())
+
+    def rand(*shape, scale=None):
+        t = (torch.randn if scale else torch.rand)(*shape, device=DEVICE, generator=gen)
+        return t * scale if scale else t
+
+    def k2_row(feats, m, g, deltas, window, params):
+        ker = edge_weights_chw(feats, m, n_graphs=g, deltas=deltas)
+        ref = edge_weights_plain(feats, m, g, deltas)
+        sync()
+        rows["edge_weights_chw"].append(dict(
+            window=window, shape=list(feats.shape), dtype="float32", params=params,
+            max_abs_err=max_abs(ker, ref), ok=within(ker, ref, 5e-4, 1e-3)))
+        return ref
+
+    def step_row(window, case, args, kw, base, params):
+        ker, ref = gg_fused_step_chw(*args, **kw), fused_step_plain(*args, **kw)
+        sync()
+        row = dict(window=window, case=case, shape=list(args[0].shape), dtype="float32",
+                   params=params)
+        row.update(_agree(ker, ref, base, f32, bar_at))
+        rows["gg_fused_step_chw"].append(row)
+
+    mix = pixel.mixtureGLR_block03
+    g, f = mix.n_graphs, mix.n_node_fts
+    c = g * f
+    m = torch.cat([mix.GTVmodule00.multiM, mix.GLRmodule00.multiM]).float()
+    tables = tuple(t.float() for t in (mix.GTVmodule00.stats_table(),
+                                       mix.GLRmodule00.stats_table()))
+    scal = mix._scal().float()
+    p = torch.stack([mix.GTVmodule00.stats_scalars(), mix.GLRmodule00.stats_scalars()]).float()
+    mu, ro = mix.muys00.float(), mix.ro00.float()
+    gamma = torch.exp(mix.gamma00.float())
+    alpha, beta = mix.alphaCGD.float(), mix.betaCGD.float()
+    planar = {k: v.repeat(f) for k, v in (("mu", mu), ("ro", ro), ("gamma", gamma))}
+    seg_scal = [torch.stack([planar["mu"], planar["ro"], planar["gamma"], alpha[i].repeat(f),
+                             beta[i].repeat(f) if i % 2 else torch.zeros(c, device=DEVICE)])
+                for i in range(2)]
+    for window in WINDOW_PIXEL:
+        d = WINDOWS[window]
+        h, w = PIXEL_REQUESTS[0]
+        feats = rand(1, c, h, w, scale=1.0)
+        wt = k2_row(torch.cat([feats, feats], dim=1), m, 2 * g, d, window, "pixel snapshot")
+        wg, wl = wt[:, :g].contiguous(), wt[:, g:].contiguous()
+        y = rand(1, f, h, w)
+        args = (y, wg, wl, *tables, scal)
+        ker = gg_pixel_unroll_chw(*args, n_graphs=g, deltas=d)
+        ref = pixel_unroll_plain(*args, n_graphs=g, deltas=d)
+        sync()
+        row = dict(window=window, shape=list(ker.shape), dtype="float32",
+                   params="pixel snapshot")
+        row.update(_agree(ker, ref, y.repeat(1, g, 1, 1), f32, bar_at))
+        rows["gg_pixel_unroll_chw"].append(row)
+        x, aux = rand(1, h, w, c), rand(1, h, w, c)
+        prev = rand(1, h, w, c, scale=0.3)
+        wgp, wlp = pack_edge_weights(wg), pack_edge_weights(wl)
+        for mode, (aux_, prev_, wl_, sc) in {
+                "rhs": (None, None, None, seg_scal[0]), "cg1": (None, None, wlp, seg_scal[0]),
+                "cg2": (aux, prev, wlp, seg_scal[1]),
+                "rethresh": (aux, None, None, seg_scal[0])}.items():
+            args = (x, aux_, prev_, wgp, wl_, p, sc)
+            kw = dict(mode=mode, n_graphs=g, deltas=d)
+            ker, ref = pixel_segment_nhwc(*args, **kw), pixel_segment_plain(*args, **kw)
+            sync()
+            row = dict(window=window, mode=mode, shape=list(x.shape), dtype="float32",
+                       params="pixel snapshot")
+            row.update(_agree(ker, ref, aux_ if mode == "rethresh" else x, f32, bar_at))
+            rows["pixel_segment_nhwc"].append(row)
+        del feats, wt, wg, wl, y, x, aux, prev, wgp, wlp, ker, ref
+        h, w = PIXEL_BAND_REQUESTS[0]
+        x, aux = rand(1, c, h, w), rand(1, c, h, w)
+        prev = rand(1, c, h, w, scale=0.3)
+        feats = rand(1, c, h, w, scale=1.0)
+        wt = edge_weights_plain(torch.cat([feats, feats], dim=1), m, 2 * g, d)
+        wg, wl = wt[:, :g].contiguous(), wt[:, g:].contiguous()
+        del feats, wt
+        pix = dict(n_graphs=g, deltas=d, stats_mode="reflect")
+        for case, mode, aux_, prev_, glr, kw, sc in (
+                ("rhs", "rhs", None, None, False, {}, fused_scal(g, ro0=ro)),
+                ("cg_use_x_rhs_emit_update", "cg", None, None, True,
+                 dict(use_x_rhs=True, emit_update=True),
+                 fused_scal(g, mu0=mu, ro0=ro, alpha=alpha[0])),
+                ("cg_prev", "cg", aux, prev, True, {},
+                 fused_scal(g, mu0=mu, ro0=ro, alpha=alpha[1], beta=beta[1])),
+                ("rethresh_y", "rethresh", aux, None, False, {},
+                 fused_scal(g, ro0=ro, gamma0=gamma))):
+            args = (x, aux_, prev_, wg, wl if glr else None, None, None, tables[0],
+                    tables[1] if glr else None, None, None, sc)
+            step_row(window, case, args, dict(mode=mode, **pix, **kw),
+                     aux_ if mode == "rethresh" else x, "pixel snapshot")
+        del x, aux, prev, wg, wl
+        torch.cuda.empty_cache()
+    gs, m0, m1, ftables, _ = _filter_params(flagship, 0)
+    lf = flagship.local_filters[0].local_filter
+    mu0, ro0, mu1, ro1, gam0, gam1 = lf._positive()
+    a, b = lf.alphaCGD.float(), lf.betaCGD.float()
+    c = lf.n_node_fts * gs
+    h, w = WINDOW_FLAGSHIP_REQUEST
+    ftables = [t.float() for t in ftables]
+    for window in WINDOW_FLAGSHIP:
+        d = WINDOWS[window]
+        ws = []
+        for res, mm in ((1, m0), (2, m1)):
+            wt = k2_row(rand(1, 2 * c, h // res, w // res, scale=1.0), mm, 2 * gs, d, window,
+                        f"86k snapshot, scale 0, {'full' if res == 1 else 'half'} res")
+            ws += [wt[:, :gs].contiguous(), wt[:, gs:].contiguous()]
+        x, aux = rand(1, c, h, w), rand(1, c, h, w)
+        prev = rand(1, c, h, w, scale=0.3)
+        scal_gtv = fused_scal(gs, ro0=ro0, ro1=ro1, gamma0=gam0, gamma1=gam1)
+        for case, mode, aux_, prev_, kw, sc in (
+                ("rhs", "rhs", None, None, {}, scal_gtv),
+                ("cg_use_x_rhs", "cg", None, None, dict(use_x_rhs=True),
+                 fused_scal(gs, mu0=mu0, ro0=ro0, mu1=mu1, ro1=ro1, alpha=a[0])),
+                ("rethresh_y", "rethresh", aux, None, {}, scal_gtv),
+                ("cg_prev_emit_update", "cg", aux, prev, dict(emit_update=True),
+                 fused_scal(gs, mu0=mu0, ro0=ro0, mu1=mu1, ro1=ro1, alpha=a[2], beta=b[2]))):
+            args = (x, aux_, prev_, *ws, *ftables, sc)
+            step_row(window, case, args, dict(mode=mode, n_graphs=gs, deltas=d, **kw),
+                     aux_ if mode == "rethresh" else x, "86k snapshot, scale 0")
+        del x, aux, prev, ws
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_model(smoke):
@@ -3211,8 +3622,9 @@ def phase_train(smoke):
          finite non-zero gradient in every step (the tensors that moved are
          counted, not gated) and no kernel launched in a step; the step's ms
          and images/s printed;
-      2. one ``flagship_loss`` and its backward on TRAIN_GRAD_BATCH 128²
-         images of step 1's batch with the latent noise passed in, on the
+      2. one ``flagship_loss`` and its backward on TRAIN_GRAD_BATCH images
+         of step 1's batch (their TRAIN_GRAD_SIDE² top-left crops) with the
+         latent noise passed in, on the
          card and on the CPU (TF32 off):
          loss within TRAIN_LOSS_RTOL, each gradient tensor within
          TRAIN_GRAD_RTOL of its max;
@@ -3330,8 +3742,9 @@ def phase_train(smoke):
     set_kernels(model, False)
     cpu_model = copy.deepcopy(model)
     model.to(DEVICE)
-    noise = code_noise(TRAIN_GRAD_BATCH, mc["dims"], 128, "cpu")
-    batch = tuple(t[:TRAIN_GRAD_BATCH] for t in batch)
+    noise = code_noise(TRAIN_GRAD_BATCH, mc["dims"], TRAIN_GRAD_SIDE, "cpu")
+    batch = tuple(t[:TRAIN_GRAD_BATCH, :TRAIN_GRAD_SIDE, :TRAIN_GRAD_SIDE].contiguous()
+                  for t in batch)
     loss_gpu, g_gpu = loss_and_grads(model, batch[0].to(DEVICE), batch[1].to(DEVICE),
                                      tuple(n.to(DEVICE) for n in noise))
     t0 = time.perf_counter()
@@ -4047,6 +4460,7 @@ def main() -> int:
         smoke.run("pixel", phase_pixel, smoke)
         smoke.run("ablation", phase_ablation, smoke)
         smoke.run("kernels", phase_kernels, smoke)
+        smoke.run("windows", phase_windows, smoke)
         smoke.run("model", phase_model, smoke)
         smoke.run("eval", phase_eval, smoke)
         smoke.run("variants", phase_variants, smoke)
@@ -4061,8 +4475,8 @@ def main() -> int:
     kernels = kernels_line(smoke)
     print(json.dumps(kernels), flush=True)
     for key in ("ptxas", "serving", "profile", "small_models", "pixel", "ablation",
-                "band_route", "k7_band_512", "model", "eval", "variants", "tile", "natural",
-                "baselines", "deploy", "train", "stages", "parallel",
+                "band_route", "k7_band_512", "windows", "model", "eval", "variants", "tile",
+                "natural", "baselines", "deploy", "train", "stages", "parallel",
                 "device_ms"):
         if key in smoke.lines:
             print(json.dumps(smoke.lines[key]), flush=True)
@@ -4071,7 +4485,7 @@ def main() -> int:
     total = time.perf_counter() - t_start
     if build_s is not None and build_s > BUDGET_S["build"]:
         smoke.failed.append(f"build over its {BUDGET_S['build']} s budget ({build_s:.1f} s)")
-    for phase in ("train", "deploy", "baselines", "stages", "parallel"):
+    for phase in ("train", "deploy", "baselines", "stages", "parallel", "windows"):
         if smoke.phases.get(phase, 0) > BUDGET_S[phase]:
             smoke.failed.append(f"{phase} over its {BUDGET_S[phase]} s budget "
                                 f"({smoke.phases[phase]:.1f} s)")

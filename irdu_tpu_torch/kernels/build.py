@@ -52,12 +52,12 @@ _SIGNATURES = {  # name: (argtypes, restype)
     "irdu_gg_unroll": ((_P,) * 12 + (_I,) * 7 + (_P,), _I),
     "irdu_gg_unroll_scratch_floats": ((_I, _I), _L),
     "irdu_gg_unroll_ctas_per_sm": ((_I,), _I),
-    "irdu_pixel_unroll": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
+    "irdu_pixel_unroll": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
     "irdu_pixel_unroll_scratch_floats": ((_I, _I), _L),
-    "irdu_pixel_unroll_smem": ((_I,), _L),
-    "irdu_pixel_unroll_ctas_per_sm": ((_I,), _I),
-    "irdu_pixel_segment": ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
-    "irdu_pixel_segment_smem": ((_I,) * 3, _L),
+    "irdu_pixel_unroll_smem": ((_I, _I), _L),
+    "irdu_pixel_unroll_ctas_per_sm": ((_I, _I), _I),
+    "irdu_pixel_segment": ((_P,) * 9 + (_I,) * 9 + (_P,), _I),
+    "irdu_pixel_segment_smem": ((_I,) * 4, _L),
     "irdu_system_matvec": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
     "irdu_system_matvec_smem": ((_I,), _L),
     "irdu_error_string": ((_I,), ctypes.c_char_p),

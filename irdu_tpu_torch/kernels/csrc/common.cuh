@@ -1,6 +1,6 @@
 // Shared helpers for the port's CUDA kernels: element loads/stores in f32 or
-// bf16, the stencil coefficients and the re-threshold's edge map, the cross-4
-// and diamond-12 windows. Compiled with nvcc
+// bf16, the stencil coefficients and the re-threshold's edge map, the cross-4,
+// diamond-12 and ring-8 windows. Compiled with nvcc
 // for sm_90a into one shared library with a plain C interface (see
 // ../build.py); no PyTorch headers.
 #pragma once
@@ -56,6 +56,15 @@ __device__ __forceinline__ int d12_dh(int e) {
 }
 __device__ __forceinline__ int d12_dw(int e) {
   constexpr int t[kDiamondEdges] = {0, -1, 0, 1, -2, -1, 1, 2, -1, 0, 1, 0};
+  return t[e];
+}
+
+// Ring-8 window (the full 3x3 ring), row-major over the 3x3 mask:
+// (-1,-1) (-1,0) (-1,1) (0,-1) (0,1) (1,-1) (1,0) (1,1).
+constexpr int kRingEdges = 8;
+__device__ __forceinline__ int r8_dh(int e) { return e < 3 ? -1 : (e < 5 ? 0 : 1); }
+__device__ __forceinline__ int r8_dw(int e) {
+  constexpr int t[kRingEdges] = {-1, 0, 1, -1, 1, -1, 0, 1};
   return t[e];
 }
 

@@ -10,10 +10,11 @@
 //   w     zero: the edge sum's second term w_e(p - d_e) vanishes where
 //         p - d_e is outside the image;
 //   A     zero: the C^T scatter and stats^T read zeros outside the image.
-// Halos (the window's radius r: 1 cross-4, 2 diamond-12): the tile's result
-// reads A on the tile + 1; A reads S and w on the tile + 1 + r; S reads x on
-// the tile + 2 + r. Cells of a plane are row-major, N channel lanes each
-// (N = 1 for K5's CHW planes, the graph group for K8's channels-last ones).
+// Halos, from the window's radius r (Win<>::R: 1 cross-4 and ring-8, 2
+// diamond-12): the tile's result reads A on the tile + 1; A reads S and w on
+// the tile + 1 + r; S reads x on the tile + 2 + r. Cells of a plane are
+// row-major, N channel lanes each (N = 1 for K5's CHW planes, the graph group
+// for K8's channels-last ones).
 // Index arithmetic walks each thread's cells incrementally (for_box): no
 // division per element.
 #pragma once
@@ -25,12 +26,20 @@
 namespace irdu {
 namespace ptile {
 
-template <int kWin>  // 0 cross-4, 1 diamond-12
+// The window codes the solver kernels take (ops/windows.py WINDOW_CODES).
+constexpr int kCross4 = 0, kDiamond12 = 1, kRing8 = 2;
+
+template <int kWin>
 struct Win {
-  static constexpr int E = kWin == 0 ? 4 : kDiamondEdges;
-  static constexpr int R = kWin == 0 ? 1 : 2;
-  __device__ __forceinline__ static int dh(int e) { return kWin == 0 ? dh_of(e) : d12_dh(e); }
-  __device__ __forceinline__ static int dw(int e) { return kWin == 0 ? dw_of(e) : d12_dw(e); }
+  static_assert(kWin == kCross4 || kWin == kDiamond12 || kWin == kRing8, "a window code");
+  static constexpr int E = kWin == kCross4 ? 4 : (kWin == kRing8 ? kRingEdges : kDiamondEdges);
+  static constexpr int R = kWin == kDiamond12 ? 2 : 1;
+  __device__ __forceinline__ static int dh(int e) {
+    return kWin == kCross4 ? dh_of(e) : (kWin == kRing8 ? r8_dh(e) : d12_dh(e));
+  }
+  __device__ __forceinline__ static int dw(int e) {
+    return kWin == kCross4 ? dw_of(e) : (kWin == kRing8 ? r8_dw(e) : d12_dw(e));
+  }
 };
 
 __host__ __device__ constexpr size_t up16(size_t n) { return (n + 15) & ~size_t(15); }

@@ -129,12 +129,13 @@ class RegionalPixelEmbedding(nn.Module):
 class LocalLowpassFilteringBlock(nn.Module):
     """One unrolled GGTV+GGLR solve with a learned 0.5/0.5 skip."""
 
-    def __init__(self, dim: int, ngraphs: int, *, eval_cg_iters: int = 3):
+    def __init__(self, dim: int, ngraphs: int, *, eval_cg_iters: int = 3,
+                 window: str = "cross4"):
         super().__init__()
         self.skip_weight = nn.Parameter(torch.full((2,), 0.5))
         self.local_filter = MixtureGTVGLR(
             n_graphs=ngraphs, n_node_fts=dim // ngraphs,
-            eval_cg_iters=eval_cg_iters)
+            eval_cg_iters=eval_cg_iters, window=window)
 
     def forward(self, x):
         sw = self.skip_weight

@@ -45,6 +45,7 @@ from irdu_tpu_torch.models.layers import Downsample2x2, GroupedPointwise, Upsamp
 from irdu_tpu_torch.models.registry import require
 from irdu_tpu_torch.ops.block_stack import fused_block_stack, pack_block_params
 from irdu_tpu_torch.ops.gated_block import fused_gated_block
+from irdu_tpu_torch.ops.windows import WINDOWS
 
 STACK_MAX_DIM = 64  # block lists this wide run through K3
 STACK_MAX_BLOCKS = 4
@@ -65,9 +66,11 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         elsewhere (not in the reference; None filters all four).
 
         The other keywords are JAX's fields with JAX's defaults, so that a
-        configuration's ``model`` section builds: ``nsubnets`` all 1, the
-        cross-4 ``window`` are what the port computes (``registry.require``
-        raises on any other value). ``conv_variant`` ("plain",
+        configuration's ``model`` section builds: ``nsubnets`` all 1 is what
+        the port computes (``registry.require`` raises on any other value);
+        ``window`` ("cross4", "diamond12" or "ring8") is the solvers' graph
+        window (every plane of a window other than cross-4 takes the K5 band
+        route: K1 is built for cross-4). ``conv_variant`` ("plain",
         "spectral_norm", "non_expansive") goes to the embed, the blocks, the
         down/up samples, the combines and the head, not the solvers. The
         ``use_pallas_*`` flags choose between two computations of the same
@@ -79,7 +82,7 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         (``layers.remat_call``), JAX's ``nn.remat``: a training-memory knob
         with the same values and no effect at inference."""
         require("nsubnets", tuple(nsubnets), [(1,) * len(dims)])
-        require("window", window, ["cross4"])
+        require("window", window, list(WINDOWS), "JAX's WINDOWS has no such window")
         del use_pallas_blocks, use_pallas_solver
         super().__init__()
         d, hd = dims, hidden_dims
@@ -101,7 +104,8 @@ class AbstractMultiScaleGraphFilter(nn.Module):
                                for s in range(4)]
         self.down_samples = [Downsample2x2(d[s], d[s + 1], cv) for s in range(3)]
         self.local_filters = [
-            LocalLowpassFilteringBlock(d[s], ngraphs[s], eval_cg_iters=eval_cg_iters)
+            LocalLowpassFilteringBlock(d[s], ngraphs[s], eval_cg_iters=eval_cg_iters,
+                                       window=window)
             for s in range(4)]
         self.up_samples = [Upsample2x2(d[s + 1], d[s], cv) for s in range(3)]
         self.combine_channels = [GroupedPointwise(2 * d[s], d[s], cv) for s in range(3)]

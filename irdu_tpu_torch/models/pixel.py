@@ -11,7 +11,8 @@ import torch
 from torch import nn
 
 from irdu_tpu_torch.models.registry import require
-from irdu_tpu_torch.solvers.pixel_gtv import MixtureGTV
+from irdu_tpu_torch.ops.windows import WINDOWS
+from irdu_tpu_torch.solvers.pixel_gtv import N_CGD_ITERS, MixtureGTV
 
 
 class MultiScaleSequenceDenoiser(nn.Module):
@@ -31,12 +32,14 @@ class MultiScaleSequenceDenoiser(nn.Module):
         and the plain route's unroll in the backward pass, a training-memory
         knob with no effect at inference. ``stats_mode`` ("scalar", or
         "none": the v4 core, no stencil) and ``feature_n_levels`` (3, or 4:
-        the v4 full-depth feature U-Net) go to the solver. ``registry.require`` raises on a value the
-        port does not compute yet: another window, another CG count, the
-        skip-solve probe (JAX's accounting run without the unroll)."""
-        require("window", window, ["diamond12"])
-        require("n_cgd_iters", n_cgd_iters, [4])
-        require("eval_skip_solve", eval_skip_solve, [False])
+        the v4 full-depth feature U-Net), ``window`` ("diamond12", "cross4"
+        or "ring8") and ``eval_skip_solve`` (JAX's accounting probe: the
+        forward without the unroll, no solver launch) go to the solver.
+        ``registry.require`` raises on a CG count other than 4, which JAX
+        refuses too, and on a window JAX does not have."""
+        require("window", window, list(WINDOWS), "JAX's WINDOWS has no such window")
+        require("n_cgd_iters", n_cgd_iters, [N_CGD_ITERS],
+                "the reference unroll is fixed at 4 CG iterations (2 ADMM rounds)")
         super().__init__()
         self.skip_connect_weight03 = nn.Parameter(torch.tensor([0.1, 0.9]))
         self.mixtureGLR_block03 = MixtureGTV(
@@ -45,7 +48,8 @@ class MultiScaleSequenceDenoiser(nn.Module):
             feature_num_refinement=feature_num_refinement,
             use_pallas_unroll=use_pallas_solver, use_nhwc_unroll=use_nhwc_solver,
             muy_init=muy_init[0], ro_init=ro_init[0], gamma_init=gamma_init[0],
-            stats_mode=stats_mode, feature_n_levels=feature_n_levels, remat=remat)
+            stats_mode=stats_mode, feature_n_levels=feature_n_levels, remat=remat,
+            window=window, eval_skip_solve=eval_skip_solve)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img.permute(0, 3, 1, 2)

@@ -4,8 +4,9 @@ flagship, the pixel family, the ablations, GLR boosting and the baselines.
 ``create_model(name, **kwargs)`` builds one, randomly initialized, from a
 configuration's ``model`` section without its ``type``;
 ``utils.weights.params_to_torch`` puts JAX parameters on it. The models
-accept every field of JAX's; a value the port does not compute yet raises
-``NotImplementedError`` naming the field (``require``)."""
+accept every field of JAX's; a value the port does not compute raises
+``NotImplementedError`` naming the field (``require``), and says whether JAX
+refuses it too or the port has not ported it yet."""
 
 from __future__ import annotations
 
@@ -44,13 +45,17 @@ def _registry() -> dict[str, Callable[..., nn.Module]]:
             "unetplus": UNetPlus, "nonlocal_unet": NonLocalUNet}
 
 
-def require(field: str, value, supported) -> None:
+def require(field: str, value, supported, jax_refuses: str | None = None) -> None:
     """NotImplementedError naming ``field`` unless ``value`` is one of
-    ``supported``: a configuration field whose other values JAX builds and
-    the port does not yet."""
-    if value not in supported:
+    ``supported``. Without ``jax_refuses``, JAX builds the other values and
+    the port does not yet; with it, JAX refuses them too, for that reason."""
+    if value in supported:
+        return
+    if jax_refuses is None:
         raise NotImplementedError(
             f"{field}={value!r} is not ported yet; the port builds {field} in {supported}")
+    raise NotImplementedError(
+        f"{field}={value!r}: JAX refuses it too ({jax_refuses}); {field} takes {supported}")
 
 
 def available_models() -> list[str]:

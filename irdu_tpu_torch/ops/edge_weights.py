@@ -34,7 +34,7 @@ import torch
 from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops.graph import at_least_f32, extract_edge_weights
-from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12, RING8
+from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12, RING8, window_radius
 
 # the windows the kernel is built for, by E
 KERNEL_WINDOWS = {4: CROSS4, 8: RING8, 12: DIAMOND12}
@@ -61,12 +61,6 @@ def _check(feats, multi_m, n_graphs):
     if tuple(multi_m.shape) != (n_graphs, c // n_graphs):
         raise ValueError(f"multi_m must be {(n_graphs, c // n_graphs)}, "
                          f"got {tuple(multi_m.shape)}")
-
-
-def window_radius(deltas) -> int:
-    """The rows above and below a pixel that the window reads (1 for
-    cross-4 and ring-8, 2 for diamond-12)."""
-    return max(abs(dh) for dh, _ in deltas)
 
 
 def edge_smem_bytes(esize: int, fc: int, f: int, bh: int, tx: int, radius: int) -> int:

@@ -1,8 +1,9 @@
 """K5, K6a, K6b: one unroll step of the GGTV+GGLR solvers, and its
-single-scale pieces, CHW. The flagship's band route (``solvers/gtv_glr.py``,
-planes too large for K1) is five two-scale K5 calls per filtering block; the
-pixel family's CHW route above K7's cap (``solvers/pixel_gtv.py``) is six
-single-scale K5 calls on the diamond-12 window with the reflect stencil pad.
+single-scale pieces, CHW. The flagship's band route (``solvers/gtv_glr.py``:
+planes too large for K1, and every plane of a window other than cross-4) is
+five two-scale K5 calls per filtering block; the pixel family's CHW route
+above K7's cap (``solvers/pixel_gtv.py``) is six single-scale K5 calls on
+its window with the reflect stencil pad.
 
 Replaces the TPU kernels of ``irdu_tpu/ops/pallas/solver_chw.py``:
 
@@ -28,16 +29,19 @@ On the card, K5, K6a and K6b are one kernel,
 ``kernels/csrc/fused_step_hopper.cu`` (K6a and K6b are its single-scale
 launches with their own epilogues: x + T or T for the matvec, [y +] T for
 the re-threshold): a CTA takes one output tile (32×64 full-res pixels
-two-scale, 16×64 single-scale: ``K5_PLANS``) of one graph and walks its F
-channel planes. The tile's edge weights of both scales come into shared
+two-scale on cross-4, 16×64 on ring-8 and 16×32 on diamond-12, whose
+weights of both scales would outgrow a CTA in f32 at 32×64; 16×64
+single-scale: ``k5_plans``) of one graph and walks its F channel planes.
+The tile's edge weights of both scales come into shared
 memory once, in x's dtype, and serve all F planes; plane f + 1's x box
 comes by cp.async into a second buffer while plane f computes. The stage
 planes (the stencil outputs, the edge sums) are f32 in shared memory over a
 box that is not clipped to the image: a cell outside it holds what the
 reference's padding gives there (``kernels/csrc/padded_tile.cuh``), so
-reads need no clamp. Halos: the window's radius r, the edge sums on the
-tile + 1, the stencils and weights on the tile + 1 + r, x on the tile + 2 +
-r (two-scale: twice the half tile's, 6, for the box means). Per full-res
+reads need no clamp. Halos: the window's radius r (``window_radius``: 1
+on cross-4 and ring-8, 2 on diamond-12), the edge sums on the tile + 1, the
+stencils and weights on the tile + 1 + r, x on the tile + 2 + r (two-scale:
+twice the half tile's, 2·(2 + r), for the box means). Per full-res
 pixel a cg step moves 5 planes of x's dtype plus the per-graph weights and
 does ~93 f32 operations, so it is bound by bytes; so are K6a and K6b.
 
@@ -47,17 +51,17 @@ hold (the stencil at the pixel clamped to the image); the Cᵀ scatter and
 statsᵀ read zeros outside the image, which the weight and edge-sum cells
 there hold. JAX's band kernel carries 2r + 2 rows of x (6 on diamond-12)
 because it shifts whole edge-signal arrays; the per-pixel edge sum reads
-the stencil plane at p ± d only, so the halos above serve both windows.
+the stencil plane at p ± d only, so the halos above serve every window.
 
-Windows and pads: the flagship's cross-4 window with the "edge" stencil pad,
-and the pixel family's diamond-12 window with the "reflect" pad (numpy
+Windows and pads: the kernel takes the cross-4, diamond-12 and ring-8
+windows (``KERNEL_WINDOWS``), each on one or two scales, with the "edge"
+stencil pad (the flagship) or the "reflect" pad (the pixel family: numpy
 reflect, edge excluded, for the stencil's own input; the derived arrays keep
 replicating their own edge, the scatter stays zero-padded). K5's pixel mode
 is single-scale (the ``w_*1`` weights None). A stats table set to None (the
 no-stats variants) goes to the kernel as the identity stencil (1, 0, 0, 0),
 which computes the same values exactly. The plain versions take any window
-and either pad; the kernel takes cross-4 and diamond-12, two-scale on
-cross-4 only.
+and either pad.
 """
 
 from __future__ import annotations
@@ -68,18 +72,23 @@ from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.graph import box_down2x2, box_up2x2
-from irdu_tpu_torch.ops.windows import CROSS4, DIAMOND12
+from irdu_tpu_torch.ops.windows import (CODE_WINDOWS, CROSS4, DIAMOND12, RING8, WINDOW_CODES,
+                                        window_code, window_radius)
 
 MODES = ("rhs", "cg", "rethresh")
+# the windows the kernel is built for, by the code it takes (fused_step_hopper.cu)
+KERNEL_WINDOWS = WINDOW_CODES
 # K5's tile plans (fused_step_hopper.cu): (rows, columns, threads), two-scale
-# and single-scale; K5_PLAN serves where it is built (``k5_has_plan``: plan 1
-# in bf16 on two scales or on diamond-12), plan 0 elsewhere; plan 1 exists
-# for kernels/plan_sweep.py
+# cross-4 and every single-scale window; K5_PLAN serves where it is built
+# (``k5_has_plan``: plan 1 in bf16 on two-scale cross-4 and single-scale
+# diamond-12), plan 0 elsewhere; plan 1 exists for kernels/plan_sweep.py
 K5_PLANS = {True: ((32, 64, 256), (64, 64, 512)), False: ((16, 64, 256), (32, 64, 256))}
+# two scales on the other windows: one plan each, whose f32 weights of both
+# scales fit a CTA (k5_smem_bytes)
+K5_TWO_SCALE_PLANS = {WINDOW_CODES[RING8]: ((16, 64, 256),),
+                      WINDOW_CODES[DIAMOND12]: ((16, 32, 256),)}
 K5_PLAN = 0
 STATS_PADS = ("edge", "reflect")
-# the windows the kernel is built for, by the code it takes (fused_step_hopper.cu)
-KERNEL_WINDOWS = {CROSS4: 0, DIAMOND12: 1}
 # the kernel's epilogues (fused_step_hopper.cu)
 _EPI_ADD_X, _EPI_ADD_AUX, _EPI_CG = 0, 1, 2
 
@@ -104,11 +113,18 @@ def identity_table(n_graphs, n_node_fts, device=None):
     return tab
 
 
+def k5_plans(two_scale, window):
+    """The tile plans of a step on ``window`` (the ``KERNEL_WINDOWS`` code)."""
+    return K5_TWO_SCALE_PLANS.get(window, K5_PLANS[True]) if two_scale else K5_PLANS[False]
+
+
 def k5_has_plan(plan, two_scale, window, dtype):
     """Whether ``fused_step_hopper.cu`` is built with ``plan`` for a step on
     ``window`` (the ``KERNEL_WINDOWS`` code) in ``dtype``."""
-    return plan == 0 or (0 <= plan < len(K5_PLANS[two_scale]) and dtype == torch.bfloat16
-                         and (two_scale or window == KERNEL_WINDOWS[DIAMOND12]))
+    if not 0 <= plan < len(k5_plans(two_scale, window)):
+        return False
+    wide = window == KERNEL_WINDOWS[CROSS4] if two_scale else window == KERNEL_WINDOWS[DIAMOND12]
+    return plan == 0 or (dtype == torch.bfloat16 and wide)
 
 
 def k5_geometry(window, two_scale, plan):
@@ -118,8 +134,8 @@ def k5_geometry(window, two_scale, plan):
     for the half tile's box means, and 8 columns (its rows start on 16-byte
     chunks); r the window's radius. Half-res planes have the full-res
     halos."""
-    th, tw, _ = K5_PLANS[two_scale][plan]
-    r = 1 if window == KERNEL_WINDOWS[CROSS4] else 2
+    th, tw, _ = k5_plans(two_scale, window)[plan]
+    r = window_radius(CODE_WINDOWS[window])
     hs = 1 + r
     return dict(th=th, tw=tw, r=r, hs=hs, hsc=(hs + 1) & ~1,
                 hxr=2 * (2 + r) if two_scale else 2 + r, hxc=8)
@@ -133,7 +149,7 @@ def k5_smem_bytes(window, two_scale, glr, plan, esize):
     16 bytes."""
     geo = k5_geometry(window, two_scale, plan)
     th, tw, hs, hsc = geo["th"], geo["tw"], geo["hs"], geo["hsc"]
-    n_e = 4 if geo["r"] == 1 else 12
+    n_e = len(CODE_WINDOWS[window])
     n_p = (th + 2 * hs) * (tw + 2 * hsc)
     n_p1 = (th // 2 + 2 * hs) * (tw // 2 + 2 * hsc) if two_scale else 0
     n_x = (th + 2 * geo["hxr"]) * (tw + 2 * geo["hxc"])
@@ -265,11 +281,10 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
     ``tables``: GTV, GLR at full res, then at half res; a None table the
     kernel reads goes to it as the identity stencil."""
     two_scale = w_gtv1 is not None
-    win = KERNEL_WINDOWS.get(tuple(tuple(d) for d in deltas))
-    if win is None or (two_scale and win != KERNEL_WINDOWS[CROSS4]):
-        raise ValueError(f"{name}: the kernel takes the cross-4 window (one or two "
-                         f"scales) and diamond-12 (one scale), not {deltas}"
-                         f"{' two-scale' if two_scale else ''}")
+    win = window_code(deltas)
+    if win is None:
+        raise ValueError(f"{name}: the kernel takes the cross-4, diamond-12 and ring-8 "
+                         f"windows, not {deltas}")
     planes = [t for t in (x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1) if t is not None]
     if any(t.device != x.device or t.dtype != x.dtype or not t.is_contiguous()
            for t in planes) or x.device.type != "cuda":
@@ -318,7 +333,7 @@ def gg_fused_step_chw(x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (x, aux, prev and the weights contiguous, of one dtype: f32 or bf16;
-    the windows in ``_launch``) or raises."""
+    the windows of ``KERNEL_WINDOWS``) or raises."""
     refuse_grad("gg_fused_step_chw", x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
                 pgtv1, pglr1, scal)
     if mode not in MODES:

@@ -24,18 +24,20 @@ rounds between its calls.
 
 On the card (``kernels/csrc/pixel_nhwc.cu``): a CTA takes one 16×32 output
 tile of a group of 4 graphs (bf16; 2 in f32: ``K8_PLANS``) and walks the F
-features: the
-group's 12 edge weights of the tile come into shared memory once (one
-cp.async per pixel and edge) and serve all F; feature f + 1's x box comes by
-cp.async into a second buffer while feature f computes and stays there for
-the epilogue. The stage planes are f32 [cell][lane] over a box that is not
-clipped to the image (``kernels/csrc/padded_tile.cuh``): halo 4 for x
-(stencil 1, edge sum 2, transposed stencil 1), 3 for the stencil outputs
-and the weights, 1 for the edge sums; 1.63× the outputs (3.0× with the
-8×16 tiles of the first port). A cg segment moves x, aux, prev, both weight
-arrays and out (the weights are 4/3 of it) and does ~130 f32 operations per
-pixel and channel (``NHWC_OPS_PER_PIXEL``), so it is bound by bytes. The
-kernel takes the diamond-12 window; the plain version takes any window.
+features: the group's E edge weights of the tile come into shared memory
+once (one cp.async per pixel and edge) and serve all F; feature f + 1's x
+box comes by cp.async into a second buffer while feature f computes and
+stays there for the epilogue. The stage planes are f32 [cell][lane] over a
+box that is not clipped to the image (``kernels/csrc/padded_tile.cuh``):
+halo 2 + r for x (stencil 1, edge sum r, transposed stencil 1; r the
+window's radius), 1 + r for the stencil outputs and the weights, 1 for the
+edge sums; on diamond-12 1.63× the outputs (3.0× with the 8×16 tiles of
+the first port). A cg segment moves x, aux, prev, both weight arrays and
+out (on diamond-12 the weights are 4/3 of it) and does ~130 f32 operations
+per pixel and channel on diamond-12 (``nhwc_ops_per_pixel``), so it is
+bound by bytes. The kernel takes the cross-4, diamond-12 and ring-8 windows
+(``K8_WINDOW_PLANS``), each with its own plans; the plain version takes any
+window.
 """
 
 from __future__ import annotations
@@ -45,36 +47,51 @@ import torch
 from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
-from irdu_tpu_torch.ops.windows import DIAMOND12
+from irdu_tpu_torch.ops.pixel_unroll import edge_ops
+from irdu_tpu_torch.ops.windows import (CODE_WINDOWS, CROSS4, DIAMOND12, RING8, WINDOW_CODES,
+                                        window_code, window_radius)
 
 MODES = ("rhs", "cg1", "cg2", "rethresh")  # the kernel's mode codes, in order
-# K8's tile plans (pixel_nhwc.cu): (rows, columns, graphs a CTA, threads);
-# K8_PLAN serves bf16, the others (bf16 only) exist for kernels/plan_sweep.py;
-# f32, and a G that is not a multiple of the plan's graphs, take plan 0
+# K8's tile plans (pixel_nhwc.cu) on diamond-12: (rows, columns, graphs a
+# CTA, threads); K8_PLAN serves bf16, the others (bf16 only) exist for
+# kernels/plan_sweep.py; f32, and a G that is not a multiple of the plan's
+# graphs, take plan 0. The radius-1 windows have the first two
+# (``K8_WINDOW_PLANS``, by WINDOW_CODES code).
 K8_PLANS = ((16, 32, 2, 256), (16, 32, 4, 256), (32, 32, 2, 256))
-K8_PLAN = 1  # 16x32 tiles of 4 graphs: the fastest in kernels/plan_sweep.py
-K8_HALO = 4  # the x box's; the stencil outputs and weights have 3, the edge sums 1
-# f32 operations per pixel and channel, counted as ops/pixel_unroll.py counts
-# them: Q 78, GLR 43, R 138; rhs Q + 2; cg1 Q + GLR + 3 + 3; cg2 Q + GLR + 3 + 6;
-# rethresh R + 2
-NHWC_OPS_PER_PIXEL = {"rhs": 80, "cg1": 127, "cg2": 130, "rethresh": 140}
+K8_WINDOW_PLANS = {WINDOW_CODES[DIAMOND12]: K8_PLANS, WINDOW_CODES[CROSS4]: K8_PLANS[:2],
+                   WINDOW_CODES[RING8]: K8_PLANS[:2]}
+K8_PLAN = 1  # 16x32 tiles of 4 graphs: the fastest on diamond-12 in kernels/plan_sweep.py
+K8_HALO = 4  # the x box's on diamond-12 (2 + r); the stencil outputs and weights have 1 + r
 
 
-def k8_smem_bytes(glr, plan, esize):
-    """The shared memory of one K8 CTA (``pixel_nhwc.cu`` Layout): f32 stage
-    planes (S and A of GTV, and of GLR) over the tile + 3 with a lane per
-    graph of the group, two x boxes (tile + 4) and the 12 weights [e][cell]
-    of each graph operator in the input's dtype; each part rounded up to 16
-    bytes."""
-    th, tw, lanes, _ = K8_PLANS[plan]
-    n_p = (th + 2 * (K8_HALO - 1)) * (tw + 2 * (K8_HALO - 1)) * lanes
-    n_x = (th + 2 * K8_HALO) * (tw + 2 * K8_HALO) * lanes
+def nhwc_ops_per_pixel(mode, n_edges=12):
+    """f32 operations per pixel and channel of a segment, counted as
+    ops/pixel_unroll.py counts them (``edge_ops``): rhs Q + 2; cg1 Q + GLR +
+    3 + 3; cg2 Q + GLR + 3 + 6; rethresh R + 2. On diamond-12: 80, 127, 130,
+    140."""
+    q, glr, r = (edge_ops(n_edges)[k] for k in ("q", "glr", "rethresh"))
+    return {"rhs": q + 2, "cg1": q + glr + 6, "cg2": q + glr + 9, "rethresh": r + 2}[mode]
+
+
+def k8_smem_bytes(glr, plan, esize, window=WINDOW_CODES[DIAMOND12]):
+    """The shared memory of one K8 CTA on ``window`` (its code;
+    ``pixel_nhwc.cu`` Layout): f32 stage planes (S and A of GTV, and of GLR)
+    over the tile + 1 + r with a lane per graph of the group, two x boxes
+    (tile + 2 + r) and the E weights [e][cell] of each graph operator in the
+    input's dtype; each part rounded up to 16 bytes; r the window's
+    radius."""
+    th, tw, lanes, _ = K8_WINDOW_PLANS[window][plan]
+    deltas = CODE_WINDOWS[window]
+    hs = 1 + window_radius(deltas)
+    n_p = (th + 2 * hs) * (tw + 2 * hs) * lanes
+    n_x = (th + 2 * (hs + 1)) * (tw + 2 * (hs + 1)) * lanes
     na = 2 if glr else 1
 
     def up16(n):
         return (n + 15) // 16 * 16
 
-    return up16(4 * 2 * na * n_p) + 2 * up16(esize * n_x) + up16(esize * na * 12 * n_p)
+    return (up16(4 * 2 * na * n_p) + 2 * up16(esize * n_x)
+            + up16(esize * na * len(deltas) * n_p))
 
 
 def _planes(t, f, g):  # (B, H, W, F·G) planar → (B, F, G, H, W) f32
@@ -145,8 +162,9 @@ def pixel_segment_nhwc(x, aux, prev, w_gtv, w_glr, p, scal, *, mode, n_graphs,
     None where the mode does not read them.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (diamond-12; x, aux, prev and the weights contiguous, on one device, of
-    one dtype, f32 or bf16; H, W ≥ 2; p and scal any float type)."""
+    (the windows of ``K8_WINDOW_PLANS``; x, aux, prev and the weights contiguous, on
+    one device, of one dtype, f32 or bf16; H, W ≥ 2; p and scal any float
+    type) or raises."""
     refuse_grad("pixel_segment_nhwc", x, aux, prev, w_gtv, w_glr, p, scal)
     _check(x, aux, prev, w_gtv, w_glr, p, scal, mode, n_graphs, deltas)
     if library.tracing():
@@ -163,8 +181,10 @@ def _run(x, aux, prev, w_gtv, w_glr, p, scal, mode, n_graphs, deltas):
     if x.device.type == "cpu":
         return pixel_segment_plain(x, aux, prev, w_gtv, w_glr, p, scal, mode=mode,
                                    n_graphs=n_graphs, deltas=deltas)
-    if tuple(deltas) != DIAMOND12:
-        raise NotImplementedError("the K8 kernel takes the diamond-12 window only")
+    win = window_code(deltas)
+    if win is None:
+        raise ValueError(f"pixel_segment_nhwc: the kernel takes the cross-4, diamond-12 and "
+                         f"ring-8 windows, not {deltas}")
     if x.device.type != "cuda" or any(
             t.device != x.device or t.dtype != x.dtype or not t.is_contiguous() for t in used):
         raise ValueError("pixel_segment_nhwc needs its signal and weight tensors "
@@ -186,7 +206,7 @@ def _run(x, aux, prev, w_gtv, w_glr, p, scal, mode, n_graphs, deltas):
         x.data_ptr(), ptr(aux, mode in ("cg2", "rethresh")), ptr(prev, mode == "cg2"),
         w_gtv.data_ptr(), ptr(w_glr, mode in ("cg1", "cg2")), pf.data_ptr(), sc.data_ptr(),
         out.data_ptr(), ptr(upd, mode == "cg1"), b, h, w,
-        n_graphs, c // n_graphs, MODES.index(mode), plan, dtype_code(x.dtype),
+        n_graphs, c // n_graphs, MODES.index(mode), win, plan, dtype_code(x.dtype),
         torch.cuda.current_stream(dev).cuda_stream)
     check_status("pixel_segment_nhwc", status)
     pixel_segment_nhwc.launches += 1

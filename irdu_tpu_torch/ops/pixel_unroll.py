@@ -2,8 +2,9 @@
 
 Replaces the TPU kernel ``irdu_tpu/ops/pallas/solver_unroll.py:gg_pixel_unroll_chw``
 (body ``_pixel_unroll_kernel``). Given the edge weights, the solve is
-independent per (batch, graph, node-feature) plane. One scale, the diamond-12
-window, 2 ADMM rounds × 2 CG steps:
+independent per (batch, graph, node-feature) plane. One scale, the family's
+window (diamond-12 as configured; cross-4 and ring-8 too), 2 ADMM rounds × 2
+CG steps:
 
   rhs₁ = ỹ + ρ·Qỹ                                       Q = CᵀC (GGTV)
   x = rhs₁;  u = rhs₁ − A·x;  x += α₀·u;  u = rhs₁ − A·x + β₁·u;  x += α₁·u
@@ -34,17 +35,18 @@ never writes the plane it reads over a box. The arithmetic from ỹ to the
 output is f32 with nothing rounded between the steps; the next item's
 weights and first x box are staged while the current item finishes. The
 tile follows the dtype (``K7_TILES``): 32×64 in bf16 (one CTA of 512
-threads an SM) and 16×64 in f32. The whole solve needs
-~732 f32 operations per pixel and plane (each edge term once;
-``PIXEL_UNROLL_OPS_PER_PIXEL``), so with the data moved once it is bound by
-operations (``chip_smoke.py`` reports both bounds at the served shapes);
-the design reads each weight plane once per phase (GTV in all six, GLR in
-the four CG phases) and its halo.
+threads an SM) and 16×64 in f32, on every window. The whole solve needs
+~732 f32 operations per pixel and plane on diamond-12 (each edge term once;
+``pixel_unroll_ops_per_pixel``: 216 + 43·E for E edges), so with the data
+moved once it is bound by operations (``chip_smoke.py`` reports both bounds
+at the served shapes); the design reads each weight plane once per phase
+(GTV in all six, GLR in the four CG phases) and its halo.
 
-What the kernel takes: the diamond-12 window with the reflect stencil pad
-(the family's only configuration); stats tables set to None (the no-stats
-core) go to the kernel as the identity stencil (1, 0, 0, 0), which computes
-the same values exactly. The plain version takes any window and pad.
+What the kernel takes: the cross-4, diamond-12 and ring-8 windows
+(``WINDOW_CODES``) with the reflect stencil pad (the family's); stats
+tables set to None (the no-stats core) go to the kernel as the identity
+stencil (1, 0, 0, 0), which computes the same values exactly. The plain
+version takes any window and pad.
 """
 
 from __future__ import annotations
@@ -55,41 +57,58 @@ from torch.utils.checkpoint import checkpoint
 from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
-from irdu_tpu_torch.ops.windows import DIAMOND12
+from irdu_tpu_torch.ops.windows import (CODE_WINDOWS, DIAMOND12, WINDOW_CODES, window_code,
+                                        window_radius)
 
-# f32 operations per pixel and plane, each edge term counted once (an add,
-# mul or compare 1, an FMA 2), for E = 12: the stencil 9; Q = CᵀC
-# 9 + 3·12 (w·w·(s_p − s_q)) + 2·12 (the scatter's two sums) + 9 = 78; the
-# re-threshold 9 + 8·12 + 2·12 + 9 = 138; GLR 9 + 2·12 + 1 + 9 = 43; A·x
-# 78 + 43 + 3 = 124. The two RHS builds 78 + 2 and 138 + 2; four CG steps
-# 124 each plus their updates 3, 5, 3, 5.
-PIXEL_UNROLL_OPS_PER_PIXEL = 80 + 140 + 4 * 124 + 16
+
+def edge_ops(n_edges):
+    """f32 operations per pixel and plane of each operator on a window of E
+    edges, each edge term counted once (an add, mul or compare 1, an FMA 2):
+    the stencil 9; Q = CᵀC 9 + 3·E (w·w·(s_p − s_q)) + 2·E (the scatter's
+    two sums) + 9; the re-threshold 9 + 8·E + 2·E + 9; GLR 9 + 2·E + 1 + 9;
+    A·x Q + GLR + 3. On diamond-12 (E = 12): 78, 138, 43, 124."""
+    q, glr = 18 + 5 * n_edges, 19 + 2 * n_edges
+    return dict(q=q, rethresh=18 + 10 * n_edges, glr=glr, matvec=q + glr + 3)
+
+
+def pixel_unroll_ops_per_pixel(n_edges=12):
+    """The whole unroll's f32 operations per pixel and plane: the two RHS
+    builds Q + 2 and R + 2, four CG steps A·x each plus their updates 3, 5,
+    3, 5 (216 + 43·E; 732 on diamond-12)."""
+    ops = edge_ops(n_edges)
+    return ops["q"] + 2 + ops["rethresh"] + 2 + 4 * ops["matvec"] + 16
+
+
 # K7's tile of each dtype, as pixel_unroll.cu picks it: (rows, columns,
 # threads, CTAs an SM). bf16 takes 32x64 tiles, the fastest of 16x64, 32x64
 # and 32x64 of 256 threads on the card (PERF.md, K7's design note); f32 takes
 # 16x64, as a 32x64 tile's f32 weights would not fit a CTA
 K7_TILES = {torch.bfloat16: (32, 64, 512, 1), torch.float32: (16, 64, 256, 1)}
-K7_HALO = 4  # the x box's rows; the stage planes have 3 rows and 4 columns
+K7_HALO = 4  # the x box's rows on diamond-12 (2 + r); the stage planes have 1 + r rows
 
 
-def k7_smem_bytes(dtype):
-    """The shared memory of one K7 CTA in ``dtype`` (``pixel_unroll.cu``
-    Layout): four f32 stage planes (S and A of GTV and GLR) over the tile
-    + 3 rows and + 4 columns; two x boxes over the tile + 4 rows and + one
-    16-byte chunk of columns, each as large as the larger of y's box and an
-    f32 box; the 12 weights [e][cell] of both operators in the input's dtype;
-    each part rounded up to 16 bytes."""
+def k7_smem_bytes(dtype, window=WINDOW_CODES[DIAMOND12]):
+    """The shared memory of one K7 CTA in ``dtype`` on ``window`` (its code;
+    ``pixel_unroll.cu`` Layout): four f32 stage planes (S and A of GTV and
+    GLR) over the tile + 1 + r rows and + hsc columns (1 + r rounded up to
+    a multiple of 4); two x boxes over the tile + 2 + r rows and + one 16-byte chunk of
+    columns, each as large as the larger of y's box and an f32 box; the E
+    weights [e][cell] of both operators in the input's dtype; each part
+    rounded up to 16 bytes; r the window's radius."""
     th, tw, _, _ = K7_TILES[dtype]
     esize = torch.tensor([], dtype=dtype).element_size()
-    n_p = (th + 6) * (tw + 8)
+    deltas = CODE_WINDOWS[window]
+    hs = 1 + window_radius(deltas)
+    n_p = (th + 2 * hs) * (tw + 2 * ((hs + 3) & ~3))
 
     def up16(n):
         return (n + 15) // 16 * 16
 
     def box(size):
-        return up16(size * (th + 2 * K7_HALO) * (tw + 2 * (16 // size)))
+        return up16(size * (th + 2 * (hs + 1)) * (tw + 2 * (16 // size)))
 
-    return up16(4 * 4 * n_p) + 2 * max(box(esize), box(4)) + up16(esize * 2 * 12 * n_p)
+    return (up16(4 * 4 * n_p) + 2 * max(box(esize), box(4))
+            + up16(esize * 2 * len(deltas) * n_p))
 
 
 def pixel_unroll_scal(n_graphs, mu, ro, gamma, alphas, betas):
@@ -168,8 +187,9 @@ def gg_pixel_unroll_chw(y, w_gtv, w_glr, pgtv, pglr, scal, *, n_graphs,
     channel c = g·F + f.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (diamond-12, reflect pad; y and the weights contiguous, all f32 or all
-    bf16; H, W ≥ 2; tables any float type, cast to f32)."""
+    (the cross-4, diamond-12 or ring-8 window, reflect pad; y and the
+    weights contiguous, all f32 or all bf16; H, W ≥ 2; tables any float
+    type, cast to f32) or raises."""
     refuse_grad("gg_pixel_unroll_chw", y, w_gtv, w_glr, pgtv, pglr, scal)
     _check(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas)
     if library.tracing():
@@ -183,9 +203,11 @@ def _run(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas, stats_mode):
     if y.device.type == "cpu":
         return pixel_unroll_plain(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs=n_graphs,
                                   deltas=deltas, stats_mode=stats_mode)
-    if tuple(deltas) != DIAMOND12 or stats_mode != "reflect":
-        raise NotImplementedError("the K7 kernel takes the diamond-12 window with the "
-                                  "reflect stencil pad only")
+    win = window_code(deltas)
+    if win is None or stats_mode != "reflect":
+        raise ValueError(f"gg_pixel_unroll_chw: the kernel takes the cross-4, diamond-12 and "
+                         f"ring-8 windows with the reflect stencil pad, not {deltas} with "
+                         f"{stats_mode!r}")
     planes = (y, w_gtv, w_glr)
     if any(t.device != y.device or t.dtype != y.dtype or not t.is_contiguous()
            for t in planes) or y.device.type != "cuda":
@@ -204,7 +226,7 @@ def _run(y, w_gtv, w_glr, pgtv, pglr, scal, n_graphs, deltas, stats_mode):
     status = lib.irdu_pixel_unroll(
         y.data_ptr(), w_gtv.data_ptr(), w_glr.data_ptr(), tabs[0].data_ptr(),
         tabs[1].data_ptr(), sc.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        b, g, f, h, w, dtype_code(y.dtype), torch.cuda.current_stream(dev).cuda_stream)
+        b, g, f, h, w, win, dtype_code(y.dtype), torch.cuda.current_stream(dev).cuda_stream)
     check_status("gg_pixel_unroll_chw", status)
     gg_pixel_unroll_chw.launches += 1
     return out

@@ -43,6 +43,7 @@ from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.graph import box_down2x2, box_up2x2
+from irdu_tpu_torch.ops.windows import CROSS4
 
 
 def unroll_scal(n_graphs, mu0, ro0, mu1, ro1, gamma0, gamma1, alphas, betas):
@@ -100,7 +101,12 @@ def gg_unroll_plain(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0,
 
 
 def _check(y, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, n_graphs,
-           eval_cg_iters, stats_mode):
+           eval_cg_iters, stats_mode, deltas):
+    if tuple(tuple(d) for d in deltas) != CROSS4:
+        raise NotImplementedError(
+            f"gg_unroll_chw: K1 is built for the cross-4 window, not {deltas}; the "
+            "flagship solves another window on the K5 band route "
+            "(solvers/gtv_glr.py MixtureGTVGLR._band_route)")
     if stats_mode != "edge":
         raise NotImplementedError(
             f"stats_mode={stats_mode!r}: only the flagship's 'edge' stencil "
@@ -131,10 +137,13 @@ def _check(y, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, n_graphs,
 
 
 def gg_unroll_chw(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1,
-                  pglr1, scal, *, n_graphs, eval_cg_iters=3, stats_mode="edge"):
+                  pglr1, scal, *, n_graphs, eval_cg_iters=3, stats_mode="edge",
+                  deltas=CROSS4):
     """The whole unroll: y (B, C, H, W) with C = G·F; w_*0 (B, G, 4, H, W);
     w_*1 (B, G, 4, H/2, W/2); p* (G, 4, F) stats tables; scal (G, 10) from
-    ``unroll_scal``. Returns (B, C, H, W) in y's dtype.
+    ``unroll_scal``; ``deltas`` the window, cross-4 only (another raises:
+    the flagship's band route of K5 steps takes it). Returns (B, C, H, W) in
+    y's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (y and the weights contiguous and all f32 or all bf16; tables any float
@@ -143,7 +152,7 @@ def gg_unroll_chw(y, w_gtv0, w_glr0, w_gtv1, w_glr1, pgtv0, pglr0, pgtv1,
                 pglr1, scal)
     tables = (pgtv0, pglr0, pgtv1, pglr1)
     _check(y, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, n_graphs,
-           eval_cg_iters, stats_mode)
+           eval_cg_iters, stats_mode, deltas)
     run = _OP if library.tracing() else _run
     return run(y, w_gtv0, w_glr0, w_gtv1, w_glr1, *tables, scal, n_graphs, eval_cg_iters)
 

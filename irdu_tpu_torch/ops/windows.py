@@ -38,3 +38,19 @@ RING8 = window_to_deltas(np.array([[1, 1, 1],
                                    [1, 1, 1]]))
 
 WINDOWS = {"cross4": CROSS4, "diamond12": DIAMOND12, "ring8": RING8}
+# The code each window has in the solver kernels (K5, K7, K8: ``Win<>`` in
+# kernels/csrc/padded_tile.cuh).
+WINDOW_CODES = {CROSS4: 0, DIAMOND12: 1, RING8: 2}
+CODE_WINDOWS = {code: deltas for deltas, code in WINDOW_CODES.items()}
+
+
+def window_radius(deltas) -> int:
+    """The rows above and below a pixel that the window reads (1 for
+    cross-4 and ring-8, 2 for diamond-12)."""
+    return max(abs(dh) for dh, _ in deltas)
+
+
+def window_code(deltas) -> int | None:
+    """The window's code in the solver kernels, or None for a window they
+    are not built for."""
+    return WINDOW_CODES.get(tuple(tuple(int(v) for v in d) for d in deltas))

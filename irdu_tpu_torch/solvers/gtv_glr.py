@@ -5,16 +5,20 @@ route ``_forward_chw``).
 Channels-first (B, C, H, W) with C = G·F; H and W even. Per call: the two
 feature heads, K2 once per scale with the GTV and GLR graphs batched as 2G
 graphs, then the unroll on one of two routes, as JAX routes it
-(``_mega_ok``): a plane of at most ``_MEGA_MAX_PIXELS`` (W rounded up to
-128) with both extents within 1024 takes K1, the whole unroll in one call;
-every other plane takes the band route, the unroll as K5 steps (rhs, cg,
-rethresh, cg, cg at cg3; 2 and 4 calls at cg1 and cg2). The reference
-quirks both keep are listed in ``ops/solver_unroll.py``.
+(``_mega_ok``): on the cross-4 window a plane of at most
+``_MEGA_MAX_PIXELS`` (W rounded up to 128) with both extents within 1024
+takes K1, the whole unroll in one call; every other plane, and every plane
+of another window (diamond-12, ring-8: K1 is built for cross-4 only), takes
+the band route, the unroll as K5 steps (rhs, cg, rethresh, cg, cg at cg3; 2
+and 4 calls at cg1 and cg2). The reference quirks both keep are listed in
+``ops/solver_unroll.py``.
 
 Where JAX runs its jnp path the port runs a kernel route, with the same
 arithmetic: JAX's ``_chw_ok`` also asks H % 16 == 0, (H/2) % 8 == 0 and, for
 the band route, W % 256 == 0 (TPU tiling and lane rules). A plane that
 fails them stays on K1 when ``_mega_ok`` holds and takes K5 otherwise.
+JAX sends every window other than cross-4 to its jnp path (``_chw_ok``);
+the port sends it to the band route, with the same arithmetic.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
 from irdu_tpu_torch.ops.fused_step import (fused_scal, fused_step_plain, gg_fused_step_chw,
                                            identity_table)
 from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain, unroll_scal
+from irdu_tpu_torch.ops.windows import CROSS4, WINDOWS
 from irdu_tpu_torch.solvers.common import GraphOpParams
 
 N_CGD_ITERS = 3  # fixed in the reference
@@ -51,7 +56,9 @@ class MixtureGTVGLR(nn.Module):
     kernels. Setting the attribute ``use_kernels`` to False runs the plain
     versions on any device: the on-card reference the kernel path is held to.
 
-    The options are JAX's, at the flagship's defaults: the initial values of
+    The options are JAX's, at the flagship's defaults: the graph ``window``
+    ("cross4", "diamond12" or "ring8"; K1 takes cross-4 only, so another
+    window solves every plane on the band route); the initial values of
     α, β and the log-parameterized μ, ρ, γ (per scale); ``stats_mode``
     ("per_channel", "scalar" or "none": a missing stencil goes to K1 and K5
     as the identity table, which is exact); ``feature_head`` "pointwise" (the
@@ -62,11 +69,13 @@ class MixtureGTVGLR(nn.Module):
     def __init__(self, n_graphs: int, n_node_fts: int, *, alpha_init: float = 0.5,
                  beta_init: float = 0.1, muy_init=(0.001, 0.0001), ro_init=(0.0001, 0.0001),
                  gamma_init=(0.0001, 0.0001), stats_mode: str = "per_channel",
-                 feature_head: str = "pointwise", eval_cg_iters: int = 3):
+                 feature_head: str = "pointwise", eval_cg_iters: int = 3,
+                 window: str = "cross4"):
         super().__init__()
         g, f = n_graphs, n_node_fts
         c = g * f
         self.n_graphs, self.n_node_fts = g, f
+        self.deltas = WINDOWS[window]
         self.eval_cg_iters = eval_cg_iters
         self.use_kernels = True
         self.alphaCGD = nn.Parameter(torch.full((N_CGD_ITERS, g), float(alpha_init)))
@@ -133,14 +142,15 @@ class MixtureGTVGLR(nn.Module):
     def _solve(self, x, f00, f01, g, ew):
         """The unroll of g graphs on the code x and the features of its GTV
         and GLR graphs (f00 at full, f01 at half resolution)."""
+        d = self.deltas
         w00 = ew(f00, torch.cat([self.GTVmodule00.multiM, self.GLRmodule00.multiM]),
-                 n_graphs=2 * g)
+                 n_graphs=2 * g, deltas=d)
         w01 = ew(f01, torch.cat([self.GTVmodule01.multiM, self.GLRmodule01.multiM]),
-                 n_graphs=2 * g)
+                 n_graphs=2 * g, deltas=d)
         weights = (w00[:, :g].contiguous(), w00[:, g:].contiguous(),
                    w01[:, :g].contiguous(), w01[:, g:].contiguous())
         tables = self._tables(g)
-        if _mega_ok(x.shape):
+        if d == CROSS4 and _mega_ok(x.shape):
             unroll = gg_unroll_chw if self.use_kernels else gg_unroll_plain
             return unroll(x.contiguous(), *weights, *tables, unroll_scal(
                 g, *self._positive(), self.alphaCGD, self.betaCGD),
@@ -153,8 +163,8 @@ class MixtureGTVGLR(nn.Module):
             self.muys00, self.ro00, self.muys01, self.ro01, self.gamma00, self.gamma01))
 
     def _band_route(self, y, weights, tables, g):
-        """The unroll of g graphs as K5 steps (JAX ``_forward_chw``'s band
-        route), each output rounded to y's dtype."""
+        """The unroll of g graphs as K5 steps on the window (JAX
+        ``_forward_chw``'s band route), each output rounded to y's dtype."""
         step = gg_fused_step_chw if self.use_kernels else fused_step_plain
         wg0, wl0, wg1, wl1 = weights
         pg0, pl0, pg1, pl1 = tables
@@ -162,14 +172,14 @@ class MixtureGTVGLR(nn.Module):
 
         def gtv_only(x, aux, scal, mode):  # rhs and rethresh read the GTV graphs only
             return step(x, aux, None, wg0, None, wg1, None, pg0, None, pg1, None, scal,
-                        mode=mode, n_graphs=g)
+                        mode=mode, n_graphs=g, deltas=self.deltas)
 
         def cg(x, rhs, prev, i, **kw):
             scal = fused_scal(g, mu0=mu0, ro0=ro0, mu1=mu1, ro1=ro1,
                               alpha=self.alphaCGD[i],
                               beta=self.betaCGD[i] if prev is not None else None)
             return step(x, rhs, prev, wg0, wl0, wg1, wl1, pg0, pl0, pg1, pl1, scal,
-                        mode="cg", n_graphs=g, **kw)
+                        mode="cg", n_graphs=g, deltas=self.deltas, **kw)
 
         # ADMM init RHS, then CG step 1 from x₀ = RHS (so rhs ≡ x)
         rhs_a = gtv_only(y, None, fused_scal(g, ro0=ro0, ro1=ro1), "rhs")

@@ -4,11 +4,13 @@
 The 3-channel image is replicated across G mixture hypotheses; a
 Restormer-style FFBlock U-Net gives the edge-weight features (G·F channels)
 and 12 DC channels; the DC estimator takes the DC term off the image (ỹ); the
-unroll (``ops/pixel_unroll.py``: 2 ADMM rounds × 2 CG steps, one scale,
-diamond-12 window, scalar stencils with the reflect pad) filters ỹ on every
-graph; a learned softmax score over the graphs combines the hypotheses and
-the DC term is added back. Channels-first (B, 3, H, W), H and W multiples of
-4 (the feature U-Net).
+unroll (``ops/pixel_unroll.py``: 2 ADMM rounds × 2 CG steps, one scale, the
+graph window, diamond-12 by default, cross-4 or ring-8; scalar stencils
+with the reflect pad) filters ỹ on every graph; a learned softmax score over
+the graphs combines the hypotheses and the DC term is added back. With
+``eval_skip_solve`` (JAX's accounting probe) the unroll is skipped: the
+score combines G copies of ỹ, and no solver kernel launches. Channels-first
+(B, 3, H, W), H and W multiples of 4 (the feature U-Net).
 
 Three routes, chosen per call by JAX's flags and in JAX's precedence (with
 the attribute ``use_kernels`` False, ``registry.set_kernels``' switch, the
@@ -22,7 +24,7 @@ plain route whatever the flags say):
         order c = g·F + f K7 once (``ops/pixel_unroll.py``) for
         H·W ≤ ``gtv_glr._MEGA_MAX_PIXELS``, and above it the band route: ỹ
         tiled G times and 6 single-scale K5 steps (``ops/fused_step.py``,
-        diamond-12, reflect pad): rhs; cg from x as its rhs, emitting the
+        the window, reflect pad): rhs; cg from x as its rhs, emitting the
         update; cg with β·prev; rethresh with y; cg emitting the update; cg
         with β·prev (JAX ``_forward_chw``);
   plain (neither): the same unroll in plain PyTorch (the JAX jnp path), on
@@ -57,7 +59,7 @@ from irdu_tpu_torch.ops.graph import at_least_f32, pack_edge_weights
 from irdu_tpu_torch.ops.pixel_nhwc import pixel_unroll_nhwc
 from irdu_tpu_torch.ops.pixel_unroll import (gg_pixel_unroll_chw, pixel_unroll_plain,
                                              pixel_unroll_scal)
-from irdu_tpu_torch.ops.windows import DIAMOND12
+from irdu_tpu_torch.ops.windows import WINDOWS
 from irdu_tpu_torch.solvers import gtv_glr
 from irdu_tpu_torch.solvers.common import GraphOpParams
 
@@ -68,23 +70,30 @@ FFN_EXPANSION = 2.6666  # the feature U-Net's hidden widths: 191, 383, 767 at di
 
 class MixtureGTV(nn.Module):
     """The image's F = 3 colour channels are the graphs' node features; the
-    window is diamond-12."""
+    graphs' ``window`` is "diamond12" (the family's configs), "cross4" or
+    "ring8", on every route."""
 
     def __init__(self, n_graphs: int = 24, n_node_fts: int = 3, n_cnn_fts: int = 72,
                  feature_num_blocks=(2, 3, 3, 4), feature_num_refinement: int = 4,
                  use_pallas_unroll: bool = False, use_nhwc_unroll: bool = False,
                  muy_init: float = 0.1, ro_init: float = 0.1, gamma_init: float = 1e-3,
-                 stats_mode: str = "scalar", feature_n_levels: int = 3, remat: bool = False):
+                 stats_mode: str = "scalar", feature_n_levels: int = 3, remat: bool = False,
+                 window: str = "diamond12", eval_skip_solve: bool = False):
         """``remat``: the plain route's unroll recomputed in the backward
         pass segment by segment (the edge weights, the first RHS, each CG
         round, the re-threshold's RHS: ``_unroll_plain``), and the feature
-        U-Net's FFBlocks (its own attribute), as JAX's ``remat`` does."""
+        U-Net's FFBlocks (its own attribute), as JAX's ``remat`` does.
+        ``eval_skip_solve``: JAX's accounting probe, the forward without the
+        unroll (``forward``); built with it, the solver has no graph
+        operators (``GTVmodule00``, ``GLRmodule00``), as JAX's parameter
+        tree has none. The attribute can be set on a built solver too."""
         super().__init__()
         if stats_mode not in ("scalar", "none"):
             raise ValueError(f"stats_mode must be 'scalar' or 'none', got {stats_mode!r}")
         g, f = n_graphs, n_node_fts
         self.n_graphs, self.n_node_fts = g, f
-        self.deltas = DIAMOND12
+        self.deltas = WINDOWS[window]
+        self.eval_skip_solve = eval_skip_solve
         self.use_pallas_unroll = use_pallas_unroll
         self.use_nhwc_unroll = use_nhwc_unroll
         self.use_kernels = True
@@ -100,8 +109,9 @@ class MixtureGTV(nn.Module):
         self.ro00 = nn.Parameter(torch.full((g,), float(ro_init)))
         self.muys00 = nn.Parameter(torch.full((g,), float(muy_init)))
         self.gamma00 = nn.Parameter(torch.full((g,), math.log(gamma_init)))
-        self.GTVmodule00 = GraphOpParams(g, f, stats_mode=stats_mode)
-        self.GLRmodule00 = GraphOpParams(g, f, stats_mode=stats_mode)
+        if not eval_skip_solve:  # JAX creates the graph operators only where the unroll runs
+            self.GTVmodule00 = GraphOpParams(g, f, stats_mode=stats_mode)
+            self.GLRmodule00 = GraphOpParams(g, f, stats_mode=stats_mode)
 
     def route(self) -> str:
         """"nhwc", "chw" or "plain", from ``use_kernels`` and the flags
@@ -118,6 +128,9 @@ class MixtureGTV(nn.Module):
         ew = feats[:, :g * f]
         dc_term = self.dc_estimator(feats[:, g * f:])
         y_tilde = patchs - dc_term
+        if self.eval_skip_solve:  # JAX's probe: the score over G copies of ỹ, no unroll
+            score = torch.softmax(self.combination_weight(ew), dim=1).to(y_tilde.dtype)
+            return (y_tilde[:, None] * score[:, :, None]).sum(dim=1) + dc_term
         route = self.route()
         if route == "nhwc":
             out = self._unroll_nhwc(ew, y_tilde)
@@ -156,7 +169,7 @@ class MixtureGTV(nn.Module):
 
     def _edge_weights(self, ew):
         """Both operators' weights from one K2 call on 2G stacked graphs:
-        (B, 2G, 12, H, W), the GTV graphs first."""
+        (B, 2G, E, H, W), the GTV graphs first."""
         ew = ew.contiguous()
         return edge_weights_chw(
             torch.cat([ew, ew], dim=1),

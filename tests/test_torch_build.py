@@ -114,8 +114,9 @@ def test_sass_digests_tell_functions_apart():
 
 def test_kernel_sources_name_their_headers():
     """chip_smoke.py's ``source_headers``: the repo headers a kernel source
-    includes, directly or through a header (K5/K6a/K6b and K7 on the padded
-    tile, K1 on its tile step), each a file in the repo."""
+    includes, directly or through a header (K5/K6a/K6b and K7 on their own
+    header and through it the padded tile, K1 on its tile step), each a file
+    in the repo."""
     import importlib.util
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -124,8 +125,8 @@ def test_kernel_sources_name_their_headers():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     csrc = "irdu_tpu_torch/kernels/csrc"
-    for source, want in (("fused_step_hopper.cu", ["padded_tile.cuh"]),
-                         ("pixel_unroll.cu", ["padded_tile.cuh"]),
+    for source, want in (("fused_step_hopper.cu", ["fused_step_hopper.cuh", "padded_tile.cuh"]),
+                         ("pixel_unroll.cu", ["pixel_unroll.cuh", "padded_tile.cuh"]),
                          ("gg_unroll.cu", ["tile_step.cuh"]),
                          ("edge_weights.cu", [])):
         got = smoke.source_headers(f"{csrc}/{source}")

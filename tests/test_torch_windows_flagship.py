@@ -1,0 +1,119 @@
+"""The flagship on the diamond-12 and ring-8 windows against the JAX package
+(its jnp path: JAX's ``_chw_ok`` sends every window but cross-4 there), the
+route rule (a window other than cross-4 never reaches K1: every plane takes
+the band route of 5 K5 steps), K1's refusal of another window, and the
+refusals that stay (``nsubnets``) with ``registry.require``'s two
+messages."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from irdu_tpu.models.flagship import AbstractMultiScaleGraphFilter as JaxFlagship
+from irdu_tpu_torch.models.flagship import AbstractMultiScaleGraphFilter
+from irdu_tpu_torch.models.registry import create_model, require
+from irdu_tpu_torch.ops import solver_unroll
+from irdu_tpu_torch.ops.windows import DIAMOND12, RING8
+from irdu_tpu_torch.solvers import gtv_glr
+from irdu_tpu_torch.utils.weights import params_to_torch
+
+# tests/test_deploy.py's TINY flagship
+TINY = dict(dims=(8, 12, 16, 24), hidden_dims=(16, 24, 32, 48), ngraphs=(2, 2, 4, 4),
+            num_blocks=(1, 1, 1, 1), num_blocks_out=1)
+SIDE = 32
+STEPS_PER_BLOCK = 5  # the band route at cg3: rhs, cg, rethresh, cg, cg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def tiny_params():
+    """JAX's TINY flagship's init (its parameters do not depend on the
+    window), with every solver's μ, ρ and γ raised to U(0.2, 0.4) so that
+    the window's edge terms show in the output; a seeded 1x32x32x3 image."""
+    x = np.random.RandomState(0).rand(1, SIDE, SIDE, 3).astype(np.float32)
+    key = jax.random.key(0, impl="rbg")
+    params = jax.jit(JaxFlagship(**TINY).init)(key, jnp.zeros_like(x))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    rng = np.random.RandomState(1)
+    for s in range(4):
+        lf = params["params"][f"localfilter_scale_{s:02d}"]["local_filter"]
+        for name in ("muys00", "muys01", "ro00", "ro01", "gamma00", "gamma01"):
+            lf[name] = np.log(0.2 + 0.2 * rng.rand(*lf[name].shape)).astype(np.float32)
+    return params, x
+
+
+@pytest.mark.parametrize("window", ["diamond12", "ring8"])
+def test_flagship_window_matches_jax_and_takes_the_band_route(tiny_params, window,
+                                                              monkeypatch):
+    """The port's flagship on the window (the kernels' plain versions on the
+    CPU) against JAX's jnp path with the same parameters, atol 1e-3; every
+    filtering block solves on the band route (5 K5 steps) and K1 is never
+    called."""
+    params, x = tiny_params
+    ref = np.asarray(JaxFlagship(**TINY, window=window).apply(params, jnp.asarray(x)))
+    model = create_model("abstract_multiscale_graph_filter", **TINY, window=window)
+    params_to_torch(params, model)
+    model.eval()
+    steps = []
+
+    def no_k1(*args, **kw):
+        raise AssertionError("a non-cross-4 window reached K1")
+
+    def counted_step(*args, **kw):
+        steps.append(kw["deltas"])
+        return real_step(*args, **kw)
+
+    real_step = gtv_glr.gg_fused_step_chw
+    monkeypatch.setattr(gtv_glr, "gg_unroll_chw", no_k1)
+    monkeypatch.setattr(gtv_glr, "gg_fused_step_chw", counted_step)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x)).numpy()
+    want = DIAMOND12 if window == "diamond12" else RING8
+    assert steps == [want] * (STEPS_PER_BLOCK * 4)
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+    assert np.abs(ref - x).max() > 0.05
+
+
+@pytest.mark.parametrize("window", ["diamond12", "ring8"])
+def test_k1_refuses_another_window(window):
+    """K1 is built for cross-4: its wrapper raises for another window and
+    names the band route, which takes it."""
+    g, f, h, w = 2, 3, 8, 8
+    y = torch.zeros(1, g * f, h, w)
+    w0, w1 = torch.zeros(1, g, 4, h, w), torch.zeros(1, g, 4, h // 2, w // 2)
+    tab = torch.zeros(g, 4, f)
+    deltas = DIAMOND12 if window == "diamond12" else RING8
+    with pytest.raises(NotImplementedError, match="band route"):
+        solver_unroll.gg_unroll_chw(y, w0, w0, w1, w1, tab, tab, tab, tab, torch.zeros(g, 10),
+                                    n_graphs=g, deltas=deltas)
+
+
+def test_flagship_still_refuses_nsubnets():
+    """``nsubnets > 1`` (JAX builds it; the blocks then leave K3/K4) is not
+    ported: the registry says so."""
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        AbstractMultiScaleGraphFilter(**TINY, nsubnets=(2, 1, 1, 1))
+
+
+@pytest.mark.parametrize("jax_refuses", [False, True], ids=["not_ported", "jax_refuses"])
+def test_require_tells_not_ported_from_jax_refuses(jax_refuses):
+    """``registry.require``: a value the port has not ported yet, or one JAX
+    refuses too (with its reason)."""
+    reason = "the reference unroll is fixed at 4 CG iterations" if jax_refuses else None
+    require("field", 4, [4], reason)
+    with pytest.raises(NotImplementedError) as err:
+        require("field", 3, [4], reason)
+    msg = str(err.value)
+    assert ("JAX refuses it too" in msg and reason in msg) == jax_refuses
+    assert ("not ported yet" in msg) != jax_refuses

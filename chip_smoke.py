@@ -117,13 +117,19 @@ Phases, each timed and printed as it ends:
             on the K5 band route (band_launches: 3 K3, 32 K4, 8 K2, 20 K5, no
             K1), each with its counts zeroed just before and read just
             after, then once more with every kernel call held against its
-            plain version (K2's bar; K1's for K5, K7, K8) and recorded, each
-            kernel's calls of a request replayed and timed (ms, device_ms,
-            plain_ms, bound); the pixel model with eval_skip_solve launches
-            nothing; one f32 row per kernel and window at the served shapes
-            (K2; K5 in the pixel mode at 1024x1024 and two-scale at the
-            flagship's 512x512 scale 0; K7; K8 in each mode), each moving its
-            input by CHANGE_FACTOR times its bar;
+            plain version (K2's bar; K1's for K5, K6a, K7, K8) and recorded,
+            each kernel's calls of a request replayed and timed (ms,
+            device_ms, plain_ms, bound); the pixel model with eval_skip_solve
+            launches nothing; the WINDOW_ABLATIONS configs (seeded as the
+            ablation phase seeds them) on diamond-12 and ring-8 serve 512x512
+            the same way, with no K1 and no K9: the two-scale solvers 5 K5
+            steps (the band route), the single-scale GTV+GLR solvers their 3
+            matvecs on K6a (``window_ablation_launches``); one f32 row per
+            kernel and window at the served shapes (K2; K5 in the pixel mode
+            at 1024x1024 and two-scale at the flagship's 512x512 scale 0; K7;
+            K8 in each mode) and per ablation solver and window (kernels
+            against plain on its 512x512 input), each moving its input by
+            CHANGE_FACTOR times its bar;
   model     the whole model in f32 with TF32 off on each flagship request's
             noisy image (the first is 1x512x512x3): kernel path against plain
             path (blocks as PyTorch ops, the solver's plain versions),
@@ -164,7 +170,12 @@ Phases, each timed and printed as it ends:
             too; served again with the kernels off; then in f32
             with the kernels on and off, max|d| <= VARIANT_F32_ATOL and <=
             ABLATION_F32_BAR of max(1, max|ref|) (seeded non-expansive
-            weights give outputs near 0.004);
+            weights give outputs near 0.004). The same for the full-width
+            flagship of nsubnets 2 at every scale (SUBNET_MODEL, seeded): a
+            512x512 request's launches (3 K3, 32 K4, 4 K1, 8 K2: the grouped
+            blocks on K3/K4 with block-diagonal operands), every K3/K4 call
+            within block_bar, its K3 and K4 calls replayed and timed by
+            device time (``subnet_variant``);
   tile      tiled inference (parallel.spatial.tiled_forward, TILE-pixel tiles,
             TILE_HALO halo) on the flagship: f32 at TILE_F32, kernels against
             plain, max|d| <= 1e-3; bf16 at TILE_BF16 through
@@ -240,7 +251,10 @@ Phases, each timed and printed as it ends:
             TRAIN_GRAD_RTOL of each tensor's max of one process's steps on
             the same batches, no launch in a step; one tensor-parallel step
             (tp = 2, the Megatron and expert splits) on PARALLEL_TP_BATCH of
-            them, loss within 1e-4 of one process's; the 86k snapshot in
+            them, loss within 1e-4 of one process's; one tp = 2 step of
+            ablation_no_latent (PARALLEL_ABLATION: 2 images cropped to 64²,
+            its MixtureGTVGLR experts and its heads' gated blocks split),
+            loss within 1e-4 of one process's; the 86k snapshot in
             bf16 on the 2048x2048 request through halo_shard_forward
             (PARALLEL_HALO rows; each rank's 1152x2048 window: 3 K3, 32 K4,
             3 K1, 8 K2, 5 K5) and sharded_tiled_forward (PARALLEL_TILE tiles,
@@ -337,7 +351,19 @@ WINDOW_PIXEL_RUNS = (("nhwc", (512, 512), PIXEL_NHWC), ("chw", (512, 512), PIXEL
 WINDOW_FLAGSHIP = ("diamond12", "ring8")
 WINDOW_FLAGSHIP_REQUEST = (512, 512)
 WINDOW_KERNELS = ("edge_weights_chw", "gg_fused_step_chw", "gg_pixel_unroll_chw",
-                  "pixel_segment_nhwc")
+                  "pixel_segment_nhwc", "gg_matvec_chw")
+# the ablation configs whose solver takes the graph window, each served at
+# ABLATION_SIDE² on WINDOW_FLAGSHIP's windows: the two-scale solver (the K5
+# band route) and the single-scale GTV+GLR solver (its matvecs on K6a)
+WINDOW_ABLATIONS = ("ablation_no_latent", "ablation_no_latent_no_mixture",
+                    "ablation_no_orders", "ablation_no_orders_split")
+# the variants phase's full-width flagship of 2 subnets at every scale
+# (seeded weights; no config sets nsubnets): blocks on K3/K4 with dense
+# block-diagonal operands and the per-subnet norm
+SUBNET_MODEL = {"type": "abstract_multiscale_graph_filter", "dims": [48, 96, 192, 384],
+                "hidden_dims": [96, 192, 384, 768], "ngraphs": [8, 16, 16, 32],
+                "num_blocks": [4, 6, 6, 8], "num_blocks_out": 4, "nsubnets": [2, 2, 2, 2]}
+SUBNET_SEED = 22
 WINDOW_REPS = 3
 # K5's pixel mode per pixel request on the CHW route above the cap
 K5_PIXEL_CALLS = {"rhs": 1, "cg_use_x_rhs_emit_update": 2, "cg_prev": 2, "rethresh_y": 1}
@@ -624,6 +650,10 @@ PARALLEL_SIDE, PARALLEL_BATCH, PARALLEL_STEPS, PARALLEL_TP_BATCH = 128, 4, 2, 2
 PARALLEL_SEED = 20
 PARALLEL_HALO, PARALLEL_TILE, PARALLEL_TILE_HALO = 64, 256, 32
 PARALLEL_LOSS_ATOL = 1e-4  # tensor parallel against one process (JAX's dryrun bar)
+# the tp = 2 step of an ablation config (its MixtureGTVGLR experts and its
+# heads' gated blocks split): the config, then the images of the first
+# global batch and the side of their top-left crop
+PARALLEL_ABLATION = ("ablation_no_latent", 2, 64)
 LOADER_WAIT = {"flagship_sigma25": 3, "lightformer_pixel_sigma": 0}
 LOADER_STEPS = 3
 GIB = 2 ** 30
@@ -812,7 +842,8 @@ def block_bar(ker, ref, exact):
 
 def unrounded(plain, args, kw):
     """The plain version in f32 on the same (bf16) inputs: no bf16 rounding."""
-    return plain(*(t.float() for t in args), **{k: v.float() for k, v in kw.items()})
+    return plain(*(t.float() for t in args),
+                 **{k: v.float() if hasattr(v, "float") else v for k, v in kw.items()})
 
 
 def block_ops_per_pixel(c, hidden2):
@@ -1111,7 +1142,8 @@ def route_times(mix, model, noisy, rounds=1):
 
 
 def ablation_model(name, dtype):
-    """The config's model built through the registry at its widths: weights
+    """The config's model built through the registry at its widths (its
+    solver's window, ``deltas``, is switched by ``on_window``): weights
     drawn from torch's default generator seeded with the config's index, then
     the solvers' μ and ρ set to U(0.2, 0.6) and γ to U(0.02, 0.06) (their
     logs) from a generator seeded the same, so that every solver term shows
@@ -1253,12 +1285,14 @@ def ablation_sites():
     (its blocks, which the feature heads share through run_blocks, and the
     two-scale solver) and solvers/ablation_solvers.py's."""
     from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.fused_step import matvec_plain
     from irdu_tpu_torch.ops.system_matvec import system_matvec_plain
     from irdu_tpu_torch.solvers import ablation_solvers
 
     return flagship_sites() + ((ablation_solvers, "edge_weights_chw", edge_weights_plain, k2_bar),
                                (ablation_solvers, "fused_system_matvec", system_matvec_plain,
-                                k1_bar))
+                                k1_bar),
+                               (ablation_solvers, "gg_matvec_chw", matvec_plain, k1_bar))
 
 
 @contextlib.contextmanager
@@ -2521,46 +2555,58 @@ def k5_window_ops(mode, n_edges, two, glr=True, y=False, prev=False):
 
 def call_cost(name, args, kw, out):
     """The bytes one recorded call moves (each tensor argument read once,
-    each output written once) and the f32 operations it does."""
+    each output written once), the f32 operations it does and its bf16
+    tensor-core operations (K3, K4: the grouped products' own, a 1/nsubnets
+    share of the dense block-diagonal ones the kernel multiplies, whose
+    zeros the function does not need)."""
     import torch
 
     from irdu_tpu_torch.ops.pixel_nhwc import nhwc_ops_per_pixel
-    from irdu_tpu_torch.ops.pixel_unroll import pixel_unroll_ops_per_pixel
+    from irdu_tpu_torch.ops.pixel_unroll import edge_ops, pixel_unroll_ops_per_pixel
 
     tensors = [t for t in (*args, *kw.values(), *(out if isinstance(out, tuple) else (out,)))
                if isinstance(t, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    if name in ("fused_block_stack", "fused_gated_block"):
+        x, ns = args[0], kw.get("nsubnets", 1)
+        k, hidden2 = ((args[2].shape[0], args[2].shape[1]) if name == "fused_block_stack"
+                      else (1, kw["w1"].shape[1]))
+        tc, cc = block_ops_per_pixel(x.shape[1], hidden2)
+        npx = x.shape[0] * x.shape[2] * x.shape[3] * k
+        return nbytes, cc * npx, tc * npx / ns
     n_e = len(kw["deltas"])
+    if name == "gg_matvec_chw":
+        return nbytes, args[0].numel() * edge_ops(n_e)["matvec"], 0
     if name == "edge_weights_chw":
         feats, g = args[0], kw["n_graphs"]
         b, c, h, w = feats.shape
-        return nbytes, b * h * w * g * k2_ops_per_pixel_graph(c // g, n_e)
+        return nbytes, b * h * w * g * k2_ops_per_pixel_graph(c // g, n_e), 0
     if name == "gg_fused_step_chw":
         x, aux, prev = args[:3]
         return nbytes, x.numel() * k5_window_ops(
             kw["mode"], n_e, args[5] is not None, glr=kw.get("with_glr", True),
-            y=aux is not None, prev=prev is not None)
+            y=aux is not None, prev=prev is not None), 0
     if name == "gg_pixel_unroll_chw":
-        return nbytes, out.numel() * pixel_unroll_ops_per_pixel(n_e)
-    return nbytes, args[0].numel() * nhwc_ops_per_pixel(kw["mode"], n_e)  # K8
+        return nbytes, out.numel() * pixel_unroll_ops_per_pixel(n_e), 0
+    return nbytes, args[0].numel() * nhwc_ops_per_pixel(kw["mode"], n_e), 0  # K8
 
 
-def replay_rows(calls, summary, sites, basis, window):
-    """One bf16 row per kernel of a request's recorded calls: all its calls
-    replayed, timed as one (``times``: CUDA events and device time over
-    WINDOW_REPS replays), the plain versions' time, the bound summed over the
-    calls, the max|d| of the checked run's calls; ``calls`` 1 (the row is a
-    request's)."""
+def replay_rows(calls, summary, sites, basis, window, names=WINDOW_KERNELS):
+    """One bf16 row per kernel of ``names`` of a request's recorded calls:
+    all its calls replayed, timed as one (``times``: CUDA events and device
+    time over WINDOW_REPS replays), the plain versions' time, the bound
+    summed over the calls, the max|d| of the checked run's calls; ``calls``
+    1 (the row is a request's)."""
     kern = wrappers()
     plains = {name: plain for _, name, plain, _ in sites}
     rows = {}
     for name, recs in calls.items():
-        if not recs or name not in WINDOW_KERNELS:
+        if not recs or name not in names:
             continue
-        nbytes = ops = 0
+        nbytes = ops = tops = 0
         for args, kw in recs:
-            b, o = call_cost(name, args, kw, kern[name](*args, **kw))
-            nbytes, ops = nbytes + b, ops + o
+            b, o, t = call_cost(name, args, kw, kern[name](*args, **kw))
+            nbytes, ops, tops = nbytes + b, ops + o, tops + t
         sync()
 
         def run(fn, recs=recs):
@@ -2571,7 +2617,7 @@ def replay_rows(calls, summary, sites, basis, window):
             window=window, basis=basis, dtype="bfloat16", calls=1, n_calls=len(recs),
             max_abs_err=summary["max_abs_err"][name], ok=summary["calls_ok"],
             **times(lambda: run(kern[name]), WINDOW_REPS),
-            plain_ms=cuda_ms(lambda: run(plains[name]), 1, 1), **_bound(nbytes, ops))]
+            plain_ms=cuda_ms(lambda: run(plains[name]), 1, 1), **_bound(nbytes, ops, tops))]
     return rows
 
 
@@ -2601,8 +2647,12 @@ def phase_windows(smoke):
     kernel call held against its plain version (K2's bar; K5, K7, K8 K1's)
     and recorded; each kernel's calls of each request replayed and timed
     (``replay_rows``). The pixel model with ``eval_skip_solve`` on 512x512
-    launches nothing. Then one f32 row per kernel and window at the served
-    shapes (``window_f32_rows``), which must move its input by
+    launches nothing. The WINDOW_ABLATIONS models (seeded, bf16) on
+    diamond-12 and ring-8 serve 512x512 the same way, their launches
+    ``window_ablation_launches`` (no K1, no K9; K5's band route or K6a).
+    Then one f32 row per kernel and window at the served shapes
+    (``window_f32_rows``) and per ablation solver and window
+    (``window_ablation_f32_rows``), which must move its input by
     CHANGE_FACTOR times its bar."""
     import torch
 
@@ -2657,7 +2707,22 @@ def phase_windows(smoke):
         add(replay_rows(calls, summary, flagship_sites(),
                         f"{hw[0]}x{hw[1]} request, {window}", window))
         del calls
+    for name in WINDOW_ABLATIONS:
+        model = ablation_model(name, torch.bfloat16)
+        solver = model.localfilter
+        want = window_ablation_launches(name, model)
+        for window in WINDOW_FLAGSHIP:
+            with on_window([solver], window):
+                denoise(model, noisy)  # warm-up
+            row, smoke.path_counts[f"windows_{name}_{window}"], calls, summary = window_request(
+                model, [solver], window, noisy, clean, hw, want, ablation_sites())
+            requests.append(dict(row, model=name))
+            add(replay_rows(calls, summary, ablation_sites(),
+                            f"{hw[0]}x{hw[1]} {name} request, {window}", window))
+            del calls
+        del model, solver
     torch.cuda.empty_cache()
+    add(window_ablation_f32_rows(noisy))
     add(window_f32_rows(pixel, flagship))
     for name, rows in new_rows.items():
         smoke.kernel_rows.setdefault(name, []).extend(rows)
@@ -2674,6 +2739,56 @@ def phase_windows(smoke):
     bad = [(k, r) for k, rows in new_rows.items() for r in rows if not r["ok"]]
     require(not bad, f"windows: rows disagree with their plain versions, or an f32 row "
             f"moved its input by under {CHANGE_FACTOR}x the bar: {bad}")
+
+
+def window_ablation_launches(name, model):
+    """An ablation model's launches on a window other than cross-4, derived
+    from the model: ABLATION_LAUNCHES' heads and K2; the two-scale solver
+    (MixtureGTVGLR) without K1, its plane on the band route (the K5 steps of
+    its ``eval_cg_iters``, as ``band_launches``); the single-scale GTV+GLR
+    solver's K9 matvecs on K6a instead."""
+    from irdu_tpu_torch.solvers.gtv_glr import MixtureGTVGLR
+
+    want = dict(ABLATION_LAUNCHES[name])
+    if isinstance(model.localfilter, MixtureGTVGLR):
+        want.update(gg_unroll_chw=0, gg_fused_step_chw={1: 2, 2: 4, 3: 5}[
+            model.localfilter.eval_cg_iters])
+    else:
+        want.update(gg_matvec_chw=want["fused_system_matvec"], fused_system_matvec=0)
+    return want
+
+
+def window_ablation_f32_rows(noisy):
+    """One f32 row per WINDOW_ABLATIONS solver and WINDOW_FLAGSHIP window: the
+    solver (its heads, K2 and K5 or K6a) on its input at ABLATION_SIDE² (the
+    request image tiled to its channels), kernels against plain (atol 5e-4,
+    rtol 1e-3), moving its input by CHANGE_FACTOR times that bar
+    (``_agree``)."""
+    import torch
+
+    from irdu_tpu_torch.models.registry import set_kernels
+
+    rows = {"ablation_solvers": []}
+    img = torch.from_numpy(noisy[None]).to(DEVICE).permute(0, 3, 1, 2)
+    for name in WINDOW_ABLATIONS:
+        solver = ablation_model(name, torch.float32).localfilter
+        x = img.repeat(1, solver.n_graphs * solver.n_node_fts // 3, 1, 1).contiguous()
+        for window in WINDOW_FLAGSHIP:
+            with on_window([solver], window), torch.inference_mode():
+                set_kernels(solver, True)
+                ker = solver(x)
+                set_kernels(solver, False)
+                ref = solver(x)
+            sync()
+            row = dict(window=window, config=name, shape=list(x.shape), dtype="float32",
+                       params="seeded (ablation_model)")
+            row.update(_agree(ker, ref, x, torch.float32,
+                              lambda r, dt: 5e-4 + 1e-3 * float(r.float().abs().max())))
+            rows["ablation_solvers"].append(row)
+            del ker, ref
+        del solver, x
+        torch.cuda.empty_cache()
+    return rows
 
 
 def window_f32_rows(pixel, flagship):
@@ -3110,10 +3225,11 @@ def phase_variants(smoke):
               f"{row['f32_max_abs_err']:.3g}", flush=True)
         del model, ker, ref
         torch.cuda.empty_cache()
+    rows.append(subnet_variant(smoke, clean, noisy, x))
     smoke.lines["variants"] = {"variants": rows, "weights": "random, seeded (variant_model)",
                                "f32_atol": VARIANT_F32_ATOL}
     for r in rows:
-        want = VARIANT_LAUNCHES[r["config"]]
+        want = VARIANT_LAUNCHES.get(r["config"], PER_REQUEST[REQUESTS[0]])
         require(r["launches"] == want, f"{r['config']}: launches {r['launches']}, want {want}")
         require(r["finite"] and r["kernels_off_finite"] and r["f32_finite"],
                 f"{r['config']}: output not finite")
@@ -3124,6 +3240,67 @@ def phase_variants(smoke):
         require(r["f32_max_abs_err"] <= min(VARIANT_F32_ATOL,
                                              ABLATION_F32_BAR * max(1.0, r["f32_max_ref"])),
                 f"{r['config']}: f32 kernels vs plain max|d| {r['f32_max_abs_err']}")
+
+
+def subnet_model(dtype):
+    """SUBNET_MODEL through the registry, weights from torch's default
+    generator seeded with SUBNET_SEED."""
+    import torch
+
+    from irdu_tpu_torch.models.registry import create_model
+
+    kw = dict(SUBNET_MODEL)
+    torch.manual_seed(SUBNET_SEED)
+    model = create_model(kw.pop("type"), **kw)
+    return model.to(device=DEVICE, dtype=dtype).eval().requires_grad_(False)
+
+
+def subnet_variant(smoke, clean, noisy, x):
+    """The flagship of 2 subnets a scale (SUBNET_MODEL, seeded) serves the
+    512x512 request in bf16, counts zeroed just before: a 512x512 request's
+    launches (3 K3, 32 K4, 4 K1, 8 K2); once more with every kernel call held
+    against its plain version (K3, K4: block_bar) and recorded, the K3 and
+    K4 calls replayed and timed (``replay_rows``, under the basis "512x512
+    request, nsubnets 2"); served with the kernels off; then in f32 with the
+    kernels on and off. The variants row of it."""
+    import torch
+
+    from irdu_tpu_torch.predict import denoise
+
+    want = PER_REQUEST[REQUESTS[0]]
+    model = subnet_model(torch.bfloat16)
+    denoise(model, noisy)  # warm-up
+    sync()
+    (row,), smoke.path_counts["variant_nsubnets_2"] = serve(model, [(clean, noisy, REQUESTS[0])])
+    with kernel_checks(flagship_sites()) as rec, recorded_calls(flagship_sites()) as calls:
+        denoise(model, noisy)
+    summary = checks_summary(rec, want)
+    row.update(config="nsubnets_2222", nsubnets=SUBNET_MODEL["nsubnets"], **summary)
+    timed = replay_rows(calls, summary, flagship_sites(),
+                        f"{FRAME}x{FRAME} request, nsubnets 2", "cross4",
+                        names=("fused_block_stack", "fused_gated_block"))
+    del calls
+    for name, rs in timed.items():
+        smoke.kernel_rows.setdefault(name, []).extend(rs)
+    row["rows"] = timed
+    kernels_on(model, False)
+    row["kernels_off_finite"] = bool(np.isfinite(denoise(model, noisy)).all())
+    del model
+    model = subnet_model(torch.float32)
+    with torch.inference_mode():
+        kernels_on(model, True)
+        ker = model(x)
+        kernels_on(model, False)
+        ref = model(x)
+    sync()
+    row.update(f32_max_abs_err=max_abs(ker, ref), f32_max_ref=float(ref.abs().max()),
+               f32_finite=bool(torch.isfinite(ker).all()))
+    print(f"variants nsubnets 2: {row['ms']} ms, launches "
+          f"{ {k: v for k, v in row['launches'].items() if v} }, f32 kernels vs plain "
+          f"{row['f32_max_abs_err']:.3g}", flush=True)
+    del model, ker, ref
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_tile(smoke):
@@ -4122,13 +4299,14 @@ def parallel_batches():
     return out
 
 
-def parallel_train(batches, mesh=None, ddp=False, grads=True):
+def parallel_train(batches, mesh=None, ddp=False, grads=True, conf=None):
     """flagship_sigma25's model (full width, f32, plain versions, the init
     seeded with PARALLEL_SEED, the config's lr schedule) stepped once per
     global batch on ``mesh`` (None: one process; each rank takes its slice),
     the latent noise from a generator seeded alike: per step the loss, ms,
     launches and (``grads``) the gradients on the host; and the peak GiB
-    allocated. ``ddp``: the objective in DDP even with one data rank."""
+    allocated. ``ddp``: the objective in DDP even with one data rank.
+    ``conf``: another model section (its loss the L1 term alone)."""
     import torch
     from torch.nn.parallel import DistributedDataParallel
 
@@ -4139,7 +4317,8 @@ def parallel_train(batches, mesh=None, ddp=False, grads=True):
     from irdu_tpu_torch.train.trainer import build_schedule
 
     t0 = time.perf_counter()
-    conf = dict(TRAIN_CONFIGS["flagship_sigma25"]["model"])
+    aux = conf is None
+    conf = dict(TRAIN_CONFIGS["flagship_sigma25"]["model"] if aux else conf)
     torch.manual_seed(PARALLEL_SEED)
     model = create_model(conf.pop("type"), **conf).to(DEVICE)
     set_kernels(model, False)
@@ -4150,7 +4329,7 @@ def parallel_train(batches, mesh=None, ddp=False, grads=True):
             state.ddp = DistributedDataParallel(
                 Objective(model), device_ids=[torch.cuda.current_device()],
                 process_group=mesh.data_group, broadcast_buffers=False)
-    step = make_train_step()
+    step = make_train_step(use_aux_losses=aux)
     gen = torch.Generator(device=DEVICE).manual_seed(PARALLEL_SEED)
     torch.cuda.reset_peak_memory_stats()
     rows = [dict(setup_s=round(time.perf_counter() - t0, 3))]
@@ -4171,6 +4350,13 @@ def parallel_train(batches, mesh=None, ddp=False, grads=True):
     del state, model, step
     torch.cuda.empty_cache()
     return rows[1:], dict(peak_gib=peak, setup_s=rows[0]["setup_s"])
+
+
+def ablation_crop(batches):
+    """PARALLEL_ABLATION's global batch: the first images of the first
+    global batch, each its top-left crop."""
+    _, n, side = PARALLEL_ABLATION
+    return tuple(t[:n, :side, :side].contiguous() for t in batches[0])
 
 
 def parallel_paths(model, noisy, mesh, check):
@@ -4240,7 +4426,11 @@ def parallel_rank(rank, world, work, t_start, legs):
             out["tp"], out["tp_info"] = parallel_train(
                 [tuple(t[:PARALLEL_TP_BATCH] for t in batches[0])], make_dp_tp_mesh(world, dev),
                 grads=False)
-            out["legs_s"]["tp"] = round(time.perf_counter() - t0, 3)
+            out["legs_s"]["tp"], t0 = round(time.perf_counter() - t0, 3), time.perf_counter()
+            out["tp_ablation"], _ = parallel_train(
+                [ablation_crop(batches)], make_dp_tp_mesh(world, dev), grads=False,
+                conf=ABLATION_MODELS[PARALLEL_ABLATION[0]])
+            out["legs_s"]["tp_ablation"] = round(time.perf_counter() - t0, 3)
         else:
             _, noisy = request_image(len(REQUESTS) - 1)
             out["paths"] = parallel_paths(load_model(device=dev), noisy, make_mesh(dev),
@@ -4292,6 +4482,8 @@ def phase_parallel(smoke):
         ref_dp, ref_info = parallel_train(batches)
         ref_tp, _ = parallel_train([tuple(t[:PARALLEL_TP_BATCH] for t in batches[0])],
                                    grads=False)
+        ref_tp_ablation, _ = parallel_train([ablation_crop(batches)], grads=False,
+                                            conf=ABLATION_MODELS[PARALLEL_ABLATION[0]])
         model = smoke.model if smoke.model is not None else load_model(device=DEVICE)
         fwd = batch_forward(model)
         fwd(noisy[None])
@@ -4352,6 +4544,18 @@ def phase_parallel(smoke):
         tp_row["loss_gap"] = max(abs(v - tp_row["ref_loss"]) for v in tp_row["loss"])
         if tp_row["loss_gap"] > PARALLEL_LOSS_ATOL or any(tp_row["launches"]):
             fails.append(f"tp: loss gap {tp_row['loss_gap']}, launches {tp_row['launches']}")
+        name, n_img, side = PARALLEL_ABLATION
+        tp_ablation = dict(config=name, global_batch=n_img, side=side,
+                           ref_loss=ref_tp_ablation[0]["loss"], ref_ms=ref_tp_ablation[0]["ms"],
+                           loss=[r["tp_ablation"][0]["loss"] for r in ranks],
+                           ms=[r["tp_ablation"][0]["ms"] for r in ranks],
+                           launches=[sum(r["tp_ablation"][0]["launches"].values())
+                                     for r in ranks])
+        tp_ablation["loss_gap"] = max(abs(v - tp_ablation["ref_loss"])
+                                      for v in tp_ablation["loss"])
+        if tp_ablation["loss_gap"] > PARALLEL_LOSS_ATOL or any(tp_ablation["launches"]):
+            fails.append(f"tp {name}: loss gap {tp_ablation['loss_gap']}, launches "
+                         f"{tp_ablation['launches']}")
 
         path_rows = {}
         for name, ref_img in (("halo", whole), ("tiled", one_rank)):
@@ -4395,6 +4599,7 @@ def phase_parallel(smoke):
                                peak_gib=[r["dp_info"]["peak_gib"] for r in ranks],
                                setup_s=[r["dp_info"]["setup_s"] for r in ranks]),
                     tp=dict(tp=PARALLEL_WORLD, global_batch=PARALLEL_TP_BATCH, **tp_row),
+                    tp_ablation=dict(tp=PARALLEL_WORLD, **tp_ablation),
                     image=list(size), whole_ms=whole_ms, halo=dict(halo=PARALLEL_HALO,
                                                                    **path_rows["halo"]),
                     tiled=dict(tile=PARALLEL_TILE, halo=PARALLEL_TILE_HALO, **path_rows["tiled"]),
@@ -4403,7 +4608,8 @@ def phase_parallel(smoke):
         print(f"parallel: {PARALLEL_WORLD} gloo ranks on cuda:0 (done in {spawn_s} s; halo "
               f"rows via {ranks[0]['halo_rows']}): dp steps {[r['ms'] for r in dp_rows]} ms, "
               f"gradient gaps {[r['grad_gap'] for r in dp_rows]}; tp loss gap "
-              f"{tp_row['loss_gap']}; halo {path_rows['halo']['ms']} ms "
+              f"{tp_row['loss_gap']}, {PARALLEL_ABLATION[0]} {tp_ablation['loss_gap']}; "
+              f"halo {path_rows['halo']['ms']} ms "
               f"({path_rows['halo']['psnr']} dB, whole {whole_ms} ms "
               f"{path_rows['halo']['psnr_ref']} dB), tiled {path_rows['tiled']['ms']} ms "
               f"({path_rows['tiled']['psnr']} dB); nccl world 1: {nccl}", flush=True)

@@ -39,15 +39,15 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {  # name: (argtypes, restype)
-    "irdu_block_stack": ((_P,) * 7 + (_I,) * 6 + (_L,) * 9 + (_I,) * 5 + (_P,), _I),
-    "irdu_block_stack_wgmma": ((_P,) * 8 + (_I,) * 8 + (_P,), _I),
+    "irdu_block_stack": ((_P,) * 7 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_P,), _I),
+    "irdu_block_stack_wgmma": ((_P,) * 8 + (_I,) * 9 + (_P,), _I),
     "irdu_block_stack_wgmma_error": ((), ctypes.c_char_p),
     "irdu_block_stack_wgmma_smem": ((_I, _I), _L),
     "irdu_edge_weights": ((_P,) * 3 + (_I,) * 11 + (_P,), _I),
     "irdu_edge_weights_smem": ((_I,) * 6, _L),
     "irdu_fused_step_hopper": ((_P,) * 14 + (_I,) * 13 + (_P,), _I),
     "irdu_fused_step_hopper_smem": ((_I,) * 5, _L),
-    "irdu_gated_block": ((_P,) * 7 + (_I,) * 5 + (_L,) * 4 + (_I,) * 3 + (_P,), _I),
+    "irdu_gated_block": ((_P,) * 7 + (_I,) * 5 + (_L,) * 4 + (_I,) * 4 + (_P,), _I),
     "irdu_gated_block_error": ((), ctypes.c_char_p),
     "irdu_gg_unroll": ((_P,) * 12 + (_I,) * 7 + (_P,), _I),
     "irdu_gg_unroll_scratch_floats": ((_I, _I), _L),

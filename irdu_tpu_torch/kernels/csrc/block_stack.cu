@@ -78,6 +78,7 @@ struct Args {
   const void* skip;   // (K, 2)
   int C, H, W, K, nh, th, tw, hc, nrp, Cp;  // Cp: C padded to 16
   long long w1_sk, w1_sc, w1_sh, dw_sk, dw_st, dw_sh, w2_sk, w2_sh, w2_sc;
+  int ns;  // subnets: the norm runs over each run of C / ns channels
 };
 
 // n / d for 0 <= n < 2^22 and d > 0, by one f32 multiply with inv = 1 / d:
@@ -309,24 +310,29 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
     const int in_lo = top * k * rw, in_hi = (rh - bot * k) * rw;
     const int out_lo = top * (k + 1) * rw, out_hi = (rh - bot * (k + 1)) * rw;
     __syncthreads();
-    // CustomLayerNorm, two-pass unbiased variance; then X <- s0 * X, so the
-    // project below can accumulate s1 * y4 into X.
+    // CustomLayerNorm over each subnet's cs = C / ns channels (one run when
+    // ns = 1), two-pass unbiased variance; then X <- s0 * X, so the project
+    // below can accumulate s1 * y4 into X. cs is even, so a pair of
+    // channels never straddles two subnets.
+    const int cs = C / a.ns;
     for (int p = in_lo + threadIdx.x; p < in_hi; p += kThreads) {
       T* y0 = Y0 + p * ldc;
-      float mean = 0.f;
-      for (int c = 0; c < C; ++c) mean += X[c * ldx + p];
-      mean /= C;
-      float var = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float d = X[c * ldx + p] - mean;
-        var = fmaf(d, d, var);
-      }
-      const float inv = 1.f / sqrtf(var / (C - 1) + 1e-5f);
-      for (int c = 0; c < C; c += 2) {
-        const float x0 = X[c * ldx + p], x1 = X[(c + 1) * ldx + p];
-        st2(y0 + c, x0 * inv * ld(scale[k * C + c]), x1 * inv * ld(scale[k * C + c + 1]));
-        X[c * ldx + p] = s0 * x0;
-        X[(c + 1) * ldx + p] = s0 * x1;
+      for (int lo = 0; lo < C; lo += cs) {
+        float mean = 0.f;
+        for (int c = lo; c < lo + cs; ++c) mean += X[c * ldx + p];
+        mean /= cs;
+        float var = 0.f;
+        for (int c = lo; c < lo + cs; ++c) {
+          const float d = X[c * ldx + p] - mean;
+          var = fmaf(d, d, var);
+        }
+        const float inv = 1.f / sqrtf(var / (cs - 1) + 1e-5f);
+        for (int c = lo; c < lo + cs; c += 2) {
+          const float x0 = X[c * ldx + p], x1 = X[(c + 1) * ldx + p];
+          st2(y0 + c, x0 * inv * ld(scale[k * C + c]), x1 * inv * ld(scale[k * C + c + 1]));
+          X[c * ldx + p] = s0 * x0;
+          X[(c + 1) * ldx + p] = s0 * x1;
+        }
       }
     }
     for (int j0 = 0; j0 < a.nh; j0 += hc) {
@@ -435,6 +441,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 }  // namespace blocks
 }  // namespace irdu
 
+// ns: the norm's subnets, runs of C / ns channels (an even count).
 extern "C" int irdu_block_stack(const void* x, void* out, const void* scale,
                                 const void* w1, const void* dwk, const void* w2,
                                 const void* skip, int B, int C, int H, int W, int K,
@@ -442,7 +449,7 @@ extern "C" int irdu_block_stack(const void* x, void* out, const void* scale,
                                 long long w1_sh, long long dw_sk, long long dw_st,
                                 long long dw_sh, long long w2_sk, long long w2_sh,
                                 long long w2_sc, int th, int tw, int hc, int dtype,
-                                int pdtype, void* stream) {
+                                int pdtype, int ns, void* stream) {
   using irdu::kBFloat16;
   using irdu::kFloat32;
   using bf16 = __nv_bfloat16;
@@ -453,13 +460,13 @@ extern "C" int irdu_block_stack(const void* x, void* out, const void* scale,
                       w2_sc % 8 == 0 && w2_sk % 8 == 0 &&
                       reinterpret_cast<uintptr_t>(w1) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(w2) % 16 == 0;
-  if (K < 1 || C < 2 || C % 2 || hc < 4 || hc % 4 || 18 * hc > 2 * irdu::blocks::kThreads ||
+  if (K < 1 || C < 2 || C % 2 || ns < 1 || C % ns || (C / ns) % 2 || hc < 4 || hc % 4 || 18 * hc > 2 * irdu::blocks::kThreads ||
       nh % hc || th < 1 || tw < 1 ||
       (dtype == kBFloat16 && (C % 8 || hc % 16 || !vec_ok)))
     return static_cast<int>(cudaErrorInvalidValue);
   irdu::blocks::Args a{x, out, scale, w1, dwk, w2, skip, C, H, W, K, nh, th, tw, hc, 0,
                        irdu::blocks::cpad_of(C), w1_sk, w1_sc, w1_sh, dw_sk, dw_st, dw_sh,
-                       w2_sk, w2_sh, w2_sc};
+                       w2_sk, w2_sh, w2_sc, ns};
   a.nrp = (std::min(th + 2 * K, H) * std::min(tw + 2 * K, W) + 15) / 16 * 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32 && pdtype == kFloat32) return irdu::blocks::launch<float, float>(a, B, s);

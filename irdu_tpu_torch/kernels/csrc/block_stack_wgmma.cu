@@ -29,7 +29,8 @@
 // {16, 32, 48, 64} and H a multiple of 32 up to 128:
 //   - the norm of the region from global memory into Y0 (bf16, K-major,
 //     128-byte swizzle), one thread per pixel, two-pass variance, ddof 1,
-//     mean not subtracted;
+//     mean not subtracted, over each subnet's C / ns channels (a runtime
+//     count, masked passes over the registers when ns > 1);
 //   - per chunk of hc = 32 m-channels and their 32 u-channels, the expand
 //     transposed on wgmma (M = 64 hidden rows, N = 96 region pixels per
 //     warpgroup, over C), queued a chunk ahead; the f32 taps (clamped to the
@@ -106,6 +107,7 @@ struct Args {
   const float* dwk;     // (K, 9, 2H)
   const float* skip;    // (K, 2)
   int B, H, W, K, nh, th, tw, tiles_x, tiles_y;
+  int ns;  // subnets: the norm runs over each run of C / ns channels
 };
 
 // Project D (64 x C) += A (64 x 16) B (C x 16)^T at the C the kernel is built for.
@@ -207,26 +209,51 @@ __device__ __forceinline__ void tile(const Args& a, int k, int t, unsigned char*
         v[c] = t.x, v[c + 1] = t.y, v[c + 2] = t.z, v[c + 3] = t.w;
       }
     }
-    float acc8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // 8 chains
+    float inv = 1.f;
+    if (a.ns == 1) {
+      float acc8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // 8 chains
 #pragma unroll
-    for (int c = 0; c < kC; ++c) acc8[c % 8] += v[c];
-    const float mean =
-        (((acc8[0] + acc8[1]) + (acc8[2] + acc8[3])) + ((acc8[4] + acc8[5]) + (acc8[6] + acc8[7]))) / kC;
+      for (int c = 0; c < kC; ++c) acc8[c % 8] += v[c];
+      const float mean =
+          (((acc8[0] + acc8[1]) + (acc8[2] + acc8[3])) + ((acc8[4] + acc8[5]) + (acc8[6] + acc8[7]))) / kC;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc8[q] = 0.f;
+      for (int q = 0; q < 8; ++q) acc8[q] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const float d = v[c] - mean;
-      acc8[c % 8] = fmaf(d, d, acc8[c % 8]);
+      for (int c = 0; c < kC; ++c) {
+        const float d = v[c] - mean;
+        acc8[c % 8] = fmaf(d, d, acc8[c % 8]);
+      }
+      const float var =
+          ((acc8[0] + acc8[1]) + (acc8[2] + acc8[3])) + ((acc8[4] + acc8[5]) + (acc8[6] + acc8[7]));
+      inv = 1.f / sqrtf(var / (kC - 1) + 1e-5f);
     }
-    const float var =
-        ((acc8[0] + acc8[1]) + (acc8[2] + acc8[3])) + ((acc8[4] + acc8[5]) + (acc8[6] + acc8[7]));
-    const float inv = 1.f / sqrtf(var / (kC - 1) + 1e-5f);
     const int ti = i - (ti0 - r0), tj = jj - (tj0 - c0);  // the pixel's place in the tile
     if (active && ti >= 0 && ti < ti1 - ti0 && tj >= 0 && tj < tj1 - tj0) {
       float4* xt = reinterpret_cast<float4*>(Xt + (ti * a.tw + tj) * xt_ld(kC));
 #pragma unroll
       for (int c = 0; c < kC; c += 4) xt[c / 4] = make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+    }
+    if (a.ns > 1) {
+      // per subnet (runs of cs = C / ns channels): the same two passes over
+      // the channels of run [lo, lo + cs) picked by a mask, then v scaled in
+      // place by the run's 1 / sqrt(var + eps) (Xt already holds x)
+      const int cs = kC / a.ns;
+      for (int lo = 0; lo < kC; lo += cs) {
+        float acc4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < kC; ++c) acc4[c % 4] += (c >= lo && c < lo + cs) ? v[c] : 0.f;
+        const float mean = ((acc4[0] + acc4[1]) + (acc4[2] + acc4[3])) / cs;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc4[q] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const float d = (c >= lo && c < lo + cs) ? v[c] - mean : 0.f;
+          acc4[c % 4] = fmaf(d, d, acc4[c % 4]);
+        }
+        const float r = 1.f / sqrtf(((acc4[0] + acc4[1]) + (acc4[2] + acc4[3])) / (cs - 1) + 1e-5f);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) v[c] = (c >= lo && c < lo + cs) ? v[c] * r : v[c];
+      }
     }
     if (p < kMr) {
 #pragma unroll
@@ -497,11 +524,13 @@ extern "C" long long irdu_block_stack_wgmma_smem(int C, int nh) {
 // x, out (B, C, H, W) bf16; scratch 2 (K >= 3), 1 (K = 2) or 0 buffers of
 // B * H * W * C f32; scale (K, C), dwk (K, 9, 2nh) and skip (K, 2) f32; w1t
 // (K, 2nh, C) and w2t (K, C, nh) bf16, all contiguous; a th x tw tile (the
-// plan of block_stack.plan_stack_tiles).
+// plan of block_stack.plan_stack_tiles); ns the norm's subnets, runs of
+// C / ns >= 2 channels.
 extern "C" int irdu_block_stack_wgmma(const void* x, void* out, void* scratch,
                                       const void* scale, const void* w1t, const void* dwk,
                                       const void* w2t, const void* skip, int B, int C, int H,
-                                      int W, int K, int nh, int th, int tw, void* stream) {
+                                      int W, int K, int nh, int th, int tw, int ns,
+                                      void* stream) {
   using namespace irdu::stack;
   g_error[0] = '\0';
   const int region = std::min(th + 2, H) * std::min(tw + 2, W);
@@ -509,7 +538,7 @@ extern "C" int irdu_block_stack_wgmma(const void* x, void* out, void* scratch,
                        reinterpret_cast<uintptr_t>(w2t) % 16 == 0;
   if (B < 1 || H < 1 || W < 1 || K < 1 || K > 4 || nh < kHc || nh % kHc ||
       nh > kMaxChunks * kHc || th < 1 || tw < 1 || th * tw > kMp || region > kMr || !aligned ||
-      (K > 1 && scratch == nullptr)) {
+      (K > 1 && scratch == nullptr) || ns < 1 || C % ns || C / ns < 2) {
     snprintf(g_error, sizeof g_error, "plan or operands not taken: C=%d H=%d K=%d th=%d tw=%d",
              C, nh, K, th, tw);
     return static_cast<int>(cudaErrorInvalidValue);
@@ -519,7 +548,7 @@ extern "C" int irdu_block_stack_wgmma(const void* x, void* out, void* scratch,
   Args a{static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
          {s, K > 2 ? s + n : s}, static_cast<const float*>(scale),
          static_cast<const float*>(dwk), static_cast<const float*>(skip), B, H, W, K, nh, th, tw,
-         (W + tw - 1) / tw, (H + th - 1) / th};
+         (W + tw - 1) / tw, (H + th - 1) / th, ns};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 16: return launch<16>(a, w1t, w2t, st);

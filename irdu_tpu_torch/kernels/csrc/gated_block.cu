@@ -42,7 +42,8 @@
 // Before the loop the consumers read x's region from global memory into
 // registers, one to four threads per pixel, normalize it (two-pass variance
 // over C, ddof 1, mean not subtracted) and write y0, rounded to bf16, into
-// Y0.
+// Y0; with ns > 1 subnets the variance is each subnet's, over its C / ns
+// channels.
 
 #include <algorithm>
 #include <cstdint>
@@ -94,6 +95,7 @@ struct Args {
   const void* skip;   // (2,)
   long long dw_st, dw_sh;
   int H, W, nh, th, tw;
+  int ns;  // subnets: the norm runs over each run of C / ns channels
 };
 
 // The expand's rows (region pixels) for C: mr = 192 (C <= 192) or 64, fixed
@@ -284,21 +286,66 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         return sum;
       };
-      const float mean = total(acc8) / kC;
+      // With ns > 1 subnets of cs = C / ns channels (a multiple of 8, so an
+      // 8-channel group lies in one), the statistics are taken again from
+      // global memory, a run at a time in plain loops, so that nothing is
+      // added to what the registers hold (v is the ns = 1 path's): each
+      // thread writes its sum of every subnet's channels among its own to
+      // red [s][part][pixel] (zero where it holds none), then the squared
+      // deviations to red2; the first thread of a pixel writes each
+      // subnet's 1 / sqrt(var + eps) to red [s][pixel], which the groups
+      // of 8 channels read where they are written.
+      const int ns = a.ns, cs = kC / ns;
+      float inv = 1.f;
+      if (ns == 1) {
+        const float mean = total(acc8) / kC;
 #pragma unroll
-      for (int t = 0; t < 8; ++t) acc8[t] = 0.f;
+        for (int t = 0; t < 8; ++t) acc8[t] = 0.f;
 #pragma unroll
-      for (int k = 0; k < kCpt / 2; ++k) {
-        const float2 f = __bfloat1622float2(v[k]);
-        const float d0 = f.x - mean, d1 = f.y - mean;
-        acc8[(2 * k) % 8] = fmaf(d0, d0, acc8[(2 * k) % 8]);
-        acc8[(2 * k + 1) % 8] = fmaf(d1, d1, acc8[(2 * k + 1) % 8]);
+        for (int k = 0; k < kCpt / 2; ++k) {
+          const float2 f = __bfloat1622float2(v[k]);
+          const float d0 = f.x - mean, d1 = f.y - mean;
+          acc8[(2 * k) % 8] = fmaf(d0, d0, acc8[(2 * k) % 8]);
+          acc8[(2 * k + 1) % 8] = fmaf(d1, d1, acc8[(2 * k + 1) % 8]);
+        }
+        inv = 1.f / sqrtf(total(acc8) / (kC - 1) + 1e-5f);
+      } else {
+        float* red2 = red + ns * kTpp * kPix;
+        auto subnet_sum = [&](const float* r, int sub) {
+          float sum = 0.f;
+#pragma unroll
+          for (int q = 0; q < kTpp; ++q) sum += r[(sub * kTpp + q) * kPix + p];
+          return sum;
+        };
+        for (int pass = 0; pass < 2; ++pass) {
+          float* out = pass ? red2 : red;
+          for (int sub = 0; sub < ns; ++sub) {
+            const int lo = max(sub * cs, cb) - cb, hi = min(sub * cs + cs, cb + kCpt) - cb;
+            const float mean = pass ? subnet_sum(red, sub) / cs : 0.f;
+            float sum = 0.f;
+            if (active) {
+#pragma unroll 4
+              for (int c = lo; c < hi; ++c) {
+                const float d = __bfloat162float(src[(size_t)c * plane]) - mean;
+                sum = pass ? fmaf(d, d, sum) : sum + d;
+              }
+            }
+            out[(sub * kTpp + part) * kPix + p] = sum;
+          }
+          consumer_sync();
+        }
+        if (part == 0)
+          for (int sub = 0; sub < ns; ++sub)
+            red[sub * kPix + p] = 1.f / sqrtf(subnet_sum(red2, sub) / (cs - 1) + 1e-5f);
+        consumer_sync();
       }
-      const float inv = 1.f / sqrtf(total(acc8) / (kC - 1) + 1e-5f);
+      const float rcp_cs = 1.f / cs;
       if (p < kMr) {
 #pragma unroll
         for (int g = 0; g < kCpt / 8; ++g) {
           const int c = cb + 8 * g;
+          // the group's subnet c / cs by one multiply (exact: c < 2^22)
+          if (ns > 1) inv = red[__float2int_rz((c + 0.5f) * rcp_cs) * kPix + p];
           uint4 o;
           __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
@@ -528,12 +575,14 @@ extern "C" const char* irdu_gated_block_error() { return irdu::gated::g_error; }
 // stride, rows w1_pitch / w2_pitch elements apart (16-byte multiples, 16-byte
 // aligned); scale (C,), dwk (9, 2H) by strides (tap, channel) and skip (2,)
 // f32 (pdtype 0) or bf16 (pdtype 1); a th x tw tile (the plan of
-// gated_block.plan_gated_tiles).
+// gated_block.plan_gated_tiles); ns the norm's subnets, runs of C / ns
+// channels, a multiple of 8 (ns <= 8 at C = 384, where the partial sums
+// must fit Y1).
 extern "C" int irdu_gated_block(const void* x, void* out, const void* scale, const void* w1t,
                                 const void* dwk, const void* w2t, const void* skip, int B,
                                 int C, int H, int W, int nh, long long w1_pitch,
                                 long long w2_pitch, long long dw_st, long long dw_sh, int th,
-                                int tw, int pdtype, void* stream) {
+                                int tw, int pdtype, int ns, void* stream) {
   using namespace irdu::gated;
   g_error[0] = '\0';
   const int region = std::min(th + 2, H) * std::min(tw + 2, W);
@@ -544,13 +593,14 @@ extern "C" int irdu_gated_block(const void* x, void* out, const void* scale, con
   if (B < 1 || H < 1 || W < 1 || nh < kHc || nh % kHc || th < 1 || tw < 1 || th * tw > mp ||
       region > mr || !aligned ||
       (pdtype != irdu::kFloat32 && pdtype != irdu::kBFloat16) ||
-      layout(C, mr, mp).total > kSmemLimit) {
-    snprintf(g_error, sizeof g_error, "plan or operands not taken: C=%d H=%d th=%d tw=%d", C,
-             nh, th, tw);
+      layout(C, mr, mp).total > kSmemLimit || ns < 1 || C % ns || (C / ns) % 8 ||
+      C + 2 * ns * kConsumers > mr * kY1Ld) {
+    snprintf(g_error, sizeof g_error,
+             "plan or operands not taken: C=%d H=%d th=%d tw=%d nsubnets=%d", C, nh, th, tw, ns);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), scale,
-               dwk, skip, dw_st, dw_sh, H, W, nh, th, tw};
+               dwk, skip, dw_st, dw_sh, H, W, nh, th, tw, ns};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return pdtype == irdu::kFloat32
              ? dispatch<float>(C, a, w1t, w1_pitch, w2t, w2_pitch, B, s)

@@ -14,6 +14,12 @@ and channels-first inside; H and W even (the two-scale solver's box).
                          (``GLRSingleScale``). Only the first 3 channels feed
                          the output head (a reference quirk, JAX
                          ``ablations.py:86-87``).
+
+Every solver takes JAX's ``window`` ("cross4", "diamond12", "ring8"): the
+two-scale solver solves a window other than cross-4 on the K5 band route
+(``solvers/gtv_glr.py``, as the flagship does), the single-scale GTV+GLR
+solver's matvecs go to K9 on cross-4 and to K6a on the others
+(``solvers/ablation_solvers.py``).
 """
 
 from __future__ import annotations
@@ -32,12 +38,11 @@ class MultiScaleGraphFilter(nn.Module):
     def __init__(self, n_channels_in: int = 3, n_channels_out: int = 3, ngraphs: int = 16,
                  window: str = "cross4"):
         super().__init__()
-        if window != "cross4":
-            raise ValueError(f"the port's two-scale solver takes the cross-4 window, not {window!r}")
         self.ngraphs = ngraphs
         self.localfilter = MixtureGTVGLR(
             ngraphs, n_channels_in, alpha_init=0.5, beta_init=0.1, muy_init=(0.001, 0.0001),
-            ro_init=(0.0001, 0.0001), gamma_init=(0.0001, 0.0001), feature_head="nonlinear3")
+            ro_init=(0.0001, 0.0001), gamma_init=(0.0001, 0.0001), feature_head="nonlinear3",
+            window=window)
         self.linear_combination = GroupedPointwise(ngraphs * n_channels_in, n_channels_out)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
@@ -55,12 +60,9 @@ class OneGraphFilter(nn.Module):
         self.reps = n_channels_hidden // n_channels_in
         common = dict(alpha_init=0.5, beta_init=0.1)
         if solver == "two_scale_nl":
-            if window != "cross4":
-                raise ValueError(f"the port's two-scale solver takes the cross-4 window, "
-                                 f"not {window!r}")
             self.localfilter = MixtureGTVGLR(
                 1, n_channels_hidden, muy_init=(0.001, 0.0001), ro_init=(1e-6, 1e-6),
-                gamma_init=(1e-6, 1e-6), feature_head="nonlinear3", **common)
+                gamma_init=(1e-6, 1e-6), feature_head="nonlinear3", window=window, **common)
         elif solver == "single_noGTV":
             self.localfilter = GLRSingleScale(1, n_channels_hidden, muy_init=0.001,
                                               window=window, **common)

@@ -26,7 +26,11 @@ block runs as its module's PyTorch ops (cuDNN on the card): the on-card
 reference the kernel path is held to. A ``conv_variant`` other than "plain"
 (spectral norm, non-expansive) takes the same routes: its factors are
 folded into the blocks' kernel operands (``blocks.gated_params``), where
-JAX runs such blocks on XLA outside its Pallas kernels.
+JAX runs such blocks on XLA outside its Pallas kernels. So does a model of
+``nsubnets`` > 1: its blocks' grouped expand and project go to K3/K4 as
+dense block-diagonal operands, and the kernels normalize over each
+subnet's channels (JAX runs the whole forward of such a model on XLA); its
+grouped down/up samples and combines are PyTorch's grouped convs.
 """
 
 from __future__ import annotations
@@ -66,13 +70,15 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         elsewhere (not in the reference; None filters all four).
 
         The other keywords are JAX's fields with JAX's defaults, so that a
-        configuration's ``model`` section builds: ``nsubnets`` all 1 is what
-        the port computes (``registry.require`` raises on any other value);
-        ``window`` ("cross4", "diamond12" or "ring8") is the solvers' graph
-        window (every plane of a window other than cross-4 takes the K5 band
-        route: K1 is built for cross-4). ``conv_variant`` ("plain",
-        "spectral_norm", "non_expansive") goes to the embed, the blocks, the
-        down/up samples, the combines and the head, not the solvers. The
+        configuration's ``model`` section builds: ``nsubnets`` all 1 is
+        one subnet, other values split each scale's blocks, down-sample,
+        up-sample (by the coarser scale's count) and combine into that many
+        channel groups, as JAX does; ``window`` ("cross4", "diamond12" or
+        "ring8") is the solvers' graph window (every plane of a window other
+        than cross-4 takes the K5 band route: K1 is built for cross-4).
+        ``conv_variant`` ("plain", "spectral_norm", "non_expansive") goes to
+        the embed, the blocks, the down/up samples, the combines and the
+        head, not the solvers. The
         ``use_pallas_*`` flags choose between two computations of the same
         function in JAX; the port routes by device (kernels on a CUDA
         tensor, their plain versions on a CPU one) and ``use_kernels``, so
@@ -81,12 +87,18 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         the plain route and each filtering block in the backward pass
         (``layers.remat_call``), JAX's ``nn.remat``: a training-memory knob
         with the same values and no effect at inference."""
-        require("nsubnets", tuple(nsubnets), [(1,) * len(dims)])
         require("window", window, list(WINDOWS), "JAX's WINDOWS has no such window")
         del use_pallas_blocks, use_pallas_solver
         super().__init__()
-        d, hd = dims, hidden_dims
+        d, hd, ns = dims, hidden_dims, tuple(nsubnets)
+        for s in range(4):
+            widths = (d[s], hd[s]) + ((d[s + 1],) if s < 3 else ()) + (
+                (d[s - 1],) if s > 0 else ())
+            if any(v % ns[s] for v in widths) or d[s] // ns[s] < 2:
+                raise ValueError(f"nsubnets={ns}: {ns[s]} subnets must split scale {s}'s "
+                                 f"widths {widths} into runs of 2 or more channels")
         self.dims, self.hidden_dims, self.ngraphs = tuple(dims), tuple(hidden_dims), tuple(ngraphs)
+        self.nsubnets = ns
         self.eval_filter_scales = (None if eval_filter_scales is None
                                    else tuple(eval_filter_scales))
         self.use_kernels = True
@@ -94,7 +106,7 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         cv = conv_variant
 
         def blocks(prefix, s, n):
-            mods = [LocalNonLinearBlock(d[s], hd[s], cv) for _ in range(n)]
+            mods = [LocalNonLinearBlock(d[s], hd[s], cv, ns[s]) for _ in range(n)]
             for i, m in enumerate(mods):
                 self.add_module(f"{prefix}_{i}", m)
             return mods
@@ -102,13 +114,14 @@ class AbstractMultiScaleGraphFilter(nn.Module):
         self.patch_3x3_embeding = RegionalPixelEmbedding(n_channels_in, d[0], cv)
         self.encoder_scales = [blocks(f"encoder_scale_{s:02d}", s, num_blocks[s])
                                for s in range(4)]
-        self.down_samples = [Downsample2x2(d[s], d[s + 1], cv) for s in range(3)]
+        self.down_samples = [Downsample2x2(d[s], d[s + 1], cv, groups=ns[s]) for s in range(3)]
         self.local_filters = [
             LocalLowpassFilteringBlock(d[s], ngraphs[s], eval_cg_iters=eval_cg_iters,
-                                       window=window)
+                                       window=window, nsubnets=ns[s])
             for s in range(4)]
-        self.up_samples = [Upsample2x2(d[s + 1], d[s], cv) for s in range(3)]
-        self.combine_channels = [GroupedPointwise(2 * d[s], d[s], cv) for s in range(3)]
+        self.up_samples = [Upsample2x2(d[s + 1], d[s], cv, groups=ns[s + 1]) for s in range(3)]
+        self.combine_channels = [GroupedPointwise(2 * d[s], d[s], cv, groups=ns[s])
+                                 for s in range(3)]
         self.decoder_scales = [blocks(f"decoder_scale_{s:02d}", s, num_blocks[s])
                                for s in range(3)]
         self.refining_block = blocks("refining_block", 0, num_blocks_out)
@@ -170,10 +183,10 @@ def run_blocks(x, blocks, use_kernels=True, remat=False):
         for k in range(0, len(blocks), STACK_MAX_BLOCKS):
             chunk = blocks[k:k + STACK_MAX_BLOCKS]
             x = fused_block_stack(x, *pack_block_params(
-                [b.gated_params() for b in chunk], x.dtype))
+                [b.gated_params() for b in chunk], x.dtype), nsubnets=chunk[0].nsubnets)
         return x
     for block in blocks:
-        x = fused_gated_block(x, **block.gated_params())
+        x = fused_gated_block(x, **block.gated_params(), nsubnets=block.nsubnets)
     return x
 
 

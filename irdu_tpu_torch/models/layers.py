@@ -2,14 +2,14 @@
 
 Weights are stored in PyTorch's conv layouts; ``kernel_to_torch`` converts the
 JAX package's flax kernel of the same layer, and ``kernel_from_torch`` back
-(counterpart: ``irdu_tpu/models/layers.py``, "plain" variant, one channel
-group):
+(counterpart: ``irdu_tpu/models/layers.py``; g channel groups, a group's
+input and output channels contiguous, as torch's ``groups`` has them):
 
-  GroupedPointwise  flax (I, O)            → conv2d (O, I, 1, 1)
-  Conv3x3Replicate  flax HWIO (3, 3, I/g, O) → conv2d (O, I/g, 3, 3)
+  GroupedPointwise  flax (I, O/g), row gi·I/g + i      → conv2d (O, I/g, 1, 1)
+  Conv3x3Replicate  flax HWIO (3, 3, I/g, O)           → conv2d (O, I/g, 3, 3)
   Conv3x3Zero       the same
-  Downsample2x2     flax (4I, O), row (a·2+b)·I+i → conv2d (O, I, 2, 2)
-  Upsample2x2       flax (I, 4O), col (a·2+b)·O+o → conv_transpose2d (I, O, 2, 2)
+  Downsample2x2     flax (4I, O/g), row (a·2+b)·I + i  → conv2d (O, I/g, 2, 2)
+  Upsample2x2       flax (I, 4O/g), col (a·2+b)·O/g+o  → conv_transpose2d (I, O/g, 2, 2)
 
 Initialization follows torch's Conv2d default, U(±1/√fan_in), as the JAX
 package does.
@@ -27,7 +27,12 @@ package does.
 
 Both factors are constant per output channel (and, for the up-sample, per
 output phase), so ``folded()`` multiplies them into the kernel, and the
-blocks hand the folded kernels to K3/K4 as a plain block's. A model that
+blocks hand the folded kernels to K3/K4 as a plain block's. JAX's grouped
+down/up samples (g > 1) apply no non-expansive factor and have no
+``scaling_factor``: the port builds them so. A grouped kernel's σ is that
+of JAX's (O/g, everything else) matricization, its ``kernel_u`` O/g long
+(4·O/g for the up-sample), its non-expansive gain the sum of |W| over the
+output's I/g inputs. A model that
 autograd does not record keeps its folded kernels (``cached``) until a
 weight, u or scaling factor changes.
 
@@ -158,25 +163,34 @@ class VariantConv(nn.Module):
 
 
 class GroupedPointwise(VariantConv):
-    """1×1 conv, no bias unless ``use_bias`` (U(±1/√fan_in), as the kernel)."""
+    """1×1 conv in ``groups`` channel groups, no bias unless ``use_bias``
+    (U(±1/√fan_in), fan_in = c_in / groups, as the kernel)."""
 
     def __init__(self, c_in: int, features: int, variant: str = "plain",
-                 use_bias: bool = False):
+                 use_bias: bool = False, groups: int = 1):
         super().__init__()
-        self.weight = uniform_param((features, c_in, 1, 1), c_in)
-        self.bias = uniform_param((features,), c_in) if use_bias else None
-        self._variant(variant, features, features)
+        self.groups = groups
+        fan_in = c_in // groups
+        self.weight = uniform_param((features, fan_in, 1, 1), fan_in)
+        self.bias = uniform_param((features,), fan_in) if use_bias else None
+        self._variant(variant, features // groups, features)
 
-    @staticmethod
-    def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
-        return k.t()[:, :, None, None]
+    def kernel_to_torch(self, k: torch.Tensor) -> torch.Tensor:
+        g = self.groups
+        c_in, og = k.shape
+        return k.reshape(g, c_in // g, og).transpose(1, 2).reshape(g * og, c_in // g)[
+            :, :, None, None]
 
-    @staticmethod
-    def kernel_from_torch(w: torch.Tensor) -> torch.Tensor:
-        return w[:, :, 0, 0].t()
+    def kernel_from_torch(self, w: torch.Tensor) -> torch.Tensor:
+        g = self.groups
+        o, ig = w.shape[:2]
+        return w[:, :, 0, 0].reshape(g, o // g, ig).transpose(1, 2).reshape(g * ig, o // g)
+
+    def rows(self, w):  # JAX's (O/g, I) matricization
+        return self.kernel_from_torch(w).t()
 
     def forward(self, x):
-        return F.conv2d(x, self.folded(), self.bias)
+        return F.conv2d(x, self.folded(), self.bias, groups=self.groups)
 
 
 class Conv3x3Replicate(VariantConv):
@@ -203,38 +217,53 @@ class Conv3x3Replicate(VariantConv):
                         groups=self.groups)
 
 
+def _grouped_variant(variant: str, groups: int) -> str:
+    """JAX's grouped down/up samples skip the non-expansive factor (and make
+    no ``scaling_factor``); spectral norm applies at any group count."""
+    return "plain" if groups > 1 and variant == "non_expansive" else variant
+
+
 class Downsample2x2(VariantConv):
-    """Learned 2×2 stride-2 conv, no bias."""
+    """Learned 2×2 stride-2 conv in ``groups`` channel groups, no bias."""
 
-    def __init__(self, c_in: int, features: int, variant: str = "plain"):
+    def __init__(self, c_in: int, features: int, variant: str = "plain", groups: int = 1):
         super().__init__()
-        self.weight = uniform_param((features, c_in, 2, 2), c_in * 4)
-        self._variant(variant, features, features)
+        self.groups = groups
+        self.weight = uniform_param((features, c_in // groups, 2, 2), c_in // groups * 4)
+        self._variant(_grouped_variant(variant, groups), features // groups, features)
 
-    @staticmethod
-    def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
-        four_i, o = k.shape
-        return k.reshape(2, 2, four_i // 4, o).permute(3, 2, 0, 1)
+    def kernel_to_torch(self, k: torch.Tensor) -> torch.Tensor:
+        g = self.groups
+        four_i, og = k.shape
+        ig = four_i // 4 // g
+        return k.reshape(2, 2, g, ig, og).permute(2, 4, 3, 0, 1).reshape(g * og, ig, 2, 2)
 
-    @staticmethod
-    def kernel_from_torch(w: torch.Tensor) -> torch.Tensor:
-        return w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
+    def kernel_from_torch(self, w: torch.Tensor) -> torch.Tensor:
+        g = self.groups
+        o, ig = w.shape[:2]
+        return w.reshape(g, o // g, ig, 2, 2).permute(3, 4, 0, 2, 1).reshape(4 * g * ig, o // g)
+
+    def rows(self, w):  # JAX's (O/g, 4I) matricization
+        return self.kernel_from_torch(w).t()
 
     def forward(self, x):
-        return F.conv2d(x, self.folded(), stride=2)
+        return F.conv2d(x, self.folded(), stride=2, groups=self.groups)
 
 
 class Upsample2x2(VariantConv):
-    """Learned 2×2 stride-2 transpose conv, no bias. JAX's kernel is
-    (I, 4·O) with columns (a·2+b)·O + o, so its spectral rows are 4·O and its
-    non-expansive gain is per output channel and phase (a, b): output pixel
-    (2h + a, 2w + b) takes tap (a, b) alone, so the gain folds into it."""
+    """Learned 2×2 stride-2 transpose conv in ``groups`` channel groups, no
+    bias. JAX's kernel is (I, 4·O/g) with columns (a·2+b)·O/g + o, so its
+    spectral rows are 4·O/g and its non-expansive gain (one group) is per
+    output channel and phase (a, b): output pixel (2h + a, 2w + b) takes tap
+    (a, b) alone, so the gain folds into it."""
 
-    def __init__(self, c_in: int, features: int, variant: str = "plain"):
+    def __init__(self, c_in: int, features: int, variant: str = "plain", groups: int = 1):
         super().__init__()
+        self.groups = groups
+        og = features // groups
         # torch's conv_transpose init takes fan_in from the output side
-        self.weight = uniform_param((c_in, features, 2, 2), features * 4)
-        self._variant(variant, 4 * features, features)
+        self.weight = uniform_param((c_in, og, 2, 2), og * 4)
+        self._variant(_grouped_variant(variant, groups), 4 * og, features)
 
     @staticmethod
     def kernel_to_torch(k: torch.Tensor) -> torch.Tensor:
@@ -254,7 +283,7 @@ class Upsample2x2(VariantConv):
         return w.abs().float().sum(dim=0, keepdim=True)
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.folded(), stride=2)
+        return F.conv_transpose2d(x, self.folded(), stride=2, groups=self.groups)
 
 
 class Conv3x3Zero(nn.Module):

@@ -33,6 +33,12 @@ operations a pixel and block), so K3 is bound by the CUDA-core taps and
 gate; the wgmma kernel adds 28 bytes a pixel and channel of scratch traffic
 at K = 4, which stays under that bound.
 
+Grouped blocks (``nsubnets`` > 1) take block-diagonal w1t and w2t and the
+subnet count at run time: each kernel normalizes over runs of C / nsubnets
+channels (the wgmma kernel by masked passes over the registers it holds a
+pixel's channels in, after its one-subnet statistics are skipped;
+``block_stack.cu`` by a loop over the runs).
+
 Every block pads its own input by replicating edges, as
 ``block_stack_reference`` does; both kernels get this at all four image
 edges from their clamped tap reads (see ``ops/gated_block.py``). The TPU
@@ -69,14 +75,15 @@ def pack_block_params(params_list, dtype):
     return scales, w1t, dwk, w2t, skips
 
 
-def block_stack_plain(x, scales, w1t, dwk, w2t, skips):
+def block_stack_plain(x, scales, w1t, dwk, w2t, skips, nsubnets=1):
     """The K blocks in plain PyTorch, one after another, each padding its own
     input; the activation stays f32 between them (y0 and y3 rounded to x's
-    dtype) and the output is rounded once."""
+    dtype) and the output is rounded once. ``nsubnets``: the norm's subnets
+    (``gated_block.subnet_norm``)."""
     xf = x.float()
     for k in range(w1t.shape[0]):
         xf = block_f32(xf, scales[k, :, 0], w1t[k].t(), dwk[k, :, :, 0].reshape(3, 3, -1),
-                       w2t[k].t(), skips[k], x.dtype)
+                       w2t[k].t(), skips[k], x.dtype, nsubnets)
     return xf.to(x.dtype)
 
 
@@ -138,12 +145,12 @@ def stack_scratch_planes(k: int) -> int:
     return min(k - 1, 2)
 
 
-def launch_stack(x, scales, w1t, dwk, w2t, skips):
+def launch_stack(x, scales, w1t, dwk, w2t, skips, nsubnets=1):
     """K blocks over a bf16 x (B, C, H, W) on the wgmma stack kernel, with
     the stacked operands of ``pack_block_params``: w1t (K, 2H, C) and w2t
     (K, C, H) bf16, scales (K, C, 1), dwk (K, 9, 2H, 1) and skips (K, 2)
-    f32, all contiguous (copied if not). Raises on what the kernel does not
-    take."""
+    f32, all contiguous (copied if not); ``nsubnets`` the norm's subnets.
+    Raises on what the kernel does not take."""
     if not x.is_contiguous() or x.dtype != torch.bfloat16 or x.device.type != "cuda":
         raise ValueError("the wgmma stack kernel needs a contiguous bf16 CUDA x")
     b, c, h, w = x.shape
@@ -163,7 +170,7 @@ def launch_stack(x, scales, w1t, dwk, w2t, skips):
     status = lib.irdu_block_stack_wgmma(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr() if n_scr else None, scales.data_ptr(),
         w1t.data_ptr(), dwk.data_ptr(), w2t.data_ptr(), skips.data_ptr(), b, c, h, w, k, hidden,
-        th, tw, torch.cuda.current_stream(x.device).cuda_stream)
+        th, tw, nsubnets, torch.cuda.current_stream(x.device).cuda_stream)
     if status != 0:
         detail = lib.irdu_block_stack_wgmma_error().decode()
         raise RuntimeError(f"fused_block_stack: CUDA error {status} "
@@ -171,10 +178,12 @@ def launch_stack(x, scales, w1t, dwk, w2t, skips):
     return out
 
 
-def _check(x, scales, w1t, dwk, w2t, skips):
+def _check(x, scales, w1t, dwk, w2t, skips, nsubnets):
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
     c = x.shape[1]
+    if nsubnets < 1 or c % nsubnets or c // nsubnets < 2:
+        raise ValueError(f"nsubnets={nsubnets} must split C={c} into runs of 2 or more")
     k, hidden2 = w1t.shape[0], w1t.shape[1]
     if not 1 <= k <= 4:
         raise ValueError(f"fused_block_stack runs 1 to 4 blocks, got {k}")
@@ -185,28 +194,30 @@ def _check(x, scales, w1t, dwk, w2t, skips):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
-def fused_block_stack(x, scales, w1t, dwk, w2t, skips):
+def fused_block_stack(x, scales, w1t, dwk, w2t, skips, *, nsubnets=1):
     """K ≤ 4 LocalNonLinearBlocks over x (B, C, H, W) with the stacked
-    operands of ``pack_block_params``. Returns x's shape and dtype.
+    operands of ``pack_block_params``; ``nsubnets`` the norm's subnets (the
+    blocks' w1 and w2 then block-diagonal, dense). Returns x's shape and
+    dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     that ``stack_route`` names (what each takes: ``launch_stack``,
     ``gated_block.launch_blocks``) or raises."""
     refuse_grad("fused_block_stack", x, scales, w1t, dwk, w2t, skips)
-    _check(x, scales, w1t, dwk, w2t, skips)
+    _check(x, scales, w1t, dwk, w2t, skips, nsubnets)
     run = _OP if library.tracing() else _run
-    return run(x, scales, w1t, dwk, w2t, skips)
+    return run(x, scales, w1t, dwk, w2t, skips, nsubnets)
 
 
-def _run(x, scales, w1t, dwk, w2t, skips):
+def _run(x, scales, w1t, dwk, w2t, skips, nsubnets):
     """The untraced call: the plain version on the CPU, else the launch."""
     if x.device.type == "cpu":
-        return block_stack_plain(x, scales, w1t, dwk, w2t, skips)
+        return block_stack_plain(x, scales, w1t, dwk, w2t, skips, nsubnets)
     if stack_route(x.dtype, x.shape[1], w2t.shape[2]) == "wgmma":
-        out = launch_stack(x, scales, w1t, dwk, w2t, skips)
+        out = launch_stack(x, scales, w1t, dwk, w2t, skips, nsubnets)
     else:
         out = launch_blocks("fused_block_stack", x, scales[:, :, 0], w1t.transpose(1, 2),
-                            dwk[:, :, :, 0], w2t.transpose(1, 2), skips)
+                            dwk[:, :, :, 0], w2t.transpose(1, 2), skips, nsubnets)
     fused_block_stack.launches += 1
     return out
 
@@ -214,4 +225,4 @@ def _run(x, scales, w1t, dwk, w2t, skips):
 fused_block_stack.launches = 0
 _OP = library.define(
     "fused_block_stack(Tensor x, Tensor scales, Tensor w1t, Tensor dwk, Tensor w2t, "
-    "Tensor skips) -> Tensor", _run, lambda x, *rest: x.new_empty(x.shape))
+    "Tensor skips, int nsubnets) -> Tensor", _run, lambda x, *rest: x.new_empty(x.shape))

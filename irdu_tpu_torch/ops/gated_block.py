@@ -7,7 +7,15 @@ the variance unbiased over channels, the mean not subtracted), 1×1 expand
 C → 2H, 3×3 depthwise with replicate padding, gate σ(m)·m·u over the two
 halves, 1×1 project H → C, and the learned skip s₀·x + s₁·y. The port keeps
 the channels-first layout (B, C, H, W) and the JAX operand names: scale (C,),
-w1 (C, 2H), dwk (3, 3, 2H), w2 (H, C), skip (2,).
+w1 (C, 2H), dwk (3, 3, 2H), w2 (H, C), skip (2,). A block of ``nsubnets``
+> 1 (JAX runs such blocks outside its kernel) comes with w1 and w2 as the
+dense block-diagonal matrices of its grouped expand and project
+(``models/blocks.gated_params``) and normalizes over each subnet's
+C / nsubnets channels; every kernel takes the count at run time, so no
+instance is added (the wgmma kernel: two more passes over the region's x
+from global memory in plain loops, so the registers the one-subnet norm
+holds are not added to; partial sums per subnet and thread in its expand
+buffer; runs of a multiple of 8 channels, ``gated_subnets_ok``).
 
 Rounding in bf16, where the TPU kernels round: the normalized input y0 before
 the expand and the gate output y3 before the project; the expand, the taps,
@@ -78,13 +86,25 @@ def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if dtype == torch.float32 else t.to(dtype).float()
 
 
-def block_f32(x, scale, w1, dwk, w2, skip, dtype):
-    """One block on an f32 activation x (B, C, H, W), rounding y0 and y3 to
-    ``dtype``; returns the f32 result, unrounded."""
+def subnet_norm(x, nsubnets=1):
+    """CustomLayerNorm without its scale: x (B, C, H, W) f32 divided by
+    sqrt(var + 1e-5), the unbiased variance over each subnet's C / nsubnets
+    channels (a pixel's channels in ``nsubnets`` runs), the mean not
+    subtracted."""
     b, c, h, w = x.shape
-    mean = x.mean(dim=1, keepdim=True)
-    var = ((x - mean) ** 2).sum(dim=1, keepdim=True) / (c - 1)
-    y0 = _round(x / torch.sqrt(var + EPS) * scale.float().reshape(1, c, 1, 1), dtype)
+    xg = x.reshape(b, nsubnets, c // nsubnets, h, w)
+    mean = xg.mean(dim=2, keepdim=True)
+    var = ((xg - mean) ** 2).sum(dim=2, keepdim=True) / (c // nsubnets - 1)
+    return (xg / torch.sqrt(var + EPS)).reshape(b, c, h, w)
+
+
+def block_f32(x, scale, w1, dwk, w2, skip, dtype, nsubnets=1):
+    """One block on an f32 activation x (B, C, H, W), rounding y0 and y3 to
+    ``dtype``; returns the f32 result, unrounded. ``nsubnets``: the norm's
+    subnets (``subnet_norm``); w1 and w2 are dense (block-diagonal for a
+    grouped block, ``models/blocks.gated_params``)."""
+    b, c, h, w = x.shape
+    y0 = _round(subnet_norm(x, nsubnets) * scale.float().reshape(1, c, 1, 1), dtype)
     y1 = torch.einsum("bchw,co->bohw", y0, w1.to(dtype).float())
     y1p = F.pad(y1, (1, 1, 1, 1), mode="replicate")
     dw = dwk.float()
@@ -97,10 +117,10 @@ def block_f32(x, scale, w1, dwk, w2, skip, dtype):
     return sk[0] * x + sk[1] * y4
 
 
-def gated_block_plain(x, scale, w1, dwk, w2, skip):
+def gated_block_plain(x, scale, w1, dwk, w2, skip, nsubnets=1):
     """The block in plain PyTorch: f32 compute, bf16 rounding where the
     kernel rounds, output in x's dtype."""
-    return block_f32(x.float(), scale, w1, dwk, w2, skip, x.dtype).to(x.dtype)
+    return block_f32(x.float(), scale, w1, dwk, w2, skip, x.dtype, nsubnets).to(x.dtype)
 
 
 def smem_bytes(c: int, hc: int, nrp: int, esize: int) -> int:
@@ -214,17 +234,22 @@ def gated_plans(c: int, h: int, w: int):
                 yield th, tw, mr, mp, smem
 
 
-def launch_gated(x, scale, w1, dwk, w2, skip):
+def launch_gated(x, scale, w1, dwk, w2, skip, nsubnets=1):
     """One block over a bf16 x (B, C, H, W) on the wgmma kernel, operands in
     the JAX layouts: scale (C,), w1 (C, 2H), dwk (3, 3, 2H), w2 (H, C),
     skip (2,). w1 and w2 bf16 (read as w1ᵀ and w2ᵀ rows by TMA: the conv
     layout the model serves needs no copy); scale, dwk and skip of one dtype,
-    f32 or bf16. Raises on what the kernel does not take."""
+    f32 or bf16; ``nsubnets`` the norm's subnets, runs of C / nsubnets
+    channels, a multiple of 8 (``gated_subnets_ok``). Raises on what the
+    kernel does not take."""
     if not x.is_contiguous() or x.dtype != torch.bfloat16 or x.device.type != "cuda":
         raise ValueError("the wgmma block kernel needs a contiguous bf16 CUDA x")
     b, c, h, w = x.shape
     hidden = w2.shape[0]
     th, tw, _, _, _, _ = plan_gated_tiles(b, c, hidden, h, w)
+    if not gated_subnets_ok(c, nsubnets):
+        raise ValueError(f"the wgmma block kernel takes subnets of a multiple of 8 channels "
+                         f"(at most 8 at C = 384), got C={c}, nsubnets={nsubnets}")
     if w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise ValueError(f"fused_gated_block: w1 and w2 must be in x's dtype {x.dtype}")
     if (not (scale.dtype == dwk.dtype == skip.dtype)
@@ -241,7 +266,7 @@ def launch_gated(x, scale, w1, dwk, w2, skip):
     status = lib.irdu_gated_block(
         x.data_ptr(), out.data_ptr(), scale.data_ptr(), w1t.data_ptr(), d9.data_ptr(),
         w2t.data_ptr(), skip.data_ptr(), b, c, h, w, hidden, w1t.stride(0), w2t.stride(0),
-        *d9.stride(), th, tw, dtype_code(scale.dtype),
+        *d9.stride(), th, tw, dtype_code(scale.dtype), nsubnets,
         torch.cuda.current_stream(x.device).cuda_stream)
     if status != 0:
         detail = lib.irdu_gated_block_error().decode()
@@ -250,7 +275,16 @@ def launch_gated(x, scale, w1, dwk, w2, skip):
     return out
 
 
-def launch_blocks(kernel: str, x, scale, w1, dwk, w2, skip):
+def gated_subnets_ok(c: int, nsubnets: int) -> bool:
+    """Whether the wgmma kernel's norm takes ``nsubnets`` at C: runs of a
+    multiple of 8 channels (an 8-channel group of a thread lies in one), and
+    the partial sums of two passes (2·nsubnets·256 f32) beside the scale in
+    its expand buffer Y1 (``gated_smem_bytes``)."""
+    mr = 64 if c > 192 else 192
+    return c % nsubnets == 0 and (c // nsubnets) % 8 == 0 and c + 512 * nsubnets <= mr * 72
+
+
+def launch_blocks(kernel: str, x, scale, w1, dwk, w2, skip, nsubnets=1):
     """Run K blocks over x (B, C, H, W) on the card, with the operands stacked
     over K in the JAX per-block layouts: scale (K, C), w1 (K, C, 2H),
     dwk (K, 9, 2H), w2 (K, H, C), skip (K, 2); w1, dwk and w2 may be strided
@@ -259,7 +293,8 @@ def launch_blocks(kernel: str, x, scale, w1, dwk, w2, skip):
     What the kernel takes: x contiguous f32 or bf16 with C a multiple of 8
     (the kernel pads C ≡ 8 mod 16 to 16 in shared memory, the lite model's
     C = 24); w1 and w2 in x's dtype with H a multiple of 16; scale, dwk and skip of one
-    dtype (f32, or bf16 with bf16 x), contiguous scale and skip."""
+    dtype (f32, or bf16 with bf16 x), contiguous scale and skip; ``nsubnets``
+    the norm's subnets, runs of an even number of channels."""
     if x.device.type != "cuda" or not x.is_contiguous():
         raise ValueError(f"{kernel} needs a contiguous CUDA or CPU tensor")
     b, c, h, w = x.shape
@@ -267,6 +302,9 @@ def launch_blocks(kernel: str, x, scale, w1, dwk, w2, skip):
     if c % 8 or hidden % 16:
         raise ValueError(f"{kernel}: the kernel takes C in multiples of 8 and H in "
                          f"multiples of 16, got C={c}, H={hidden}")
+    if c % nsubnets or (c // nsubnets) % 2:
+        raise ValueError(f"{kernel}: the kernel takes subnets of an even number of channels, "
+                         f"got C={c}, nsubnets={nsubnets}")
     if w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise ValueError(f"{kernel}: w1 and w2 must be in x's dtype {x.dtype}")
     if (not (scale.dtype == dwk.dtype == skip.dtype)
@@ -284,7 +322,7 @@ def launch_blocks(kernel: str, x, scale, w1, dwk, w2, skip):
         x.data_ptr(), out.data_ptr(), scale.data_ptr(), w1.data_ptr(),
         dwk.data_ptr(), w2.data_ptr(), skip.data_ptr(), b, c, h, w, k, hidden,
         *w1.stride(), *dwk.stride(), *w2.stride(), th, tw, hc,
-        dtype_code(x.dtype), dtype_code(scale.dtype),
+        dtype_code(x.dtype), dtype_code(scale.dtype), nsubnets,
         torch.cuda.current_stream(x.device).cuda_stream)
     check_status(kernel, status)
     return out
@@ -300,10 +338,12 @@ def _unit_stride(t, dim):
     return t.movedim(dim, -1).contiguous().movedim(-1, dim)
 
 
-def _check(x, scale, w1, dwk, w2, skip):
+def _check(x, scale, w1, dwk, w2, skip, nsubnets):
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
     c = x.shape[1]
+    if nsubnets < 1 or c % nsubnets or c // nsubnets < 2:
+        raise ValueError(f"nsubnets={nsubnets} must split C={c} into runs of 2 or more")
     hidden = w1.shape[-1] // 2
     for name, t, shape in (("scale", scale, (c,)), ("w1", w1, (c, 2 * hidden)),
                            ("dwk", dwk, (3, 3, 2 * hidden)), ("w2", w2, (hidden, c)),
@@ -312,28 +352,29 @@ def _check(x, scale, w1, dwk, w2, skip):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
-def fused_gated_block(x, scale, w1, dwk, w2, skip):
+def fused_gated_block(x, scale, w1, dwk, w2, skip, *, nsubnets=1):
     """One LocalNonLinearBlock over x (B, C, H, W): scale (C,), w1 (C, 2H),
-    dwk (3, 3, 2H), w2 (H, C), skip (2,). Returns x's shape and dtype.
+    dwk (3, 3, 2H), w2 (H, C), skip (2,); ``nsubnets`` the norm's subnets
+    (w1 and w2 then block-diagonal, dense). Returns x's shape and dtype.
 
     A CPU tensor takes the plain version; a bf16 CUDA tensor launches the
     wgmma kernel (what it takes: ``launch_gated``), an f32 one the block
     kernel's CUDA-core path (``launch_blocks``), or they raise."""
     refuse_grad("fused_gated_block", x, scale, w1, dwk, w2, skip)
-    _check(x, scale, w1, dwk, w2, skip)
+    _check(x, scale, w1, dwk, w2, skip, nsubnets)
     run = _OP if library.tracing() else _run
-    return run(x, scale, w1, dwk, w2, skip)
+    return run(x, scale, w1, dwk, w2, skip, nsubnets)
 
 
-def _run(x, scale, w1, dwk, w2, skip):
+def _run(x, scale, w1, dwk, w2, skip, nsubnets):
     """The untraced call: the plain version on the CPU, else the launch."""
     if x.device.type == "cpu":
-        return gated_block_plain(x, scale, w1, dwk, w2, skip)
+        return gated_block_plain(x, scale, w1, dwk, w2, skip, nsubnets)
     if x.dtype == torch.bfloat16:
-        out = launch_gated(x, scale, w1, dwk, w2, skip)
+        out = launch_gated(x, scale, w1, dwk, w2, skip, nsubnets)
     else:
         out = launch_blocks("fused_gated_block", x, scale[None], w1[None],
-                            dwk.reshape(1, 9, -1), w2[None], skip[None])
+                            dwk.reshape(1, 9, -1), w2[None], skip[None], nsubnets)
     fused_gated_block.launches += 1
     return out
 
@@ -341,4 +382,4 @@ def _run(x, scale, w1, dwk, w2, skip):
 fused_gated_block.launches = 0
 _OP = library.define(
     "fused_gated_block(Tensor x, Tensor scale, Tensor w1, Tensor dwk, Tensor w2, "
-    "Tensor skip) -> Tensor", _run, lambda x, *rest: x.new_empty(x.shape))
+    "Tensor skip, int nsubnets) -> Tensor", _run, lambda x, *rest: x.new_empty(x.shape))

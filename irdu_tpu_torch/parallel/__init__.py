@@ -1,6 +1,6 @@
 """Multi-GPU: process groups and the data-parallel batch (``mesh``), tiled
 and spatially sharded inference (``spatial``), tensor and expert
-parallelism for the flagship family (``tensor``); counterpart:
+parallelism under JAX's placement rules, for every model (``tensor``); counterpart:
 ``irdu_tpu/parallel``. JAX's ``batch_sharding`` and ``replicated_sharding``
 (``NamedSharding``s) have no torch object: ``shard_batch`` takes this
 rank's slice and ``broadcast_params`` replicates rank 0's parameters."""

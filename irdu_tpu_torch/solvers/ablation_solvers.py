@@ -16,9 +16,13 @@ On the card the heads' blocks run through the block kernels as the
 flagship routes them (``models/flagship.run_blocks``: K3 for C ≤ 64, K4
 above; JAX serves this family on jnp), the edge weights through one K2 call
 on the 2G stacked GTV+GLR graphs (G graphs for GLR only), and
-``GTVGLRSingleScale``'s three system matvecs through K9
-(``ops/system_matvec.py``, channels-last: each call permutes the iterate to
-(B, H, W, C) and back; the weights are laid out once per forward). The
+``GTVGLRSingleScale``'s three system matvecs, on the cross-4 window, through
+K9 (``ops/system_matvec.py``, channels-last: each call permutes the iterate
+to (B, H, W, C) and back; the weights are laid out once per forward). On
+the diamond-12 and ring-8 windows, which K9 is not built for, the three
+matvecs go to K6a (``ops/fused_step.gg_matvec_chw``: single-scale launches
+of K5's padded-tile kernel on the window, channels-first like the iterate,
+so no permutes; the stats tables set to None go in as the identity). The
 other steps (the ADMM RHS builds, the CG updates, and GLRSingleScale's
 matvec, which has no Pallas kernel in JAX) are PyTorch ops in f32 on the
 model's values, each iterate rounded to the model's dtype. Setting the
@@ -38,8 +42,9 @@ from irdu_tpu_torch.models.flagship import run_blocks
 from irdu_tpu_torch.models.layers import GroupedPointwise
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
+from irdu_tpu_torch.ops.fused_step import gg_matvec_chw, matvec_plain
 from irdu_tpu_torch.ops.system_matvec import fused_system_matvec, system_matvec_plain
-from irdu_tpu_torch.ops.windows import WINDOWS
+from irdu_tpu_torch.ops.windows import CROSS4, WINDOWS
 from irdu_tpu_torch.solvers.common import GraphOpParams
 
 
@@ -133,6 +138,38 @@ class GTVGLRSingleScale(_SingleScale):
         tab = mod.stats_table()
         return None if tab is None else tab.permute(1, 0, 2).reshape(4, -1)
 
+    def _k9_matvec(self, w_glr, w_gtv):
+        """The system matvec of a (B, C, H, W) iterate (f32 view out) on K9,
+        cross-4, channels-last; the weights laid out as (B, H, W, G, E) once
+        for the three calls."""
+        g, f = self.n_graphs, self.n_node_fts
+        w_nhwc = [w.permute(0, 3, 4, 1, 2).contiguous() for w in (w_glr, w_gtv)]
+        rows = (self._rows(self.GLRmodule00), self._rows(self.GTVmodule00))
+        mu_c, ro_c = (torch.exp(p.float()).repeat_interleave(f)
+                      for p in (self.muys00, self.ro00))
+        matvec = fused_system_matvec if self.use_kernels else system_matvec_plain
+
+        def a_x(x):
+            out = matvec(x.permute(0, 2, 3, 1).contiguous(), *w_nhwc, *rows, mu_c, ro_c,
+                         n_graphs=g)
+            return self._views(out.permute(0, 3, 1, 2))
+
+        return a_x
+
+    def _k6a_matvec(self, w_glr, w_gtv):
+        """The same on K6a, on the solver's window (diamond-12 or ring-8),
+        channels-first; the weights in the iterate's dtype, once."""
+        wl, wg = (w.contiguous() for w in (w_glr, w_gtv))
+        tabs = (self.GLRmodule00.stats_table(), self.GTVmodule00.stats_table())
+        mu, ro = torch.exp(self.muys00.float()), torch.exp(self.ro00.float())
+        matvec = gg_matvec_chw if self.use_kernels else matvec_plain
+
+        def a_x(x):
+            return self._views(matvec(x.contiguous(), wl.to(x.dtype), wg.to(x.dtype), *tabs,
+                                      mu, ro, n_graphs=self.n_graphs, deltas=self.deltas))
+
+        return a_x
+
     def forward(self, patchs: torch.Tensor) -> torch.Tensor:
         g, f = self.n_graphs, self.n_node_fts
         dt = patchs.dtype
@@ -144,17 +181,8 @@ class GTVGLRSingleScale(_SingleScale):
             feats = self.patchs_features_extraction00(patchs)  # GTV features, then GLR
         w_all = self._edge_weights(feats, (self.GTVmodule00, self.GLRmodule00))
         w_gtv = w_all[:, :g]
-        # K9's layout, (B, H, W, G, E), once for the three matvecs
-        w_nhwc = [w.permute(0, 3, 4, 1, 2).contiguous() for w in (w_all[:, g:], w_gtv)]
-        rows = (self._rows(self.GLRmodule00), self._rows(self.GTVmodule00))
-        mu_c, ro_c = (torch.exp(p.float()).repeat_interleave(f)
-                      for p in (self.muys00, self.ro00))
-        matvec = fused_system_matvec if self.use_kernels else system_matvec_plain
-
-        def a_x(x):  # the system matvec of a (B, C, H, W) iterate, f32 view out
-            out = matvec(x.permute(0, 2, 3, 1).contiguous(), *w_nhwc, *rows, mu_c, ro_c,
-                         n_graphs=g)
-            return self._views(out.permute(0, 3, 1, 2))
+        a_x = (self._k9_matvec if self.deltas == CROSS4 else self._k6a_matvec)(
+            w_all[:, g:], w_gtv)
 
         wg, pg = self._edges(w_gtv), graph.stats_table_terms(self.GTVmodule00.stats_table())
         ro = self._per_graph(torch.exp(self.ro00.float()))

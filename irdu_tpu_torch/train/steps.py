@@ -25,8 +25,10 @@ at the global batch's shape from the generator every rank seeds alike, and
 each rank keeps its rows, so that a step is one device's step on the same
 global batch. The logged loss and MSE are averaged over the data group and
 the PSNR taken from that MSE. Under tp > 1 the model is split
-(``parallel.tensor``) and its gradients are completed over the model group
-before the update. A distillation teacher runs whole on each rank's slice.
+(``parallel.tensor``): the objective runs on the whole tensors of the
+parameters it gathers where they are used (``gathered_params``, through
+``torch.func.functional_call``), and the gradients are completed over the
+model group before the update. A distillation teacher runs whole on each rank's slice.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ import torch.distributed as dist
 from torch import nn
 
 from irdu_tpu_torch.parallel.mesh import Mesh
-from irdu_tpu_torch.parallel.tensor import reduce_model_grads, shard_train_state
+from irdu_tpu_torch.parallel.tensor import (gathered_params, reduce_model_grads,
+                                            shard_train_state)
 
 
 @dataclass
@@ -64,16 +67,28 @@ def create_train_state(model: nn.Module, schedule: Callable[[int], float], *,
     return TrainState(model, optimizer, schedule)
 
 
-class Objective(nn.Module):
-    """``flagship_loss`` of ``model`` as a module's forward: the unit DDP
-    wraps (its gradient hooks see the whole loss's graph at once)."""
-
+class _Loss(nn.Module):
     def __init__(self, model: nn.Module):
         super().__init__()
         self.model = model
 
     def forward(self, noisy, clean, **kw):
         return flagship_loss(self.model, noisy, clean, **kw)
+
+
+class Objective(_Loss):
+    """``flagship_loss`` of ``model`` as a module's forward: the unit DDP
+    wraps (its gradient hooks see the whole loss's graph at once). On a
+    sharded model the loss takes the gathered parameters in place of their
+    slices for the call."""
+
+    def forward(self, noisy, clean, **kw):
+        full = gathered_params(self.model)
+        if not full:
+            return super().forward(noisy, clean, **kw)
+        return torch.func.functional_call(_Loss(self.model),
+                                          {f"model.{n}": t for n, t in full.items()},
+                                          (noisy, clean), kw, strict=False)
 
 
 def distribute(state: TrainState, mesh: Mesh) -> TrainState:

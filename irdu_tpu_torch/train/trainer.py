@@ -9,8 +9,8 @@ Parallelism (``parallel: {data_parallel, tensor_parallel}``, JAX's rules,
 --nproc_per_node N``; ``parallel.mesh.init_distributed`` joins it) form a
 dp × tp mesh; each rank trains on its slice of every global batch
 (``data.loader.batched_loader(shard=)``), the student wrapped in DDP over
-the data group, and under tp > 1 split over the model group
-(``parallel.tensor``; the flagship family only). Each rank runs on
+the data group, and under tp > 1 placed over the model group as JAX places
+it (``parallel.tensor``; any model, refused where a placement is uneven). Each rank runs on
 ``cuda:{rank % device_count}`` (or the CPU). Logs, the periodic eval and the
 checkpoint files are rank 0's; the eval of a split model runs on a gathered
 copy. The model trains in f32 on the plain versions of its kernels
@@ -121,15 +121,7 @@ class Trainer:
         self.generator = set_random_seed(config.get("manual_seed", 2204), self.device)
         model_conf = dict(config["model"])
         self.model = create_model(model_conf.pop("type"), **model_conf).to(self.device)
-        if n_tp > 1:
-            from irdu_tpu_torch.models.flagship import AbstractMultiScaleGraphFilter
-
-            if not isinstance(self.model, AbstractMultiScaleGraphFilter):
-                raise NotImplementedError(
-                    f"tensor_parallel={n_tp} splits the flagship family only; "
-                    f"{config['model']['type']} waits for ROADMAP queue 1, the port's list "
-                    "of what is left, item 1 (the expert split of MixtureGTV, the ablation "
-                    "solvers, boosting and the baselines)")
+        if n_tp > 1:  # JAX's placement must divide (ValueError before any step)
             check_tp_divisibility(self.model, n_tp)
         set_kernels(self.model, False)
         self._remat_default = bool(config["model"].get("remat", False))

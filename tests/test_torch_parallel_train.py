@@ -7,7 +7,8 @@ configs/flagship_sigma25.yaml at ``data_parallel: 2`` through the CLI as
 ``torchrun`` starts it and the tiny flagship at ``tensor_parallel: 2``,
 each checkpointed by rank 0 and resumed
 by a one-process trainer with the parameters and data position of a
-one-process run; the refusal to split the pixel and ablation models;
+one-process run; the refusal of the tiny pixel and ablation models, whose
+placement JAX refuses at tp = 2;
 ``broadcast_params``; JAX's "auto" rule; the loader's and the latent
 noise's slices."""
 
@@ -181,8 +182,12 @@ def test_broadcast_params_replicates_rank_0(runs):
 
 @pytest.mark.parametrize("name", ["pixel", "ablation"])
 def test_tp_refuses_models_it_cannot_split(runs, name):
+    """The tiny pixel model (``project_out`` sizes 21 and 85) and the
+    one-graph ablation (G = 1) at tp = 2: JAX's placement is uneven, and the
+    trainer refuses it with JAX's reason before any step."""
     for r in runs[0]:
-        assert r["refused"][name] and "ROADMAP" in r["refused"][name], r["refused"][name]
+        msg = r["refused"][name]
+        assert msg and "uneven placement" in msg and "% tp 2" in msg, msg
 
 
 @pytest.mark.parametrize("parallel,world,want", [

@@ -74,12 +74,10 @@ def _builds_with_jax_tree(jax_model, port, hw=16):
 
 
 @pytest.mark.parametrize("model,field,value", [
-    ("abstract_multiscale_graph_filter", "nsubnets", (2, 1, 1, 1)),
     ("multiscale_sequence_denoiser", "n_cgd_iters", 3)])
 def test_unported_field_values_name_the_field(model, field, value):
     """A value the port does not build raises NotImplementedError naming the
-    field: one JAX supports and the port does not yet (``nsubnets``), or one
-    JAX refuses too (``n_cgd_iters``)."""
+    field: here one JAX refuses too (``n_cgd_iters``)."""
     with pytest.raises(NotImplementedError, match=field):
         registry.create_model(model, **{field: value})
 
@@ -91,7 +89,8 @@ def test_unported_field_values_name_the_field(model, field, value):
     ("multiscale_sequence_denoiser", "feature_n_levels", 4),
     ("abstract_multiscale_graph_filter", "window", "diamond12"),
     ("multiscale_sequence_denoiser", "window", "cross4"),
-    ("multiscale_sequence_denoiser", "eval_skip_solve", True)])
+    ("multiscale_sequence_denoiser", "eval_skip_solve", True),
+    ("abstract_multiscale_graph_filter", "nsubnets", (2, 1, 1, 1))])
 def test_ported_field_values_build_with_jax_tree(model, field, value):
     """The values the port computes since it took them (they named their
     field before): the model builds with JAX's parameter tree."""

@@ -1,9 +1,9 @@
 """The flagship on the diamond-12 and ring-8 windows against the JAX package
 (its jnp path: JAX's ``_chw_ok`` sends every window but cross-4 there), the
 route rule (a window other than cross-4 never reaches K1: every plane takes
-the band route of 5 K5 steps), K1's refusal of another window, and the
-refusals that stay (``nsubnets``) with ``registry.require``'s two
-messages."""
+the band route of 5 K5 steps), K1's refusal of another window, the
+``nsubnets`` values still refused (those that do not split a width) and
+``registry.require``'s two messages."""
 
 from __future__ import annotations
 
@@ -100,10 +100,13 @@ def test_k1_refuses_another_window(window):
 
 
 def test_flagship_still_refuses_nsubnets():
-    """``nsubnets > 1`` (JAX builds it; the blocks then leave K3/K4) is not
-    ported: the registry says so."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        AbstractMultiScaleGraphFilter(**TINY, nsubnets=(2, 1, 1, 1))
+    """``nsubnets > 1`` is ported (tests/test_torch_subnets.py); what is
+    still refused is a subnet count that does not split a scale's widths
+    (JAX's grouped kernels cannot be reshaped there either), with a
+    ValueError naming the field."""
+    AbstractMultiScaleGraphFilter(**TINY, nsubnets=(2, 1, 1, 1))
+    with pytest.raises(ValueError, match="nsubnets"):
+        AbstractMultiScaleGraphFilter(**TINY, nsubnets=(3, 1, 1, 1))
 
 
 @pytest.mark.parametrize("jax_refuses", [False, True], ids=["not_ported", "jax_refuses"])

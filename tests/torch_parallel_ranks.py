@@ -149,7 +149,7 @@ def one_step(model, noisy, clean, mesh=None, teacher=None, seed=3, aux=True):
     moments), each tensor in the single-device layout."""
     from irdu_tpu_torch.parallel.mesh import shard_batch
     from irdu_tpu_torch.parallel.tensor import (gather_full, gather_train_state, model_shard,
-                                                spec_for_param)
+                                                param_shardings)
     from irdu_tpu_torch.train.steps import (create_train_state, distribute,
                                             make_distill_train_step, make_train_step)
 
@@ -161,8 +161,9 @@ def one_step(model, noisy, clean, mesh=None, teacher=None, seed=3, aux=True):
         noisy, clean = shard_batch((noisy, clean), mesh)
     state, m = step(state, noisy, clean, torch.Generator().manual_seed(seed))
     grads = {}
+    placements = param_shardings(model)
     for n, p in model.named_parameters():
-        pl = spec_for_param(n, p)
+        pl = placements[n]
         with torch.no_grad():
             grads[n] = (gather_full(p.grad, pl, model_shard(mesh)) if mesh is not None
                         and mesh.tp > 1 and pl is not None else p.grad).clone()
@@ -202,8 +203,8 @@ def train_job(rank, world, corpus, workdir, cli_argv, port):
     """dp = 2: a train step, a distillation step and a BatchNorm model's step
     against one process' (returned for the caller to compare), the trainer with
     ``tensor_parallel: 2`` (2 steps, checkpointed by rank 0), rank 0's
-    parameters broadcast over rank 1's, and the trainer's refusal to split
-    the pixel and ablation models; then, the spawn's group left, the CLI's
+    parameters broadcast over rank 1's, and the trainer's refusal of the
+    tiny pixel and ablation models, whose placement JAX refuses at tp = 2; then, the spawn's group left, the CLI's
     ``main(cli_argv)`` on the CPU as ``torchrun`` starts it on each rank
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set, the
     env:// rendezvous on ``port`` of localhost), into ``workdir``/dp."""
@@ -230,7 +231,7 @@ def train_job(rank, world, corpus, workdir, cli_argv, port):
         try:
             Trainer(conf, workdir=os.path.join(workdir, f"refused_{name}"), device="cpu")
             out["refused"][name] = None
-        except NotImplementedError as exc:
+        except ValueError as exc:
             out["refused"][name] = str(exc)
     from irdu_tpu_torch.train.__main__ import main
 
@@ -265,3 +266,41 @@ def trainer_config(corpus, parallel, max_steps):
                   "verbose_rate": 1, "checkpoint_rate": 0, "eval_rate": 0,
                   "max_steps": max_steps},
     }
+
+
+# the models of the tp = 2 steps of tests/test_torch_parallel_models.py:
+# (registry name, keywords, whether the flagship's latent terms are in the loss)
+TP_MODELS = {
+    "ablation": ("multiscale_graph_filter", dict(ngraphs=4), False),
+    "dncnn": ("dncnn", dict(in_nc=3, out_nc=3, nc=8, nb=3), False),
+    "flagship_subnets": ("abstract_multiscale_graph_filter",
+                         {**SP_TINY, "nsubnets": (2, 2, 1, 1)}, True),
+    "restormer": ("restormer", dict(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                                    heads=(1, 1, 1, 1), ffn_expansion_factor=2.0), False),
+}
+
+
+def tp_model(kind, seed=0):
+    """A seeded model of ``TP_MODELS`` on its kernels' plain versions."""
+    from irdu_tpu_torch.models.registry import create_model, set_kernels
+
+    name, kw, _ = TP_MODELS[kind]
+    torch.manual_seed(seed)
+    model = create_model(name, **kw)
+    set_kernels(model, False)
+    return model
+
+
+def models_job(rank, world):
+    """One step of each ``TP_MODELS`` model at tp = 2 (dp = 1) on the 2
+    ranks: {kind: this rank's results, the shapes of the slices it holds}."""
+    from irdu_tpu_torch.parallel.tensor import make_dp_tp_mesh
+
+    mesh = make_dp_tp_mesh(2, torch.device("cpu"))
+    noisy, clean = global_batch()
+    out = {}
+    for kind in TP_MODELS:
+        model = tp_model(kind)
+        out[kind] = one_step(model, noisy, clean, mesh, aux=TP_MODELS[kind][2])
+        out[kind]["local_shapes"] = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    return out

@@ -83,10 +83,21 @@ Phases, each timed and printed as it ends:
             CHANGE_FACTOR rule) and bf16 (K1's bar); K5 against the K6a/K6b
             composition in f32; K5 timed at every shape the 1024x1024 and
             2048x2048 requests give it. Then the band route against the K1
-            route on the 512x512 request's scale-0 code (K1's cap set to 0):
-            f32 within 5e-4 + 1e-3·|ref|, and both routes timed in bf16, in
-            turns. K2 on the diamond-12 window at (1, 144, 512, 512), K7 at the
-            512x512 pixel request's shapes and at K7_RAGGED (ragged tiles, a
+            route on the 512x512 request's scale-0 code (K1's cap set to 0)
+            on cross-4, diamond-12 and ring-8: f32 within 5e-4 + 1e-3·|ref|,
+            and both routes timed in bf16 by device time, in turns. K1 on
+            each of K1_OPTIONS (diamond-12, ring-8, cross-4 with the reflect
+            pad, cross-4 without stats tables, diamond-12 with the reflect
+            pad, ring-8 with the zero pad) at the 512x512 request's four
+            scale shapes, bf16 within K1's bar and timed, one f32 row a
+            option that moves its input by CHANGE_FACTOR times its bar
+            (``k1_option_rows``); K3 with dw_mxu (the expand folded into the
+            taps, ``block_stack_dw_mxu.cu``) at the 512x512 request's K3
+            shape with the snapshot's blocks against its plain version,
+            bf16 within block_bar and timed, f32 (``block_stack.cu``) with
+            the CHANGE_FACTOR rule (``dw_mxu_rows``). K2 on the diamond-12
+            window at (1, 144, 512, 512), K7 at the 512x512 pixel request's
+            shapes and at K7_RAGGED (ragged tiles, a
             plane below one tile) and K8 in each mode at 512x512, with
             the pixel snapshot's parameters, f32 (the bar above, and for K7
             and K8 the CHANGE_FACTOR rule) and bf16 (K2's and K1's bars), timed
@@ -114,17 +125,17 @@ Phases, each timed and printed as it ends:
             cross-4 and ring-8 serves 512x512 on NHWC (1 K2, 6 K8), 512x512 on
             CHW (1 K2, 1 K7) and 1024x1024 on CHW (1 K2, 6 K5), and the 86k
             flagship on diamond-12 and ring-8 serves 512x512 with every plane
-            on the K5 band route (band_launches: 3 K3, 32 K4, 8 K2, 20 K5, no
-            K1), each with its counts zeroed just before and read just
+            under K1's cap on K1 (window_launches: 3 K3, 32 K4, 4 K1, 8 K2, no
+            K5), each with its counts zeroed just before and read just
             after, then once more with every kernel call held against its
-            plain version (K2's bar; K1's for K5, K6a, K7, K8) and recorded,
+            plain version (K2's bar; K1's for K1, K5, K6a, K7, K8) and recorded,
             each kernel's calls of a request replayed and timed (ms,
             device_ms, plain_ms, bound); the pixel model with eval_skip_solve
             launches nothing; the WINDOW_ABLATIONS configs (seeded as the
             ablation phase seeds them) on diamond-12 and ring-8 serve 512x512
-            the same way, with no K1 and no K9: the two-scale solvers 5 K5
-            steps (the band route), the single-scale GTV+GLR solvers their 3
-            matvecs on K6a (``window_ablation_launches``); one f32 row per
+            the same way, with no K9: the two-scale solvers 1 K1 (their plane
+            is under the cap) and no K5, the single-scale GTV+GLR solvers
+            their 3 matvecs on K6a (``window_ablation_launches``); one f32 row per
             kernel and window at the served shapes (K2; K5 in the pixel mode
             at 1024x1024 and two-scale at the flagship's 512x512 scale 0; K7;
             K8 in each mode) and per ablation solver and window (kernels
@@ -216,16 +227,16 @@ Phases, each timed and printed as it ends:
             configs flagship_sigma25, micro_distill_sigma25 and
             lightformer_pixel_sigma (TRAIN_CONFIGS, held to the YAML by a CPU
             test) cut to stage 0 with TRAIN_PATCHES crops, on the synthetic
-            train set in memory: the flagship at full width in f32 runs 3
+            train set in memory: the flagship at full width in f32 runs 2
             steps with a checkpoint and an eval, resumes in a fresh Trainer
-            to step 6 (state and batches bitwise, no launch in a step, every
+            to step 4 (state and batches bitwise, no launch in a step, every
             parameter with a non-zero gradient); one loss and backward on the
             card against the CPU; distillation from the config's teacher
             (flagship_synthetic_2050.npz) in bf16
             on K3, K4, K2 and K1 (each teacher forward one 128x128 request's
             launches, its first step's calls held against their plain
-            versions, the student none, remat on against off), 10 steps on
-            one batch lowering the loss; the pixel model 4 steps; the trained
+            versions, the student none, remat on against off), 6 steps on
+            one batch lowering the loss; the pixel model 3 steps; the trained
             student written with save_params_npz and served by predict in the
             eval protocol with micro's launches; the autograd guard raising
             (``phase_train``);
@@ -342,19 +353,19 @@ PIXEL_CHW_BAND = launches(0, 0, 0, 1, 6)
 K8_CALLS = {"rhs": 1, "cg1": 2, "cg2": 2, "rethresh": 1}  # per pixel request
 # the windows phase: the pixel model on its other windows, each served on
 # the routes and sizes of WINDOW_PIXEL_RUNS; the flagship on its other
-# windows at WINDOW_FLAGSHIP_REQUEST (every plane on the K5 band route:
-# band_launches); the kernels whose calls there are timed (WINDOW_REPS
-# replays of a request's calls)
+# windows at WINDOW_FLAGSHIP_REQUEST (K1 under its cap, the K5 band route
+# above it: window_launches); the kernels whose calls there are timed
+# (WINDOW_REPS replays of a request's calls)
 WINDOW_PIXEL = ("cross4", "ring8")
 WINDOW_PIXEL_RUNS = (("nhwc", (512, 512), PIXEL_NHWC), ("chw", (512, 512), PIXEL_CHW),
                      ("chw", (1024, 1024), launches(0, 0, 0, 1, 6)))
 WINDOW_FLAGSHIP = ("diamond12", "ring8")
 WINDOW_FLAGSHIP_REQUEST = (512, 512)
 WINDOW_KERNELS = ("edge_weights_chw", "gg_fused_step_chw", "gg_pixel_unroll_chw",
-                  "pixel_segment_nhwc", "gg_matvec_chw")
+                  "pixel_segment_nhwc", "gg_matvec_chw", "gg_unroll_chw")
 # the ablation configs whose solver takes the graph window, each served at
-# ABLATION_SIDE² on WINDOW_FLAGSHIP's windows: the two-scale solver (the K5
-# band route) and the single-scale GTV+GLR solver (its matvecs on K6a)
+# ABLATION_SIDE² on WINDOW_FLAGSHIP's windows: the two-scale solver (K1) and
+# the single-scale GTV+GLR solver (its matvecs on K6a)
 WINDOW_ABLATIONS = ("ablation_no_latent", "ablation_no_latent_no_mixture",
                     "ablation_no_orders", "ablation_no_orders_split")
 # the variants phase's full-width flagship of 2 subnets at every scale
@@ -534,7 +545,7 @@ DEPLOY_ROWS = (
 )
 DEPLOY_INT8_KERNELS = 110  # JAX's count of quantized 2-D kernels (int8.log:6)
 DEPLOY_ROUNDS = 1  # request timing, eager and artifact in turns
-DEPLOY_REQUESTS = 5  # timed requests a turn
+DEPLOY_REQUESTS = 3  # timed requests a turn
 # the configurations the registry built last: their ``model:`` sections as the
 # files give them (a CPU test holds these to the files), served at 512x512 with
 # seeded weights; the pixel model with both solver flags on, as predict serves
@@ -631,7 +642,7 @@ TRAIN_CONFIGS = {
 # the train phase cuts each run to stage 0 with TRAIN_PATCHES crop positions
 # (the configs' 800000 cost seconds of crop draws a dataset)
 TRAIN_PATCHES = 2400
-TRAIN_STEPS = {"flagship": (3, 6), "distill": 4, "pixel": 4, "fixed_batch": 10}
+TRAIN_STEPS = {"flagship": (2, 4), "distill": 3, "pixel": 3, "fixed_batch": 6}
 TRAIN_GRAD_BATCH = 1  # images of the step's batch in the card-against-CPU gradient
 TRAIN_GRAD_SIDE = 64  # ... each its top-left crop of this side (the CPU's backward is the cost)
 # the stages phase: every stage of these configs alone, STAGE_STEPS steps
@@ -655,36 +666,63 @@ PARALLEL_LOSS_ATOL = 1e-4  # tensor parallel against one process (JAX's dryrun b
 # global batch and the side of their top-left crop
 PARALLEL_ABLATION = ("ablation_no_latent", 2, 64)
 LOADER_WAIT = {"flagship_sigma25": 3, "lightformer_pixel_sigma": 0}
-LOADER_STEPS = 3
+LOADER_STEPS = 2
 GIB = 2 ** 30
 TRAIN_GRAD_RTOL = 1e-3  # card against CPU: max|d| <= this of max(1e-6, max|g_cpu|), per tensor
 TRAIN_LOSS_RTOL = 1e-5
-PROFILE_REQUESTS = 5  # steady 512x512 flagship requests under torch.profiler
+PROFILE_REQUESTS = 3  # steady 512x512 flagship requests under torch.profiler
 CHANGE_FACTOR = 10  # K1: max|out - y| must be this many times the agreement bar
+# The compiled variants of a kernel with several, listed on the kernels line
+# (K1: one instance file per window, each with an instance whose pad is
+# "edge", which every model sends, and one that reads the other pads at run
+# time), each with the basis of its rows.
+KERNEL_INSTANCES = {"gg_unroll_chw": [
+    dict(window=window, pad=pad, source=f"irdu_tpu_torch/kernels/csrc/{source}", basis=basis)
+    for window, source, (edge, other) in (
+        ("cross4", "gg_unroll.cu", (["512x512 request",
+                                     "512x512 request's shapes, cross4 no stats"],
+                                    ["512x512 request's shapes, cross4 reflect"])),
+        ("diamond12", "gg_unroll_diamond12.cu", (["512x512 request's shapes, diamond12",
+                                                  "512x512 request, diamond12"],
+                                                 ["512x512 request's shapes, diamond12 reflect"])),
+        ("ring8", "gg_unroll_ring8.cu", (["512x512 request's shapes, ring8",
+                                          "512x512 request, ring8"],
+                                         ["512x512 request's shapes, ring8 zero"])))
+    for pad, basis in (("edge", edge), ("zero, reflect", other))]}
+# K1's options beyond the served cross-4 "edge" (``k1_option_rows``): window,
+# stencil pad, stats tables set to None; every instance of KERNEL_INSTANCES
+K1_OPTIONS = {"diamond12": ("diamond12", "edge", False), "ring8": ("ring8", "edge", False),
+              "cross4 reflect": ("cross4", "reflect", False),
+              "cross4 no stats": ("cross4", "edge", True),
+              "diamond12 reflect": ("diamond12", "reflect", False),
+              "ring8 zero": ("ring8", "zero", False)}
 
 
-def k1_ops_per_pixel(iters):
-    """f32 operations the unroll needs per full-res pixel of one plane, each
-    edge term computed once (an add, mul or compare is 1, a fused multiply-add
-    2); half-res work counts a quarter.
+def k1_ops_per_pixel(iters, n_edges=4, stats=True):
+    """f32 operations the unroll needs per full-res pixel of one plane on a
+    window of E edges, each edge term computed once (an add, mul or compare
+    is 1, a fused multiply-add 2); half-res work counts a quarter. Per scale
+    (``ops.pixel_unroll.edge_ops``): Q·x = 18 + 5·E, the re-threshold
+    18 + 10·E, GLR 19 + 2·E, A·x = Q + GLR + 3 (cross-4: 38, 58, 27, 68;
+    the stencil 9, the GTV edge term 3 and the re-threshold's 8 per edge,
+    the scatter 2 per edge, GLR's FMA 2 per edge). A·x at a full-res pixel:
+    A·x + 2 (x + t₀ + Up t₁) + (A·x + 4) / 4, the box down 4 a half-res
+    pixel; rhs_a: Q + 3 + (4 + Q + 1) / 4; rhs_b: R + 3 + (4 + R + 1) / 4;
+    CG updates: step 1 3, step 2 3, step 3 5 (β₂ momentum). Cross-4 at cg3:
+    403.5; diamond-12 763.5; ring-8 583.5. Without stats tables (``stats``
+    False: JAX's kernel skips the stencil and its transpose) Q 5·E, the
+    re-threshold 10·E, GLR 1 + 2·E: cross-4 at cg3 223.5."""
+    from irdu_tpu_torch.ops.pixel_unroll import edge_ops
 
-    stencil C (5 taps, replicate pad) or Cᵀ (zero pad): 5 mul + 4 add = 9
-    GTV edge term w·w·(s_p − s_q): 3 per edge; re-threshold edge term
-    w·(2·S_γ(ε) − ε) with ε = w·(s_p − s_q): 8 per edge (sub, mul, clamp 2,
-    sub, FMA 2, mul); the zero-padded scatter Σ_e t_e(p) − t_e(p − d_e): 8;
-    GLR s − Σ_e w_e s_q: 4 FMA + 1 = 9; box down: 4 per half-res pixel.
-    Q·x = 9 + 12 + 8 + 9 = 38; the re-threshold 9 + 32 + 8 + 9 = 58;
-    stats GLR 9 + 9 + 9 = 27; one scale of A·x: 38 + 27 + 3 (ρ·, μ·, add) = 68.
-    A·x at a full-res pixel: 68 + 2 (x + t₀ + Up t₁) + (68 + 4) / 4 = 88;
-    rhs_a: 38 + 1 + 2 + (4 + 38 + 1) / 4 = 51.75;
-    rhs_b: 58 + 1 + 2 + (4 + 58 + 1) / 4 = 76.75;
-    CG updates: step 1 3, step 2 3, step 3 5 (β₂ momentum)."""
-    ops = 51.75 + 88 + 3
+    ops = edge_ops(n_edges, stats, stats)
+    q, re_, ax = ops["q"], ops["rethresh"], ops["matvec"]
+    a_x = ax + 2 + (ax + 4) / 4
+    total = q + 3 + (4 + q + 1) / 4 + a_x + 3
     if iters >= 2:
-        ops += 76.75 + 88 + 3
+        total += re_ + 3 + (4 + re_ + 1) / 4 + a_x + 3
     if iters >= 3:
-        ops += 88 + 5
-    return ops
+        total += a_x + 5
+    return total
 
 
 def k2_ops_per_pixel_graph(f, n_edges=4):
@@ -880,11 +918,13 @@ def psnr(clean, out):
 
 
 def phase_build(smoke):
-    """Build the library; ptxas's report of K1's, K5's (which K6a and K6b
-    launch too), K7's and K9's kernels (registers, stack, spills) goes to
-    ``lines["ptxas"]``, with every ptxas warning of the build. Fails if the
-    library was built here and an instance of K7 or K9 spills or none is
-    reported."""
+    """Build the library; ptxas's report of K1's (every window's instances),
+    K3's dw_mxu kernel's, K5's (which K6a and K6b launch too), K7's and K9's
+    kernels (registers, stack, spills) goes to ``lines["ptxas"]``, with every
+    ptxas warning of the build and each source's compile seconds (``units``).
+    Fails if the library was built here and an instance of the dw_mxu
+    kernel, K7 or K9 spills or none is reported (K1's diamond-12 instances
+    spill at their 128-register cap: reported, not gated)."""
     from irdu_tpu_torch.kernels.build import build, ptxas_report
 
     path, log, seconds = build()
@@ -892,13 +932,16 @@ def phase_build(smoke):
         fh.write(log)
     smoke.lines["ptxas"] = dict(
         {name: ptxas_report(log, kernel) for name, kernel in
-         (("gg_unroll_chw", "gg_unroll_kernel"), ("gg_fused_step_chw", "step_kernel"),
+         (("gg_unroll_chw", "gg_unroll_kernel"), ("fused_block_stack_dw_mxu", "dw_mxu_kernel"),
+          ("gg_fused_step_chw", "step_kernel"),
           ("gg_pixel_unroll_chw", "pixel_unroll_kernel"),
           ("fused_system_matvec", "system_matvec_kernel"))},
         warnings=sorted({ln.strip() for ln in log.splitlines() if "warning" in ln}),
+        units={m.group(1): float(m.group(2))
+               for m in re.finditer(r"^build: (\S+) ([\d.]+) s$", log, re.M)},
         built=bool(log))
-    if log:  # built here: every K7 and K9 instance reported, none spilling
-        for name in ("gg_pixel_unroll_chw", "fused_system_matvec"):
+    if log:  # built here: every dw_mxu, K7 and K9 instance reported, none spilling
+        for name in ("fused_block_stack_dw_mxu", "gg_pixel_unroll_chw", "fused_system_matvec"):
             entries = smoke.lines["ptxas"][name]
             require(entries and all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
                                     for e in entries), f"ptxas: {name} spills: {entries}")
@@ -967,8 +1010,13 @@ def phase_serving(smoke):
     for _, noisy in images:  # warm-up: cuDNN plans, allocator
         denoise(model, noisy)
     sync()
+    from irdu_tpu_torch.ops.block_stack import fused_block_stack
+
+    fused_block_stack.dw_mxu_launches = 0  # the dw_mxu kernel, off the served path
     rows, smoke.path_counts["serving"] = serve(
         model, [(c, n, hw) for (c, n), hw in zip(images, REQUESTS)])
+    smoke.path_counts["serving"]["fused_block_stack_dw_mxu"] = fused_block_stack.dw_mxu_launches
+    require(fused_block_stack.dw_mxu_launches == 0, "serving launched the dw_mxu kernel")
     for row, (_, noisy) in zip(rows, images):  # after the counts: these launches do not count
         row.update(checked_request(model, noisy, PER_REQUEST[tuple(row["shape"])]))
     smoke.lines["serving"] = {"serving": rows, "weights": "flagship_cont100k_35000.npz",
@@ -1453,12 +1501,13 @@ def phase_kernels(smoke):
             ops = y.numel() * k1_ops_per_pixel(3)
             k1_rows[-1].update(
                 **times(lambda: gg_unroll_chw(*args, n_graphs=g), 10, repeats=3),
-                ctas_per_sm=kernel_library().irdu_gg_unroll_ctas_per_sm(dtype_code(dtype)),
+                ctas_per_sm=kernel_library().irdu_gg_unroll_ctas_per_sm(0, dtype_code(dtype)),
                 plain_ms=cuda_ms(lambda: gg_unroll_plain(*args, n_graphs=g), 3),
                 **_bound(nbytes, ops))
-    k1_rows += k1_ragged_rows(model, gen, bar_at)
+    k1_rows += k1_ragged_rows(model, gen, bar_at) + k1_option_rows(model, gen, bar_at)
     smoke.kernel_rows = {"gg_unroll_chw": k1_rows, "edge_weights_chw": k2_rows,
-                         **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at)}
+                         **block_rows(model, gen, bar_at), **step_rows(model, gen, bar_at),
+                         "fused_block_stack_dw_mxu": dw_mxu_rows(model, gen, bar_at)}
     pixel = smoke.pixel_model or load_model(device=DEVICE, name="pixel")
     for more in (pixel_rows(pixel, gen, bar_at, smoke.lines), pixel_step_rows(pixel, gen, bar_at),
                  k9_rows(gen, bar_at), ragged_step_rows(gen, bar_at), boosting_k2_rows(gen)):
@@ -1479,19 +1528,19 @@ def phase_kernels(smoke):
 def layout_mismatches(model):
     """The planners' shared-memory counts against the kernels' own layouts
     (the library's ``irdu_block_stack_wgmma_smem``,
-    ``irdu_edge_weights_smem``, ``irdu_fused_step_hopper_smem``,
+    ``irdu_block_stack_dw_mxu_smem``, ``irdu_edge_weights_smem``, ``irdu_fused_step_hopper_smem``,
     ``irdu_pixel_segment_smem``, ``irdu_pixel_unroll_smem`` and
-    ``irdu_system_matvec_smem``): K3's wgmma kernel at every served (C, H)
-    it takes, K2 at the plan of every call of the 512x512 flagship request
+    ``irdu_system_matvec_smem``): K3's wgmma kernel and its dw_mxu kernel
+    at every served (C, H) they take, K2 at the plan of every call of the 512x512 flagship request
     and of the pixel model's diamond-12 call, bf16 and f32; K5 (and so
-    K6a's and K6b's single-scale launches) and K8 on every window at every
-    tile plan they are built with, with and without GLR; K7 on every window
+    K6a's and K6b's single-scale launches) at its tile and K8 at every tile
+    plan it is built with, on every window, with and without GLR; K7 on every window
     and K9 at the tile of each type. Returns the (what, planner bytes,
     kernel bytes) that differ."""
     import torch
 
     from irdu_tpu_torch.kernels.build import kernel_library
-    from irdu_tpu_torch.ops.block_stack import stack_route, stack_smem_bytes
+    from irdu_tpu_torch.ops.block_stack import dw_mxu_smem_bytes, stack_route, stack_smem_bytes
     from irdu_tpu_torch.ops import fused_step as fs
     from irdu_tpu_torch.ops import pixel_nhwc as pn
     from irdu_tpu_torch.ops import pixel_unroll as pu
@@ -1504,6 +1553,8 @@ def layout_mismatches(model):
         if stack_route(torch.bfloat16, c, hidden) == "wgmma":
             got = lib.irdu_block_stack_wgmma_smem(c, hidden)
             out.append((f"K3 C={c} H={hidden}", stack_smem_bytes(c, hidden), got))
+            out.append((f"K3 dw_mxu C={c} H={hidden}", dw_mxu_smem_bytes(c, hidden),
+                        lib.irdu_block_stack_dw_mxu_smem(c, hidden)))
     calls = [(2 * lf.n_graphs, lf.n_node_fts, FRAME >> res, 1)
              for s, lf in enumerate(f.local_filter for f in model.local_filters)
              for res in (s, s + 1)] + [(48, 3, FRAME, 2)]
@@ -1515,15 +1566,12 @@ def layout_mismatches(model):
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         esize = 4 if code == 0 else 2
         for two, win in ((two, win) for two in (True, False) for win in range(3)):
-            for plan in range(len(fs.k5_plans(two, win))):
-                if not fs.k5_has_plan(plan, two, win, dtype):
-                    continue
-                for glr in (False, True):
-                    got = lib.irdu_fused_step_hopper_smem(win, int(two), int(glr), plan, code)
-                    out.append((f"K5 window={win} two={two} glr={glr} plan={plan} e{esize}",
-                                fs.k5_smem_bytes(win, two, glr, plan, esize), got))
-        for win, plans in pn.K8_WINDOW_PLANS.items():
-            for plan in range(len(plans) if code else 1):
+            for glr in (False, True):
+                got = lib.irdu_fused_step_hopper_smem(win, int(two), int(glr), code)
+                out.append((f"K5 window={win} two={two} glr={glr} e{esize}",
+                            fs.k5_smem_bytes(win, two, glr, esize), got))
+        for win in range(3):
+            for plan in range(len(pn.K8_PLANS) if code else 1):
                 for glr in (False, True):
                     got = lib.irdu_pixel_segment_smem(win, int(glr), plan, code)
                     out.append((f"K8 window={win} glr={glr} plan={plan} e{esize}",
@@ -1569,6 +1617,122 @@ def k1_ragged_rows(model, gen, bar_at):
                              params=f"snapshot, mu/rho/gamma x{LOUD[s]}, cg3",
                              max_abs_err=max_abs(ker, ref), max_ref=float(ref.float().abs().max()),
                              change=change, bar=bar, ok=ok))
+    return rows
+
+
+def k1_option_rows(model, gen, bar_at):
+    """K1 on each of K1_OPTIONS (diamond-12 and ring-8 with the "edge" pad,
+    cross-4 with the reflect pad and with no stats tables, diamond-12 with
+    the reflect pad, ring-8 with the zero pad: every K1 instance) against its plain
+    version at the 512x512 request's four scale shapes, with the snapshot's
+    filter parameters of each scale (μ, ρ, γ scaled by LOUD) and seeded
+    inputs (features N(0, 1) through K2's plain version on the window,
+    planes U[0, 1)): bf16 within K1's bar, timed (``times``, the plain
+    version once), with its bound, under the basis "512x512 request's
+    shapes, <option>" (the windows phase times the 512x512 request's own
+    K1 calls on a window under "512x512 request, <window>"); one f32 row at
+    scale 0 within 5e-4 + 1e-3·|ref| that moves y by CHANGE_FACTOR times
+    that bar."""
+    import torch
+
+    from irdu_tpu_torch.kernels.build import dtype_code, kernel_library
+    from irdu_tpu_torch.ops.edge_weights import edge_weights_plain
+    from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain
+    from irdu_tpu_torch.ops.windows import WINDOWS, window_code
+
+    rows = []
+    for option, (window, pad, no_stats) in K1_OPTIONS.items():
+        deltas = WINDOWS[window]
+        for s in range(4):
+            g, m0, m1, tables, scal = _filter_params(model, s)
+            scal = scal.clone()
+            scal[:, :6] *= LOUD[s]
+            tables = [None] * 4 if no_stats else tables
+            c = model.local_filters[s].local_filter.n_node_fts * g
+            h = w = FRAME >> s
+            for dtype in (torch.float32, torch.bfloat16) if s == 0 else (torch.bfloat16,):
+                y = torch.rand(1, c, h, w, device=DEVICE, generator=gen).to(dtype)
+                ws = []
+                for m, res in ((m0, 1), (m1, 2)):
+                    feats = torch.randn(1, 2 * c, h // res, w // res, device=DEVICE,
+                                        generator=gen).to(dtype)
+                    wt = edge_weights_plain(feats, m, 2 * g, deltas)
+                    ws += [wt[:, :g].contiguous(), wt[:, g:].contiguous()]
+                args = (y, *ws, *tables, scal)
+                kw = dict(n_graphs=g, stats_mode=pad, deltas=deltas)
+                ker = gg_unroll_chw(*args, **kw)
+                ref = gg_unroll_plain(*args, **kw)
+                sync()
+                change, bar = max_abs(ref, y), bar_at(ref, dtype)
+                ok = (within(ker, ref, 5e-4, 1e-3) and change >= CHANGE_FACTOR * bar
+                      if dtype == torch.float32 else k1_bar(ker, ref))
+                row = dict(scale=s, shape=list(y.shape), dtype=str(dtype)[6:], window=window,
+                           stats_mode=pad, no_stats=no_stats,
+                           params=f"snapshot, mu/rho/gamma x{LOUD[s]}, cg3",
+                           max_abs_err=max_abs(ker, ref), max_ref=float(ref.float().abs().max()),
+                           change=change, bar=bar, ok=ok)
+                if dtype == torch.bfloat16:
+                    nbytes = sum(t.numel() * t.element_size() for t in args
+                                 if t is not None) + y.numel() * 2
+                    row.update(
+                        basis=f"{FRAME}x{FRAME} request's shapes, {option}", calls=1,
+                        **times(lambda: gg_unroll_chw(*args, **kw), 10),
+                        ctas_per_sm=kernel_library().irdu_gg_unroll_ctas_per_sm(
+                            window_code(deltas), dtype_code(dtype)),
+                        plain_ms=cuda_ms(lambda: gg_unroll_plain(*args, **kw), 1, 0),
+                        **_bound(nbytes, y.numel() * k1_ops_per_pixel(
+                            3, len(deltas), stats=not no_stats)))
+                rows.append(row)
+                del ker, ref
+    return rows
+
+
+def dw_mxu_rows(model, gen, bar_at):
+    """K3 with ``dw_mxu`` (``block_stack_dw_mxu.cu`` in bf16, ``block_stack.cu``
+    in f32) at the 512x512 request's K3 shape, the snapshot's four scale-0
+    encoder blocks (C = 48, H = 96), seeded N(0, 1) input, against
+    ``block_stack_dw_mxu_plain``: bf16 within ``block_bar``, timed with its
+    bound (9·2·C·2H + 2·H·C tensor-core and 6·H + 8·C CUDA-core operations a
+    pixel and block), K3_PER_REQUEST calls a request as K3's; f32 within
+    5e-4 + 1e-3·|ref|, moving its input by CHANGE_FACTOR times that bar."""
+    import torch
+
+    from irdu_tpu_torch.ops.block_stack import (block_stack_dw_mxu_plain, fused_block_stack,
+                                                pack_block_params)
+
+    rows = []
+    blocks = model.encoder_scales[0][:4]
+    c = model.dims[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        params = [{k: v.to(dtype) for k, v in blk.gated_params().items()} for blk in blocks]
+        x = torch.randn(1, c, FRAME, FRAME, device=DEVICE, generator=gen).to(dtype)
+        args = (x, *pack_block_params(params, dtype))
+        ker = fused_block_stack(*args, dw_mxu=True)
+        ref = block_stack_dw_mxu_plain(*args)
+        sync()
+        change, bar = max_abs(ref, x), bar_at(ref, dtype)
+        hidden2 = params[0]["w1"].shape[1]
+        row = dict(blocks=len(blocks), shape=list(x.shape), hidden=hidden2 // 2,
+                   dtype=str(dtype)[6:], params="snapshot, encoder scale 0, dw_mxu",
+                   kernel="block_stack_dw_mxu.cu" if dtype == torch.bfloat16 else "block_stack.cu",
+                   max_abs_err=max_abs(ker, ref), max_ref=float(ref.float().abs().max()),
+                   change=change, bar=bar)
+        if dtype == torch.float32:
+            row["ok"] = within(ker, ref, 5e-4, 1e-3) and change >= CHANGE_FACTOR * bar
+        else:
+            (row["ok"], row["beyond_one_ulp_share"], row["plain_own_err"],
+             row["rms_vs_plain"]) = block_bar(ker, ref, unrounded(block_stack_dw_mxu_plain,
+                                                                  args, {}))
+            npx = x.shape[2] * x.shape[3] * len(blocks)
+            nbytes = 2 * x.numel() * x.element_size() + sum(
+                t.numel() * t.element_size() for t in args[1:])
+            row.update(calls=K3_PER_REQUEST,
+                       **times(lambda: fused_block_stack(*args, dw_mxu=True), 20, repeats=3),
+                       plain_ms=cuda_ms(lambda: block_stack_dw_mxu_plain(*args), 2),
+                       **_bound(nbytes, (3 * hidden2 + 8 * c) * npx,
+                                (9 * 2 * c * hidden2 + hidden2 * c) * npx))
+        rows.append(row)
+        del ker, ref, args
     return rows
 
 
@@ -1828,49 +1992,59 @@ def k6_composition(args, kw, g):
     return x + per_chan(col[4]) * upd
 
 
-def band_route(model, rounds=3):
+def band_route(model, rounds=2):
     """The flagship's scale-0 solver on the 512x512 request's scale-0 code
-    through K1 and through the band route (K1's cap set to 0): in f32 on
-    the kernels, within 5e-4 + 1e-3·|ref|; in bf16 (the serving model)
-    timed in turns, K1, band, band, K1 per round, after one untimed call on
-    each route."""
+    through K1 and through the band route (K1's cap set to 0), on cross-4
+    and on each of WINDOW_FLAGSHIP: in f32 on the kernels, within
+    5e-4 + 1e-3·|ref|; in bf16 (the serving model) by device time
+    (``device_ms``: the kernels of 3 solver calls a session, no host work),
+    in turns, K1, band, band, K1 per round, after one untimed call on each
+    route. The top-level keys are cross-4's; ``windows`` holds each
+    window's; ``ok`` is every window's."""
     import torch
 
+    from irdu_tpu_torch.kernels.timing import device_ms
     from irdu_tpu_torch.predict import load_model
     from irdu_tpu_torch.solvers import gtv_glr
 
     _, noisy = request_images()[0]
     img = torch.from_numpy(noisy[None]).to(DEVICE)
     cap = gtv_glr._MEGA_MAX_PIXELS
-    out = {}
+    out = {"windows": {}}
     try:
         model32 = load_model(device=DEVICE, dtype=torch.float32)
         lf32 = model32.local_filters[0].local_filter
-        with torch.inference_mode():
-            code = model32.encode(img)[0]
-            via_k1 = lf32(code)
-            gtv_glr._MEGA_MAX_PIXELS = 0
-            via_band = lf32(code)
-        sync()
-        out.update(shape=list(code.shape), f32_max_abs_err=max_abs(via_band, via_k1),
-                   f32_change=max_abs(via_k1, code),
-                   ok=within(via_band, via_k1, 5e-4, 1e-3))
-        del model32, lf32, via_k1, via_band
         lf = model.local_filters[0].local_filter
         with torch.inference_mode():
+            code32 = model32.encode(img)[0]
             code = model.encode(img.to(next(model.parameters()).dtype))[0]
-            times = {"k1": [], "band": []}
-            for route in ("k1", "band"):
-                gtv_glr._MEGA_MAX_PIXELS = 0 if route == "band" else cap
-                lf(code)
-            for _ in range(rounds):
-                for route in ("k1", "band", "band", "k1"):
+        for window in ("cross4",) + WINDOW_FLAGSHIP:
+            with on_window([lf32, lf], window), torch.inference_mode():
+                gtv_glr._MEGA_MAX_PIXELS = cap
+                via_k1 = lf32(code32)
+                gtv_glr._MEGA_MAX_PIXELS = 0
+                via_band = lf32(code32)
+                sync()
+                row = dict(shape=list(code32.shape), f32_max_abs_err=max_abs(via_band, via_k1),
+                           f32_change=max_abs(via_k1, code32),
+                           ok=within(via_band, via_k1, 5e-4, 1e-3))
+                del via_k1, via_band
+                times = {"k1": [], "band": []}
+                for route in ("k1", "band"):
                     gtv_glr._MEGA_MAX_PIXELS = 0 if route == "band" else cap
-                    times[route].append(round(cuda_ms(lambda: lf(code), 1, 0), 4))
-        out.update(bf16_k1_ms=times["k1"], bf16_band_ms=times["band"],
-                   median_k1_ms=float(np.median(times["k1"])),
-                   median_band_ms=float(np.median(times["band"])),
-                   order="k1, band, band, k1, x%d" % rounds)
+                    lf(code)
+                for _ in range(rounds):
+                    for route in ("k1", "band", "band", "k1"):
+                        gtv_glr._MEGA_MAX_PIXELS = 0 if route == "band" else cap
+                        times[route].append(round(device_ms(lambda: lf(code), 3, pad=1), 4))
+            row.update(bf16_k1_ms=times["k1"], bf16_band_ms=times["band"],
+                       median_k1_ms=float(np.median(times["k1"])),
+                       median_band_ms=float(np.median(times["band"])),
+                       order="k1, band, band, k1, x%d" % rounds, timing="device_ms")
+            out["windows"][window] = row
+        out.update({k: v for k, v in out["windows"]["cross4"].items()})
+        out["ok"] = all(r["ok"] for r in out["windows"].values())
+        del model32, lf32
     finally:
         gtv_glr._MEGA_MAX_PIXELS = cap
     return out
@@ -2389,6 +2563,10 @@ def kernels_line(smoke):
     under ``by_basis``; max_abs_err is the f32
     maximum; K3's source is the wgmma stack kernel's, and its rows name the
     kernel each shape took (``block_stack.cu`` for lite's C = 24 and f32);
+    K3 with ``dw_mxu`` is an entry of its own (``block_stack_dw_mxu.cu``, off
+    every served path, per 512x512 request as K3); ``instances`` lists each
+    kernel's compiled variants where it has several (K1: window, pad, source,
+    the basis that times it);
     launches are those of the paths' runs (flagship serving, the small
     models, pixel NHWC, pixel CHW, pixel CHW above the cap, each ablation
     config, GLR boosting's protocol and natural runs), summed and by
@@ -2396,6 +2574,8 @@ def kernels_line(smoke):
     meta = {
         "fused_block_stack": ("irdu_tpu_torch/kernels/csrc/block_stack_wgmma.cu",
                               "irdu_tpu/ops/pallas/block_stack.py:214"),
+        "fused_block_stack_dw_mxu": ("irdu_tpu_torch/kernels/csrc/block_stack_dw_mxu.cu",
+                                     "irdu_tpu/ops/pallas/block_stack.py:214"),
         "fused_gated_block": ("irdu_tpu_torch/kernels/csrc/gated_block.cu",
                               "irdu_tpu/ops/pallas/gated_block.py:94"),
         "gg_unroll_chw": ("irdu_tpu_torch/kernels/csrc/gg_unroll.cu",
@@ -2442,7 +2622,7 @@ def kernels_line(smoke):
         bf16 = [r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"]
         out.append(dict(
             name=name, route="cuda", source=source, headers=source_headers(source),
-            replaces=replaces,
+            replaces=replaces, instances=KERNEL_INSTANCES.get(name),
             launches=sum(c.get(name, 0) for c in smoke.path_counts.values()),
             launches_by_path={k: c.get(name, 0) for k, c in smoke.path_counts.items()},
             max_abs_err=max(f32) if f32 else None,
@@ -2486,17 +2666,22 @@ def dark_split(clean, out):
 # ---------------------------------------------------------------------------
 
 
-def band_launches(model, hw):
-    """The flagship's launches on ``hw`` when every plane takes the band route
-    (a window other than cross-4: K1 is built for cross-4 only), derived from
-    the model: PER_REQUEST's blocks, K2 twice a filtering block, no K1, and
-    per filtering block the K5 steps ``gtv_glr._band_route`` issues at its
-    ``eval_cg_iters`` (rhs, cg; then rethresh, cg; then cg)."""
+def window_launches(model, hw):
+    """The flagship's launches on ``hw`` on any window, derived from the
+    model: PER_REQUEST's blocks, K2 twice a filtering block, and per
+    filtering block K1 once where its plane is under the cap
+    (``gtv_glr._mega_ok``), else the K5 steps ``gtv_glr._band_route`` issues
+    at its ``eval_cg_iters`` (rhs, cg; then rethresh, cg; then cg)."""
+    from irdu_tpu_torch.solvers.gtv_glr import _mega_ok
+
     steps = {1: 2, 2: 4, 3: 5}
     want = dict(PER_REQUEST[hw])
-    want.update(gg_unroll_chw=0, edge_weights_chw=2 * len(model.local_filters),
+    shapes = [(1, 1, hw[0] >> s, hw[1] >> s) for s in range(len(model.local_filters))]
+    want.update(gg_unroll_chw=sum(map(_mega_ok, shapes)),
+                edge_weights_chw=2 * len(model.local_filters),
                 gg_fused_step_chw=sum(steps[f.local_filter.eval_cg_iters]
-                                      for f in model.local_filters))
+                                      for f, shape in zip(model.local_filters, shapes)
+                                      if not _mega_ok(shape)))
     return want
 
 
@@ -2540,17 +2725,27 @@ def recorded_calls(sites):
             setattr(mod, name, fn)
 
 
-def k5_window_ops(mode, n_edges, two, glr=True, y=False, prev=False):
+def k5_window_ops(mode, n_edges, two, glr=True, y=False, prev=False, gtv_stats=True,
+                  glr_stats=True):
     """f32 operations one K5 call needs per full-res pixel of one plane on a
-    window of E edges, each edge term once (``ops.pixel_unroll.edge_ops``):
-    its term (rhs Q, cg Q [+ GLR], rethresh R), two-scale plus a quarter of
-    the half-res term and of its box mean and upsampled add (4); then the
-    epilogue: rhs 1, cg rhs − (x + T) and x + α·upd 4 (β·prev 2), rethresh y 1."""
+    window of E edges, each edge term once (``ops.pixel_unroll.edge_ops``,
+    with or without each operator's stencil): its term (rhs Q, cg Q [+ GLR],
+    rethresh R), two-scale plus a quarter of the half-res term and of its box
+    mean and upsampled add (4); then the epilogue: rhs 1, cg rhs − (x + T)
+    and x + α·upd 4 (β·prev 2), rethresh y 1."""
     from irdu_tpu_torch.ops.pixel_unroll import edge_ops
 
-    ops = edge_ops(n_edges)
+    ops = edge_ops(n_edges, gtv_stats, glr_stats)
     term = {"rhs": ops["q"], "cg": ops["q"] + ops["glr"] * glr, "rethresh": ops["rethresh"]}[mode]
     return term + (term + 4) / 4 * two + {"rhs": 1, "cg": 4 + 2 * prev, "rethresh": y}[mode]
+
+
+def has_stencil(table):
+    """Whether a stats table asks for stencil work: not where it is None or
+    the identity's ([1, 0, 0, 0] for every graph and feature, as the solvers
+    pass a missing stencil), where the function needs no stencil."""
+    return table is not None and not (bool((table[:, 0] == 1).all())
+                                      and bool((table[:, 1:] == 0).all()))
 
 
 def call_cost(name, args, kw, out):
@@ -2558,7 +2753,8 @@ def call_cost(name, args, kw, out):
     each output written once), the f32 operations it does and its bf16
     tensor-core operations (K3, K4: the grouped products' own, a 1/nsubnets
     share of the dense block-diagonal ones the kernel multiplies, whose
-    zeros the function does not need)."""
+    zeros the function does not need). A graph operator whose stats tables
+    ask for no stencil (``has_stencil``) counts none."""
     import torch
 
     from irdu_tpu_torch.ops.pixel_nhwc import nhwc_ops_per_pixel
@@ -2575,8 +2771,9 @@ def call_cost(name, args, kw, out):
         npx = x.shape[0] * x.shape[2] * x.shape[3] * k
         return nbytes, cc * npx, tc * npx / ns
     n_e = len(kw["deltas"])
-    if name == "gg_matvec_chw":
-        return nbytes, args[0].numel() * edge_ops(n_e)["matvec"], 0
+    if name == "gg_matvec_chw":  # x, w_glr, w_gtv, pglr, pgtv, mu, ro
+        ops = edge_ops(n_e, has_stencil(args[4]), has_stencil(args[3]))
+        return nbytes, args[0].numel() * ops["matvec"], 0
     if name == "edge_weights_chw":
         feats, g = args[0], kw["n_graphs"]
         b, c, h, w = feats.shape
@@ -2585,10 +2782,17 @@ def call_cost(name, args, kw, out):
         x, aux, prev = args[:3]
         return nbytes, x.numel() * k5_window_ops(
             kw["mode"], n_e, args[5] is not None, glr=kw.get("with_glr", True),
-            y=aux is not None, prev=prev is not None), 0
-    if name == "gg_pixel_unroll_chw":
-        return nbytes, out.numel() * pixel_unroll_ops_per_pixel(n_e), 0
-    return nbytes, args[0].numel() * nhwc_ops_per_pixel(kw["mode"], n_e), 0  # K8
+            y=aux is not None, prev=prev is not None,
+            gtv_stats=has_stencil(args[7]) or has_stencil(args[9]),
+            glr_stats=has_stencil(args[8]) or has_stencil(args[10])), 0
+    if name == "gg_pixel_unroll_chw":  # y, w_gtv, w_glr, pgtv, pglr, scal
+        stats = has_stencil(args[3]) or has_stencil(args[4])
+        return nbytes, out.numel() * pixel_unroll_ops_per_pixel(n_e, stats), 0
+    if name == "gg_unroll_chw":  # the tables are args[5:9]
+        stats = any(has_stencil(t) for t in args[5:9])
+        return nbytes, out.numel() * k1_ops_per_pixel(kw.get("eval_cg_iters", 3), n_e, stats), 0
+    return nbytes, args[0].numel() * nhwc_ops_per_pixel(kw["mode"], n_e,  # K8
+                                                        has_stencil(args[5])), 0
 
 
 def replay_rows(calls, summary, sites, basis, window, names=WINDOW_KERNELS):
@@ -2642,14 +2846,14 @@ def phase_windows(smoke):
     """The pixel model (its snapshot, bf16) on cross-4 and ring-8 serves
     512x512 on NHWC (1 K2, 6 K8), 512x512 on CHW (1 K2, 1 K7) and 1024x1024
     on CHW (1 K2, 6 K5), and the 86k flagship on diamond-12 and ring-8 serves
-    512x512 (band_launches: 3 K3, 32 K4, 8 K2, 20 K5, no K1), each with its
+    512x512 (window_launches: 3 K3, 32 K4, 4 K1, 8 K2, no K5), each with its
     counts zeroed just before and read just after, then once more with every
-    kernel call held against its plain version (K2's bar; K5, K7, K8 K1's)
+    kernel call held against its plain version (K2's bar; K1, K5, K7, K8 K1's)
     and recorded; each kernel's calls of each request replayed and timed
     (``replay_rows``). The pixel model with ``eval_skip_solve`` on 512x512
     launches nothing. The WINDOW_ABLATIONS models (seeded, bf16) on
     diamond-12 and ring-8 serve 512x512 the same way, their launches
-    ``window_ablation_launches`` (no K1, no K9; K5's band route or K6a).
+    ``window_ablation_launches`` (no K9; K1 or K6a).
     Then one f32 row per kernel and window at the served shapes
     (``window_f32_rows``) and per ablation solver and window
     (``window_ablation_f32_rows``), which must move its input by
@@ -2696,7 +2900,7 @@ def phase_windows(smoke):
     requests.append(dict(skip, model="pixel", route="eval_skip_solve",
                          launches_ok=not any(skip["launches"].values())))
     hw = WINDOW_FLAGSHIP_REQUEST
-    want = band_launches(flagship, hw)
+    want = window_launches(flagship, hw)
     clean, noisy = by_size[hw]
     for window in WINDOW_FLAGSHIP:
         with on_window(solvers, window):
@@ -2744,16 +2948,12 @@ def phase_windows(smoke):
 def window_ablation_launches(name, model):
     """An ablation model's launches on a window other than cross-4, derived
     from the model: ABLATION_LAUNCHES' heads and K2; the two-scale solver
-    (MixtureGTVGLR) without K1, its plane on the band route (the K5 steps of
-    its ``eval_cg_iters``, as ``band_launches``); the single-scale GTV+GLR
-    solver's K9 matvecs on K6a instead."""
+    (MixtureGTVGLR) on K1 as on cross-4 (its ABLATION_SIDE² plane is under
+    the cap); the single-scale GTV+GLR solver's K9 matvecs on K6a instead."""
     from irdu_tpu_torch.solvers.gtv_glr import MixtureGTVGLR
 
     want = dict(ABLATION_LAUNCHES[name])
-    if isinstance(model.localfilter, MixtureGTVGLR):
-        want.update(gg_unroll_chw=0, gg_fused_step_chw={1: 2, 2: 4, 3: 5}[
-            model.localfilter.eval_cg_iters])
-    else:
+    if not isinstance(model.localfilter, MixtureGTVGLR):
         want.update(gg_matvec_chw=want["fused_system_matvec"], fused_system_matvec=0)
     return want
 
@@ -3790,12 +3990,12 @@ def phase_train(smoke):
     stage 0 (``train_config``) on the synthetic train set:
 
       1. flagship_sigma25 at full width, f32, 128² batch 4: ``Trainer.run``
-         to step 3 (a checkpoint; the eval protocol on the synthetic val set
-         at step 3, on the kernels: 6 images' launches), then a fresh
-         ``Trainer`` on the same workdir resumes and runs to step 6. The
-         restored params and Adam moments equal the saved ones bitwise, the
-         batches of steps 4-6 equal a straight run's (its loader's batches
-         3-5) bitwise, every loss is finite, every parameter tensor gets a
+         to step 2 (TRAIN_STEPS; a checkpoint; the eval protocol on the
+         synthetic val set at step 2, on the kernels: 6 images' launches),
+         then a fresh ``Trainer`` on the same workdir resumes and runs to
+         step 4. The restored params and Adam moments equal the saved ones
+         bitwise, the batches of steps 3-4 equal a straight run's (its
+         loader's batches 2-3) bitwise, every loss is finite, every parameter tensor gets a
          finite non-zero gradient in every step (the tensors that moved are
          counted, not gated) and no kernel launched in a step; the step's ms
          and images/s printed;
@@ -3814,7 +4014,7 @@ def phase_train(smoke):
          params are bitwise unchanged; one step's gradients with remat on and
          off within TRAIN_GRAD_RTOL; then TRAIN_STEPS["fixed_batch"] steps on
          one batch end below the first step's loss;
-      4. lightformer_pixel_sigma at full width, 64² batch 16, 4 steps (its
+      4. lightformer_pixel_sigma at full width, 64² batch 16, 3 steps (its
          aux losses off): finite losses, no launch;
       5. the trained student written by ``save_params_npz`` (bf16) and
          loaded by ``predict.load_model(name="micro")``: the eval protocol in

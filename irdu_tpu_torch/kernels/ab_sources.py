@@ -31,8 +31,11 @@ compared on it as well.
 Before the turns it compiles each tree's copy of every source in
 CODE_SOURCES with this tree's nvcc flags and compares what comes out per
 entry function: ptxas's registers, stack and spills, and a digest of the
-SASS (``cuobjdump -sass``). Its line goes first; ``--code-only`` stops
-there.
+SASS (``cuobjdump -sass``), and whether each of the base's entry functions
+has its SASS in the tree under any name. Its line goes first;
+``--code-only`` stops there. ``--k1-probe`` runs K1_PROBE in the turns
+instead of ``chip_smoke.py`` (K1 at the 512x512 request's four shapes and
+the 512x512 request, a few minutes a round; ``chiprun_out/ab_k1_probe.json``).
 
 Per compared row it prints one JSON line: the times of each turn of the
 other checkout ("base") and of this tree ("tree"), their medians, minima and
@@ -49,15 +52,18 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from irdu_tpu_torch.kernels import build
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-# sources whose generated code both trees are expected to share (K1's, whose
-# header lost the code only other kernels used)
-CODE_SOURCES = ("gg_unroll.cu",)
+# sources whose kernels' generated code is compared with the other
+# checkout's: K1's cross-4 instances, K3's wgmma kernel, K5's cross-4 and
+# diamond-12 instances and K8's diamond-12 ones
+CODE_SOURCES = ("gg_unroll.cu", "block_stack_wgmma.cu", "fused_step_cross4.cu",
+                "fused_step_hopper.cu", "pixel_nhwc.cu")
 # what tells two kernel rows of chip_smoke_kernels.json apart, besides the kernel
 ROW_KEYS = ("scale", "request", "case", "mode", "blocks", "n_graphs", "shape", "dtype")
 # run with python -c in a tree's root, so that it imports that tree's package;
@@ -167,6 +173,65 @@ print(json.dumps(out))
 """
 
 
+# run like DEVICE_PROBE: K1 at the 512x512 flagship request's four scale
+# shapes (cross-4, the snapshot's tables, seeded planes and weights) by device
+# time, and the 512x512 request itself (the 86k snapshot, bf16): host ms
+# (median of 10 after 3 untimed) and device ms; prints {row: ms}
+K1_PROBE = r"""
+import importlib.util
+import json
+import sys
+import time
+import numpy as np
+import torch
+from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw
+from irdu_tpu_torch.predict import denoise, load_model
+
+spec = importlib.util.spec_from_file_location("timing", sys.argv[1])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+gen = torch.Generator(device="cuda").manual_seed(0)
+out = {}
+model = load_model(device="cuda")
+with torch.inference_mode():
+    for s, lf in enumerate(f.local_filter for f in model.local_filters):
+        g, f, h = lf.n_graphs, lf.n_node_fts, 512 >> s
+        y = torch.rand(1, g * f, h, h, device="cuda", generator=gen).bfloat16()
+        ws = [torch.softmax(torch.randn(1, g, 4, h >> r, h >> r, device="cuda", generator=gen),
+                            dim=2).bfloat16() for r in (0, 0, 1, 1)]
+        tabs = [m.stats_table().float() for m in (lf.GTVmodule00, lf.GLRmodule00,
+                                                  lf.GTVmodule01, lf.GLRmodule01)]
+        scal = torch.rand(g, 10, device="cuda", generator=gen) * 0.3 + 0.1
+        out[f"K1 {list(y.shape)}"] = timing.device_ms(
+            lambda: gg_unroll_chw(y, *ws, *tabs, scal, n_graphs=g), 20)
+out["K1 per 512x512 request"] = sum(v for k, v in out.items() if k.startswith("K1 ["))
+noisy = np.random.RandomState(0).rand(512, 512, 3).astype(np.float32)
+for _ in range(3):
+    denoise(model, noisy)
+ms = []
+for _ in range(10):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    denoise(model, noisy)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+out["request 512x512 host ms"] = float(np.median(ms))
+out["request 512x512 device ms"] = timing.device_ms(lambda: denoise(model, noisy), 5)
+print(json.dumps(out))
+"""
+
+
+def _k1_turn(tree: str) -> dict:
+    """K1_PROBE in ``tree``: its rows. Raises if it fails."""
+    probe = subprocess.run([sys.executable, "-c", K1_PROBE,
+                            os.path.join(REPO, "irdu_tpu_torch", "kernels", "timing.py")],
+                           cwd=tree, capture_output=True, text=True)
+    if probe.returncode != 0:
+        raise RuntimeError(f"the K1 probe in {tree} failed ({probe.returncode}):\n"
+                           f"{probe.stderr[-3000:]}")
+    return json.loads(probe.stdout.strip().splitlines()[-1])
+
+
 def sass_digests(sass: str) -> dict:
     """{entry function: sha256 of its SASS lines} from ``cuobjdump -sass``."""
     out, name, lines = {}, None, []
@@ -186,7 +251,7 @@ def compiled_code(tree: str, source: str) -> dict:
     without cuobjdump)."""
     src = os.path.join(tree, "irdu_tpu_torch", "kernels", "csrc", source)
     os.makedirs(build.BUILD_DIR, exist_ok=True)
-    obj = os.path.join(build.BUILD_DIR, f"code.{os.getpid()}.o")
+    obj = os.path.join(build.BUILD_DIR, f"code.{os.getpid()}.{abs(hash((tree, source)))}.o")
     try:
         log = build._nvcc([build.nvcc_path(), *build.NVCC_FLAGS, "-c", src, "-o", obj])
         cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -200,13 +265,22 @@ def compiled_code(tree: str, source: str) -> dict:
 
 
 def compare_code(base: str) -> dict:
-    """CODE_SOURCES' generated code in ``base`` and in this tree: each
-    entry function's report in both, and whether they are equal (registers,
-    stack, spills and SASS digest)."""
+    """CODE_SOURCES' generated code in ``base`` and in this tree (each
+    source of each tree compiled by its own nvcc, all at once): each entry
+    function's report in both, whether they are equal (``same``: names,
+    registers, stack, spills and SASS digest), and which of the base's entry
+    functions have their SASS in the tree under any name (``base_kept``: an
+    instance renamed by a new template argument keeps its code; ``missing``:
+    the base's entries whose code the tree has not)."""
+    jobs = [(tree, source) for source in CODE_SOURCES for tree in (base, REPO)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = dict(zip(jobs, pool.map(lambda job: compiled_code(*job), jobs)))
     out = {}
     for source in CODE_SOURCES:
-        a, b = compiled_code(base, source), compiled_code(REPO, source)
-        out[source] = dict(same=a == b, base=a, tree=b)
+        a, b = done[(base, source)], done[(REPO, source)]
+        tree_sass = {r["sass"] for r in b.values() if r["sass"]}
+        missing = [name for name, r in a.items() if r["sass"] not in tree_sass]
+        out[source] = dict(same=a == b, base_kept=not missing, missing=missing, base=a, tree=b)
     return out
 
 
@@ -272,6 +346,8 @@ def main(argv=None) -> None:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--code-only", action="store_true",
                     help="compare the generated code of CODE_SOURCES only")
+    ap.add_argument("--k1-probe", action="store_true",
+                    help="after the code, run K1_PROBE in turns instead of chip_smoke.py")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -288,7 +364,10 @@ def main(argv=None) -> None:
     profiles, sessions = {}, []
     for _ in range(args.rounds):
         for which in ("base", "tree", "tree", "base"):
-            timed, profiles[which], how = _turn(trees[which])
+            if args.k1_probe:
+                timed, how = _k1_turn(trees[which]), None
+            else:
+                timed, profiles[which], how = _turn(trees[which])
             turns[which].append(timed)
             sessions.append(dict(tree=which, device_ms=how))
     rows = []
@@ -303,7 +382,8 @@ def main(argv=None) -> None:
         row["base_over_tree"] = row["base"]["median_ms"] / row["tree"]["median_ms"]
         print(json.dumps(row), flush=True)
         rows.append(row)
-    with open(os.path.join(REPO, "chiprun_out", "ab_sources.json"), "w") as fh:
+    name = "ab_k1_probe.json" if args.k1_probe else "ab_sources.json"
+    with open(os.path.join(REPO, "chiprun_out", name), "w") as fh:
         json.dump({"device": smi.stdout.strip(), "order": "base, tree, tree, base per round",
                    "rounds": args.rounds, "code": code, "rows": rows, "profiles": profiles,
                    "device_ms_by_turn": sessions}, fh, indent=1)

@@ -43,15 +43,18 @@ _SIGNATURES = {  # name: (argtypes, restype)
     "irdu_block_stack_wgmma": ((_P,) * 8 + (_I,) * 9 + (_P,), _I),
     "irdu_block_stack_wgmma_error": ((), ctypes.c_char_p),
     "irdu_block_stack_wgmma_smem": ((_I, _I), _L),
+    "irdu_block_stack_dw_mxu": ((_P,) * 7 + (_I,) * 8 + (_P,), _I),
+    "irdu_block_stack_dw_mxu_error": ((), ctypes.c_char_p),
+    "irdu_block_stack_dw_mxu_smem": ((_I, _I), _L),
     "irdu_edge_weights": ((_P,) * 3 + (_I,) * 11 + (_P,), _I),
     "irdu_edge_weights_smem": ((_I,) * 6, _L),
-    "irdu_fused_step_hopper": ((_P,) * 14 + (_I,) * 13 + (_P,), _I),
-    "irdu_fused_step_hopper_smem": ((_I,) * 5, _L),
+    "irdu_fused_step_hopper": ((_P,) * 14 + (_I,) * 12 + (_P,), _I),
+    "irdu_fused_step_hopper_smem": ((_I,) * 4, _L),
     "irdu_gated_block": ((_P,) * 7 + (_I,) * 5 + (_L,) * 4 + (_I,) * 4 + (_P,), _I),
     "irdu_gated_block_error": ((), ctypes.c_char_p),
-    "irdu_gg_unroll": ((_P,) * 12 + (_I,) * 7 + (_P,), _I),
+    "irdu_gg_unroll": ((_P,) * 12 + (_I,) * 9 + (_P,), _I),
     "irdu_gg_unroll_scratch_floats": ((_I, _I), _L),
-    "irdu_gg_unroll_ctas_per_sm": ((_I,), _I),
+    "irdu_gg_unroll_ctas_per_sm": ((_I, _I), _I),
     "irdu_pixel_unroll": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
     "irdu_pixel_unroll_scratch_floats": ((_I, _I), _L),
     "irdu_pixel_unroll_smem": ((_I, _I), _L),
@@ -103,8 +106,9 @@ def _nvcc(cmd) -> str:
 
 def build() -> tuple[str, str, float]:
     """Compile the library unless it is already built. Returns its path, the
-    compiler's messages (register and spill counts from ``-Xptxas -v``) and
-    the seconds the build took (0 when it was already there)."""
+    compiler's messages (register and spill counts from ``-Xptxas -v``, and
+    a line "build: <source> <seconds> s" after each source's) and the
+    seconds the build took (0 when it was already there)."""
     path = library_path()
     if os.path.isfile(path):
         return path, "", 0.0
@@ -114,10 +118,16 @@ def build() -> tuple[str, str, float]:
     units = [(src, f"{stem}.{os.path.basename(src)[:-len('.cu')]}.o")
              for src in _sources() if src.endswith(".cu")]
     t0 = time.perf_counter()
+
+    def compile_unit(unit):  # its messages, then a line with its seconds
+        src, obj = unit
+        start = time.perf_counter()
+        log = _nvcc([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj])
+        return f"{log}build: {os.path.basename(src)} {time.perf_counter() - start:.3f} s\n"
+
     try:
         with ThreadPoolExecutor(len(units)) as pool:  # one compiler per source, all at once
-            logs = list(pool.map(_nvcc, ([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
-                                         for src, obj in units)))
+            logs = list(pool.map(compile_unit, units))
         logs.append(_nvcc([nvcc, *ARCH_FLAGS, "-shared", "-o", f"{stem}.tmp",
                            *(obj for _, obj in units)]))
     finally:

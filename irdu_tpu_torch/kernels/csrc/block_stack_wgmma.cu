@@ -110,16 +110,6 @@ struct Args {
   int ns;  // subnets: the norm runs over each run of C / ns channels
 };
 
-// Project D (64 x C) += A (64 x 16) B (C x 16)^T at the C the kernel is built for.
-template <int kC>
-__device__ __forceinline__ void wgmma_project(float (&d)[kC / 2], uint64_t a, uint64_t b,
-                                              int acc) {
-  if constexpr (kC == 16) wgmma_n16(d, a, b, acc);
-  else if constexpr (kC == 32) wgmma_n32(d, a, b, acc);
-  else if constexpr (kC == 48) wgmma_n48(d, a, b, acc);
-  else wgmma_n64(d, a, b, acc);
-}
-
 // Issue the expand of chunk j (its weights loaded in phase k), transposed
 // so that the chunk's 2hc = 64 hidden channels are wgmma's M and the pixels
 // its N: D (64 x 96) = w1^T chunk (64 x C) . y0^T over this warpgroup's 96

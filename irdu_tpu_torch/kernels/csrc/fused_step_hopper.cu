@@ -48,24 +48,22 @@ const Entry& entry(int window) {
 // x, aux, prev, out, upd (B, G*F, H, W) in one dtype; aux, prev, upd may be
 // null; wl0/wl1/pl0/pl1 are read only with glr, wg1/wl1/pg1/pl1 only
 // two-scale (wg1 non-null). window: 0 cross-4, 1 diamond-12, 2 ring-8;
-// reflect: the stencil's pad (0 replicate, 1 reflect); plan: the tile plan
-// (ops/fused_step.py k5_plans; plan 1 in bf16 on two-scale cross-4 and
-// single-scale diamond-12 only).
+// reflect: the stencil's pad (0 replicate, 1 reflect).
 extern "C" int irdu_fused_step_hopper(const void* x, const void* aux, const void* prev,
                                       const void* wg0, const void* wl0, const void* wg1,
                                       const void* wl1, const void* pg0, const void* pl0,
                                       const void* pg1, const void* pl1, const void* scal,
                                       void* out, void* upd, int B, int G, int F, int H, int W,
                                       int rethresh, int glr, int epi, int use_x_rhs, int window,
-                                      int reflect, int plan, int dtype, void* stream) {
+                                      int reflect, int dtype, void* stream) {
   using namespace irdu::step5;
   const bool two = wg1 != nullptr;
   const bool bad =
       B < 1 || G < 1 || F < 1 || H < 1 || W < 1 || (long long)B * G > 65535 ||
       (two && (H % 2 || W % 2)) || (rethresh && glr) || epi < kEpiAddX || epi > kEpiCg ||
-      window < kCross4 || window > kRing8 || (reflect && (H < 2 || W < 2)) || plan < 0 ||
-      plan >= num_plans(window, two) || x == nullptr || out == nullptr || wg0 == nullptr ||
-      pg0 == nullptr || scal == nullptr || (two && pg1 == nullptr) ||
+      window < kCross4 || window > kRing8 || (reflect && (H < 2 || W < 2)) || x == nullptr ||
+      out == nullptr || wg0 == nullptr || pg0 == nullptr || scal == nullptr ||
+      (two && pg1 == nullptr) ||
       (glr && (wl0 == nullptr || pl0 == nullptr || (two && (wl1 == nullptr || pl1 == nullptr)))) ||
       (epi == kEpiCg && !use_x_rhs && aux == nullptr) || (upd != nullptr && epi != kEpiCg);
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
@@ -74,15 +72,15 @@ extern "C" int irdu_fused_step_hopper(const void* x, const void* aux, const void
                static_cast<const float*>(pg1), static_cast<const float*>(pl1),
                static_cast<const float*>(scal), out, upd, G, F, H, W, epi, use_x_rhs,
                reflect, 0};
-  return entry(window).run(a, B, two, rethresh, glr, plan, dtype,
+  return entry(window).run(a, B, two, rethresh, glr, dtype,
                           static_cast<cudaStream_t>(stream));
 }
 
 // The shared memory one CTA of the kernel takes (ops/fused_step.py
-// k5_smem_bytes holds its planner to it), or -1 for a plan it does not have.
-extern "C" long long irdu_fused_step_hopper_smem(int window, int two, int glr, int plan,
-                                                 int dtype) {
+// k5_smem_bytes holds its planner to it), or -1 for an unknown window or
+// dtype.
+extern "C" long long irdu_fused_step_hopper_smem(int window, int two, int glr, int dtype) {
   using namespace irdu::step5;
   if (window < kCross4 || window > kRing8) return -1;
-  return entry(window).smem(two != 0, glr != 0, plan, dtype);
+  return entry(window).smem(two != 0, glr != 0, dtype);
 }

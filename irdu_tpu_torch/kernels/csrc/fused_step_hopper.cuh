@@ -12,25 +12,18 @@ using namespace irdu::ptile;
 
 constexpr int kEpiAddX = 0, kEpiAddAux = 1, kEpiCg = 2;  // as in ops/fused_step.py
 
-// Tile plans, as ops/fused_step.py's k5_plans: {rows, columns, threads}.
-// Every single-scale window and two-scale cross-4 have two; two scales on
-// ring-8 and diamond-12 have one, smaller tile (their weights of both scales
-// would outgrow a CTA's shared memory in f32 at 32x64). Plan 0 fits a CTA in
-// f32 and in bf16.
-struct Plan {
+// The tile of a step, as ops/fused_step.py's k5_tile: {rows, columns,
+// threads}. Two scales on ring-8 and diamond-12 take smaller tiles (their
+// weights of both scales would outgrow a CTA's shared memory in f32 at
+// 32x64). Each fits a CTA in f32 and in bf16.
+struct Tile {
   int th, tw, threads;
 };
-constexpr int kMaxPlans = 2;
-constexpr int num_plans(int win, bool two_scale) {
-  return two_scale && win != kCross4 ? 1 : kMaxPlans;
-}
-constexpr Plan plan_at(int win, bool two_scale, int i) {
-  constexpr Plan two[kMaxPlans] = {{32, 64, 256}, {64, 64, 512}};
-  constexpr Plan one[kMaxPlans] = {{16, 64, 256}, {32, 64, 256}};
-  constexpr Plan two_ring8 = {16, 64, 256}, two_diamond12 = {16, 32, 256};
-  if (two_scale && win == kRing8) return two_ring8;
-  if (two_scale && win == kDiamond12) return two_diamond12;
-  return two_scale ? two[i] : one[i];
+constexpr Tile tile_at(int win, bool two_scale) {
+  if (!two_scale) return {16, 64, 256};
+  if (win == kRing8) return {16, 64, 256};
+  if (win == kDiamond12) return {16, 32, 256};
+  return {32, 64, 256};
 }
 
 // The boxes of a tile: planes with halo HS rows and HSC (even) columns, the
@@ -386,34 +379,18 @@ int dispatch_mode(const Args& a, int B, bool rethresh, bool glr, cudaStream_t s)
   return launch<T, kWin, false, false, kTwo, kTH, kTW, kNT>(a, B, s);
 }
 
-// Plan 1 is built in bf16 on two-scale cross-4 and single-scale diamond-12
-// (ops/fused_step.py k5_has_plan), plan 0 everywhere.
+// The window's tile for the scale count (tile_at).
 template <typename T, int kWin, bool kTwo>
-int dispatch_plan(const Args& a, int B, bool rethresh, bool glr, int plan, cudaStream_t s) {
-  constexpr bool kAll =
-      sizeof(T) == 2 && (kTwo ? kWin == kCross4 : kWin == kDiamond12);
-  constexpr Plan p0 = plan_at(kWin, kTwo, 0), p1 = plan_at(kWin, kTwo, 1);
-  if (plan == 0)
-    return dispatch_mode<T, kWin, kTwo, p0.th, p0.tw, p0.threads>(a, B, rethresh, glr, s);
-  if constexpr (kAll) {
-    if (plan == 1)
-      return dispatch_mode<T, kWin, kTwo, p1.th, p1.tw, p1.threads>(a, B, rethresh, glr, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T, int kWin, bool kTwo, int kPlan>
-constexpr size_t plan_bytes(bool glr) {
-  constexpr Plan p = plan_at(kWin, kTwo, kPlan);
-  return glr ? Layout<T, kWin, true, kTwo, p.th, p.tw>::kBytes
-             : Layout<T, kWin, false, kTwo, p.th, p.tw>::kBytes;
+int dispatch(const Args& a, int B, bool rethresh, bool glr, cudaStream_t s) {
+  constexpr Tile t = tile_at(kWin, kTwo);
+  return dispatch_mode<T, kWin, kTwo, t.th, t.tw, t.threads>(a, B, rethresh, glr, s);
 }
 
 template <typename T, int kWin, bool kTwo>
-long long smem_of(bool glr, int plan) {
-  if (plan < 0 || plan >= num_plans(kWin, kTwo)) return -1;
-  return static_cast<long long>(plan == 0 ? plan_bytes<T, kWin, kTwo, 0>(glr)
-                                          : plan_bytes<T, kWin, kTwo, 1>(glr));
+long long smem_of(bool glr) {
+  constexpr Tile t = tile_at(kWin, kTwo);
+  return static_cast<long long>(glr ? Layout<T, kWin, true, kTwo, t.th, t.tw>::kBytes
+                                    : Layout<T, kWin, false, kTwo, t.th, t.tw>::kBytes);
 }
 
 // One window's entry points. Each window's instances are compiled in a
@@ -421,30 +398,29 @@ long long smem_of(bool glr, int plan) {
 // fused_step_ring8.cu), so that nvcc builds the windows side by side; fused_step_hopper.cu's
 // C interface picks one.
 struct Entry {
-  int (*run)(const Args& a, int B, bool two, bool rethresh, bool glr, int plan, int dtype,
-             cudaStream_t s);
-  long long (*smem)(bool two, bool glr, int plan, int dtype);
+  int (*run)(const Args& a, int B, bool two, bool rethresh, bool glr, int dtype, cudaStream_t s);
+  long long (*smem)(bool two, bool glr, int dtype);
 };
 
 template <int kWin>
-int run_window(const Args& a, int B, bool two, bool rethresh, bool glr, int plan, int dtype,
+int run_window(const Args& a, int B, bool two, bool rethresh, bool glr, int dtype,
                cudaStream_t s) {
   if (dtype == kFloat32)
-    return two ? dispatch_plan<float, kWin, true>(a, B, rethresh, glr, plan, s)
-               : dispatch_plan<float, kWin, false>(a, B, rethresh, glr, plan, s);
+    return two ? dispatch<float, kWin, true>(a, B, rethresh, glr, s)
+               : dispatch<float, kWin, false>(a, B, rethresh, glr, s);
   if (dtype == kBFloat16)
-    return two ? dispatch_plan<__nv_bfloat16, kWin, true>(a, B, rethresh, glr, plan, s)
-               : dispatch_plan<__nv_bfloat16, kWin, false>(a, B, rethresh, glr, plan, s);
+    return two ? dispatch<__nv_bfloat16, kWin, true>(a, B, rethresh, glr, s)
+               : dispatch<__nv_bfloat16, kWin, false>(a, B, rethresh, glr, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int kWin>
-long long smem_window(bool two, bool glr, int plan, int dtype) {
+long long smem_window(bool two, bool glr, int dtype) {
   if (dtype == kFloat32)
-    return two ? smem_of<float, kWin, true>(glr, plan) : smem_of<float, kWin, false>(glr, plan);
+    return two ? smem_of<float, kWin, true>(glr) : smem_of<float, kWin, false>(glr);
   if (dtype == kBFloat16)
-    return two ? smem_of<__nv_bfloat16, kWin, true>(glr, plan)
-               : smem_of<__nv_bfloat16, kWin, false>(glr, plan);
+    return two ? smem_of<__nv_bfloat16, kWin, true>(glr)
+               : smem_of<__nv_bfloat16, kWin, false>(glr);
   return -1;
 }
 

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the wgmma block kernels (gated_block.cu,
-// block_stack_wgmma.cu): wgmma on shared-memory operands, mbarriers, TMA
+// block_stack_wgmma.cu, block_stack_dw_mxu.cu): wgmma on shared-memory
+// operands (and with A from registers, loaded by ldmatrix), mbarriers, TMA
 // tile loads and the swizzled K-major layouts they use, and the host-side
 // tensor-map encoder (cuTensorMapEncodeTiled, reached through cudart so that
 // the library links cudart only). sm_90a only.
@@ -111,6 +112,48 @@ __device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t a, uint64_t b
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x N) {+}= A (64 x 16) B (N x 16)^T at N in {16, 32, 48, 64}: the
+// project of the K3 kernels, N = C.
+template <int kN>
+__device__ __forceinline__ void wgmma_project(float (&d)[kN / 2], uint64_t a, uint64_t b,
+                                              int acc) {
+  if constexpr (kN == 16) wgmma_n16(d, a, b, acc);
+  else if constexpr (kN == 32) wgmma_n32(d, a, b, acc);
+  else if constexpr (kN == 48) wgmma_n48(d, a, b, acc);
+  else wgmma_n64(d, a, b, acc);
+}
+
+// D(64 x 64) {+}= A(64 x 16) B(64 x 16)^T with A from registers (each warp's
+// 16 rows as mma.sync's m16k16 A fragment, four 32-bit registers: rows r and
+// r + 8, columns k and k + 8) and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// Four 8x8 bf16 matrices from shared memory into registers, each lane giving
+// the address of one 16-byte row (lanes 8m..8m+7: matrix m's rows).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }

@@ -48,8 +48,8 @@ const Entry& entry(int window) {
 // x, aux, prev, out, upd (B, H, W, F*G) and wg, wl (B, H, W, E*G) in one
 // dtype; p (2, 4) and scal (5, F*G) f32. rhs reads x, wg; cg1 x, wg, wl and
 // writes upd; cg2 x, aux, prev, wg, wl; rethresh x, aux, wg. window: 0
-// cross-4, 1 diamond-12, 2 ring-8; plan: the window's tile plan
-// (ops/pixel_nhwc.py K8_PLANS; plans above 0 in bf16 only).
+// cross-4, 1 diamond-12, 2 ring-8; plan: the tile plan (ops/pixel_nhwc.py
+// K8_PLANS; plan 1 in bf16 only).
 extern "C" int irdu_pixel_segment(const void* x, const void* aux, const void* prev,
                                   const void* wg, const void* wl, const void* p,
                                   const void* scal, void* out, void* upd, int B, int H, int W,
@@ -60,7 +60,7 @@ extern "C" int irdu_pixel_segment(const void* x, const void* aux, const void* pr
   const bool bad =
       B < 1 || B > 65535 || H < 2 || W < 2 || G < 1 || F < 1 || mode < kRhs ||
       mode > kRethresh || window < kCross4 || window > kRing8 || plan < 0 ||
-      plan >= num_plans(window) || x == nullptr || wg == nullptr ||
+      plan >= kNumPlans || x == nullptr || wg == nullptr ||
       p == nullptr || scal == nullptr || out == nullptr || (glr && wl == nullptr) ||
       (mode == kCg1 && upd == nullptr) || ((mode == kCg2 || mode == kRethresh) && aux == nullptr) ||
       (mode == kCg2 && prev == nullptr);

@@ -12,14 +12,14 @@ using namespace irdu::ptile;
 
 constexpr int kRhs = 0, kCg1 = 1, kCg2 = 2, kRethresh = 3;  // as in ops/pixel_nhwc.py
 
-// Tile plans of each window, as ops/pixel_nhwc.py's K8_PLANS: {rows, columns,
-// graphs, threads}; diamond-12 has three, the radius-1 windows the first two.
+// Tile plans of every window, as ops/pixel_nhwc.py's K8_PLANS: {rows,
+// columns, graphs, threads}.
 struct Plan {
   int th, tw, lanes, threads;
 };
-constexpr int num_plans(int win) { return win == kDiamond12 ? 3 : 2; }
+constexpr int kNumPlans = 2;
 constexpr Plan plan_at(int i) {
-  constexpr Plan plans[3] = {{16, 32, 2, 256}, {16, 32, 4, 256}, {32, 32, 2, 256}};
+  constexpr Plan plans[kNumPlans] = {{16, 32, 2, 256}, {16, 32, 4, 256}};
   return plans[i];
 }
 
@@ -274,18 +274,15 @@ int dispatch_mode(const Args& a, int B, int mode, cudaStream_t s) {
   }
 }
 
-// Every plan of the window in bf16, plan 0 in f32; whole graph groups (G a
-// multiple of the plan's lanes) on every plan, partial ones on plan 0, whose
-// one instance takes both.
+// Both plans in bf16, plan 0 in f32; whole graph groups (G a multiple of
+// the plan's lanes) on both plans, partial ones on plan 0, whose one
+// instance takes both.
 template <typename T, int kWin>
 int dispatch(const Args& a, int B, int mode, int plan, cudaStream_t s) {
   const bool whole = a.G % plan_at(plan).lanes == 0;
   if (plan == 0) return dispatch_mode<T, kWin, 0, false>(a, B, mode, s);
   if constexpr (sizeof(T) == 2) {
     if (whole && plan == 1) return dispatch_mode<T, kWin, 1, true>(a, B, mode, s);
-    if constexpr (num_plans(kWin) > 2) {
-      if (whole && plan == 2) return dispatch_mode<T, kWin, 2, true>(a, B, mode, s);
-    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -299,12 +296,8 @@ long long plan_bytes(bool glr) {
 
 template <typename T, int kWin>
 long long smem_of(bool glr, int plan) {
-  if (plan < 0 || plan >= num_plans(kWin)) return -1;
-  switch (plan) {
-    case 0: return plan_bytes<T, kWin, 0>(glr);
-    case 1: return plan_bytes<T, kWin, 1>(glr);
-    default: return plan_bytes<T, kWin, 2>(glr);
-  }
+  if (plan < 0 || plan >= kNumPlans) return -1;
+  return plan == 0 ? plan_bytes<T, kWin, 0>(glr) : plan_bytes<T, kWin, 1>(glr);
 }
 
 // One window's entry points. Each window's instances are compiled in a

@@ -1,6 +1,7 @@
 // One step of the flagship's two-scale GGTV+GGLR unroll on one output tile
-// of one (b, g, f) plane: the device code of K1 (gg_unroll.cu, a persistent
-// CTA walking tiles), on the cross-4 window with the "edge" stencil pad. The
+// of one (b, g, f) plane: the device code of K1 (gg_unroll.cuh, a persistent
+// CTA walking tiles), on the cross-4, diamond-12 or ring-8 window (Win<> of
+// padded_tile.cuh) with the stencil's pad "edge", "zero" or "reflect". The
 // math, the boundary rules and the bounds are set out in
 // irdu_tpu_torch/ops/solver_unroll.py and ops/fused_step.py. (K5, K6a and
 // K6b run on the padded tile of padded_tile.cuh instead: fused_step_hopper.cu.)
@@ -20,26 +21,30 @@
 // Every stage plane is f32 in shared memory (<= 76.8 KB a tile).
 //
 // Reads of a derived plane are clamped to the region: at an image edge that
-// replicates the plane's own edge, as the reference's shifts do; past an
-// interior edge it is a halo value that is wrong, and the error moves inward
-// by 1 (stencil) + 1 (the cross-4 edge sums) + 1 (stencil^T) = 3 <= 4
-// pixels, so it never reaches the tile. The stencil's own input x pads by
-// replication, which the same clamp gives. The C^T scatter and the
-// transposed stencil read zeros outside the image, tested against global
-// indices.
+// replicates the plane's own edge, as the reference's shifts do (a shift by
+// 2 is two shifts by 1, which the clamp composes); past an interior edge it
+// is a halo value that is wrong, and the error moves inward by 1 (stencil) +
+// r (the edge sums: the window's radius, 1 on cross-4 and ring-8, 2 on
+// diamond-12) + 1 (stencil^T) <= 4 pixels, so it never reaches the tile. The
+// stencil's own input x pads by replication, which the same clamp gives, by
+// zeros, or by numpy's reflect without the edge pixel (the neighbour on the
+// other side, inside the region wherever the image edge is). The C^T
+// scatter and the transposed stencil read zeros outside the image, tested
+// against global indices.
 #pragma once
 
-#include "common.cuh"
+#include "padded_tile.cuh"
 
 namespace irdu {
 namespace step {
 
 constexpr int kTH = 32, kTW = 64;  // full-res tile; even, so half tiles are whole boxes
-constexpr int kHalo = 4;           // stats 1, the edge sum's shifts 1, stats^T 1 (and a spare)
+constexpr int kHalo = 4;           // stats 1, the edge sums' shifts r <= 2, stats^T 1
 constexpr int kThreads = 256;
 constexpr int kR0 = (kTH + 2 * kHalo) * (kTW + 2 * kHalo);          // full-res region
 constexpr int kR1 = (kTH / 2 + 2 * kHalo) * (kTW / 2 + 2 * kHalo);  // half-res region
 constexpr int kEpiAddX = 0, kEpiAddAux = 1, kEpiCg = 2;  // as in ops/fused_step.py
+constexpr int kPadEdge = 0, kPadZero = 1, kPadReflect = 2;  // ops/solver_unroll.py STATS_PADS
 
 // f32 shared memory of one tile with GLR, the most a step takes: X (XD), Sg,
 // Ag, Sl, Al at each scale.
@@ -69,19 +74,26 @@ __device__ __forceinline__ Region region(int i0, int i1, int j0, int j1, int H, 
   return R;
 }
 
-constexpr int kEdges = 4;  // cross-4: (dh, dw) = (dh_of(e), dw_of(e))
-
-// Polynomial 3x3 stencil (ops.graph.stats_conv): past the image edge a read
-// replicates the edge (the clamp to the region, which ends there).
+// Polynomial 3x3 stencil (ops.graph.stats_conv). Past the image edge a read
+// replicates the edge (the clamp to the region, which ends there); with
+// kAnyPad the pad is `pad`'s instead: zero, or the mirror pixel (reflect).
+template <bool kAnyPad>
 __device__ __forceinline__ float stats_at(const float* s, const Region& R, const Stats& c,
-                                          int i, int j) {
-  const int jr = j + 1 < R.W ? j + 1 : j;
-  const int jl = j > 0 ? j - 1 : j;
-  const int id = i + 1 < R.H ? i + 1 : i;
-  const int iu = i > 0 ? i - 1 : i;
+                                          int i, int j, int pad) {
+  const bool refl = kAnyPad && pad == kPadReflect, zero = kAnyPad && pad == kPadZero;
+  const int jr = j + 1 < R.W ? j + 1 : (refl ? j - 1 : j);
+  const int jl = j > 0 ? j - 1 : (refl ? j + 1 : j);
+  const int id = i + 1 < R.H ? i + 1 : (refl ? i - 1 : i);
+  const int iu = i > 0 ? i - 1 : (refl ? i + 1 : i);
   const float v = s[R.at(i, j)];
-  const float r = s[R.at(i, jr)], d = s[R.at(id, j)];
-  const float u = s[R.at(iu, j)], l = s[R.at(i, jl)];
+  float r = s[R.at(i, jr)], d = s[R.at(id, j)];
+  float u = s[R.at(iu, j)], l = s[R.at(i, jl)];
+  if (zero) {
+    r = j + 1 < R.W ? r : 0.f;
+    d = i + 1 < R.H ? d : 0.f;
+    u = i > 0 ? u : 0.f;
+    l = j > 0 ? l : 0.f;
+  }
   return c.p[0] * v + c.p[1] * (r - v) + c.p[2] * (d - v) + c.p[3] * (4.f * v - u - d - l - r);
 }
 
@@ -101,15 +113,15 @@ __device__ __forceinline__ float stats_t_at(const float* s, const Region& R, con
 // s(q + d_e))), the second term zero where p - d_e is outside the image.
 // s(p + d_e) past the image edge is s(p) (the replicate pad), which the
 // clamp gives since the region ends there.
-template <bool kRethresh, typename T>
+template <int kWin, bool kRethresh, typename T>
 __device__ __forceinline__ float gtv_edge_sum(const float* s, const Region& R,
                                               const T* __restrict__ w, size_t n, int i, int j,
                                               float gamma) {
   const float sp = s[R.at(i, j)];
   float acc = 0.f;
 #pragma unroll
-  for (int e = 0; e < kEdges; ++e) {
-    const int dh = dh_of(e), dw = dw_of(e);
+  for (int e = 0; e < ptile::Win<kWin>::E; ++e) {
+    const int dh = ptile::Win<kWin>::dh(e), dw = ptile::Win<kWin>::dw(e);
     const T* we = w + e * n;
     const float wp = ld(we[(size_t)i * R.W + j]);
     acc += wp * edge_map<kRethresh>(wp * (sp - s[R.at(i + dh, j + dw)]), gamma);
@@ -123,13 +135,14 @@ __device__ __forceinline__ float gtv_edge_sum(const float* s, const Region& R,
 }
 
 // s(p) - sum_e w_e(p) s(p + d_e), the random-walk Laplacian of GLR.
-template <typename T>
+template <int kWin, typename T>
 __device__ __forceinline__ float glr_lap(const float* s, const Region& R,
                                          const T* __restrict__ w, size_t n, int i, int j) {
   float acc = 0.f;
 #pragma unroll
-  for (int e = 0; e < kEdges; ++e)
-    acc += ld(w[e * n + (size_t)i * R.W + j]) * s[R.at(i + dh_of(e), j + dw_of(e))];
+  for (int e = 0; e < ptile::Win<kWin>::E; ++e)
+    acc += ld(w[e * n + (size_t)i * R.W + j]) *
+           s[R.at(i + ptile::Win<kWin>::dh(e), j + ptile::Win<kWin>::dw(e))];
   return s[R.at(i, j)] - acc;
 }
 
@@ -143,23 +156,23 @@ __device__ __forceinline__ void for_region(const Region& R, Fn fn) {
 }
 
 // Stage 2 on one scale's region: the stencils.
-template <bool kGlr>
+template <bool kAnyPad, bool kGlr>
 __device__ __forceinline__ void stencils(const float* X, float* Sg, float* Sl, const Region& R,
-                                         const Stats& sg, const Stats& sl) {
+                                         const Stats& sg, const Stats& sl, int pad) {
   for_region(R, [&](int p, int i, int j) {
-    Sg[p] = stats_at(X, R, sg, i, j);
-    if (kGlr) Sl[p] = stats_at(X, R, sl, i, j);
+    Sg[p] = stats_at<kAnyPad>(X, R, sg, i, j, pad);
+    if (kGlr) Sl[p] = stats_at<kAnyPad>(X, R, sl, i, j, pad);
   });
 }
 
 // Stage 3 on one scale's region: the edge sums.
-template <bool kRethresh, bool kGlr, typename T>
+template <int kWin, bool kRethresh, bool kGlr, typename T>
 __device__ __forceinline__ void edge_sums(const float* Sg, const float* Sl, float* Ag, float* Al,
                                           const Region& R, const T* __restrict__ wg,
                                           const T* __restrict__ wl, size_t n, float gamma) {
   for_region(R, [&](int p, int i, int j) {
-    Ag[p] = gtv_edge_sum<kRethresh>(Sg, R, wg, n, i, j, gamma);
-    if (kGlr) Al[p] = glr_lap(Sl, R, wl, n, i, j);
+    Ag[p] = gtv_edge_sum<kWin, kRethresh>(Sg, R, wg, n, i, j, gamma);
+    if (kGlr) Al[p] = glr_lap<kWin>(Sl, R, wl, n, i, j);
   });
 }
 
@@ -203,15 +216,17 @@ struct StepIO {
   const T *wg0, *wl0, *wg1, *wl1;
   const float *pg0, *pl0, *pg1, *pl1;  // (G, 4, F) stats tables
   int G, F, H, W, epi, use_x_rhs;
+  int pad;  // the stencil's pad (kPadEdge, kPadZero, kPadReflect), read with kAnyPad
 };
 
 // The step on the output tile with top-left pixel (ti0, tj0) of channel
-// plane `plane` = (b * G + g) * F + f; smem holds kTileSmem bytes. Ends
-// with a barrier, so the caller may start the next tile.
-template <bool kRethresh, bool kGlr, class IO>
+// plane `plane` = (b * G + g) * F + f on window kWin, the stencil padded by
+// "edge" or, with kAnyPad, by io.pad; smem holds kTileSmem bytes. Ends with
+// a barrier, so the caller may start the next tile.
+template <int kWin, bool kAnyPad, bool kRethresh, bool kGlr, class IO>
 __device__ __forceinline__ void step_tile(const IO& io, const Coefs& k, int plane, int ti0,
                                           int tj0, float* smem) {
-  constexpr int E = kEdges;
+  constexpr int E = ptile::Win<kWin>::E;
   constexpr bool kL2 = IO::kL2;
   using T = typename IO::T;
   const int f = plane % io.F, bg = plane / io.F, g = bg % io.G;
@@ -262,12 +277,12 @@ __device__ __forceinline__ void step_tile(const IO& io, const Coefs& k, int plan
   });
   __syncthreads();
   // 2. the stencils
-  stencils<kGlr>(X, Sg, Sl, R0, sg0, sl0);
-  stencils<kGlr>(XD, Sg1, Sl1, R1, sg1, sl1);
+  stencils<kAnyPad, kGlr>(X, Sg, Sl, R0, sg0, sl0, io.pad);
+  stencils<kAnyPad, kGlr>(XD, Sg1, Sl1, R1, sg1, sl1, io.pad);
   __syncthreads();
   // 3. the edge sums
-  edge_sums<kRethresh, kGlr>(Sg, Sl, Ag, Al, R0, wg0, wl0, n0, k.gam0);
-  edge_sums<kRethresh, kGlr>(Sg1, Sl1, Ag1, Al1, R1, wg1, wl1, n1, k.gam1);
+  edge_sums<kWin, kRethresh, kGlr>(Sg, Sl, Ag, Al, R0, wg0, wl0, n0, k.gam0);
+  edge_sums<kWin, kRethresh, kGlr>(Sg1, Sl1, Ag1, Al1, R1, wg1, wl1, n1, k.gam1);
   __syncthreads();
   // 4. the half tile's term, into XD's space
   const int hi0 = ti0 / 2, hj0 = tj0 / 2, tw2 = (tj1 - tj0) / 2;

@@ -7,18 +7,17 @@ wgmma kernel ``gated_block.cu``, scales 1-3: every tile of
 K2 (``edge_weights.cu``) at every call of the 512x512 flagship request and
 the pixel model's diamond-12 call, every band of 1-64 rows by 2-8 threads a
 row whose F planes fit ``edge_weights.EDGE_SMEM``, by device time
-(``kernels/timing.py``), against ``edge_weights.plan_edge_tiles``; and K5
-(``fused_step_hopper.cu``) at the 1024x1024 flagship request's scale-0 step
-and the 1024x1024 pixel request's CHW step, K8 (``pixel_nhwc.cu``) at the
-512x512 pixel request's segment, in each mode and every tile plan
-(``fused_step.K5_PLANS``, ``pixel_nhwc.K8_PLANS``), by device time, against
-the served plan (``K5_PLAN``, ``K8_PLAN``):
+(``kernels/timing.py``), against ``edge_weights.plan_edge_tiles``; and K8
+(``pixel_nhwc.cu``) at the 512x512 pixel request's segment, in each mode
+and both tile plans (``pixel_nhwc.K8_PLANS``), by device time, against the
+served plan (``K8_PLAN``):
 
     python -m irdu_tpu_torch.kernels.plan_sweep [--out sweep.json]
 
 Prints, per shape, the fastest plan, the plan the planner picks and the
 ratio of their times; --out keeps every timing. Inputs and weights are
-seeded N(0, 1) draws at the flagship's widths.
+seeded N(0, 1) draws at the flagship's widths. (K5 has one tile a window
+and scale count, ``fused_step.k5_tile``: nothing to sweep.)
 """
 
 from __future__ import annotations
@@ -32,7 +31,6 @@ import torch
 from irdu_tpu_torch.kernels.timing import device_ms
 from irdu_tpu_torch.ops import block_stack as bs
 from irdu_tpu_torch.ops import edge_weights as ew
-from irdu_tpu_torch.ops import fused_step as fs
 from irdu_tpu_torch.ops import gated_block as gb
 from irdu_tpu_torch.ops import pixel_nhwc as pn
 from irdu_tpu_torch.ops.windows import DIAMOND12
@@ -143,48 +141,16 @@ def _softmax_weights(gen, *shape):  # (B, G, E, h, w) softmax over the window
     return torch.softmax(torch.randn(*shape, device="cuda", generator=gen), dim=2)
 
 
-def sweep_steps():
-    """K5 and K8 in bf16, every tile plan, by device time: K5 at (1, 48,
-    1024, 1024), G = 8, two-scale cross-4 (the flagship's scale 0 at
-    1024x1024) and at (1, 72, 1024, 1024), G = 24, diamond-12 with the
-    reflect pad (the pixel model's CHW step); K8 at (1, 512, 512, 72),
-    G = 24. Inputs U[0, 1), weights softmaxes of N(0, 1) draws, the
-    per-graph scalars 0.1."""
+def sweep_segments():
+    """K8 in bf16, both tile plans, by device time, at (1, 512, 512, 72),
+    G = 24 (the pixel model's 512x512 segment). Inputs U[0, 1), weights
+    softmaxes of N(0, 1) draws, the per-channel scalars 0.1."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, summary = [], []
 
     def rnd(*shape):
         return torch.rand(*shape, device="cuda", generator=gen).bfloat16()
 
-    for two, g, c, deltas, pad in ((True, 8, 48, fs.CROSS4, "edge"),
-                                   (False, 24, 72, DIAMOND12, "reflect")):
-        f, e, n = c // g, len(deltas), 1024
-        x, aux, prev = rnd(1, c, n, n), rnd(1, c, n, n), rnd(1, c, n, n)
-        ws = [_softmax_weights(gen, 1, g, e, n, n).bfloat16() for _ in range(2)]
-        ws += ([_softmax_weights(gen, 1, g, e, n // 2, n // 2).bfloat16() for _ in range(2)]
-               if two else [None, None])
-        tab = (torch.tensor([1.0, 0.5, 0.5, 0.5], device="cuda")[None, :, None]
-               .expand(g, 4, f).contiguous())
-        tables = [tab, tab] + ([tab, tab] if two else [None, None])
-        v = torch.full((g,), 0.1, device="cuda")
-        scal = fs.fused_scal(g, mu0=v, ro0=v, mu1=v, ro1=v, alpha=v, beta=v, gamma0=v,
-                             gamma1=v)
-        for mode, a_, p_ in (("rhs", None, None), ("cg", aux, prev), ("rethresh", aux, None)):
-            def run():
-                return fs.gg_fused_step_chw(x, a_, p_, *ws, *tables, scal, mode=mode,
-                                            n_graphs=g, deltas=deltas, stats_mode=pad)
-            shape = []
-            for plan in range(len(fs.K5_PLANS[two])):
-                with mock.patch.object(fs, "K5_PLAN", plan):
-                    shape.append(dict(k5=list(x.shape), two_scale=two, mode=mode,
-                                      tile=list(fs.K5_PLANS[two][plan][:2]),
-                                      device_ms=device_ms(run, 10)))
-            rows += shape
-            best = min(shape, key=lambda r: r["device_ms"])
-            picked = shape[fs.K5_PLAN]
-            summary.append(dict(k5=list(x.shape), mode=mode, fastest=best, picked=picked,
-                                ratio=picked["device_ms"] / best["device_ms"]))
-        del x, aux, prev, ws
     g, c, n = 24, 72, 512
     x, aux, prev = (rnd(1, n, n, c) for _ in range(3))
     wg, wl = (_softmax_weights(gen, 1, n, n, 12, g).reshape(1, n, n, 12 * g).bfloat16()
@@ -213,12 +179,12 @@ def main(argv=None):
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="write every timing to this JSON file")
-    ap.add_argument("--steps-only", action="store_true", help="sweep K5 and K8 only")
+    ap.add_argument("--segments-only", action="store_true", help="sweep K8 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("plan_sweep needs a CUDA card")
-    rows, summary = sweep_steps()
-    if not args.steps_only:
+    rows, summary = sweep_segments()
+    if not args.segments_only:
         for part in (sweep(), sweep_edges()):
             rows += part[0]
             summary += part[1]

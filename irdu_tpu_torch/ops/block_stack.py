@@ -43,9 +43,23 @@ Every block pads its own input by replicating edges, as
 ``block_stack_reference`` does; both kernels get this at all four image
 edges from their clamped tap reads (see ``ops/gated_block.py``). The TPU
 kernel's eligibility rules (``stack_ok``: W % 128, the VMEM-sized
-``_pick_tile``) are TPU lane and memory facts and are not copied. Its
-``dw_mxu`` variant, the expand folded into nine matrix-unit tap products,
-computes the same function and is not ported.
+``_pick_tile``) are TPU lane and memory facts and are not copied.
+
+``dw_mxu=True`` (keyword-only, off by default as in JAX; no model passes it)
+is JAX's fold of the expand into the depthwise taps: the tap matrices
+m9[k, t] = w1ᵀ[k] ⊙ dwk[k, t] (``pack_dw_taps``: the f32 product rounded to
+x's dtype) and, per block, nine products of the replicate-padded y0 (rounded
+to x's dtype) shifted by each tap against m9[t], accumulated in f32, then the
+gate, the project and the skip (``block_stack_dw_mxu_plain``). In bf16 at
+the shapes of the wgmma stack kernel it runs on
+``kernels/csrc/block_stack_dw_mxu.cu`` (the nine tap products per hidden
+chunk on wgmma with y0 from registers, ``launch_dw_mxu``): 9·2·C·2H
+tensor-core operations a pixel and block against the served kernel's 3·C·2H
+and 21·2H CUDA-core operations, so at C = 48 its bound is above K3's, as it
+was slower than the tap path on the TPU; it stays off every served path. An
+f32 call takes ``block_stack.cu``, the same function with the expand and the
+taps apart (no tensor-core route in f32); a bf16 call at another shape, or
+with ``nsubnets`` > 1 (JAX's kernel takes no subnets), raises.
 """
 
 from __future__ import annotations
@@ -53,11 +67,13 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import kernel_library, refuse_grad
-from irdu_tpu_torch.ops.gated_block import (GATED_HC, GATED_TILE_SIZES, NUM_SMS, SMEM_LIMIT,
-                                            block_f32, launch_blocks)
+from irdu_tpu_torch.ops.gated_block import (GATED_HC, GATED_TILE_SIZES, NUM_SMS,
+                                            SMEM_LIMIT, _round, block_f32, launch_blocks,
+                                            subnet_norm)
 
 STACK_CHANNELS = (16, 32, 48, 64)  # the C the wgmma stack kernel is built for
 STACK_MAX_HIDDEN = 128  # its weight chunks: H / 32 ≤ 4
@@ -85,6 +101,36 @@ def block_stack_plain(x, scales, w1t, dwk, w2t, skips, nsubnets=1):
         xf = block_f32(xf, scales[k, :, 0], w1t[k].t(), dwk[k, :, :, 0].reshape(3, 3, -1),
                        w2t[k].t(), skips[k], x.dtype, nsubnets)
     return xf.to(x.dtype)
+
+
+def pack_dw_taps(w1t, dwk, dtype):
+    """The tap matrices m9 (K, 9, 2H, C) = w1ᵀ[k] ⊙ dwk[k, t]: the expand
+    folded into each depthwise tap, the product in f32 rounded to ``dtype``
+    (JAX's ``fused_block_stack`` packs them so)."""
+    return (w1t.float()[:, None] * dwk.float()).to(dtype)
+
+
+def block_stack_dw_mxu_plain(x, scales, w1t, dwk, w2t, skips):
+    """The K blocks with the expand folded into the taps, in plain PyTorch:
+    per block y0 rounded to x's dtype, nine f32-accumulated products of the
+    replicate-padded y0 shifted by tap t = a·3 + b against m9[t], then the
+    gate (y3 rounded), the project and the skip; the activation f32 between
+    blocks, the output rounded once."""
+    dtype = x.dtype
+    m9 = pack_dw_taps(w1t, dwk, dtype).float()
+    xf = x.float()
+    _, c, h, w = x.shape
+    for k in range(w1t.shape[0]):
+        y0 = _round(subnet_norm(xf) * scales[k, :, 0].float().reshape(1, c, 1, 1), dtype)
+        y0p = F.pad(y0, (1, 1, 1, 1), mode="replicate")
+        acc = sum(torch.einsum("oc,bchw->bohw", m9[k, a * 3 + b], y0p[:, :, a:a + h, b:b + w])
+                  for a in range(3) for b in range(3))
+        m, u = acc.chunk(2, dim=1)
+        y3 = _round(torch.sigmoid(m) * m * u, dtype)
+        y4 = torch.einsum("bhxy,ch->bcxy", y3, w2t[k].to(dtype).float())
+        sk = skips[k].float()
+        xf = sk[0] * xf + sk[1] * y4
+    return xf.to(dtype)
 
 
 def stack_route(dtype, c: int, hidden: int) -> str:
@@ -178,6 +224,48 @@ def launch_stack(x, scales, w1t, dwk, w2t, skips, nsubnets=1):
     return out
 
 
+def dw_mxu_smem_bytes(c: int, hidden: int) -> int:
+    """Shared memory of one CTA of the dw_mxu kernel, as it lays it out: y0
+    (192 region pixels, 64 channels) bf16; two slots of a chunk's nine tap
+    matrices (64 rows by 64 channels, bf16); each of the H / 32 chunks' w2ᵀ
+    rows (C by 32 hidden) bf16; y3 (128, 32) bf16; 64 f32 norm scales and 3
+    mbarriers, then 1024 bytes to align the base."""
+    def a1k(n):
+        return -(-n // 1024) * 1024
+    return (a1k(STACK_MR * 128) + 2 * 9 * 8192 + hidden // GATED_HC * a1k(c * GATED_HC * 2)
+            + STACK_MP * GATED_HC * 2 + 64 * 4 + 3 * 8 + 1024)
+
+
+def launch_dw_mxu(x, scales, w1t, dwk, w2t, skips):
+    """K blocks over a bf16 x (B, C, H, W) on the dw_mxu kernel, with the
+    stacked operands (``launch_stack``'s) and the tap matrices packed here;
+    the tile is ``plan_stack_tiles``'. Raises on what the kernel does not
+    take."""
+    if not x.is_contiguous() or x.dtype != torch.bfloat16 or x.device.type != "cuda":
+        raise ValueError("the dw_mxu kernel needs a contiguous bf16 CUDA x")
+    b, c, h, w = x.shape
+    k, hidden = w2t.shape[0], w2t.shape[2]
+    th, tw, _ = plan_stack_tiles(b, c, hidden, h, w)
+    if any(t.device != x.device for t in (scales, w1t, dwk, w2t, skips)):
+        raise ValueError(f"fused_block_stack: every operand must be on {x.device}")
+    m9 = pack_dw_taps(w1t, dwk, torch.bfloat16).contiguous()
+    w2t = w2t.to(torch.bfloat16).contiguous()
+    scales, skips = (t.float().contiguous() for t in (scales, skips))
+    out = torch.empty_like(x)
+    n_scr = stack_scratch_planes(k)
+    scratch = torch.empty((n_scr, *x.shape), dtype=torch.float32, device=x.device) if n_scr else None
+    lib = kernel_library()
+    status = lib.irdu_block_stack_dw_mxu(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr() if n_scr else None, scales.data_ptr(),
+        m9.data_ptr(), w2t.data_ptr(), skips.data_ptr(), b, c, h, w, k, hidden, th, tw,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if status != 0:
+        detail = lib.irdu_block_stack_dw_mxu_error().decode()
+        raise RuntimeError(f"fused_block_stack(dw_mxu=True): CUDA error {status} "
+                           f"({lib.irdu_error_string(status).decode()}) {detail}".rstrip())
+    return out
+
+
 def _check(x, scales, w1t, dwk, w2t, skips, nsubnets):
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
@@ -194,25 +282,41 @@ def _check(x, scales, w1t, dwk, w2t, skips, nsubnets):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
-def fused_block_stack(x, scales, w1t, dwk, w2t, skips, *, nsubnets=1):
+def fused_block_stack(x, scales, w1t, dwk, w2t, skips, *, nsubnets=1, dw_mxu=False):
     """K ≤ 4 LocalNonLinearBlocks over x (B, C, H, W) with the stacked
     operands of ``pack_block_params``; ``nsubnets`` the norm's subnets (the
-    blocks' w1 and w2 then block-diagonal, dense). Returns x's shape and
+    blocks' w1 and w2 then block-diagonal, dense); ``dw_mxu`` the expand
+    folded into the taps (see the module docstring). Returns x's shape and
     dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     that ``stack_route`` names (what each takes: ``launch_stack``,
-    ``gated_block.launch_blocks``) or raises."""
+    ``gated_block.launch_blocks``; with ``dw_mxu`` ``launch_dw_mxu`` in
+    bf16) or raises."""
     refuse_grad("fused_block_stack", x, scales, w1t, dwk, w2t, skips)
     _check(x, scales, w1t, dwk, w2t, skips, nsubnets)
+    if dw_mxu and nsubnets != 1:
+        raise ValueError("dw_mxu runs blocks of one subnet (JAX's fused_block_stack takes "
+                         f"no subnets), got nsubnets={nsubnets}")
+    if dw_mxu and x.device.type != "cpu" and x.dtype != torch.float32 and stack_route(
+            x.dtype, x.shape[1], w2t.shape[2]) != "wgmma":
+        raise ValueError(f"fused_block_stack(dw_mxu=True) in {x.dtype} takes C in "
+                         f"{STACK_CHANNELS} and H a multiple of {GATED_HC} up to "
+                         f"{STACK_MAX_HIDDEN}, got C={x.shape[1]}, H={w2t.shape[2]}")
     run = _OP if library.tracing() else _run
-    return run(x, scales, w1t, dwk, w2t, skips, nsubnets)
+    return run(x, scales, w1t, dwk, w2t, skips, nsubnets, dw_mxu)
 
 
-def _run(x, scales, w1t, dwk, w2t, skips, nsubnets):
+def _run(x, scales, w1t, dwk, w2t, skips, nsubnets, dw_mxu=False):
     """The untraced call: the plain version on the CPU, else the launch."""
     if x.device.type == "cpu":
+        if dw_mxu:
+            return block_stack_dw_mxu_plain(x, scales, w1t, dwk, w2t, skips)
         return block_stack_plain(x, scales, w1t, dwk, w2t, skips, nsubnets)
+    if dw_mxu and x.dtype == torch.bfloat16:
+        out = launch_dw_mxu(x, scales, w1t, dwk, w2t, skips)
+        fused_block_stack.dw_mxu_launches += 1
+        return out
     if stack_route(x.dtype, x.shape[1], w2t.shape[2]) == "wgmma":
         out = launch_stack(x, scales, w1t, dwk, w2t, skips, nsubnets)
     else:
@@ -223,6 +327,8 @@ def _run(x, scales, w1t, dwk, w2t, skips, nsubnets):
 
 
 fused_block_stack.launches = 0
+fused_block_stack.dw_mxu_launches = 0  # the dw_mxu kernel's (block_stack_dw_mxu.cu)
 _OP = library.define(
     "fused_block_stack(Tensor x, Tensor scales, Tensor w1t, Tensor dwk, Tensor w2t, "
-    "Tensor skips, int nsubnets) -> Tensor", _run, lambda x, *rest: x.new_empty(x.shape))
+    "Tensor skips, int nsubnets, bool dw_mxu) -> Tensor", _run,
+    lambda x, *rest: x.new_empty(x.shape))

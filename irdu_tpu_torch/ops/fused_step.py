@@ -31,7 +31,7 @@ launches with their own epilogues: x + T or T for the matvec, [y +] T for
 the re-threshold): a CTA takes one output tile (32×64 full-res pixels
 two-scale on cross-4, 16×64 on ring-8 and 16×32 on diamond-12, whose
 weights of both scales would outgrow a CTA in f32 at 32×64; 16×64
-single-scale: ``k5_plans``) of one graph and walks its F channel planes.
+single-scale: ``k5_tile``) of one graph and walks its F channel planes.
 The tile's edge weights of both scales come into shared
 memory once, in x's dtype, and serve all F planes; plane f + 1's x box
 comes by cp.async into a second buffer while plane f computes. The stage
@@ -78,16 +78,12 @@ from irdu_tpu_torch.ops.windows import (CODE_WINDOWS, CROSS4, DIAMOND12, RING8, 
 MODES = ("rhs", "cg", "rethresh")
 # the windows the kernel is built for, by the code it takes (fused_step_hopper.cu)
 KERNEL_WINDOWS = WINDOW_CODES
-# K5's tile plans (fused_step_hopper.cu): (rows, columns, threads), two-scale
-# cross-4 and every single-scale window; K5_PLAN serves where it is built
-# (``k5_has_plan``: plan 1 in bf16 on two-scale cross-4 and single-scale
-# diamond-12), plan 0 elsewhere; plan 1 exists for kernels/plan_sweep.py
-K5_PLANS = {True: ((32, 64, 256), (64, 64, 512)), False: ((16, 64, 256), (32, 64, 256))}
-# two scales on the other windows: one plan each, whose f32 weights of both
-# scales fit a CTA (k5_smem_bytes)
-K5_TWO_SCALE_PLANS = {WINDOW_CODES[RING8]: ((16, 64, 256),),
-                      WINDOW_CODES[DIAMOND12]: ((16, 32, 256),)}
-K5_PLAN = 0
+# K5's tile (fused_step_hopper.cu tile_at): (rows, columns, threads) of a
+# step on one scale (every window) and on two (cross-4; the other windows
+# take smaller tiles, whose f32 weights of both scales fit a CTA:
+# k5_smem_bytes)
+K5_TILES = {False: (16, 64, 256), True: (32, 64, 256)}
+K5_TWO_SCALE_TILES = {WINDOW_CODES[RING8]: (16, 64, 256), WINDOW_CODES[DIAMOND12]: (16, 32, 256)}
 STATS_PADS = ("edge", "reflect")
 # the kernel's epilogues (fused_step_hopper.cu)
 _EPI_ADD_X, _EPI_ADD_AUX, _EPI_CG = 0, 1, 2
@@ -113,41 +109,32 @@ def identity_table(n_graphs, n_node_fts, device=None):
     return tab
 
 
-def k5_plans(two_scale, window):
-    """The tile plans of a step on ``window`` (the ``KERNEL_WINDOWS`` code)."""
-    return K5_TWO_SCALE_PLANS.get(window, K5_PLANS[True]) if two_scale else K5_PLANS[False]
+def k5_tile(two_scale, window):
+    """The tile of a step on ``window`` (the ``KERNEL_WINDOWS`` code)."""
+    return K5_TWO_SCALE_TILES.get(window, K5_TILES[True]) if two_scale else K5_TILES[False]
 
 
-def k5_has_plan(plan, two_scale, window, dtype):
-    """Whether ``fused_step_hopper.cu`` is built with ``plan`` for a step on
-    ``window`` (the ``KERNEL_WINDOWS`` code) in ``dtype``."""
-    if not 0 <= plan < len(k5_plans(two_scale, window)):
-        return False
-    wide = window == KERNEL_WINDOWS[CROSS4] if two_scale else window == KERNEL_WINDOWS[DIAMOND12]
-    return plan == 0 or (dtype == torch.bfloat16 and wide)
-
-
-def k5_geometry(window, two_scale, plan):
-    """K5's boxes for a tile plan (``fused_step_hopper.cu`` Geo): the tile
+def k5_geometry(window, two_scale):
+    """K5's boxes for its tile (``fused_step_hopper.cu`` Geo): the tile
     (th, tw); the stage planes' halo, hs = 1 + r rows and hsc (hs rounded up
     to even) columns; the x box's, hxr rows, 2 + r or, two-scale, 2·(2 + r)
     for the half tile's box means, and 8 columns (its rows start on 16-byte
     chunks); r the window's radius. Half-res planes have the full-res
     halos."""
-    th, tw, _ = k5_plans(two_scale, window)[plan]
+    th, tw, _ = k5_tile(two_scale, window)
     r = window_radius(CODE_WINDOWS[window])
     hs = 1 + r
     return dict(th=th, tw=tw, r=r, hs=hs, hsc=(hs + 1) & ~1,
                 hxr=2 * (2 + r) if two_scale else 2 + r, hxc=8)
 
 
-def k5_smem_bytes(window, two_scale, glr, plan, esize):
+def k5_smem_bytes(window, two_scale, glr, esize):
     """The shared memory of one K5 CTA (``fused_step_hopper.cu`` Layout): f32
     stage planes (S and A of GTV, and of GLR) over the tile and its
     ``k5_geometry`` halo, the same at half res, two x boxes and the weights
     [e][cell] of each scale in the input's dtype; each part rounded up to
     16 bytes."""
-    geo = k5_geometry(window, two_scale, plan)
+    geo = k5_geometry(window, two_scale)
     th, tw, hs, hsc = geo["th"], geo["tw"], geo["hs"], geo["hsc"]
     n_e = len(CODE_WINDOWS[window])
     n_p = (th + 2 * hs) * (tw + 2 * hsc)
@@ -276,8 +263,8 @@ def _check_planes(name, x, operands, n_graphs, two_scale, deltas, stats_mode):
 def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
             n_graphs, deltas, stats_mode, rethresh, glr, epi, use_x_rhs=False,
             emit_update=False):
-    """Run the kernel (``fused_step_hopper.cu``, tile plan ``K5_PLAN`` where
-    it is built, else plan 0) on the card; returns out or (out, upd).
+    """Run the kernel (``fused_step_hopper.cu``) on the card; returns out or
+    (out, upd).
     ``tables``: GTV, GLR at full res, then at half res; a None table the
     kernel reads goes to it as the identity stencil."""
     two_scale = w_gtv1 is not None
@@ -293,7 +280,6 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
     b, c, h, w = x.shape
     if b * n_graphs > 65535:
         raise ValueError(f"{name}: B·G exceeds the grid's 65535")
-    plan = K5_PLAN if k5_has_plan(K5_PLAN, two_scale, win, x.dtype) else 0
     if stats_mode == "reflect" and min(h, w) < 2:
         raise ValueError(f"{name}: the reflect pad needs H, W ≥ 2, got {h}x{w}")
     dev = x.device
@@ -312,7 +298,7 @@ def _launch(name, x, aux, prev, w_gtv0, w_glr0, w_gtv1, w_glr1, tables, scal, *,
     status = kernel_library().irdu_fused_step_hopper(
         ptr(x), ptr(aux), ptr(prev), ptr(w_gtv0), ptr(w_glr0), ptr(w_gtv1), ptr(w_glr1),
         *(ptr(t) for t in tabs), ptr(sc), ptr(out), ptr(upd), b, n_graphs, c // n_graphs, h, w,
-        int(rethresh), int(glr), epi, int(use_x_rhs), win, int(stats_mode == "reflect"), plan,
+        int(rethresh), int(glr), epi, int(use_x_rhs), win, int(stats_mode == "reflect"),
         dtype_code(x.dtype), torch.cuda.current_stream(dev).cuda_stream)
     check_status(name, status)
     return (out, upd) if emit_update else out

@@ -35,9 +35,8 @@ edge sums; on diamond-12 1.63× the outputs (3.0× with the 8×16 tiles of
 the first port). A cg segment moves x, aux, prev, both weight arrays and
 out (on diamond-12 the weights are 4/3 of it) and does ~130 f32 operations
 per pixel and channel on diamond-12 (``nhwc_ops_per_pixel``), so it is
-bound by bytes. The kernel takes the cross-4, diamond-12 and ring-8 windows
-(``K8_WINDOW_PLANS``), each with its own plans; the plain version takes any
-window.
+bound by bytes. The kernel takes the cross-4, diamond-12 and ring-8 windows,
+each with both plans; the plain version takes any window.
 """
 
 from __future__ import annotations
@@ -48,28 +47,24 @@ from irdu_tpu_torch.kernels import library
 from irdu_tpu_torch.kernels.build import check_status, dtype_code, kernel_library, refuse_grad
 from irdu_tpu_torch.ops import graph
 from irdu_tpu_torch.ops.pixel_unroll import edge_ops
-from irdu_tpu_torch.ops.windows import (CODE_WINDOWS, CROSS4, DIAMOND12, RING8, WINDOW_CODES,
+from irdu_tpu_torch.ops.windows import (CODE_WINDOWS, DIAMOND12, WINDOW_CODES,
                                         window_code, window_radius)
 
 MODES = ("rhs", "cg1", "cg2", "rethresh")  # the kernel's mode codes, in order
-# K8's tile plans (pixel_nhwc.cu) on diamond-12: (rows, columns, graphs a
-# CTA, threads); K8_PLAN serves bf16, the others (bf16 only) exist for
-# kernels/plan_sweep.py; f32, and a G that is not a multiple of the plan's
-# graphs, take plan 0. The radius-1 windows have the first two
-# (``K8_WINDOW_PLANS``, by WINDOW_CODES code).
-K8_PLANS = ((16, 32, 2, 256), (16, 32, 4, 256), (32, 32, 2, 256))
-K8_WINDOW_PLANS = {WINDOW_CODES[DIAMOND12]: K8_PLANS, WINDOW_CODES[CROSS4]: K8_PLANS[:2],
-                   WINDOW_CODES[RING8]: K8_PLANS[:2]}
+# K8's tile plans (pixel_nhwc.cu), on every window: (rows, columns, graphs a
+# CTA, threads); K8_PLAN serves bf16; f32, and a G that is not a multiple of
+# the plan's graphs, take plan 0
+K8_PLANS = ((16, 32, 2, 256), (16, 32, 4, 256))
 K8_PLAN = 1  # 16x32 tiles of 4 graphs: the fastest on diamond-12 in kernels/plan_sweep.py
 K8_HALO = 4  # the x box's on diamond-12 (2 + r); the stencil outputs and weights have 1 + r
 
 
-def nhwc_ops_per_pixel(mode, n_edges=12):
+def nhwc_ops_per_pixel(mode, n_edges=12, stats=True):
     """f32 operations per pixel and channel of a segment, counted as
-    ops/pixel_unroll.py counts them (``edge_ops``): rhs Q + 2; cg1 Q + GLR +
-    3 + 3; cg2 Q + GLR + 3 + 6; rethresh R + 2. On diamond-12: 80, 127, 130,
-    140."""
-    q, glr, r = (edge_ops(n_edges)[k] for k in ("q", "glr", "rethresh"))
+    ops/pixel_unroll.py counts them (``edge_ops``; ``stats`` False: no
+    stencil): rhs Q + 2; cg1 Q + GLR + 3 + 3; cg2 Q + GLR + 3 + 6; rethresh
+    R + 2. On diamond-12: 80, 127, 130, 140."""
+    q, glr, r = (edge_ops(n_edges, stats, stats)[k] for k in ("q", "glr", "rethresh"))
     return {"rhs": q + 2, "cg1": q + glr + 6, "cg2": q + glr + 9, "rethresh": r + 2}[mode]
 
 
@@ -80,7 +75,7 @@ def k8_smem_bytes(glr, plan, esize, window=WINDOW_CODES[DIAMOND12]):
     (tile + 2 + r) and the E weights [e][cell] of each graph operator in the
     input's dtype; each part rounded up to 16 bytes; r the window's
     radius."""
-    th, tw, lanes, _ = K8_WINDOW_PLANS[window][plan]
+    th, tw, lanes, _ = K8_PLANS[plan]
     deltas = CODE_WINDOWS[window]
     hs = 1 + window_radius(deltas)
     n_p = (th + 2 * hs) * (tw + 2 * hs) * lanes
@@ -162,7 +157,7 @@ def pixel_segment_nhwc(x, aux, prev, w_gtv, w_glr, p, scal, *, mode, n_graphs,
     None where the mode does not read them.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (the windows of ``K8_WINDOW_PLANS``; x, aux, prev and the weights contiguous, on
+    (the windows of ``WINDOW_CODES``; x, aux, prev and the weights contiguous, on
     one device, of one dtype, f32 or bf16; H, W ≥ 2; p and scal any float
     type) or raises."""
     refuse_grad("pixel_segment_nhwc", x, aux, prev, w_gtv, w_glr, p, scal)

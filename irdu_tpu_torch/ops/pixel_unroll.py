@@ -61,21 +61,23 @@ from irdu_tpu_torch.ops.windows import (CODE_WINDOWS, DIAMOND12, WINDOW_CODES, w
                                         window_radius)
 
 
-def edge_ops(n_edges):
+def edge_ops(n_edges, gtv_stats=True, glr_stats=True):
     """f32 operations per pixel and plane of each operator on a window of E
     edges, each edge term counted once (an add, mul or compare 1, an FMA 2):
     the stencil 9; Q = CᵀC 9 + 3·E (w·w·(s_p − s_q)) + 2·E (the scatter's
     two sums) + 9; the re-threshold 9 + 8·E + 2·E + 9; GLR 9 + 2·E + 1 + 9;
-    A·x Q + GLR + 3. On diamond-12 (E = 12): 78, 138, 43, 124."""
-    q, glr = 18 + 5 * n_edges, 19 + 2 * n_edges
-    return dict(q=q, rethresh=18 + 10 * n_edges, glr=glr, matvec=q + glr + 3)
+    A·x Q + GLR + 3. On diamond-12 (E = 12): 78, 138, 43, 124. Without its
+    stats table (``gtv_stats`` for Q and the re-threshold, ``glr_stats`` for
+    GLR) an operator has no stencil and its transpose: 18 fewer."""
+    q, glr = 18 * gtv_stats + 5 * n_edges, 18 * glr_stats + 1 + 2 * n_edges
+    return dict(q=q, rethresh=18 * gtv_stats + 10 * n_edges, glr=glr, matvec=q + glr + 3)
 
 
-def pixel_unroll_ops_per_pixel(n_edges=12):
+def pixel_unroll_ops_per_pixel(n_edges=12, stats=True):
     """The whole unroll's f32 operations per pixel and plane: the two RHS
     builds Q + 2 and R + 2, four CG steps A·x each plus their updates 3, 5,
-    3, 5 (216 + 43·E; 732 on diamond-12)."""
-    ops = edge_ops(n_edges)
+    3, 5 (216 + 43·E; 732 on diamond-12; 180 fewer without stats tables)."""
+    ops = edge_ops(n_edges, stats, stats)
     return ops["q"] + 2 + ops["rethresh"] + 2 + 4 * ops["matvec"] + 16
 
 

@@ -4,13 +4,12 @@ route ``_forward_chw``).
 
 Channels-first (B, C, H, W) with C = G·F; H and W even. Per call: the two
 feature heads, K2 once per scale with the GTV and GLR graphs batched as 2G
-graphs, then the unroll on one of two routes, as JAX routes it
-(``_mega_ok``): on the cross-4 window a plane of at most
+graphs, then the unroll on one of two routes, by JAX's rule (``_mega_ok``)
+on every window (cross-4, diamond-12, ring-8): a plane of at most
 ``_MEGA_MAX_PIXELS`` (W rounded up to 128) with both extents within 1024
-takes K1, the whole unroll in one call; every other plane, and every plane
-of another window (diamond-12, ring-8: K1 is built for cross-4 only), takes
-the band route, the unroll as K5 steps (rhs, cg, rethresh, cg, cg at cg3; 2
-and 4 calls at cg1 and cg2). The reference quirks both keep are listed in
+takes K1, the whole unroll in one call; every other plane takes the band
+route, the unroll as K5 steps (rhs, cg, rethresh, cg, cg at cg3; 2 and 4
+calls at cg1 and cg2). The reference quirks both keep are listed in
 ``ops/solver_unroll.py``.
 
 Where JAX runs its jnp path the port runs a kernel route, with the same
@@ -18,7 +17,8 @@ arithmetic: JAX's ``_chw_ok`` also asks H % 16 == 0, (H/2) % 8 == 0 and, for
 the band route, W % 256 == 0 (TPU tiling and lane rules). A plane that
 fails them stays on K1 when ``_mega_ok`` holds and takes K5 otherwise.
 JAX sends every window other than cross-4 to its jnp path (``_chw_ok``);
-the port sends it to the band route, with the same arithmetic.
+the port sends it to K1 or the band route by the same rule as cross-4, with
+the same arithmetic.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from irdu_tpu_torch.ops.edge_weights import edge_weights_chw, edge_weights_plain
 from irdu_tpu_torch.ops.fused_step import (fused_scal, fused_step_plain, gg_fused_step_chw,
                                            identity_table)
 from irdu_tpu_torch.ops.solver_unroll import gg_unroll_chw, gg_unroll_plain, unroll_scal
-from irdu_tpu_torch.ops.windows import CROSS4, WINDOWS
+from irdu_tpu_torch.ops.windows import WINDOWS
 from irdu_tpu_torch.solvers.common import GraphOpParams
 
 N_CGD_ITERS = 3  # fixed in the reference
@@ -57,8 +57,8 @@ class MixtureGTVGLR(nn.Module):
     versions on any device: the on-card reference the kernel path is held to.
 
     The options are JAX's, at the flagship's defaults: the graph ``window``
-    ("cross4", "diamond12" or "ring8"; K1 takes cross-4 only, so another
-    window solves every plane on the band route); the initial values of
+    ("cross4", "diamond12" or "ring8"; each takes K1 or the band route by
+    ``_mega_ok``); the initial values of
     α, β and the log-parameterized μ, ρ, γ (per scale); ``stats_mode``
     ("per_channel", "scalar" or "none": a missing stencil goes to K1 and K5
     as the identity table, which is exact); ``feature_head`` "pointwise" (the
@@ -150,11 +150,11 @@ class MixtureGTVGLR(nn.Module):
         weights = (w00[:, :g].contiguous(), w00[:, g:].contiguous(),
                    w01[:, :g].contiguous(), w01[:, g:].contiguous())
         tables = self._tables(g)
-        if d == CROSS4 and _mega_ok(x.shape):
+        if _mega_ok(x.shape):
             unroll = gg_unroll_chw if self.use_kernels else gg_unroll_plain
             return unroll(x.contiguous(), *weights, *tables, unroll_scal(
                 g, *self._positive(), self.alphaCGD, self.betaCGD),
-                n_graphs=g, eval_cg_iters=self.eval_cg_iters)
+                n_graphs=g, eval_cg_iters=self.eval_cg_iters, deltas=d)
         return self._band_route(x.contiguous(), weights, tables, g)
 
     def _positive(self):

@@ -5,8 +5,8 @@ JAX-``init`` parameters carried across by ``params_to_torch`` (μ, ρ, γ
 raised so that every solver term shows), within ``atol=1e-3`` (the bar of
 the flagship's other windows against JAX's jnp path). The routes: the
 single-scale GTV+GLR solver's three matvecs go to K6a on these windows and
-never to K9; the two-scale solvers take the K5 band route (5 steps) and
-never K1. K6a's plain version against ``matvec_plain`` and K9's plain
+never to K9; the two-scale solvers' planes, under K1's cap, take K1 (one
+call, with the window) and no K5 step. K6a's plain version against ``matvec_plain`` and K9's plain
 version on cross-4, on every window ``matvec_plain`` against the operators
 of ``ops/graph.py``."""
 
@@ -31,7 +31,6 @@ from test_torch_ablations import _loud
 
 WINDOWS_OFF_CROSS4 = ("diamond12", "ring8")
 SOLVERS = ("single", "single_split", "single_noGTV", "two_scale_nl")
-STEPS_PER_BLOCK = 5  # the band route at cg3: rhs, cg, rethresh, cg, cg
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,8 +56,8 @@ def _models(case, window):
 def test_ablation_window_matches_jax(case, window, monkeypatch):
     """The port's model on the window (the kernels' plain versions on the
     CPU) against JAX's forward with the same parameters, atol 1e-3; the
-    matvecs take K6a (3 calls) and never K9, the two-scale solve the band
-    route and never K1; the solver moves its input."""
+    matvecs take K6a (3 calls) and never K9, the two-scale solve K1 once
+    and no K5 step; the solver moves its input."""
     rng = np.random.RandomState(len(case) + len(window))
     x = rng.rand(1, 16, 16, 3).astype(np.float32)
     jm, model = _models(case, window)
@@ -67,7 +66,7 @@ def test_ablation_window_matches_jax(case, window, monkeypatch):
     ref = np.asarray(jm.apply(params, jnp.asarray(x)))
     params_to_torch(params, model)
     model.eval()
-    calls = {"k6a": 0, "k5": 0}
+    calls = {"k6a": 0, "k1": 0}
 
     def refuse(name):
         def fn(*args, **kw):
@@ -87,15 +86,14 @@ def test_ablation_window_matches_jax(case, window, monkeypatch):
                         counted("k6a", ablation_solvers.gg_matvec_chw))
     monkeypatch.setattr(ablation_solvers, "fused_system_matvec", refuse("K9"))
     monkeypatch.setattr(ablation_solvers, "system_matvec_plain", refuse("K9's plain version"))
-    monkeypatch.setattr(gtv_glr, "gg_unroll_chw", refuse("K1"))
-    monkeypatch.setattr(gtv_glr, "gg_fused_step_chw",
-                        counted("k5", gtv_glr.gg_fused_step_chw))
+    monkeypatch.setattr(gtv_glr, "gg_unroll_chw", counted("k1", gtv_glr.gg_unroll_chw))
+    monkeypatch.setattr(gtv_glr, "gg_fused_step_chw", refuse("K5"))
     with torch.no_grad():
         out = model(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
     assert calls["k6a"] == (3 if case in ("single", "single_split") else 0)
     two_scale = case in ("two_scale_nl", "multiscale_graph_filter")
-    assert calls["k5"] == (STEPS_PER_BLOCK if two_scale else 0)
+    assert calls["k1"] == (1 if two_scale else 0)
     # the solver's terms show: μ, ρ at e^-30 give another output
     with torch.no_grad():
         for name, p in model.named_parameters():

@@ -115,8 +115,9 @@ def test_sass_digests_tell_functions_apart():
 def test_kernel_sources_name_their_headers():
     """chip_smoke.py's ``source_headers``: the repo headers a kernel source
     includes, directly or through a header (K5/K6a/K6b and K7 on their own
-    header and through it the padded tile, K1 on its tile step), each a file
-    in the repo."""
+    header and through it the padded tile, K1 on its own header, its tile
+    step and the padded tile's windows, K3's dw_mxu kernel on the Hopper
+    helpers), each a file in the repo."""
     import importlib.util
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,7 +128,8 @@ def test_kernel_sources_name_their_headers():
     csrc = "irdu_tpu_torch/kernels/csrc"
     for source, want in (("fused_step_hopper.cu", ["fused_step_hopper.cuh", "padded_tile.cuh"]),
                          ("pixel_unroll.cu", ["pixel_unroll.cuh", "padded_tile.cuh"]),
-                         ("gg_unroll.cu", ["tile_step.cuh"]),
+                         ("gg_unroll.cu", ["gg_unroll.cuh", "tile_step.cuh", "padded_tile.cuh"]),
+                         ("block_stack_dw_mxu.cu", ["hopper.cuh"]),
                          ("edge_weights.cu", [])):
         got = smoke.source_headers(f"{csrc}/{source}")
         assert got == [f"{csrc}/{h}" for h in want], source

@@ -158,7 +158,9 @@ def test_fused_step_rejects_what_it_does_not_take(what):
 # the CUDA tile step (kernels/csrc/tile_step.cuh) of K1, transliterated:
 # each output tile of each channel plane with a 4-pixel halo per scale,
 # derived planes read through a clamp to the region, zeros outside the image
-# by global index (tests/test_torch_solver_unroll.py imports tiled_step)
+# by global index, on any window and stencil pad
+# (tests/test_torch_solver_unroll.py and test_torch_unroll_windows.py import
+# tiled_step)
 # ---------------------------------------------------------------------------
 
 HALO = 4
@@ -182,9 +184,18 @@ class _Region:
         return (i >= 0) & (i < self.h) & (j >= 0) & (j < self.w)
 
 
-def _stats(reg, a, p, i, j):
-    v, r, d = reg.at(a, i, j), reg.at(a, i, j + 1), reg.at(a, i + 1, j)
-    u, l = reg.at(a, i - 1, j), reg.at(a, i, j - 1)
+def _stats(reg, a, p, i, j, pad="edge"):
+    """The stencil with its pad: "edge" (the clamp), "zero" (0 outside the
+    image) or "reflect" (the neighbour on the other side)."""
+    def tap(di, dj):
+        ii, jj = i + di, j + dj
+        if pad == "reflect":
+            ii = torch.where(ii < 0, -ii, torch.where(ii >= reg.h, 2 * (reg.h - 1) - ii, ii))
+            jj = torch.where(jj < 0, -jj, torch.where(jj >= reg.w, 2 * (reg.w - 1) - jj, jj))
+        val = reg.at(a, ii, jj)
+        return torch.where(reg.inside(ii, jj), val, 0.0) if pad == "zero" else val
+
+    v, r, d, u, l = reg.at(a, i, j), tap(0, 1), tap(1, 0), tap(-1, 0), tap(0, -1)
     return p[0] * v + p[1] * (r - v) + p[2] * (d - v) + p[3] * (4 * v - u - d - l - r)
 
 
@@ -204,9 +215,9 @@ def _edge_map(eps, gamma):
     return 2 * thr - eps
 
 
-def _gtv_edge_sum(reg, s, w, i, j, gamma):
+def _gtv_edge_sum(reg, s, w, i, j, gamma, deltas=CROSS4):
     sp, acc = reg.at(s, i, j), 0.0
-    for e, (dh, dw) in enumerate(CROSS4):
+    for e, (dh, dw) in enumerate(deltas):
         wp = w[e][i, j]
         acc = acc + wp * _edge_map(wp * (sp - reg.at(s, i + dh, j + dw)), gamma)
         qi, qj = i - dh, j - dw
@@ -216,28 +227,31 @@ def _gtv_edge_sum(reg, s, w, i, j, gamma):
     return acc
 
 
-def _glr_lap(reg, s, w, i, j):
-    acc = sum(w[e][i, j] * reg.at(s, i + dh, j + dw) for e, (dh, dw) in enumerate(CROSS4))
+def _glr_lap(reg, s, w, i, j, deltas=CROSS4):
+    acc = sum(w[e][i, j] * reg.at(s, i + dh, j + dw) for e, (dh, dw) in enumerate(deltas))
     return reg.at(s, i, j) - acc
 
 
-def _scale_term(reg, x_reg, w_gtv, w_glr, pg, pl, ro, mu, gamma, ti, tj):
+def _scale_term(reg, x_reg, w_gtv, w_glr, pg, pl, ro, mu, gamma, ti, tj, deltas=CROSS4,
+                pad="edge"):
     """ρ·(statsᵀ of the edge sums) [+ μ·GLR] at the tile's pixels (ti, tj):
-    the kernel's stages 2-4 (or 2, 3, 5) on one scale."""
+    the kernel's stages 2-4 (or 2, 3, 5) on one scale, on the window
+    ``deltas`` with the stencil padded by ``pad``."""
     i, j = reg.grid
-    ag = _gtv_edge_sum(reg, _stats(reg, x_reg, pg, i, j), w_gtv, i, j, gamma)
+    ag = _gtv_edge_sum(reg, _stats(reg, x_reg, pg, i, j, pad), w_gtv, i, j, gamma, deltas)
     t = ro * _stats_t(reg, ag, pg, ti, tj)
     if w_glr is not None:
-        al = _glr_lap(reg, _stats(reg, x_reg, pl, i, j), w_glr, i, j)
+        al = _glr_lap(reg, _stats(reg, x_reg, pl, i, j, pad), w_glr, i, j, deltas)
         t = t + mu * _stats_t(reg, al, pl, ti, tj)
     return t
 
 
 def tiled_step(x, aux, prev, ws, tables, scal, mode, th, tw, n_graphs, use_x_rhs=False,
-               x_add=None):
+               x_add=None, deltas=CROSS4, pad="edge"):
     """One step tile by tile as the kernel computes it, f32, batch 1, on
     x (or x + scal's x_coef · x_add, K1's third step); scal (G, 8) as
-    ``fused_scal`` lays it out, or (G, 9) with x_coef last. Returns
+    ``fused_scal`` lays it out, or (G, 9) with x_coef last; the window
+    ``deltas`` (the weights' E planes) and the stencil's ``pad``. Returns
     (out, upd)."""
     _, c, h, w = x.shape
     f = c // n_graphs
@@ -259,12 +273,12 @@ def tiled_step(x, aux, prev, ws, tables, scal, mode, th, tw, n_graphs, use_x_rhs
                 r0 = _Region(i0, i1, j0, j1, h, w)
                 xr = xc[r0.r0:r0.r1, r0.c0:r0.c1]
                 t = _scale_term(r0, xr, wt[0], wt[1] if glr else None, tab[0], tab[1],
-                                ro0, mu0, gam0 if rethresh else None, ti, tj)
+                                ro0, mu0, gam0 if rethresh else None, ti, tj, deltas, pad)
                 r1 = _Region(i0 // 2, i1 // 2, j0 // 2, j1 // 2, h // 2, w // 2)
                 xd = xc[2 * r1.r0:2 * r1.r1, 2 * r1.c0:2 * r1.c1]
                 xd = 0.25 * (xd[0::2, 0::2] + xd[0::2, 1::2] + xd[1::2, 0::2] + xd[1::2, 1::2])
                 t1 = _scale_term(r1, xd, wt[2], wt[3] if glr else None, tab[2], tab[3], ro1,
-                                 mu1, gam1 if rethresh else None, ti // 2, tj // 2)
+                                 mu1, gam1 if rethresh else None, ti // 2, tj // 2, deltas, pad)
                 t = t + 0.25 * t1
                 xv = xc[i0:i1, j0:j1]
                 sl = (0, ch, slice(i0, i1), slice(j0, j1))
@@ -420,21 +434,22 @@ def padded_tile_term(geo, taps, wg, wl, pg, pl, ro, mu, gamma, i0, j0, h, w, del
     return t
 
 
-def padded_step(x, aux, prev, ws, tables, scal, mode, n_graphs, plan=0, deltas=CROSS4,
+def padded_step(x, aux, prev, ws, tables, scal, mode, n_graphs, tile=None, deltas=CROSS4,
                 reflect=False, use_x_rhs=False):
     """K5 in ``mode`` as fused_step_hopper.cu computes it (``padded_kernel``
     with the arguments ``gg_fused_step_chw`` launches it with). Returns
     (out, upd)."""
     epi = {"rhs": fs._EPI_ADD_X, "rethresh": fs._EPI_ADD_AUX, "cg": fs._EPI_CG}[mode]
     return padded_kernel(x, aux, prev, ws, tables, scal, n_graphs, rethresh=mode == "rethresh",
-                         glr=mode == "cg", epi=epi, use_x_rhs=use_x_rhs, plan=plan,
+                         glr=mode == "cg", epi=epi, use_x_rhs=use_x_rhs, tile=tile,
                          deltas=deltas, reflect=reflect)
 
 
 def padded_kernel(x, aux, prev, ws, tables, scal, n_graphs, *, rethresh, glr, epi,
-                  use_x_rhs=False, plan=0, deltas=CROSS4, reflect=False):
+                  use_x_rhs=False, tile=None, deltas=CROSS4, reflect=False):
     """fused_step_hopper.cu on the arguments of its C entry point, f32,
-    batch 1: per graph, the tiles of ``fs.K5_PLANS`` in launch order
+    batch 1: per graph, the tiles of ``fs.k5_tile`` (or ``tile``, (rows,
+    columns): the kernel's template takes any) in launch order
     (row-major), each walking the graph's F planes. ws: w_gtv0, w_glr0,
     w_gtv1, w_glr1 (the half-res pair None single-scale); tables pg0, pl0,
     pg1, pl1; the re-threshold's map with ``rethresh``, the GLR terms with
@@ -444,7 +459,9 @@ def padded_kernel(x, aux, prev, ws, tables, scal, n_graphs, *, rethresh, glr, ep
     f_n = c // n_graphs
     two = ws[2] is not None
     win = fs.KERNEL_WINDOWS[tuple(deltas)]
-    geo = fs.k5_geometry(win, two, plan)
+    geo = fs.k5_geometry(win, two)
+    if tile is not None:
+        geo = dict(geo, th=tile[0], tw=tile[1])
     th, tw, hs, hsc, hxr, hxc = (geo[k] for k in ("th", "tw", "hs", "hsc", "hxr", "hxc"))
     geo1 = dict(geo, th=th // 2, tw=tw // 2)
     h2, w2 = h // 2, w // 2
@@ -504,22 +521,23 @@ def padded_kernel(x, aux, prev, ws, tables, scal, n_graphs, *, rethresh, glr, ep
 
 
 @pytest.mark.parametrize("mode", ["rhs", "cg", "rethresh"])
-@pytest.mark.parametrize("plan,hw", [(0, (20, 28)), (0, (36, 132)), (1, (66, 70))],
+@pytest.mark.parametrize("tile,hw", [(None, (20, 28)), (None, (36, 132)), ((64, 64), (66, 70))],
                          ids=["32x64_one_ragged_tile", "32x64_ragged_rows_and_columns",
                               "64x64_four_tiles"])
-def test_padded_tile_scheme_matches_plain(mode, plan, hw):
-    """K5's padded tile, two-scale cross-4 "edge", each tile plan: tiles on
-    every image edge, ragged last tiles, half tiles against the half
-    image's edge; the result equals the plain step and no cell the kernel
-    leaves uncomputed is read."""
+def test_padded_tile_scheme_matches_plain(mode, tile, hw):
+    """K5's padded tile, two-scale cross-4 "edge", on its 32x64 tile and on
+    64x64 tiles (the template's tile is a parameter): tiles on every image
+    edge, ragged last tiles, half tiles against the half image's edge; the
+    result equals the plain step and no cell the kernel leaves uncomputed is
+    read."""
     h, w = hw
-    (x, aux, prev), ws, tables, s = _inputs(seed=40 + plan, h=h, w=w)
+    (x, aux, prev), ws, tables, s = _inputs(seed=40 + (tile is not None), h=h, w=w)
     t = [torch.from_numpy(a) for a in (x, aux, prev, *ws, *tables)]
     x, aux, prev, ws, tables = t[0], t[1], t[2], t[3:7], t[7:]
     scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
     aux_m = None if mode == "rhs" else aux
     prev_m = prev if mode == "cg" else None
-    out, upd = padded_step(x, aux_m, prev_m, ws, tables, scal, mode, G, plan=plan)
+    out, upd = padded_step(x, aux_m, prev_m, ws, tables, scal, mode, G, tile=tile)
     want = fs.fused_step_plain(x, aux_m, prev_m, *ws, *tables, scal, mode=mode, n_graphs=G,
                                emit_update=mode == "cg")
     if mode == "cg":
@@ -579,12 +597,12 @@ def k6_calls(case, x, y, wg, wl, pg, pl, mu, ro, gamma, n_graphs, **kw):
             (lambda v: fs.rethresh_plain(v, y, wg, pg, gamma, ro, **kw)))
 
 
-def through_kernel(wrapper, x, n_graphs, plan=0):
+def through_kernel(wrapper, x, n_graphs, tile=None):
     """``wrapper(x)`` as the card runs it: called with x on the meta device
     it takes its launch route, and the launch it asks for (the arguments of
     ``fs._launch``; a None stats table as the identity stencil, as there)
-    runs through ``padded_kernel`` on x with tile plan ``plan``. Returns
-    out."""
+    runs through ``padded_kernel`` on x (on ``tile`` where it is given).
+    Returns out."""
     calls = []
 
     def launch(name, x_, aux, prev, wg0, wl0, wg1, wl1, tables, scal, **kw):
@@ -598,7 +616,7 @@ def through_kernel(wrapper, x, n_graphs, plan=0):
               for t in tables]
     out, _ = padded_kernel(x, aux, prev, ws, tables, scal, n_graphs, rethresh=kw["rethresh"],
                            glr=kw["glr"], epi=kw["epi"], use_x_rhs=kw.get("use_x_rhs", False),
-                           plan=plan, deltas=kw["deltas"],
+                           tile=tile, deltas=kw["deltas"],
                            reflect=kw["stats_mode"] == "reflect")
     return out
 
@@ -648,23 +666,16 @@ def test_k6_padded_tile_matches_jax_kernel(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_k6_smem_bytes_fit_the_card(window, dtype):
     """Every single-scale instance K6a and K6b can launch on ``window`` in
-    ``dtype`` (each plan built there, GLR on and off) fits a CTA (227 KB)."""
+    ``dtype`` (GLR on and off) fits a CTA (227 KB)."""
     esize = 4 if dtype == torch.float32 else 2
-    plans = [p for p in range(len(fs.K5_PLANS[False]))
-             if fs.k5_has_plan(p, False, window, dtype)]
-    assert 0 in plans
-    for plan in plans:
-        for glr in (False, True):
-            assert fs.k5_smem_bytes(window, False, glr, plan, esize) <= 232448
+    for glr in (False, True):
+        assert fs.k5_smem_bytes(window, False, glr, esize) <= 232448
 
 
 def test_k5_smem_bytes_fit_the_card():
-    """Every built K5 plan's shared memory fits a CTA (227 KB); the served
-    two-scale bf16 cg plan fits two CTAs an SM."""
+    """K5's shared memory fits a CTA (227 KB) in each dtype; the two-scale
+    cross-4 bf16 cg tile fits two CTAs an SM."""
     for two, win in ((True, 0), (False, 0), (False, 1)):
-        for plan in range(len(fs.K5_PLANS[two])):
-            for dtype in (torch.float32, torch.bfloat16):
-                if fs.k5_has_plan(plan, two, win, dtype):
-                    esize = 4 if dtype == torch.float32 else 2
-                    assert fs.k5_smem_bytes(win, two, True, plan, esize) <= 232448
-    assert 2 * (fs.k5_smem_bytes(0, True, True, 0, 2) + 1024) <= 233472
+        for esize in (4, 2):
+            assert fs.k5_smem_bytes(win, two, True, esize) <= 232448
+    assert 2 * (fs.k5_smem_bytes(0, True, True, 2) + 1024) <= 233472

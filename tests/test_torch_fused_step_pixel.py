@@ -144,15 +144,16 @@ def test_identity_table_equals_no_stats():
 
 
 @pytest.mark.parametrize("mode", ["rhs", "cg", "rethresh"])
-@pytest.mark.parametrize("plan,hw", [(0, (21, 69)), (1, (35, 27)), (0, (19, 33))],
+@pytest.mark.parametrize("tile,hw", [(None, (21, 69)), ((32, 64), (35, 27)), (None, (19, 33))],
                          ids=["16x64_odd_ragged", "32x64_odd_one_column", "16x64_odd_two_rows"])
-def test_padded_tile_scheme_matches_plain(mode, plan, hw):
+def test_padded_tile_scheme_matches_plain(mode, tile, hw):
     """K5's padded tile (fused_step_hopper.cu) on diamond-12 with the reflect
-    pad, each single-scale tile plan, odd H and W: tiles on every image edge,
-    ragged last tiles in both directions; the result equals the plain step
-    and no cell the kernel leaves uncomputed is read."""
+    pad, on its single-scale 16x64 tile and on 32x64 tiles (the template's
+    tile is a parameter), odd H and W: tiles on every image edge, ragged
+    last tiles in both directions; the result equals the plain step and no
+    cell the kernel leaves uncomputed is read."""
     h, w = hw
-    (x, aux, prev), (wg, wl), (pg, pl), s = _inputs(seed=50 + plan, h=h, w=w)
+    (x, aux, prev), (wg, wl), (pg, pl), s = _inputs(seed=50 + (tile is not None), h=h, w=w)
     x, aux, prev, wg, wl, pg, pl = (torch.from_numpy(np.ascontiguousarray(a))
                                     for a in (x, aux, prev, wg, wl, pg, pl))
     scal = fs.fused_scal(G, **{k: torch.from_numpy(v) for k, v in s.items()})
@@ -160,7 +161,7 @@ def test_padded_tile_scheme_matches_plain(mode, plan, hw):
     prev_m = prev if mode == "cg" else None
     wl_m = wl if mode == "cg" else None
     out, upd = padded_step(x, aux_m, prev_m, (wg, wl_m, None, None), (pg, pl, None, None),
-                           scal, mode, G, plan=plan, deltas=DIAMOND12, reflect=True)
+                           scal, mode, G, tile=tile, deltas=DIAMOND12, reflect=True)
     want = fs.fused_step_plain(x, aux_m, prev_m, wg, wl_m, None, None, pg, pl, None, None,
                                scal, mode=mode, n_graphs=G, emit_update=mode == "cg", **PIXEL)
     if mode == "cg":
@@ -172,7 +173,7 @@ def test_padded_tile_scheme_matches_plain(mode, plan, hw):
 @pytest.mark.parametrize("case", ["cg_use_x_rhs_emit_update", "rethresh_y"])
 def test_padded_tile_scheme_matches_jax_kernel(case):
     """The transliteration against JAX's Pallas kernel in interpret mode at
-    the JAX tests' pixel shape (16x128: two tile columns of plan 0)."""
+    the JAX tests' pixel shape (16x128: two columns of its 16x64 tile)."""
     mode, has_aux, has_prev, glr, kw, keys, _ = STEP_CASES[case]
     (x, aux, prev), (wg, wl), (pg, pl), s = _inputs(seed=len(case))
     scal = np.array(jax_fused_scal(G, **{k: s[k] for k in keys}))
@@ -191,19 +192,20 @@ def test_padded_tile_scheme_matches_jax_kernel(case):
 
 
 @pytest.mark.parametrize("case", list(K6_CASES))
-@pytest.mark.parametrize("plan,hw", [(0, (19, 69)), (1, (35, 27))],
+@pytest.mark.parametrize("tile,hw", [(None, (19, 69)), ((32, 64), (35, 27))],
                          ids=["16x64_odd_two_rows", "32x64_odd_one_column"])
-def test_k6_padded_tile_matches_plain(case, plan, hw):
+def test_k6_padded_tile_matches_plain(case, tile, hw):
     """K6a and K6b on diamond-12 with the reflect pad, the launch each
-    wrapper asks for run through K5's single-scale padded tile in each tile
-    plan built there (plan 1 in bf16), odd H and W, ragged last tiles: the
-    plain version's result, no cell the kernel leaves uncomputed read; and
-    the output moves its input."""
-    (x, y, _), (wg, wl), (pg, pl), s = _inputs(seed=80 + plan + len(case), h=hw[0], w=hw[1])
+    wrapper asks for run through K5's single-scale padded tile (16x64) and
+    on 32x64 tiles, odd H and W, ragged last tiles: the plain version's
+    result, no cell the kernel leaves uncomputed read; and the output moves
+    its input."""
+    (x, y, _), (wg, wl), (pg, pl), s = _inputs(seed=80 + (tile is not None) + len(case),
+                                               h=hw[0], w=hw[1])
     x, y, wg, wl, pg, pl, mu, ro, gamma = (torch.from_numpy(np.ascontiguousarray(a)) for a in (
         x, y, wg, wl, pg, pl, s["mu0"], s["ro0"], s["gamma0"]))
     wrapper, plain = k6_calls(case, x, y, wg, wl, pg, pl, mu, ro, gamma, G, **PIXEL)
-    out, want = through_kernel(wrapper, x, G, plan=plan), plain(x)
+    out, want = through_kernel(wrapper, x, G, tile=tile), plain(x)
     torch.testing.assert_close(out, want, atol=5e-4, rtol=1e-3)
     base = x if K6_CASES[case][2] else y if K6_CASES[case][3] else 0.0
     assert (want - base).abs().max() > 0.05
@@ -213,7 +215,7 @@ def test_k6_padded_tile_matches_plain(case, plan, hw):
 def test_k6_padded_tile_matches_jax_kernel(case):
     """The launches of K6a and K6b through the padded tile on diamond-12
     with the reflect pad against JAX's kernels in interpret mode at the JAX
-    tests' pixel shape (16x128: two tile columns of plan 0)."""
+    tests' pixel shape (16x128: two columns of its 16x64 tile)."""
     kind, with_glr, identity, with_y = K6_CASES[case]
     (x, y, _), (wg, wl), (pg, pl), s = _inputs(seed=90 + len(case))
     jax_pixel = dict(n_graphs=G, true_h=H, true_w=W, deltas=EDGE_DELTAS_DIAMOND12,

@@ -376,16 +376,19 @@ def _grouped_inputs(h, w, n_graphs, seed):
 
 
 @pytest.mark.parametrize("mode", list(SEGMENTS))
-@pytest.mark.parametrize("plan,n_graphs,hw", [
-    (1, 2, (19, 37)), (2, 3, (33, 35)), (1, 8, (17, 18)), (0, 5, (23, 31))],
+@pytest.mark.parametrize("tile,n_graphs,hw,seed", [
+    ((16, 32, 4), 2, (19, 37), 61), ((32, 32, 2), 3, (33, 35), 62),
+    ((16, 32, 4), 8, (17, 18), 61), ((16, 32, 2), 5, (23, 31), 60)],
     ids=["16x32_4graphs_G2_partial_group", "32x32_2graphs_G3_partial_group",
          "16x32_4graphs_G8", "16x32_2graphs_G5"])
-def test_grouped_tiles_match_plain(mode, plan, n_graphs, hw):
-    """K8's plans (pixel_nhwc.cu K8_PLANS: tile and graphs a CTA) over odd H
-    and W, a group size that does not divide G (the last group partial) and
-    G = 2 with groups of 4: the transliteration equals the plain segment."""
-    th, tw, lanes, _ = pn.K8_PLANS[plan]
-    x, aux, prev, wg, wl, p, scal = _grouped_inputs(*hw, n_graphs, seed=60 + plan)
+def test_grouped_tiles_match_plain(mode, tile, n_graphs, hw, seed):
+    """K8's tiling (pixel_nhwc.cu: a tile and the graphs a CTA takes; its
+    two plans, K8_PLANS, and a 32x32 tile of 2 graphs, which the template
+    takes too) over odd H and W, a group size that does not divide G (the
+    last group partial) and G = 2 with groups of 4: the transliteration
+    equals the plain segment."""
+    th, tw, lanes = tile
+    x, aux, prev, wg, wl, p, scal = _grouped_inputs(*hw, n_graphs, seed=seed)
     use_aux, use_prev, use_glr = SEGMENTS[mode]
     args = (x, aux if use_aux else None, prev if use_prev else None, wg,
             wl if use_glr else None, p, scal)

@@ -56,17 +56,18 @@ def _lane_pad(a, width):
     return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, width - a.shape[-1])])
 
 
-def _jax_unroll(y, ws, tables, scal, iters):
-    """JAX's K1 in interpret mode on 128-lane-padded planes, cropped."""
+def _jax_unroll(y, ws, tables, scal, iters, **opts):
+    """JAX's K1 in interpret mode on 128-lane-padded planes, cropped; tables
+    may be None; ``opts``: its ``deltas`` and ``stats_mode``."""
     w = y.shape[-1]
     wp, w1p = max(w, 128), max(w // 2, 128)
     return np.asarray(jax_unroll(
         jnp.asarray(_lane_pad(y, wp)),
         *[jnp.asarray(_lane_pad(a, wp)) for a in ws[:2]],
         *[jnp.asarray(_lane_pad(a, w1p)) for a in ws[2:]],
-        *[jnp.asarray(t) for t in tables], jnp.asarray(scal),
+        *[None if t is None else jnp.asarray(t) for t in tables], jnp.asarray(scal),
         n_graphs=G, eval_cg_iters=iters, true_w=w if wp != w else None,
-        interpret=True))[..., :w]
+        interpret=True, **opts))[..., :w]
 
 
 @pytest.mark.parametrize("iters", [1, 2, 3])
@@ -83,11 +84,12 @@ def test_unroll_matches_jax_kernel(h, w, iters):
     np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-3)
 
 
-def _k1_scheme(y, ws, tables, scal, iters, th, tw):
+def _k1_scheme(y, ws, tables, scal, iters, th, tw, **opts):
     """The CUDA kernel's phases (kernels/csrc/gg_unroll.cu), each through the
     tile step on th x tw tiles, with x, rhs_b and u carried in f32: rhs_a;
     CG step 1 from x = rhs_a; the re-threshold to rhs_b; CG step 2 emitting
-    u1; CG step 3 on x1 + a1 u1, formed as it is read."""
+    u1; CG step 3 on x1 + a1 u1, formed as it is read. ``opts``: the tile
+    step's window and pad (``deltas``, ``pad``)."""
     mu0, ro0, mu1, ro1, gam0, gam1, a0, a1, a2, b2 = scal.unbind(1)
     zero = torch.zeros_like(mu0)
 
@@ -95,7 +97,7 @@ def _k1_scheme(y, ws, tables, scal, iters, th, tw):
         return torch.stack([mu0, ro0, mu1, ro1, alpha, b2, gam0, gam1, x_coef], 1)
 
     def step(x, aux, prev, mode, c, **kw):
-        return tiled_step(x, aux, prev, ws, tables, c, mode, th, tw, G, **kw)
+        return tiled_step(x, aux, prev, ws, tables, c, mode, th, tw, G, **kw, **opts)
 
     rhs_a, _ = step(y, None, None, "rhs", coefs())
     x1, _ = step(rhs_a, None, None, "cg", coefs(a0), use_x_rhs=True)
@@ -161,15 +163,23 @@ def test_mixture_gtv_glr_matches_jax_jnp_path(iters):
 
 @pytest.mark.parametrize("bad", ["reflect", "no_stats", "iters", "odd", "weights"])
 def test_unroll_rejects_what_it_does_not_port(bad):
+    """Refused: eval_cg_iters outside 1-3, an odd H, weights of the wrong
+    shape. The reflect stencil pad and tables set to None (once refused) are
+    ported: they agree with JAX's K1 with the same options."""
     y, ws, tables, scal, _ = (_unroll_inputs(16, 32, seed=2))
     args = [torch.from_numpy(a) for a in (y, *ws, *tables, scal)]
     kw = dict(n_graphs=G)
     err = ValueError
-    if bad == "reflect":
-        kw["stats_mode"], err = "reflect", NotImplementedError
-    elif bad == "no_stats":
-        args[5], err = None, NotImplementedError
-    elif bad == "iters":
+    if bad in ("reflect", "no_stats"):
+        opts = {"stats_mode": "reflect"} if bad == "reflect" else {}
+        if bad == "no_stats":
+            tables, args[5:9] = [None] * 4, [None] * 4
+        ref = _jax_unroll(y, ws, tables, scal, 3, **opts)
+        out = gg_unroll_chw(*args, **kw, **opts).numpy()
+        assert np.abs(ref - y).max() > 0.05  # the solve moved its input
+        np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-3)
+        return
+    if bad == "iters":
         kw["eval_cg_iters"] = 4
     elif bad == "odd":
         args[0] = args[0][..., :15, :]

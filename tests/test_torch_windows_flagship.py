@@ -1,9 +1,9 @@
 """The flagship on the diamond-12 and ring-8 windows against the JAX package
 (its jnp path: JAX's ``_chw_ok`` sends every window but cross-4 there), the
-route rule (a window other than cross-4 never reaches K1: every plane takes
-the band route of 5 K5 steps), K1's refusal of another window, the
-``nsubnets`` values still refused (those that do not split a width) and
-``registry.require``'s two messages."""
+route rule (a plane under the cap takes K1 on every window, as on cross-4),
+K1 on another window against its plain version, the ``nsubnets`` values
+still refused (those that do not split a width) and ``registry.require``'s
+two messages."""
 
 from __future__ import annotations
 
@@ -20,12 +20,12 @@ from irdu_tpu_torch.ops import solver_unroll
 from irdu_tpu_torch.ops.windows import DIAMOND12, RING8
 from irdu_tpu_torch.solvers import gtv_glr
 from irdu_tpu_torch.utils.weights import params_to_torch
+from test_torch_solver_unroll import _jax_unroll
 
 # tests/test_deploy.py's TINY flagship
 TINY = dict(dims=(8, 12, 16, 24), hidden_dims=(16, 24, 32, 48), ngraphs=(2, 2, 4, 4),
             num_blocks=(1, 1, 1, 1), num_blocks_out=1)
 SIDE = 32
-STEPS_PER_BLOCK = 5  # the band route at cg3: rhs, cg, rethresh, cg, cg
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -58,45 +58,58 @@ def test_flagship_window_matches_jax_and_takes_the_band_route(tiny_params, windo
                                                               monkeypatch):
     """The port's flagship on the window (the kernels' plain versions on the
     CPU) against JAX's jnp path with the same parameters, atol 1e-3; every
-    filtering block solves on the band route (5 K5 steps) and K1 is never
-    called."""
+    filtering block's plane is under the cap, so each solves on K1 with the
+    window, one call a block, and no K5 step is made (the band route takes
+    the planes above the cap, tests/test_torch_unroll_windows.py)."""
     params, x = tiny_params
     ref = np.asarray(JaxFlagship(**TINY, window=window).apply(params, jnp.asarray(x)))
     model = create_model("abstract_multiscale_graph_filter", **TINY, window=window)
     params_to_torch(params, model)
     model.eval()
-    steps = []
+    unrolls = []
 
-    def no_k1(*args, **kw):
-        raise AssertionError("a non-cross-4 window reached K1")
+    def no_step(*args, **kw):
+        raise AssertionError("a plane under the cap reached the band route")
 
-    def counted_step(*args, **kw):
-        steps.append(kw["deltas"])
-        return real_step(*args, **kw)
+    def counted_unroll(*args, **kw):
+        unrolls.append(kw["deltas"])
+        return real_unroll(*args, **kw)
 
-    real_step = gtv_glr.gg_fused_step_chw
-    monkeypatch.setattr(gtv_glr, "gg_unroll_chw", no_k1)
-    monkeypatch.setattr(gtv_glr, "gg_fused_step_chw", counted_step)
+    real_unroll = gtv_glr.gg_unroll_chw
+    monkeypatch.setattr(gtv_glr, "gg_unroll_chw", counted_unroll)
+    monkeypatch.setattr(gtv_glr, "gg_fused_step_chw", no_step)
     with torch.no_grad():
         out = model(torch.from_numpy(x)).numpy()
     want = DIAMOND12 if window == "diamond12" else RING8
-    assert steps == [want] * (STEPS_PER_BLOCK * 4)
+    assert unrolls == [want] * 4
     np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
     assert np.abs(ref - x).max() > 0.05
 
 
 @pytest.mark.parametrize("window", ["diamond12", "ring8"])
 def test_k1_refuses_another_window(window):
-    """K1 is built for cross-4: its wrapper raises for another window and
-    names the band route, which takes it."""
+    """K1 takes every window now: its wrapper on the window (the plain
+    version on the CPU) agrees with JAX's K1 in interpret mode on the same
+    8x8 planes (lane-padded for JAX), at atol 5e-4, rtol 1e-3 (the options
+    at 16x128: tests/test_torch_unroll_windows.py)."""
     g, f, h, w = 2, 3, 8, 8
-    y = torch.zeros(1, g * f, h, w)
-    w0, w1 = torch.zeros(1, g, 4, h, w), torch.zeros(1, g, 4, h // 2, w // 2)
-    tab = torch.zeros(g, 4, f)
     deltas = DIAMOND12 if window == "diamond12" else RING8
-    with pytest.raises(NotImplementedError, match="band route"):
-        solver_unroll.gg_unroll_chw(y, w0, w0, w1, w1, tab, tab, tab, tab, torch.zeros(g, 10),
-                                    n_graphs=g, deltas=deltas)
+    n_e = len(deltas)
+    rng = np.random.RandomState(n_e)
+    y = (0.3 * rng.randn(1, g * f, h, w)).astype(np.float32)
+    ws = []
+    for s in (h, h, h // 2, h // 2):
+        z = np.exp(rng.randn(1, g, n_e, s, s))
+        ws.append((z / z.sum(axis=2, keepdims=True)).astype(np.float32))
+    tab = (np.array([1.0, 0.5, 0.5, 0.5])[None, :, None]
+           + 0.3 * rng.randn(g, 4, f)).astype(np.float32)
+    scal = (0.1 + 0.4 * rng.rand(g, 10)).astype(np.float32)
+    out = solver_unroll.gg_unroll_chw(
+        *(torch.from_numpy(a) for a in (y, *ws, tab, tab, tab, tab, scal)), n_graphs=g,
+        deltas=deltas).numpy()
+    ref = _jax_unroll(y, ws, [tab] * 4, scal, 3, deltas=deltas)
+    assert np.abs(ref - y).max() > 0.05
+    np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-3)
 
 
 def test_flagship_still_refuses_nsubnets():

@@ -222,12 +222,12 @@ def _segment_args(mode, x, aux, prev, wg, wl, p, rows):
 
 def tiled_segment(x, aux, prev, wg, wl, p, scal, mode, plan, n_graphs, deltas):
     """K8 as pixel_nhwc.cu computes it on ``deltas``, f32, batch 1, with the
-    window's tile plan (``K8_WINDOW_PLANS``): the tiles in launch order, each
+    tile plan ``plan`` (``K8_PLANS``): the tiles in launch order, each
     tile's groups of graphs (the last partial where the group size does not
     divide G), the group's weight boxes once (halo 1 + r, zero outside the
     image), each feature's x box (halo 2 + r, the reflect pad) through the
     padded tile."""
-    th, tw, lanes, _ = pn.K8_WINDOW_PLANS[window_code(deltas)][plan]
+    th, tw, lanes, _ = pn.K8_PLANS[plan]
     _, h, w, c = x.shape
     f_n, n_e = c // n_graphs, len(deltas)
     hs = 1 + window_radius(deltas)
@@ -319,22 +319,19 @@ def test_pixel_segment_window_tiling_matches_plain(name, mode, plan, g, hw):
 
 @pytest.mark.parametrize("name", ["cross4", "diamond12", "ring8"])
 def test_planner_smem_per_window_fits_the_card(name):
-    """K5 (each scale count, each built plan, GLR on), K7 (each dtype's tile)
-    and K8 (each built plan) fit a CTA on the window; the radius-1 windows
-    take less than diamond-12 at the same tile, and the sizes the kernels'
+    """K5 (each scale count and dtype, GLR on), K7 (each dtype's tile) and
+    K8 (each built plan) fit a CTA on the window; the radius-1 windows take
+    less than diamond-12 at the same tile, and the sizes the kernels'
     comments state hold."""
     code = WINDOW_CODES[WINDOWS[name]]
     d12 = WINDOW_CODES[DIAMOND12]
     for two in (True, False):
-        for plan in range(len(fs.k5_plans(two, code))):
-            for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2)):
-                if fs.k5_has_plan(plan, two, code, dtype):
-                    assert fs.k5_smem_bytes(code, two, True, plan, esize) <= SMEM_LIMIT
-    assert fs.k5_has_plan(0, True, code, torch.float32)
+        for esize in (4, 2):
+            assert fs.k5_smem_bytes(code, two, True, esize) <= SMEM_LIMIT
     for dtype in (torch.bfloat16, torch.float32):
         assert pu.k7_smem_bytes(dtype, code) <= SMEM_LIMIT
         assert pu.k7_smem_bytes(dtype, code) <= pu.k7_smem_bytes(dtype, d12)
-    for plan in range(len(pn.K8_WINDOW_PLANS[code])):
+    for plan in range(len(pn.K8_PLANS)):
         for esize in ((2, 4) if plan == 0 else (2,)):
             assert pn.k8_smem_bytes(True, plan, esize, code) <= SMEM_LIMIT
             assert pn.k8_smem_bytes(True, plan, esize, code) <= pn.k8_smem_bytes(

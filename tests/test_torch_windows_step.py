@@ -112,7 +112,7 @@ def test_fused_step_window_matches_jax_kernel(case, mode_case):
                                      ("diamond12_two_scale", (36, 70)),
                                      ("ring8_two_scale", (34, 134))])
 def test_fused_step_window_padded_tile_matches_plain(case, hw, mode):
-    """K5's padded tile (fused_step_hopper.cu, ``k5_plans``: 16x64 on one
+    """K5's padded tile (fused_step_hopper.cu, ``k5_tile``: 16x64 on one
     scale, two-scale 16x32 on diamond-12 and 16x64 on ring-8) on the window
     over ragged tiles on every image edge: the plain step's result, and no
     cell the kernel leaves uncomputed is read."""
